@@ -1,0 +1,75 @@
+"""``predict``: SMILES in a CSV -> predictions in a CSV (cf.
+``chemprop_tpu/cli/predict.py``), for one reference regression checkpoint.
+
+    python -m chemprop_tpu_torch.cli predict --model-path X.pt -i in.csv -o out.csv \\
+        [--device cpu] [--dtype float32|bfloat16] [--batch-size N]
+
+The output has the JAX CLI's columns for a regression model: ``name`` (the
+SMILES), then one column per task, named by the checkpoint's output columns
+or ``pred_<j>``. With no ``--device`` it runs on the GPU, and raises where
+there is none."""
+
+from __future__ import annotations
+
+import argparse
+import csv
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chemprop_tpu_torch.chem import make_mol
+from chemprop_tpu_torch.data.collate import batch_mol_graphs
+from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
+from chemprop_tpu_torch.models.load import load_model
+from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.utils.device import resolve_device
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    parser.add_argument("--model-path", type=Path, required=True, help="reference .pt/.ckpt")
+    parser.add_argument("-i", "--data-path", type=Path, required=True, help="input CSV")
+    parser.add_argument("-o", "--output", type=Path, help="output CSV (default <input>_preds.csv)")
+    parser.add_argument("--device", help="torch device (default: cuda; raises without a GPU)")
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                        help="message-passing compute dtype")
+    parser.add_argument("-b", "--batch-size", type=int, default=64)
+    return parser
+
+
+def read_smiles(path: Path) -> list[str]:
+    """The first column of a CSV with a header row."""
+    with open(path, newline="") as f:
+        return [row[0] for row in list(csv.reader(f))[1:]]
+
+
+def predict(
+    model: MPNN, smiles: list[str], device: torch.device, batch_size: int = 64
+) -> np.ndarray:
+    """``[len(smiles), n_tasks]`` float32 predictions."""
+    featurizer = SimpleMoleculeMolGraphFeaturizer()
+    preds = []
+    for i in range(0, len(smiles), batch_size):
+        mgs = [featurizer(make_mol(s)) for s in smiles[i : i + batch_size]]
+        bmg = batch_mol_graphs(mgs).to(device)
+        preds.append(model(bmg)[: len(mgs)].float().cpu().numpy())
+    return np.concatenate(preds, 0)
+
+
+def main(args: argparse.Namespace) -> int:
+    device = resolve_device(args.device)
+    model, output_columns = load_model(args.model_path, device, DTYPES[args.dtype])
+    smiles = read_smiles(args.data_path)
+    preds = predict(model, smiles, device, args.batch_size)
+    cols = output_columns or [f"pred_{j}" for j in range(preds.shape[1])]
+    out = args.output or args.data_path.with_name(args.data_path.stem + "_preds.csv")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["name", *cols])
+        for smi, row in zip(smiles, preds):
+            w.writerow([smi, *(repr(float(x)) for x in row)])
+    print(f"wrote {out}")
+    return 0

@@ -1,0 +1,120 @@
+"""Builds the CUDA sources under ``chemprop_tpu_torch/csrc`` with ``nvcc`` into
+plain-C shared libraries and loads them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``; the hash covers
+the source, the shared headers and the flags, so an edited source is rebuilt and an unchanged one
+is reused. :func:`build_all` starts one ``nvcc`` per source at once. Nothing is
+built when a module is imported: the first launch on a CUDA tensor builds
+what it needs.
+
+``LAUNCHES`` counts kernel launches by wrapper name; each wrapper adds one
+where it launches its kernel, and nowhere else."""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+SOURCES = ("message", "segment")
+
+# C signatures of the exported functions: P a pointer (a tensor's data_ptr,
+# None for null, or the stream), I an int; every function returns a C int
+P, I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "message": {
+        "plain_message": [P, P, P, P, P, I, I, I, P],
+        "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+    },
+    "segment": {
+        "seg_sum": [P, P, P, P, P, P, I, I, I, I, I, P],
+        "seg_scratch_rows": [I],
+    },
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(name: str) -> Path:
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent builder sees a whole file
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Build every source in parallel (one ``nvcc`` each); returns each
+    build's compiler log (register and shared-memory use from ``-Xptxas -v``),
+    empty for a library that was already built."""
+    jobs = {name: _start(name) for name in SOURCES}
+    return {name: _finish(name, job) for name, job in jobs.items()}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def call(lib: ctypes.CDLL, fn: str, *args) -> None:
+    """Call ``fn`` with tensors passed as device pointers, on PyTorch's
+    current stream, and raise if the launch reported an error. The tensors
+    stay referenced by the caller until it returns, and PyTorch's allocator
+    orders their reuse after the kernel on the same stream."""
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(lib, fn)(*cargs, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
