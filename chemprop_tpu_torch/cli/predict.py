@@ -54,7 +54,8 @@ def predict(
     for i in range(0, len(smiles), batch_size):
         mgs = [featurizer(make_mol(s)) for s in smiles[i : i + batch_size]]
         bmg = batch_mol_graphs(mgs).to(device)
-        preds.append(model(bmg)[: len(mgs)].float().cpu().numpy())
+        with torch.inference_mode():
+            preds.append(model(bmg)[: len(mgs)].float().cpu().numpy())
     return np.concatenate(preds, 0)
 
 

@@ -19,7 +19,7 @@ pointers the CUDA kernels read: ``edge_ptr`` over the sorted ``dst``
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import NamedTuple, Sequence
+from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -73,12 +73,12 @@ class PadSpec(NamedTuple):
     n_graphs: int
 
     @classmethod
-    def for_graphs(cls, mgs: Sequence[MolGraph]) -> "PadSpec":
+    def for_graphs(cls, mgs: Sequence[MolGraph], n_graphs: int | None = None) -> "PadSpec":
         n_nodes = pad_to_bucket(sum(mg.V.shape[0] for mg in mgs) + 1)  # >=1 padding row
         # the JAX package's edge ladder, aligned to a 512-multiple, so that
         # both packages batch to the same shapes
         n_edges = -(-pad_to_bucket(max(1, sum(mg.E.shape[0] for mg in mgs))) // 512) * 512
-        return cls(n_nodes, n_edges, len(mgs))
+        return cls(n_nodes, n_edges, n_graphs or len(mgs))
 
 
 def batch_mol_graphs(
@@ -157,3 +157,35 @@ def batch_mol_graphs(
         n_graphs=pad.n_graphs,
     )
     return (bmg, perm) if return_perm else bmg
+
+
+class TrainingBatch(NamedTuple):
+    bmg: BatchMolGraph
+    Y: torch.Tensor | None  # [B, t] float32; padding rows are NaN, masked by isfinite
+    w: torch.Tensor  # [B, 1] float32 sample weights; padding rows are 0
+
+    @property
+    def pad_mask(self) -> np.ndarray:
+        """[B] bool: True for real samples."""
+        return self.w.reshape(-1).cpu().numpy() > 0
+
+    def to(self, device: str | torch.device) -> "TrainingBatch":
+        Y = None if self.Y is None else self.Y.to(device, non_blocking=True)
+        return TrainingBatch(self.bmg.to(device), Y, self.w.to(device, non_blocking=True))
+
+
+def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
+    """Collate ``Datum`` tuples ``(mg, y, weight)`` into a padded
+    :class:`TrainingBatch`. Padding samples get NaN targets and zero weight,
+    so that the masked loss ignores them."""
+    mgs, ys, weights = zip(*data)
+    pad = pad or PadSpec.for_graphs(mgs)
+    bmg = batch_mol_graphs(mgs, pad)
+    b_real, b_pad = len(mgs), pad.n_graphs
+    Y = None
+    if ys[0] is not None:
+        Y = np.full((b_pad, len(ys[0])), np.nan, dtype=np.float32)
+        Y[:b_real] = np.array(ys, dtype=np.float32)
+    w = np.zeros((b_pad, 1), dtype=np.float32)
+    w[:b_real, 0] = weights
+    return TrainingBatch(bmg, None if Y is None else torch.from_numpy(Y), torch.from_numpy(w))

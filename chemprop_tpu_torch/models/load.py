@@ -24,7 +24,7 @@ from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
 from chemprop_tpu_torch.nn.predictors import RegressionFFN
-from chemprop_tpu_torch.utils.device import resolve_device
+from chemprop_tpu_torch.utils.device import resolve_device, use_full_float32
 
 
 class _Stub(dict):
@@ -136,6 +136,8 @@ def load_model(
     """Reference checkpoint -> (port model in eval mode on ``device``,
     output column names or None)."""
     device = resolve_device(device)
+    if compute_dtype == torch.float32:
+        use_full_float32()
     d = load_checkpoint(path)
     skip = ("num_batches_tracked", "criterion", "metrics")  # training state, not weights
     sd = {

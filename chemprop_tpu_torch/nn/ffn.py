@@ -11,8 +11,8 @@ from torch import nn
 
 
 class MLP(nn.Sequential):
-    """Inference only: the dropout slot does nothing and is there so that the
-    Linear layers keep the reference's parameter names."""
+    """The dropout slot keeps the reference's parameter names for the Linear
+    layers; dropout itself is not ported yet, so a rate above 0 raises."""
 
     def __init__(
         self,
@@ -20,7 +20,10 @@ class MLP(nn.Sequential):
         output_dim: int,
         hidden_dim: int | Sequence[int] = 300,
         n_layers: int = 1,
+        dropout: float = 0.0,
     ):
+        if dropout > 0:
+            raise NotImplementedError("dropout in the predictor is not ported yet")
         hidden = [hidden_dim] * n_layers if isinstance(hidden_dim, int) else list(hidden_dim)
         dims = [input_dim, *hidden, output_dim]
         blocks = [nn.Sequential(nn.Linear(dims[0], dims[1]))]

@@ -2,10 +2,10 @@
 plain-C shared libraries and loads them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``; the hash covers
-the source, the shared headers and the flags, so an edited source is rebuilt and an unchanged one
-is reused. :func:`build_all` starts one ``nvcc`` per source at once. Nothing is
-built when a module is imported: the first launch on a CUDA tensor builds
-what it needs.
+the source, the shared headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per
+source at once. Nothing is built when a module is imported: the first launch
+on a CUDA tensor builds what it needs.
 
 ``LAUNCHES`` counts kernel launches by wrapper name; each wrapper adds one
 where it launches its kernel, and nowhere else."""
@@ -28,7 +28,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("message", "segment")
+SOURCES = ("message", "message_bwd", "segment", "gather")
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
 # None for null, or the stream), I an int; every function returns a C int
@@ -38,6 +38,11 @@ SIGNATURES = {
         "plain_message": [P, P, P, P, P, I, I, I, P],
         "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
     },
+    "message_bwd": {
+        "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "bwd_message_premul": [P, P, P, P, P, P, P, P, P, P, I, I, I, P],
+    },
+    "gather": {"row_gather": [P, P, P, I, I, I, P]},
     "segment": {
         "seg_sum": [P, P, P, P, P, P, I, I, I, I, I, P],
         "seg_scratch_rows": [I],
@@ -110,11 +115,15 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def call(lib: ctypes.CDLL, fn: str, *args) -> None:
-    """Call ``fn`` with tensors passed as device pointers, on PyTorch's
-    current stream, and raise if the launch reported an error. The tensors
-    stay referenced by the caller until it returns, and PyTorch's allocator
-    orders their reuse after the kernel on the same stream."""
+    """Call ``fn`` with tensors passed as device pointers, on the calling
+    thread's current stream of the tensors' device (autograd runs a backward
+    on a thread of its own, with the forward's device and stream made
+    current), and raise if the launch reported an error. The tensors stay
+    referenced by the caller until it returns, and PyTorch's allocator orders
+    their reuse after the kernel on the same stream."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(lib, fn)(*cargs, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):  # the launch itself goes to the current device
+        err = getattr(lib, fn)(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")

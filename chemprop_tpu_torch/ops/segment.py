@@ -7,13 +7,20 @@ row pointers of ``ids`` (segment ``s`` is rows ``[ptr[s], ptr[s+1])``); the
 number of segments is ``len(ptr) - 1``. Sums accumulate in f32 and are cast
 once to ``out_dtype``. On a CUDA tensor the kernel in ``csrc/segment.cu``
 runs, for the dtype pairs of ``KERNEL_DTYPES`` (another pair raises); on a
-CPU tensor the plain version below."""
+CPU tensor the plain version below.
+
+Both entry points are differentiable in ``data`` (cf. the custom VJPs of
+``sorted_segments.py``): the cotangent of a sum is the gather ``g[ids]``, a
+plain indexing as in the JAX package, and for bfloat16 ``data`` the sum with
+counts (the mean readout) expands it with the row-gather kernel of
+``ops/gather.py``."""
 
 from __future__ import annotations
 
 import torch
 
 from chemprop_tpu_torch.ops.build import LAUNCHES, call, library
+from chemprop_tpu_torch.ops.gather import row_gather
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (data, out) dtype pairs the kernel is built for: those of the readouts
@@ -28,14 +35,14 @@ def sorted_segment_sum(
     data: torch.Tensor, ids: torch.Tensor, ptr: torch.Tensor, out_dtype: torch.dtype | None = None
 ) -> torch.Tensor:
     """``[len(ptr) - 1, d]`` segment sums; ``out_dtype`` defaults to ``data``'s."""
-    return _segment_sum(data, ids, ptr, out_dtype or data.dtype, with_counts=False)[0]
+    return _SegmentSum.apply(data, ids, ptr, out_dtype or data.dtype, False)[0]
 
 
 def sorted_segment_sum_counts(
     data: torch.Tensor, ids: torch.Tensor, ptr: torch.Tensor, out_dtype: torch.dtype = torch.float32
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Segment sums and the f32 row count of each segment."""
-    return _segment_sum(data, ids, ptr, out_dtype, with_counts=True)
+    return _SegmentSum.apply(data, ids, ptr, out_dtype, True)
 
 
 def sorted_segment_sum_plain(
@@ -86,3 +93,24 @@ def _segment_sum(data, ids, ptr, out_dtype, with_counts):
     )
     LAUNCHES["sorted_segment_sum"] += 1
     return out, counts
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, ids, ptr, out_dtype, with_counts):
+        out, counts = _segment_sum(data, ids, ptr, out_dtype, with_counts)
+        ctx.save_for_backward(ids)
+        ctx.data_dtype, ctx.with_counts = data.dtype, with_counts
+        if with_counts:
+            ctx.mark_non_differentiable(counts)
+        return out, counts
+
+    @staticmethod
+    def backward(ctx, g, _g_counts):
+        (ids,) = ctx.saved_tensors
+        if g is None:
+            return None, None, None, None, None
+        if ctx.with_counts and ctx.data_dtype == torch.bfloat16:
+            # casting the small table first equals casting the expanded one
+            return row_gather(g.to(torch.bfloat16).contiguous(), ids), None, None, None, None
+        return g[ids.long()].to(ctx.data_dtype), None, None, None, None

@@ -17,3 +17,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def use_full_float32() -> None:
+    """Float32 means full float32 in the port: turn TF32 off for matrix
+    products and cuDNN, process-wide. The entry points that compute in
+    float32 (``load_model``, the ``Trainer``) call this once, so that the
+    forward and the backward products follow one rule and a forward has no
+    global side effect of its own."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``chemprop_tpu_torch``, nor the root
-``chip_smoke.py`` or the port's profile script, imports JAX, flax or the JAX
-package."""
+``chip_smoke.py`` or the port's profile scripts, imports JAX, flax, optax or
+the JAX package."""
 
 from __future__ import annotations
 
@@ -15,8 +15,15 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py",
     REPO / "experiments" / "torch_forward_profile.py",
+    REPO / "experiments" / "torch_train_profile.py",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu")
+# the JAX stack, and what the machine with the card does not have either
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
+NEW_MODULES = (
+    "ops/gather.py", "nn/metrics.py", "data/datapoints.py", "data/datasets.py",
+    "data/samplers.py", "data/dataloader.py", "train/__init__.py", "train/schedulers.py",
+    "train/trainer.py",
+)
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -33,6 +40,11 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_module_imports_no_jax(path):
     assert path.exists()
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_training_modules_are_covered():
+    names = {str(p.relative_to(REPO / "chemprop_tpu_torch")) for p in PORT_FILES[:-3]}
+    assert set(NEW_MODULES) <= names
 
 
 def test_port_runs_without_jax_installed(tmp_path):

@@ -98,8 +98,9 @@ def test_forward_matches_jax(mgs, monkeypatch, dtype):
     )
     model.load_state_dict(from_jax_params(variables["params"], variables["batch_stats"]))
     tb = batch_mol_graphs(mgs, PadSpec(*pad))
-    got_fp = model.fingerprint(tb).numpy()
-    got = model(tb).numpy()
+    with torch.inference_mode():  # the module leaves gradients on
+        got_fp = model.fingerprint(tb).numpy()
+        got = model(tb).numpy()
     assert got.shape == want.shape == (len(SMIS), 1)
     if dtype == "float32":
         # the JAX f32 message kernel keeps ~16 significant bits (bf16 hi+lo)
@@ -138,7 +139,8 @@ def test_reference_checkpoint_matches_jax(data_dir, smis, reference_preds, dtype
     assert cols is None
     feat = Featurizer()
     tb = batch_mol_graphs([feat(make_mol(s)) for s in smis])
-    got = model(tb)[: len(smis)].numpy()
+    with torch.inference_mode():
+        got = model(tb)[: len(smis)].numpy()
     want = reference_preds[dtype]
     if dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
