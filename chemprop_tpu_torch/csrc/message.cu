@@ -2,11 +2,13 @@
 //
 //   message:     M[e] = sum_{k : dst[k] == src[e]} H[k] - H[rev[e]]
 //   fused_iter:  y[e] = relu(H0[e] + bf16(M[e]) @ W [+ b])
+//   fused_iter2: y1 = fused_iter(relu(H0)), y2 = fused_iter(y1), in one launch
 //
 // plain_message replaces the Pallas TPU kernel _kernel of
 // chemprop_tpu/ops/fused_message.py (launched by _fused_message_impl);
 // fused_iter replaces _iter_kernel there (launched by _iter_impl), with its
-// relu_stream form for the first depth iteration. The TPU kernels form the
+// relu_stream form for the first depth iteration; fused_iter2 replaces
+// _iter2_kernel there (launched by _iter2_impl). The TPU kernels form the
 // message as a one-hot product over a sliding window of 128-edge chunks,
 // because the MXU is their only fast unit. Here edges are sorted by dst and
 // the in-edges of node v are rows [ptr[v], ptr[v+1]), so the message of edge
@@ -27,6 +29,23 @@
 // rows of BM edges in shared memory, multiplies them by W on the tensor cores
 // (WMMA bf16 16x16x16 with f32 accumulation; W streams through shared memory
 // in BK x BN panels), and adds H0, the bias and the ReLU on the way out.
+//
+// fused_iter2 chains the first two iterations. It is bound by bytes: H0 read
+// once, y1 and y2 written once (three edge tables against the six of two
+// fused_iter launches). Iteration 2 at edge e gathers y1 at the in-edges of
+// src[e] and at rev[e], rows that another block of fused_iter's fixed tiling
+// would own, and blocks cannot wait on each other. Those rows all belong to
+// e's own molecule, and a molecule's edge rows are contiguous, so a block
+// here owns whole molecules: a tile table (row offsets, packed on the host by
+// the collate) gives each block up to 128 rows that no other block's second
+// iteration reads. The block forms its y1 rows, writes them out (the
+// backward needs them), and after a block barrier gathers them back for
+// iteration 2 from L2, where they have just been written: shared memory has
+// no room for a y1 tile beside the message rows and the panels at 128 rows.
+// Both iterations run fused_iter's own arithmetic in its order, so y1 and y2
+// equal two fused_iter launches bit for bit. A molecule of more than 128 edge
+// rows cannot be served; the caller sees that from the tile table and takes
+// two fused_iter launches for that batch.
 #include <mma.h>
 
 #include "vec.cuh"
@@ -36,7 +55,7 @@ using namespace nvcuda;
 constexpr int MSG_THREADS = 256;  // 8 warps, one edge each
 
 template <typename T>
-__device__ __forceinline__ void message_row(float4 (&acc)[MAXV], const T* __restrict__ H,
+__device__ __forceinline__ void message_row(float4 (&acc)[MAXV], const T* H,
                                             const int* __restrict__ src,
                                             const int* __restrict__ rev,
                                             const int* __restrict__ ptr, int e, int d,
@@ -58,65 +77,72 @@ __device__ __forceinline__ void message_row(float4 (&acc)[MAXV], const T* __rest
   }
 }
 
-// float32 only: the bfloat16 forward forms its messages inside fused_iter
+template <typename T>
 __global__ void __launch_bounds__(MSG_THREADS)
-    plain_message_kernel(const float* __restrict__ H, const int* __restrict__ src,
+    plain_message_kernel(const T* __restrict__ H, const int* __restrict__ src,
                          const int* __restrict__ rev, const int* __restrict__ ptr,
-                         float* __restrict__ out, int n_edges, int d, int pad_node) {
+                         T* __restrict__ out, int n_edges, int d, int pad_node) {
   int e = (blockIdx.x * MSG_THREADS + threadIdx.x) >> 5;
   int lane = threadIdx.x & 31;
   if (e >= n_edges) return;
   float4 acc[MAXV];
   message_row(acc, H, src, rev, ptr, e, d, pad_node, false, lane);
-  store_row(out + (size_t)e * d, acc, lane, d >> 2);
+  store_row(out + (size_t)e * d, acc, lane, d >> 2);  // bfloat16: the one rounding
 }
 
-extern "C" int plain_message(const float* H, const int* src, const int* rev, const int* ptr,
-                             float* out, int n_edges, int d, int pad_node, cudaStream_t stream) {
+// float32 or bfloat16 tables (f32 sums in both)
+extern "C" int plain_message(const void* H, const int* src, const int* rev, const int* ptr,
+                             void* out, int n_edges, int d, int pad_node, int dtype,
+                             cudaStream_t stream) {
   if (d % 4 != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
   int grid = (n_edges + MSG_THREADS / 32 - 1) / (MSG_THREADS / 32);
   if (grid == 0) return 0;
-  plain_message_kernel<<<grid, MSG_THREADS, 0, stream>>>(H, src, rev, ptr, out, n_edges, d,
-                                                         pad_node);
+  if (dtype == DT_F32)
+    plain_message_kernel<float><<<grid, MSG_THREADS, 0, stream>>>(
+        (const float*)H, src, rev, ptr, (float*)out, n_edges, d, pad_node);
+  else if (dtype == DT_BF16)
+    plain_message_kernel<bf16><<<grid, MSG_THREADS, 0, stream>>>(
+        (const bf16*)H, src, rev, ptr, (bf16*)out, n_edges, d, pad_node);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- fused_iter
-constexpr int BM = 64;   // edge rows per block
-constexpr int BN = 128;  // output columns per pass over W
-constexpr int BK = 64;   // rows of a W panel
-constexpr int ITER_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x 32
-constexpr int LDW = BN + 8;        // padded row strides (elements) against bank conflicts
+constexpr int BM = 64;    // edge rows per block of fused_iter
+constexpr int BM2 = 128;  // edge rows per block of fused_iter2 (a tile of whole molecules)
+constexpr int BN = 128;   // output columns per pass over W
+constexpr int BK = 64;    // rows of a W panel
+constexpr int LDW = BN + 8;  // padded row strides (elements) against bank conflicts
 constexpr int LDC = BN + 4;
 
+// ROWS edge rows per block run on ROWS * 4 threads: ROWS / 32 x 4 warp tiles
+// of 32 x 32 over a ROWS x BN strip of the product
+template <int ROWS>
 static size_t iter_smem_bytes(int d) {
-  return (size_t)BM * (d + 8) * sizeof(bf16) + (size_t)BK * LDW * sizeof(bf16) +
-         (size_t)BM * LDC * sizeof(float);
+  return (size_t)ROWS * (d + 8) * sizeof(bf16) + (size_t)BK * LDW * sizeof(bf16) +
+         (size_t)ROWS * LDC * sizeof(float);
 }
 
-__global__ void __launch_bounds__(ITER_THREADS)
-    fused_iter_kernel(const bf16* __restrict__ H, const bf16* __restrict__ H0,
-                      const bf16* __restrict__ W, const bf16* __restrict__ b,
-                      const int* __restrict__ src, const int* __restrict__ rev,
-                      const int* __restrict__ ptr, bf16* __restrict__ y, int n_edges, int d,
-                      int pad_node, int relu_stream) {
-  // every array starts on a 128-byte boundary: BM * (d + 8) * 2 and
-  // BK * LDW * 2 are multiples of 128 for d a multiple of 128, and every
-  // WMMA tile pointer below is then 32-byte aligned as WMMA requires
-  extern __shared__ __align__(128) unsigned char smem[];
+// Rows [m0, m0 + rows) of one iteration, rows <= ROWS, by the whole block:
+// the bf16 message rows of H into Ms, Ms @ W one BN-column strip at a time
+// through the panel Ws into Cs, then out = relu(H0 + z [+ b]). H may be a
+// table this kernel wrote itself (no __restrict__, so no read-only loads).
+template <int ROWS>
+__device__ __forceinline__ void iteration_rows(
+    const bf16* H, const bf16* __restrict__ H0, const bf16* __restrict__ W,
+    const bf16* __restrict__ b, const int* __restrict__ src, const int* __restrict__ rev,
+    const int* __restrict__ ptr, bf16* out, bf16* Ms, bf16* Ws, float* Cs, int m0, int rows,
+    int d, int pad_node, bool relu_stream) {
+  constexpr int THREADS = ROWS * 4;
   const int ldm = d + 8;
-  bf16* Ms = reinterpret_cast<bf16*>(smem);  // [BM][ldm] message rows, bf16
-  bf16* Ws = Ms + BM * ldm;                  // [BK][LDW] panel of W
-  float* Cs = reinterpret_cast<float*>(Ws + BK * LDW);  // [BM][LDC] f32 product
-
-  const int m0 = blockIdx.x * BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // 1. the block's message rows, relu applied to the gathered rows only
-  for (int i = warp; i < BM; i += ITER_THREADS / 32) {
+  for (int i = warp; i < ROWS; i += THREADS / 32) {
     float4 acc[MAXV];
-    if (m0 + i < n_edges)
-      message_row(acc, H, src, rev, ptr, m0 + i, d, pad_node, relu_stream != 0, lane);
+    if (i < rows)
+      message_row(acc, H, src, rev, ptr, m0 + i, d, pad_node, relu_stream, lane);
     else
       zero(acc);
     store_row(Ms + i * ldm, acc, lane, d >> 2);
@@ -133,7 +159,7 @@ __global__ void __launch_bounds__(ITER_THREADS)
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
 
     for (int k0 = 0; k0 < d; k0 += BK) {
-      for (int t = threadIdx.x; t < BK * BN / 8; t += ITER_THREADS) {
+      for (int t = threadIdx.x; t < BK * BN / 8; t += THREADS) {
         int r = t / (BN / 8), c8 = t % (BN / 8);
         *reinterpret_cast<uint4*>(Ws + r * LDW + c8 * 8) =
             *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * d + n0 + c8 * 8);
@@ -165,19 +191,40 @@ __global__ void __launch_bounds__(ITER_THREADS)
     __syncthreads();
 
     // 3. y = relu(H0 + z [+ b]) in f32, one bf16 store
-    for (int t = threadIdx.x; t < BM * BN / 4; t += ITER_THREADS) {
+    for (int t = threadIdx.x; t < ROWS * BN / 4; t += THREADS) {
       int r = t / (BN / 4), c4 = (t % (BN / 4)) * 4;
+      if (r >= rows) continue;
       int e = m0 + r;
-      if (e >= n_edges) continue;
       int col = n0 + c4;
       float4 z = *reinterpret_cast<const float4*>(Cs + r * LDC + c4);
       if (b != nullptr) add4(z, load4(b + col));
       float4 h = load4(H0 + (size_t)e * d + col);
       add4(h, z);
-      store4(y + (size_t)e * d + col, relu4(h));
+      store4(out + (size_t)e * d + col, relu4(h));
     }
     __syncthreads();  // Cs is overwritten by the next strip
   }
+}
+
+// every array starts on a 128-byte boundary: ROWS * (d + 8) * 2 and
+// BK * LDW * 2 are multiples of 128 for d a multiple of 128, and every
+// WMMA tile pointer is then 32-byte aligned as WMMA requires
+#define ITER_SMEM(ROWS)                                                               \
+  extern __shared__ __align__(128) unsigned char smem[];                              \
+  bf16* Ms = reinterpret_cast<bf16*>(smem);              /* [ROWS][d + 8] messages */ \
+  bf16* Ws = Ms + ROWS * (d + 8);                        /* [BK][LDW] panel of W */   \
+  float* Cs = reinterpret_cast<float*>(Ws + BK * LDW);   /* [ROWS][LDC] f32 product */
+
+__global__ void __launch_bounds__(BM * 4)
+    fused_iter_kernel(const bf16* __restrict__ H, const bf16* __restrict__ H0,
+                      const bf16* __restrict__ W, const bf16* __restrict__ b,
+                      const int* __restrict__ src, const int* __restrict__ rev,
+                      const int* __restrict__ ptr, bf16* __restrict__ y, int n_edges, int d,
+                      int pad_node, int relu_stream) {
+  ITER_SMEM(BM)
+  const int m0 = blockIdx.x * BM;
+  iteration_rows<BM>(H, H0, W, b, src, rev, ptr, y, Ms, Ws, Cs, m0, min(BM, n_edges - m0), d,
+                     pad_node, relu_stream != 0);
 }
 
 extern "C" int fused_iter(const void* H, const void* H0, const void* W, const void* b,
@@ -186,13 +233,47 @@ extern "C" int fused_iter(const void* H, const void* H0, const void* W, const vo
   if (d % BN != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
   int grid = (n_edges + BM - 1) / BM;
   if (grid == 0) return 0;
-  size_t smem = iter_smem_bytes(d);
+  size_t smem = iter_smem_bytes<BM>(d);
   // the opt-in above 48 KB is per device, so it is made at every launch (cheap)
   cudaError_t err = cudaFuncSetAttribute(fused_iter_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_iter_kernel<<<grid, ITER_THREADS, smem, stream>>>(
+  fused_iter_kernel<<<grid, BM * 4, smem, stream>>>(
       (const bf16*)H, (const bf16*)H0, (const bf16*)W, (const bf16*)b, src, rev, ptr, (bf16*)y,
       n_edges, d, pad_node, relu_stream);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------- fused_iter2
+// Block t owns rows [tiles[t], tiles[t + 1]), at most BM2 of them: whole
+// molecules, or a run of padding rows. y1 is written, then read back by this
+// block alone after the barrier that ends iteration 1's last strip.
+__global__ void __launch_bounds__(BM2 * 4)
+    fused_iter2_kernel(const bf16* __restrict__ H0, const bf16* __restrict__ W,
+                       const bf16* __restrict__ b, const int* __restrict__ src,
+                       const int* __restrict__ rev, const int* __restrict__ ptr,
+                       const int* __restrict__ tiles, bf16* y1, bf16* y2, int d, int pad_node) {
+  ITER_SMEM(BM2)
+  const int m0 = tiles[blockIdx.x];
+  const int rows = min(BM2, tiles[blockIdx.x + 1] - m0);
+  iteration_rows<BM2>(H0, H0, W, b, src, rev, ptr, y1, Ms, Ws, Cs, m0, rows, d, pad_node, true);
+  iteration_rows<BM2>(y1, H0, W, b, src, rev, ptr, y2, Ms, Ws, Cs, m0, rows, d, pad_node, false);
+}
+
+// the most rows a tile of the table may hold
+extern "C" int fused_iter2_tile_rows() { return BM2; }
+
+extern "C" int fused_iter2(const void* H0, const void* W, const void* b, const int* src,
+                           const int* rev, const int* ptr, const int* tiles, void* y1, void* y2,
+                           int n_tiles, int d, int pad_node, cudaStream_t stream) {
+  if (d % BN != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return 0;
+  size_t smem = iter_smem_bytes<BM2>(d);
+  cudaError_t err = cudaFuncSetAttribute(fused_iter2_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_iter2_kernel<<<n_tiles, BM2 * 4, smem, stream>>>(
+      (const bf16*)H0, (const bf16*)W, (const bf16*)b, src, rev, ptr, tiles, (bf16*)y1,
+      (bf16*)y2, d, pad_node);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // The backward of the D-MPNN message: the masked transposed message, from an
 // edge cotangent (bwd_message), from a node cotangent (bwd_message_nodes), or
-// from the next stage's table times W^T (bwd_message_premul).
+// from the next stage's table times W^T (bwd_message_premul); and the whole
+// backward of one iteration with the weight gradient (iter_bwd).
 //
 //   gz[k] = g[k] * [y[k] > 0]
 //   G[e]  = sum_{k : src[k] == dst[e]} gz[k] - gz[rev[e]]        (S - R)^T gz
@@ -38,9 +39,29 @@
 // point: the product with the mask writes gz (and z), then the node pass
 // forms G from gz. With fold_h0 that moves one bf16 edge table more than the
 // bound counts (gz is written and read back); without it z is gz.
+//
+// iter_bwd replaces _iter_bwd_kernel there (launched by _iter_bwd_impl): from
+// the cotangent g, the saved output y, the iteration's input H and W it gives
+// dH = bf16(G) W^T, gz, and dW = H^T bf16(G) in float32, and G is never
+// written. g and y are both inputs, so the mask is applied while gathering
+// (gz[rev[j]] = g[rev[j]] * [y[rev[j]] > 0]) and no block waits on another:
+// one warp forms one edge's row of G, with the node pass's sums in its order,
+// so G equals bwd_message's bit for bit. It is bound by bytes: g, y and H
+// read once, dH and gz written once (five bf16 edge tables; the two products,
+// 4 E d d operations on the tensor cores, take about half the time of the
+// bytes at d = 384). The trouble is dW: a [384 x 384] float32 accumulator
+// (590 KB) fits no block, and float atomics would make runs differ. So
+// iter_bwd is three launches behind one entry point. The first forms each
+// 64-row tile of G in shared memory, multiplies it by W^T (the premultiplied
+// kernel's product) and writes dH and gz. The second is the split product of
+// xtg.cuh with its G operand formed on the fly, a 128-column strip of a
+// 64-row tile at a time (every strip is formed by the three blocks that
+// share it, so G is gathered four times in all: the price of not writing
+// it). The third adds the splits' partials in a fixed order. Rows of the
+// padding edges give zeros in dH and gz, and H's padding rows never reach dW.
 #include <mma.h>
 
-#include "vec.cuh"
+#include "xtg.cuh"
 
 using namespace nvcuda;
 
@@ -166,6 +187,54 @@ static size_t premul_smem_bytes(int d) {
          (size_t)BM * LDC * sizeof(float);
 }
 
+// Cs = As (W^T)[:, n0 : n0 + BN] for the block's BM rows of As, f32, by the
+// whole block; ends with a barrier, so Cs may be read right after
+__device__ __forceinline__ void rows_times_wt(const bf16* As, int lda, bf16* Ws, float* Cs,
+                                              const bf16* __restrict__ W, int d, int n0) {
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // this warp's 32 x 32 tile of the strip
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
+
+  for (int k0 = 0; k0 < d; k0 += BK) {
+    // (W^T)[k][n] = W[n][k]: a row of W is contiguous in k, so the panel is
+    // copied row by row and read as a column-major matrix_b; W^T itself is
+    // never formed
+    for (int t = threadIdx.x; t < BN * BK / 8; t += PRE_THREADS) {
+      int n = t / (BK / 8), k8 = t % (BK / 8);
+      *reinterpret_cast<uint4*>(Ws + n * LDT + k8 * 8) =
+          *reinterpret_cast<const uint4*>(W + (size_t)(n0 + n) * d + k0 + k8 * 8);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * lda + k0 + kk, lda);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(bw[j], Ws + (wn * 32 + j * 16) * LDT + kk, LDT);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], bw[j], c[i][j]);
+    }
+    __syncthreads();  // the panel is overwritten next
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, c[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+}
+
 // dh = G_in W^T for BM rows, f32; gz = dh * [y > 0] rounded to bf16 into gz;
 // with H0, z = gz + dh * [H0 > 0] formed in f32 and rounded once into z.
 // Rows from first_pad on (the padding edges) get zeros.
@@ -184,7 +253,6 @@ __global__ void __launch_bounds__(PRE_THREADS)
   float* Cs = reinterpret_cast<float*>(Ws + BN * LDT);  // [BM][LDC] f32 product
 
   const int m0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5;
   const int first_pad = ptr[pad_node];
 
   for (int t = threadIdx.x; t < BM * (d / 8); t += PRE_THREADS) {
@@ -196,48 +264,8 @@ __global__ void __launch_bounds__(PRE_THREADS)
   }
   __syncthreads();
 
-  const int wm = warp >> 2, wn = warp & 3;  // this warp's 32 x 32 tile of the strip
   for (int n0 = 0; n0 < d; n0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      // (W^T)[k][n] = W[n][k]: a row of W is contiguous in k, so the panel is
-      // copied row by row and read as a column-major matrix_b; W^T itself is
-      // never formed
-      for (int t = threadIdx.x; t < BN * BK / 8; t += PRE_THREADS) {
-        int n = t / (BK / 8), k8 = t % (BK / 8);
-        *reinterpret_cast<uint4*>(Ws + n * LDT + k8 * 8) =
-            *reinterpret_cast<const uint4*>(W + (size_t)(n0 + n) * d + k0 + k8 * 8);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * lda + k0 + kk, lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bw[j], Ws + (wn * 32 + j * 16) * LDT + kk, LDT);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], bw[j], c[i][j]);
-      }
-      __syncthreads();  // the panel is overwritten next
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, c[i][j], LDC,
-                                wmma::mem_row_major);
-    __syncthreads();
+    rows_times_wt(As, lda, Ws, Cs, W, d, n0);
 
     for (int t = threadIdx.x; t < BM * BN / 4; t += PRE_THREADS) {
       int r = t / (BN / 4), c4 = (t % (BN / 4)) * 4;
@@ -288,4 +316,127 @@ extern "C" int bwd_message_premul(const void* G_in, const void* y, const void* H
   if (err != cudaSuccess) return (int)err;
   return (int)launch_nodes<bf16>(gz, nullptr, nullptr, dst, rev, ptr, G, nullptr, n_edges, d,
                                  pad_node, 0, stream);
+}
+
+// ----------------------------------------------------------------- iter_bwd
+// this lane's float4 of G's row e at vector v: the masked cotangents at the
+// reverses of the in-edges of dst[e], summed in their order in f32, less the
+// one at rev[e]; zeros for a padding edge (whose node is never walked)
+__device__ __forceinline__ float4 transposed_at(const bf16* __restrict__ g,
+                                                const bf16* __restrict__ y,
+                                                const int* __restrict__ dst,
+                                                const int* __restrict__ rev,
+                                                const int* __restrict__ ptr, int e, int d,
+                                                int pad_node, int v) {
+  float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+  int node = dst[e];
+  if (node == pad_node) return t;
+  for (int j = ptr[node]; j < ptr[node + 1]; ++j) add4(t, gz_at(g, y, dst, false, rev[j], d, v));
+  float4 x = gz_at(g, y, dst, false, rev[e], d, v);
+  return make_float4(t.x - x.x, t.y - x.y, t.z - x.z, t.w - x.w);
+}
+
+// launch 1: BM rows of G into shared memory, dH = bf16(G) W^T and gz
+__global__ void __launch_bounds__(PRE_THREADS)
+    iter_bwd_dh_kernel(const bf16* __restrict__ g, const bf16* __restrict__ y,
+                       const bf16* __restrict__ W, const int* __restrict__ dst,
+                       const int* __restrict__ rev, const int* __restrict__ ptr,
+                       bf16* __restrict__ dH, bf16* __restrict__ gz, int n_edges, int d,
+                       int pad_node) {
+  extern __shared__ __align__(128) unsigned char smem[];  // laid out as in premul_mask_kernel
+  const int lda = d + 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);  // [BM][lda] rows of G, bf16
+  bf16* Ws = As + BM * lda;                  // [BN][LDT] panel of W^T
+  float* Cs = reinterpret_cast<float*>(Ws + BN * LDT);  // [BM][LDC] f32 product
+
+  const int m0 = blockIdx.x * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = d >> 2;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int i = warp; i < BM; i += PRE_THREADS / 32) {
+    int e = m0 + i;
+    bool pad = e >= n_edges || dst[e] == pad_node;
+    for (int v = lane; v < nv; v += 32) {
+      store4(As + i * lda + 4 * v,
+             e < n_edges ? transposed_at(g, y, dst, rev, ptr, e, d, pad_node, v) : zero4);
+      if (e < n_edges)
+        store4(gz + (size_t)e * d + 4 * v, pad ? zero4 : gz_at(g, y, dst, false, e, d, v));
+    }
+  }
+  __syncthreads();
+
+  for (int n0 = 0; n0 < d; n0 += BN) {
+    rows_times_wt(As, lda, Ws, Cs, W, d, n0);
+    for (int t = threadIdx.x; t < BM * BN / 4; t += PRE_THREADS) {
+      int r = t / (BN / 4), c4 = (t % (BN / 4)) * 4;
+      int e = m0 + r;
+      if (e >= n_edges) continue;
+      // a padding row of G is zero, and so is its product
+      store4(dH + (size_t)e * d + n0 + c4, *reinterpret_cast<const float4*>(Cs + r * LDC + c4));
+    }
+    __syncthreads();  // Cs is overwritten by the next strip
+  }
+}
+
+// launch 2: the split product H^T G of xtg.cuh with the XT_K x XT_TILE strip
+// of G formed on the fly; H's rows from first_pad on are read as zeros
+__global__ void __launch_bounds__(XT_THREADS, 2)  // two blocks per SM: at most 128 registers
+    iter_bwd_dw_kernel(const bf16* __restrict__ g, const bf16* __restrict__ y,
+                       const bf16* __restrict__ H, const int* __restrict__ dst,
+                       const int* __restrict__ rev, const int* __restrict__ ptr,
+                       float* __restrict__ partial, int n_edges, int d, int pad_node,
+                       int rows_per_split) {
+  __shared__ __align__(128) bf16 Xs[XT_K * XT_LD];
+  __shared__ __align__(128) bf16 Gs[XT_K * XT_LD];
+  const int m0 = blockIdx.x * XT_TILE, n0 = blockIdx.y * XT_TILE;
+  const int r0 = blockIdx.z * rows_per_split;
+  const int r1 = min(min(n_edges, ptr[pad_node]), r0 + rows_per_split);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  XtAcc c[4][2];
+  xtg_zero(c);
+  for (int k0 = r0; k0 < r1; k0 += XT_K) {
+    xtg_load(Xs, H, k0, r1, d, m0);
+    for (int i = warp; i < XT_K; i += XT_THREADS / 32) {  // a lane's float4 spans the strip
+      int e = k0 + i;
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < r1) t = transposed_at(g, y, dst, rev, ptr, e, d, pad_node, n0 / 4 + lane);
+      store4(Gs + i * XT_LD + 4 * lane, t);
+    }
+    __syncthreads();
+    xtg_accumulate(c, Xs, Gs);
+    __syncthreads();  // the tiles are overwritten next
+  }
+  xtg_store(c, partial + (size_t)blockIdx.z * d * d, d, m0, n0);
+}
+
+// the number of [d x d] float32 partials the caller allocates for n_edges rows
+extern "C" int iter_bwd_splits(int n_edges) { return xtg_n_splits(n_edges); }
+
+// (dH, gz, dW) from g, y, H [E, d] bfloat16 and W [d, d] in (in, out) layout,
+// d a multiple of 128; partial holds iter_bwd_splits(n_edges) * d * d floats
+extern "C" int iter_bwd(const void* g, const void* y, const void* H, const void* W,
+                        const int* dst, const int* rev, const int* ptr, void* dH, void* gz,
+                        float* partial, float* dW, int n_edges, int d, int pad_node,
+                        cudaStream_t stream) {
+  if (d % BN != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
+  size_t smem = premul_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(iter_bwd_dh_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_edges > 0) {
+    iter_bwd_dh_kernel<<<(n_edges + BM - 1) / BM, PRE_THREADS, smem, stream>>>(
+        (const bf16*)g, (const bf16*)y, (const bf16*)W, dst, rev, ptr, (bf16*)dH, (bf16*)gz,
+        n_edges, d, pad_node);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  int splits = xtg_n_splits(n_edges);
+  dim3 grid(d / XT_TILE, d / XT_TILE, splits);
+  iter_bwd_dw_kernel<<<grid, XT_THREADS, 0, stream>>>(
+      (const bf16*)g, (const bf16*)y, (const bf16*)H, dst, rev, ptr, partial, n_edges, d,
+      pad_node, xtg_rows_per_split(n_edges));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)xtg_reduce(partial, dW, splits, d * d, stream);
 }

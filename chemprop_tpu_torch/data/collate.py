@@ -14,7 +14,10 @@ same tables:
 In place of the TPU kernels' window stamps, a batch carries the CSR row
 pointers the CUDA kernels read: ``edge_ptr`` over the sorted ``dst``
 (the in-edges of node ``v`` are rows ``[edge_ptr[v], edge_ptr[v+1])``) and
-``node_ptr`` over ``batch`` (the nodes of graph ``g``)."""
+``node_ptr`` over ``batch`` (the nodes of graph ``g``). A molecule's edge rows
+are contiguous (``edge_ptr[node_ptr[g]] .. edge_ptr[node_ptr[g+1]]``), and
+``tile_ptr`` packs whole molecules into runs of at most ``ITER2_TILE_ROWS``
+rows for the chained two-iteration kernel (:func:`iter2_tiles`)."""
 
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Iterable, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS
 from chemprop_tpu_torch.types import MolGraph
 
 
@@ -40,6 +44,9 @@ class BatchMolGraph:
     node_mask: torch.Tensor  # [N_pad] bool
     edge_mask: torch.Tensor  # [E_pad] bool
     n_graphs: int
+    # [n_tiles + 1] int32 row offsets of the edge tiles, or None where a
+    # molecule has more edge rows than a tile holds
+    tile_ptr: torch.Tensor | None = None
 
     def __len__(self) -> int:
         return self.n_graphs
@@ -48,7 +55,7 @@ class BatchMolGraph:
         moved = {
             f.name: getattr(self, f.name).to(device, non_blocking=True)
             for f in fields(self)
-            if f.name != "n_graphs"
+            if isinstance(getattr(self, f.name), torch.Tensor)
         }
         return replace(self, **moved)
 
@@ -65,6 +72,29 @@ def pad_to_bucket(n: int, multiple: int = 128, ratio: float = 1.1) -> int:
     while b < n:
         b = -(-int(b * ratio) // multiple) * multiple
     return b
+
+
+def iter2_tiles(graph_ptr: np.ndarray, n_edges: int) -> np.ndarray | None:
+    """Row offsets that cut ``n_edges`` sorted edge rows into tiles of at most
+    ``ITER2_TILE_ROWS`` rows with no molecule in two tiles: each tile takes as
+    many whole molecules as fit (``graph_ptr[g] .. graph_ptr[g+1]`` are the
+    rows of molecule ``g``); the rows past ``graph_ptr[-1]``, the padding
+    edges, are cut every ``ITER2_TILE_ROWS`` rows. None if a molecule has more
+    rows than a tile."""
+    tile = ITER2_TILE_ROWS
+    bounds = np.unique(np.asarray(graph_ptr, dtype=np.int64))
+    if bounds.size > 1 and np.diff(bounds).max() > tile:
+        return None
+    # the last boundary a tile that starts at boundary i can reach
+    reach = np.searchsorted(bounds, bounds + tile, side="right") - 1
+    offsets, i = [int(bounds[0])], 0
+    while i < bounds.size - 1:
+        i = int(reach[i])
+        offsets.append(int(bounds[i]))
+    offsets += list(range(offsets[-1] + tile, n_edges, tile))
+    if offsets[-1] != n_edges:
+        offsets.append(n_edges)
+    return np.asarray(offsets, dtype=np.int32)
 
 
 class PadSpec(NamedTuple):
@@ -141,6 +171,9 @@ def batch_mol_graphs(
 
     edge_ptr = np.searchsorted(dst, np.arange(pad.n_nodes + 1)).astype(np.int32)
     node_ptr = np.searchsorted(batch, np.arange(pad.n_graphs + 2)).astype(np.int32)
+    # rows of graph g; padding nodes other than the last own no edge, so the
+    # last offset is the first padding row
+    tiles = iter2_tiles(edge_ptr[node_ptr[: pad.n_graphs + 1]], pad.n_edges)
 
     t = torch.from_numpy
     bmg = BatchMolGraph(
@@ -155,6 +188,7 @@ def batch_mol_graphs(
         node_mask=t(node_mask),
         edge_mask=t(edge_mask),
         n_graphs=pad.n_graphs,
+        tile_ptr=None if tiles is None else t(tiles),
     )
     return (bmg, perm) if return_perm else bmg
 

@@ -24,6 +24,7 @@ from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
 from chemprop_tpu_torch.nn.predictors import RegressionFFN
+from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.utils.device import resolve_device, use_full_float32
 
 
@@ -84,16 +85,20 @@ def _activation(v) -> str:
     return v.lower() if isinstance(v, str) else _cls_name(v).lower()
 
 
-def build_model(hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.float32) -> MPNN:
-    """The port's MPNN for a reference single-molecule regression D-MPNN.
-    Anything this slice does not run raises instead of loading wrongly."""
+def build_model(
+    hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.float32,
+    kernel_options: KernelOptions | None = None,
+) -> MPNN:
+    """The port's MPNN for a reference single-molecule regression D-MPNN,
+    with its ``bias``, ``dropout`` and ``undirected`` hyperparameters.
+    Anything the port does not run raises instead of loading wrongly."""
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
     unsupported = []
     if _cls_name(mp_hp["cls"]) != "BondMessagePassing":
         unsupported.append(f"message passing {_cls_name(mp_hp['cls'])}")
-    if mp_hp.get("undirected") or mp_hp.get("d_vd"):
-        unsupported.append("undirected messages or atom descriptors")
+    if mp_hp.get("d_vd"):
+        unsupported.append("atom descriptors")
     if _cls_name(p_hp["cls"]) != "RegressionFFN":
         unsupported.append(f"predictor {_cls_name(p_hp['cls'])}")
     if hp.get("X_d_transform") is not None:
@@ -113,6 +118,9 @@ def build_model(hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.flo
         depth=int(mp_hp.get("depth", 3)),
         activation=_activation(mp_hp.get("activation", "relu")),
         compute_dtype=compute_dtype,
+        dropout=float(mp_hp.get("dropout", 0.0)),
+        undirected=bool(mp_hp.get("undirected", False)),
+        kernel_options=kernel_options,
     )
     agg = AGGREGATIONS[agg_name]()
     if agg_name == "NormAggregation":
@@ -124,6 +132,7 @@ def build_model(hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.flo
         hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
         n_layers=int(p_hp.get("n_layers", 1)),
         output_transform="predictor.output_transform.mean" in sd,
+        dropout=float(p_hp.get("dropout", 0.0)),
     )
     return MPNN(mp, agg, predictor, batch_norm="bn.running_mean" in sd)
 
@@ -132,6 +141,7 @@ def load_model(
     path: str | Path,
     device: str | torch.device | None = None,
     compute_dtype: torch.dtype = torch.float32,
+    kernel_options: KernelOptions | None = None,
 ) -> tuple[MPNN, list[str] | None]:
     """Reference checkpoint -> (port model in eval mode on ``device``,
     output column names or None)."""
@@ -145,7 +155,7 @@ def load_model(
         for k, v in d["state_dict"].items()
         if not any(part in skip for part in k.split("."))
     }
-    model = build_model(d["hyper_parameters"], sd, compute_dtype)
+    model = build_model(d["hyper_parameters"], sd, compute_dtype, kernel_options)
     model.load_state_dict(sd)
     return model.to(device).eval(), d.get("output_columns")
 

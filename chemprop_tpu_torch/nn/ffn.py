@@ -7,13 +7,13 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 from torch import nn
+
+from chemprop_tpu_torch.nn.utils import Dropout
 
 
 class MLP(nn.Sequential):
-    """The dropout slot keeps the reference's parameter names for the Linear
-    layers; dropout itself is not ported yet, so a rate above 0 raises."""
-
     def __init__(
         self,
         input_dim: int,
@@ -22,11 +22,20 @@ class MLP(nn.Sequential):
         n_layers: int = 1,
         dropout: float = 0.0,
     ):
-        if dropout > 0:
-            raise NotImplementedError("dropout in the predictor is not ported yet")
         hidden = [hidden_dim] * n_layers if isinstance(hidden_dim, int) else list(hidden_dim)
         dims = [input_dim, *hidden, output_dim]
         blocks = [nn.Sequential(nn.Linear(dims[0], dims[1]))]
         for d_in, d_out in zip(dims[1:-1], dims[2:]):
-            blocks.append(nn.Sequential(nn.ReLU(), nn.Identity(), nn.Linear(d_in, d_out)))
+            blocks.append(nn.Sequential(nn.ReLU(), Dropout(dropout), nn.Linear(d_in, d_out)))
         super().__init__(*blocks)
+
+    def forward(
+        self, X: torch.Tensor, is_training: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``is_training`` turns the dropout of the later blocks on; its masks
+        come from ``generator``."""
+        H = self[0](X)
+        for act, drop, linear in list(self)[1:]:
+            H = linear(drop(act(H), is_training, generator))
+        return H

@@ -1,7 +1,7 @@
 """The regression head (cf. ``chemprop_tpu/nn/predictors.py``): an MLP whose
 inference output is unscaled to raw units. ``train_step`` and ``val_step``
 give the criterion's and the validation metrics' predictions, both without
-the unscaling."""
+the unscaling; ``mc_step`` is inference with the dropout layers on."""
 
 from __future__ import annotations
 
@@ -24,11 +24,12 @@ class RegressionFFN(nn.Module):
         n_layers: int = 1,
         output_transform: bool = True,
         criterion: ChempropMetric | None = None,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.n_tasks = n_tasks
         self.criterion = criterion
-        self.ffn = MLP(input_dim, n_tasks, hidden_dim, n_layers)
+        self.ffn = MLP(input_dim, n_tasks, hidden_dim, n_layers, dropout)
         self.output_transform = UnscaleTransform(n_tasks) if output_transform else None
 
     def get_criterion(self) -> ChempropMetric:
@@ -38,8 +39,16 @@ class RegressionFFN(nn.Module):
         Y = self.ffn(Z)
         return Y if self.output_transform is None else self.output_transform(Y)
 
-    def train_step(self, Z: torch.Tensor) -> torch.Tensor:
-        return self.ffn(Z)
+    def train_step(
+        self, Z: torch.Tensor, is_training: bool = True,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        return self.ffn(Z, is_training, generator)
 
     def val_step(self, Z: torch.Tensor) -> torch.Tensor:
         return self.ffn(Z)
+
+    def mc_step(self, Z: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+        """Monte-Carlo dropout: the dropout layers on, the output unscaled."""
+        Y = self.ffn(Z, True, generator)
+        return Y if self.output_transform is None else self.output_transform(Y)

@@ -1,13 +1,27 @@
-"""Activations (cf. ``chemprop_tpu/nn/utils.py``). The port's slice runs the
-reference default, ReLU; the fused iteration kernel has it built in."""
+"""Activations and dropout (cf. ``chemprop_tpu/nn/utils.py`` and flax's
+``nn.Dropout``). ReLU is the reference default and is built into the fused
+iteration kernels; message passing composes any other activation from the
+message kernel and library products."""
 
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
-_ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {"relu": torch.relu}
+_ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": torch.relu,
+    "leakyrelu": lambda x: F.leaky_relu(x, 0.01),
+    # PReLU with the (fixed) default slope 0.25, as in the JAX package
+    "prelu": lambda x: torch.where(x >= 0, x, 0.25 * x),
+    "tanh": torch.tanh,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default form
+    "silu": F.silu,
+    "softplus": F.softplus,
+}
 
 
 def get_activation_function(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -15,5 +29,37 @@ def get_activation_function(name: str) -> Callable[[torch.Tensor], torch.Tensor]
         return _ACTIVATIONS[name.lower()]
     except KeyError:
         raise ValueError(
-            f"activation {name!r} is not ported yet; supported: {sorted(_ACTIVATIONS)}"
+            f"unknown activation {name!r}; supported: {sorted(_ACTIVATIONS)}"
         ) from None
+
+
+def dropout_mask(
+    shape: torch.Size, rate: float, generator: torch.Generator, device: torch.device
+) -> torch.Tensor:
+    """The boolean keep mask of one dropout layer: each element is kept with
+    probability ``1 - rate``, drawn from ``generator`` (which lies on
+    ``device``). Every mask of the port is drawn here."""
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with an explicit generator: kept elements are scaled
+    by ``1 / (1 - rate)``, the others are zero. A library elementwise pass, as
+    the JAX package leaves its masks to XLA; the global generator is never
+    used, so ``active`` without a generator raises."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = float(rate)
+
+    def forward(
+        self, x: torch.Tensor, active: bool = False, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        if not active or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout is on: pass the torch.Generator to draw its masks from")
+        keep = dropout_mask(x.shape, self.rate, generator, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))

@@ -1,27 +1,40 @@
 """The port's kernels: each wrapper launches a hand-written CUDA kernel on a
 CUDA tensor and takes its plain PyTorch version on a CPU tensor."""
 
-from chemprop_tpu_torch.ops.build import LAUNCHES, build_all
+from chemprop_tpu_torch.ops.build import LAUNCHES, UNSERVED, build_all
 from chemprop_tpu_torch.ops.gather import row_gather
+from chemprop_tpu_torch.ops.grad_weight import grad_weight
 from chemprop_tpu_torch.ops.message import (
     bwd_message,
     bwd_message_nodes,
     bwd_message_premul,
+    first_iter,
     fused_iter,
+    fused_iter2,
+    iter_bwd,
     loop_readout,
     message,
+    message_iter,
 )
+from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.ops.segment import sorted_segment_sum, sorted_segment_sum_counts
 
 __all__ = [
     "LAUNCHES",
+    "UNSERVED",
+    "KernelOptions",
     "build_all",
     "bwd_message",
     "bwd_message_nodes",
     "bwd_message_premul",
+    "first_iter",
     "fused_iter",
+    "fused_iter2",
+    "grad_weight",
+    "iter_bwd",
     "loop_readout",
     "message",
+    "message_iter",
     "row_gather",
     "sorted_segment_sum",
     "sorted_segment_sum_counts",

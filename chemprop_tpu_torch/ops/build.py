@@ -8,7 +8,9 @@ source at once. Nothing is built when a module is imported: the first launch
 on a CUDA tensor builds what it needs.
 
 ``LAUNCHES`` counts kernel launches by wrapper name; each wrapper adds one
-where it launches its kernel, and nowhere else."""
+where it launches its kernel, and nowhere else. ``UNSERVED`` counts the
+batches whose shape a kernel cannot take, where the caller saw that before any
+launch and took other kernels."""
 
 from __future__ import annotations
 
@@ -28,20 +30,25 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("message", "message_bwd", "segment", "gather")
+SOURCES = ("message", "message_bwd", "segment", "gather", "grad_weight")
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
 # None for null, or the stream), I an int; every function returns a C int
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "message": {
-        "plain_message": [P, P, P, P, P, I, I, I, P],
+        "plain_message": [P, P, P, P, P, I, I, I, I, P],
         "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "fused_iter2": [P, P, P, P, P, P, P, P, P, I, I, I, P],
+        "fused_iter2_tile_rows": [],
     },
     "message_bwd": {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "bwd_message_premul": [P, P, P, P, P, P, P, P, P, P, I, I, I, P],
+        "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
+        "iter_bwd_splits": [I],
     },
+    "grad_weight": {"grad_weight": [P, P, P, P, I, I, I, P], "grad_weight_splits": [I]},
     "gather": {"row_gather": [P, P, P, I, I, I, P]},
     "segment": {
         "seg_sum": [P, P, P, P, P, P, I, I, I, I, I, P],
@@ -50,6 +57,9 @@ SIGNATURES = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+# batches a kernel could not serve, by wrapper name, where the caller then
+# took other kernels for that batch (decided before any launch)
+UNSERVED: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 

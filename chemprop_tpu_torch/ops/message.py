@@ -1,12 +1,15 @@
-"""The D-MPNN message, the fused depth iteration, their backward kernels and
-the depth loop with the M_v readout as one differentiable op (cf.
-``chemprop_tpu/ops/fused_message.py``):
+"""The D-MPNN message, the fused depth iteration, their backward kernels, one
+iteration and the whole depth loop with the M_v readout as differentiable ops
+(cf. ``chemprop_tpu/ops/fused_message.py``):
 
     message:     M[e] = sum_{k : dst[k] == src[e]} H[k] - H[rev[e]]
     fused_iter:  y[e] = relu(H0[e] + bf16(M[e]) @ W [+ b])
+    fused_iter2: y1 = fused_iter(relu(H0)), y2 = fused_iter(y1), one launch
     bwd_message:         gz = g * [y > 0] (+ gz_acc),  G = (S - R)^T (g * [y > 0])
     bwd_message_nodes:   the same with g = g_nodes[dst] never formed
     bwd_message_premul:  the same with g = G_in @ W^T formed inside the kernel
+    iter_bwd:            dH = bf16(G) W^T, gz and dW = H^T bf16(G), G never written
+    first_iter, message_iter:  one iteration each, backward by hand
     loop_readout:        M_v of the whole depth loop, backward by hand
 
 where ``((S - R)^T gz)[e] = sum_{k : src[k] == dst[e]} gz[k] - gz[rev[e]]``.
@@ -24,8 +27,13 @@ from __future__ import annotations
 
 import torch
 
-from chemprop_tpu_torch.ops.build import LAUNCHES, call, library
+from chemprop_tpu_torch.ops.build import LAUNCHES, UNSERVED, call, library
+from chemprop_tpu_torch.ops.grad_weight import grad_weight
+from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.ops.segment import DTYPES, _segment_sum
+
+# the most edge rows a tile of ``fused_iter2``'s tile table may hold
+ITER2_TILE_ROWS = 128
 
 
 def message_plain(
@@ -59,6 +67,16 @@ def fused_iter_plain(
     if b is not None:
         z = z + b.float()
     return torch.relu(H0.float() + z).to(H.dtype)
+
+
+def fused_iter2_plain(
+    H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the chained first two iterations: ``y1``
+    is rounded to bfloat16 before it is gathered, as two launches would."""
+    y1 = fused_iter_plain(H0, H0, W, b, src, dst, rev, ptr, relu_stream=True)
+    return y1, fused_iter_plain(y1, H0, W, b, src, dst, rev, ptr)
 
 
 def _transposed_plain(gz: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor):
@@ -110,6 +128,20 @@ def bwd_message_premul_plain(
     return G, z.masked_fill(pad, 0.0)
 
 
+def iter_bwd_plain(
+    g: torch.Tensor, y: torch.Tensor, H: torch.Tensor, W: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the whole-iteration backward, with the
+    kernel's roundings: ``G`` is summed in f32 and rounded once, both products
+    take the rounded ``G`` and accumulate in f32, ``dW`` stays f32."""
+    pad = (dst == ptr.numel() - 2)[:, None]
+    G, gz = bwd_message_plain(g, y, src, dst, rev, ptr)
+    dH = (G.float() @ W.float().t()).to(g.dtype)
+    dW = H.float().masked_fill(pad, 0.0).t() @ G.float()
+    return dH, gz, dW
+
+
 def _check_graph(H, src, dst, rev, ptr):
     if H.dim() != 2 or not H.is_contiguous():
         raise ValueError("H must be a contiguous [E, d] table")
@@ -127,9 +159,8 @@ def message(
     H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor
 ) -> torch.Tensor:
     """``M = message(H)`` for a float32 or bfloat16 edge table, differentiable
-    in ``H``: the backward is the transposed message without a mask. The
-    forward kernel is float32 only (the bfloat16 forward forms its messages
-    in :func:`fused_iter`), so a bfloat16 table on the card raises."""
+    in ``H``: the backward is the transposed message without a mask. Sums
+    are taken in f32 and rounded once to ``H``'s dtype."""
     return _Message.apply(H, src, dst, rev, ptr)
 
 
@@ -139,18 +170,33 @@ def _message_fwd(H, src, dst, rev, ptr):
         raise TypeError(f"H must be float32 or bfloat16, got {H.dtype}")
     if H.device.type == "cpu":
         return message_plain(H, src, dst, rev, ptr)
-    if H.dtype != torch.float32:
-        raise TypeError(f"the message kernel takes float32, got {H.dtype}")
     n, d = H.shape
     if d % 4 != 0 or H.data_ptr() % 16 != 0:
         raise ValueError(f"width {d} must be a multiple of 4, rows 16-byte aligned")
     out = torch.empty_like(H)
     call(
         library("message"), "plain_message", H, src.contiguous(), rev.contiguous(),
-        ptr.contiguous(), out, n, d, ptr.numel() - 2,
+        ptr.contiguous(), out, n, d, ptr.numel() - 2, DTYPES[H.dtype],
     )
     LAUNCHES["message"] += 1
     return out
+
+
+def _check_iter(H, H0, W, b, src, dst, rev, ptr):
+    """The checks the bfloat16 iteration kernels share."""
+    _check_graph(H, src, dst, rev, ptr)
+    n, d = H.shape
+    if H.dtype != torch.bfloat16 or H0.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
+        raise TypeError("the fused iteration takes bfloat16 H, H0 and W")
+    if H0.shape != H.shape or W.shape != (d, d) or d % 128 != 0:
+        raise ValueError(f"H0 {tuple(H0.shape)} / W {tuple(W.shape)} do not fit H {(n, d)}")
+    if b is not None and (b.dtype != torch.bfloat16 or b.shape != (d,)):
+        raise ValueError("b must be a bfloat16 [d] vector")
+    tensors = [H0, W] + ([b] if b is not None else [])
+    if any(t.device != H.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("H0, W and b must be contiguous and on H's device")
+    if H.device.type == "cuda" and any(t.data_ptr() % 16 != 0 for t in [H] + tensors):
+        raise ValueError("the fused iteration needs 16-byte aligned tables")
 
 
 def fused_iter(
@@ -168,21 +214,10 @@ def fused_iter(
     ``relu_stream`` applies the ReLU to the gathered rows of ``H`` (the first
     iteration passes ``H = H0``); the residual always adds raw ``H0``. ``W``
     is ``[d, d]`` in (in, out) layout, ``d`` a multiple of 128."""
-    _check_graph(H, src, dst, rev, ptr)
+    _check_iter(H, H0, W, b, src, dst, rev, ptr)
     n, d = H.shape
-    if H.dtype != torch.bfloat16 or H0.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
-        raise TypeError("fused_iter takes bfloat16 H, H0 and W")
-    if H0.shape != H.shape or W.shape != (d, d) or d % 128 != 0:
-        raise ValueError(f"H0 {tuple(H0.shape)} / W {tuple(W.shape)} do not fit H {(n, d)}")
-    if b is not None and (b.dtype != torch.bfloat16 or b.shape != (d,)):
-        raise ValueError("b must be a bfloat16 [d] vector")
-    tensors = [H0, W] + ([b] if b is not None else [])
-    if any(t.device != H.device or not t.is_contiguous() for t in tensors):
-        raise ValueError("H0, W and b must be contiguous and on H's device")
     if H.device.type == "cpu":
         return fused_iter_plain(H, H0, W, b, src, dst, rev, ptr, relu_stream)
-    if any(t.data_ptr() % 16 != 0 for t in [H] + tensors):
-        raise ValueError("fused_iter needs 16-byte aligned tables")
     y = torch.empty_like(H)
     call(
         library("message"), "fused_iter", H, H0, W, b, src.contiguous(), rev.contiguous(),
@@ -190,6 +225,35 @@ def fused_iter(
     )
     LAUNCHES["fused_iter"] += 1
     return y
+
+
+def fused_iter2(
+    H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first two bfloat16 depth iterations in one launch:
+    ``y1 = fused_iter(H0, H0, relu_stream=True)`` and ``y2 = fused_iter(y1, H0)``,
+    both equal to those two launches bit for bit. ``tiles`` is the batch's tile
+    table (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E``
+    that cut the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real
+    molecule's rows in two runs."""
+    _check_iter(H0, H0, W, b, src, dst, rev, ptr)
+    if tiles.dtype != torch.int32 or tiles.dim() != 1 or tiles.numel() < 2:
+        raise ValueError("tiles must be a 1-d int32 tensor of at least two offsets")
+    if tiles.device != H0.device:
+        raise ValueError(f"tiles must be on {H0.device}")
+    if H0.device.type == "cpu":
+        return fused_iter2_plain(H0, W, b, src, dst, rev, ptr)
+    lib = library("message")
+    if lib.fused_iter2_tile_rows() != ITER2_TILE_ROWS:
+        raise RuntimeError("the built fused_iter2 kernel takes another tile size")
+    y1, y2 = torch.empty_like(H0), torch.empty_like(H0)
+    call(
+        lib, "fused_iter2", H0, W, b, src.contiguous(), rev.contiguous(), ptr.contiguous(),
+        tiles.contiguous(), y1, y2, tiles.numel() - 1, H0.shape[1], ptr.numel() - 2,
+    )
+    LAUNCHES["fused_iter2"] += 1
+    return y1, y2
 
 
 def _check_tables(first: torch.Tensor, others: dict[str, torch.Tensor | None]) -> None:
@@ -291,6 +355,39 @@ def bwd_message_premul(
     return G, z
 
 
+def iter_bwd(
+    g: torch.Tensor, y: torch.Tensor, H: torch.Tensor, W: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dH, gz, dW)``, the whole backward of one bfloat16 iteration
+    ``y = relu(H0 + message(H) @ W)`` from the cotangent ``g``: with
+    ``gz = g * [y > 0]`` (also ``dH0``) and ``G = (S - R)^T gz`` rounded to
+    bfloat16 but never written, ``dH = G @ W^T`` and ``dW = H^T G`` in float32.
+    The same bits in every run. ``W`` is ``[d, d]`` in (in, out) layout, ``d``
+    a multiple of 128."""
+    _check_graph(g, src, dst, rev, ptr)
+    n, d = g.shape
+    if g.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
+        raise TypeError("iter_bwd takes bfloat16 tables and W")
+    _check_tables(g, {"y": y, "H": H})
+    if W.shape != (d, d) or d % 128 != 0 or W.device != g.device or not W.is_contiguous():
+        raise ValueError(f"W {tuple(W.shape)} must be a contiguous [d, d] with d % 128 == 0")
+    if g.device.type == "cpu":
+        return iter_bwd_plain(g, y, H, W, src, dst, rev, ptr)
+    if any(t.data_ptr() % 16 != 0 for t in (g, y, H, W)):
+        raise ValueError("iter_bwd needs 16-byte aligned tables")
+    lib = library("message_bwd")
+    dH, gz = torch.empty_like(g), torch.empty_like(g)
+    dW = torch.empty((d, d), dtype=torch.float32, device=g.device)
+    partial = torch.empty((lib.iter_bwd_splits(n), d, d), dtype=torch.float32, device=g.device)
+    call(
+        lib, "iter_bwd", g, y, H, W, dst.contiguous(), rev.contiguous(), ptr.contiguous(),
+        dH, gz, partial, dW, n, d, ptr.numel() - 2,
+    )
+    LAUNCHES["iter_bwd"] += 1
+    return dH, gz, dW
+
+
 class _Message(torch.autograd.Function):
     @staticmethod
     def forward(ctx, H, src, dst, rev, ptr):
@@ -310,17 +407,97 @@ class _Message(torch.autograd.Function):
         return G, None, None, None, None
 
 
-def _xt_g(x: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """``x^T G`` as float32 with f32 accumulation (a library product: the JAX
-    package leaves this one to XLA too)."""
-    if x.dtype == torch.bfloat16 and x.device.type == "cuda":
-        return torch.mm(x.t(), G, out_dtype=torch.float32)
-    return x.float().t() @ G.float()
+def _iteration(H, H0, W, b, graph, relu_stream=False):
+    """One iteration's forward in either dtype: the fused kernel in bfloat16,
+    the message kernel and a ``torch.matmul`` in float32."""
+    if H0.dtype == torch.bfloat16:
+        return fused_iter(H, H0, W, b, *graph, relu_stream=relu_stream)
+    z = _message_fwd(torch.relu(H) if relu_stream else H, *graph) @ W
+    if b is not None:
+        z = z + b
+    return torch.relu(H0 + z)
+
+
+def _iteration_bwd(g, y, x, W, graph, grad_w: bool, gz_acc=None):
+    """``(dH, gz, dW)`` of one iteration with input ``x`` and output ``y``:
+    the masked transposed message, then ``G @ W^T`` (a library product) and
+    ``x^T G`` through :func:`grad_weight`."""
+    G, gz = bwd_message(g, y, *graph, gz_acc=gz_acc)
+    dW = grad_weight(x, G, grad_w and x.dtype == torch.bfloat16)
+    return (G @ W.t()).to(g.dtype), gz, dW
+
+
+def _bias_grad(gz, b):
+    return None if b is None else gz.float().sum(0).to(b.dtype)
+
+
+def first_iter(
+    H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    options: KernelOptions | None = None,
+) -> torch.Tensor:
+    """The first depth iteration ``relu(H0 + message(relu(H0)) @ W [+ b])`` as a
+    differentiable op (cf. ``fused_first_iter``), float32 or bfloat16; in
+    bfloat16 ``relu(H0)`` is never written (``relu_stream``). The backward is
+    written by hand: :func:`bwd_message`, then the two products, and the chain
+    through the streamed ReLU, ``dH0 = gz + dH * [H0 > 0]``."""
+    return _FirstIter.apply(H0, W, b, src, dst, rev, ptr, options or KernelOptions())
+
+
+def message_iter(
+    H: torch.Tensor, H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None,
+    src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    options: KernelOptions | None = None,
+) -> torch.Tensor:
+    """One depth iteration ``relu(H0 + message(H) @ W [+ b])`` as a
+    differentiable op (cf. ``fused_message_iter``), float32 or bfloat16. The
+    backward is written by hand: :func:`bwd_message`, then ``G @ W^T`` and
+    ``H^T G``; in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd`."""
+    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions())
+
+
+class _FirstIter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, options):
+        H0 = H0.contiguous()
+        y = _iteration(H0, H0, W, b, (src, dst, rev, ptr), relu_stream=True)
+        ctx.save_for_backward(y, H0, W, b, src, dst, rev, ptr)
+        ctx.options = options
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, H0, W, b, *graph = ctx.saved_tensors
+        g = g.to(y.dtype).contiguous()
+        dH, gz, dW = _iteration_bwd(g, y, torch.relu(H0), W, graph, ctx.options.grad_w)
+        dH0 = gz + dH * (H0 > 0)
+        return dH0, dW.to(W.dtype), _bias_grad(gz, b), None, None, None, None, None
+
+
+class _MessageIter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options):
+        H, H0 = H.contiguous(), H0.contiguous()
+        y = _iteration(H, H0, W, b, (src, dst, rev, ptr))
+        ctx.save_for_backward(y, H, W, b, src, dst, rev, ptr)
+        ctx.options = options
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, H, W, b, *graph = ctx.saved_tensors
+        g = g.to(y.dtype).contiguous()
+        if ctx.options.fused_bwd and y.dtype == torch.bfloat16:
+            dH, gz, dW = iter_bwd(g, y, H, W, *graph)
+        else:
+            dH, gz, dW = _iteration_bwd(g, y, H, W, graph, ctx.options.grad_w)
+        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), None, None, None, None, None
 
 
 def loop_readout(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, depth: int,
+    options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The whole ReLU depth loop and the M_v readout as one differentiable op
     (cf. ``fused_loop_readout``), for ``depth >= 2``:
@@ -329,70 +506,69 @@ def loop_readout(
         M_v = segment_sum(H, dst)                               [N, d], H0's dtype
 
     In bfloat16 every iteration is one :func:`fused_iter` kernel; in float32
-    the message kernel and a ``torch.matmul``. The backward is written by
-    hand. In bfloat16 with no bias and ``depth >= 3`` no cotangent edge table
-    is formed outside a kernel: :func:`bwd_message_nodes` for the last
-    iteration, :func:`bwd_message_premul` for the earlier ones, the first
-    with ``fold_h0``. Otherwise (float32, a bias, depth 2) it is the
-    per-iteration chain through :func:`bwd_message` with the running ``dH0``
-    accumulated in the kernel, and ``G @ W^T`` a ``torch.matmul``. The weight
-    gradient ``x_t^T G`` is a library product in both."""
+    the message kernel and a ``torch.matmul``. With ``options.iter2``, in
+    bfloat16 at ``depth >= 3``, the first two iterations are one
+    :func:`fused_iter2` launch over the batch's tile table ``tiles``; a batch
+    without one (a molecule larger than a tile) takes the two launches, and
+    ``UNSERVED["fused_iter2"]`` counts it. The backward is written by hand. In
+    bfloat16 with no bias and ``depth >= 3`` no cotangent edge table is formed
+    outside a kernel: :func:`bwd_message_nodes` for the last iteration,
+    :func:`bwd_message_premul` for the earlier ones, the first with
+    ``fold_h0``. Otherwise (float32, a bias, depth 2) it is the per-iteration
+    chain through :func:`bwd_message` with the running ``dH0`` accumulated in
+    the kernel, and ``G @ W^T`` a ``torch.matmul``. The weight gradient
+    ``x_t^T G`` goes through :func:`grad_weight` in both: a library product,
+    or with ``options.grad_w`` in bfloat16 its kernel."""
     if depth < 2:
         raise ValueError("loop_readout needs depth >= 2")
-    return _LoopReadout.apply(H0, W, b, src, dst, rev, ptr, depth)
+    return _LoopReadout.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(), tiles)
 
 
 class _LoopReadout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth):
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles):
         graph = (src, dst, rev, ptr)
         H0 = H0.contiguous()
         ys = []
-        if H0.dtype == torch.bfloat16:
-            y = fused_iter(H0, H0, W, b, *graph, relu_stream=True)
-            ys.append(y)
-            for _ in range(2, depth):
-                y = fused_iter(y, H0, W, b, *graph)
-                ys.append(y)
-        else:
-            y = torch.relu(H0)
-            for _ in range(1, depth):
-                z = _message_fwd(y, *graph) @ W
-                if b is not None:
-                    z = z + b
-                y = torch.relu(H0 + z)
-                ys.append(y)
+        if H0.dtype == torch.bfloat16 and options.iter2 and depth >= 3:
+            if tiles is not None:
+                ys = list(fused_iter2(H0, W, b, *graph, tiles))
+            else:
+                UNSERVED["fused_iter2"] += 1
+        if not ys:
+            first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
+            ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first)]
+        for _ in range(len(ys) + 1, depth):
+            ys.append(_iteration(ys[-1], H0, W, b, graph))
         ctx.save_for_backward(H0, W, b, *graph, *ys)
-        ctx.depth = depth
-        return _segment_sum(y, dst, ptr, y.dtype, False)[0]
+        ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
+        return _segment_sum(ys[-1], dst, ptr, H0.dtype, False)[0]
 
     @staticmethod
     def backward(ctx, g_Mv):
         H0, W, b, src, dst, rev, ptr, *ys = ctx.saved_tensors
         graph = (src, dst, rev, ptr)
-        depth, dt = ctx.depth, H0.dtype
+        depth, dt, grad_w = ctx.depth, H0.dtype, ctx.grad_w
         g_Mv = g_Mv.to(dt).contiguous()
         relu_H0 = torch.relu(H0)
+        none = (None,) * 7
 
         def x_of(t):  # the input of iteration t
             return ys[t - 2] if t >= 2 else relu_H0
 
         if dt == torch.bfloat16 and b is None and depth >= 3:
             G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph)
-            dW = _xt_g(x_of(depth - 1), G)
+            dW = grad_weight(x_of(depth - 1), G, grad_w)
             for t in range(depth - 2, 0, -1):
                 G, z = bwd_message_premul(G, ys[t - 1], H0, W, *graph, fold_h0=t == 1)
-                dW = dW + _xt_g(x_of(t), G)
+                dW = dW + grad_weight(x_of(t), G, grad_w)
                 dH0 = dH0 + z
-            return dH0, dW.to(W.dtype), None, None, None, None, None, None
+            return dH0, dW.to(W.dtype), None, *none
         # the per-iteration chain
         g = g_Mv[dst.long()]
         dW, acc = None, None
         for t in range(depth - 1, 0, -1):
-            G, acc = bwd_message(g, ys[t - 1], *graph, gz_acc=acc)
-            dWt = _xt_g(x_of(t), G)
+            g, acc, dWt = _iteration_bwd(g, ys[t - 1], x_of(t), W, graph, grad_w, gz_acc=acc)
             dW = dWt if dW is None else dW + dWt
-            g = (G @ W.t()).to(dt)
-        db = None if b is None else acc.float().sum(0).to(b.dtype)
         dH0 = acc + g * (H0 > 0)
-        return dH0, dW.to(W.dtype), db, None, None, None, None, None
+        return dH0, dW.to(W.dtype), _bias_grad(acc, b), *none

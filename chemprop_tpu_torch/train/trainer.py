@@ -9,14 +9,15 @@ rate) and a thin epoch loop, with the JAX package's numerics:
   made before this one;
 * clipping is optax's ``clip_by_global_norm``: ``g * max_norm / |g|`` only
   when ``|g| > max_norm``;
-* randomness is an explicit ``torch.Generator`` made from ``seed``; the
-  global generator is not used.
+* randomness is explicit ``torch.Generator``s made from ``seed``: one on the
+  CPU for the initial parameters, one on the trainer's device for the
+  dropout masks of the training steps (``TrainState.rng``); the global
+  generator is not used. Evaluation and ``predict`` run with dropout off.
 
 The step launches no atomics and no host synchronisation: losses stay on the
 device until an epoch ends. Not ported yet: early stopping and best-epoch
 tracking, validation metrics, checkpoints and resuming, tensorboard and
-profiler output, frozen parameters, chained steps, meshes and Monte-Carlo
-dropout."""
+profiler output, frozen parameters, chained steps and meshes."""
 
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ class TrainState:
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
     step: int = 0
+    rng: torch.Generator | None = None  # the dropout masks of the training steps
 
 
 def _restore_order(preds: np.ndarray, loader) -> np.ndarray:
@@ -106,13 +108,17 @@ class Trainer:
             batch_stats=stats,
             mu=[torch.zeros_like(p) for p in params.values()],
             nu=[torch.zeros_like(p) for p in params.values()],
+            rng=self._generator(self.seed),
         )
         return self.state
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------ steps
     def loss(self, batch: TrainingBatch) -> torch.Tensor:
         """The training criterion on one batch (on the trainer's device)."""
-        preds = self.model.train_step_preds(batch.bmg, is_training=True)
+        preds = self.model.train_step_preds(batch.bmg, is_training=True, generator=self.state.rng)
         mask = torch.isfinite(batch.Y)
         targets = torch.nan_to_num(batch.Y)
         return self.model.criterion(preds, targets, mask, batch.w[:, 0])
@@ -187,12 +193,33 @@ class Trainer:
         """Predictions over ``loader`` in dataset order, padding rows cut.
         ``use_batch_statistics`` normalises each batch with its own moments
         (the model as training leaves it) and leaves the output unscaled; the
-        running statistics are not touched either way."""
+        running statistics are not touched either way. As in the JAX package
+        that mode also turns dropout on, with masks from a fixed seed."""
         if self.state is None:
             raise RuntimeError("fit or init_state first")
-        chunks = [
-            (self.model(host.bmg.to(self.device), is_training=use_batch_statistics), host.pad_mask)
-            for host in loader
-        ]
+        gen = self._generator(0) if use_batch_statistics else None
+        return self._collect(
+            loader, lambda bmg: self.model(bmg, is_training=use_batch_statistics, generator=gen)
+        )
+
+    def _collect(self, loader: DataLoader, apply) -> np.ndarray:
+        chunks = [(apply(host.bmg.to(self.device)), host.pad_mask) for host in loader]
         preds = np.concatenate([p.float().cpu().numpy()[m] for p, m in chunks], axis=0)
         return _restore_order(preds, loader)
+
+    @torch.inference_mode()
+    def predict_mc_dropout(
+        self, loader: DataLoader, sampling_size: int = 10, seed: int = 0
+    ) -> np.ndarray:
+        """``sampling_size`` stochastic forward passes with the dropout layers
+        on and everything else as in inference (Monte-Carlo dropout):
+        ``[sampling_size, n, n_tasks]`` inference-space predictions in dataset
+        order; the caller takes the mean and the variance over axis 0. The
+        masks come from one generator made from ``seed``."""
+        if self.state is None:
+            raise RuntimeError("fit or init_state first")
+        gen = self._generator(seed)
+        return np.stack([
+            self._collect(loader, lambda bmg: self.model.mc_dropout_preds(bmg, gen))
+            for _ in range(sampling_size)
+        ], axis=0)

@@ -27,11 +27,20 @@ failure:
    launch its own kernels and none of the other's; then one float32 step on
    the card against the same step on the CPU, and two bfloat16 fits from one
    seed, whose loss histories must be equal bit for bit;
-5. on the benchmark batch: each dtype's launches in one forward and in one
-   training step, counted on their own; timing with CUDA events of each
+5. the per-iteration path: the same model with dropout 0.1 in bfloat16
+   through ``Trainer.fit``, ``predict`` and ``predict_mc_dropout`` (the loss
+   must fall, two fits from one seed must give equal losses bit for bit,
+   evaluation must not depend on the dropout generator), once more with the
+   ``fused_bwd`` and ``grad_w`` options on (losses within the bfloat16
+   tolerance of the first run's); the overfit run of phase 4 in bfloat16 with
+   the ``iter2`` and ``grad_w`` options on, to the same bar; and one float32
+   step with dropout on the card against the same step on the CPU, the masks
+   made on the CPU from one seed and copied;
+6. on the benchmark batch: the launches of one forward and of one training
+   step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
-   function, where there is one; and the forward's and the training step's
-   molecules per second.
+   function, where there is one; the forward's and the training step's
+   molecules per second, and the step with each option on and off.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -108,6 +117,24 @@ KERNELS = {
         tpu_kernel="_kernel via _window_gather_impl",
         timed="row_gather[bfloat16]",
     ),
+    "fused_iter2": dict(
+        source="chemprop_tpu_torch/csrc/message.cu",
+        replaces="chemprop_tpu/ops/fused_message.py:394",
+        tpu_kernel="_iter2_kernel via _iter2_impl",
+        timed="fused_iter2[bias=False,y2]",
+    ),
+    "iter_bwd": dict(
+        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        replaces="chemprop_tpu/ops/fused_message.py:603",
+        tpu_kernel="_iter_bwd_kernel via _iter_bwd_impl",
+        timed="iter_bwd[dH]",
+    ),
+    "grad_weight": dict(
+        source="chemprop_tpu_torch/csrc/grad_weight.cu",
+        replaces="chemprop_tpu/ops/grad_weight.py:34",
+        tpu_kernel="_kernel via grad_weight",
+        timed="grad_weight",
+    ),
 }
 # the launches of one forward and of one training step in each dtype; a
 # kernel that is not named must not be launched at all (depth 3: two
@@ -120,6 +147,46 @@ PATH_KERNELS = {
     "train_float32": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
     "train_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
                        "bwd_message_premul": 1, "row_gather": 1},
+    # dropout: the per-iteration ops, each with its own masked transposed
+    # message; M_v's cotangent is a plain indexing, the mean readout's the row
+    # gather. With fused_bwd the second iteration's backward is iter_bwd, which
+    # forms its own dW, so grad_w launches grad_weight for the first alone
+    "train_dropout_float32": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
+    "train_dropout_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
+                               "row_gather": 1},
+    "train_dropout_bfloat16_fused_bwd_grad_w": {
+        "fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 1, "iter_bwd": 1,
+        "grad_weight": 1, "row_gather": 1},
+    # iter2: the first two iterations are one launch; grad_w: both dW products
+    "train_bfloat16_iter2": {"fused_iter2": 1, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
+                             "bwd_message_premul": 1, "row_gather": 1},
+    "train_bfloat16_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
+                              "bwd_message_premul": 1, "row_gather": 1, "grad_weight": 2},
+    "train_bfloat16_iter2_grad_w": {
+        "fused_iter2": 1, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
+        "bwd_message_premul": 1, "row_gather": 1, "grad_weight": 2},
+    # fused_readout off: the per-iteration ops without dropout
+    "train_bfloat16_per_iteration": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
+                                     "row_gather": 1},
+    "train_dropout_bfloat16_fused_bwd": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                         "bwd_message": 1, "iter_bwd": 1, "row_gather": 1},
+    "train_dropout_bfloat16_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
+                                      "grad_weight": 2, "row_gather": 1},
+}
+# the training steps timed and counted on the benchmark batch: dtype, dropout
+# rate and opt-in kernels; each is held to PATH_KERNELS["train_" + name]
+STEPS = {
+    "float32": ("float32", 0.0, {}),
+    "bfloat16": ("bfloat16", 0.0, {}),
+    "bfloat16_iter2": ("bfloat16", 0.0, dict(iter2=True)),
+    "bfloat16_grad_w": ("bfloat16", 0.0, dict(grad_w=True)),
+    "bfloat16_iter2_grad_w": ("bfloat16", 0.0, dict(iter2=True, grad_w=True)),
+    "bfloat16_per_iteration": ("bfloat16", 0.0, dict(fused_readout=False)),
+    "dropout_float32": ("float32", 0.1, {}),
+    "dropout_bfloat16": ("bfloat16", 0.1, {}),
+    "dropout_bfloat16_fused_bwd": ("bfloat16", 0.1, dict(fused_bwd=True)),
+    "dropout_bfloat16_grad_w": ("bfloat16", 0.1, dict(grad_w=True)),
+    "dropout_bfloat16_fused_bwd_grad_w": ("bfloat16", 0.1, dict(fused_bwd=True, grad_w=True)),
 }
 OVERFIT_BATCH_STATS_MSE, OVERFIT_RUNNING_STATS_MSE = 0.05, 0.10
 
@@ -198,13 +265,14 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     import torch
 
     from chemprop_tpu_torch.ops import (
-        bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, message, row_gather,
-        sorted_segment_sum, sorted_segment_sum_counts,
+        bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, fused_iter2, grad_weight,
+        iter_bwd, message, row_gather, sorted_segment_sum, sorted_segment_sum_counts,
     )
     from chemprop_tpu_torch.ops.gather import row_gather_plain
+    from chemprop_tpu_torch.ops.grad_weight import grad_weight_plain
     from chemprop_tpu_torch.ops.message import (
         bwd_message_nodes_plain, bwd_message_plain, bwd_message_premul_plain,
-        fused_iter_plain, message_plain,
+        fused_iter2_plain, fused_iter_plain, iter_bwd_plain, message_plain,
     )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_plain
 
@@ -222,6 +290,12 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
 
     # f32: only the summation order differs; bf16 out: one rounding apart
     check("message[float32]", message(H32, *graph), message_plain(H32, *graph), 1e-5, 1e-5, errs)
+    # bf16: f32 sums rounded once; a sum in another order may round to the
+    # neighbouring bf16 value
+    got = message(H, *graph)
+    check("message[bfloat16]", got, message_plain(H, *graph), BF16_ULP, 1e-6, errs)
+    if got[bmg.dst == n_v - 1].any():
+        fail("message[bfloat16]: a padding row is not zero")
     for relu_stream, bias in ((True, None), (False, None), (False, b)):
         tag = f"fused_iter[relu_stream={relu_stream},bias={bias is not None}]"
         x = H0 if relu_stream else H
@@ -307,9 +381,48 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     check("row_gather[bfloat16]", got, row_gather_plain(Mg, bmg.batch), 0.0, 0.0, errs)
     if got[bmg.batch == bmg.n_graphs].any():
         fail("row_gather: a row of the sacrificial id is not zero")
+    # D: both outputs equal two fused_iter launches bit for bit, on every row;
+    # against the plain version y1 is held as fused_iter is, and y2 carries
+    # y1's ulp through the second message and W
+    if bmg.tile_ptr is None:
+        fail("the benchmark batch has no tile table for fused_iter2")
+    for bias in (None, b):
+        tag = f"fused_iter2[bias={bias is not None}"
+        y1, y2 = fused_iter2(H0, W, bias, *graph, bmg.tile_ptr)
+        w1 = fused_iter(H0, H0, W, bias, *graph, relu_stream=True)
+        w2 = fused_iter(w1, H0, W, bias, *graph)
+        if not (torch.equal(y1, w1) and torch.equal(y2, w2)):
+            fail(f"{tag}]: not equal to two fused_iter launches bit for bit")
+        p1, p2 = fused_iter2_plain(H0, W, bias, *graph)
+        check(f"{tag},y1]", y1, p1, 2 * BF16_ULP, 0.02, errs)
+        check(f"{tag},y2]", y2, p2, 2 * BF16_ULP, 0.05, errs)
+    H0z = H0.masked_fill(pad_rows[:, None], 0)  # as W_i leaves them without a bias
+    zeros_on_padding("fused_iter2", *fused_iter2(H0z, W, None, *graph, bmg.tile_ptr))
+    # E: gz is a masked copy, so exact. G equals bwd_message's, whose sums may
+    # round to the neighbouring bf16 value against the plain version's order;
+    # dH = G W^T carries that and rounds once more, dW = H^T G sums E products
+    # in f32 in another order: both limits scale with the sum of |terms|
+    Hx = H.clamp_min(0)  # an iteration's input: a ReLU output, padding rows not zero
+    dH, gz, dW = iter_bwd(gb, yb, Hx, W, *graph)
+    want_dH, want_gz, want_dW = iter_bwd_plain(gb, yb, Hx, W, *graph)
+    G_abs = bwd_message_plain(gb, yb, *graph)[0].float().abs()
+    check("iter_bwd[gz]", gz, want_gz, 0.0, 0.0, errs)
+    check("iter_bwd[dH]", dH, want_dH, 2 * BF16_ULP, 1e-4, errs, G_abs @ W.float().abs().t())
+    check("iter_bwd[dW]", dW, want_dW, 1e-4, 1e-3, errs, Hx.float().t() @ G_abs)
+    zeros_on_padding("iter_bwd", dH, gz)
+    again = iter_bwd(gb, yb, Hx, W, *graph)
+    if not all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW))):
+        fail("iter_bwd: two runs differ")
+    # J: exact bf16 products summed in f32 in another order
+    Gt = bwd_message(gb, yb, *graph)[0]
+    dWj = grad_weight(Hx, Gt, use_kernel=True)
+    check("grad_weight", dWj, grad_weight_plain(Hx, Gt), 1e-5, 1e-3, errs,
+          Hx.float().abs().t() @ Gt.float().abs())
+    if not torch.equal(dWj, grad_weight(Hx, Gt, use_kernel=True)):
+        fail("grad_weight: two runs differ")
     torch.cuda.synchronize()
     tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, g32=g32, y32=y32, acc32=acc32, gb=gb, yb=yb,
-                   g_nodes=g_nodes, Mg=Mg)
+                   g_nodes=g_nodes, Mg=Mg, Hx=Hx, Gt=Gt)
     return tensors, errs
 
 
@@ -382,16 +495,21 @@ def main_path(out_dir: Path) -> tuple[dict, dict]:
     return launches, res
 
 
-def default_model(dtype):
+def default_model(dtype, dropout: float = 0.0, **options):
     """The default model at full width: the one the reference checkpoint
-    holds, with batch norm, as the reference's overfit run trains it."""
+    holds, with batch norm, as the reference's overfit run trains it;
+    ``dropout`` in message passing and in the head, ``options`` the opt-in
+    kernels (the environment is not read)."""
     from chemprop_tpu_torch.models import MPNN
     from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.ops import KernelOptions
 
     return MPNN(
-        BondMessagePassing(compute_dtype=dtype),  # d_h 300, depth 3, ReLU, no bias
+        # d_h 300, depth 3, ReLU, no bias
+        BondMessagePassing(compute_dtype=dtype, dropout=dropout,
+                           kernel_options=KernelOptions(**options)),
         MeanAggregation(),
-        RegressionFFN(output_transform=False),
+        RegressionFFN(output_transform=False, dropout=dropout),
         batch_norm=True,
     )
 
@@ -407,7 +525,8 @@ def train_mse(trainer, loader, ds, use_batch_statistics: bool) -> float:
 
 def train_path(ds) -> tuple[dict, dict]:
     """Phase 4a: the reference's overfit run through ``Trainer.fit`` and
-    ``Trainer.predict`` on cuda, in float32 and in bfloat16."""
+    ``Trainer.predict`` on cuda, in float32, in bfloat16, and in bfloat16 with
+    the ``iter2`` and ``grad_w`` options on."""
     import torch
 
     from chemprop_tpu_torch.data import DataLoader
@@ -415,11 +534,13 @@ def train_path(ds) -> tuple[dict, dict]:
     from chemprop_tpu_torch.train import Trainer
 
     launches, res = {}, {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for name, dt, options in (("float32", torch.float32, {}), ("bfloat16", torch.bfloat16, {}),
+                              ("bfloat16_iter2_grad_w", torch.bfloat16,
+                               dict(iter2=True, grad_w=True))):
         loader = DataLoader(ds, batch_size=32, shuffle=False)
         LAUNCHES.clear()
         t0 = time.time()
-        trainer = Trainer(default_model(dt), max_epochs=50, warmup_epochs=2, seed=12)
+        trainer = Trainer(default_model(dt, **options), max_epochs=50, warmup_epochs=2, seed=12)
         trainer.fit(loader)
         fit_s = time.time() - t0
         if trainer.device.type != "cuda":
@@ -447,6 +568,33 @@ def train_path(ds) -> tuple[dict, dict]:
     return launches, res
 
 
+def compare_steps(states: dict, losses: dict, tag: str) -> dict:
+    """Hold the card's state after one float32 step (key None) to the CPU's."""
+    lr = 1e-4  # the first step's rate
+    n_all = n_off = 0
+    worst = 0.0
+    for name, want in states["cpu"].items():
+        err = (states[None][name] - want).abs()
+        worst = max(worst, float(err.max()))
+        n_off += int((err > 1e-6 + 1e-4 * want.abs()).sum())
+        n_all += err.numel()
+    res = {"loss_cuda": losses[None], "loss_cpu": losses["cpu"], "loss_rtol": 1e-5,
+           "max_abs_param_diff": worst, "limit_abs_param_diff": 2 * lr,
+           "params_outside_rtol_1e-4": n_off, "params": n_all, "limit_share_outside": 1e-3}
+    print(json.dumps({tag: res}))
+    # f32 on both sides; only summation orders differ
+    if abs(losses[None] - losses["cpu"]) > 1e-5 * abs(losses["cpu"]):
+        fail(f"{tag}: the float32 training step's loss on cuda disagrees with the CPU's")
+    # Adam's first step moves a weight by the rate times its gradient's sign,
+    # whatever the gradient's size: where a gradient is at the level of f32
+    # rounding, summation order decides the sign, and such an element differs
+    # by twice the rate. Every element is within that; all but a thousandth
+    # within rtol 1e-4 / atol 1e-6
+    if worst > 2 * lr * (1 + 1e-3) or n_off > 1e-3 * n_all:
+        fail(f"{tag}: the float32 training step's parameters on cuda disagree with the CPU's")
+    return res
+
+
 def step_against_cpu(ds) -> dict:
     """Phase 4b: one float32 training step on the card against the same step
     on the CPU, from the same state (the same seed) on the same batch."""
@@ -463,29 +611,7 @@ def step_against_cpu(ds) -> dict:
         trainer.init_state(batch, 4)
         losses[device] = float(trainer.train_step(batch))
         states[device] = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    lr = 1e-4  # the first step's rate
-    n_all = n_off = 0
-    worst = 0.0
-    for name, want in states["cpu"].items():
-        err = (states[None][name] - want).abs()
-        worst = max(worst, float(err.max()))
-        n_off += int((err > 1e-6 + 1e-4 * want.abs()).sum())
-        n_all += err.numel()
-    res = {"loss_cuda": losses[None], "loss_cpu": losses["cpu"], "loss_rtol": 1e-5,
-           "max_abs_param_diff": worst, "limit_abs_param_diff": 2 * lr,
-           "params_outside_rtol_1e-4": n_off, "params": n_all, "limit_share_outside": 1e-3}
-    print(json.dumps({"train_step_cuda_vs_cpu": res}))
-    # f32 on both sides; only summation orders differ
-    if abs(losses[None] - losses["cpu"]) > 1e-5 * abs(losses["cpu"]):
-        fail("the float32 training step's loss on cuda disagrees with the CPU's")
-    # Adam's first step moves a weight by the rate times its gradient's sign,
-    # whatever the gradient's size: where a gradient is at the level of f32
-    # rounding, summation order decides the sign, and such an element differs
-    # by twice the rate. Every element is within that; all but a thousandth
-    # within rtol 1e-4 / atol 1e-6
-    if worst > 2 * lr * (1 + 1e-3) or n_off > 1e-3 * n_all:
-        fail("the float32 training step's parameters on cuda disagree with the CPU's")
-    return res
+    return compare_steps(states, losses, "train_step_cuda_vs_cpu")
 
 
 def repeated_fits(ds) -> dict:
@@ -506,6 +632,120 @@ def repeated_fits(ds) -> dict:
     print(json.dumps({"repeated_bfloat16_fits": res}))
     if not res["equal"] or not all(map(math.isfinite, histories[0])):
         fail("two bfloat16 fits from one seed gave different loss histories")
+    return res
+
+
+def dropout_path(ds) -> tuple[dict, dict]:
+    """Phase 5a: the per-iteration path. The default model with dropout 0.1
+    in bfloat16 through ``Trainer.fit``, ``predict`` and ``predict_mc_dropout``
+    on cuda; a second fit from the same seed; a third with ``fused_bwd`` and
+    ``grad_w`` on. Each fit's launches are counted on their own."""
+    import numpy as np
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.ops import LAUNCHES
+    from chemprop_tpu_torch.train import Trainer
+
+    def fit(**options):
+        trainer = Trainer(default_model(torch.bfloat16, 0.1, **options), max_epochs=30,
+                          warmup_epochs=2, seed=12)
+        trainer.fit(DataLoader(ds, batch_size=32, shuffle=True, seed=3))
+        return trainer, [h["train_loss"] for h in trainer.history]
+
+    launches = {}
+    LAUNCHES.clear()
+    trainer, losses = fit()
+    eval_loader = DataLoader(ds, batch_size=32)
+    preds = trainer.predict(eval_loader)
+    val = trainer.evaluate(eval_loader)
+    mc = trainer.predict_mc_dropout(eval_loader, sampling_size=8, seed=1)
+    launches["train_dropout_bfloat16"] = dict(LAUNCHES)
+    check_path_launches("train_dropout_bfloat16", launches["train_dropout_bfloat16"], exact=False)
+    # evaluation draws no mask: the training generator has moved on since (the
+    # Monte-Carlo passes drew from their own), and another seed changes nothing
+    trainer.state.rng.manual_seed(99)
+    if not (np.array_equal(preds, trainer.predict(eval_loader))
+            and val == trainer.evaluate(eval_loader)):
+        fail("evaluation of the dropout model depends on the dropout generator")
+    mc_again = trainer.predict_mc_dropout(eval_loader, sampling_size=8, seed=1)
+    spread = mc.std(axis=0)
+    mse = float(np.mean((preds[:, 0] - ds.Y[:, 0]) ** 2))
+    res = {"epochs": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
+           "val_loss": val, "train_mse_running_statistics": mse,
+           "mc_shape": list(mc.shape), "mc_mean_spread": float(spread.mean()),
+           "mc_mean_vs_predict_rmse": float(np.sqrt(np.mean((mc.mean(axis=0) - preds) ** 2))),
+           "launches": launches["train_dropout_bfloat16"]}
+    if not all(map(math.isfinite, losses)) or not losses[-1] < 0.5 * losses[0]:
+        fail(f"the dropout fit's loss did not fall: {losses[0]} -> {losses[-1]}")
+    if mc.shape != (8, len(ds), 1) or not np.isfinite(mc).all() or not np.array_equal(mc, mc_again):
+        fail("predict_mc_dropout: wrong shape, non-finite values or not reproducible")
+    # the samples differ, and their mean stays within the targets' spread (1
+    # after normalisation) of the deterministic prediction
+    if not (spread > 0).all() or res["mc_mean_vs_predict_rmse"] > 1.0:
+        fail(f"predict_mc_dropout: spread {spread.min()} or mean off the prediction")
+
+    _, again = fit()
+    res["repeated_fit_equal"] = again == losses
+    if again != losses:
+        fail("two dropout fits from one seed gave different loss histories")
+
+    LAUNCHES.clear()
+    _, fused = fit(fused_bwd=True, grad_w=True)
+    name = "train_dropout_bfloat16_fused_bwd_grad_w"
+    launches[name] = dict(LAUNCHES)
+    check_path_launches(name, launches[name], exact=False)
+    # the same masks and the same G; dH and dW are summed in another order, so
+    # a bf16 value rounds the other way now and then, and training amplifies
+    # that from epoch to epoch: the first three epochs' losses within 2%, the
+    # mean of the last five within 25%
+    rel = [abs(a - b) / abs(a) for a, b in zip(losses, fused)]
+    tails = [sum(x[-5:]) / 5 for x in (losses, fused)]
+    res["fused_bwd_grad_w"] = {"last_loss": fused[-1], "max_rel_diff_first_3_epochs": max(rel[:3]),
+                               "max_rel_diff": max(rel), "mean_of_last_5": tails,
+                               "launches": launches[name]}
+    print(json.dumps({"dropout_path": res}))
+    if (not all(map(math.isfinite, fused)) or max(rel[:3]) > 0.02
+            or abs(tails[0] - tails[1]) > 0.25 * tails[0]):
+        fail("the fit with fused_bwd and grad_w leaves the tolerance of the fit without")
+    return launches, res
+
+
+def dropout_step_against_cpu(ds) -> dict:
+    """Phase 5b: one float32 training step with dropout 0.1 on the card
+    against the same step on the CPU. The two devices' generators give other
+    streams, so the masks are made on the CPU from one seed and copied."""
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.nn import utils as nn_utils
+    from chemprop_tpu_torch.train import Trainer
+
+    batch = next(iter(DataLoader(ds, batch_size=32)))
+    draw, masks = nn_utils.dropout_mask, []
+    cpu_gen = torch.Generator().manual_seed(7)
+
+    def record(shape, rate, generator, device):
+        masks.append(draw(shape, rate, cpu_gen, torch.device("cpu")))
+        return masks[-1]
+
+    states, losses = {}, {}
+    try:
+        for device in ("cpu", None):
+            replay = list(masks)
+            nn_utils.dropout_mask = record if device == "cpu" else (
+                lambda shape, rate, generator, dev: replay.pop(0).to(dev))
+            trainer = Trainer(default_model(torch.float32, 0.1), max_epochs=50, warmup_epochs=2,
+                              seed=12, device=device)
+            trainer.init_state(batch, 4)
+            losses[device] = float(trainer.train_step(batch))
+            states[device] = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    finally:
+        nn_utils.dropout_mask = draw
+    if len(masks) != 4 or replay:  # two iterations, the node table, the head
+        fail(f"the dropout step drew {len(masks)} masks on the CPU, {len(replay)} left on the card")
+    res = compare_steps(states, losses, "train_dropout_step_cuda_vs_cpu")
+    res["masks"] = len(masks)
     return res
 
 
@@ -535,13 +775,14 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     import torch
 
     from chemprop_tpu_torch.ops import (
-        bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, message, row_gather,
-        sorted_segment_sum,
+        bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, fused_iter2, grad_weight,
+        iter_bwd, message, row_gather, sorted_segment_sum,
     )
     from chemprop_tpu_torch.ops.gather import row_gather_plain
+    from chemprop_tpu_torch.ops.grad_weight import grad_weight_plain
     from chemprop_tpu_torch.ops.message import (
         bwd_message_nodes_plain, bwd_message_plain, bwd_message_premul_plain,
-        fused_iter_plain, message_plain,
+        fused_iter2_plain, fused_iter_plain, iter_bwd_plain, message_plain,
     )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_plain
 
@@ -566,6 +807,11 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         ms=time_ms(lambda: message(t["H32"], *graph), reps),
         plain_ms=time_ms(lambda: message_plain(t["H32"], *graph), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="float32",
+        bfloat16=dict(  # as the composed path of a non-ReLU or undirected model calls it
+            ms=time_ms(lambda: message(t["H"], *graph), reps),
+            plain_ms=time_ms(lambda: message_plain(t["H"], *graph), reps),
+            bound_ms=bound(2 * n_e * d * 2 + ids_bytes, adds, f32_peak)[0],
+        ),
     )
     # fused iteration, bf16: H and H0 read, y written, W read once; the
     # message adds and the product of the real rows' messages with W
@@ -636,6 +882,47 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         library_ms=time_ms(lambda: torch.index_select(t["Mg"], 0, batch64), reps),
         bound_ms=b_ms, bound_by=b_by, shape=[n_v, d], dtype="bfloat16",
     )
+    # D, bf16: H0 read, y1 and y2 written, W and the tile table read once; two
+    # products of the real rows' messages with W. Beside it the two fused_iter
+    # launches it stands for
+    n_tiles = bmg.tile_ptr.numel() - 1
+    b_ms, b_by = bound(3 * n_e * d * 2 + d * d * 2 + ids_bytes + 4 * (n_tiles + 1),
+                       4 * n_real * d * d, bf16_peak)
+
+    def two_iters():
+        y1 = fused_iter(t["H0"], t["H0"], t["W"], None, *graph, relu_stream=True)
+        return fused_iter(y1, t["H0"], t["W"], None, *graph)
+
+    out["fused_iter2"] = dict(
+        ms=time_ms(lambda: fused_iter2(t["H0"], t["W"], None, *graph, bmg.tile_ptr), reps),
+        plain_ms=time_ms(lambda: fused_iter2_plain(t["H0"], t["W"], None, *graph), reps),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+        two_fused_iter_ms=time_ms(two_iters, reps), tiles=n_tiles,
+    )
+    # E, bf16: g, y and H read, dH and gz written, W read and dW written once;
+    # the two products of the real rows. Beside it what it stands for: the
+    # masked transposed message, then G W^T and H^T G as library products
+    b_ms, b_by = bound(5 * n_e * d * 2 + d * d * 2 + d * d * 4 + f_ids, 4 * n_real * d * d,
+                       bf16_peak)
+
+    def composed_bwd():
+        G, gz = bwd_message(t["gb"], t["yb"], *graph)
+        return G @ t["W"].t(), gz, grad_weight(t["Hx"], G)
+
+    out["iter_bwd"] = dict(
+        ms=time_ms(lambda: iter_bwd(t["gb"], t["yb"], t["Hx"], t["W"], *graph), reps),
+        plain_ms=time_ms(lambda: iter_bwd_plain(t["gb"], t["yb"], t["Hx"], t["W"], *graph), reps),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+        composed_ms=time_ms(composed_bwd, reps),
+    )
+    # J, bf16: X and G read, the [d, d] f32 product written
+    b_ms, b_by = bound(2 * n_e * d * 2 + d * d * 4, 2 * n_e * d * d, bf16_peak)
+    out["grad_weight"] = dict(
+        ms=time_ms(lambda: grad_weight(t["Hx"], t["Gt"], use_kernel=True), reps),
+        plain_ms=time_ms(lambda: grad_weight_plain(t["Hx"], t["Gt"]), reps),
+        library_ms=time_ms(lambda: torch.mm(t["Hx"].t(), t["Gt"], out_dtype=torch.float32), reps),
+        bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+    )
     return out
 
 
@@ -665,17 +952,18 @@ def forward_rate(bmg, reps: int) -> dict:
 
 
 def train_rate(batch, reps: int) -> dict:
-    """Each dtype's launches in one training step on the benchmark batch
-    (counted on their own, and held to the expected counts), then the step's
-    time and molecules per second (the batch lies on the card already)."""
+    """The launches of one training step on the benchmark batch (counted on
+    their own, and held to the expected counts) and the step's time and
+    molecules per second (the batch lies on the card already): each dtype,
+    then bfloat16 with each opt-in kernel on, and the step with dropout."""
     import torch
 
     from chemprop_tpu_torch.ops import LAUNCHES
     from chemprop_tpu_torch.train import Trainer
 
     rates = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        trainer = Trainer(default_model(dt), seed=0)
+    for name, (dtype, rate, options) in STEPS.items():
+        trainer = Trainer(default_model(getattr(torch, dtype), rate, **options), seed=0)
         trainer.init_state(batch, 1)
         trainer.train_step(batch)
         LAUNCHES.clear()
@@ -735,6 +1023,9 @@ def main() -> int:
     launches.update(train_launches)
     step_res = step_against_cpu(ds)
     repeat_res = repeated_fits(ds)
+    dropout_launches, dropout_res = dropout_path(ds)
+    launches.update(dropout_launches)
+    dropout_step_res = dropout_step_against_cpu(ds)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     rates = forward_rate(bmg, args.reps)
@@ -757,7 +1048,9 @@ def main() -> int:
         ))
     record = {"card": card, "kind": kind, "build_s": build_s, "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
-              "repeated_bfloat16_fits": repeat_res, "forward": rates, "train_step": step_rates,
+              "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
+              "train_dropout_step_cuda_vs_cpu": dropout_step_res, "forward": rates,
+              "train_step": step_rates,
               "kernels": kernels}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -2,12 +2,15 @@
 """Where the time of the PyTorch/CUDA port's training step goes, on one GPU.
 
     python3 experiments/torch_train_profile.py [--steps 10] [--runs 3]
+        [--dropout 0.1] [--options fused_bwd,grad_w]
 
 Builds the benchmark batch (2048 molecules of
 tests/data/regression/mol/mol.csv, tiled, with their normalised targets, as
 ``chip_smoke.py`` does) and the default model at full width (hidden width 300
 padded to 384, depth 3, mean readout, batch norm, regression head) in float32
-and in bfloat16, and runs ``Trainer.train_step`` on it. Each of ``--runs``
+and in bfloat16, and runs ``Trainer.train_step`` on it; ``--dropout`` above 0
+gives the step of the per-iteration path, ``--options`` turns opt-in kernels
+on. Each of ``--runs``
 runs times ``--steps`` steps on the host clock (around work that ends in
 ``torch.cuda.synchronize()``); then, for each run, as many steps are traced
 with ``torch.profiler`` and the device time of the traced kernels is summed:
@@ -22,7 +25,8 @@ summary takes the median.
 It prints one JSON line per dtype: wall and device ms per step, the idle
 share of each run and their median, and the kernels by device time, with the
 port's own kernels grouped under their wrappers' names. The full table goes
-to chiprun_out/train_profile.json."""
+to chiprun_out/train_profile.json (with ``--dropout`` or ``--options``:
+train_profile_<rate>_<options>.json)."""
 
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from chemprop_tpu_torch.nn import (  # noqa: E402
     MeanAggregation,
     RegressionFFN,
 )
+from chemprop_tpu_torch.ops import KernelOptions  # noqa: E402
 from chemprop_tpu_torch.train import Trainer  # noqa: E402
 
 MOL_CSV = REPO / "tests/data/regression/mol/mol.csv"
@@ -63,6 +68,11 @@ OWN_KERNELS = {
     "premul_mask_kernel": "H bwd_message_premul (product and mask)",
     "bwd_message_kernel": "F/G/H node pass (bwd_message*)",
     "row_gather_kernel": "I row_gather",
+    "fused_iter2_kernel": "D fused_iter2",
+    "iter_bwd_dh_kernel": "E iter_bwd (G, dH, gz)",
+    "iter_bwd_dw_kernel": "E iter_bwd (dW partials)",
+    "grad_weight_kernel": "J grad_weight (partials)",
+    "xtg_reduce_kernel": "E/J ordered reduction of the partials",
 }
 
 
@@ -120,6 +130,10 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--runs", type=int, default=3, help="profiled runs per dtype (>= 3)")
     ap.add_argument("--molecules", type=int, default=2048)
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="dropout rate: above 0 the step takes the per-iteration ops")
+    ap.add_argument("--options", default="",
+                    help="comma-separated opt-in kernels: iter2, fused_bwd, grad_w")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -130,13 +144,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     batch = benchmark_batch(args.molecules)
-    report = {"card": card, "molecules": args.molecules, "steps": args.steps}
+    options = KernelOptions(**{name: True for name in args.options.split(",") if name})
+    report = {"card": card, "molecules": args.molecules, "steps": args.steps,
+              "dropout": args.dropout, "options": args.options}
     trainers, walls = {}, {}
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         model = MPNN(
-            BondMessagePassing(compute_dtype=dt),
+            BondMessagePassing(compute_dtype=dt, dropout=args.dropout, kernel_options=options),
             MeanAggregation(),
-            RegressionFFN(output_transform=False),
+            RegressionFFN(output_transform=False, dropout=args.dropout),
             batch_norm=True,
         )
         trainer = Trainer(model, seed=0)
@@ -161,7 +177,8 @@ def main() -> int:
         report[name] = dict(summary, runs=runs)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "train_profile.json").write_text(json.dumps(report, indent=1))
+    tag = f"_{args.dropout}_{args.options.replace(',', '+')}" if args.dropout or args.options else ""
+    (out / f"train_profile{tag}.json").write_text(json.dumps(report, indent=1))
     return 0
 
 

@@ -21,22 +21,33 @@ from chemprop_tpu_torch.featurizers import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.models import load_model
 from chemprop_tpu_torch.ops import (
     LAUNCHES,
+    UNSERVED,
+    KernelOptions,
     bwd_message,
     bwd_message_nodes,
     bwd_message_premul,
+    first_iter,
     fused_iter,
+    fused_iter2,
+    grad_weight,
+    iter_bwd,
     loop_readout,
     message,
+    message_iter,
     row_gather,
     sorted_segment_sum,
     sorted_segment_sum_counts,
 )
 from chemprop_tpu_torch.ops.gather import row_gather_plain
+from chemprop_tpu_torch.ops.grad_weight import grad_weight_plain, matmul
 from chemprop_tpu_torch.ops.message import (
+    ITER2_TILE_ROWS,
     bwd_message_nodes_plain,
     bwd_message_plain,
     bwd_message_premul_plain,
+    fused_iter2_plain,
     fused_iter_plain,
+    iter_bwd_plain,
     message_plain,
 )
 from chemprop_tpu_torch.ops.segment import KERNEL_DTYPES, sorted_segment_sum_plain
@@ -83,14 +94,18 @@ def _randn(shape, seed, device, dtype=torch.float32, scale=1.0):
 
 
 @pytest.mark.parametrize("d", [128, 384])
-def test_message_matches_plain(bmg, cuda, d):
-    H = _randn((bmg.E.shape[0], d), 0, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_message_matches_plain(bmg, cuda, d, dtype):
+    H = _randn((bmg.E.shape[0], d), 0, cuda, dtype)
     before = LAUNCHES["message"]
     got = message(H, *_graph(bmg))
-    assert LAUNCHES["message"] == before + 1
+    assert LAUNCHES["message"] == before + 1 and got.dtype == dtype
     want = message_plain(H, *_graph(bmg))
-    # only the summation order differs
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # float32: only the summation order differs; bfloat16: f32 sums rounded
+    # once, a sum in another order may round to the neighbouring value
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_ULP, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    assert not got[_pad_rows(bmg)].any()  # exact zeros
 
 
 @pytest.mark.parametrize("d", [128, 384])
@@ -152,8 +167,8 @@ def test_cuda_wrappers_raise_instead_of_falling_back(bmg, cuda):
         fused_iter(H, H, torch.zeros((128, 128), device=cuda), None, *_graph(bmg))
     with pytest.raises(ValueError):
         message(H[:, :6], *_graph(bmg))  # not contiguous
-    with pytest.raises(TypeError):  # the kernel is float32 only
-        message(H.to(torch.bfloat16), *_graph(bmg))
+    with pytest.raises(TypeError):  # float32 and bfloat16 only
+        message(H.to(torch.float16), *_graph(bmg))
     with pytest.raises(TypeError):  # no readout sums float32 into bfloat16
         sorted_segment_sum(H, bmg.dst, bmg.edge_ptr, torch.bfloat16)
 
@@ -324,3 +339,237 @@ def test_loop_readout_gradients_on_card_match_cpu(bmg, cuda, dtype, depth):
         else:  # a bf16 ulp in a saved y may flip a ReLU mask downstream
             err = (g - w).abs()
             assert float(err.max()) <= 0.05 * scale and float(err.mean()) <= 2e-3 * scale
+
+
+# ------------------------------------------- fused_iter2, iter_bwd, grad_weight
+def _big_bmg(device):
+    """A batch with one molecule of more edge rows than a tile holds."""
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    mgs = [feat(make_mol(s)) for s in SMIS[:3] + ["C" * 70] + SMIS[3:5]]
+    assert max(mg.E.shape[0] for mg in mgs) > ITER2_TILE_ROWS
+    return batch_mol_graphs(mgs).to(device)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("bias", [False, True])
+def test_fused_iter2_equals_two_launches(any_bmg, cuda, bias, d):
+    b = any_bmg
+    n = b.E.shape[0]
+    H0 = _randn((n, d), 30, cuda, torch.bfloat16)
+    W = _randn((d, d), 31, cuda, torch.bfloat16, scale=d**-0.5)
+    bb = _randn((d,), 32, cuda, torch.bfloat16) if bias else None
+    assert b.tile_ptr is not None and int(b.tile_ptr[-1]) == n
+    assert int((b.tile_ptr[1:] - b.tile_ptr[:-1]).max()) <= ITER2_TILE_ROWS
+    before = LAUNCHES["fused_iter2"], LAUNCHES["fused_iter"]
+    y1, y2 = fused_iter2(H0, W, bb, *_graph(b), b.tile_ptr)
+    assert (LAUNCHES["fused_iter2"], LAUNCHES["fused_iter"]) == (before[0] + 1, before[1])
+    w1 = fused_iter(H0, H0, W, bb, *_graph(b), relu_stream=True)
+    w2 = fused_iter(w1, H0, W, bb, *_graph(b))
+    assert torch.equal(y1, w1) and torch.equal(y2, w2)  # every row, bit for bit
+    p1, p2 = fused_iter2_plain(H0, W, bb, *_graph(b))
+    torch.testing.assert_close(y1.float(), p1.float(), rtol=2 * BF16_ULP, atol=0.02)
+    # y1's own ulp passes through the second message and W
+    torch.testing.assert_close(y2.float(), p2.float(), rtol=2 * BF16_ULP, atol=0.1)
+
+
+def test_fused_iter2_tiles_with_an_empty_tail_and_zero_padding(bmg, cuda):
+    n, d = bmg.E.shape[0], 128
+    H0 = _randn((n, d), 33, cuda, torch.bfloat16)
+    H0[_pad_rows(bmg)] = 0  # as W_i leaves them without a bias
+    W = _randn((d, d), 34, cuda, torch.bfloat16, scale=d**-0.5)
+    tiles = torch.cat([bmg.tile_ptr, bmg.tile_ptr[-1:]])  # a last tile of no rows
+    y1, y2 = fused_iter2(H0, W, None, *_graph(bmg), tiles)
+    w1, w2 = fused_iter2(H0, W, None, *_graph(bmg), bmg.tile_ptr)
+    assert torch.equal(y1, w1) and torch.equal(y2, w2)
+    assert not y1[_pad_rows(bmg)].any() and not y2[_pad_rows(bmg)].any()
+
+
+def test_loop_readout_iter2_and_the_molecule_larger_than_a_tile(bmg, cuda):
+    d, depth = 128, 3
+    on = KernelOptions(iter2=True)
+    for b, served in ((bmg, True), (_big_bmg(cuda), False)):
+        assert (b.tile_ptr is not None) == served
+        H0 = _randn((b.E.shape[0], d), 35, cuda, torch.bfloat16)
+        W = _randn((d, d), 36, cuda, torch.bfloat16, scale=d**-0.5)
+        want = loop_readout(H0, W, None, *_graph(b), depth)
+        LAUNCHES.clear()
+        UNSERVED.clear()
+        got = loop_readout(H0, W, None, *_graph(b), depth, on, b.tile_ptr)
+        assert torch.equal(got, want)
+        if served:
+            assert LAUNCHES["fused_iter2"] == 1 and LAUNCHES["fused_iter"] == 0
+            assert UNSERVED["fused_iter2"] == 0
+        else:
+            assert LAUNCHES["fused_iter2"] == 0 and LAUNCHES["fused_iter"] == 2
+            assert UNSERVED["fused_iter2"] == 1
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_iter_bwd_matches_plain(any_bmg, cuda, d):
+    b = any_bmg
+    n = b.E.shape[0]
+    g = _randn((n, d), 40, cuda, torch.bfloat16)
+    y = _randn((n, d), 41, cuda, torch.bfloat16).clamp_min(0)
+    H = _randn((n, d), 42, cuda, torch.bfloat16)  # padding rows not zero: they must not count
+    W = _randn((d, d), 43, cuda, torch.bfloat16, scale=d**-0.5)
+    before = LAUNCHES["iter_bwd"]
+    dH, gz, dW = iter_bwd(g, y, H, W, *_graph(b))
+    assert LAUNCHES["iter_bwd"] == before + 1 and dW.dtype == torch.float32
+    want_dH, want_gz, want_dW = iter_bwd_plain(g, y, H, W, *_graph(b))
+    assert torch.equal(gz, want_gz)  # a masked copy
+    # G may round to the neighbouring bf16 value where the f32 sums differ in
+    # their last bit; through W^T that moves dH by a fraction of an ulp of its
+    # terms, and dH rounds once more
+    torch.testing.assert_close(dH.float(), want_dH.float(), rtol=2 * BF16_ULP, atol=0.1)
+    # dW sums n products in f32 in another order
+    scale = float(want_dW.abs().max())
+    torch.testing.assert_close(dW, want_dW, rtol=1e-3, atol=1e-3 * scale)
+    # G itself equals bwd_message's, so dW equals the plain product of that G
+    G, _ = bwd_message(g, y, *_graph(b))
+    exact = H.float().masked_fill(_pad_rows(b)[:, None], 0).t() @ G.float()
+    torch.testing.assert_close(dW, exact, rtol=1e-4, atol=1e-4 * scale)
+    pad = _pad_rows(b)
+    assert not dH[pad].any() and not gz[pad].any()
+    for _ in range(2):  # fixed partition, ordered reduction: the same bits
+        again = iter_bwd(g, y, H, W, *_graph(b))
+        assert all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW)))
+
+
+@pytest.mark.parametrize("n,dx,dg", [(768, 128, 128), (1000, 384, 384), (37, 128, 384),
+                                     (5000, 384, 128), (0, 128, 128)])
+def test_grad_weight_matches_plain(cuda, n, dx, dg):
+    X = _randn((n, dx), 50, cuda, torch.bfloat16)
+    G = _randn((n, dg), 51, cuda, torch.bfloat16)
+    before = LAUNCHES["grad_weight"]
+    got = grad_weight(X, G, use_kernel=True)
+    assert LAUNCHES["grad_weight"] == before + 1
+    assert got.shape == (dx, dg) and got.dtype == torch.float32
+    want = grad_weight_plain(X, G)
+    # exact bf16 products summed in f32 in another order
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * (1 + n**0.5))
+    assert torch.equal(got, grad_weight(X, G, use_kernel=True))
+    # without the kernel it is one library product and no launch
+    lib = grad_weight(X, G)
+    assert LAUNCHES["grad_weight"] == before + 2
+    torch.testing.assert_close(lib, want, rtol=1e-4, atol=1e-4 * (1 + n**0.5))
+
+
+def test_matmul_routes_its_kernel_gradient(cuda):
+    x = _randn((512, 128), 52, cuda, torch.bfloat16).requires_grad_()
+    k = _randn((128, 256), 53, cuda, torch.bfloat16, scale=0.1).requires_grad_()
+    c = _randn((512, 256), 54, cuda, torch.bfloat16)
+    before = LAUNCHES["grad_weight"]
+    gx, gk = torch.autograd.grad(matmul(x, k, use_kernel=True), [x, k], c)
+    assert LAUNCHES["grad_weight"] == before + 1
+    wx, wk = torch.autograd.grad(x @ k, [x, k], c)
+    torch.testing.assert_close(gx.float(), wx.float(), rtol=BF16_ULP, atol=1e-2)
+    torch.testing.assert_close(gk.float(), wk.float(), rtol=2 * BF16_ULP, atol=0.05)
+
+
+def test_new_wrappers_raise_instead_of_falling_back(bmg, cuda):
+    n = bmg.E.shape[0]
+    z = torch.zeros((n, 128), dtype=torch.bfloat16, device=cuda)
+    W = torch.zeros((128, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):  # float32 tables
+        grad_weight(z.float(), z.float(), use_kernel=True)
+    with pytest.raises(ValueError):  # width not a multiple of 128
+        grad_weight(z[:, :64].contiguous(), z, use_kernel=True)
+    with pytest.raises(ValueError):  # not contiguous
+        grad_weight(z.t()[:, :128], z[:128], use_kernel=True)
+    with pytest.raises(TypeError):
+        iter_bwd(z.float(), z.float(), z.float(), W.float(), *_graph(bmg))
+    with pytest.raises(ValueError):  # rows 8 bytes off a 16-byte boundary
+        off = torch.zeros(n * 128 + 4, dtype=torch.bfloat16, device=cuda)[4:].view(n, 128)
+        iter_bwd(off, z, z, W, *_graph(bmg))
+    with pytest.raises(ValueError):  # the tile table on another device
+        fused_iter2(z, W, None, *_graph(bmg), bmg.tile_ptr.cpu())
+    with pytest.raises(ValueError):  # int64 tiles
+        fused_iter2(z, W, None, *_graph(bmg), bmg.tile_ptr.long())
+    with pytest.raises(TypeError):
+        fused_iter2(z.float(), W.float(), None, *_graph(bmg), bmg.tile_ptr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("opts", [KernelOptions(), KernelOptions(fused_bwd=True, grad_w=True)],
+                         ids=["default", "fused_bwd+grad_w"])
+def test_iteration_ops_gradients_on_card_match_cpu(bmg, cuda, dtype, bias, opts):
+    """first_iter then message_iter through their hand-written backwards on
+    the card against the same ops on the CPU's plain versions, and the
+    launches each option makes."""
+    d = 128
+    n = bmg.E.shape[0]
+    H0 = _randn((n, d), 60, cuda, dtype)
+    H0[_pad_rows(bmg)] = 0
+    W = _randn((d, d), 61, cuda, dtype, scale=d**-0.5)
+    bb = _randn((d,), 62, cuda, dtype, scale=0.1) if bias else None
+    c = _randn((n, d), 63, cuda, dtype)
+    c[_pad_rows(bmg)] = 0
+    cpu = bmg.to("cpu")
+
+    def grads(H0, W, bb, c, b):
+        leaves = [t.clone().requires_grad_() for t in (H0, W) + ((bb,) if bias else ())]
+        bias_t = leaves[2] if bias else None
+        y = first_iter(leaves[0], leaves[1], bias_t, *_graph(b), opts)
+        y = message_iter(y, leaves[0], leaves[1], bias_t, *_graph(b), opts)
+        return torch.autograd.grad(y, leaves, c)
+
+    LAUNCHES.clear()
+    got = grads(H0, W, bb, c, bmg)
+    bf16 = dtype == torch.bfloat16
+    assert LAUNCHES["fused_iter" if bf16 else "message"] == 2
+    if bf16 and opts.fused_bwd:
+        assert LAUNCHES["iter_bwd"] == 1 and LAUNCHES["bwd_message"] == 1
+        assert LAUNCHES["grad_weight"] == 1  # iter_bwd forms its own dW
+    else:
+        assert LAUNCHES["iter_bwd"] == 0 and LAUNCHES["bwd_message"] == 2
+        assert LAUNCHES["grad_weight"] == (2 if bf16 and opts.grad_w else 0)
+    want = grads(H0.cpu(), W.cpu(), None if bb is None else bb.cpu(), c.cpu(), cpu)
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float()
+        scale = float(w.abs().max())
+        if dtype == torch.float32:  # summation order only
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * scale)
+        else:  # a bf16 ulp in a saved y may flip a ReLU mask downstream
+            err = (g - w).abs()
+            assert float(err.max()) <= 0.05 * scale and float(err.mean()) <= 2e-3 * scale
+
+
+@pytest.mark.parametrize("kwargs", [dict(dropout=0.2), dict(undirected=True), dict(bias=True),
+                                    dict(activation="tanh")], ids=lambda k: next(iter(k)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_message_passing_variants_on_card_match_cpu(bmg, cuda, dtype, kwargs):
+    """The module's other code paths run on the card in both dtypes and agree
+    with the CPU's plain versions; the dropout masks are made on the CPU from
+    one seed and copied (the two devices' generators give other streams)."""
+    from chemprop_tpu_torch.nn import BondMessagePassing
+    from chemprop_tpu_torch.nn import utils as nn_utils
+
+    mp = BondMessagePassing(d_h=64, compute_dtype=dtype, **kwargs)
+    torch.manual_seed(0)
+    for p in mp.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    draws = torch.Generator().manual_seed(5)
+    masks = []
+    real_mask = nn_utils.dropout_mask
+
+    def record(shape, rate, generator, device):
+        masks.append(real_mask(shape, rate, draws, torch.device("cpu")))
+        return masks[-1]
+
+    def replay(shape, rate, generator, device):
+        return replayed.pop(0).to(device)
+
+    nn_utils.dropout_mask = record
+    try:
+        want = mp(bmg.to("cpu"), is_training=True, generator=draws)
+        replayed = list(masks)
+        nn_utils.dropout_mask = replay
+        got = mp.to(cuda)(bmg, is_training=True, generator=draws).cpu()
+    finally:
+        nn_utils.dropout_mask = real_mask
+    real = bmg.node_mask.cpu()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-5)
+    else:
+        torch.testing.assert_close(got[real].float(), want[real].float(), rtol=0.05, atol=0.05)

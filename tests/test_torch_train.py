@@ -42,6 +42,16 @@ D_H = 64
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The test workers share the machine's cores: more than one intra-op
+    thread per worker only makes them wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def rows(data_dir):
     with open(data_dir / "regression" / "mol" / "mol.csv") as f:
@@ -353,5 +363,13 @@ def test_trainer_without_a_device_raises_here():
 
 
 def test_dropout_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        BondMessagePassing(dropout=0.1)
+    """It is now (tests/test_torch_dropout.py): the module takes a rate; what
+    it refuses is a rate outside [0, 1) and drawing without a generator."""
+    mp = BondMessagePassing(dropout=0.1)
+    assert mp.dropout == 0.1
+    with pytest.raises(ValueError):
+        BondMessagePassing(dropout=1.0)
+    bmg = next(iter(DataLoader(MoleculeDataset([MoleculeDatapoint.from_smi("CCO")]), 1))).bmg
+    with pytest.raises(ValueError):
+        mp(bmg, is_training=True)
+    assert torch.isfinite(mp(bmg, is_training=True, generator=torch.Generator())).all()
