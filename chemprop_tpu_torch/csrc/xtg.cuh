@@ -1,6 +1,7 @@
 // The tall-skinny product X^T G, [n x dx]^T [n x dg] -> [dx x dg] in float32,
-// shared by grad_weight.cu (both tables read from device memory) and by the
-// weight gradient of message_bwd.cu's iter_bwd (G formed on the fly).
+// for the weight gradient of message_bwd.cu's iter_bwd (G formed on the fly);
+// grad_weight.cu, whose tables both come from device memory, has its own
+// kernel on Hopper's TMA and wgmma.
 //
 // The output is tiny and the reduction runs over all n rows, so the rows are
 // split: block (i, j, s) accumulates the XT_TILE x XT_TILE tile (i, j) of the

@@ -24,7 +24,9 @@ then ``ops.message_iter``, with the dropout between them, and ``M_v`` a
 kernels (``ops/message.py``); in float32 the products are ``torch.matmul``,
 as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
-either dtype. The parameters stay float32 masters: the padded copies in the
+either dtype. With ``kernel_options.grad_w`` in bfloat16 W_i's weight
+gradient, and W_h's where ``iter_bwd`` does not form it, are ``grad_weight``
+kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
 compute dtype are made in every forward, so gradients flow through the pad
 and the cast."""
 
@@ -36,6 +38,7 @@ from torch import nn
 
 from chemprop_tpu_torch.data.collate import BatchMolGraph
 from chemprop_tpu_torch.nn.utils import Dropout, get_activation_function
+from chemprop_tpu_torch.ops.grad_weight import matmul
 from chemprop_tpu_torch.ops.message import first_iter, loop_readout, message, message_iter
 from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.ops.segment import sorted_segment_sum
@@ -108,9 +111,18 @@ class BondMessagePassing(nn.Module):
         ``generator``."""
         dt, dp, opts = self.compute_dtype, self.d_pad, self.kernel_options
         drop_on = (is_training or mc_dropout) and self.dropout > 0
-        W_i, b_i = self._padded(self.W_i, self.d_v + self.d_e, dp)
-        x = torch.cat([bmg.V.to(dt)[bmg.src.long()], bmg.E.to(dt)], dim=1)
-        H0 = x @ W_i
+        # with grad_w in bfloat16, [V[src] ; E] is zero-padded to a multiple of
+        # 128 columns and W_i's kernel takes zero rows there, as the JAX package
+        # pads them, so that dW_i = x^T g streams through the grad_weight kernel
+        gw_i = opts.grad_w and dt == torch.bfloat16
+        d_in = self.d_v + self.d_e
+        d_x = -(-d_in // 128) * 128 if gw_i else d_in
+        W_i, b_i = self._padded(self.W_i, d_x, dp)
+        parts = [bmg.V.to(dt)[bmg.src.long()], bmg.E.to(dt)]
+        if d_x != d_in:
+            parts.append(bmg.E.new_zeros((bmg.E.shape[0], d_x - d_in), dtype=dt))
+        x = torch.cat(parts, dim=1)
+        H0 = matmul(x, W_i, use_kernel=True) if gw_i else x @ W_i
         if b_i is not None:
             H0 = H0 + b_i
 

@@ -15,11 +15,13 @@ launch and took other kernels."""
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -48,7 +50,7 @@ SIGNATURES = {
         "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd_splits": [I],
     },
-    "grad_weight": {"grad_weight": [P, P, P, P, I, I, I, P], "grad_weight_splits": [I]},
+    "grad_weight": {"grad_weight": [P, P, P, P, I, I, I, P], "grad_weight_splits": [I, I, I]},
     "gather": {"row_gather": [P, P, P, I, I, I, P]},
     "segment": {
         "seg_sum": [P, P, P, P, P, P, I, I, I, I, I, P],
@@ -103,12 +105,31 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all() -> dict[str, str]:
+def build_all() -> dict[str, tuple[str, float]]:
     """Build every source in parallel (one ``nvcc`` each); returns each
-    build's compiler log (register and shared-memory use from ``-Xptxas -v``),
-    empty for a library that was already built."""
-    jobs = {name: _start(name) for name in SOURCES}
-    return {name: _finish(name, job) for name, job in jobs.items()}
+    build's compiler log (register and shared-memory use from ``-Xptxas -v``)
+    and its seconds, an empty log for a library that was already built."""
+
+    def build(name):
+        t0 = time.perf_counter()
+        log = _finish(name, _start(name))
+        return log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        done = {name: pool.submit(build, name) for name in SOURCES}
+    return {name: job.result() for name, job in done.items()}
+
+
+def sass_contains(name: str, opcodes: tuple[str, ...]) -> dict[str, bool] | None:
+    """Which of ``opcodes`` the machine code of ``csrc/<name>.cu``'s built
+    library holds (``cuobjdump -sass``); None where the toolkit has no
+    ``cuobjdump``."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_target(name))], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: op in sass for op in opcodes}
 
 
 def library(name: str) -> ctypes.CDLL:

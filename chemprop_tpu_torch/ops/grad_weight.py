@@ -13,6 +13,8 @@ order, so it gives the same bits in every run."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from chemprop_tpu_torch.ops.build import LAUNCHES, call, library
@@ -21,6 +23,12 @@ from chemprop_tpu_torch.ops.build import LAUNCHES, call, library
 def grad_weight_plain(X: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the kernel."""
     return X.float().t() @ G.float()
+
+
+@functools.lru_cache(maxsize=64)
+def _splits(lib, n: int, dx: int, dg: int) -> int:
+    """The kernel's partial sums for these shapes, fixed for the card."""
+    return lib.grad_weight_splits(n, dx, dg)
 
 
 def grad_weight(X: torch.Tensor, G: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
@@ -45,11 +53,11 @@ def grad_weight(X: torch.Tensor, G: torch.Tensor, use_kernel: bool = False) -> t
     if X.data_ptr() % 16 != 0 or G.data_ptr() % 16 != 0:
         raise ValueError("grad_weight needs 16-byte aligned tables")
     lib = library("grad_weight")
-    out = torch.empty((dx, dg), dtype=torch.float32, device=X.device)
-    partial = torch.empty((lib.grad_weight_splits(n), dx, dg), dtype=torch.float32, device=X.device)
-    call(lib, "grad_weight", X, G, partial, out, n, dx, dg)
+    # the output, then the kernel's partial sums, in one allocation
+    buf = torch.empty((1 + _splits(lib, n, dx, dg), dx, dg), dtype=torch.float32, device=X.device)
+    call(lib, "grad_weight", X, G, buf.data_ptr() + dx * dg * 4, buf, n, dx, dg)
     LAUNCHES["grad_weight"] += 1
-    return out
+    return buf[0]
 
 
 def matmul(x: torch.Tensor, k: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
@@ -71,4 +79,5 @@ class _MatMul(torch.autograd.Function):
         x, k = ctx.saved_tensors
         xf = x.reshape(-1, x.shape[-1]).contiguous()
         gf = g.reshape(-1, g.shape[-1]).contiguous()
-        return g @ k.t(), grad_weight(xf, gf, ctx.use_kernel).to(k.dtype), None
+        dx = g @ k.t() if ctx.needs_input_grad[0] else None
+        return dx, grad_weight(xf, gf, ctx.use_kernel).to(k.dtype), None

@@ -12,7 +12,10 @@ failure:
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes of the serving path's benchmark batch: 2048 molecules of
    tests/data/regression/mol/mol.csv, tiled (the batch ``bench.py`` builds),
-   hidden width 300 padded to 384;
+   hidden width 300 padded to 384; the weight-gradient kernel also at W_i's
+   shape (128 input columns), at a ragged and at a short table, each twice,
+   bit for bit, and its machine code read for ``wgmma`` and TMA
+   (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
    tests/data/example_model_v2_regression_mol.pt, on ``cuda`` in float32 and
@@ -39,7 +42,8 @@ failure:
 6. on the benchmark batch: the launches of one forward and of one training
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
-   function, where there is one; the forward's and the training step's
+   function, where there is one (the weight gradient at W_h's and W_i's
+   shapes); the forward's and the training step's
    molecules per second, and the step with each option on and off.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
@@ -150,28 +154,30 @@ PATH_KERNELS = {
     # dropout: the per-iteration ops, each with its own masked transposed
     # message; M_v's cotangent is a plain indexing, the mean readout's the row
     # gather. With fused_bwd the second iteration's backward is iter_bwd, which
-    # forms its own dW, so grad_w launches grad_weight for the first alone
+    # forms its own dW, so grad_w launches grad_weight for W_i and the first
+    # iteration alone
     "train_dropout_float32": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
     "train_dropout_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
                                "row_gather": 1},
     "train_dropout_bfloat16_fused_bwd_grad_w": {
         "fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 1, "iter_bwd": 1,
-        "grad_weight": 1, "row_gather": 1},
-    # iter2: the first two iterations are one launch; grad_w: both dW products
+        "grad_weight": 2, "row_gather": 1},
+    # iter2: the first two iterations are one launch; grad_w: W_i's dW product
+    # and W_h's two
     "train_bfloat16_iter2": {"fused_iter2": 1, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
                              "bwd_message_premul": 1, "row_gather": 1},
     "train_bfloat16_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
-                              "bwd_message_premul": 1, "row_gather": 1, "grad_weight": 2},
+                              "bwd_message_premul": 1, "row_gather": 1, "grad_weight": 3},
     "train_bfloat16_iter2_grad_w": {
         "fused_iter2": 1, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
-        "bwd_message_premul": 1, "row_gather": 1, "grad_weight": 2},
+        "bwd_message_premul": 1, "row_gather": 1, "grad_weight": 3},
     # fused_readout off: the per-iteration ops without dropout
     "train_bfloat16_per_iteration": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
                                      "row_gather": 1},
     "train_dropout_bfloat16_fused_bwd": {"fused_iter": 2, "sorted_segment_sum": 2,
                                          "bwd_message": 1, "iter_bwd": 1, "row_gather": 1},
     "train_dropout_bfloat16_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
-                                      "grad_weight": 2, "row_gather": 1},
+                                      "grad_weight": 3, "row_gather": 1},
 }
 # the training steps timed and counted on the benchmark batch: dtype, dropout
 # rate and opt-in kernels; each is held to PATH_KERNELS["train_" + name]
@@ -413,16 +419,23 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     again = iter_bwd(gb, yb, Hx, W, *graph)
     if not all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW))):
         fail("iter_bwd: two runs differ")
-    # J: exact bf16 products summed in f32 in another order
+    # J: exact bf16 products summed in f32 in another order. At W_h's shape
+    # (the edge tables), at W_i's (the [V[src] ; E] table, 86 columns padded
+    # to 128), at a ragged n (not a multiple of the 64-row step) and at an n
+    # smaller than one row split; each the same bits over two runs
     Gt = bwd_message(gb, yb, *graph)[0]
-    dWj = grad_weight(Hx, Gt, use_kernel=True)
-    check("grad_weight", dWj, grad_weight_plain(Hx, Gt), 1e-5, 1e-3, errs,
-          Hx.float().abs().t() @ Gt.float().abs())
-    if not torch.equal(dWj, grad_weight(Hx, Gt, use_kernel=True)):
-        fail("grad_weight: two runs differ")
+    Xi = torch.randn((n_e, 128), generator=g, device=dev).to(torch.bfloat16)
+    for tag, X, Gj in (("grad_weight", Hx, Gt), ("grad_weight[W_i]", Xi, Gt),
+                       ("grad_weight[ragged]", Hx[: n_e - 37], Gt[: n_e - 37]),
+                       ("grad_weight[short]", Xi[:1000], Gt[:1000])):
+        dWj = grad_weight(X, Gj, use_kernel=True)
+        check(tag, dWj, grad_weight_plain(X, Gj), 1e-5, 1e-3, errs,
+              X.float().abs().t() @ Gj.float().abs())
+        if not torch.equal(dWj, grad_weight(X, Gj, use_kernel=True)):
+            fail(f"{tag}: two runs differ")
     torch.cuda.synchronize()
     tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, g32=g32, y32=y32, acc32=acc32, gb=gb, yb=yb,
-                   g_nodes=g_nodes, Mg=Mg, Hx=Hx, Gt=Gt)
+                   g_nodes=g_nodes, Mg=Mg, Hx=Hx, Gt=Gt, Xi=Xi)
     return tensors, errs
 
 
@@ -915,14 +928,21 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
         composed_ms=time_ms(composed_bwd, reps),
     )
-    # J, bf16: X and G read, the [d, d] f32 product written
-    b_ms, b_by = bound(2 * n_e * d * 2 + d * d * 4, 2 * n_e * d * d, bf16_peak)
-    out["grad_weight"] = dict(
-        ms=time_ms(lambda: grad_weight(t["Hx"], t["Gt"], use_kernel=True), reps),
-        plain_ms=time_ms(lambda: grad_weight_plain(t["Hx"], t["Gt"]), reps),
-        library_ms=time_ms(lambda: torch.mm(t["Hx"].t(), t["Gt"], out_dtype=torch.float32), reps),
-        bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
-    )
+    # J, bf16: X and G read, the [dx, d] f32 product written; at W_h's shape
+    # and, nested, at W_i's
+    def grad_weight_times(X, G):
+        dx = X.shape[1]
+        b_ms, b_by = bound(n_e * (dx + d) * 2 + dx * d * 4, 2 * n_e * dx * d, bf16_peak)
+        ms = time_ms(lambda: grad_weight(X, G, use_kernel=True), reps)
+        return dict(
+            ms=ms, plain_ms=time_ms(lambda: grad_weight_plain(X, G), reps),
+            library_ms=time_ms(lambda: torch.mm(X.t(), G, out_dtype=torch.float32), reps),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms, shape=[n_e, dx, d],
+            dtype="bfloat16",
+        )
+
+    out["grad_weight"] = grad_weight_times(t["Hx"], t["Gt"])
+    out["grad_weight"]["w_i"] = grad_weight_times(t["Xi"], t["Gt"])
     return out
 
 
@@ -994,6 +1014,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from chemprop_tpu_torch.ops import build_all
+    from chemprop_tpu_torch.ops.build import sass_contains
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1002,10 +1023,17 @@ def main() -> int:
     logs = build_all()
     build_s = time.time() - t0
     print(json.dumps({"phase": "build", "seconds": build_s}))
-    for name, log in logs.items():
+    for name, (log, _) in logs.items():
         for line in log.splitlines():
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
+    print(json.dumps({"build": "csrc/grad_weight.cu", "seconds": logs["grad_weight"][1]}))
+    # J's product runs on wgmma (HGMMA) and its tables come in by TMA (UTMALDG)
+    sass = sass_contains("grad_weight", ("HGMMA", "UTMALDG"))
+    print(json.dumps({"grad_weight_sass": sass if sass is not None else
+                      "not checked: the toolkit has no cuobjdump"}))
+    if sass is not None and not all(sass.values()):
+        fail(f"csrc/grad_weight.cu's machine code lacks {[k for k, v in sass.items() if not v]}")
 
     d = 384  # hidden width 300, lane-padded as in the JAX package
     ds = lipo_dataset()
@@ -1046,7 +1074,9 @@ def main() -> int:
             launches_per_train_step=per_step,
             max_abs_err=errs[meta["timed"]], max_abs_err_by_check=checks, **times[name],
         ))
-    record = {"card": card, "kind": kind, "build_s": build_s, "benchmark_batch": shapes,
+    record = {"card": card, "kind": kind, "build_s": build_s,
+              "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
+              "grad_weight_sass": sass, "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "forward": rates,

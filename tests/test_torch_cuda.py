@@ -436,7 +436,8 @@ def test_iter_bwd_matches_plain(any_bmg, cuda, d):
 
 
 @pytest.mark.parametrize("n,dx,dg", [(768, 128, 128), (1000, 384, 384), (37, 128, 384),
-                                     (5000, 384, 128), (0, 128, 128)])
+                                     (5000, 384, 128), (0, 128, 128), (123392, 128, 384),
+                                     (4133, 384, 384), (4133, 256, 256), (4133, 384, 256)])
 def test_grad_weight_matches_plain(cuda, n, dx, dg):
     X = _randn((n, dx), 50, cuda, torch.bfloat16)
     G = _randn((n, dg), 51, cuda, torch.bfloat16)
@@ -464,6 +465,29 @@ def test_matmul_routes_its_kernel_gradient(cuda):
     wx, wk = torch.autograd.grad(x @ k, [x, k], c)
     torch.testing.assert_close(gx.float(), wx.float(), rtol=BF16_ULP, atol=1e-2)
     torch.testing.assert_close(gk.float(), wk.float(), rtol=2 * BF16_ULP, atol=0.05)
+
+
+def test_grad_w_routes_w_i_through_the_kernel(bmg, cuda):
+    """With grad_w in bfloat16 the module launches grad_weight for W_i (its
+    input padded to 128 columns) and for W_h's two iterations, and W_i's
+    gradient agrees with the CPU's plain version."""
+    from chemprop_tpu_torch.nn import BondMessagePassing
+
+    grads = []
+    for b in (bmg, bmg.to("cpu")):
+        mp = BondMessagePassing(d_h=64, compute_dtype=torch.bfloat16,
+                                kernel_options=KernelOptions(grad_w=True))
+        torch.manual_seed(0)
+        for p in mp.parameters():
+            torch.nn.init.normal_(p, std=0.1)
+        mp.to(b.V.device)
+        LAUNCHES.clear()
+        out = mp(b, is_training=True)
+        (g,) = torch.autograd.grad(out.float().square().sum(), [mp.W_i.weight])
+        grads.append(g.cpu())
+        assert LAUNCHES["grad_weight"] == (3 if b is bmg else 0)
+    scale = float(grads[1].abs().max())
+    torch.testing.assert_close(grads[0], grads[1], rtol=0.05, atol=0.02 * scale)
 
 
 def test_new_wrappers_raise_instead_of_falling_back(bmg, cuda):

@@ -135,14 +135,14 @@ class _Masks:
         monkeypatch.setattr(nn_utils, "dropout_mask", replay)
 
 
-def _three_steps(datasets, mp_kwargs, dtype, masks=None):
+def _three_steps(datasets, mp_kwargs, dtype, masks=None, options=PER_ITERATION):
     """Three training steps of both packages from JAX's initial parameters;
     returns the losses and the final states in the port's names. With
     ``masks`` the JAX steps run eagerly, so that their dropout masks are
     concrete; so do the bfloat16 ones, whose interpret-mode kernels take
     longer to compile than to run; the float32 ones are jitted."""
     jds, tds = datasets
-    jmodel, model = _models(mp_kwargs, dtype)
+    jmodel, model = _models(mp_kwargs, dtype, options)
     jloader = jdata.DataLoader(jds, batch_size=32, shuffle=False, prefetch=0)
     tloader = DataLoader(tds, batch_size=32, shuffle=False)
     jbatches, tbatches = list(jloader)[:3], list(tloader)[:3]
@@ -167,11 +167,11 @@ def _three_steps(datasets, mp_kwargs, dtype, masks=None):
     return jlosses, tlosses, want, got
 
 
-def check_three_adam_steps(datasets, monkeypatch, mp_kwargs, dtype):
+def check_three_adam_steps(datasets, monkeypatch, mp_kwargs, dtype, options=PER_ITERATION):
     _interpret(monkeypatch, dtype)
     masks = _Masks(monkeypatch) if "dropout" in mp_kwargs else None
     LAUNCHES.clear()
-    jlosses, tlosses, want, got = _three_steps(datasets, mp_kwargs, dtype, masks)
+    jlosses, tlosses, want, got = _three_steps(datasets, mp_kwargs, dtype, masks, options)
     assert sum(LAUNCHES.values()) == 0 and set(got) == set(want)
     if dtype == "float32":
         # the same arithmetic in f32; only summation orders differ
