@@ -174,39 +174,9 @@ __global__ void grad_weight_reduce(const float* __restrict__ partial, float* __r
   if (r == 0 && i < size) store4(out + i, acc);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so that the
-// library needs no link to libcuda
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [rows x width] row-major bf16 at T, in boxes of 64 columns x GW_ROWS rows
 static bool table_map(CUtensorMap* map, const void* T, int rows, int width) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)width * 2};
-  cuuint32_t box[2] = {GW_BOX, GW_ROWS}, elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(T), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bf16_table_map(map, T, rows, width, GW_ROWS);
 }
 
 // the widest of 256, 192, 128 that divides dg and leaves at least three tiles:

@@ -1,15 +1,14 @@
-// The D-MPNN message and the fused depth iteration.
+// The D-MPNN message and the chained first two depth iterations.
 //
 //   message:     M[e] = sum_{k : dst[k] == src[e]} H[k] - H[rev[e]]
-//   fused_iter:  y[e] = relu(H0[e] + bf16(M[e]) @ W [+ b])
-//   fused_iter2: y1 = fused_iter(relu(H0)), y2 = fused_iter(y1), in one launch
+//   fused_iter2: y1 = iteration(relu(H0)), y2 = iteration(y1), in one launch,
+//                where iteration(H)[e] = relu(H0[e] + bf16(M[e]) @ W [+ b])
 //
 // plain_message replaces the Pallas TPU kernel _kernel of
 // chemprop_tpu/ops/fused_message.py (launched by _fused_message_impl);
-// fused_iter replaces _iter_kernel there (launched by _iter_impl), with its
-// relu_stream form for the first depth iteration; fused_iter2 replaces
-// _iter2_kernel there (launched by _iter2_impl). The TPU kernels form the
-// message as a one-hot product over a sliding window of 128-edge chunks,
+// fused_iter2 replaces _iter2_kernel there (launched by _iter2_impl). The
+// single iteration (_iter_kernel) is fused_iter.cu's. The TPU kernels form
+// the message as a one-hot product over a sliding window of 128-edge chunks,
 // because the MXU is their only fast unit. Here edges are sorted by dst and
 // the in-edges of node v are rows [ptr[v], ptr[v+1]), so the message of edge
 // e is a gather-sum over the in-edges of src[e]: no one-hot work at all.
@@ -23,29 +22,27 @@
 // an edge's neighbours come from L2, since a molecule's edges are adjacent).
 // One warp forms one edge's row with f32 accumulation.
 //
-// fused_iter is bound by bytes too (it reads H and H0 and writes y; the
-// 2*E*d*d GEMM needs about half the time the bytes do at d=384), and it keeps
-// the message table M out of device memory: a block forms the bf16 message
-// rows of BM edges in shared memory, multiplies them by W on the tensor cores
-// (WMMA bf16 16x16x16 with f32 accumulation; W streams through shared memory
-// in BK x BN panels), and adds H0, the bias and the ReLU on the way out.
-//
 // fused_iter2 chains the first two iterations. It is bound by bytes: H0 read
 // once, y1 and y2 written once (three edge tables against the six of two
-// fused_iter launches). Iteration 2 at edge e gathers y1 at the in-edges of
-// src[e] and at rev[e], rows that another block of fused_iter's fixed tiling
-// would own, and blocks cannot wait on each other. Those rows all belong to
-// e's own molecule, and a molecule's edge rows are contiguous, so a block
-// here owns whole molecules: a tile table (row offsets, packed on the host by
-// the collate) gives each block up to 128 rows that no other block's second
+// single iterations). Iteration 2 at edge e gathers y1 at the in-edges of
+// src[e] and at rev[e], rows that another block of a fixed row tiling would
+// own, and blocks cannot wait on each other. Those rows all belong to e's
+// own molecule, and a molecule's edge rows are contiguous, so a block here
+// owns whole molecules: a tile table (row offsets, packed on the host by the
+// collate) gives each block up to 128 rows that no other block's second
 // iteration reads. The block forms its y1 rows, writes them out (the
 // backward needs them), and after a block barrier gathers them back for
-// iteration 2 from L2, where they have just been written: shared memory has
-// no room for a y1 tile beside the message rows and the panels at 128 rows.
-// Both iterations run fused_iter's own arithmetic in its order, so y1 and y2
-// equal two fused_iter launches bit for bit. A molecule of more than 128 edge
-// rows cannot be served; the caller sees that from the tile table and takes
-// two fused_iter launches for that batch.
+// iteration 2 from L2, where they have just been written. Each iteration
+// (iteration_rows) forms the block's bf16 message rows in shared memory
+// (f32 sums in the order of the edges, as fused_iter.cu), multiplies them by
+// W on the tensor cores (WMMA bf16 16x16x16 with f32 accumulation; W streams
+// through shared memory in BK x BN panels) and adds H0, the bias and the
+// ReLU on the way out. y1 and y2 equal two fused_iter launches bit for bit
+// on the main path's shapes (chip_smoke.py and the card tests check it): the
+// messages are summed in the same order, though the products run on WMMA
+// here and on wgmma there. A molecule of more than 128 edge rows cannot be
+// served; the caller sees that from the tile table and takes two fused_iter
+// launches for that batch.
 #include <mma.h>
 
 #include "vec.cuh"
@@ -108,8 +105,7 @@ extern "C" int plain_message(const void* H, const int* src, const int* rev, cons
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- fused_iter
-constexpr int BM = 64;    // edge rows per block of fused_iter
+// ------------------------------------------------------------ iteration_rows
 constexpr int BM2 = 128;  // edge rows per block of fused_iter2 (a tile of whole molecules)
 constexpr int BN = 128;   // output columns per pass over W
 constexpr int BK = 64;    // rows of a W panel
@@ -214,35 +210,6 @@ __device__ __forceinline__ void iteration_rows(
   bf16* Ms = reinterpret_cast<bf16*>(smem);              /* [ROWS][d + 8] messages */ \
   bf16* Ws = Ms + ROWS * (d + 8);                        /* [BK][LDW] panel of W */   \
   float* Cs = reinterpret_cast<float*>(Ws + BK * LDW);   /* [ROWS][LDC] f32 product */
-
-__global__ void __launch_bounds__(BM * 4)
-    fused_iter_kernel(const bf16* __restrict__ H, const bf16* __restrict__ H0,
-                      const bf16* __restrict__ W, const bf16* __restrict__ b,
-                      const int* __restrict__ src, const int* __restrict__ rev,
-                      const int* __restrict__ ptr, bf16* __restrict__ y, int n_edges, int d,
-                      int pad_node, int relu_stream) {
-  ITER_SMEM(BM)
-  const int m0 = blockIdx.x * BM;
-  iteration_rows<BM>(H, H0, W, b, src, rev, ptr, y, Ms, Ws, Cs, m0, min(BM, n_edges - m0), d,
-                     pad_node, relu_stream != 0);
-}
-
-extern "C" int fused_iter(const void* H, const void* H0, const void* W, const void* b,
-                          const int* src, const int* rev, const int* ptr, void* y, int n_edges,
-                          int d, int pad_node, int relu_stream, cudaStream_t stream) {
-  if (d % BN != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  int grid = (n_edges + BM - 1) / BM;
-  if (grid == 0) return 0;
-  size_t smem = iter_smem_bytes<BM>(d);
-  // the opt-in above 48 KB is per device, so it is made at every launch (cheap)
-  cudaError_t err = cudaFuncSetAttribute(fused_iter_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_iter_kernel<<<grid, BM * 4, smem, stream>>>(
-      (const bf16*)H, (const bf16*)H0, (const bf16*)W, (const bf16*)b, src, rev, ptr, (bf16*)y,
-      n_edges, d, pad_node, relu_stream);
-  return (int)cudaGetLastError();
-}
 
 // --------------------------------------------------------------- fused_iter2
 // Block t owns rows [tiles[t], tiles[t + 1]), at most BM2 of them: whole

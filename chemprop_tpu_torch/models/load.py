@@ -90,7 +90,8 @@ def build_model(
     kernel_options: KernelOptions | None = None,
 ) -> MPNN:
     """The port's MPNN for a reference single-molecule regression D-MPNN,
-    with its ``bias``, ``dropout`` and ``undirected`` hyperparameters.
+    with its ``bias``, ``dropout``, ``undirected`` and both ``activation``
+    hyperparameters (message passing's and the head's).
     Anything the port does not run raises instead of loading wrongly."""
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
@@ -133,6 +134,7 @@ def build_model(
         n_layers=int(p_hp.get("n_layers", 1)),
         output_transform="predictor.output_transform.mean" in sd,
         dropout=float(p_hp.get("dropout", 0.0)),
+        activation=_activation(p_hp.get("activation", "relu")),
     )
     return MPNN(mp, agg, predictor, batch_norm="bn.running_mean" in sd)
 
@@ -165,8 +167,10 @@ def from_jax_params(
 ) -> dict[str, torch.Tensor]:
     """A ``chemprop_tpu`` flax tree (``variables["params"]`` and, with batch
     norm, ``variables["batch_stats"]``) -> the port's state dict. Output
-    unscaling is module configuration in JAX, not a parameter, so it is not
-    part of the result."""
+    unscaling and the activations are module configuration in JAX, not
+    parameters, so they are not part of the result: the port's modules are
+    built with the JAX modules' activations (``RegressionFFN(activation=...)``
+    for the head), and the weights carry across unchanged."""
 
     def t(x) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=np.float32))

@@ -25,8 +25,8 @@ kernels (``ops/message.py``); in float32 the products are ``torch.matmul``,
 as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
 either dtype. With ``kernel_options.grad_w`` in bfloat16 W_i's weight
-gradient, and W_h's where ``iter_bwd`` does not form it, are ``grad_weight``
-kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
+gradient, and W_h's where ``iter_bwd`` does not form it (the composed path's
+included), are ``grad_weight`` kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
 compute dtype are made in every forward, so gradients flow through the pad
 and the cast."""
 
@@ -114,6 +114,7 @@ class BondMessagePassing(nn.Module):
         # with grad_w in bfloat16, [V[src] ; E] is zero-padded to a multiple of
         # 128 columns and W_i's kernel takes zero rows there, as the JAX package
         # pads them, so that dW_i = x^T g streams through the grad_weight kernel
+        # (the composed path's W_h takes the same rule)
         gw_i = opts.grad_w and dt == torch.bfloat16
         d_in = self.d_v + self.d_e
         d_x = -(-d_in // 128) * 128 if gw_i else d_in
@@ -143,7 +144,8 @@ class BondMessagePassing(nn.Module):
                     else:
                         H = message_iter(H, H0, W_h, b_h, *graph, opts)
                 else:
-                    z = message(H, *graph) @ W_h
+                    M = message(H, *graph)
+                    z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h
                     if b_h is not None:
                         z = z + b_h
                     H = self.tau(H0 + z)

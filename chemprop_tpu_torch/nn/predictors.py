@@ -25,11 +25,12 @@ class RegressionFFN(nn.Module):
         output_transform: bool = True,
         criterion: ChempropMetric | None = None,
         dropout: float = 0.0,
+        activation: str = "relu",
     ):
         super().__init__()
         self.n_tasks = n_tasks
         self.criterion = criterion
-        self.ffn = MLP(input_dim, n_tasks, hidden_dim, n_layers, dropout)
+        self.ffn = MLP(input_dim, n_tasks, hidden_dim, n_layers, dropout, activation)
         self.output_transform = UnscaleTransform(n_tasks) if output_transform else None
 
     def get_criterion(self) -> ChempropMetric:

@@ -33,6 +33,22 @@ def get_activation_function(name: str) -> Callable[[torch.Tensor], torch.Tensor]
         ) from None
 
 
+class Activation(nn.Module):
+    """One of the activations above as a module without parameters, for the
+    blocks of the FFN; an unknown name raises when the module is built."""
+
+    def __init__(self, name: str = "relu"):
+        super().__init__()
+        self.name = name.lower()
+        self.fn = get_activation_function(name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+    def extra_repr(self) -> str:
+        return self.name
+
+
 def dropout_mask(
     shape: torch.Size, rate: float, generator: torch.Generator, device: torch.device
 ) -> torch.Tensor:

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("message", "message_bwd", "segment", "gather", "grad_weight")
+SOURCES = ("message", "fused_iter", "message_bwd", "segment", "gather", "grad_weight")
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
 # None for null, or the stream), I an int; every function returns a C int
@@ -40,9 +40,12 @@ P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "message": {
         "plain_message": [P, P, P, P, P, I, I, I, I, P],
-        "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
         "fused_iter2": [P, P, P, P, P, P, P, P, P, I, I, I, P],
         "fused_iter2_tile_rows": [],
+    },
+    "fused_iter": {
+        "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "fused_iter_info": [I, I, P],
     },
     "message_bwd": {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],

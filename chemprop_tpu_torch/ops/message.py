@@ -20,8 +20,8 @@ padding node, the last one) get a zero message, so their rows differ from
 the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
-``csrc/message.cu`` and ``csrc/message_bwd.cu`` run; on a CPU tensor the plain
-versions below."""
+``csrc/message.cu``, ``csrc/fused_iter.cu`` and ``csrc/message_bwd.cu`` run;
+on a CPU tensor the plain versions below."""
 
 from __future__ import annotations
 
@@ -219,12 +219,29 @@ def fused_iter(
     if H.device.type == "cpu":
         return fused_iter_plain(H, H0, W, b, src, dst, rev, ptr, relu_stream)
     y = torch.empty_like(H)
+    if n == 0:
+        return y
     call(
-        library("message"), "fused_iter", H, H0, W, b, src.contiguous(), rev.contiguous(),
+        library("fused_iter"), "fused_iter", H, H0, W, b, src.contiguous(), rev.contiguous(),
         ptr.contiguous(), y, n, d, ptr.numel() - 2, int(relu_stream),
     )
     LAUNCHES["fused_iter"] += 1
     return y
+
+
+def fused_iter_info(d: int, n_edges: int) -> dict[str, int]:
+    """The shape of :func:`fused_iter`'s launch on the current card at width
+    ``d`` and ``n_edges`` rows: the width of a block's W slice, the slices,
+    the blocks per cluster, the message stages, the shared memory per block,
+    the grid, and the clusters of the kernel that the card runs at once."""
+    import ctypes
+
+    info = (ctypes.c_int * 6)()
+    err = library("fused_iter").fused_iter_info(d, n_edges, info)
+    if err != 0:
+        raise RuntimeError(f"fused_iter_info: CUDA error {err}")
+    keys = ("slice_width", "slices", "stages", "smem_bytes", "grid", "blocks_per_sm")
+    return dict(zip(keys, info))
 
 
 def fused_iter2(

@@ -15,12 +15,22 @@ rate) and a thin epoch loop, with the JAX package's numerics:
   generator is not used. Evaluation and ``predict`` run with dropout off.
 
 The step launches no atomics and no host synchronisation: losses stay on the
-device until an epoch ends. Not ported yet: early stopping and best-epoch
-tracking, validation metrics, checkpoints and resuming, tensorboard and
-profiler output, frozen parameters, chained steps and meshes."""
+device until an epoch ends. ``fit`` tracks the best epoch by the JAX
+package's rule: the score is the epoch's ``monitor`` (``val_loss`` with a
+validation loader) or else its train loss; an epoch improves on the best by
+more than ``min_delta`` in the direction of ``mode``; with ``patience`` the
+fit stops once more than ``patience`` epochs in a row have not improved.
+``best_variables`` holds a copy on the device of the best epoch's
+parameters and batch-norm statistics (the last state when no epoch
+improved), and ``predict`` and ``predict_mc_dropout`` compute with it, as in
+the JAX package; ``evaluate`` computes with the current state, as the JAX
+validation does. Not ported yet: validation metrics, checkpoints and
+resuming, tensorboard and profiler output, frozen parameters, chained steps
+and meshes."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -67,14 +77,24 @@ class Trainer:
     max_lr: float = 1e-3
     final_lr: float = 1e-4
     grad_clip: float | None = None
+    patience: int | None = None
+    monitor: str = "val_loss"
+    mode: str = "min"
+    min_delta: float = 0.0
     seed: int = 0
     param_init: str = "lecun"
     device: str | torch.device | None = None
 
     state: TrainState | None = None
     history: list[dict] = field(default_factory=list)
+    # the best epoch's parameters and batch-norm statistics by name, on the
+    # device, and that epoch's index (-1: none improved)
+    best_variables: dict[str, torch.Tensor] | None = None
+    best_epoch: int = -1
 
     def __post_init__(self):
+        if self.mode not in ("min", "max"):
+            raise ValueError(f"mode must be 'min' or 'max', got {self.mode!r}")
         self.device = resolve_device(self.device)  # raises where there is no GPU
         self.compute_dtype = self.model.message_passing.compute_dtype
         if self.compute_dtype == torch.float32:
@@ -103,6 +123,7 @@ class Trainer:
         )
         params = dict(self.model.named_parameters())
         stats = dict(self.model.bn.named_buffers(prefix="bn")) if bn is not None else {}
+        self.best_variables, self.best_epoch = None, -1
         self.state = TrainState(
             params=params,
             batch_stats=stats,
@@ -150,10 +171,17 @@ class Trainer:
         return loss.detach()
 
     # ------------------------------------------------------------------- fit
+    def _variables(self) -> dict[str, torch.Tensor]:
+        """The state's parameters and batch-norm statistics by name."""
+        return {**self.state.params, **self.state.batch_stats}
+
     def fit(self, train_loader: DataLoader, val_loader: DataLoader | None = None) -> TrainState:
         steps_per_epoch = len(train_loader)
         if self.state is None:
             self.init_state(None, steps_per_epoch)
+        best_score = np.inf if self.mode == "min" else -np.inf
+        self.best_variables, self.best_epoch = None, -1
+        since_best = 0
         first_epoch = len(self.history)
         for epoch in range(first_epoch, self.max_epochs):
             t0 = time.time()
@@ -169,7 +197,38 @@ class Trainer:
             if val_loader is not None:
                 record["val_loss"] = self.evaluate(val_loader)
             self.history.append(record)
+            score = record.get(self.monitor, train_loss)
+            if (score < best_score - self.min_delta if self.mode == "min"
+                    else score > best_score + self.min_delta):
+                best_score, self.best_epoch, since_best = score, epoch, 0
+                # a copy on the device: no host synchronisation
+                with torch.no_grad():
+                    self.best_variables = {k: v.detach().clone() for k, v in self._variables().items()}
+            else:
+                since_best += 1
+            if self.patience is not None and since_best > self.patience:
+                break
+        if self.best_variables is None:
+            self.best_variables = {k: v.detach().clone() for k, v in self._variables().items()}
         return self.state
+
+    @contextlib.contextmanager
+    def _best(self):
+        """The model computes with ``best_variables`` inside the block (the
+        state's own tensors are swapped back after it)."""
+        best = self.best_variables
+        if best is None:
+            yield
+            return
+        live = self._variables()
+        saved = {k: v.data for k, v in live.items()}
+        try:
+            for k, v in live.items():
+                v.data = best[k]
+            yield
+        finally:
+            for k, v in live.items():
+                v.data = saved[k]
 
     @torch.inference_mode()
     def evaluate(self, loader: DataLoader) -> float:
@@ -190,7 +249,8 @@ class Trainer:
     # --------------------------------------------------------------- predict
     @torch.inference_mode()
     def predict(self, loader: DataLoader, use_batch_statistics: bool = False) -> np.ndarray:
-        """Predictions over ``loader`` in dataset order, padding rows cut.
+        """Predictions over ``loader`` in dataset order, padding rows cut,
+        from ``best_variables`` after a fit.
         ``use_batch_statistics`` normalises each batch with its own moments
         (the model as training leaves it) and leaves the output unscaled; the
         running statistics are not touched either way. As in the JAX package
@@ -198,9 +258,10 @@ class Trainer:
         if self.state is None:
             raise RuntimeError("fit or init_state first")
         gen = self._generator(0) if use_batch_statistics else None
-        return self._collect(
-            loader, lambda bmg: self.model(bmg, is_training=use_batch_statistics, generator=gen)
-        )
+        with self._best():
+            return self._collect(
+                loader, lambda bmg: self.model(bmg, is_training=use_batch_statistics, generator=gen)
+            )
 
     def _collect(self, loader: DataLoader, apply) -> np.ndarray:
         chunks = [(apply(host.bmg.to(self.device)), host.pad_mask) for host in loader]
@@ -219,7 +280,8 @@ class Trainer:
         if self.state is None:
             raise RuntimeError("fit or init_state first")
         gen = self._generator(seed)
-        return np.stack([
-            self._collect(loader, lambda bmg: self.model.mc_dropout_preds(bmg, gen))
-            for _ in range(sampling_size)
-        ], axis=0)
+        with self._best():
+            return np.stack([
+                self._collect(loader, lambda bmg: self.model.mc_dropout_preds(bmg, gen))
+                for _ in range(sampling_size)
+            ], axis=0)

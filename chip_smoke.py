@@ -12,9 +12,11 @@ failure:
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes of the serving path's benchmark batch: 2048 molecules of
    tests/data/regression/mol/mol.csv, tiled (the batch ``bench.py`` builds),
-   hidden width 300 padded to 384; the weight-gradient kernel also at W_i's
+   hidden width 300 padded to 384: the fused iteration in its four forms,
+   its padding rows and a second call bit for bit, its launch shape (the
+   blocks the card runs at once); the weight-gradient kernel also at W_i's
    shape (128 input columns), at a ragged and at a short table, each twice,
-   bit for bit, and its machine code read for ``wgmma`` and TMA
+   bit for bit; the machine code of both read for ``wgmma`` and TMA
    (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
@@ -43,8 +45,10 @@ failure:
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
    function, where there is one (the weight gradient at W_h's and W_i's
-   shapes); the forward's and the training step's
-   molecules per second, and the step with each option on and off.
+   shapes), and the fused iteration's unfused route; the forward's and the
+   training step's molecules per second, and the step with each option on
+   and off, and of a tanh model at depth 2 with ``grad_w`` (its W_h product
+   composed through autograd).
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -178,9 +182,14 @@ PATH_KERNELS = {
                                          "bwd_message": 1, "iter_bwd": 1, "row_gather": 1},
     "train_dropout_bfloat16_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
                                       "grad_weight": 3, "row_gather": 1},
+    # tanh at depth 2, composed: one message and its transposed backward, the
+    # M_v and the mean readout, dW of W_i and of the iteration's W_h
+    "train_bfloat16_tanh_depth2_grad_w": {"message": 1, "sorted_segment_sum": 2,
+                                          "bwd_message": 1, "row_gather": 1, "grad_weight": 2},
 }
 # the training steps timed and counted on the benchmark batch: dtype, dropout
-# rate and opt-in kernels; each is held to PATH_KERNELS["train_" + name]
+# rate, opt-in kernels and other message-passing arguments; each is held to
+# PATH_KERNELS["train_" + name]
 STEPS = {
     "float32": ("float32", 0.0, {}),
     "bfloat16": ("bfloat16", 0.0, {}),
@@ -193,6 +202,10 @@ STEPS = {
     "dropout_bfloat16_fused_bwd": ("bfloat16", 0.1, dict(fused_bwd=True)),
     "dropout_bfloat16_grad_w": ("bfloat16", 0.1, dict(grad_w=True)),
     "dropout_bfloat16_fused_bwd_grad_w": ("bfloat16", 0.1, dict(fused_bwd=True, grad_w=True)),
+    # another activation composes the message kernel and the products through
+    # autograd; grad_w routes W_h's products there too (depth 2: one iteration)
+    "bfloat16_tanh_depth2_grad_w": ("bfloat16", 0.0, dict(grad_w=True),
+                                    dict(activation="tanh", depth=2)),
 }
 OVERFIT_BATCH_STATS_MSE, OVERFIT_RUNNING_STATS_MSE = 0.05, 0.10
 
@@ -302,14 +315,22 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     check("message[bfloat16]", got, message_plain(H, *graph), BF16_ULP, 1e-6, errs)
     if got[bmg.dst == n_v - 1].any():
         fail("message[bfloat16]: a padding row is not zero")
-    for relu_stream, bias in ((True, None), (False, None), (False, b)):
-        tag = f"fused_iter[relu_stream={relu_stream},bias={bias is not None}]"
-        x = H0 if relu_stream else H
-        # the bf16 message may round one ulp apart, which W carries into y;
-        # y's own rounding adds one ulp
-        check(tag, fused_iter(x, H0, W, bias, *graph, relu_stream=relu_stream),
-              fused_iter_plain(x, H0, W, bias, *graph, relu_stream=relu_stream),
-              2 * BF16_ULP, 0.02, errs)
+    pad_rows = bmg.dst == n_v - 1
+    for relu_stream in (True, False):
+        for bias in (None, b):
+            tag = f"fused_iter[relu_stream={relu_stream},bias={bias is not None}]"
+            x = H0 if relu_stream else H
+            y = fused_iter(x, H0, W, bias, *graph, relu_stream=relu_stream)
+            # the bf16 message may round one ulp apart, which W carries into
+            # y; y's own rounding adds one ulp
+            check(tag, y, fused_iter_plain(x, H0, W, bias, *graph, relu_stream=relu_stream),
+                  2 * BF16_ULP, 0.02, errs)
+            # a padding edge's message is zero: its row is relu(H0 [+ b]) exactly
+            want_pad = torch.relu(H0.float() + (0 if bias is None else bias.float()))
+            if not torch.equal(y[pad_rows], want_pad.to(torch.bfloat16)[pad_rows]):
+                fail(f"{tag}: a padding row is not relu(H0 [+ b])")
+            if not torch.equal(y, fused_iter(x, H0, W, bias, *graph, relu_stream=relu_stream)):
+                fail(f"{tag}: two calls differ")
     # f32 sums in another order differ by up to a few eps times the sum of
     # |x| over the segment (the padding segments hold thousands of rows, and
     # the plain version's index_add_ order itself varies from run to run),
@@ -336,7 +357,6 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
             fail("sorted_segment_sum: counts disagree")
 
     # the backward kernels, at the shapes the training step gives them
-    pad_rows = bmg.dst == n_v - 1
     g32 = torch.randn((n_e, d), generator=g, device=dev)
     y32 = torch.randn((n_e, d), generator=g, device=dev).clamp_min(0)  # a ReLU output
     acc32 = torch.randn((n_e, d), generator=g, device=dev)
@@ -508,19 +528,20 @@ def main_path(out_dir: Path) -> tuple[dict, dict]:
     return launches, res
 
 
-def default_model(dtype, dropout: float = 0.0, **options):
+def default_model(dtype, dropout: float = 0.0, mp_kwargs: dict | None = None, **options):
     """The default model at full width: the one the reference checkpoint
     holds, with batch norm, as the reference's overfit run trains it;
-    ``dropout`` in message passing and in the head, ``options`` the opt-in
-    kernels (the environment is not read)."""
+    ``dropout`` in message passing and in the head, ``mp_kwargs`` other
+    message-passing arguments, ``options`` the opt-in kernels (the
+    environment is not read)."""
     from chemprop_tpu_torch.models import MPNN
     from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
     from chemprop_tpu_torch.ops import KernelOptions
 
     return MPNN(
-        # d_h 300, depth 3, ReLU, no bias
+        # d_h 300, depth 3, ReLU, no bias, unless mp_kwargs says otherwise
         BondMessagePassing(compute_dtype=dtype, dropout=dropout,
-                           kernel_options=KernelOptions(**options)),
+                           kernel_options=KernelOptions(**options), **(mp_kwargs or {})),
         MeanAggregation(),
         RegressionFFN(output_transform=False, dropout=dropout),
         batch_norm=True,
@@ -827,13 +848,18 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         ),
     )
     # fused iteration, bf16: H and H0 read, y written, W read once; the
-    # message adds and the product of the real rows' messages with W
+    # message adds and the product of the real rows' messages with W. No one
+    # library call computes it; beside it the unfused route: kernel A's bf16
+    # message, a library product, then the residual and the ReLU
     b_ms, b_by = bound(3 * n_e * d * 2 + d * d * 2 + ids_bytes, 2 * n_real * d * d, bf16_peak)
     out["fused_iter"] = dict(
         ms=time_ms(lambda: fused_iter(t["H"], t["H0"], t["W"], None, *graph), reps),
         plain_ms=time_ms(lambda: fused_iter_plain(t["H"], t["H0"], t["W"], None, *graph), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+        composed_ms=time_ms(
+            lambda: torch.relu(t["H0"] + torch.mm(message(t["H"], *graph), t["W"])), reps),
     )
+    out["fused_iter"]["share_of_bound"] = b_ms / out["fused_iter"]["ms"]
     # segment sum, the M_v readout in bf16: E rows read, N rows written
     ids64 = bmg.dst.long()
     acc = torch.zeros((n_v, d), dtype=torch.bfloat16, device=bmg.V.device)
@@ -982,8 +1008,9 @@ def train_rate(batch, reps: int) -> dict:
     from chemprop_tpu_torch.train import Trainer
 
     rates = {}
-    for name, (dtype, rate, options) in STEPS.items():
-        trainer = Trainer(default_model(getattr(torch, dtype), rate, **options), seed=0)
+    for name, (dtype, rate, options, *mp_kwargs) in STEPS.items():
+        model = default_model(getattr(torch, dtype), rate, *mp_kwargs, **options)
+        trainer = Trainer(model, seed=0)
         trainer.init_state(batch, 1)
         trainer.train_step(batch)
         LAUNCHES.clear()
@@ -1015,6 +1042,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from chemprop_tpu_torch.ops import build_all
     from chemprop_tpu_torch.ops.build import sass_contains
+    from chemprop_tpu_torch.ops.message import fused_iter_info
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1027,13 +1055,17 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
-    print(json.dumps({"build": "csrc/grad_weight.cu", "seconds": logs["grad_weight"][1]}))
-    # J's product runs on wgmma (HGMMA) and its tables come in by TMA (UTMALDG)
-    sass = sass_contains("grad_weight", ("HGMMA", "UTMALDG"))
-    print(json.dumps({"grad_weight_sass": sass if sass is not None else
-                      "not checked: the toolkit has no cuobjdump"}))
-    if sass is not None and not all(sass.values()):
-        fail(f"csrc/grad_weight.cu's machine code lacks {[k for k, v in sass.items() if not v]}")
+    # B's and J's products run on wgmma (HGMMA), and W and J's tables come in
+    # by TMA (UTMALDG)
+    sass = {}
+    for name in ("fused_iter", "grad_weight"):
+        print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
+        sass[name] = sass_contains(name, ("HGMMA", "UTMALDG"))
+        print(json.dumps({f"{name}_sass": sass[name] if sass[name] is not None else
+                          "not checked: the toolkit has no cuobjdump"}))
+        if sass[name] is not None and not all(sass[name].values()):
+            fail(f"csrc/{name}.cu's machine code lacks "
+                 f"{[k for k, v in sass[name].items() if not v]}")
 
     d = 384  # hidden width 300, lane-padded as in the JAX package
     ds = lipo_dataset()
@@ -1042,6 +1074,14 @@ def main() -> int:
     shapes = {"molecules": BATCH_SIZE, "E_pad": bmg.E.shape[0], "E_real": int(bmg.edge_mask.sum()),
               "N_pad": bmg.V.shape[0], "N_real": int(bmg.node_mask.sum()), "d": d}
     print(json.dumps({"benchmark_batch": shapes}))
+    # B's persistent grid: the blocks the card runs at once bound what runs
+    # side by side, and the blocks of a tile's W slices must run together
+    launch = fused_iter_info(d, shapes["E_pad"])
+    launch["co_resident_blocks"] = launch["blocks_per_sm"] * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    print(json.dumps({"fused_iter_launch": launch}))
+    if launch["grid"] > launch["co_resident_blocks"]:
+        fail(f"fused_iter's grid of {launch['grid']} blocks does not run at once")
     tensors, errs = check_kernels(bmg, d, args.seed)
 
     out_dir = REPO / "chiprun_out"
@@ -1076,7 +1116,7 @@ def main() -> int:
         ))
     record = {"card": card, "kind": kind, "build_s": build_s,
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
-              "grad_weight_sass": sass, "benchmark_batch": shapes,
+              "sass": sass, "fused_iter_launch": launch, "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "forward": rates,

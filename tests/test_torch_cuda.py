@@ -108,20 +108,88 @@ def test_message_matches_plain(bmg, cuda, d, dtype):
     assert not got[_pad_rows(bmg)].any()  # exact zeros
 
 
+def _synthetic_graph(kind: str, device):
+    """``(src, dst, rev, ptr)`` of a directed-edge graph sorted by dst, with
+    padding edges (src = dst = the last node, rev the identity) at the end:
+
+    * ``ragged``: chains of 5-40 atoms, 1989 edge rows (not a multiple of 64);
+    * ``one_tile``: one chain, 40 rows, less than one 64-row tile;
+    * ``empty``: no edge at all;
+    * ``padding_run``: 500 real rows, then 700 padding rows (ten tiles of
+      padding alone);
+    * ``hub``: a star of 300 leaves, so its centre has in-degree 300;
+    * ``many_tiles``: chains again, 12,881 rows: 202 tiles, not a multiple of
+      the grid's tile lanes."""
+    rng = np.random.default_rng({"ragged": 1, "one_tile": 2, "empty": 3, "padding_run": 4,
+                                 "hub": 5, "many_tiles": 6}[kind])
+    bonds, n_atoms = [], 0
+
+    def chains(n_rows):
+        nonlocal n_atoms
+        while 2 * len(bonds) < n_rows:
+            k = int(rng.integers(5, 41))
+            bonds.extend((n_atoms + i, n_atoms + i + 1) for i in range(k - 1))
+            n_atoms += k
+
+    n_pad = 0
+    if kind == "ragged":
+        chains(1900)
+        n_pad = 1989 - 2 * len(bonds)
+    elif kind == "one_tile":
+        bonds, n_atoms = [(i, i + 1) for i in range(20)], 21
+    elif kind == "padding_run":
+        chains(500)
+        n_pad = 700
+    elif kind == "hub":
+        bonds, n_atoms, n_pad = [(0, i) for i in range(1, 301)], 301, 7
+    elif kind == "many_tiles":
+        chains(12800)
+        n_pad = 12881 - 2 * len(bonds)
+    assert n_pad >= 0
+    src = [a for a, b in bonds] + [b for a, b in bonds]
+    dst = [b for a, b in bonds] + [a for a, b in bonds]
+    nb = len(bonds)
+    rev = list(range(nb, 2 * nb)) + list(range(nb))
+    order = np.argsort(np.asarray(dst, dtype=np.int64), kind="stable")
+    inv = np.empty_like(order)
+    inv[order] = np.arange(len(order))
+    src, dst = np.asarray(src, np.int64)[order], np.asarray(dst, np.int64)[order]
+    rev = inv[np.asarray(rev, np.int64)[order]] if nb else np.zeros(0, np.int64)
+    pad_node = n_atoms  # the last node
+    e_real = 2 * nb
+    src = np.concatenate([src, np.full(n_pad, pad_node)])
+    dst = np.concatenate([dst, np.full(n_pad, pad_node)])
+    rev = np.concatenate([rev, np.arange(e_real, e_real + n_pad)])
+    ptr = np.searchsorted(dst, np.arange(pad_node + 2), side="left")
+    return tuple(torch.from_numpy(np.asarray(x, np.int32)).to(device)
+                 for x in (src, dst, rev, ptr))
+
+
 @pytest.mark.parametrize("d", [128, 384])
 @pytest.mark.parametrize("relu_stream", [False, True])
 @pytest.mark.parametrize("bias", [False, True])
-def test_fused_iter_matches_plain(bmg, cuda, relu_stream, bias, d):
-    n = bmg.E.shape[0]
+@pytest.mark.parametrize(
+    "graph", ["molecules", "ragged", "one_tile", "empty", "padding_run", "hub", "many_tiles"])
+def test_fused_iter_matches_plain(bmg, cuda, relu_stream, bias, d, graph):
+    g = _graph(bmg) if graph == "molecules" else _synthetic_graph(graph, cuda)
+    n = g[0].shape[0]
     H = _randn((n, d), 1, cuda, torch.bfloat16)
     H0 = _randn((n, d), 2, cuda, torch.bfloat16)
     W = _randn((d, d), 3, cuda, torch.bfloat16, scale=d**-0.5)
     b = _randn((d,), 4, cuda, torch.bfloat16) if bias else None
-    got = fused_iter(H, H0, W, b, *_graph(bmg), relu_stream=relu_stream).float()
-    want = fused_iter_plain(H, H0, W, b, *_graph(bmg), relu_stream=relu_stream).float()
+    before = LAUNCHES["fused_iter"]
+    y = fused_iter(H, H0, W, b, *g, relu_stream=relu_stream)
+    assert LAUNCHES["fused_iter"] == before + (n > 0) and y.shape == (n, d)
+    want = fused_iter_plain(H, H0, W, b, *g, relu_stream=relu_stream).float()
     # the bf16 message may round one ulp apart, which W carries into y; y's
     # own rounding adds one ulp
-    torch.testing.assert_close(got, want, rtol=2 * BF16_ULP, atol=0.02)
+    torch.testing.assert_close(y.float(), want, rtol=2 * BF16_ULP, atol=0.02)
+    # padding edges have a zero message: relu(H0 [+ b]) exactly
+    pad = g[0] == g[3].numel() - 2
+    want_pad = torch.relu(H0.float() + (b.float() if bias else 0)).to(torch.bfloat16)
+    assert torch.equal(y[pad], want_pad[pad])
+    # one block writes each row, in one order: two calls give the same bits
+    assert torch.equal(y, fused_iter(H, H0, W, b, *g, relu_stream=relu_stream))
 
 
 def _long_segments(device):

@@ -17,6 +17,7 @@ PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "experiments" / "torch_forward_profile.py",
     REPO / "experiments" / "torch_train_profile.py",
     REPO / "experiments" / "torch_grad_weight.py",
+    REPO / "experiments" / "torch_fused_iter.py",
 ]
 # the JAX stack, and what the machine with the card does not have either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
