@@ -76,11 +76,6 @@ __device__ __forceinline__ void add8(float (&acc)[8], uint4 v, bool relu) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 __device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
                "r"(v.z), "r"(v.w)
@@ -381,22 +376,11 @@ static size_t fi_smem(int d, int n, int stages) {
   return 1024 + (size_t)(d + 64) * n * 2 + (size_t)stages * FI_BOX + 8 * (2 * stages + 2);
 }
 
-static int fi_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int device = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-      sms = 1;
-  }
-  return sms;
-}
-
 // blocks of the grid: as many groups of d / N (one block per slice of a
 // tile) as fit one block per SM, no more than there are tiles
 static int fi_grid(int d, int n, int n_edges) {
   const int slices = d / n, tiles = (n_edges + FI_ROWS - 1) / FI_ROWS;
-  const int groups = fi_sms() / slices > 0 ? fi_sms() / slices : 1;
+  const int groups = sm_count() / slices > 0 ? sm_count() / slices : 1;
   return (tiles < groups ? tiles : groups) * slices;
 }
 

@@ -1,7 +1,7 @@
 // The backward of the D-MPNN message: the masked transposed message, from an
-// edge cotangent (bwd_message), from a node cotangent (bwd_message_nodes), or
-// from the next stage's table times W^T (bwd_message_premul); and the whole
-// backward of one iteration with the weight gradient (iter_bwd).
+// edge cotangent (bwd_message) or from a node cotangent (bwd_message_nodes);
+// and the whole backward of one iteration with the weight gradient
+// (iter_bwd). The premultiplied form is bwd_premul.cu's.
 //
 //   gz[k] = g[k] * [y[k] > 0]
 //   G[e]  = sum_{k : src[k] == dst[e]} gz[k] - gz[rev[e]]        (S - R)^T gz
@@ -10,12 +10,9 @@
 // chemprop_tpu/ops/fused_message.py (launched by _bwd_msg_impl, with its
 // has_acc form gz_out = gz + gz_acc); bwd_message_nodes replaces
 // _bwd_msg_nodes_kernel (launched by _bwd_msg_nodes_impl), where
-// g[k] = g_nodes[dst[k]] is formed on chip; bwd_message_premul replaces
-// _bwd_msg_premul_kernel (launched by _bwd_msg_premul_impl), where
-// g = G_in W^T is formed on chip and, with fold_h0, the first iteration's
-// whole H0 cotangent z = gz + g * [H0 > 0] is written in place of gz.
-// transposed_message is the same sum with no mask: the backward of the
-// message kernel itself.
+// g[k] = g_nodes[dst[k]] is formed on chip. transposed_message is the same
+// sum with no mask: the backward of the message kernel itself, and the node
+// pass of bwd_premul.cu's form without a tile table.
 //
 // The TPU kernels form (S - R)^T as a one-hot product over a sliding window of
 // 128-edge chunks. Here no scatter and no one-hot work is needed: the edges
@@ -27,18 +24,13 @@
 // there are no atomics, so a launch is reproducible bit for bit.
 //
 // Padding edges all have src = dst = the padding node (the last one). Their
-// rows of G, gz and z get exact zeros and the padding node is never walked
-// (it owns thousands of rows). The weight gradients x^T G and x^T z sum over
-// all rows, so these zeros are load-bearing.
+// rows of G and gz get exact zeros and the padding node is never walked (it
+// owns thousands of rows). The weight gradients x^T G sum over all rows, so
+// these zeros are load-bearing.
 //
-// All three are bound by bytes on the H100: g (or the node table), y and
-// gz_acc read once, G and gz written once; the gathers at rev[j] stay inside
-// one molecule's rows and come from L2. bwd_message_premul's 2 E d d product
-// runs on the tensor cores (WMMA bf16 16x16x16, f32 accumulation) at about
-// half the time of its bytes at d = 384. It is two launches behind one entry
-// point: the product with the mask writes gz (and z), then the node pass
-// forms G from gz. With fold_h0 that moves one bf16 edge table more than the
-// bound counts (gz is written and read back); without it z is gz.
+// Both are bound by bytes on the H100: g (or the node table), y and gz_acc
+// read once, G and gz written once; the gathers at rev[j] stay inside one
+// molecule's rows and come from L2.
 //
 // iter_bwd replaces _iter_bwd_kernel there (launched by _iter_bwd_impl): from
 // the cotangent g, the saved output y, the iteration's input H and W it gives
@@ -52,10 +44,11 @@
 // bytes at d = 384). The trouble is dW: a [384 x 384] float32 accumulator
 // (590 KB) fits no block, and float atomics would make runs differ. So
 // iter_bwd is three launches behind one entry point. The first forms each
-// 64-row tile of G in shared memory, multiplies it by W^T (the premultiplied
-// kernel's product) and writes dH and gz. The second is the split product of
-// xtg.cuh with its G operand formed on the fly, a 128-column strip of a
-// 64-row tile at a time (every strip is formed by the three blocks that
+// 64-row tile of G in shared memory and multiplies it by W^T (WMMA bf16
+// 16x16x16 with f32 accumulation, W^T streamed through shared memory in
+// panels, rows_times_wt) and writes dH and gz. The second is the split
+// product of xtg.cuh with its G operand formed on the fly, a 128-column strip
+// of a 64-row tile at a time (every strip is formed by the three blocks that
 // share it, so G is gathered four times in all: the price of not writing
 // it). The third adds the splits' partials in a fixed order. Rows of the
 // padding edges give zeros in dH and gz, and H's padding rows never reach dW.
@@ -174,7 +167,7 @@ extern "C" int bwd_message(const void* g, const void* y, const void* acc, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// ------------------------------------------------------------ premultiplied
+// ------------------------------------------------------------ G_tile W^T
 constexpr int BM = 64;   // edge rows per block
 constexpr int BN = 128;  // output columns per pass over W^T
 constexpr int BK = 64;   // depth of a W^T panel
@@ -182,7 +175,7 @@ constexpr int PRE_THREADS = 256;  // 8 warps: 2 x 4 warp tiles of 32 x 32
 constexpr int LDT = BK + 8;       // padded row strides (elements) against bank conflicts
 constexpr int LDC = BN + 4;
 
-static size_t premul_smem_bytes(int d) {
+static size_t dh_smem_bytes(int d) {
   return (size_t)BM * (d + 8) * sizeof(bf16) + (size_t)BN * LDT * sizeof(bf16) +
          (size_t)BM * LDC * sizeof(float);
 }
@@ -235,89 +228,6 @@ __device__ __forceinline__ void rows_times_wt(const bf16* As, int lda, bf16* Ws,
   __syncthreads();
 }
 
-// dh = G_in W^T for BM rows, f32; gz = dh * [y > 0] rounded to bf16 into gz;
-// with H0, z = gz + dh * [H0 > 0] formed in f32 and rounded once into z.
-// Rows from first_pad on (the padding edges) get zeros.
-__global__ void __launch_bounds__(PRE_THREADS)
-    premul_mask_kernel(const bf16* __restrict__ G_in, const bf16* __restrict__ y,
-                       const bf16* __restrict__ H0, const bf16* __restrict__ W,
-                       const int* __restrict__ ptr, bf16* __restrict__ gz, bf16* __restrict__ z,
-                       int n_edges, int d, int pad_node) {
-  // every array starts on a 128-byte boundary (BM * (d + 8) * 2 and
-  // BN * LDT * 2 are multiples of 128 for d a multiple of 128), and every
-  // WMMA tile pointer below is 32-byte aligned as WMMA requires
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = d + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [BM][lda] rows of G_in
-  bf16* Ws = As + BM * lda;                  // [BN][LDT]: Ws[n][k] = W[n0 + n][k0 + k]
-  float* Cs = reinterpret_cast<float*>(Ws + BN * LDT);  // [BM][LDC] f32 product
-
-  const int m0 = blockIdx.x * BM;
-  const int first_pad = ptr[pad_node];
-
-  for (int t = threadIdx.x; t < BM * (d / 8); t += PRE_THREADS) {
-    int r = t / (d / 8), c8 = t % (d / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < n_edges)
-      v = *reinterpret_cast<const uint4*>(G_in + (size_t)(m0 + r) * d + c8 * 8);
-    *reinterpret_cast<uint4*>(As + r * lda + c8 * 8) = v;
-  }
-  __syncthreads();
-
-  for (int n0 = 0; n0 < d; n0 += BN) {
-    rows_times_wt(As, lda, Ws, Cs, W, d, n0);
-
-    for (int t = threadIdx.x; t < BM * BN / 4; t += PRE_THREADS) {
-      int r = t / (BN / 4), c4 = (t % (BN / 4)) * 4;
-      int e = m0 + r;
-      if (e >= n_edges) continue;
-      size_t off = (size_t)e * d + n0 + c4;
-      float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e >= first_pad) {
-        store4(gz + off, zero4);
-        if (H0 != nullptr) store4(z + off, zero4);
-        continue;
-      }
-      float4 dh = *reinterpret_cast<const float4*>(Cs + r * LDC + c4);
-      float4 gzv = mask4(dh, load4(y + off));
-      store4(gz + off, gzv);
-      if (H0 != nullptr) {
-        float4 zv = mask4(dh, load4(H0 + off));
-        add4(zv, gzv);
-        store4(z + off, zv);
-      }
-    }
-    __syncthreads();  // Cs is overwritten by the next strip
-  }
-}
-
-// G, z from the next stage's G_in: pass 1 writes gz (into z itself when H0 is
-// null, else into the scratch table gz and the folded cotangent into z),
-// pass 2 forms G = (S - R)^T gz node by node. All tables bfloat16 [E, d], W
-// [d, d] in (in, out) layout, d a multiple of 128.
-extern "C" int bwd_message_premul(const void* G_in, const void* y, const void* H0, const void* W,
-                                  const int* dst, const int* rev, const int* ptr, void* G,
-                                  void* z, void* gz_scratch, int n_edges, int d, int pad_node,
-                                  cudaStream_t stream) {
-  if (d % BN != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  if (H0 != nullptr && gz_scratch == nullptr) return (int)cudaErrorInvalidValue;
-  if (n_edges == 0) return 0;
-  void* gz = H0 != nullptr ? gz_scratch : z;
-  size_t smem = premul_smem_bytes(d);
-  // the opt-in above 48 KB is per device, so it is made at every launch (cheap)
-  cudaError_t err = cudaFuncSetAttribute(premul_mask_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (n_edges + BM - 1) / BM;
-  premul_mask_kernel<<<grid, PRE_THREADS, smem, stream>>>(
-      (const bf16*)G_in, (const bf16*)y, (const bf16*)H0, (const bf16*)W, ptr, (bf16*)gz,
-      (bf16*)z, n_edges, d, pad_node);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_nodes<bf16>(gz, nullptr, nullptr, dst, rev, ptr, G, nullptr, n_edges, d,
-                                 pad_node, 0, stream);
-}
-
 // ----------------------------------------------------------------- iter_bwd
 // this lane's float4 of G's row e at vector v: the masked cotangents at the
 // reverses of the in-edges of dst[e], summed in their order in f32, less the
@@ -343,7 +253,10 @@ __global__ void __launch_bounds__(PRE_THREADS)
                        const int* __restrict__ rev, const int* __restrict__ ptr,
                        bf16* __restrict__ dH, bf16* __restrict__ gz, int n_edges, int d,
                        int pad_node) {
-  extern __shared__ __align__(128) unsigned char smem[];  // laid out as in premul_mask_kernel
+  // every array starts on a 128-byte boundary (BM * (d + 8) * 2 and
+  // BN * LDT * 2 are multiples of 128 for d a multiple of 128), and every
+  // WMMA tile pointer below is 32-byte aligned as WMMA requires
+  extern __shared__ __align__(128) unsigned char smem[];
   const int lda = d + 8;
   bf16* As = reinterpret_cast<bf16*>(smem);  // [BM][lda] rows of G, bf16
   bf16* Ws = As + BM * lda;                  // [BN][LDT] panel of W^T
@@ -420,7 +333,7 @@ extern "C" int iter_bwd(const void* g, const void* y, const void* H, const void*
                         float* partial, float* dW, int n_edges, int d, int pad_node,
                         cudaStream_t stream) {
   if (d % BN != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  size_t smem = premul_smem_bytes(d);
+  size_t smem = dh_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(iter_bwd_dh_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

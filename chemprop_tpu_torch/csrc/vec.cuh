@@ -42,6 +42,16 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// two floats rounded to a bf16 pair in 32 bits, and back
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
 __device__ __forceinline__ void add4(float4& a, float4 b) {
   a.x += b.x;
   a.y += b.y;

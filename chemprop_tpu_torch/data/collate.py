@@ -27,7 +27,7 @@ from typing import Iterable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS
+from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS, tiles_to
 from chemprop_tpu_torch.types import MolGraph
 
 
@@ -52,11 +52,15 @@ class BatchMolGraph:
         return self.n_graphs
 
     def to(self, device: str | torch.device) -> "BatchMolGraph":
+        """The batch on ``device``; the tile table is checked before it moves,
+        so that the tile kernels need not read it back (``ops.message.tiles_to``)."""
         moved = {
             f.name: getattr(self, f.name).to(device, non_blocking=True)
             for f in fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
+            if isinstance(getattr(self, f.name), torch.Tensor) and f.name != "tile_ptr"
         }
+        if self.tile_ptr is not None:
+            moved["tile_ptr"] = tiles_to(self.tile_ptr, self.E.shape[0], device)
         return replace(self, **moved)
 
 

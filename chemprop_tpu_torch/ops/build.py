@@ -32,7 +32,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("message", "fused_iter", "message_bwd", "segment", "gather", "grad_weight")
+SOURCES = (
+    "message", "fused_iter", "message_bwd", "bwd_premul", "segment", "gather", "grad_weight",
+)
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
 # None for null, or the stream), I an int; every function returns a C int
@@ -49,9 +51,12 @@ SIGNATURES = {
     },
     "message_bwd": {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-        "bwd_message_premul": [P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd_splits": [I],
+    },
+    "bwd_premul": {
+        "bwd_premul": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "bwd_premul_info": [I, I, P],
     },
     "grad_weight": {"grad_weight": [P, P, P, P, I, I, I, P], "grad_weight_splits": [I, I, I]},
     "gather": {"row_gather": [P, P, P, I, I, I, P]},

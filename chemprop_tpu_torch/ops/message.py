@@ -7,7 +7,8 @@ iteration and the whole depth loop with the M_v readout as differentiable ops
     fused_iter2: y1 = fused_iter(relu(H0)), y2 = fused_iter(y1), one launch
     bwd_message:         gz = g * [y > 0] (+ gz_acc),  G = (S - R)^T (g * [y > 0])
     bwd_message_nodes:   the same with g = g_nodes[dst] never formed
-    bwd_message_premul:  the same with g = G_in @ W^T formed inside the kernel
+    bwd_message_premul:  the same with g = G_in @ W^T formed inside the kernel,
+                         one launch over the batch's molecule tiles
     iter_bwd:            dH = bf16(G) W^T, gz and dW = H^T bf16(G), G never written
     first_iter, message_iter:  one iteration each, backward by hand
     loop_readout:        M_v of the whole depth loop, backward by hand
@@ -20,8 +21,14 @@ padding node, the last one) get a zero message, so their rows differ from
 the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
-``csrc/message.cu``, ``csrc/fused_iter.cu`` and ``csrc/message_bwd.cu`` run;
-on a CPU tensor the plain versions below."""
+``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/message_bwd.cu`` and
+``csrc/bwd_premul.cu`` run; on a CPU tensor the plain versions below.
+
+The tile kernels (``fused_iter2``, ``bwd_message_premul``) take the batch's
+tile table (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to
+``E`` that cut the edge rows into runs of at most ``ITER2_TILE_ROWS``, no
+real molecule's rows in two runs, so that every row a tile's row gathers
+lies in the tile."""
 
 from __future__ import annotations
 
@@ -114,11 +121,12 @@ def bwd_message_nodes_plain(
 def bwd_message_premul_plain(
     G_in: torch.Tensor, y: torch.Tensor, H0: torch.Tensor | None, W: torch.Tensor,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    fold_h0: bool = False,
+    fold_h0: bool = False, tiles: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the premultiplied form, with the kernel's
     roundings: ``dh`` stays f32, ``gz`` is rounded before it is summed into
-    ``G``, ``z`` is formed from the f32 ``gz`` and ``dh`` and rounded once."""
+    ``G``, ``z`` is formed from the f32 ``gz`` and ``dh`` and rounded once.
+    The function does not depend on the tile table, so ``tiles`` is unused."""
     pad = (dst == ptr.numel() - 2)[:, None]
     dh = G_in.float() @ W.float().t()
     gz = dh * (y > 0)
@@ -244,6 +252,36 @@ def fused_iter_info(d: int, n_edges: int) -> dict[str, int]:
     return dict(zip(keys, info))
 
 
+def check_tiles(tiles: torch.Tensor, n_edges: int, device: torch.device) -> None:
+    """Raise unless ``tiles`` is a tile table the tile kernels take: a 1-d
+    int32 tensor on ``device`` of row offsets ascending from 0 to ``n_edges``,
+    no tile of more than ``ITER2_TILE_ROWS`` rows. A table on the card is read
+    back for this (a wait for the device), unless :func:`tiles_to` checked it
+    on the host before it moved it there. That molecules are whole is the
+    collate's to keep (:func:`chemprop_tpu_torch.data.collate.iter2_tiles`)."""
+    if tiles.dtype != torch.int32 or tiles.dim() != 1 or tiles.numel() < 2:
+        raise ValueError("tiles must be a 1-d int32 tensor of at least two offsets")
+    if tiles.device != device:
+        raise ValueError(f"tiles must be on {device}")
+    if getattr(tiles, "checked_for_rows", None) == n_edges:
+        return
+    t = tiles.cpu()
+    rows = t[1:] - t[:-1]
+    if int(t[0]) != 0 or int(t[-1]) != n_edges:
+        raise ValueError(f"tiles must run from 0 to the {n_edges} edge rows")
+    if bool((rows < 0).any()) or int(rows.max()) > ITER2_TILE_ROWS:
+        raise ValueError(f"tiles must ascend in runs of at most {ITER2_TILE_ROWS} rows")
+
+
+def tiles_to(tiles: torch.Tensor, n_edges: int, device: str | torch.device) -> torch.Tensor:
+    """``tiles`` checked (:func:`check_tiles`, on its own device) and moved to
+    ``device``, marked so that the tile kernels do not read it back."""
+    check_tiles(tiles, n_edges, tiles.device)
+    moved = tiles.to(device, non_blocking=True)
+    moved.checked_for_rows = n_edges
+    return moved
+
+
 def fused_iter2(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor,
@@ -251,14 +289,9 @@ def fused_iter2(
     """The first two bfloat16 depth iterations in one launch:
     ``y1 = fused_iter(H0, H0, relu_stream=True)`` and ``y2 = fused_iter(y1, H0)``,
     both equal to those two launches bit for bit. ``tiles`` is the batch's tile
-    table (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E``
-    that cut the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real
-    molecule's rows in two runs."""
+    table (:func:`check_tiles`)."""
     _check_iter(H0, H0, W, b, src, dst, rev, ptr)
-    if tiles.dtype != torch.int32 or tiles.dim() != 1 or tiles.numel() < 2:
-        raise ValueError("tiles must be a 1-d int32 tensor of at least two offsets")
-    if tiles.device != H0.device:
-        raise ValueError(f"tiles must be on {H0.device}")
+    check_tiles(tiles, H0.shape[0], H0.device)
     if H0.device.type == "cpu":
         return fused_iter2_plain(H0, W, b, src, dst, rev, ptr)
     lib = library("message")
@@ -341,13 +374,19 @@ def bwd_message_nodes(
 def bwd_message_premul(
     G_in: torch.Tensor, y: torch.Tensor, H0: torch.Tensor | None, W: torch.Tensor,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    fold_h0: bool = False,
+    fold_h0: bool = False, tiles: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(G, z)`` of an earlier iteration's backward from the next stage's
     ``G_in``: ``dh = G_in @ W^T`` is formed inside the kernel,
     ``gz = dh * [y > 0]``, ``G = (S - R)^T gz``, and ``z = gz`` or, with
     ``fold_h0`` (the first iteration), ``gz + dh * [H0 > 0]``. bfloat16 only;
-    ``W`` is ``[d, d]`` in (in, out) layout, ``d`` a multiple of 128."""
+    ``W`` is ``[d, d]`` in (in, out) layout, ``d`` a multiple of 128.
+
+    With the batch's tile table ``tiles`` (:func:`check_tiles`) it is one
+    launch, and ``gz`` stays on chip; without one (a molecule of more than
+    ``ITER2_TILE_ROWS`` rows) the same product over fixed tiles writes ``gz``,
+    then the node pass of :func:`bwd_message` forms ``G``: two launches, equal
+    to the one bit for bit."""
     _check_graph(y, src, dst, rev, ptr)
     n, d = y.shape
     if y.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
@@ -358,18 +397,44 @@ def bwd_message_premul(
     _check_tables(y, {"G_in": G_in, "H0": H0})
     if W.shape != (d, d) or d % 128 != 0 or W.device != y.device or not W.is_contiguous():
         raise ValueError(f"W {tuple(W.shape)} must be a contiguous [d, d] with d % 128 == 0")
+    if tiles is not None:
+        check_tiles(tiles, n, y.device)
     if y.device.type == "cpu":
         return bwd_message_premul_plain(G_in, y, H0, W, src, dst, rev, ptr, fold_h0)
     if any(t.data_ptr() % 16 != 0 for t in (G_in, y, W) + ((H0,) if fold_h0 else ())):
         raise ValueError("bwd_message_premul needs 16-byte aligned tables")
     G, z = torch.empty_like(y), torch.empty_like(y)
-    scratch = torch.empty_like(y) if fold_h0 else None
-    call(
-        library("message_bwd"), "bwd_message_premul", G_in, y, H0, W, dst.contiguous(),
-        rev.contiguous(), ptr.contiguous(), G, z, scratch, n, d, ptr.numel() - 2,
-    )
+    if n == 0:
+        return G, z
+    graph = (dst.contiguous(), rev.contiguous(), ptr.contiguous())
+    pad_node = ptr.numel() - 2
+    lib = library("bwd_premul")
+    if tiles is not None:
+        call(lib, "bwd_premul", G_in, y, H0, W, *graph, tiles.contiguous(), G, z, None, n, d,
+             pad_node, tiles.numel() - 1)
+    else:  # gz written out (into z itself without fold_h0), then F's node pass
+        gz = torch.empty_like(y) if fold_h0 else z
+        call(lib, "bwd_premul", G_in, y, H0, W, *graph, None, None, z,
+             gz if fold_h0 else None, n, d, pad_node, 0)
+        call(library("message_bwd"), "bwd_message", gz, None, None, *graph, G, None, n, d,
+             pad_node, 0, DTYPES[gz.dtype])
     LAUNCHES["bwd_message_premul"] += 1
     return G, z
+
+
+def bwd_message_premul_info(d: int, n_tiles: int) -> dict[str, int]:
+    """The shape of :func:`bwd_message_premul`'s launch on the current card
+    at width ``d`` over ``n_tiles`` tiles: the width of a block's W^T slice,
+    the slices, the G_in stages, the shared memory per block, the grid, and
+    the blocks of the kernel that one SM runs at once."""
+    import ctypes
+
+    info = (ctypes.c_int * 6)()
+    err = library("bwd_premul").bwd_premul_info(d, n_tiles, info)
+    if err != 0:
+        raise RuntimeError(f"bwd_premul_info: CUDA error {err}")
+    keys = ("slice_width", "slices", "stages", "smem_bytes", "grid", "blocks_per_sm")
+    return dict(zip(keys, info))
 
 
 def iter_bwd(
@@ -530,8 +595,9 @@ def loop_readout(
     ``UNSERVED["fused_iter2"]`` counts it. The backward is written by hand. In
     bfloat16 with no bias and ``depth >= 3`` no cotangent edge table is formed
     outside a kernel: :func:`bwd_message_nodes` for the last iteration,
-    :func:`bwd_message_premul` for the earlier ones, the first with
-    ``fold_h0``. Otherwise (float32, a bias, depth 2) it is the per-iteration
+    :func:`bwd_message_premul` over the tile table for the earlier ones, the
+    first with ``fold_h0``; a batch without a table takes its two-launch form,
+    and ``UNSERVED["bwd_message_premul"]`` counts each such call. Otherwise (float32, a bias, depth 2) it is the per-iteration
     chain through :func:`bwd_message` with the running ``dH0`` accumulated in
     the kernel, and ``G @ W^T`` a ``torch.matmul``. The weight gradient
     ``x_t^T G`` goes through :func:`grad_weight` in both: a library product,
@@ -559,6 +625,7 @@ class _LoopReadout(torch.autograd.Function):
             ys.append(_iteration(ys[-1], H0, W, b, graph))
         ctx.save_for_backward(H0, W, b, *graph, *ys)
         ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
+        ctx.tiles = tiles
         return _segment_sum(ys[-1], dst, ptr, H0.dtype, False)[0]
 
     @staticmethod
@@ -577,7 +644,10 @@ class _LoopReadout(torch.autograd.Function):
             G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph)
             dW = grad_weight(x_of(depth - 1), G, grad_w)
             for t in range(depth - 2, 0, -1):
-                G, z = bwd_message_premul(G, ys[t - 1], H0, W, *graph, fold_h0=t == 1)
+                if ctx.tiles is None:
+                    UNSERVED["bwd_message_premul"] += 1
+                G, z = bwd_message_premul(G, ys[t - 1], H0, W, *graph, fold_h0=t == 1,
+                                          tiles=ctx.tiles)
                 dW = dW + grad_weight(x_of(t), G, grad_w)
                 dH0 = dH0 + z
             return dH0, dW.to(W.dtype), None, *none

@@ -16,7 +16,9 @@ failure:
    its padding rows and a second call bit for bit, its launch shape (the
    blocks the card runs at once); the weight-gradient kernel also at W_i's
    shape (128 input columns), at a ragged and at a short table, each twice,
-   bit for bit; the machine code of both read for ``wgmma`` and TMA
+   bit for bit; the premultiplied backward with the batch's tile table and
+   without one, both forms equal bit for bit and two calls equal; the machine
+   code of the three Hopper kernels read for ``wgmma`` and TMA
    (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
@@ -90,7 +92,7 @@ KERNELS = {
         timed="message[float32]",
     ),
     "fused_iter": dict(
-        source="chemprop_tpu_torch/csrc/message.cu",
+        source="chemprop_tpu_torch/csrc/fused_iter.cu",
         replaces="chemprop_tpu/ops/fused_message.py:290",
         tpu_kernel="_iter_kernel via _iter_impl",
         timed="fused_iter[relu_stream=False,bias=False]",
@@ -114,10 +116,10 @@ KERNELS = {
         timed="bwd_message_nodes[G]",
     ),
     "bwd_message_premul": dict(
-        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        source="chemprop_tpu_torch/csrc/bwd_premul.cu",
         replaces="chemprop_tpu/ops/fused_message.py:1055",
         tpu_kernel="_bwd_msg_premul_kernel via _bwd_msg_premul_impl",
-        timed="bwd_message_premul[fold_h0=True,G]",
+        timed="bwd_message_premul[fold_h0=True,tiles=True,G]",
     ),
     "row_gather": dict(
         source="chemprop_tpu_torch/csrc/gather.cu",
@@ -391,16 +393,26 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     # and with their f32 accumulation, so gz and z may round to the
     # neighbouring bf16 value (one ulp of the value, 1e-4 near zero); G sums
     # such values: one ulp of each term, and one more at its own rounding,
-    # so its limit scales with the sum of |gz| over its terms
+    # so its limit scales with the sum of |gz| over its terms. With the tile
+    # table it is one launch; without one (a molecule larger than a tile) the
+    # same product and the node pass of F: the two forms give the same bits
     for fold in (True, False):
-        tag = f"bwd_message_premul[fold_h0={fold}"
-        G, z = bwd_message_premul(gb, yb, H0, W, *graph, fold_h0=fold)
         want_G, want_z = bwd_message_premul_plain(gb, yb, H0, W, *graph, fold_h0=fold)
         gz_abs = ((gb.float() @ W.float().t()) * (yb > 0)).abs()
         terms = torch.zeros((n_v, d), device=dev).index_add_(0, bmg.dst.long(), gz_abs[bmg.rev.long()])
-        check(f"{tag},G]", G, want_G, 2 * BF16_ULP, 1e-4, errs, terms[bmg.dst.long()])
-        check(f"{tag},z]", z, want_z, 2 * BF16_ULP, 1e-4, errs)
-        zeros_on_padding(f"{tag}]", G, z)
+        outs = {}
+        for tiles in (bmg.tile_ptr, None):
+            tag = f"bwd_message_premul[fold_h0={fold},tiles={tiles is not None}"
+            G, z = outs[tiles is not None] = bwd_message_premul(gb, yb, H0, W, *graph,
+                                                                fold_h0=fold, tiles=tiles)
+            check(f"{tag},G]", G, want_G, 2 * BF16_ULP, 1e-4, errs, terms[bmg.dst.long()])
+            check(f"{tag},z]", z, want_z, 2 * BF16_ULP, 1e-4, errs)
+            zeros_on_padding(f"{tag}]", G, z)
+        if not all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])):
+            fail(f"bwd_message_premul[fold_h0={fold}]: the forms with and without tiles differ")
+        again = bwd_message_premul(gb, yb, H0, W, *graph, fold_h0=fold, tiles=bmg.tile_ptr)
+        if not all(torch.equal(a, b) for a, b in zip(again, outs[True])):
+            fail(f"bwd_message_premul[fold_h0={fold}]: two calls differ")
     # I: a copy, so exact; the last row of the table is not zero here, and the
     # rows that name it must come out zero all the same
     got = row_gather(Mg, bmg.batch)
@@ -410,8 +422,6 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     # D: both outputs equal two fused_iter launches bit for bit, on every row;
     # against the plain version y1 is held as fused_iter is, and y2 carries
     # y1's ulp through the second message and W
-    if bmg.tile_ptr is None:
-        fail("the benchmark batch has no tile table for fused_iter2")
     for bias in (None, b):
         tag = f"fused_iter2[bias={bias is not None}"
         y1, y2 = fused_iter2(H0, W, bias, *graph, bmg.tile_ptr)
@@ -898,19 +908,33 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         plain_ms=time_ms(lambda: bwd_message_nodes_plain(t["g_nodes"], t["yb"], *graph), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
     )
-    # H with fold_h0, as at depth 3: G_in, y and H0 read, G and z written, W
-    # read once; the product of the real rows with W^T on the tensor cores.
-    # Without fold_h0 (from depth 4) H0 is not read
+    # H with fold_h0, as at depth 3, over the batch's tile table: G_in, y and
+    # H0 read, G and z written, W read once; the product of the real rows with
+    # W^T on the tensor cores. Without fold_h0 (from depth 4) H0 is not read.
+    # Beside it the form without a tile table and the unfused route: a library
+    # product dh = G_in W^T, F's masked transposed message, then z in PyTorch
     b_ms, b_by = bound(5 * n_e * d * 2 + d * d * 2 + f_ids, 2 * n_real * d * d, bf16_peak)
     b_nofold, _ = bound(4 * n_e * d * 2 + d * d * 2 + f_ids, 2 * n_real * d * d, bf16_peak)
-    premul = lambda fn, fold: fn(t["gb"], t["yb"], t["H0"], t["W"], *graph, fold_h0=fold)  # noqa: E731
+
+    def premul(fn, fold, tiles=bmg.tile_ptr):
+        return fn(t["gb"], t["yb"], t["H0"], t["W"], *graph, fold_h0=fold, tiles=tiles)
+
+    def unfused_premul():
+        dh = torch.mm(t["gb"], t["W"].t())
+        G, gz = bwd_message(dh, t["yb"], *graph)
+        return G, gz + dh * (t["H0"] > 0)
+
     out["bwd_message_premul"] = dict(
         ms=time_ms(lambda: premul(bwd_message_premul, True), reps),
         plain_ms=time_ms(lambda: premul(bwd_message_premul_plain, True), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+        without_tiles=dict(ms=time_ms(lambda: premul(bwd_message_premul, True, None), reps),
+                           bound_ms=b_ms),
         without_fold_h0=dict(ms=time_ms(lambda: premul(bwd_message_premul, False), reps),
                              bound_ms=b_nofold),
+        composed_ms=time_ms(unfused_premul, reps),
     )
+    out["bwd_message_premul"]["share_of_bound"] = b_ms / out["bwd_message_premul"]["ms"]
     # I, bf16: the graph table and the ids read, the node table written
     n_g = t["Mg"].shape[0]
     batch64 = bmg.batch.long()
@@ -1040,9 +1064,9 @@ def main() -> int:
         print("chip_smoke: run it from the root of a chemprop-tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chemprop_tpu_torch.ops import build_all
+    from chemprop_tpu_torch.ops import UNSERVED, build_all
     from chemprop_tpu_torch.ops.build import sass_contains
-    from chemprop_tpu_torch.ops.message import fused_iter_info
+    from chemprop_tpu_torch.ops.message import bwd_message_premul_info, fused_iter_info
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1055,10 +1079,10 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
-    # B's and J's products run on wgmma (HGMMA), and W and J's tables come in
-    # by TMA (UTMALDG)
+    # B's, H's and J's products run on wgmma (HGMMA), and W, W^T, G_in and
+    # J's tables come in by TMA (UTMALDG)
     sass = {}
-    for name in ("fused_iter", "grad_weight"):
+    for name in ("fused_iter", "bwd_premul", "grad_weight"):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
         sass[name] = sass_contains(name, ("HGMMA", "UTMALDG"))
         print(json.dumps({f"{name}_sass": sass[name] if sass[name] is not None else
@@ -1074,6 +1098,8 @@ def main() -> int:
     shapes = {"molecules": BATCH_SIZE, "E_pad": bmg.E.shape[0], "E_real": int(bmg.edge_mask.sum()),
               "N_pad": bmg.V.shape[0], "N_real": int(bmg.node_mask.sum()), "d": d}
     print(json.dumps({"benchmark_batch": shapes}))
+    if bmg.tile_ptr is None:  # the tile kernels D and H need it
+        fail("the benchmark batch has no tile table")
     # B's persistent grid: the blocks the card runs at once bound what runs
     # side by side, and the blocks of a tile's W slices must run together
     launch = fused_iter_info(d, shapes["E_pad"])
@@ -1082,10 +1108,14 @@ def main() -> int:
     print(json.dumps({"fused_iter_launch": launch}))
     if launch["grid"] > launch["co_resident_blocks"]:
         fail(f"fused_iter's grid of {launch['grid']} blocks does not run at once")
+    # H's persistent grid over the benchmark batch's tiles
+    premul_launch = bwd_message_premul_info(d, bmg.tile_ptr.numel() - 1)
+    print(json.dumps({"bwd_message_premul_launch": premul_launch}))
     tensors, errs = check_kernels(bmg, d, args.seed)
 
     out_dir = REPO / "chiprun_out"
     (out_dir / "chip_smoke_preds").mkdir(parents=True, exist_ok=True)
+    UNSERVED.clear()  # the batches every main path gives a tile kernel, counted from here
     launches, path_res = main_path(out_dir / "chip_smoke_preds")
     train_launches, train_res = train_path(ds)
     launches.update(train_launches)
@@ -1100,6 +1130,10 @@ def main() -> int:
     print(json.dumps({"forward": rates}))
     step_rates = train_rate(batch, args.reps)
     print(json.dumps({"train_step": step_rates}))
+    unserved = dict(UNSERVED)
+    print(json.dumps({"unserved": unserved}))
+    if unserved.get("bwd_message_premul", 0):
+        fail(f"bwd_message_premul left {unserved['bwd_message_premul']} batches without tiles")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1116,7 +1150,9 @@ def main() -> int:
         ))
     record = {"card": card, "kind": kind, "build_s": build_s,
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
-              "sass": sass, "fused_iter_launch": launch, "benchmark_batch": shapes,
+              "sass": sass, "fused_iter_launch": launch,
+              "bwd_message_premul_launch": premul_launch, "unserved": unserved,
+              "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "forward": rates,

@@ -65,8 +65,8 @@ OWN_KERNELS = {
     "plain_message_kernel": "A message",
     "fused_iter_kernel": "B fused_iter",
     "seg_pass": "C sorted_segment_sum",
-    "premul_mask_kernel": "H bwd_message_premul (product and mask)",
-    "bwd_message_kernel": "F/G/H node pass (bwd_message*)",
+    "bwd_premul_kernel": "H bwd_message_premul (one launch over the tiles)",
+    "bwd_message_kernel": "F/G node pass (bwd_message*; H's without a tile table)",
     "row_gather_kernel": "I row_gather",
     "fused_iter2_kernel": "D fused_iter2",
     "iter_bwd_dh_kernel": "E iter_bwd (G, dH, gz)",

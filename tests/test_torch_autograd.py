@@ -24,6 +24,7 @@ from chemprop_tpu.featurizers.molgraph.molecule import SimpleMoleculeMolGraphFea
 from chemprop_tpu.ops.fused_message import fused_loop_readout
 from chemprop_tpu_torch.data.collate import PadSpec, batch_mol_graphs
 from chemprop_tpu_torch.ops import (
+    UNSERVED,
     loop_readout,
     message,
     sorted_segment_sum,
@@ -215,6 +216,35 @@ def test_loop_readout_bf16_matches_jax_grad(batches, monkeypatch, depth):
     # the two forwards may differ by a bf16 ulp in a saved y, which flips a
     # ReLU mask where y is near zero and moves every value downstream by a
     # few ulps of the largest term: errors are held against the tables' scale
+    for got, want in ((got_dH0[real], want_dH0[real]), (got_dW, want_dW)):
+        scale = np.abs(want).max()
+        err = np.abs(got - want)
+        assert err.max() <= 0.05 * scale, (err.max(), scale)
+        assert err.mean() <= 2e-3 * scale, (err.mean(), scale)
+    assert not got_dH0[~real].any()
+
+
+@pytest.mark.parametrize("depth", [3, 4])
+def test_loop_readout_bf16_without_a_tile_table_matches_jax_grad(monkeypatch, depth):
+    """A batch holding a molecule of more edge rows than a tile has no tile
+    table: the premultiplied backward takes its form without one, counted
+    once per call in ``UNSERVED``, and the gradients still follow the JAX
+    package's."""
+    monkeypatch.setenv("CHEMPROP_TPU_INTERPRET", "1")
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    mgs = [feat(MoleculeDatapoint.from_smi(s).mol) for s in SMIS[:4] + ["C" * 70]]
+    pad = (256, 768, len(mgs))
+    jb = jax_batch(mgs, JaxPadSpec(*pad), sort_edges=True)
+    tb = batch_mol_graphs(mgs, PadSpec(*pad))
+    assert jb.fused_ok and jb.readout_ok and tb.tile_ptr is None
+    H0, W, c = _loop_inputs(tb, bf16=True)
+    want_dH0, want_dW = _jax_loop_grads(jb, H0, W, c, depth, jnp.bfloat16)
+    UNSERVED.clear()
+    got_dH0, got_dW = _torch_loop_grads(tb, H0, W, c, depth, torch.bfloat16)
+    assert UNSERVED["bwd_message_premul"] == depth - 2
+    real = tb.edge_mask.numpy()
+    # as test_loop_readout_bf16_matches_jax_grad: a bf16 ulp in a saved y may
+    # flip a ReLU mask, so errors are held against the tables' scale
     for got, want in ((got_dH0[real], want_dH0[real]), (got_dW, want_dW)):
         scale = np.abs(want).max()
         err = np.abs(got - want)

@@ -313,26 +313,96 @@ def test_bwd_message_nodes_matches_plain(any_bmg, cuda, d):
     assert not G[pad].any() and not gz[pad].any()
 
 
-@pytest.mark.parametrize("d", [128, 384])
-@pytest.mark.parametrize("fold_h0", [False, True])
-def test_bwd_message_premul_matches_plain(any_bmg, cuda, fold_h0, d):
-    b = any_bmg
-    n = b.E.shape[0]
-    G_in = _randn((n, d), 15, cuda, torch.bfloat16)
-    y = _randn((n, d), 16, cuda, torch.bfloat16).clamp_min(0)
-    H0 = _randn((n, d), 17, cuda, torch.bfloat16)
-    W = _randn((d, d), 18, cuda, torch.bfloat16, scale=d**-0.5)
+def _premul_inputs(n, d, device, seed=15):
+    G_in = _randn((n, d), seed, device, torch.bfloat16)
+    y = _randn((n, d), seed + 1, device, torch.bfloat16).clamp_min(0)
+    H0 = _randn((n, d), seed + 2, device, torch.bfloat16)
+    W = _randn((d, d), seed + 3, device, torch.bfloat16, scale=d**-0.5)
+    return G_in, y, H0, W
+
+
+def _check_premul(G_in, y, H0, W, graph, fold_h0, tiles):
+    """H with the tile table against the plain version, against its form
+    without a table (bit for bit, every row) and against a second call;
+    padding rows exact zeros."""
     before = LAUNCHES["bwd_message_premul"]
-    G, z = bwd_message_premul(G_in, y, H0, W, *_graph(b), fold_h0=fold_h0)
+    G, z = bwd_message_premul(G_in, y, H0, W, *graph, fold_h0=fold_h0, tiles=tiles)
     assert LAUNCHES["bwd_message_premul"] == before + 1
-    want_G, want_z = bwd_message_premul_plain(G_in, y, H0, W, *_graph(b), fold_h0=fold_h0)
+    want_G, want_z = bwd_message_premul_plain(G_in, y, H0, W, *graph, fold_h0=fold_h0)
     # dh sums d products in f32 in another order, so gz and z may round to the
     # neighbouring bf16 value; G sums a few such values (each up to one ulp of
     # a value of size ~2 apart) and rounds once more
     torch.testing.assert_close(z.float(), want_z.float(), rtol=2 * BF16_ULP, atol=1e-5)
     torch.testing.assert_close(G.float(), want_G.float(), rtol=2 * BF16_ULP, atol=0.1)
+    pad = graph[1] == graph[3].numel() - 2
+    assert not G[pad].any() and not z[pad].any()
+    # the two forms share the product and sum in one order: the same bits
+    G2, z2 = bwd_message_premul(G_in, y, H0, W, *graph, fold_h0=fold_h0)
+    assert torch.equal(G, G2) and torch.equal(z, z2)
+    G3, z3 = bwd_message_premul(G_in, y, H0, W, *graph, fold_h0=fold_h0, tiles=tiles)
+    assert torch.equal(G, G3) and torch.equal(z, z3)
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+@pytest.mark.parametrize("fold_h0", [False, True])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_bwd_message_premul_matches_plain(any_bmg, cuda, fold_h0, d, tiled):
+    b = any_bmg
+    G_in, y, H0, W = _premul_inputs(b.E.shape[0], d, cuda)
+    if tiled:
+        assert b.tile_ptr is not None
+        _check_premul(G_in, y, H0, W, _graph(b), fold_h0, b.tile_ptr)
+        return
+    before = LAUNCHES["bwd_message_premul"]
+    G, z = bwd_message_premul(G_in, y, H0, W, *_graph(b), fold_h0=fold_h0)
+    assert LAUNCHES["bwd_message_premul"] == before + 1
+    want_G, want_z = bwd_message_premul_plain(G_in, y, H0, W, *_graph(b), fold_h0=fold_h0)
+    torch.testing.assert_close(z.float(), want_z.float(), rtol=2 * BF16_ULP, atol=1e-5)
+    torch.testing.assert_close(G.float(), want_G.float(), rtol=2 * BF16_ULP, atol=0.1)
     pad = _pad_rows(b)
     assert not G[pad].any() and not z[pad].any()
+
+
+def _tiled_graph(device):
+    """``(src, dst, rev, ptr)`` and a tile table of whole molecules sorted by
+    dst: a 32-bond chain (a tile of 64 rows), a 64-bond chain (128 rows), a
+    star of 64 leaves (128 rows; the hub's 64 in-edges fill a whole 64-row
+    half), a 32-bond chain with the first padding row (a tile of 65 rows),
+    then padding tiles of 1, 100 and 28 rows."""
+    mols = [[(i, i + 1) for i in range(32)], [(i, i + 1) for i in range(64)],
+            [(0, i) for i in range(1, 65)], [(i, i + 1) for i in range(32)]]
+    src, dst, rev, n_atoms, n_rows = [], [], [], 0, 0
+    for bonds in mols:
+        nb = len(bonds)
+        s = [a for a, _ in bonds] + [b for _, b in bonds]
+        t = [b for _, b in bonds] + [a for a, _ in bonds]
+        order = np.argsort(np.asarray(t), kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(2 * nb)
+        r = np.concatenate([np.arange(nb, 2 * nb), np.arange(nb)])
+        src += list(np.asarray(s)[order] + n_atoms)
+        dst += list(np.asarray(t)[order] + n_atoms)
+        rev += list(inv[r[order]] + n_rows)
+        n_atoms += max(max(a, b) for a, b in bonds) + 1
+        n_rows += 2 * nb
+    n_pad = 130
+    pad_node = n_atoms
+    src += [pad_node] * n_pad
+    dst += [pad_node] * n_pad
+    rev += list(range(n_rows, n_rows + n_pad))
+    ptr = np.searchsorted(np.asarray(dst), np.arange(pad_node + 2), side="left")
+    tiles = [0, 64, 192, 320, 385, 386, 486, n_rows + n_pad]
+    return tuple(torch.from_numpy(np.asarray(x, np.int32)).to(device)
+                 for x in (src, dst, rev, ptr, tiles))
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("fold_h0", [False, True])
+def test_bwd_message_premul_tiles_of_every_size(cuda, fold_h0, d):
+    *graph, tiles = _tiled_graph(cuda)
+    assert (tiles[1:] - tiles[:-1]).tolist() == [64, 128, 128, 65, 1, 100, 28]
+    G_in, y, H0, W = _premul_inputs(graph[0].shape[0], d, cuda, seed=50)
+    _check_premul(G_in, y, H0, W, tuple(graph), fold_h0, tiles)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 384), (torch.bfloat16, 8),
@@ -353,8 +423,8 @@ def test_backward_kernels_are_deterministic(bmg, cuda):
     y = _randn((n, d), 21, cuda, torch.bfloat16).clamp_min(0)
     W = _randn((d, d), 22, cuda, torch.bfloat16, scale=d**-0.5)
     a = bwd_message_premul(G_in, y, G_in, W, *_graph(bmg), fold_h0=True)
-    for _ in range(3):
-        b = bwd_message_premul(G_in, y, G_in, W, *_graph(bmg), fold_h0=True)
+    for tiles in (None, bmg.tile_ptr, None, bmg.tile_ptr):
+        b = bwd_message_premul(G_in, y, G_in, W, *_graph(bmg), fold_h0=True, tiles=tiles)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
@@ -370,6 +440,16 @@ def test_backward_wrappers_raise_instead_of_falling_back(bmg, cuda):
         row_gather(z[: bmg.n_graphs + 1, :3].contiguous(), bmg.batch)
     with pytest.raises(ValueError):  # graph tables on another device
         bwd_message(z, z, bmg.src.cpu(), bmg.dst, bmg.rev, bmg.edge_ptr)
+    W = torch.zeros((128, 128), dtype=torch.bfloat16, device=cuda)
+    short = bmg.tile_ptr.clone()
+    short[-1] -= 1  # a table that ends short of the rows, read back from the card
+    with pytest.raises(ValueError):
+        bwd_message_premul(z, z, z, W, *_graph(bmg), fold_h0=True, tiles=short)
+    wide = torch.tensor([0, ITER2_TILE_ROWS + 1, n], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # a tile of more rows than the kernel holds
+        bwd_message_premul(z, z, z, W, *_graph(bmg), fold_h0=True, tiles=wide)
+    with pytest.raises(ValueError):  # the table on another device
+        bwd_message_premul(z, z, z, W, *_graph(bmg), fold_h0=True, tiles=bmg.tile_ptr.cpu())
 
 
 @pytest.mark.parametrize("dtype,depth", [(torch.float32, 3), (torch.bfloat16, 3),
@@ -453,23 +533,36 @@ def test_fused_iter2_tiles_with_an_empty_tail_and_zero_padding(bmg, cuda):
 
 
 def test_loop_readout_iter2_and_the_molecule_larger_than_a_tile(bmg, cuda):
+    """Both tile kernels on a batch with a tile table, their other forms on a
+    batch without one: the same forward and the same gradients bit for bit
+    as the forms without a table, each unserved call counted."""
     d, depth = 128, 3
     on = KernelOptions(iter2=True)
     for b, served in ((bmg, True), (_big_bmg(cuda), False)):
         assert (b.tile_ptr is not None) == served
         H0 = _randn((b.E.shape[0], d), 35, cuda, torch.bfloat16)
+        H0[_pad_rows(b)] = 0
         W = _randn((d, d), 36, cuda, torch.bfloat16, scale=d**-0.5)
-        want = loop_readout(H0, W, None, *_graph(b), depth)
+        c = _randn((b.V.shape[0], d), 37, cuda, torch.bfloat16)
+        c[-1] = 0
+
+        def run(options, tiles):
+            x, w = H0.clone().requires_grad_(), W.clone().requires_grad_()
+            out = loop_readout(x, w, None, *_graph(b), depth, options, tiles)
+            return (out, *torch.autograd.grad(out, [x, w], c))
+
+        want = run(None, None)
         LAUNCHES.clear()
         UNSERVED.clear()
-        got = loop_readout(H0, W, None, *_graph(b), depth, on, b.tile_ptr)
-        assert torch.equal(got, want)
+        got = run(on, b.tile_ptr)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert LAUNCHES["bwd_message_premul"] == 1
         if served:
             assert LAUNCHES["fused_iter2"] == 1 and LAUNCHES["fused_iter"] == 0
-            assert UNSERVED["fused_iter2"] == 0
+            assert UNSERVED["fused_iter2"] == 0 and UNSERVED["bwd_message_premul"] == 0
         else:
             assert LAUNCHES["fused_iter2"] == 0 and LAUNCHES["fused_iter"] == 2
-            assert UNSERVED["fused_iter2"] == 1
+            assert UNSERVED["fused_iter2"] == 1 and UNSERVED["bwd_message_premul"] == 1
 
 
 @pytest.mark.parametrize("d", [128, 384])

@@ -143,7 +143,11 @@ def test_bwd_message_premul_matches_jax_kernel(batches, interpret, fold_h0):
     want_G, want_z = _bwd_msg_premul_impl(
         Gj, yj, H0j if fold_h0 else None, Wj, jb.src, jb.dst, jb.rev, jb.fused_window, fold_h0
     )
-    G, z = bwd_message_premul(Gt, yt, H0t, Wt, *_graph(tb), fold_h0=fold_h0)
+    assert tb.tile_ptr is not None
+    G, z = bwd_message_premul(Gt, yt, H0t, Wt, *_graph(tb), fold_h0=fold_h0, tiles=tb.tile_ptr)
+    # the function does not depend on the tile table: without one, the same bits
+    G2, z2 = bwd_message_premul(Gt, yt, H0t, Wt, *_graph(tb), fold_h0=fold_h0)
+    assert torch.equal(G, G2) and torch.equal(z, z2)
     real = tb.edge_mask.numpy()
     # dh = G_in W^T sums 128 products in f32 in another order, so gz and z may
     # round to the neighbouring bf16 value, and G sums a few such values
