@@ -1,7 +1,7 @@
-// Hopper primitives for grad_weight.cu, fused_iter.cu and bwd_premul.cu, in
-// inline PTX: mbarriers, 2-d TMA tile loads and warpgroup MMAs (wgmma) on
-// 128-byte-swizzled tiles in shared memory, and the host's encoding of a
-// bfloat16 table's tensor map. Only sm_90a has wgmma.
+// Hopper primitives for grad_weight.cu, fused_iter.cu, bwd_premul.cu and
+// segment.cu, in inline PTX: mbarriers, 2-d TMA tile loads, 1-d bulk copies
+// and warpgroup MMAs (wgmma) on 128-byte-swizzled tiles in shared memory, and
+// the host's encoding of a bfloat16 table's tensor map. Only sm_90a has wgmma.
 //
 // A table tile here is what one TMA box of 64 columns (128 bytes of bf16) by
 // R rows leaves in shared memory with CU_TENSOR_MAP_SWIZZLE_128B: row r at
@@ -59,6 +59,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(r0)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at src into shared memory at dst
+// (both 16-byte aligned, bytes a multiple of 16), counted on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

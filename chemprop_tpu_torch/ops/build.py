@@ -61,8 +61,8 @@ SIGNATURES = {
     "grad_weight": {"grad_weight": [P, P, P, P, I, I, I, P], "grad_weight_splits": [I, I, I]},
     "gather": {"row_gather": [P, P, P, I, I, I, P]},
     "segment": {
-        "seg_sum": [P, P, P, P, P, P, I, I, I, I, I, P],
-        "seg_scratch_rows": [I],
+        "seg_sum": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+        "seg_sum_info": [I, I, I, I, I, I, I, P],
     },
 }
 
@@ -162,7 +162,11 @@ def call(lib: ctypes.CDLL, fn: str, *args) -> None:
     their reuse after the kernel on the same stream."""
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):  # the launch itself goes to the current device
-        err = getattr(lib, fn)(*cargs, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*cargs, stream)
+    else:
+        with torch.cuda.device(device):  # the launch itself goes to the current device
+            err = getattr(lib, fn)(*cargs, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")

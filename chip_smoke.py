@@ -17,9 +17,11 @@ failure:
    blocks the card runs at once); the weight-gradient kernel also at W_i's
    shape (128 input columns), at a ragged and at a short table, each twice,
    bit for bit; the premultiplied backward with the batch's tile table and
-   without one, both forms equal bit for bit and two calls equal; the machine
-   code of the three Hopper kernels read for ``wgmma`` and TMA
-   (``cuobjdump -sass``);
+   without one, both forms equal bit for bit and two calls equal; the segment
+   sum at both readouts (edges to nodes, nodes to graphs) in all three dtype
+   pairs, with and without counts, two calls equal; the machine code of the
+   three Hopper kernels read for ``wgmma`` and TMA, and of the segment sum
+   for bulk copies (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
    tests/data/example_model_v2_regression_mol.pt, on ``cuda`` in float32 and
@@ -47,10 +49,10 @@ failure:
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
    function, where there is one (the weight gradient at W_h's and W_i's
-   shapes), and the fused iteration's unfused route; the forward's and the
-   training step's molecules per second, and the step with each option on
-   and off, and of a tanh model at depth 2 with ``grad_w`` (its W_h product
-   composed through autograd).
+   shapes, the segment sum at both readouts), and the fused iteration's
+   unfused route; the forward's and the training step's molecules per
+   second, and the step with each option on and off, and of a tanh model at
+   depth 2 with ``grad_w`` (its W_h product composed through autograd).
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -295,7 +297,7 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         bwd_message_nodes_plain, bwd_message_plain, bwd_message_premul_plain,
         fused_iter2_plain, fused_iter_plain, iter_bwd_plain, message_plain,
     )
-    from chemprop_tpu_torch.ops.segment import sorted_segment_sum_plain
+    from chemprop_tpu_torch.ops.segment import KERNEL_DTYPES, sorted_segment_sum_plain
 
     dev = bmg.V.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -336,27 +338,35 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     # f32 sums in another order differ by up to a few eps times the sum of
     # |x| over the segment (the padding segments hold thousands of rows, and
     # the plain version's index_add_ order itself varies from run to run),
-    # so f32 outputs are held to 1e-5 of that; a bf16 output rounds once more
+    # so f32 outputs are held to 1e-5 of that; a bf16 output rounds once more.
+    # Both readouts (the M_v readout, edges to nodes, and the mean readout,
+    # nodes to graphs) in all three dtype pairs, with and without counts;
+    # no atomics on the data: a second call gives the same bits
     def abs_sums(data, ids, ptr):
         return sorted_segment_sum_plain(data.abs(), ids, ptr, torch.float32)[0]
 
-    for data, out_dtype in ((H32, torch.float32), (H, torch.bfloat16)):
-        got = sorted_segment_sum(data, bmg.dst, bmg.edge_ptr, out_dtype)
-        want, _ = sorted_segment_sum_plain(data, bmg.dst, bmg.edge_ptr, out_dtype)
-        tag = f"sorted_segment_sum[edge->node,{data.dtype}->{out_dtype}]"
-        if out_dtype == torch.bfloat16:
-            check(tag, got, want, BF16_ULP, 1e-4, errs)
-        else:
-            check(tag, got, want, 1e-5, 1e-6, errs, abs_sums(data, bmg.dst, bmg.edge_ptr))
-    for data in (Hv.float(), Hv):
-        got, counts = sorted_segment_sum_counts(data, bmg.batch, bmg.node_ptr)
-        want, want_counts = sorted_segment_sum_plain(
-            data, bmg.batch, bmg.node_ptr, torch.float32, True
-        )
-        check(f"sorted_segment_sum[node->graph+counts,{data.dtype}]", got, want, 1e-5, 1e-6,
-              errs, abs_sums(data, bmg.batch, bmg.node_ptr))
-        if not torch.equal(counts, want_counts):
-            fail("sorted_segment_sum: counts disagree")
+    readouts = {"edge->node": (H32, bmg.dst, bmg.edge_ptr),
+                "node->graph": (Hv.float(), bmg.batch, bmg.node_ptr)}
+    for shape, (x32, ids, ptr) in readouts.items():
+        for in_dtype, out_dtype in sorted(KERNEL_DTYPES, key=str):
+            data = x32.to(in_dtype)
+            for with_counts in (False, True):
+                if with_counts:
+                    got, counts = sorted_segment_sum_counts(data, ids, ptr, out_dtype)
+                else:
+                    got, counts = sorted_segment_sum(data, ids, ptr, out_dtype), None
+                want, want_counts = sorted_segment_sum_plain(data, ids, ptr, out_dtype,
+                                                             with_counts)
+                tag = (f"sorted_segment_sum[{shape}{'+counts' if with_counts else ''},"
+                       f"{in_dtype}->{out_dtype}]")
+                if out_dtype == torch.bfloat16:
+                    check(tag, got, want, BF16_ULP, 1e-4, errs)
+                else:
+                    check(tag, got, want, 1e-5, 1e-6, errs, abs_sums(data, ids, ptr))
+                if with_counts and not torch.equal(counts, want_counts):
+                    fail(f"{tag}: counts disagree")
+                if not torch.equal(got, sorted_segment_sum(data, ids, ptr, out_dtype)):
+                    fail(f"{tag}: two calls differ")
 
     # the backward kernels, at the shapes the training step gives them
     g32 = torch.randn((n_e, d), generator=g, device=dev)
@@ -813,6 +823,22 @@ def time_ms(fn, reps: int, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call of the kernels ``fn`` launches, summed
+    from a ``torch.profiler`` trace: the host's work between the launches,
+    which CUDA events count where it is longer than the kernel, is not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / calls / 1e3
+
+
 def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     """Phase 4: kernel, plain and library times with the least time the card
     could take (bytes over the memory rate or operations over the peak)."""
@@ -820,7 +846,7 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
 
     from chemprop_tpu_torch.ops import (
         bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, fused_iter2, grad_weight,
-        iter_bwd, message, row_gather, sorted_segment_sum,
+        iter_bwd, message, row_gather, sorted_segment_sum, sorted_segment_sum_counts,
     )
     from chemprop_tpu_torch.ops.gather import row_gather_plain
     from chemprop_tpu_torch.ops.grad_weight import grad_weight_plain
@@ -870,7 +896,8 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
             lambda: torch.relu(t["H0"] + torch.mm(message(t["H"], *graph), t["W"])), reps),
     )
     out["fused_iter"]["share_of_bound"] = b_ms / out["fused_iter"]["ms"]
-    # segment sum, the M_v readout in bf16: E rows read, N rows written
+    # segment sum, the M_v readout in bf16: E rows read, N rows written, ids
+    # and ptr read; beside it the same in f32 (the f32 model's)
     ids64 = bmg.dst.long()
     acc = torch.zeros((n_v, d), dtype=torch.bfloat16, device=bmg.V.device)
     b_ms, b_by = bound((n_e + n_v) * d * 2 + 4 * (n_e + n_v + 1), n_e * d, f32_peak)
@@ -881,7 +908,30 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         ),
         library_ms=time_ms(lambda: acc.index_add_(0, ids64, t["H"]), reps),
         bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+        float32=dict(
+            ms=time_ms(lambda: sorted_segment_sum(t["H32"], bmg.dst, bmg.edge_ptr), reps),
+            plain_ms=time_ms(lambda: sorted_segment_sum_plain(
+                t["H32"], bmg.dst, bmg.edge_ptr, torch.float32), reps),
+            bound_ms=bound((n_e + n_v) * d * 4 + 4 * (n_e + n_v + 1), n_e * d, f32_peak)[0],
+        ),
     )
+    out["sorted_segment_sum"]["share_of_bound"] = b_ms / out["sorted_segment_sum"]["ms"]
+    # the same kernel at the mean readout's shape, bf16 node table to f32
+    # graph rows with counts: N rows read, G rows and counts written, ids and
+    # ptr read. index_add_ sums in the table's dtype, here bf16's
+    n_g1 = bmg.node_ptr.numel() - 1
+    batch64 = bmg.batch.long()
+    acc_g = torch.zeros((n_g1, d), dtype=torch.bfloat16, device=bmg.V.device)
+    b_ms, b_by = bound(n_v * d * 2 + n_g1 * d * 4 + 4 * (n_v + 2 * n_g1 + 1), n_v * d, f32_peak)
+    out["sorted_segment_sum_counts"] = dict(
+        ms=time_ms(lambda: sorted_segment_sum_counts(t["Hv"], bmg.batch, bmg.node_ptr), reps),
+        plain_ms=time_ms(lambda: sorted_segment_sum_plain(
+            t["Hv"], bmg.batch, bmg.node_ptr, torch.float32, True), reps),
+        library_ms=time_ms(lambda: acc_g.index_add_(0, batch64, t["Hv"]), reps),
+        bound_ms=b_ms, bound_by=b_by, shape=[n_v, d], dtype="bfloat16->float32",
+    )
+    out["sorted_segment_sum_counts"]["share_of_bound"] = (
+        b_ms / out["sorted_segment_sum_counts"]["ms"])
     # F, f32 as in the float32 training step: g and y read (and gz_acc, in
     # the second call of a step), G and gz written; rev and ptr read. Per real
     # row and element: one add into the node's sum, one subtraction, one mask
@@ -937,7 +987,6 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     out["bwd_message_premul"]["share_of_bound"] = b_ms / out["bwd_message_premul"]["ms"]
     # I, bf16: the graph table and the ids read, the node table written
     n_g = t["Mg"].shape[0]
-    batch64 = bmg.batch.long()
     b_ms, b_by = bound((n_g + n_v) * d * 2 + 4 * n_v, 0, f32_peak)
     out["row_gather"] = dict(
         ms=time_ms(lambda: row_gather(t["Mg"], bmg.batch), reps),
@@ -1064,9 +1113,12 @@ def main() -> int:
         print("chip_smoke: run it from the root of a chemprop-tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chemprop_tpu_torch.ops import UNSERVED, build_all
+    from chemprop_tpu_torch.ops import (
+        UNSERVED, build_all, sorted_segment_sum, sorted_segment_sum_counts,
+    )
     from chemprop_tpu_torch.ops.build import sass_contains
     from chemprop_tpu_torch.ops.message import bwd_message_premul_info, fused_iter_info
+    from chemprop_tpu_torch.ops.segment import sorted_segment_sum_info
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1080,11 +1132,13 @@ def main() -> int:
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
     # B's, H's and J's products run on wgmma (HGMMA), and W, W^T, G_in and
-    # J's tables come in by TMA (UTMALDG)
+    # J's tables come in by TMA (UTMALDG); C's ranges come in by bulk copies
+    # (UBLKCP)
     sass = {}
-    for name in ("fused_iter", "bwd_premul", "grad_weight"):
+    for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")), ("bwd_premul", ("HGMMA", "UTMALDG")),
+                          ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",))):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
-        sass[name] = sass_contains(name, ("HGMMA", "UTMALDG"))
+        sass[name] = sass_contains(name, opcodes)
         print(json.dumps({f"{name}_sass": sass[name] if sass[name] is not None else
                           "not checked: the toolkit has no cuobjdump"}))
         if sass[name] is not None and not all(sass[name].values()):
@@ -1111,6 +1165,14 @@ def main() -> int:
     # H's persistent grid over the benchmark batch's tiles
     premul_launch = bwd_message_premul_info(d, bmg.tile_ptr.numel() - 1)
     print(json.dumps({"bwd_message_premul_launch": premul_launch}))
+    # C's ranges and persistent grid at the M_v and the mean readout
+    seg_launch = {
+        "edge->node": sorted_segment_sum_info(shapes["E_pad"], shapes["N_pad"], d, torch.bfloat16,
+                                              torch.bfloat16),
+        "node->graph": sorted_segment_sum_info(shapes["N_pad"], bmg.node_ptr.numel() - 1, d,
+                                               torch.bfloat16, torch.float32),
+    }
+    print(json.dumps({"sorted_segment_sum_launch": seg_launch}))
     tensors, errs = check_kernels(bmg, d, args.seed)
 
     out_dir = REPO / "chiprun_out"
@@ -1130,6 +1192,13 @@ def main() -> int:
     print(json.dumps({"forward": rates}))
     step_rates = train_rate(batch, args.reps)
     print(json.dumps({"train_step": step_rates}))
+    # C's device time at both readouts, traced after every untraced timing
+    # (a trace slows the launches after it): one call's host work is longer
+    # than the kernel, so the events above count the host
+    times["sorted_segment_sum"]["device_ms"] = device_ms(
+        lambda: sorted_segment_sum(tensors["H"], bmg.dst, bmg.edge_ptr))
+    times["sorted_segment_sum_counts"]["device_ms"] = device_ms(
+        lambda: sorted_segment_sum_counts(tensors["Hv"], bmg.batch, bmg.node_ptr))
     unserved = dict(UNSERVED)
     print(json.dumps({"unserved": unserved}))
     if unserved.get("bwd_message_premul", 0):
@@ -1148,10 +1217,22 @@ def main() -> int:
             launches_per_train_step=per_step,
             max_abs_err=errs[meta["timed"]], max_abs_err_by_check=checks, **times[name],
         ))
+    # C at the mean readout's shape: the same kernel, counted under C's name
+    c_entry = next(k for k in kernels if k["name"] == "sorted_segment_sum")
+    kernels.append(dict(
+        c_entry, name="sorted_segment_sum_counts", launch_counter="sorted_segment_sum",
+        tpu_kernel=KERNELS["sorted_segment_sum"]["tpu_kernel"] + " (with_counts)",
+        max_abs_err=errs["sorted_segment_sum[node->graph+counts,torch.bfloat16->torch.float32]"],
+        **{key: times["sorted_segment_sum_counts"][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape", "dtype",
+            "share_of_bound", "device_ms")}))
+    for key in ("float32", "max_abs_err_by_check"):
+        kernels[-1].pop(key, None)
     record = {"card": card, "kind": kind, "build_s": build_s,
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
               "sass": sass, "fused_iter_launch": launch,
-              "bwd_message_premul_launch": premul_launch, "unserved": unserved,
+              "bwd_message_premul_launch": premul_launch,
+              "sorted_segment_sum_launch": seg_launch, "unserved": unserved,
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,

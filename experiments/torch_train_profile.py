@@ -64,7 +64,7 @@ MOL_CSV = REPO / "tests/data/regression/mol/mol.csv"
 OWN_KERNELS = {
     "plain_message_kernel": "A message",
     "fused_iter_kernel": "B fused_iter",
-    "seg_pass": "C sorted_segment_sum",
+    "seg_kernel": "C sorted_segment_sum",
     "bwd_premul_kernel": "H bwd_message_premul (one launch over the tiles)",
     "bwd_message_kernel": "F/G node pass (bwd_message*; H's without a tile table)",
     "row_gather_kernel": "I row_gather",

@@ -19,6 +19,7 @@ PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "experiments" / "torch_grad_weight.py",
     REPO / "experiments" / "torch_fused_iter.py",
     REPO / "experiments" / "torch_premul.py",
+    REPO / "experiments" / "torch_segment.py",
 ]
 # the JAX stack, and what the machine with the card does not have either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
