@@ -1,7 +1,8 @@
-// Hopper primitives for grad_weight.cu, fused_iter.cu, bwd_premul.cu and
-// segment.cu, in inline PTX: mbarriers, 2-d TMA tile loads, 1-d bulk copies
-// and warpgroup MMAs (wgmma) on 128-byte-swizzled tiles in shared memory, and
-// the host's encoding of a bfloat16 table's tensor map. Only sm_90a has wgmma.
+// Hopper primitives for grad_weight.cu, fused_iter.cu, bwd_premul.cu,
+// segment.cu and bwd_nodes.cu, in inline PTX: mbarriers, 2-d TMA tile loads,
+// 1-d bulk copies, the proxy fence and warpgroup MMAs (wgmma) on
+// 128-byte-swizzled tiles in shared memory, and the host's encoding of a
+// bfloat16 table's tensor map. Only sm_90a has wgmma.
 //
 // A table tile here is what one TMA box of 64 columns (128 bytes of bf16) by
 // R rows leaves in shared memory with CU_TENSOR_MAP_SWIZZLE_128B: row r at
@@ -70,6 +71,12 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// order this thread's generic accesses to shared memory before later
+// accesses of the async proxy (a bulk copy or TMA that refills the bytes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {

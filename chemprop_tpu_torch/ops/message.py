@@ -6,7 +6,8 @@ iteration and the whole depth loop with the M_v readout as differentiable ops
     fused_iter:  y[e] = relu(H0[e] + bf16(M[e]) @ W [+ b])
     fused_iter2: y1 = fused_iter(relu(H0)), y2 = fused_iter(y1), one launch
     bwd_message:         gz = g * [y > 0] (+ gz_acc),  G = (S - R)^T (g * [y > 0])
-    bwd_message_nodes:   the same with g = g_nodes[dst] never formed
+    bwd_message_nodes:   the same with g = g_nodes[dst] never formed, one
+                         launch over the batch's molecule tiles
     bwd_message_premul:  the same with g = G_in @ W^T formed inside the kernel,
                          one launch over the batch's molecule tiles
     iter_bwd:            dH = bf16(G) W^T, gz and dW = H^T bf16(G), G never written
@@ -21,14 +22,15 @@ padding node, the last one) get a zero message, so their rows differ from
 the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
-``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/message_bwd.cu`` and
-``csrc/bwd_premul.cu`` run; on a CPU tensor the plain versions below.
+``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/message_bwd.cu``,
+``csrc/bwd_nodes.cu`` and ``csrc/bwd_premul.cu`` run; on a CPU tensor the
+plain versions below.
 
-The tile kernels (``fused_iter2``, ``bwd_message_premul``) take the batch's
-tile table (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to
-``E`` that cut the edge rows into runs of at most ``ITER2_TILE_ROWS``, no
-real molecule's rows in two runs, so that every row a tile's row gathers
-lies in the tile."""
+The tile kernels (``fused_iter2``, ``bwd_message_nodes``,
+``bwd_message_premul``) take the batch's tile table
+(``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
+the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
+rows in two runs, so that every row a tile's row gathers lies in the tile."""
 
 from __future__ import annotations
 
@@ -351,24 +353,60 @@ def bwd_message(
 
 def bwd_message_nodes(
     g_nodes: torch.Tensor, y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-    rev: torch.Tensor, ptr: torch.Tensor,
+    rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`bwd_message` for the last iteration, whose cotangent arrives as
     the ``[N, d]`` node table of the M_v readout: ``g = g_nodes[dst]`` is
     formed inside the kernel and never written. bfloat16 only, as the JAX
-    kernel."""
+    kernel.
+
+    With the batch's tile table ``tiles`` (:func:`check_tiles`; ``d`` a
+    multiple of 128) it is one launch of ``csrc/bwd_nodes.cu`` over the
+    molecule tiles; without one (a molecule of more than ``ITER2_TILE_ROWS``
+    rows) the node-warp kernel of ``csrc/message_bwd.cu``. Both give the same
+    bits."""
     _check_graph(y, src, dst, rev, ptr)
+    n, d = y.shape
     if y.dtype != torch.bfloat16 or g_nodes.dtype != torch.bfloat16:
         raise TypeError("bwd_message_nodes takes bfloat16 g_nodes and y")
-    if g_nodes.shape != (ptr.numel() - 1, y.shape[1]) or g_nodes.device != y.device:
+    if g_nodes.shape != (ptr.numel() - 1, d) or g_nodes.device != y.device:
         raise ValueError(f"g_nodes {tuple(g_nodes.shape)} does not fit y and ptr")
     if not g_nodes.is_contiguous():
         raise ValueError("g_nodes must be contiguous")
+    if tiles is not None:
+        if d % 128 != 0:
+            raise ValueError(f"the tiled bwd_message_nodes takes d % 128 == 0, not {d}")
+        check_tiles(tiles, n, y.device)
     if y.device.type == "cpu":
         return bwd_message_nodes_plain(g_nodes, y, src, dst, rev, ptr)
-    out = _launch_bwd(g_nodes, y, None, dst, rev, ptr, nodes=True, with_gz=True)
+    if tiles is None:
+        out = _launch_bwd(g_nodes, y, None, dst, rev, ptr, nodes=True, with_gz=True)
+    else:
+        if g_nodes.data_ptr() % 16 != 0 or y.data_ptr() % 16 != 0:
+            raise ValueError("bwd_message_nodes needs 16-byte aligned tables")
+        out = torch.empty_like(y), torch.empty_like(y)
+        if n == 0:
+            return out
+        call(library("bwd_nodes"), "bwd_nodes", g_nodes, y, dst.contiguous(), rev.contiguous(),
+             ptr.contiguous(), tiles.contiguous(), *out, n, d, ptr.numel() - 2,
+             tiles.numel() - 1)
     LAUNCHES["bwd_message_nodes"] += 1
     return out
+
+
+def bwd_message_nodes_info(d: int, n_tiles: int) -> dict[str, int]:
+    """The shape of the tiled :func:`bwd_message_nodes` launch on the current
+    card at width ``d`` over ``n_tiles`` tiles: the column slice of an item,
+    the slices, the stages, the shared memory per block, the grid, and the
+    blocks of the kernel that one SM runs at once."""
+    import ctypes
+
+    info = (ctypes.c_int * 6)()
+    err = library("bwd_nodes").bwd_nodes_info(d, n_tiles, info)
+    if err != 0:
+        raise RuntimeError(f"bwd_nodes_info: CUDA error {err}")
+    keys = ("slice_width", "slices", "stages", "smem_bytes", "grid", "blocks_per_sm")
+    return dict(zip(keys, info))
 
 
 def bwd_message_premul(
@@ -594,10 +632,12 @@ def loop_readout(
     without one (a molecule larger than a tile) takes the two launches, and
     ``UNSERVED["fused_iter2"]`` counts it. The backward is written by hand. In
     bfloat16 with no bias and ``depth >= 3`` no cotangent edge table is formed
-    outside a kernel: :func:`bwd_message_nodes` for the last iteration,
-    :func:`bwd_message_premul` over the tile table for the earlier ones, the
-    first with ``fold_h0``; a batch without a table takes its two-launch form,
-    and ``UNSERVED["bwd_message_premul"]`` counts each such call. Otherwise (float32, a bias, depth 2) it is the per-iteration
+    outside a kernel: :func:`bwd_message_nodes` for the last iteration and
+    :func:`bwd_message_premul` for the earlier ones, the first with
+    ``fold_h0``, both over the tile table; a batch without a table takes
+    their forms without one, and ``UNSERVED["bwd_message_nodes"]`` and
+    ``UNSERVED["bwd_message_premul"]`` count each such call. Otherwise
+    (float32, a bias, depth 2) it is the per-iteration
     chain through :func:`bwd_message` with the running ``dH0`` accumulated in
     the kernel, and ``G @ W^T`` a ``torch.matmul``. The weight gradient
     ``x_t^T G`` goes through :func:`grad_weight` in both: a library product,
@@ -641,7 +681,9 @@ class _LoopReadout(torch.autograd.Function):
             return ys[t - 2] if t >= 2 else relu_H0
 
         if dt == torch.bfloat16 and b is None and depth >= 3:
-            G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph)
+            if ctx.tiles is None:
+                UNSERVED["bwd_message_nodes"] += 1
+            G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph, tiles=ctx.tiles)
             dW = grad_weight(x_of(depth - 1), G, grad_w)
             for t in range(depth - 2, 0, -1):
                 if ctx.tiles is None:

@@ -16,12 +16,13 @@ failure:
    its padding rows and a second call bit for bit, its launch shape (the
    blocks the card runs at once); the weight-gradient kernel also at W_i's
    shape (128 input columns), at a ragged and at a short table, each twice,
-   bit for bit; the premultiplied backward with the batch's tile table and
-   without one, both forms equal bit for bit and two calls equal; the segment
-   sum at both readouts (edges to nodes, nodes to graphs) in all three dtype
-   pairs, with and without counts, two calls equal; the machine code of the
+   bit for bit; the premultiplied backward and the node-cotangent backward
+   with the batch's tile table and without one, both forms equal bit for bit
+   and two calls equal; the segment sum at both readouts (edges to nodes,
+   nodes to graphs) in all three dtype pairs, with and without counts, two
+   calls equal; the machine code of the
    three Hopper kernels read for ``wgmma`` and TMA, and of the segment sum
-   for bulk copies (``cuobjdump -sass``);
+   and the node-cotangent backward for bulk copies (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
    tests/data/example_model_v2_regression_mol.pt, on ``cuda`` in float32 and
@@ -44,15 +45,18 @@ failure:
    tolerance of the first run's); the overfit run of phase 4 in bfloat16 with
    the ``iter2`` and ``grad_w`` options on, to the same bar; and one float32
    step with dropout on the card against the same step on the CPU, the masks
-   made on the CPU from one seed and copied;
+   made on the CPU from one seed and copied. No main path may leave a batch
+   without its tile table (``ops.UNSERVED``);
 6. on the benchmark batch: the launches of one forward and of one training
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
    function, where there is one (the weight gradient at W_h's and W_i's
-   shapes, the segment sum at both readouts), and the fused iteration's
-   unfused route; the forward's and the training step's molecules per
-   second, and the step with each option on and off, and of a tanh model at
-   depth 2 with ``grad_w`` (its W_h product composed through autograd).
+   shapes, the segment sum at both readouts), the unfused routes of the fused
+   iteration and of the two tiled backward kernels, and the device time of
+   the segment sum and of the node-cotangent backward from a trace; the
+   forward's and the training step's molecules per second, and the step with
+   each option on and off, and of a tanh model at depth 2 with ``grad_w``
+   (its W_h product composed through autograd).
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -112,10 +116,10 @@ KERNELS = {
         timed="bwd_message[float32,acc=False,G]",
     ),
     "bwd_message_nodes": dict(
-        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        source="chemprop_tpu_torch/csrc/bwd_nodes.cu",
         replaces="chemprop_tpu/ops/fused_message.py:863",
         tpu_kernel="_bwd_msg_nodes_kernel via _bwd_msg_nodes_impl",
-        timed="bwd_message_nodes[G]",
+        timed="bwd_message_nodes[tiles=True,G]",
     ),
     "bwd_message_premul": dict(
         source="chemprop_tpu_torch/csrc/bwd_premul.cu",
@@ -257,6 +261,20 @@ def benchmark_batch(ds, device):
     return collate_batch(data).to(device)
 
 
+def bwd_nodes_bytes(bmg, d: int) -> int:
+    """The bytes kernel G (``bwd_message_nodes`` over the tile table) must
+    move at width ``d``: ``y`` read over the real rows, ``g_nodes`` over the
+    nodes that own real rows, ``G`` and ``gz`` written over every row (the
+    padding rows as zeros, with no load), ``dst`` and ``rev`` of the real
+    rows, the tile table, and the one entry of ``ptr`` that marks the first
+    padding row."""
+    ptr = bmg.edge_ptr
+    n_real = int(bmg.edge_mask.sum())
+    owners = int((ptr[1:-1] > ptr[:-2]).sum())  # the padding node, last, left out
+    n_tiles = bmg.tile_ptr.numel() - 1
+    return (n_real + owners + 2 * bmg.E.shape[0]) * d * 2 + 8 * n_real + 4 * (n_tiles + 1) + 4
+
+
 def max_err(got, want) -> tuple[float, float]:
     """(max abs error, max |want|)."""
     return float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
@@ -393,12 +411,22 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         check(f"bwd_message[{tag},G]", G, want_G, rtol, atol, errs)
         check(f"bwd_message[{tag},gz]", gz, want_gz, rtol, atol, errs)
         zeros_on_padding(f"bwd_message[{tag}]", G, gz)
-    # G: the same sums from the node table; gz is a masked copy, so exact
-    G, gz = bwd_message_nodes(g_nodes, yb, *graph)
+    # G: the same sums from the node table; gz is a masked copy, so exact.
+    # With the tile table it is one launch of the tile kernel; without one
+    # (a molecule larger than a tile) the node-warp kernel: the same bits
     want_G, want_gz = bwd_message_nodes_plain(g_nodes, yb, *graph)
-    check("bwd_message_nodes[G]", G, want_G, BF16_ULP, 1e-6, errs)
-    check("bwd_message_nodes[gz]", gz, want_gz, 0.0, 0.0, errs)
-    zeros_on_padding("bwd_message_nodes", G, gz)
+    outs = {}
+    for tiles in (bmg.tile_ptr, None):
+        tag = f"bwd_message_nodes[tiles={tiles is not None}"
+        G, gz = outs[tiles is not None] = bwd_message_nodes(g_nodes, yb, *graph, tiles=tiles)
+        check(f"{tag},G]", G, want_G, BF16_ULP, 1e-6, errs)
+        check(f"{tag},gz]", gz, want_gz, 0.0, 0.0, errs)
+        zeros_on_padding(f"{tag}]", G, gz)
+    if not all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])):
+        fail("bwd_message_nodes: the forms with and without tiles differ")
+    again = bwd_message_nodes(g_nodes, yb, *graph, tiles=bmg.tile_ptr)
+    if not all(torch.equal(a, b) for a, b in zip(again, outs[True])):
+        fail("bwd_message_nodes: two calls differ")
     # H: dh = G_in W^T sums d products on the tensor cores, in another order
     # and with their f32 accumulation, so gz and z may round to the
     # neighbouring bf16 value (one ulp of the value, 1e-4 near zero); G sums
@@ -951,13 +979,23 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
             bound_ms=bound(4 * n_e * d * 2 + f_ids, 3 * n_real * d, f32_peak)[0],
         ),
     )
-    # G, bf16: the node table and y read, G and gz written; dst read as well
-    b_ms, b_by = bound((n_v + 3 * n_e) * d * 2 + f_ids + 4 * n_e, 3 * n_real * d, f32_peak)
+    # G, bf16, over the batch's tile table (bwd_nodes_bytes). Beside it the
+    # form without a table and the unfused route: the node table gathered at
+    # dst by index_select, then F
+    n_tiles = bmg.tile_ptr.numel() - 1
+    b_ms, b_by = bound(bwd_nodes_bytes(bmg, d), 3 * n_real * d, f32_peak)
+    dst64 = bmg.dst.long()
     out["bwd_message_nodes"] = dict(
-        ms=time_ms(lambda: bwd_message_nodes(t["g_nodes"], t["yb"], *graph), reps),
+        ms=time_ms(lambda: bwd_message_nodes(t["g_nodes"], t["yb"], *graph,
+                                             tiles=bmg.tile_ptr), reps),
         plain_ms=time_ms(lambda: bwd_message_nodes_plain(t["g_nodes"], t["yb"], *graph), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
+        without_tiles=dict(ms=time_ms(lambda: bwd_message_nodes(t["g_nodes"], t["yb"], *graph),
+                                      reps), bound_ms=b_ms),
+        composed_ms=time_ms(lambda: bwd_message(torch.index_select(t["g_nodes"], 0, dst64),
+                                                t["yb"], *graph), reps),
     )
+    out["bwd_message_nodes"]["share_of_bound"] = b_ms / out["bwd_message_nodes"]["ms"]
     # H with fold_h0, as at depth 3, over the batch's tile table: G_in, y and
     # H0 read, G and z written, W read once; the product of the real rows with
     # W^T on the tensor cores. Without fold_h0 (from depth 4) H0 is not read.
@@ -997,7 +1035,6 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     # D, bf16: H0 read, y1 and y2 written, W and the tile table read once; two
     # products of the real rows' messages with W. Beside it the two fused_iter
     # launches it stands for
-    n_tiles = bmg.tile_ptr.numel() - 1
     b_ms, b_by = bound(3 * n_e * d * 2 + d * d * 2 + ids_bytes + 4 * (n_tiles + 1),
                        4 * n_real * d * d, bf16_peak)
 
@@ -1114,10 +1151,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from chemprop_tpu_torch.ops import (
-        UNSERVED, build_all, sorted_segment_sum, sorted_segment_sum_counts,
+        UNSERVED, build_all, bwd_message_nodes, sorted_segment_sum, sorted_segment_sum_counts,
     )
     from chemprop_tpu_torch.ops.build import sass_contains
-    from chemprop_tpu_torch.ops.message import bwd_message_premul_info, fused_iter_info
+    from chemprop_tpu_torch.ops.message import (
+        bwd_message_nodes_info, bwd_message_premul_info, fused_iter_info,
+    )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_info
 
     card = card_line()
@@ -1132,11 +1171,12 @@ def main() -> int:
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
     # B's, H's and J's products run on wgmma (HGMMA), and W, W^T, G_in and
-    # J's tables come in by TMA (UTMALDG); C's ranges come in by bulk copies
-    # (UBLKCP)
+    # J's tables come in by TMA (UTMALDG); C's ranges and G's tiles come in by
+    # bulk copies (UBLKCP)
     sass = {}
     for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")), ("bwd_premul", ("HGMMA", "UTMALDG")),
-                          ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",))):
+                          ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",)),
+                          ("bwd_nodes", ("UBLKCP",))):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
         sass[name] = sass_contains(name, opcodes)
         print(json.dumps({f"{name}_sass": sass[name] if sass[name] is not None else
@@ -1152,7 +1192,7 @@ def main() -> int:
     shapes = {"molecules": BATCH_SIZE, "E_pad": bmg.E.shape[0], "E_real": int(bmg.edge_mask.sum()),
               "N_pad": bmg.V.shape[0], "N_real": int(bmg.node_mask.sum()), "d": d}
     print(json.dumps({"benchmark_batch": shapes}))
-    if bmg.tile_ptr is None:  # the tile kernels D and H need it
+    if bmg.tile_ptr is None:  # the tile kernels D, G and H need it
         fail("the benchmark batch has no tile table")
     # B's persistent grid: the blocks the card runs at once bound what runs
     # side by side, and the blocks of a tile's W slices must run together
@@ -1165,6 +1205,9 @@ def main() -> int:
     # H's persistent grid over the benchmark batch's tiles
     premul_launch = bwd_message_premul_info(d, bmg.tile_ptr.numel() - 1)
     print(json.dumps({"bwd_message_premul_launch": premul_launch}))
+    # G's persistent grid over the same tiles
+    nodes_launch = bwd_message_nodes_info(d, bmg.tile_ptr.numel() - 1)
+    print(json.dumps({"bwd_message_nodes_launch": nodes_launch}))
     # C's ranges and persistent grid at the M_v and the mean readout
     seg_launch = {
         "edge->node": sorted_segment_sum_info(shapes["E_pad"], shapes["N_pad"], d, torch.bfloat16,
@@ -1192,17 +1235,21 @@ def main() -> int:
     print(json.dumps({"forward": rates}))
     step_rates = train_rate(batch, args.reps)
     print(json.dumps({"train_step": step_rates}))
-    # C's device time at both readouts, traced after every untraced timing
-    # (a trace slows the launches after it): one call's host work is longer
-    # than the kernel, so the events above count the host
+    # C's device time at both readouts and G's, traced after every untraced
+    # timing (a trace slows the launches after it): one call's host work is
+    # longer than C, so the events above count the host
     times["sorted_segment_sum"]["device_ms"] = device_ms(
         lambda: sorted_segment_sum(tensors["H"], bmg.dst, bmg.edge_ptr))
     times["sorted_segment_sum_counts"]["device_ms"] = device_ms(
         lambda: sorted_segment_sum_counts(tensors["Hv"], bmg.batch, bmg.node_ptr))
+    times["bwd_message_nodes"]["device_ms"] = device_ms(
+        lambda: bwd_message_nodes(tensors["g_nodes"], tensors["yb"], bmg.src, bmg.dst, bmg.rev,
+                                  bmg.edge_ptr, tiles=bmg.tile_ptr))
     unserved = dict(UNSERVED)
     print(json.dumps({"unserved": unserved}))
-    if unserved.get("bwd_message_premul", 0):
-        fail(f"bwd_message_premul left {unserved['bwd_message_premul']} batches without tiles")
+    for name in ("bwd_message_premul", "bwd_message_nodes"):
+        if unserved.get(name, 0):
+            fail(f"{name} left {unserved[name]} batches without tiles")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1232,6 +1279,7 @@ def main() -> int:
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
               "sass": sass, "fused_iter_launch": launch,
               "bwd_message_premul_launch": premul_launch,
+              "bwd_message_nodes_launch": nodes_launch,
               "sorted_segment_sum_launch": seg_launch, "unserved": unserved,
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,

@@ -42,6 +42,7 @@ from chemprop_tpu_torch.ops.gather import row_gather_plain
 from chemprop_tpu_torch.ops.grad_weight import grad_weight_plain, matmul
 from chemprop_tpu_torch.ops.message import (
     ITER2_TILE_ROWS,
+    bwd_message_nodes_info,
     bwd_message_nodes_plain,
     bwd_message_plain,
     bwd_message_premul_plain,
@@ -363,11 +364,16 @@ def test_bwd_message_matches_plain(any_bmg, cuda, dtype, with_acc, d):
     assert not G[pad].any() and not gz[pad].any()  # exact zeros
 
 
-@pytest.mark.parametrize("d", [128, 384])
-def test_bwd_message_nodes_matches_plain(any_bmg, cuda, d):
+@pytest.mark.parametrize("d", [128, 384, 512])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_bwd_message_nodes_matches_plain(any_bmg, cuda, d, tiled):
     b = any_bmg
     g_nodes = _randn((b.V.shape[0], d), 13, cuda, torch.bfloat16)
     y = _randn((b.E.shape[0], d), 14, cuda, torch.bfloat16).clamp_min(0)
+    if tiled:
+        assert b.tile_ptr is not None
+        _check_nodes(g_nodes, y, _graph(b), b.tile_ptr)
+        return
     before = LAUNCHES["bwd_message_nodes"]
     G, gz = bwd_message_nodes(g_nodes, y, *_graph(b))
     assert LAUNCHES["bwd_message_nodes"] == before + 1
@@ -625,9 +631,12 @@ def test_loop_readout_iter2_and_the_molecule_larger_than_a_tile(bmg, cuda):
         if served:
             assert LAUNCHES["fused_iter2"] == 1 and LAUNCHES["fused_iter"] == 0
             assert UNSERVED["fused_iter2"] == 0 and UNSERVED["bwd_message_premul"] == 0
+            assert UNSERVED["bwd_message_nodes"] == 0
         else:
             assert LAUNCHES["fused_iter2"] == 0 and LAUNCHES["fused_iter"] == 2
             assert UNSERVED["fused_iter2"] == 1 and UNSERVED["bwd_message_premul"] == 1
+            assert UNSERVED["bwd_message_nodes"] == 1
+        assert LAUNCHES["bwd_message_nodes"] == 1
 
 
 @pytest.mark.parametrize("d", [128, 384])
@@ -823,3 +832,133 @@ def test_message_passing_variants_on_card_match_cpu(bmg, cuda, dtype, kwargs):
         torch.testing.assert_close(got[real], want[real], rtol=1e-4, atol=1e-5)
     else:
         torch.testing.assert_close(got[real].float(), want[real].float(), rtol=0.05, atol=0.05)
+
+
+# ------------------------------------------- G (bwd_message_nodes) over tiles
+NODE_LAYOUTS = {
+    # zero-edge molecules and salts: nodes that own no rows inside a tile's
+    # node range
+    "salts": ["CCO", "CC(=O)[O-].[Na+]", "[Na+].CC(=O)[O-]", "C", "c1ccccc1"],
+    # a run of 200 "C" between two molecules of one tile: its node range
+    # spans more than 200 nodes
+    "run_of_200_C": ["CCO", "CC(=O)[O-].[Na+]", "[Na+].CC(=O)[O-]"] + ["C"] * 200
+    + ["c1ccccc1"],
+}
+
+
+def _node_layout_bmg(case, device):
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    return batch_mol_graphs([feat(make_mol(s)) for s in NODE_LAYOUTS[case]]).to(device)
+
+
+def _nodes_inputs(n_nodes, n, d, device, seed=70):
+    g_nodes = _randn((n_nodes, d), seed, device, torch.bfloat16)
+    y = _randn((n, d), seed + 1, device, torch.bfloat16).clamp_min(0)
+    return g_nodes, y
+
+
+def _check_nodes(g_nodes, y, graph, tiles):
+    """G with the tile table against the plain version (G within one bf16
+    ulp: f32 sums in one order, rounded once; gz exactly: a masked copy),
+    against its form without a table and a second call bit for bit on every
+    row; padding rows exact zeros."""
+    before = LAUNCHES["bwd_message_nodes"]
+    G, gz = bwd_message_nodes(g_nodes, y, *graph, tiles=tiles)
+    assert LAUNCHES["bwd_message_nodes"] == before + 1
+    want_G, want_gz = bwd_message_nodes_plain(g_nodes, y, *graph)
+    torch.testing.assert_close(G.float(), want_G.float(), rtol=BF16_ULP, atol=1e-6)
+    assert torch.equal(gz, want_gz)
+    pad = graph[1] == graph[3].numel() - 2
+    assert not G[pad].any() and not gz[pad].any()
+    G2, gz2 = bwd_message_nodes(g_nodes, y, *graph)  # the node-warp form
+    assert torch.equal(G, G2) and torch.equal(gz, gz2)
+    G3, gz3 = bwd_message_nodes(g_nodes, y, *graph, tiles=tiles)
+    assert torch.equal(G, G3) and torch.equal(gz, gz3)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("case", sorted(NODE_LAYOUTS))
+def test_bwd_message_nodes_tiled_layouts(cuda, case, d):
+    b = _node_layout_bmg(case, cuda)
+    tiles, dst = b.tile_ptr.cpu(), b.dst.cpu()
+    first = dst[int(tiles[0]): int(tiles[1])]
+    if case == "run_of_200_C":  # the first tile's node range holds the run
+        assert int(first[-1]) - int(first[0]) > 200
+    g_nodes, y = _nodes_inputs(b.V.shape[0], b.E.shape[0], d, cuda, seed=72)
+    _check_nodes(g_nodes, y, _graph(b), b.tile_ptr)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_bwd_message_nodes_tiles_of_every_size(cuda, d):
+    """Tiles of 64 and 128 rows (a chain, and a star whose hub has 64
+    in-edges), of 65 (with the first padding row), then padding tiles of 1,
+    100 and 28 rows."""
+    *graph, tiles = _tiled_graph(cuda)
+    assert 128 in (tiles[1:] - tiles[:-1]).tolist()
+    g_nodes, y = _nodes_inputs(graph[3].numel() - 1, graph[0].shape[0], d, cuda, seed=74)
+    _check_nodes(g_nodes, y, tuple(graph), tiles)
+
+
+def test_bwd_message_nodes_benchmark_batch(cuda, bench_bmg):
+    """The main path's shape: the benchmark batch's table at d = 384, and the
+    same bits in repeated calls."""
+    b = bench_bmg
+    g_nodes, y = _nodes_inputs(b.V.shape[0], b.E.shape[0], 384, cuda, seed=76)
+    g_nodes[-1] = 0  # the sacrificial node's cotangent
+    _check_nodes(g_nodes, y, _graph(b), b.tile_ptr)
+    a = bwd_message_nodes(g_nodes, y, *_graph(b), tiles=b.tile_ptr)
+    for _ in range(3):
+        again = bwd_message_nodes(g_nodes, y, *_graph(b), tiles=b.tile_ptr)
+        assert torch.equal(a[0], again[0]) and torch.equal(a[1], again[1])
+    info = bwd_message_nodes_info(384, b.tile_ptr.numel() - 1)
+    assert info["slices"] == 1 and info["stages"] >= 2 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("d", [128, 512])
+def test_tiled_bwd_message_nodes_flags_every_row_it_cannot_form(any_bmg, cuda, d):
+    """A table that passes check_tiles but cuts molecules (a tile every 40
+    rows): every row of a node with an in-edge, or the reverse of one,
+    outside its tile is NaN in G, whole; every other row has the bits of the
+    form without a table, and gz is whole everywhere."""
+    b = any_bmg
+    n = b.E.shape[0]
+    tiles = torch.tensor(list(range(0, n, 40)) + [n], dtype=torch.int32)
+    g_nodes = _randn((b.V.shape[0], d), 17, cuda, torch.bfloat16)
+    y = _randn((n, d), 18, cuda, torch.bfloat16).clamp_min(0)
+    G, gz = bwd_message_nodes(g_nodes, y, *_graph(b), tiles=tiles.to(cuda))
+    want_G, want_gz = bwd_message_nodes(g_nodes, y, *_graph(b))
+    assert torch.equal(gz, want_gz)
+    # the rows of the nodes that cannot be formed inside one tile
+    rev, ptr = b.rev.cpu().long(), b.edge_ptr.cpu().long()
+    tile = torch.bucketize(torch.arange(n), tiles[1:].long(), right=True)
+    first_pad = int(ptr[-2])
+    want_bad = torch.zeros(n, dtype=torch.bool)
+    for v in range(b.V.shape[0] - 1):
+        ins = torch.arange(int(ptr[v]), int(ptr[v + 1]))
+        if ins.numel():
+            home = tile[ins[0]]
+            want_bad[ins] = not ((tile[ins] == home).all() and (tile[rev[ins]] == home).all())
+    assert want_bad.any() and not want_bad[:first_pad].all()
+    nan = G.isnan().cpu()
+    assert torch.equal(nan.any(1), want_bad) and torch.equal(nan.all(1), want_bad)
+    assert torch.equal(G[~want_bad.to(cuda)], want_G[~want_bad.to(cuda)])
+
+
+def test_tiled_bwd_message_nodes_raises_instead_of_falling_back(bmg, cuda):
+    n, n_v = bmg.E.shape[0], bmg.V.shape[0]
+    y = torch.zeros((n, 128), dtype=torch.bfloat16, device=cuda)
+    g = torch.zeros((n_v, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):  # float32
+        bwd_message_nodes(g.float(), y.float(), *_graph(bmg), tiles=bmg.tile_ptr)
+    with pytest.raises(ValueError):  # a width the tiled kernel does not take
+        bwd_message_nodes(g[:, :64].contiguous(), y[:, :64].contiguous(), *_graph(bmg),
+                          tiles=bmg.tile_ptr)
+    with pytest.raises(ValueError):  # the table on another device
+        bwd_message_nodes(g, y, *_graph(bmg), tiles=bmg.tile_ptr.cpu())
+    short = bmg.tile_ptr.clone()
+    short[-1] -= 1  # a table that ends short of the rows, read back from the card
+    with pytest.raises(ValueError):
+        bwd_message_nodes(g, y, *_graph(bmg), tiles=short)
+    wide = torch.tensor([0, ITER2_TILE_ROWS + 1, n], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # a tile of more rows than the kernel holds
+        bwd_message_nodes(g, y, *_graph(bmg), tiles=wide)
