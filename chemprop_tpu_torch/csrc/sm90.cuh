@@ -1,6 +1,7 @@
 // Hopper primitives for grad_weight.cu, fused_iter.cu, bwd_premul.cu,
-// segment.cu and bwd_nodes.cu, in inline PTX: mbarriers, 2-d TMA tile loads,
-// 1-d bulk copies, the proxy fence and warpgroup MMAs (wgmma) on
+// segment.cu, bwd_nodes.cu and iter_bwd.cu, in inline PTX: mbarriers, 2-d TMA
+// tile loads, 1-d bulk copies (also into another CTA of a cluster), the proxy
+// fence, the cluster's ranks and barrier, and warpgroup MMAs (wgmma) on
 // 128-byte-swizzled tiles in shared memory, and the host's encoding of a
 // bfloat16 table's tensor map. Only sm_90a has wgmma.
 //
@@ -50,6 +51,101 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+}
+
+// one try of mbar_wait: whether the phase of the given parity has completed;
+// a thread that finds it open sleeps until it completes, or at most about
+// 100 us, instead of spinning on the issue slots of the warps at work
+constexpr uint32_t MBAR_SLEEP_NS = 100000;
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity), "r"(MBAR_SLEEP_NS)
+      : "memory");
+  return done != 0;
+}
+
+// the same with the cluster's acquire: for a phase that other CTAs of the
+// cluster complete (their arrivals, or bulk copies into this CTA)
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity), "r"(MBAR_SLEEP_NS)
+      : "memory");
+  return done != 0;
+}
+
+// a warpgroup's registers per thread: raised to, or lowered to, N (a
+// multiple of 8); every warp of the warpgroup executes it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ---------------------------------------------------------------- clusters
+// this CTA's rank in its cluster, the cluster's index in the grid, and the
+// number of clusters
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: no CTA goes on (or exits) before
+// all have arrived, and their earlier accesses to shared memory are visible
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the address, in the cluster's window, of the same shared-memory location
+// (a shared::cta address) in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// arrive on a barrier of a CTA of the cluster (an address from cluster_map)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// `bytes` of this CTA's shared memory at src into a CTA of the cluster at dst,
+// counted on that CTA's barrier bar (dst and bar from cluster_map; 16-byte
+// aligned, bytes a multiple of 16)
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // one box of `map` at (column c0, row r0) into shared memory at dst; rows past
@@ -109,6 +205,20 @@ __device__ __forceinline__ void wgmma_wait() {
 // 8 j + 2 (t % 4) (+ 1) at d[4 j .. 4 j + 3]. Each wrapper below adds
 // A^T B over 16 table rows: A (64 wide) and B (N wide) both MN-major (the
 // two transpose flags), scale 1 on both and on the accumulator.
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
@@ -346,6 +456,24 @@ __device__ __forceinline__ void wgmma_rkn<128>(float (&d)[64], const uint32_t (&
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64 f32) += A B^T over 16 K values with both operands K-major in
+// shared memory (desc_k_sw128): A 64 rows of K values, B 64 rows (the output
+// columns) of K values; scale_d = 0 overwrites d instead
+__device__ __forceinline__ void wgmma_kk_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // four 8 x 8 bf16 matrices from shared memory: lane l gives the address of

@@ -142,7 +142,7 @@ class BondMessagePassing(nn.Module):
                     if it == 1:  # relu(H0) streams through the kernel, never written
                         H = first_iter(H0, W_h, b_h, *graph, opts)
                     else:
-                        H = message_iter(H, H0, W_h, b_h, *graph, opts)
+                        H = message_iter(H, H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
                 else:
                     M = message(H, *graph)
                     z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h

@@ -33,8 +33,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = (
-    "message", "fused_iter", "message_bwd", "bwd_premul", "bwd_nodes", "segment", "gather",
-    "grad_weight",
+    "message", "fused_iter", "message_bwd", "bwd_premul", "bwd_nodes", "iter_bwd", "segment",
+    "gather", "grad_weight",
 )
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
@@ -62,6 +62,11 @@ SIGNATURES = {
     "bwd_nodes": {
         "bwd_nodes": [P, P, P, P, P, P, P, P, I, I, I, I, P],
         "bwd_nodes_info": [I, I, P],
+    },
+    "iter_bwd": {
+        "iter_bwd_tiles": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "iter_bwd_clusters": [I, I],
+        "iter_bwd_info": [I, I, P],
     },
     "grad_weight": {"grad_weight": [P, P, P, P, I, I, I, P], "grad_weight_splits": [I, I, I]},
     "gather": {"row_gather": [P, P, P, I, I, I, P]},

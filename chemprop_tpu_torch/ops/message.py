@@ -10,7 +10,8 @@ iteration and the whole depth loop with the M_v readout as differentiable ops
                          launch over the batch's molecule tiles
     bwd_message_premul:  the same with g = G_in @ W^T formed inside the kernel,
                          one launch over the batch's molecule tiles
-    iter_bwd:            dH = bf16(G) W^T, gz and dW = H^T bf16(G), G never written
+    iter_bwd:            dH = bf16(G) W^T, gz and dW = H^T bf16(G), G never written,
+                         one launch over the batch's molecule tiles
     first_iter, message_iter:  one iteration each, backward by hand
     loop_readout:        M_v of the whole depth loop, backward by hand
 
@@ -23,11 +24,11 @@ the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
 ``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/message_bwd.cu``,
-``csrc/bwd_nodes.cu`` and ``csrc/bwd_premul.cu`` run; on a CPU tensor the
-plain versions below.
+``csrc/bwd_nodes.cu``, ``csrc/bwd_premul.cu`` and ``csrc/iter_bwd.cu`` run; on
+a CPU tensor the plain versions below.
 
 The tile kernels (``fused_iter2``, ``bwd_message_nodes``,
-``bwd_message_premul``) take the batch's tile table
+``bwd_message_premul``, ``iter_bwd``) take the batch's tile table
 (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
 the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
 rows in two runs, so that every row a tile's row gathers lies in the tile."""
@@ -43,6 +44,9 @@ from chemprop_tpu_torch.ops.segment import DTYPES, _segment_sum
 
 # the most edge rows a tile of ``fused_iter2``'s tile table may hold
 ITER2_TILE_ROWS = 128
+# the widths the tiled ``iter_bwd`` takes: a cluster of d / 64 blocks shares a
+# tile, and the buffers of d = 512 would not fit a block's shared memory
+ITER_BWD_TILE_WIDTHS = (128, 256, 384)
 
 
 def message_plain(
@@ -477,14 +481,21 @@ def bwd_message_premul_info(d: int, n_tiles: int) -> dict[str, int]:
 
 def iter_bwd(
     g: torch.Tensor, y: torch.Tensor, H: torch.Tensor, W: torch.Tensor, src: torch.Tensor,
-    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dH, gz, dW)``, the whole backward of one bfloat16 iteration
     ``y = relu(H0 + message(H) @ W)`` from the cotangent ``g``: with
     ``gz = g * [y > 0]`` (also ``dH0``) and ``G = (S - R)^T gz`` rounded to
     bfloat16 but never written, ``dH = G @ W^T`` and ``dW = H^T G`` in float32.
     The same bits in every run. ``W`` is ``[d, d]`` in (in, out) layout, ``d``
-    a multiple of 128."""
+    a multiple of 128.
+
+    With the batch's tile table ``tiles`` (:func:`check_tiles`; ``d`` one of
+    ``ITER_BWD_TILE_WIDTHS``) it is one launch of ``csrc/iter_bwd.cu`` over the
+    molecule tiles, and one ordered reduction of its clusters' partial ``dW``;
+    without one (a molecule of more than ``ITER2_TILE_ROWS`` rows) the three
+    launches of ``csrc/message_bwd.cu``. Both give the same ``gz`` and the
+    same ``G``; ``dH`` and ``dW`` sum the same products in another order."""
     _check_graph(g, src, dst, rev, ptr)
     n, d = g.shape
     if g.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
@@ -492,20 +503,48 @@ def iter_bwd(
     _check_tables(g, {"y": y, "H": H})
     if W.shape != (d, d) or d % 128 != 0 or W.device != g.device or not W.is_contiguous():
         raise ValueError(f"W {tuple(W.shape)} must be a contiguous [d, d] with d % 128 == 0")
+    if tiles is not None:
+        if d not in ITER_BWD_TILE_WIDTHS:
+            raise ValueError(f"the tiled iter_bwd takes d in {ITER_BWD_TILE_WIDTHS}, not {d}")
+        check_tiles(tiles, n, g.device)
     if g.device.type == "cpu":
         return iter_bwd_plain(g, y, H, W, src, dst, rev, ptr)
     if any(t.data_ptr() % 16 != 0 for t in (g, y, H, W)):
         raise ValueError("iter_bwd needs 16-byte aligned tables")
-    lib = library("message_bwd")
     dH, gz = torch.empty_like(g), torch.empty_like(g)
     dW = torch.empty((d, d), dtype=torch.float32, device=g.device)
-    partial = torch.empty((lib.iter_bwd_splits(n), d, d), dtype=torch.float32, device=g.device)
-    call(
-        lib, "iter_bwd", g, y, H, W, dst.contiguous(), rev.contiguous(), ptr.contiguous(),
-        dH, gz, partial, dW, n, d, ptr.numel() - 2,
-    )
+    graph = (dst.contiguous(), rev.contiguous(), ptr.contiguous())
+    if tiles is None:
+        lib = library("message_bwd")
+        partial = torch.empty((lib.iter_bwd_splits(n), d, d), dtype=torch.float32,
+                              device=g.device)
+        call(lib, "iter_bwd", g, y, H, W, *graph, dH, gz, partial, dW, n, d, ptr.numel() - 2)
+    else:
+        lib = library("iter_bwd")
+        n_tiles = tiles.numel() - 1
+        clusters = lib.iter_bwd_clusters(d, n_tiles)
+        if clusters < 1:
+            raise RuntimeError(f"iter_bwd: no cluster of {d // 64} blocks fits this card")
+        partial = torch.empty((clusters, d, d), dtype=torch.float32, device=g.device)
+        call(lib, "iter_bwd_tiles", g, y, H, W, *graph, tiles.contiguous(), dH, gz, partial, dW,
+             n, d, ptr.numel() - 2, n_tiles, clusters)
     LAUNCHES["iter_bwd"] += 1
     return dH, gz, dW
+
+
+def iter_bwd_info(d: int, n_tiles: int) -> dict[str, int]:
+    """The shape of the tiled :func:`iter_bwd` launch on the current card at
+    width ``d`` over ``n_tiles`` tiles: the blocks of a cluster (``d / 64``
+    column boxes), the shared memory per block, the clusters of the grid, and
+    the clusters of the kernel that the card runs at once."""
+    import ctypes
+
+    info = (ctypes.c_int * 4)()
+    err = library("iter_bwd").iter_bwd_info(d, n_tiles, info)
+    if err != 0:
+        raise RuntimeError(f"iter_bwd_info: CUDA error {err}")
+    keys = ("cluster_blocks", "smem_bytes", "clusters", "max_active_clusters")
+    return dict(zip(keys, info))
 
 
 class _Message(torch.autograd.Function):
@@ -567,13 +606,17 @@ def first_iter(
 def message_iter(
     H: torch.Tensor, H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    options: KernelOptions | None = None,
+    options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One depth iteration ``relu(H0 + message(H) @ W [+ b])`` as a
     differentiable op (cf. ``fused_message_iter``), float32 or bfloat16. The
     backward is written by hand: :func:`bwd_message`, then ``G @ W^T`` and
-    ``H^T G``; in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd`."""
-    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions())
+    ``H^T G``; in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd` over
+    the batch's tile table ``tiles``. A batch without one (a molecule larger
+    than a tile), or a width the tiled kernel does not take, takes
+    :func:`iter_bwd`'s form without a table, and ``UNSERVED["iter_bwd"]``
+    counts each such backward."""
+    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions(), tiles)
 
 
 class _FirstIter(torch.autograd.Function):
@@ -596,11 +639,11 @@ class _FirstIter(torch.autograd.Function):
 
 class _MessageIter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options):
+    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options, tiles):
         H, H0 = H.contiguous(), H0.contiguous()
         y = _iteration(H, H0, W, b, (src, dst, rev, ptr))
         ctx.save_for_backward(y, H, W, b, src, dst, rev, ptr)
-        ctx.options = options
+        ctx.options, ctx.tiles = options, tiles
         return y
 
     @staticmethod
@@ -608,10 +651,13 @@ class _MessageIter(torch.autograd.Function):
         y, H, W, b, *graph = ctx.saved_tensors
         g = g.to(y.dtype).contiguous()
         if ctx.options.fused_bwd and y.dtype == torch.bfloat16:
-            dH, gz, dW = iter_bwd(g, y, H, W, *graph)
+            tiles = ctx.tiles if y.shape[1] in ITER_BWD_TILE_WIDTHS else None
+            if tiles is None:
+                UNSERVED["iter_bwd"] += 1
+            dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles)
         else:
             dH, gz, dW = _iteration_bwd(g, y, H, W, graph, ctx.options.grad_w)
-        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), None, None, None, None, None
+        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
 
 
 def loop_readout(

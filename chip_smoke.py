@@ -20,9 +20,12 @@ failure:
    with the batch's tile table and without one, both forms equal bit for bit
    and two calls equal; the segment sum at both readouts (edges to nodes,
    nodes to graphs) in all three dtype pairs, with and without counts, two
-   calls equal; the machine code of the
-   three Hopper kernels read for ``wgmma`` and TMA, and of the segment sum
-   and the node-cotangent backward for bulk copies (``cuobjdump -sass``);
+   calls equal; the whole-iteration backward with the batch's tile table and
+   without one, gz equal bit for bit to the plain version in both forms, two
+   calls equal; the machine code of the four Hopper kernels read for
+   ``wgmma`` and TMA (the whole-iteration backward also for bulk copies),
+   and of the segment sum and the node-cotangent backward for bulk copies
+   (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
    tests/data/example_model_v2_regression_mol.pt, on ``cuda`` in float32 and
@@ -46,14 +49,16 @@ failure:
    the ``iter2`` and ``grad_w`` options on, to the same bar; and one float32
    step with dropout on the card against the same step on the CPU, the masks
    made on the CPU from one seed and copied. No main path may leave a batch
-   without its tile table (``ops.UNSERVED``);
+   without its tile table (``ops.UNSERVED``), the ``fused_bwd`` fit's
+   whole-iteration backward included;
 6. on the benchmark batch: the launches of one forward and of one training
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
    function, where there is one (the weight gradient at W_h's and W_i's
    shapes, the segment sum at both readouts), the unfused routes of the fused
-   iteration and of the two tiled backward kernels, and the device time of
-   the segment sum and of the node-cotangent backward from a trace; the
+   iteration, of the two tiled backward kernels and of the whole-iteration
+   backward, and the device time of the segment sum, of the node-cotangent
+   backward and of the whole-iteration backward from a trace; the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
    (its W_h product composed through autograd).
@@ -140,10 +145,10 @@ KERNELS = {
         timed="fused_iter2[bias=False,y2]",
     ),
     "iter_bwd": dict(
-        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        source="chemprop_tpu_torch/csrc/iter_bwd.cu",
         replaces="chemprop_tpu/ops/fused_message.py:603",
         tpu_kernel="_iter_bwd_kernel via _iter_bwd_impl",
-        timed="iter_bwd[dH]",
+        timed="iter_bwd[tiles=True,dH]",
     ),
     "grad_weight": dict(
         source="chemprop_tpu_torch/csrc/grad_weight.cu",
@@ -273,6 +278,19 @@ def bwd_nodes_bytes(bmg, d: int) -> int:
     owners = int((ptr[1:-1] > ptr[:-2]).sum())  # the padding node, last, left out
     n_tiles = bmg.tile_ptr.numel() - 1
     return (n_real + owners + 2 * bmg.E.shape[0]) * d * 2 + 8 * n_real + 4 * (n_tiles + 1) + 4
+
+
+def iter_bwd_bytes(bmg, d: int) -> int:
+    """The bytes kernel E (``iter_bwd`` over the tile table) must move at
+    width ``d``: ``g``, ``y`` and ``H`` read over the real rows, ``dH`` and
+    ``gz`` written over every row (the padding rows as zeros, with no load),
+    ``W`` read and the float32 ``dW`` written once, ``dst`` and ``rev`` of the
+    real rows, the tile table, and the one entry of ``ptr`` that marks the
+    first padding row."""
+    n_real = int(bmg.edge_mask.sum())
+    n_tiles = bmg.tile_ptr.numel() - 1
+    return ((3 * n_real + 2 * bmg.E.shape[0]) * d * 2 + d * d * (2 + 4) + 8 * n_real
+            + 4 * (n_tiles + 1) + 4)
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -475,18 +493,27 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     # E: gz is a masked copy, so exact. G equals bwd_message's, whose sums may
     # round to the neighbouring bf16 value against the plain version's order;
     # dH = G W^T carries that and rounds once more, dW = H^T G sums E products
-    # in f32 in another order: both limits scale with the sum of |terms|
+    # in f32 in another order: both limits scale with the sum of |terms|.
+    # With the tile table it is one launch over the molecule tiles (and the
+    # ordered sum of its clusters' dW); without one (a molecule larger than a
+    # tile) three launches: the same gz, and dH and dW in another order
     Hx = H.clamp_min(0)  # an iteration's input: a ReLU output, padding rows not zero
-    dH, gz, dW = iter_bwd(gb, yb, Hx, W, *graph)
     want_dH, want_gz, want_dW = iter_bwd_plain(gb, yb, Hx, W, *graph)
     G_abs = bwd_message_plain(gb, yb, *graph)[0].float().abs()
-    check("iter_bwd[gz]", gz, want_gz, 0.0, 0.0, errs)
-    check("iter_bwd[dH]", dH, want_dH, 2 * BF16_ULP, 1e-4, errs, G_abs @ W.float().abs().t())
-    check("iter_bwd[dW]", dW, want_dW, 1e-4, 1e-3, errs, Hx.float().t() @ G_abs)
-    zeros_on_padding("iter_bwd", dH, gz)
-    again = iter_bwd(gb, yb, Hx, W, *graph)
-    if not all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW))):
-        fail("iter_bwd: two runs differ")
+    Hx_abs = Hx.float().masked_fill(pad_rows[:, None], 0)
+    outs = {}
+    for tiles in (bmg.tile_ptr, None):
+        tag = f"iter_bwd[tiles={tiles is not None}"
+        dH, gz, dW = outs[tiles is not None] = iter_bwd(gb, yb, Hx, W, *graph, tiles=tiles)
+        check(f"{tag},gz]", gz, want_gz, 0.0, 0.0, errs)
+        check(f"{tag},dH]", dH, want_dH, 2 * BF16_ULP, 1e-4, errs, G_abs @ W.float().abs().t())
+        check(f"{tag},dW]", dW, want_dW, 1e-4, 1e-3, errs, Hx_abs.t() @ G_abs)
+        zeros_on_padding(f"{tag}]", dH, gz)
+        again = iter_bwd(gb, yb, Hx, W, *graph, tiles=tiles)
+        if not all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW))):
+            fail(f"{tag}]: two runs differ")
+    if not torch.equal(outs[True][1], outs[False][1]):
+        fail("iter_bwd: gz of the forms with and without tiles differ")
     # J: exact bf16 products summed in f32 in another order. At W_h's shape
     # (the edge tables), at W_i's (the [V[src] ; E] table, 86 columns padded
     # to 128), at a ragged n (not a multiple of the 64-row step) and at an n
@@ -1048,22 +1075,28 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
         two_fused_iter_ms=time_ms(two_iters, reps), tiles=n_tiles,
     )
-    # E, bf16: g, y and H read, dH and gz written, W read and dW written once;
-    # the two products of the real rows. Beside it what it stands for: the
-    # masked transposed message, then G W^T and H^T G as library products
-    b_ms, b_by = bound(5 * n_e * d * 2 + d * d * 2 + d * d * 4 + f_ids, 4 * n_real * d * d,
-                       bf16_peak)
+    # E, bf16, over the batch's tile table (iter_bwd_bytes: g, y and H over
+    # the real rows, dH and gz over every row, W and dW once; the two products
+    # of the real rows). Beside it the form without a table and what it
+    # stands for: the masked transposed message, then G W^T and H^T G as
+    # library products
+    b_ms, b_by = bound(iter_bwd_bytes(bmg, d), 4 * n_real * d * d, bf16_peak)
 
     def composed_bwd():
         G, gz = bwd_message(t["gb"], t["yb"], *graph)
         return G @ t["W"].t(), gz, grad_weight(t["Hx"], G)
 
+    def e_bwd(tiles=bmg.tile_ptr):
+        return iter_bwd(t["gb"], t["yb"], t["Hx"], t["W"], *graph, tiles=tiles)
+
     out["iter_bwd"] = dict(
-        ms=time_ms(lambda: iter_bwd(t["gb"], t["yb"], t["Hx"], t["W"], *graph), reps),
+        ms=time_ms(e_bwd, reps),
         plain_ms=time_ms(lambda: iter_bwd_plain(t["gb"], t["yb"], t["Hx"], t["W"], *graph), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
-        composed_ms=time_ms(composed_bwd, reps),
+        without_tiles=dict(ms=time_ms(lambda: e_bwd(None), reps), bound_ms=b_ms),
+        composed_ms=time_ms(composed_bwd, reps), tiles=n_tiles,
     )
+    out["iter_bwd"]["share_of_bound"] = b_ms / out["iter_bwd"]["ms"]
     # J, bf16: X and G read, the [dx, d] f32 product written; at W_h's shape
     # and, nested, at W_i's
     def grad_weight_times(X, G):
@@ -1151,11 +1184,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from chemprop_tpu_torch.ops import (
-        UNSERVED, build_all, bwd_message_nodes, sorted_segment_sum, sorted_segment_sum_counts,
+        UNSERVED, build_all, bwd_message_nodes, iter_bwd, sorted_segment_sum,
+        sorted_segment_sum_counts,
     )
     from chemprop_tpu_torch.ops.build import sass_contains
     from chemprop_tpu_torch.ops.message import (
-        bwd_message_nodes_info, bwd_message_premul_info, fused_iter_info,
+        bwd_message_nodes_info, bwd_message_premul_info, fused_iter_info, iter_bwd_info,
     )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_info
 
@@ -1170,13 +1204,14 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
-    # B's, H's and J's products run on wgmma (HGMMA), and W, W^T, G_in and
-    # J's tables come in by TMA (UTMALDG); C's ranges and G's tiles come in by
-    # bulk copies (UBLKCP)
+    # B's, H's, J's and E's products run on wgmma (HGMMA), and W, W^T, G_in,
+    # J's tables and E's g, y, H and W come in by TMA (UTMALDG); C's ranges and
+    # G's tiles come in by bulk copies (UBLKCP), and so does E's G from the
+    # other blocks of its cluster
     sass = {}
     for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")), ("bwd_premul", ("HGMMA", "UTMALDG")),
                           ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",)),
-                          ("bwd_nodes", ("UBLKCP",))):
+                          ("bwd_nodes", ("UBLKCP",)), ("iter_bwd", ("HGMMA", "UTMALDG", "UBLKCP"))):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
         sass[name] = sass_contains(name, opcodes)
         print(json.dumps({f"{name}_sass": sass[name] if sass[name] is not None else
@@ -1208,6 +1243,10 @@ def main() -> int:
     # G's persistent grid over the same tiles
     nodes_launch = bwd_message_nodes_info(d, bmg.tile_ptr.numel() - 1)
     print(json.dumps({"bwd_message_nodes_launch": nodes_launch}))
+    # E's clusters over the same tiles: the clusters of d / 64 blocks the card
+    # runs at once
+    iter_bwd_launch = iter_bwd_info(d, bmg.tile_ptr.numel() - 1)
+    print(json.dumps({"iter_bwd_launch": iter_bwd_launch}))
     # C's ranges and persistent grid at the M_v and the mean readout
     seg_launch = {
         "edge->node": sorted_segment_sum_info(shapes["E_pad"], shapes["N_pad"], d, torch.bfloat16,
@@ -1245,9 +1284,12 @@ def main() -> int:
     times["bwd_message_nodes"]["device_ms"] = device_ms(
         lambda: bwd_message_nodes(tensors["g_nodes"], tensors["yb"], bmg.src, bmg.dst, bmg.rev,
                                   bmg.edge_ptr, tiles=bmg.tile_ptr))
+    times["iter_bwd"]["device_ms"] = device_ms(
+        lambda: iter_bwd(tensors["gb"], tensors["yb"], tensors["Hx"], tensors["W"], bmg.src,
+                         bmg.dst, bmg.rev, bmg.edge_ptr, tiles=bmg.tile_ptr))
     unserved = dict(UNSERVED)
     print(json.dumps({"unserved": unserved}))
-    for name in ("bwd_message_premul", "bwd_message_nodes"):
+    for name in ("bwd_message_premul", "bwd_message_nodes", "iter_bwd"):
         if unserved.get(name, 0):
             fail(f"{name} left {unserved[name]} batches without tiles")
 
@@ -1279,7 +1321,7 @@ def main() -> int:
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
               "sass": sass, "fused_iter_launch": launch,
               "bwd_message_premul_launch": premul_launch,
-              "bwd_message_nodes_launch": nodes_launch,
+              "bwd_message_nodes_launch": nodes_launch, "iter_bwd_launch": iter_bwd_launch,
               "sorted_segment_sum_launch": seg_launch, "unserved": unserved,
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,

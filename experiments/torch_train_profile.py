@@ -69,8 +69,11 @@ OWN_KERNELS = {
     "bwd_message_kernel": "F/G node pass (bwd_message*; H's without a tile table)",
     "row_gather_kernel": "I row_gather",
     "fused_iter2_kernel": "D fused_iter2",
-    "iter_bwd_dh_kernel": "E iter_bwd (G, dH, gz)",
-    "iter_bwd_dw_kernel": "E iter_bwd (dW partials)",
+    "bwd_nodes_kernel": "G bwd_message_nodes (one launch over the tiles)",
+    "iter_bwd_kernel": "E iter_bwd (one launch over the tiles)",
+    "iter_bwd_reduce": "E iter_bwd (ordered sum of the clusters' dW)",
+    "iter_bwd_dh_kernel": "E iter_bwd without a tile table (G, dH, gz)",
+    "iter_bwd_dw_kernel": "E iter_bwd without a tile table (dW partials)",
     "grad_weight_kernel": "J grad_weight (partials)",
     "xtg_reduce_kernel": "E/J ordered reduction of the partials",
 }

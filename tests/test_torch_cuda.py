@@ -48,6 +48,7 @@ from chemprop_tpu_torch.ops.message import (
     bwd_message_premul_plain,
     fused_iter2_plain,
     fused_iter_plain,
+    iter_bwd_info,
     iter_bwd_plain,
     message_plain,
 )
@@ -962,3 +963,140 @@ def test_tiled_bwd_message_nodes_raises_instead_of_falling_back(bmg, cuda):
     wide = torch.tensor([0, ITER2_TILE_ROWS + 1, n], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):  # a tile of more rows than the kernel holds
         bwd_message_nodes(g, y, *_graph(bmg), tiles=wide)
+
+
+# ------------------------------------------- iter_bwd over the molecule tiles
+def _iter_bwd_inputs(n, d, device, seed=80):
+    g = _randn((n, d), seed, device, torch.bfloat16)
+    y = _randn((n, d), seed + 1, device, torch.bfloat16).clamp_min(0)
+    H = _randn((n, d), seed + 2, device, torch.bfloat16).clamp_min(0)  # padding rows not zero
+    W = _randn((d, d), seed + 3, device, torch.bfloat16, scale=d**-0.5)
+    return g, y, H, W
+
+
+def _check_tiled_iter_bwd(g, y, H, W, graph, tiles):
+    """E with the tile table against the plain version under chip_smoke.py's
+    limits (dH two bf16 ulps + 1e-4 of |G| |W|^T, dW rtol 1e-4 / atol 1e-3
+    of |H|^T |G|), gz equal bit for bit to the plain version and to the form
+    without a table, a second call equal bit for bit, padding rows zero."""
+    before = LAUNCHES["iter_bwd"]
+    dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles)
+    assert LAUNCHES["iter_bwd"] == before + 1 and dW.dtype == torch.float32
+    want_dH, want_gz, want_dW = iter_bwd_plain(g, y, H, W, *graph)
+    pad = graph[1] == graph[3].numel() - 2
+    G_abs = bwd_message_plain(g, y, *graph)[0].float().abs()
+    assert torch.equal(gz, want_gz)
+    limit = 1e-4 + 2 * BF16_ULP * (G_abs @ W.float().abs().t())
+    assert bool(((dH.float() - want_dH.float()).abs() <= limit).all())
+    limit = 1e-3 + 1e-4 * (H.float().masked_fill(pad[:, None], 0).t() @ G_abs)
+    assert bool(((dW - want_dW).abs() <= limit).all())
+    assert not dH[pad].any() and not gz[pad].any()
+    other = iter_bwd(g, y, H, W, *graph)  # the three launches without a table
+    assert torch.equal(gz, other[1])
+    again = iter_bwd(g, y, H, W, *graph, tiles=tiles)
+    assert all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW)))
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("case", sorted(NODE_LAYOUTS))
+def test_tiled_iter_bwd_layouts(cuda, case, d):
+    b = _node_layout_bmg(case, cuda)
+    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda)
+    _check_tiled_iter_bwd(g, y, H, W, _graph(b), b.tile_ptr)
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_tiled_iter_bwd_tiles_of_every_size(cuda, d):
+    """Tiles of 64 and 128 rows (a chain, and a star whose hub has 64
+    in-edges), of 65 (with the first padding row), then padding tiles of 1,
+    100 and 28 rows."""
+    *graph, tiles = _tiled_graph(cuda)
+    g, y, H, W = _iter_bwd_inputs(graph[0].shape[0], d, cuda, seed=84)
+    _check_tiled_iter_bwd(g, y, H, W, tuple(graph), tiles)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_tiled_iter_bwd_benchmark_batch(cuda, bench_bmg, d):
+    """The main path's shape: the benchmark batch's table, and the same bits
+    in repeated calls."""
+    b = bench_bmg
+    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=88)
+    _check_tiled_iter_bwd(g, y, H, W, _graph(b), b.tile_ptr)
+    a = iter_bwd(g, y, H, W, *_graph(b), tiles=b.tile_ptr)
+    for _ in range(3):
+        again = iter_bwd(g, y, H, W, *_graph(b), tiles=b.tile_ptr)
+        assert all(torch.equal(x, w) for x, w in zip(a, again))
+    info = iter_bwd_info(d, b.tile_ptr.numel() - 1)
+    assert info["cluster_blocks"] == d // 64 and 1 <= info["clusters"] <= info["max_active_clusters"]
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_tiled_iter_bwd_flags_every_row_it_cannot_form(any_bmg, cuda, d):
+    """A table that passes check_tiles but cuts molecules (a tile every 40
+    rows): every row of a node with an in-edge, or the reverse of one,
+    outside its tile is NaN in dH, whole; every other row is finite and
+    within the limits of the form without a table, and gz is whole."""
+    b = any_bmg
+    n = b.E.shape[0]
+    tiles = torch.tensor(list(range(0, n, 40)) + [n], dtype=torch.int32)
+    g, y, H, W = _iter_bwd_inputs(n, d, cuda, seed=92)
+    dH, gz, _ = iter_bwd(g, y, H, W, *_graph(b), tiles=tiles.to(cuda))
+    want_dH, want_gz, _ = iter_bwd(g, y, H, W, *_graph(b))
+    assert torch.equal(gz, want_gz)
+    rev, ptr = b.rev.cpu().long(), b.edge_ptr.cpu().long()
+    tile = torch.bucketize(torch.arange(n), tiles[1:].long(), right=True)
+    want_bad = torch.zeros(n, dtype=torch.bool)
+    for v in range(b.V.shape[0] - 1):
+        ins = torch.arange(int(ptr[v]), int(ptr[v + 1]))
+        if ins.numel():
+            home = tile[ins[0]]
+            want_bad[ins] = not ((tile[ins] == home).all() and (tile[rev[ins]] == home).all())
+    assert want_bad.any() and not want_bad[: int(ptr[-2])].all()
+    nan = dH.isnan().cpu()
+    assert torch.equal(nan.any(1), want_bad) and torch.equal(nan.all(1), want_bad)
+    good = ~want_bad.to(cuda)
+    torch.testing.assert_close(dH[good].float(), want_dH[good].float(), rtol=2 * BF16_ULP,
+                               atol=0.1)
+
+
+def test_tiled_iter_bwd_raises_instead_of_falling_back(bmg, cuda):
+    n = bmg.E.shape[0]
+    z = torch.zeros((n, 128), dtype=torch.bfloat16, device=cuda)
+    W = torch.zeros((128, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):  # float32
+        iter_bwd(z.float(), z.float(), z.float(), W.float(), *_graph(bmg), tiles=bmg.tile_ptr)
+    z5 = torch.zeros((n, 512), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # a width the tiled kernel does not take
+        iter_bwd(z5, z5, z5, torch.zeros((512, 512), dtype=torch.bfloat16, device=cuda),
+                 *_graph(bmg), tiles=bmg.tile_ptr)
+    with pytest.raises(ValueError):  # the table on another device
+        iter_bwd(z, z, z, W, *_graph(bmg), tiles=bmg.tile_ptr.cpu())
+    short = bmg.tile_ptr.clone()
+    short[-1] -= 1  # a table that ends short of the rows, read back from the card
+    with pytest.raises(ValueError):
+        iter_bwd(z, z, z, W, *_graph(bmg), tiles=short)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_message_iter_hands_the_table_to_the_tiled_kernel(bmg, cuda, d):
+    """``message_iter`` with ``fused_bwd`` and the batch's table takes the
+    tiled kernel (no batch left unserved) and gives the gradients of the form
+    without a table, gz (dH0) bit for bit."""
+    n = bmg.E.shape[0]
+    mask = ~bmg.edge_mask[:, None]
+    leaves = [_randn((n, d), 96, cuda, torch.bfloat16).clamp_min(0).masked_fill(mask, 0),
+              _randn((n, d), 97, cuda, torch.bfloat16).masked_fill(mask, 0),
+              _randn((d, d), 98, cuda, torch.bfloat16, scale=d**-0.5)]
+    grads = {}
+    for tiles in (bmg.tile_ptr, None):
+        xs = [t.clone().requires_grad_() for t in leaves]
+        UNSERVED.clear()
+        y = message_iter(*xs, None, *_graph(bmg), KernelOptions(fused_bwd=True), tiles)
+        grads[tiles is not None] = torch.autograd.grad(y.float().sum(), xs)
+        assert UNSERVED["iter_bwd"] == (0 if tiles is not None else 1)
+    assert torch.equal(grads[True][1], grads[False][1])
+    torch.testing.assert_close(grads[True][0].float(), grads[False][0].float(),
+                               rtol=2 * BF16_ULP, atol=0.1)
+    scale = float(grads[False][2].float().abs().max())
+    torch.testing.assert_close(grads[True][2].float(), grads[False][2].float(), rtol=0.02,
+                               atol=1e-3 * scale)
