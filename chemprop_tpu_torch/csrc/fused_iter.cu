@@ -54,11 +54,8 @@
 //
 // Every output row is written by one block, in one fixed order of k, with
 // no atomics: the result is the same bit for bit in every run.
-#include "sm90.cuh"
-#include "vec.cuh"
+#include "fused_iter.cuh"
 
-constexpr int FI_ROWS = 64;            // edge rows per tile: wgmma's M
-constexpr int FI_BOX = FI_ROWS * 128;  // one 64 x 64 bf16 box: a stage, a W or H0 box
 constexpr int FI_GATHER_WARPS = 8;
 constexpr int FI_THREADS = 128 + 32 * FI_GATHER_WARPS;
 constexpr int FI_MAX_STAGES = 16;
@@ -76,20 +73,10 @@ __device__ __forceinline__ void add8(float (&acc)[8], uint4 v, bool relu) {
   }
 }
 
-__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
 // the four warps of the consumer warpgroup, apart from the gather warps
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 128;" ::: "memory");
 }
-
-struct Smem {
-  uint32_t w, h0, ring, full, empty, wbar, h0bar;
-};
 
 // one stage of the consumer: the A fragments of this warp's 16 rows from
 // stage s (ldmatrix, swizzled rows), the stage handed back to the gather
@@ -120,6 +107,7 @@ __device__ __forceinline__ void product_stage(float (&acc)[N / 2], uint32_t (&a)
 // the consumer warpgroup: tile by tile, the product of the message stages
 // with the resident W slice, then y = relu(H0 + z [+ b]) from registers,
 // with H0's slice of the tile brought into shared memory by TMA meanwhile
+// (the epilogue and the copy-out are fused_iter.cuh's)
 template <int N>
 __device__ __forceinline__ void consume(const CUtensorMap* th0, const bf16* __restrict__ b,
                                         bf16* __restrict__ y, const Smem& sm, uint8_t* h0,
@@ -145,46 +133,10 @@ __device__ __forceinline__ void consume(const CUtensorMap* th0, const bf16* __re
     }
     wgmma_wait<0>();
 
-    // rows 16 (t / 32) + (t % 32) / 4 (+ 8), columns 8 j + 2 (t % 4) (+ 1) of
-    // the slice; H0 there is in box j / 8, 16-byte chunk j % 8 of the row,
-    // swizzled, and y goes over it
     mbar_wait(sm.h0bar, iter & 1);
-    const int row = (t / 32) * 16 + (t % 32) / 4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      uint32_t* hr = reinterpret_cast<uint32_t*>(h0 + r * 128) + t % 4;
-#pragma unroll
-      for (int box = 0; box < NB; ++box) {
-        uint32_t hw[8];  // the box's loads first, then its stores
-#pragma unroll
-        for (int j = 0; j < 8; ++j) hw[j] = hr[box * FI_BOX / 4 + (j ^ (r % 8)) * 4];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int jj = 8 * box + j;  // the 8-column block of the slice
-          float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hw[j]));
-          float z0 = acc[4 * jj + 2 * h], z1 = acc[4 * jj + 2 * h + 1];
-          if (b != nullptr) {
-            float2 bv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(b + n0 + 8 * jj + 2 * (t % 4)));
-            z0 += bv.x;
-            z1 += bv.y;
-          }
-          hr[box * FI_BOX / 4 + (j ^ (r % 8)) * 4] =
-              pack2(fmaxf(hv.x + z0, 0.f), fmaxf(hv.y + z1, 0.f));
-        }
-      }
-    }
+    epilogue<N>(acc, b, h0, n0, t);
     consumer_sync();
-    // the tile's y out in 16-byte chunks, eight lanes to a 128-byte row
-#pragma unroll
-    for (int i = t; i < NB * FI_ROWS * 8; i += 128) {
-      const int box = i / (FI_ROWS * 8), r = i / 8 % FI_ROWS, ch = i % 8;
-      const int e = tile * FI_ROWS + r;
-      if (e < n_edges)
-        *reinterpret_cast<uint4*>(y + (size_t)e * d + n0 + 64 * box + 8 * ch) =
-            *reinterpret_cast<const uint4*>(h0 + box * FI_BOX + r * 128 + ((ch ^ (r % 8)) << 4));
-    }
+    store_tile<N>(y, h0, tile * FI_ROWS, n_edges, d, n0, t);
     consumer_sync();  // every thread is done with the buffer: the next H0 may land
     if (t == 0 && tile + step < tiles) load_h0(tile + step);
   }

@@ -1,7 +1,9 @@
 """Node->graph readouts (cf. ``chemprop_tpu/nn/agg.py``). Padding nodes
 belong to the sacrificial graph ``n_graphs``, so every reduction runs over
 ``n_graphs + 1`` segments and drops the last one; the sums are the sorted
-segment sum kernel over ``bmg.node_ptr``, accumulated in f32."""
+segment sum kernel over ``bmg.node_ptr``, accumulated in f32. As in the JAX
+package, the sum and norm readouts round that sum once to ``H``'s dtype and
+divide in it; the mean readout keeps f32 totals and counts."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from chemprop_tpu_torch.ops.segment import sorted_segment_sum, sorted_segment_su
 
 class SumAggregation(nn.Module):
     def forward(self, H: torch.Tensor, bmg: BatchMolGraph) -> torch.Tensor:
-        return sorted_segment_sum(H, bmg.batch, bmg.node_ptr, torch.float32)[: bmg.n_graphs]
+        return sorted_segment_sum(H, bmg.batch, bmg.node_ptr, H.dtype)[: bmg.n_graphs]
 
 
 class MeanAggregation(nn.Module):
@@ -29,7 +31,7 @@ class NormAggregation(nn.Module):
         self.norm = norm
 
     def forward(self, H: torch.Tensor, bmg: BatchMolGraph) -> torch.Tensor:
-        sums = sorted_segment_sum(H, bmg.batch, bmg.node_ptr, torch.float32)
+        sums = sorted_segment_sum(H, bmg.batch, bmg.node_ptr, H.dtype)
         return sums[: bmg.n_graphs] / self.norm
 
 

@@ -33,22 +33,22 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = (
-    "message", "fused_iter", "message_bwd", "bwd_premul", "bwd_nodes", "iter_bwd", "segment",
-    "gather", "grad_weight",
+    "message", "fused_iter", "iter2", "message_bwd", "bwd_premul", "bwd_nodes", "iter_bwd",
+    "segment", "gather", "grad_weight",
 )
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
 # None for null, or the stream), I an int; every function returns a C int
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "message": {
-        "plain_message": [P, P, P, P, P, I, I, I, I, P],
-        "fused_iter2": [P, P, P, P, P, P, P, P, P, I, I, I, P],
-        "fused_iter2_tile_rows": [],
-    },
+    "message": {"plain_message": [P, P, P, P, P, I, I, I, I, P]},
     "fused_iter": {
         "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
         "fused_iter_info": [I, I, P],
+    },
+    "iter2": {
+        "iter2": [P, P, P, P, P, P, P, P, P, I, I, I, I, P],
+        "iter2_info": [I, I, P],
     },
     "message_bwd": {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],

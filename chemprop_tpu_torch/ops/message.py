@@ -23,9 +23,9 @@ padding node, the last one) get a zero message, so their rows differ from
 the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
-``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/message_bwd.cu``,
-``csrc/bwd_nodes.cu``, ``csrc/bwd_premul.cu`` and ``csrc/iter_bwd.cu`` run; on
-a CPU tensor the plain versions below.
+``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/iter2.cu``,
+``csrc/message_bwd.cu``, ``csrc/bwd_nodes.cu``, ``csrc/bwd_premul.cu`` and
+``csrc/iter_bwd.cu`` run; on a CPU tensor the plain versions below.
 
 The tile kernels (``fused_iter2``, ``bwd_message_nodes``,
 ``bwd_message_premul``, ``iter_bwd``) take the batch's tile table
@@ -44,6 +44,11 @@ from chemprop_tpu_torch.ops.segment import DTYPES, _segment_sum
 
 # the most edge rows a tile of ``fused_iter2``'s tile table may hold
 ITER2_TILE_ROWS = 128
+# the widths ``fused_iter2`` takes: a cluster of d / 128 CTAs, each with a
+# 128-column slice of W resident beside its buffers (``csrc/iter2.cu``); at a
+# wider width ``loop_readout`` takes two ``fused_iter`` launches, by this rule
+# and never after a failed launch
+ITER2_WIDTHS = (128, 256, 384, 512)
 # the widths the tiled ``iter_bwd`` takes: a cluster of d / 64 blocks shares a
 # tile, and the buffers of d = 512 would not fit a block's shared memory
 ITER_BWD_TILE_WIDTHS = (128, 256, 384)
@@ -295,21 +300,37 @@ def fused_iter2(
     """The first two bfloat16 depth iterations in one launch:
     ``y1 = fused_iter(H0, H0, relu_stream=True)`` and ``y2 = fused_iter(y1, H0)``,
     both equal to those two launches bit for bit. ``tiles`` is the batch's tile
-    table (:func:`check_tiles`)."""
+    table (:func:`check_tiles`); ``d`` one of ``ITER2_WIDTHS``."""
     _check_iter(H0, H0, W, b, src, dst, rev, ptr)
-    check_tiles(tiles, H0.shape[0], H0.device)
+    n, d = H0.shape
+    if d not in ITER2_WIDTHS:
+        raise ValueError(f"fused_iter2 takes d in {ITER2_WIDTHS}, not {d}")
+    check_tiles(tiles, n, H0.device)
     if H0.device.type == "cpu":
         return fused_iter2_plain(H0, W, b, src, dst, rev, ptr)
-    lib = library("message")
-    if lib.fused_iter2_tile_rows() != ITER2_TILE_ROWS:
-        raise RuntimeError("the built fused_iter2 kernel takes another tile size")
     y1, y2 = torch.empty_like(H0), torch.empty_like(H0)
-    call(
-        lib, "fused_iter2", H0, W, b, src.contiguous(), rev.contiguous(), ptr.contiguous(),
-        tiles.contiguous(), y1, y2, tiles.numel() - 1, H0.shape[1], ptr.numel() - 2,
-    )
+    if n == 0:
+        return y1, y2
+    call(library("iter2"), "iter2", H0, W, b, src.contiguous(), rev.contiguous(),
+         ptr.contiguous(), tiles.contiguous(), y1, y2, n, tiles.numel() - 1, d, ptr.numel() - 2)
     LAUNCHES["fused_iter2"] += 1
     return y1, y2
+
+
+def fused_iter2_info(d: int, n_tiles: int) -> dict[str, int]:
+    """The shape of :func:`fused_iter2`'s launch on the current card at width
+    ``d`` over ``n_tiles`` tiles: the width of a CTA's W slice, the CTAs of a
+    cluster (the slices), the message stages, the shared memory per CTA, the
+    clusters of the grid and the clusters the card runs at once."""
+    import ctypes
+
+    info = (ctypes.c_int * 6)()
+    err = library("iter2").iter2_info(d, n_tiles, info)
+    if err != 0:
+        raise RuntimeError(f"iter2_info: CUDA error {err}")
+    keys = ("slice_width", "cluster_ctas", "stages", "smem_bytes", "clusters",
+            "max_active_clusters")
+    return dict(zip(keys, info))
 
 
 def _check_tables(first: torch.Tensor, others: dict[str, torch.Tensor | None]) -> None:
@@ -675,8 +696,9 @@ def loop_readout(
     the message kernel and a ``torch.matmul``. With ``options.iter2``, in
     bfloat16 at ``depth >= 3``, the first two iterations are one
     :func:`fused_iter2` launch over the batch's tile table ``tiles``; a batch
-    without one (a molecule larger than a tile) takes the two launches, and
-    ``UNSERVED["fused_iter2"]`` counts it. The backward is written by hand. In
+    without one (a molecule larger than a tile), or a width outside
+    ``ITER2_WIDTHS``, takes the two launches, and ``UNSERVED["fused_iter2"]``
+    counts it. The backward is written by hand. In
     bfloat16 with no bias and ``depth >= 3`` no cotangent edge table is formed
     outside a kernel: :func:`bwd_message_nodes` for the last iteration and
     :func:`bwd_message_premul` for the earlier ones, the first with
@@ -700,7 +722,7 @@ class _LoopReadout(torch.autograd.Function):
         H0 = H0.contiguous()
         ys = []
         if H0.dtype == torch.bfloat16 and options.iter2 and depth >= 3:
-            if tiles is not None:
+            if tiles is not None and H0.shape[1] in ITER2_WIDTHS:
                 ys = list(fused_iter2(H0, W, b, *graph, tiles))
             else:
                 UNSERVED["fused_iter2"] += 1

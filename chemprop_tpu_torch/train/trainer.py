@@ -24,9 +24,10 @@ fit stops once more than ``patience`` epochs in a row have not improved.
 parameters and batch-norm statistics (the last state when no epoch
 improved), and ``predict`` and ``predict_mc_dropout`` compute with it, as in
 the JAX package; ``evaluate`` computes with the current state, as the JAX
-validation does. Not ported yet: validation metrics, checkpoints and
-resuming, tensorboard and profiler output, frozen parameters, chained steps
-and meshes."""
+validation does. Every fit runs epochs ``start_epoch .. max_epochs - 1``
+from the state it finds, as the JAX trainer's loop does. Not ported yet:
+validation metrics, checkpoints and resuming, tensorboard and profiler
+output, frozen parameters, chained steps and meshes."""
 
 from __future__ import annotations
 
@@ -85,6 +86,9 @@ class Trainer:
     param_init: str = "lecun"
     device: str | torch.device | None = None
 
+    # the first epoch of every fit, as in the JAX trainer: a second fit trains
+    # max_epochs - start_epoch more epochs from the state the first one left
+    start_epoch: int = 0
     state: TrainState | None = None
     history: list[dict] = field(default_factory=list)
     # the best epoch's parameters and batch-norm statistics by name, on the
@@ -182,8 +186,7 @@ class Trainer:
         best_score = np.inf if self.mode == "min" else -np.inf
         self.best_variables, self.best_epoch = None, -1
         since_best = 0
-        first_epoch = len(self.history)
-        for epoch in range(first_epoch, self.max_epochs):
+        for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.time()
             losses = [self.train_step(batch) for batch in train_loader]
             # one device -> host fetch per epoch

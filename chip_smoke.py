@@ -22,8 +22,12 @@ failure:
    nodes to graphs) in all three dtype pairs, with and without counts, two
    calls equal; the whole-iteration backward with the batch's tile table and
    without one, gz equal bit for bit to the plain version in both forms, two
-   calls equal; the machine code of the four Hopper kernels read for
-   ``wgmma`` and TMA (the whole-iteration backward also for bulk copies),
+   calls equal; the two chained iterations over the tile table equal to two
+   fused iterations bit for bit, with and without a bias, in two calls, its
+   padding rows zero where H0's are, and its launch shape (clusters of one
+   block per W slice); the machine code of the five Hopper kernels read for
+   ``wgmma`` and TMA (the two chained iterations and the whole-iteration
+   backward also for bulk copies),
    and of the segment sum and the node-cotangent backward for bulk copies
    (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
@@ -49,8 +53,8 @@ failure:
    the ``iter2`` and ``grad_w`` options on, to the same bar; and one float32
    step with dropout on the card against the same step on the CPU, the masks
    made on the CPU from one seed and copied. No main path may leave a batch
-   without its tile table (``ops.UNSERVED``), the ``fused_bwd`` fit's
-   whole-iteration backward included;
+   without its tile table (``ops.UNSERVED``), the ``iter2`` fit's two chained
+   iterations and the ``fused_bwd`` fit's whole-iteration backward included;
 6. on the benchmark batch: the launches of one forward and of one training
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
@@ -58,7 +62,8 @@ failure:
    shapes, the segment sum at both readouts), the unfused routes of the fused
    iteration, of the two tiled backward kernels and of the whole-iteration
    backward, and the device time of the segment sum, of the node-cotangent
-   backward and of the whole-iteration backward from a trace; the
+   backward, of the two chained iterations and of the whole-iteration
+   backward from a trace; the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
    (its W_h product composed through autograd).
@@ -139,7 +144,7 @@ KERNELS = {
         timed="row_gather[bfloat16]",
     ),
     "fused_iter2": dict(
-        source="chemprop_tpu_torch/csrc/message.cu",
+        source="chemprop_tpu_torch/csrc/iter2.cu",
         replaces="chemprop_tpu/ops/fused_message.py:394",
         tpu_kernel="_iter2_kernel via _iter2_impl",
         timed="fused_iter2[bias=False,y2]",
@@ -291,6 +296,19 @@ def iter_bwd_bytes(bmg, d: int) -> int:
     n_tiles = bmg.tile_ptr.numel() - 1
     return ((3 * n_real + 2 * bmg.E.shape[0]) * d * 2 + d * d * (2 + 4) + 8 * n_real
             + 4 * (n_tiles + 1) + 4)
+
+
+def fused_iter2_bytes(bmg, d: int) -> int:
+    """The bytes kernel D (``fused_iter2`` over the tile table) must move at
+    width ``d``: ``H0`` read and ``y1``, ``y2`` written over every row (the
+    padding rows carry ``relu(H0 [+ b])``), ``W`` read once, ``src`` and
+    ``rev`` of the real rows, the ``ptr`` entries of the real nodes (the
+    in-edge ranges of the real rows' sources), and the tile table."""
+    n_real = int(bmg.edge_mask.sum())
+    n_nodes = int(bmg.node_mask.sum())
+    n_tiles = bmg.tile_ptr.numel() - 1
+    return (3 * bmg.E.shape[0] * d * 2 + d * d * 2 + 8 * n_real + 4 * (n_nodes + 1)
+            + 4 * (n_tiles + 1))
 
 
 def max_err(got, want) -> tuple[float, float]:
@@ -488,6 +506,9 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         p1, p2 = fused_iter2_plain(H0, W, bias, *graph)
         check(f"{tag},y1]", y1, p1, 2 * BF16_ULP, 0.02, errs)
         check(f"{tag},y2]", y2, p2, 2 * BF16_ULP, 0.05, errs)
+        again = fused_iter2(H0, W, bias, *graph, bmg.tile_ptr)
+        if not (torch.equal(again[0], y1) and torch.equal(again[1], y2)):
+            fail(f"{tag}]: two calls differ")
     H0z = H0.masked_fill(pad_rows[:, None], 0)  # as W_i leaves them without a bias
     zeros_on_padding("fused_iter2", *fused_iter2(H0z, W, None, *graph, bmg.tile_ptr))
     # E: gz is a masked copy, so exact. G equals bwd_message's, whose sums may
@@ -1059,11 +1080,11 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         library_ms=time_ms(lambda: torch.index_select(t["Mg"], 0, batch64), reps),
         bound_ms=b_ms, bound_by=b_by, shape=[n_v, d], dtype="bfloat16",
     )
-    # D, bf16: H0 read, y1 and y2 written, W and the tile table read once; two
-    # products of the real rows' messages with W. Beside it the two fused_iter
-    # launches it stands for
-    b_ms, b_by = bound(3 * n_e * d * 2 + d * d * 2 + ids_bytes + 4 * (n_tiles + 1),
-                       4 * n_real * d * d, bf16_peak)
+    # D, bf16, over the batch's tile table (fused_iter2_bytes: H0 read, y1 and
+    # y2 written over every row, W once, the ids of the real rows, the tile
+    # table); two products of the real rows' messages with W. Beside it the two
+    # fused_iter launches it stands for
+    b_ms, b_by = bound(fused_iter2_bytes(bmg, d), 4 * n_real * d * d, bf16_peak)
 
     def two_iters():
         y1 = fused_iter(t["H0"], t["H0"], t["W"], None, *graph, relu_stream=True)
@@ -1075,6 +1096,7 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
         two_fused_iter_ms=time_ms(two_iters, reps), tiles=n_tiles,
     )
+    out["fused_iter2"]["share_of_bound"] = b_ms / out["fused_iter2"]["ms"]
     # E, bf16, over the batch's tile table (iter_bwd_bytes: g, y and H over
     # the real rows, dH and gz over every row, W and dW once; the two products
     # of the real rows). Beside it the form without a table and what it
@@ -1189,7 +1211,8 @@ def main() -> int:
     )
     from chemprop_tpu_torch.ops.build import sass_contains
     from chemprop_tpu_torch.ops.message import (
-        bwd_message_nodes_info, bwd_message_premul_info, fused_iter_info, iter_bwd_info,
+        bwd_message_nodes_info, bwd_message_premul_info, fused_iter2, fused_iter2_info,
+        fused_iter_info, iter_bwd_info,
     )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_info
 
@@ -1204,12 +1227,14 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "error" in line:
                 print(f"[{name}] {line.strip()}")
-    # B's, H's, J's and E's products run on wgmma (HGMMA), and W, W^T, G_in,
-    # J's tables and E's g, y, H and W come in by TMA (UTMALDG); C's ranges and
-    # G's tiles come in by bulk copies (UBLKCP), and so does E's G from the
-    # other blocks of its cluster
+    # B's, D's, H's, J's and E's products run on wgmma (HGMMA), and W, W^T,
+    # H0, G_in, J's tables and E's g, y, H and W come in by TMA (UTMALDG); C's
+    # ranges and G's tiles come in by bulk copies (UBLKCP), and so do E's G
+    # and D's message stages from the other blocks of their clusters
     sass = {}
-    for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")), ("bwd_premul", ("HGMMA", "UTMALDG")),
+    for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")),
+                          ("iter2", ("HGMMA", "UTMALDG", "UBLKCP")),
+                          ("bwd_premul", ("HGMMA", "UTMALDG")),
                           ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",)),
                           ("bwd_nodes", ("UBLKCP",)), ("iter_bwd", ("HGMMA", "UTMALDG", "UBLKCP"))):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
@@ -1243,6 +1268,10 @@ def main() -> int:
     # G's persistent grid over the same tiles
     nodes_launch = bwd_message_nodes_info(d, bmg.tile_ptr.numel() - 1)
     print(json.dumps({"bwd_message_nodes_launch": nodes_launch}))
+    # D's clusters over the same tiles: one CTA per W slice, the clusters the
+    # card runs at once, each over a contiguous range of whole tiles
+    iter2_launch = fused_iter2_info(d, bmg.tile_ptr.numel() - 1)
+    print(json.dumps({"fused_iter2_launch": iter2_launch}))
     # E's clusters over the same tiles: the clusters of d / 64 blocks the card
     # runs at once
     iter_bwd_launch = iter_bwd_info(d, bmg.tile_ptr.numel() - 1)
@@ -1274,9 +1303,9 @@ def main() -> int:
     print(json.dumps({"forward": rates}))
     step_rates = train_rate(batch, args.reps)
     print(json.dumps({"train_step": step_rates}))
-    # C's device time at both readouts and G's, traced after every untraced
-    # timing (a trace slows the launches after it): one call's host work is
-    # longer than C, so the events above count the host
+    # C's device time at both readouts, G's, D's and E's, traced after every
+    # untraced timing (a trace slows the launches after it): one call's host
+    # work is longer than C, so the events above count the host
     times["sorted_segment_sum"]["device_ms"] = device_ms(
         lambda: sorted_segment_sum(tensors["H"], bmg.dst, bmg.edge_ptr))
     times["sorted_segment_sum_counts"]["device_ms"] = device_ms(
@@ -1284,12 +1313,15 @@ def main() -> int:
     times["bwd_message_nodes"]["device_ms"] = device_ms(
         lambda: bwd_message_nodes(tensors["g_nodes"], tensors["yb"], bmg.src, bmg.dst, bmg.rev,
                                   bmg.edge_ptr, tiles=bmg.tile_ptr))
+    times["fused_iter2"]["device_ms"] = device_ms(
+        lambda: fused_iter2(tensors["H0"], tensors["W"], None, bmg.src, bmg.dst, bmg.rev,
+                            bmg.edge_ptr, bmg.tile_ptr))
     times["iter_bwd"]["device_ms"] = device_ms(
         lambda: iter_bwd(tensors["gb"], tensors["yb"], tensors["Hx"], tensors["W"], bmg.src,
                          bmg.dst, bmg.rev, bmg.edge_ptr, tiles=bmg.tile_ptr))
     unserved = dict(UNSERVED)
     print(json.dumps({"unserved": unserved}))
-    for name in ("bwd_message_premul", "bwd_message_nodes", "iter_bwd"):
+    for name in ("fused_iter2", "bwd_message_premul", "bwd_message_nodes", "iter_bwd"):
         if unserved.get(name, 0):
             fail(f"{name} left {unserved[name]} batches without tiles")
 
@@ -1319,7 +1351,7 @@ def main() -> int:
         kernels[-1].pop(key, None)
     record = {"card": card, "kind": kind, "build_s": build_s,
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
-              "sass": sass, "fused_iter_launch": launch,
+              "sass": sass, "fused_iter_launch": launch, "fused_iter2_launch": iter2_launch,
               "bwd_message_premul_launch": premul_launch,
               "bwd_message_nodes_launch": nodes_launch, "iter_bwd_launch": iter_bwd_launch,
               "sorted_segment_sum_launch": seg_launch, "unserved": unserved,

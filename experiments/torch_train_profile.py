@@ -68,7 +68,7 @@ OWN_KERNELS = {
     "bwd_premul_kernel": "H bwd_message_premul (one launch over the tiles)",
     "bwd_message_kernel": "F/G node pass (bwd_message*; H's without a tile table)",
     "row_gather_kernel": "I row_gather",
-    "fused_iter2_kernel": "D fused_iter2",
+    "iter2_kernel": "D fused_iter2 (clusters over the tiles)",
     "bwd_nodes_kernel": "G bwd_message_nodes (one launch over the tiles)",
     "iter_bwd_kernel": "E iter_bwd (one launch over the tiles)",
     "iter_bwd_reduce": "E iter_bwd (ordered sum of the clusters' dW)",

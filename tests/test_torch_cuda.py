@@ -46,6 +46,7 @@ from chemprop_tpu_torch.ops.message import (
     bwd_message_nodes_plain,
     bwd_message_plain,
     bwd_message_premul_plain,
+    fused_iter2_info,
     fused_iter2_plain,
     fused_iter_plain,
     iter_bwd_info,
@@ -570,7 +571,7 @@ def _big_bmg(device):
     return batch_mol_graphs(mgs).to(device)
 
 
-@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("d", [128, 256, 384])
 @pytest.mark.parametrize("bias", [False, True])
 def test_fused_iter2_equals_two_launches(any_bmg, cuda, bias, d):
     b = any_bmg
@@ -586,6 +587,8 @@ def test_fused_iter2_equals_two_launches(any_bmg, cuda, bias, d):
     w1 = fused_iter(H0, H0, W, bb, *_graph(b), relu_stream=True)
     w2 = fused_iter(w1, H0, W, bb, *_graph(b))
     assert torch.equal(y1, w1) and torch.equal(y2, w2)  # every row, bit for bit
+    again = fused_iter2(H0, W, bb, *_graph(b), b.tile_ptr)
+    assert torch.equal(again[0], y1) and torch.equal(again[1], y2)  # two calls
     p1, p2 = fused_iter2_plain(H0, W, bb, *_graph(b))
     torch.testing.assert_close(y1.float(), p1.float(), rtol=2 * BF16_ULP, atol=0.02)
     # y1's own ulp passes through the second message and W
@@ -602,6 +605,58 @@ def test_fused_iter2_tiles_with_an_empty_tail_and_zero_padding(bmg, cuda):
     w1, w2 = fused_iter2(H0, W, None, *_graph(bmg), bmg.tile_ptr)
     assert torch.equal(y1, w1) and torch.equal(y2, w2)
     assert not y1[_pad_rows(bmg)].any() and not y2[_pad_rows(bmg)].any()
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+@pytest.mark.parametrize("table", ["tiles", "empty_tiles"])
+def test_fused_iter2_tiles_of_every_size(cuda, d, table):
+    """Tiles of 64, 128 (a 64-in-edge hub among them), 128, 65, 1, 100 and 28
+    rows, the last three of padding rows only, and the same table with an
+    empty tile after the first and two at the end: y1 and y2 equal two
+    fused_iter launches bit for bit, and H0's zero padding rows give zero
+    rows."""
+    *graph, tiles = _tiled_graph(cuda)
+    if table == "empty_tiles":
+        tiles = torch.cat([tiles[:2], tiles[1:], tiles[-1:], tiles[-1:]])
+    n = graph[0].shape[0]
+    pad = graph[0] == graph[3].numel() - 2
+    H0 = _randn((n, d), 60, cuda, torch.bfloat16)
+    H0[pad] = 0
+    W = _randn((d, d), 61, cuda, torch.bfloat16, scale=d**-0.5)
+    y1, y2 = fused_iter2(H0, W, None, *graph, tiles)
+    w1 = fused_iter(H0, H0, W, None, *graph, relu_stream=True)
+    w2 = fused_iter(w1, H0, W, None, *graph)
+    assert torch.equal(y1, w1) and torch.equal(y2, w2)
+    assert not y1[pad].any() and not y2[pad].any()
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_fused_iter2_launch_shape_by_width(cuda, d):
+    """A cluster of d / 128 CTAs, each a 128-column slice of W, an even ring
+    of stages and at most a block's shared memory."""
+    info = fused_iter2_info(d, 1272)
+    assert info["slice_width"] == 128 and info["cluster_ctas"] == d // 128
+    assert info["stages"] >= 4 and info["stages"] % 2 == 0
+    assert info["smem_bytes"] <= 232448
+    assert 1 <= info["clusters"] == min(info["max_active_clusters"], 1272)
+
+
+def test_fused_iter2_refuses_a_wider_width(bmg, cuda):
+    """d = 640 is refused before any launch; loop_readout with iter2 takes
+    two fused_iter launches there and counts the batch as unserved."""
+    d = 640
+    H0 = _randn((bmg.E.shape[0], d), 62, cuda, torch.bfloat16)
+    H0[_pad_rows(bmg)] = 0
+    W = _randn((d, d), 63, cuda, torch.bfloat16, scale=d**-0.5)
+    with pytest.raises(ValueError, match="fused_iter2 takes d in"):
+        fused_iter2(H0, W, None, *_graph(bmg), bmg.tile_ptr)
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    out = loop_readout(H0, W, None, *_graph(bmg), 3, KernelOptions(iter2=True), bmg.tile_ptr)
+    assert LAUNCHES["fused_iter2"] == 0 and LAUNCHES["fused_iter"] == 2
+    assert UNSERVED["fused_iter2"] == 1
+    want = loop_readout(H0, W, None, *_graph(bmg), 3, KernelOptions(), bmg.tile_ptr)
+    assert torch.equal(out, want)
 
 
 def test_loop_readout_iter2_and_the_molecule_larger_than_a_tile(bmg, cuda):

@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, each held to it:
+"""Five faults of the port against the JAX package, each held to it:
 
 * the FFN's activation: ``MLP`` and ``RegressionFFN`` build the activation
   they are given, ``build_model`` reads the head's from the checkpoint's
@@ -9,7 +9,12 @@
   ``patience``), and ``predict`` computes with them;
 * ``grad_w`` on the composed path (another activation, or undirected
   messages): W_h's weight gradient goes through ``ops.grad_weight`` as the
-  JAX package's ``gw_matmul`` routes it, and equals the gradient without it.
+  JAX package's ``gw_matmul`` routes it, and equals the gradient without it;
+* the sum and norm readouts: in bfloat16 they round the f32 segment sum once
+  to bfloat16 and divide in bfloat16, as the JAX package's kernel path does
+  (``segment_sum`` with ``out_dtype = data.dtype``);
+* a second ``Trainer.fit`` trains ``max_epochs`` more epochs from the state
+  the first one left, as the JAX trainer's loop from ``start_epoch`` does.
 
 Small sizes throughout: widths of 16-64, the 100 molecules of
 tests/data/regression/mol/mol.csv."""
@@ -25,11 +30,31 @@ import numpy as np
 import pytest
 import torch
 
+from chemprop_tpu import data as jdata
+from chemprop_tpu.data.collate import PadSpec as JaxPadSpec
+from chemprop_tpu.data.collate import batch_mol_graphs as jax_batch
+from chemprop_tpu.featurizers.molgraph.molecule import (
+    SimpleMoleculeMolGraphFeaturizer as JaxFeaturizer,
+)
+from chemprop_tpu.models import MPNN as JaxMPNN
+from chemprop_tpu.nn import BondMessagePassing as JaxBondMP
+from chemprop_tpu.nn import MeanAggregation as JaxMean
+from chemprop_tpu.nn import NormAggregation as JaxNorm
+from chemprop_tpu.nn import RegressionFFN as JaxRegressionFFN
+from chemprop_tpu.nn import SumAggregation as JaxSum
 from chemprop_tpu.nn.ffn import MLP as JaxMLP
+from chemprop_tpu.train import Trainer as JaxTrainer
 from chemprop_tpu_torch.data import DataLoader, MoleculeDatapoint, MoleculeDataset
+from chemprop_tpu_torch.data.collate import PadSpec, batch_mol_graphs
 from chemprop_tpu_torch.models import MPNN, from_jax_params
 from chemprop_tpu_torch.models.load import build_model, load_checkpoint
-from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+from chemprop_tpu_torch.nn import (
+    BondMessagePassing,
+    MeanAggregation,
+    NormAggregation,
+    RegressionFFN,
+    SumAggregation,
+)
 from chemprop_tpu_torch.ops import KernelOptions
 from chemprop_tpu_torch.train import Trainer
 
@@ -252,3 +277,118 @@ def test_composed_w_h_gradient_with_grad_w_equals_the_one_without(datasets, monk
     # once to bf16
     for got, want in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, want, rtol=BF16_ULP, atol=1e-6)
+
+
+# ------------------------------------------------- (d) sum and norm readouts
+
+SMIS = ["CCO", "c1ccccc1", "CC(=O)Nc1ccc(O)cc1", "CNC(C)Cc1ccccc1",
+        "CC(C)CC1=CC=C(C=C1)C(C)C(=O)O", "c1ccc2ccccc2c1", "C", "O=[N+]([O-])c1ccc(Cl)cc1"]
+READOUTS = {"sum": (JaxSum, SumAggregation, None), "norm": (JaxNorm, NormAggregation, 100.0)}
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _kernel_readout(H_v: np.ndarray, batch: np.ndarray, n_graphs: int, norm, dtype):
+    """The JAX package's sum / norm readout as its segment-sum kernel computes
+    it (``chemprop_tpu/ops/sorted_segments.py``: the sum accumulated in f32,
+    rounded once to the data's dtype), then the norm's division in that dtype,
+    in JAX's own ops; as f32. XLA's CPU ``segment_sum`` of a bfloat16 table
+    accumulates in bfloat16, so the JAX model on the CPU is not the target."""
+    sums = jax.ops.segment_sum(jnp.asarray(H_v, jnp.float32), jnp.asarray(batch), n_graphs + 1,
+                               indices_are_sorted=True).astype(dtype)[:n_graphs]
+    if norm is not None:
+        sums = sums / norm
+    return np.asarray(sums.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("readout", READOUTS)
+def test_sum_and_norm_readouts_match_the_jax_kernel(monkeypatch, readout, dtype):
+    """Both readouts through ``MPNN.fingerprint``, the weights handed over
+    from a JAX model: the port's fingerprint is the JAX kernel's readout of
+    the port's own node states (an f32 sum rounded once to bf16, divided in
+    bf16: at most one bf16 ulp apart, where the two f32 sums round to
+    neighbours, and equal almost everywhere), and it stays within the bf16
+    envelope of the JAX model's own node states read out the same way. In
+    float32 the fingerprints agree to the f32 message kernels' tolerance."""
+    monkeypatch.setenv("CHEMPROP_TPU_INTERPRET", "1")
+    jdt, tdt = DTYPES[dtype]
+    jagg, tagg, norm = READOUTS[readout]
+    feat = JaxFeaturizer()
+    mgs = [feat(jdata.MoleculeDatapoint.from_smi(s).mol) for s in SMIS]
+    pad = (256, 768, len(SMIS))
+    jb = jax_batch(mgs, JaxPadSpec(*pad), sort_edges=True)
+    jmodel = JaxMPNN(message_passing=JaxBondMP(d_h=64, depth=3, compute_dtype=jdt), agg=jagg(),
+                     predictor=JaxRegressionFFN(input_dim=64, hidden_dim=64), batch_norm=False)
+    variables = jmodel.init(jax.random.PRNGKey(0), jb, None, None, False)
+    model = MPNN(BondMessagePassing(d_v=mgs[0].V.shape[1], d_e=mgs[0].E.shape[1], d_h=64,
+                                    depth=3, compute_dtype=tdt),
+                 tagg(), RegressionFFN(input_dim=64, hidden_dim=64, output_transform=False),
+                 batch_norm=False)
+    model.load_state_dict(from_jax_params(variables["params"], {}))
+    tb = batch_mol_graphs(mgs, PadSpec(*pad))
+    with torch.inference_mode():
+        got = model.fingerprint(tb).numpy()
+        H_v = model.message_passing(tb)
+    batch, n_graphs = tb.batch.numpy(), tb.n_graphs
+    assert got.dtype == np.float32 and got.shape == (n_graphs, 64)
+
+    def mp(module, bmg):
+        return module.message_passing(bmg, None, False, False, keep_padded=True, out_dtype=None)
+
+    jH_v = jmodel.apply(variables, jb, method=mp)
+    want = _kernel_readout(np.asarray(jH_v.astype(jnp.float32)), batch, n_graphs, norm, jdt)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want[:, :64], rtol=1e-4, atol=1e-4)
+        return
+    own = _kernel_readout(H_v.float().numpy(), batch, n_graphs, norm, jdt)[:, :64]
+    assert np.array_equal(got, got.astype(jnp.bfloat16).astype(np.float32))
+    ulps = np.abs(got - own) / (2.0**-8 * np.maximum(np.abs(own), 1e-30))
+    assert ulps.max() <= 2.0 and np.mean(got == own) >= 0.99
+    # the two models' node states round at other places: the JAX package's
+    # own bf16 parity envelope
+    np.testing.assert_allclose(got, want[:, :64], rtol=0.05, atol=0.05)
+
+
+# ------------------------------------------------------ (e) a second fit
+
+
+def test_a_second_fit_trains_max_epochs_more_as_jax_does(data_dir):
+    """Two ``fit`` calls in a row on one trainer of each package, from the
+    same initial parameters: each fit runs ``max_epochs`` epochs numbered
+    from ``start_epoch`` (0), the history grows by that many records, and the
+    second fit continues the optimiser's state (its step count, and the
+    parameters it reaches) as the JAX trainer's does."""
+    with open(data_dir / "regression" / "mol" / "mol.csv") as f:
+        part = [(smi, float(y)) for smi, y in list(csv.reader(f))[1:17]]
+    jds = jdata.MoleculeDataset([jdata.MoleculeDatapoint.from_smi(s, y=np.array([y]))
+                                 for s, y in part])
+    tds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([y])) for s, y in part])
+    for ds in (jds, tds):
+        ds.normalize_targets()
+        ds.cache = True
+    jmodel = JaxMPNN(message_passing=JaxBondMP(d_h=16, depth=2), agg=JaxMean(),
+                     predictor=JaxRegressionFFN(input_dim=16, hidden_dim=16), batch_norm=False)
+    model = MPNN(BondMessagePassing(d_h=16, depth=2), MeanAggregation(),
+                 RegressionFFN(input_dim=16, hidden_dim=16, output_transform=False),
+                 batch_norm=False)
+    jloader = jdata.DataLoader(jds, batch_size=8, shuffle=False, prefetch=0)
+    tloader = DataLoader(tds, batch_size=8, shuffle=False)
+    kw = dict(max_epochs=2, warmup_epochs=1, seed=5)
+    jtrainer = JaxTrainer(jmodel, steps_per_dispatch=1, **kw)
+    jtrainer.state = jtrainer.init_state(next(iter(jloader)), len(jloader))
+    trainer = Trainer(model, device="cpu", **kw)
+    assert trainer.start_epoch == jtrainer.start_epoch == 0
+    trainer.init_state(next(iter(tloader)), len(tloader))
+    model.load_state_dict(from_jax_params(jtrainer.state.params, {}))
+    for fit in (1, 2):
+        jtrainer.fit(jloader)
+        trainer.fit(tloader)
+        assert len(trainer.history) == len(jtrainer.history) == 2 * fit
+        assert [h["epoch"] for h in trainer.history] == [h["epoch"] for h in jtrainer.history]
+        assert trainer.state.step == int(jtrainer.state.step) == 2 * fit * len(tloader)
+        np.testing.assert_allclose([h["train_loss"] for h in trainer.history],
+                                   [h["train_loss"] for h in jtrainer.history], rtol=1e-4)
+    assert [h["epoch"] for h in trainer.history] == [0, 1, 0, 1]
+    want = from_jax_params(jtrainer.state.params, {})
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=1e-3, atol=1e-5)
