@@ -1,5 +1,5 @@
 // Hopper primitives for grad_weight.cu, fused_iter.cu, bwd_premul.cu,
-// segment.cu, bwd_nodes.cu and iter_bwd.cu, in inline PTX: mbarriers, 2-d TMA
+// segment.cu, bwd_nodes.cu, iter_bwd.cu and message_tiles.cu, in inline PTX: mbarriers, 2-d TMA
 // tile loads, 1-d bulk copies (also into another CTA of a cluster), the proxy
 // fence, the cluster's ranks and barrier, and warpgroup MMAs (wgmma) on
 // 128-byte-swizzled tiles in shared memory, and the host's encoding of a
@@ -34,6 +34,11 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// expect `bytes` more to land from TMA in this phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {

@@ -24,7 +24,8 @@ then ``ops.message_iter``, with the dropout between them, and ``M_v`` a
 kernels (``ops/message.py``); in float32 the products are ``torch.matmul``,
 as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
-either dtype. With ``kernel_options.grad_w`` in bfloat16 W_i's weight
+either dtype. Every message kernel takes the batch's tile table
+(``bmg.tile_ptr``). With ``kernel_options.grad_w`` in bfloat16 W_i's weight
 gradient, and W_h's where ``iter_bwd`` does not form it (the composed path's
 included), are ``grad_weight`` kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
 compute dtype are made in every forward, so gradients flow through the pad
@@ -140,11 +141,11 @@ class BondMessagePassing(nn.Module):
                     H = (H + H[bmg.rev.long()]) / 2
                 if fuse_iter:
                     if it == 1:  # relu(H0) streams through the kernel, never written
-                        H = first_iter(H0, W_h, b_h, *graph, opts)
+                        H = first_iter(H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
                     else:
                         H = message_iter(H, H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
                 else:
-                    M = message(H, *graph)
+                    M = message(H, *graph, bmg.tile_ptr)
                     z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h
                     if b_h is not None:
                         z = z + b_h

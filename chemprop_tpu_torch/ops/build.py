@@ -33,8 +33,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = (
-    "message", "fused_iter", "iter2", "message_bwd", "bwd_premul", "bwd_nodes", "iter_bwd",
-    "segment", "gather", "grad_weight",
+    "message", "message_tiles", "fused_iter", "iter2", "message_bwd", "bwd_premul", "bwd_nodes",
+    "iter_bwd", "segment", "gather", "grad_weight",
 )
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
@@ -42,6 +42,10 @@ SOURCES = (
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "message": {"plain_message": [P, P, P, P, P, I, I, I, I, P]},
+    "message_tiles": {
+        "message_tiles": [P, P, P, P, P, P, I, I, I, I, I, P],
+        "message_tiles_info": [I, I, I, P],
+    },
     "fused_iter": {
         "fused_iter": [P, P, P, P, P, P, P, P, I, I, I, I, P],
         "fused_iter_info": [I, I, P],

@@ -23,11 +23,12 @@ padding node, the last one) get a zero message, so their rows differ from
 the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
-``csrc/message.cu``, ``csrc/fused_iter.cu``, ``csrc/iter2.cu``,
-``csrc/message_bwd.cu``, ``csrc/bwd_nodes.cu``, ``csrc/bwd_premul.cu`` and
-``csrc/iter_bwd.cu`` run; on a CPU tensor the plain versions below.
+``csrc/message_tiles.cu`` (or ``csrc/message.cu``), ``csrc/fused_iter.cu``,
+``csrc/iter2.cu``, ``csrc/message_bwd.cu``, ``csrc/bwd_nodes.cu``,
+``csrc/bwd_premul.cu`` and ``csrc/iter_bwd.cu`` run; on a CPU tensor the plain
+versions below.
 
-The tile kernels (``fused_iter2``, ``bwd_message_nodes``,
+The tile kernels (``message``, ``fused_iter2``, ``bwd_message_nodes``,
 ``bwd_message_premul``, ``iter_bwd``) take the batch's tile table
 (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
 the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
@@ -52,6 +53,14 @@ ITER2_WIDTHS = (128, 256, 384, 512)
 # the widths the tiled ``iter_bwd`` takes: a cluster of d / 64 blocks shares a
 # tile, and the buffers of d = 512 would not fit a block's shared memory
 ITER_BWD_TILE_WIDTHS = (128, 256, 384)
+# the tiled message kernel (``csrc/message_tiles.cu``) takes the lane-padded
+# widths, multiples of 128 up to this, in both dtypes
+MESSAGE_TILE_MAX_WIDTH = 1024
+
+
+def message_tile_width(d: int) -> bool:
+    """Whether the tiled message kernel takes width ``d``."""
+    return d % 128 == 0 and 0 < d <= MESSAGE_TILE_MAX_WIDTH
 
 
 def message_plain(
@@ -175,30 +184,61 @@ def _check_graph(H, src, dst, rev, ptr):
 
 
 def message(
-    H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor
+    H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``M = message(H)`` for a float32 or bfloat16 edge table, differentiable
     in ``H``: the backward is the transposed message without a mask. Sums
-    are taken in f32 and rounded once to ``H``'s dtype."""
-    return _Message.apply(H, src, dst, rev, ptr)
+    are taken in f32 and rounded once to ``H``'s dtype.
+
+    With the batch's tile table ``tiles`` (:func:`check_tiles`) at a width
+    :func:`message_tile_width` takes, it is one launch of
+    ``csrc/message_tiles.cu`` over the molecule tiles; without one (a
+    molecule of more than ``ITER2_TILE_ROWS`` rows), or at another width, the
+    warp-per-edge kernel of ``csrc/message.cu``, and ``UNSERVED["message"]``
+    counts the call. Both give the same bits."""
+    return _Message.apply(H, src, dst, rev, ptr, tiles)
 
 
-def _message_fwd(H, src, dst, rev, ptr):
+def _message_fwd(H, src, dst, rev, ptr, tiles=None):
     _check_graph(H, src, dst, rev, ptr)
     if H.dtype not in DTYPES:
         raise TypeError(f"H must be float32 or bfloat16, got {H.dtype}")
+    n, d = H.shape
+    if tiles is not None:
+        check_tiles(tiles, n, H.device)
+    tiled = tiles is not None and message_tile_width(d)
+    if not tiled:
+        UNSERVED["message"] += 1
     if H.device.type == "cpu":
         return message_plain(H, src, dst, rev, ptr)
-    n, d = H.shape
     if d % 4 != 0 or H.data_ptr() % 16 != 0:
         raise ValueError(f"width {d} must be a multiple of 4, rows 16-byte aligned")
     out = torch.empty_like(H)
-    call(
-        library("message"), "plain_message", H, src.contiguous(), rev.contiguous(),
-        ptr.contiguous(), out, n, d, ptr.numel() - 2, DTYPES[H.dtype],
-    )
+    graph = (src.contiguous(), rev.contiguous(), ptr.contiguous())
+    if tiled:
+        call(library("message_tiles"), "message_tiles", H, *graph, tiles.contiguous(), out, n,
+             d, ptr.numel() - 2, tiles.numel() - 1, DTYPES[H.dtype])
+    else:
+        call(library("message"), "plain_message", H, *graph, out, n, d, ptr.numel() - 2,
+             DTYPES[H.dtype])
     LAUNCHES["message"] += 1
     return out
+
+
+def message_info(d: int, dtype: torch.dtype, n_tiles: int) -> dict[str, int]:
+    """The shape of the tiled :func:`message` launch on the current card at
+    width ``d`` in ``dtype`` over ``n_tiles`` tiles: the column slice of an
+    item, the slices, the stages, the shared memory per block, the grid, and
+    the blocks of the kernel that one SM runs at once."""
+    import ctypes
+
+    info = (ctypes.c_int * 6)()
+    err = library("message_tiles").message_tiles_info(d, DTYPES[dtype], n_tiles, info)
+    if err != 0:
+        raise RuntimeError(f"message_tiles_info: CUDA error {err}")
+    keys = ("slice_width", "slices", "stages", "smem_bytes", "grid", "blocks_per_sm")
+    return dict(zip(keys, info))
 
 
 def _check_iter(H, H0, W, b, src, dst, rev, ptr):
@@ -570,29 +610,30 @@ def iter_bwd_info(d: int, n_tiles: int) -> dict[str, int]:
 
 class _Message(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H, src, dst, rev, ptr):
+    def forward(ctx, H, src, dst, rev, ptr, tiles):
         ctx.save_for_backward(src, dst, rev, ptr)
-        return _message_fwd(H, src, dst, rev, ptr)
+        return _message_fwd(H, src, dst, rev, ptr, tiles)
 
     @staticmethod
     def backward(ctx, g):
         src, dst, rev, ptr = ctx.saved_tensors
         g = g.contiguous()
         if g.device.type == "cpu":
-            return bwd_message_plain(g, None, src, dst, rev, ptr)[0], None, None, None, None
+            return bwd_message_plain(g, None, src, dst, rev, ptr)[0], *(None,) * 5
         # the message kernel with the roles of src and dst swapped: the
         # node-wise backward kernel without its mask
         G, _ = _launch_bwd(g, None, None, dst, rev, ptr, nodes=False, with_gz=False)
         LAUNCHES["bwd_message"] += 1
-        return G, None, None, None, None
+        return G, *(None,) * 5
 
 
-def _iteration(H, H0, W, b, graph, relu_stream=False):
+def _iteration(H, H0, W, b, graph, relu_stream=False, tiles=None):
     """One iteration's forward in either dtype: the fused kernel in bfloat16,
-    the message kernel and a ``torch.matmul`` in float32."""
+    the message kernel (over the tile table ``tiles``) and a ``torch.matmul``
+    in float32."""
     if H0.dtype == torch.bfloat16:
         return fused_iter(H, H0, W, b, *graph, relu_stream=relu_stream)
-    z = _message_fwd(torch.relu(H) if relu_stream else H, *graph) @ W
+    z = _message_fwd(torch.relu(H) if relu_stream else H, *graph, tiles) @ W
     if b is not None:
         z = z + b
     return torch.relu(H0 + z)
@@ -614,14 +655,15 @@ def _bias_grad(gz, b):
 def first_iter(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    options: KernelOptions | None = None,
+    options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The first depth iteration ``relu(H0 + message(relu(H0)) @ W [+ b])`` as a
     differentiable op (cf. ``fused_first_iter``), float32 or bfloat16; in
-    bfloat16 ``relu(H0)`` is never written (``relu_stream``). The backward is
+    bfloat16 ``relu(H0)`` is never written (``relu_stream``), in float32 the
+    message goes over the batch's tile table ``tiles``. The backward is
     written by hand: :func:`bwd_message`, then the two products, and the chain
     through the streamed ReLU, ``dH0 = gz + dH * [H0 > 0]``."""
-    return _FirstIter.apply(H0, W, b, src, dst, rev, ptr, options or KernelOptions())
+    return _FirstIter.apply(H0, W, b, src, dst, rev, ptr, options or KernelOptions(), tiles)
 
 
 def message_iter(
@@ -630,7 +672,8 @@ def message_iter(
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One depth iteration ``relu(H0 + message(H) @ W [+ b])`` as a
-    differentiable op (cf. ``fused_message_iter``), float32 or bfloat16. The
+    differentiable op (cf. ``fused_message_iter``), float32 or bfloat16; in
+    float32 the message goes over the batch's tile table ``tiles``. The
     backward is written by hand: :func:`bwd_message`, then ``G @ W^T`` and
     ``H^T G``; in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd` over
     the batch's tile table ``tiles``. A batch without one (a molecule larger
@@ -642,9 +685,9 @@ def message_iter(
 
 class _FirstIter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H0, W, b, src, dst, rev, ptr, options):
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, options, tiles):
         H0 = H0.contiguous()
-        y = _iteration(H0, H0, W, b, (src, dst, rev, ptr), relu_stream=True)
+        y = _iteration(H0, H0, W, b, (src, dst, rev, ptr), relu_stream=True, tiles=tiles)
         ctx.save_for_backward(y, H0, W, b, src, dst, rev, ptr)
         ctx.options = options
         return y
@@ -655,14 +698,14 @@ class _FirstIter(torch.autograd.Function):
         g = g.to(y.dtype).contiguous()
         dH, gz, dW = _iteration_bwd(g, y, torch.relu(H0), W, graph, ctx.options.grad_w)
         dH0 = gz + dH * (H0 > 0)
-        return dH0, dW.to(W.dtype), _bias_grad(gz, b), None, None, None, None, None
+        return dH0, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
 
 
 class _MessageIter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options, tiles):
         H, H0 = H.contiguous(), H0.contiguous()
-        y = _iteration(H, H0, W, b, (src, dst, rev, ptr))
+        y = _iteration(H, H0, W, b, (src, dst, rev, ptr), tiles=tiles)
         ctx.save_for_backward(y, H, W, b, src, dst, rev, ptr)
         ctx.options, ctx.tiles = options, tiles
         return y
@@ -693,7 +736,7 @@ def loop_readout(
         M_v = segment_sum(H, dst)                               [N, d], H0's dtype
 
     In bfloat16 every iteration is one :func:`fused_iter` kernel; in float32
-    the message kernel and a ``torch.matmul``. With ``options.iter2``, in
+    the message kernel over the tile table and a ``torch.matmul``. With ``options.iter2``, in
     bfloat16 at ``depth >= 3``, the first two iterations are one
     :func:`fused_iter2` launch over the batch's tile table ``tiles``; a batch
     without one (a molecule larger than a tile), or a width outside
@@ -728,9 +771,10 @@ class _LoopReadout(torch.autograd.Function):
                 UNSERVED["fused_iter2"] += 1
         if not ys:
             first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
-            ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first)]
+            ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first,
+                             tiles=tiles)]
         for _ in range(len(ys) + 1, depth):
-            ys.append(_iteration(ys[-1], H0, W, b, graph))
+            ys.append(_iteration(ys[-1], H0, W, b, graph, tiles=tiles))
         ctx.save_for_backward(H0, W, b, *graph, *ys)
         ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
         ctx.tiles = tiles

@@ -12,7 +12,11 @@ failure:
 2. hold every kernel against its plain PyTorch version on the card, at the
    shapes of the serving path's benchmark batch: 2048 molecules of
    tests/data/regression/mol/mol.csv, tiled (the batch ``bench.py`` builds),
-   hidden width 300 padded to 384: the fused iteration in its four forms,
+   hidden width 300 padded to 384: the message over the batch's tile table
+   in float32 and bfloat16, bit for bit equal to its form without a table
+   (message.cu) on every row and in a second call, its padding rows zero,
+   and the sparse product of S - R with H that is timed beside it; the
+   fused iteration in its four forms,
    its padding rows and a second call bit for bit, its launch shape (the
    blocks the card runs at once); the weight-gradient kernel also at W_i's
    shape (128 input columns), at a ragged and at a short table, each twice,
@@ -27,8 +31,8 @@ failure:
    padding rows zero where H0's are, and its launch shape (clusters of one
    block per W slice); the machine code of the five Hopper kernels read for
    ``wgmma`` and TMA (the two chained iterations and the whole-iteration
-   backward also for bulk copies),
-   and of the segment sum and the node-cotangent backward for bulk copies
+   backward also for bulk copies), and of the message over the tiles, the
+   segment sum and the node-cotangent backward for bulk copies
    (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
@@ -53,17 +57,19 @@ failure:
    the ``iter2`` and ``grad_w`` options on, to the same bar; and one float32
    step with dropout on the card against the same step on the CPU, the masks
    made on the CPU from one seed and copied. No main path may leave a batch
-   without its tile table (``ops.UNSERVED``), the ``iter2`` fit's two chained
+   without its tile table (``ops.UNSERVED``), the message of every float32
+   iteration and of the composed tanh step, the ``iter2`` fit's two chained
    iterations and the ``fused_bwd`` fit's whole-iteration backward included;
 6. on the benchmark batch: the launches of one forward and of one training
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
-   function, where there is one (the weight gradient at W_h's and W_i's
-   shapes, the segment sum at both readouts), the unfused routes of the fused
-   iteration, of the two tiled backward kernels and of the whole-iteration
-   backward, and the device time of the segment sum, of the node-cotangent
-   backward, of the two chained iterations and of the whole-iteration
-   backward from a trace; the
+   function, where there is one (the message's sparse product, the weight
+   gradient at W_h's and W_i's shapes, the segment sum at both readouts),
+   the message without a table, the unfused routes of the fused iteration,
+   of the two tiled backward kernels and of the whole-iteration backward,
+   and the device time of the message in both dtypes and both forms, of the
+   segment sum, of the node-cotangent backward, of the two chained
+   iterations and of the whole-iteration backward from a trace; the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
    (its W_h product composed through autograd).
@@ -102,10 +108,10 @@ PEAKS = {
 # the timing phase uses, so that the row's error is that case's
 KERNELS = {
     "message": dict(
-        source="chemprop_tpu_torch/csrc/message.cu",
+        source="chemprop_tpu_torch/csrc/message_tiles.cu",
         replaces="chemprop_tpu/ops/fused_message.py:244",
         tpu_kernel="_kernel via _fused_message_impl",
-        timed="message[float32]",
+        timed="message[bfloat16,tiles]",
     ),
     "fused_iter": dict(
         source="chemprop_tpu_torch/csrc/fused_iter.cu",
@@ -200,8 +206,9 @@ PATH_KERNELS = {
                                          "bwd_message": 1, "iter_bwd": 1, "row_gather": 1},
     "train_dropout_bfloat16_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
                                       "grad_weight": 3, "row_gather": 1},
-    # tanh at depth 2, composed: one message and its transposed backward, the
-    # M_v and the mean readout, dW of W_i and of the iteration's W_h
+    # tanh at depth 2, composed: one message over the tile table and its
+    # transposed backward, the M_v and the mean readout, dW of W_i and of the
+    # iteration's W_h
     "train_bfloat16_tanh_depth2_grad_w": {"message": 1, "sorted_segment_sum": 2,
                                           "bwd_message": 1, "row_gather": 1, "grad_weight": 2},
 }
@@ -298,6 +305,45 @@ def iter_bwd_bytes(bmg, d: int) -> int:
             + 4 * (n_tiles + 1) + 4)
 
 
+def message_bytes(bmg, d: int, itemsize: int) -> int:
+    """The bytes kernel A (``message`` over the tile table) must move at
+    width ``d`` in a dtype of ``itemsize`` bytes: ``H`` read over the real
+    rows, ``M`` written over every row (the padding rows as zeros, with no
+    load), ``src`` and ``rev`` of the real rows, the ``ptr`` entries of the
+    real nodes (the in-edge ranges of the real rows' sources) and the one
+    that marks the first padding row, and the tile table."""
+    n_real = int(bmg.edge_mask.sum())
+    n_nodes = int(bmg.node_mask.sum())
+    n_tiles = bmg.tile_ptr.numel() - 1
+    return ((n_real + bmg.E.shape[0]) * d * itemsize + 8 * n_real + 4 * (n_nodes + 1) + 4
+            + 4 * (n_tiles + 1))
+
+
+def message_matrix(bmg):
+    """``S - R`` as an ``[E x E]`` CSR matrix of float32 ones, on the batch's
+    device: row ``e`` of a real edge holds the in-edges of ``src[e]`` other
+    than ``rev[e]`` (which is one of them: its +1 and -1 cancel), a padding
+    row nothing. ``torch.sparse.mm`` of it with ``H`` computes kernel A's
+    function in one library call; the port never calls it."""
+    import torch
+
+    src, rev, ptr = bmg.src.long(), bmg.rev.long(), bmg.edge_ptr.long()
+    n = src.numel()
+    rows_all = torch.arange(n, device=src.device)
+    deg = torch.where(rows_all < ptr[-2], ptr[src + 1] - ptr[src], 0)
+    rows = torch.repeat_interleave(rows_all, deg)
+    first = torch.repeat_interleave(ptr[src], deg)
+    offset = torch.arange(rows.numel(), device=src.device) - torch.repeat_interleave(
+        torch.cumsum(deg, 0) - deg, deg)
+    cols = first + offset
+    keep = cols != rev[rows]
+    rows, cols = rows[keep], cols[keep]
+    crow = torch.zeros(n + 1, dtype=torch.long, device=src.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return torch.sparse_csr_tensor(crow, cols, torch.ones(cols.numel(), device=src.device),
+                                   size=(n, n))
+
+
 def fused_iter2_bytes(bmg, d: int) -> int:
     """The bytes kernel D (``fused_iter2`` over the tile table) must move at
     width ``d``: ``H0`` read and ``y1``, ``y2`` written over every row (the
@@ -365,15 +411,28 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     Hv = torch.randn((n_v, d), generator=g, device=dev).to(torch.bfloat16)
     errs: dict = {}
 
-    # f32: only the summation order differs; bf16 out: one rounding apart
-    check("message[float32]", message(H32, *graph), message_plain(H32, *graph), 1e-5, 1e-5, errs)
-    # bf16: f32 sums rounded once; a sum in another order may round to the
-    # neighbouring bf16 value
-    got = message(H, *graph)
-    check("message[bfloat16]", got, message_plain(H, *graph), BF16_ULP, 1e-6, errs)
-    if got[bmg.dst == n_v - 1].any():
-        fail("message[bfloat16]: a padding row is not zero")
+    # A over the tile table and in message.cu's form: f32, only the summation
+    # order differs from the plain version's; bf16, f32 sums rounded once, so
+    # a sum in another order may round to the neighbouring bf16 value. The
+    # two forms sum the same values in the same order: the same bits on every
+    # row, padding zeros included, and a second call the same bits again
     pad_rows = bmg.dst == n_v - 1
+    SR = message_matrix(bmg)
+    for x, rtol, atol in ((H32, 1e-5, 1e-5), (H, BF16_ULP, 1e-6)):
+        dt = str(x.dtype).removeprefix("torch.")
+        want = message_plain(x, *graph)
+        tiled = message(x, *graph, bmg.tile_ptr)
+        check(f"message[{dt},tiles]", tiled, want, rtol, atol, errs)
+        check(f"message[{dt}]", message(x, *graph), want, rtol, atol, errs)
+        if not torch.equal(tiled, message(x, *graph)):
+            fail(f"message[{dt}]: the forms with and without tiles differ")
+        if not torch.equal(tiled, message(x, *graph, bmg.tile_ptr)):
+            fail(f"message[{dt}]: two calls differ")
+        if tiled[pad_rows].any():
+            fail(f"message[{dt}]: a padding row is not zero")
+    # the library yardstick computes the same function, (S - R) H, in f32
+    check("message[sparse.mm]", torch.sparse.mm(SR, H32), message_plain(H32, *graph), 1e-5,
+          1e-5, errs)
     for relu_stream in (True, False):
         for bias in (None, b):
             tag = f"fused_iter[relu_stream={relu_stream},bias={bias is not None}]"
@@ -550,8 +609,8 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         if not torch.equal(dWj, grad_weight(X, Gj, use_kernel=True)):
             fail(f"{tag}: two runs differ")
     torch.cuda.synchronize()
-    tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, g32=g32, y32=y32, acc32=acc32, gb=gb, yb=yb,
-                   g_nodes=g_nodes, Mg=Mg, Hx=Hx, Gt=Gt, Xi=Xi)
+    tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, SR=SR, g32=g32, y32=y32, acc32=acc32, gb=gb,
+                   yb=yb, g_nodes=g_nodes, Mg=Mg, Hx=Hx, Gt=Gt, Xi=Xi)
     return tensors, errs
 
 
@@ -947,29 +1006,41 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         tb, to = nbytes / bw * 1e3, ops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    # message, f32 as on the main path: H read once, M written once
-    b_ms, b_by = bound(2 * n_e * d * 4 + ids_bytes, adds, f32_peak)
-    out["message"] = dict(
-        ms=time_ms(lambda: message(t["H32"], *graph), reps),
-        plain_ms=time_ms(lambda: message_plain(t["H32"], *graph), reps),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="float32",
-        bfloat16=dict(  # as the composed path of a non-ReLU or undirected model calls it
-            ms=time_ms(lambda: message(t["H"], *graph), reps),
-            plain_ms=time_ms(lambda: message_plain(t["H"], *graph), reps),
-            bound_ms=bound(2 * n_e * d * 2 + ids_bytes, adds, f32_peak)[0],
-        ),
-    )
+    # A over the batch's tile table (message_bytes): bf16 as the composed path
+    # of a non-ReLU or undirected model calls it, f32 as the f32 model's
+    # iterations do. Beside it message.cu's form (a batch without a table)
+    # and the one library call that computes the same function: the sparse
+    # product of S - R, in CSR form, with H
+    def message_times(x):
+        b_ms, b_by = bound(message_bytes(bmg, d, x.element_size()), adds, f32_peak)
+        ms = time_ms(lambda: message(x, *graph, bmg.tile_ptr), reps)
+        try:  # the matrix is made once, outside the timed calls
+            SR = t["SR"].to(x.dtype)
+            library_ms = time_ms(lambda: torch.sparse.mm(SR, x), reps)
+        except RuntimeError as e:  # the yardstick only: the card's PyTorch may refuse bf16
+            library_ms = f"torch.sparse.mm refused {x.dtype}: {e}".splitlines()[0]
+        return dict(
+            ms=ms, plain_ms=time_ms(lambda: message_plain(x, *graph), reps),
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+            shape=[n_e, d], dtype=str(x.dtype).removeprefix("torch."),
+            without_tiles=dict(ms=time_ms(lambda: message(x, *graph), reps)),
+        )
+
+    out["message"] = message_times(t["H"])
+    out["message"]["float32"] = message_times(t["H32"])
+    out["message"]["library"] = "torch.sparse.mm(S - R in CSR, H)"
     # fused iteration, bf16: H and H0 read, y written, W read once; the
     # message adds and the product of the real rows' messages with W. No one
     # library call computes it; beside it the unfused route: kernel A's bf16
-    # message, a library product, then the residual and the ReLU
+    # message over the tile table, a library product, then the residual and
+    # the ReLU
     b_ms, b_by = bound(3 * n_e * d * 2 + d * d * 2 + ids_bytes, 2 * n_real * d * d, bf16_peak)
     out["fused_iter"] = dict(
         ms=time_ms(lambda: fused_iter(t["H"], t["H0"], t["W"], None, *graph), reps),
         plain_ms=time_ms(lambda: fused_iter_plain(t["H"], t["H0"], t["W"], None, *graph), reps),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="bfloat16",
-        composed_ms=time_ms(
-            lambda: torch.relu(t["H0"] + torch.mm(message(t["H"], *graph), t["W"])), reps),
+        composed_ms=time_ms(lambda: torch.relu(
+            t["H0"] + torch.mm(message(t["H"], *graph, bmg.tile_ptr), t["W"])), reps),
     )
     out["fused_iter"]["share_of_bound"] = b_ms / out["fused_iter"]["ms"]
     # segment sum, the M_v readout in bf16: E rows read, N rows written, ids
@@ -1212,7 +1283,7 @@ def main() -> int:
     from chemprop_tpu_torch.ops.build import sass_contains
     from chemprop_tpu_torch.ops.message import (
         bwd_message_nodes_info, bwd_message_premul_info, fused_iter2, fused_iter2_info,
-        fused_iter_info, iter_bwd_info,
+        fused_iter_info, iter_bwd_info, message, message_info,
     )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_info
 
@@ -1229,14 +1300,15 @@ def main() -> int:
                 print(f"[{name}] {line.strip()}")
     # B's, D's, H's, J's and E's products run on wgmma (HGMMA), and W, W^T,
     # H0, G_in, J's tables and E's g, y, H and W come in by TMA (UTMALDG); C's
-    # ranges and G's tiles come in by bulk copies (UBLKCP), and so do E's G
-    # and D's message stages from the other blocks of their clusters
+    # ranges and A's and G's tiles come in by bulk copies (UBLKCP), and so do
+    # E's G and D's message stages from the other blocks of their clusters
     sass = {}
     for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")),
                           ("iter2", ("HGMMA", "UTMALDG", "UBLKCP")),
                           ("bwd_premul", ("HGMMA", "UTMALDG")),
                           ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",)),
-                          ("bwd_nodes", ("UBLKCP",)), ("iter_bwd", ("HGMMA", "UTMALDG", "UBLKCP"))):
+                          ("bwd_nodes", ("UBLKCP",)), ("message_tiles", ("UBLKCP",)),
+                          ("iter_bwd", ("HGMMA", "UTMALDG", "UBLKCP"))):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
         sass[name] = sass_contains(name, opcodes)
         print(json.dumps({f"{name}_sass": sass[name] if sass[name] is not None else
@@ -1276,6 +1348,11 @@ def main() -> int:
     # runs at once
     iter_bwd_launch = iter_bwd_info(d, bmg.tile_ptr.numel() - 1)
     print(json.dumps({"iter_bwd_launch": iter_bwd_launch}))
+    # A's persistent grid over the same tiles, in both dtypes
+    message_launch = {
+        str(dt).removeprefix("torch."): message_info(d, dt, bmg.tile_ptr.numel() - 1)
+        for dt in (torch.bfloat16, torch.float32)}
+    print(json.dumps({"message_launch": message_launch}))
     # C's ranges and persistent grid at the M_v and the mean readout
     seg_launch = {
         "edge->node": sorted_segment_sum_info(shapes["E_pad"], shapes["N_pad"], d, torch.bfloat16,
@@ -1297,12 +1374,18 @@ def main() -> int:
     dropout_launches, dropout_res = dropout_path(ds)
     launches.update(dropout_launches)
     dropout_step_res = dropout_step_against_cpu(ds)
+    # the timings take A's form without a table on purpose: the main paths'
+    # unserved calls are read before them, the benchmark steps' after
+    unserved = dict(UNSERVED)
 
     times = timings(bmg, tensors, d, args.reps, kind)
+    UNSERVED.clear()
     rates = forward_rate(bmg, args.reps)
     print(json.dumps({"forward": rates}))
     step_rates = train_rate(batch, args.reps)
     print(json.dumps({"train_step": step_rates}))
+    for name, count in UNSERVED.items():
+        unserved[name] = unserved.get(name, 0) + count
     # C's device time at both readouts, G's, D's and E's, traced after every
     # untraced timing (a trace slows the launches after it): one call's host
     # work is longer than C, so the events above count the host
@@ -1319,9 +1402,17 @@ def main() -> int:
     times["iter_bwd"]["device_ms"] = device_ms(
         lambda: iter_bwd(tensors["gb"], tensors["yb"], tensors["Hx"], tensors["W"], bmg.src,
                          bmg.dst, bmg.rev, bmg.edge_ptr, tiles=bmg.tile_ptr))
-    unserved = dict(UNSERVED)
+    # A's device time in both dtypes, in both forms, and the sparse product's
+    graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
+    for entry, x in ((times["message"], tensors["H"]),
+                     (times["message"]["float32"], tensors["H32"])):
+        entry["device_ms"] = device_ms(lambda: message(x, *graph, bmg.tile_ptr))
+        entry["without_tiles"]["device_ms"] = device_ms(lambda: message(x, *graph))
+        if not isinstance(entry["library_ms"], str):
+            SR = tensors["SR"].to(x.dtype)
+            entry["library_device_ms"] = device_ms(lambda: torch.sparse.mm(SR, x))
     print(json.dumps({"unserved": unserved}))
-    for name in ("fused_iter2", "bwd_message_premul", "bwd_message_nodes", "iter_bwd"):
+    for name in ("message", "fused_iter2", "bwd_message_premul", "bwd_message_nodes", "iter_bwd"):
         if unserved.get(name, 0):
             fail(f"{name} left {unserved[name]} batches without tiles")
 
@@ -1354,6 +1445,7 @@ def main() -> int:
               "sass": sass, "fused_iter_launch": launch, "fused_iter2_launch": iter2_launch,
               "bwd_message_premul_launch": premul_launch,
               "bwd_message_nodes_launch": nodes_launch, "iter_bwd_launch": iter_bwd_launch,
+              "message_launch": message_launch,
               "sorted_segment_sum_launch": seg_launch, "unserved": unserved,
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,

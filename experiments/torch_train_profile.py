@@ -2,15 +2,21 @@
 """Where the time of the PyTorch/CUDA port's training step goes, on one GPU.
 
     python3 experiments/torch_train_profile.py [--steps 10] [--runs 3]
-        [--dropout 0.1] [--options fused_bwd,grad_w]
+        [--dropout 0.1] [--options fused_bwd,grad_w] [--activation tanh]
+        [--dtypes bfloat16] [--tree DIR]
 
 Builds the benchmark batch (2048 molecules of
 tests/data/regression/mol/mol.csv, tiled, with their normalised targets, as
 ``chip_smoke.py`` does) and the default model at full width (hidden width 300
 padded to 384, depth 3, mean readout, batch norm, regression head) in float32
-and in bfloat16, and runs ``Trainer.train_step`` on it; ``--dropout`` above 0
-gives the step of the per-iteration path, ``--options`` turns opt-in kernels
-on. Each of ``--runs``
+and in bfloat16 (or the dtypes ``--dtypes`` names), and runs
+``Trainer.train_step`` on it; ``--dropout`` above 0 gives the step of the
+per-iteration path, ``--options`` turns opt-in kernels on, and an
+``--activation`` other than relu gives the composed path (the message kernel,
+the products and the segment sum through autograd). ``--tree DIR`` imports
+``chemprop_tpu_torch`` from another checkout (for example a ``git archive``
+of the parent commit), so that two versions are profiled on the same card in
+one call. Each of ``--runs``
 runs times ``--steps`` steps on the host clock (around work that ends in
 ``torch.cuda.synchronize()``); then, for each run, as many steps are traced
 with ``torch.profiler`` and the device time of the traced kernels is summed:
@@ -25,8 +31,9 @@ summary takes the median.
 It prints one JSON line per dtype: wall and device ms per step, the idle
 share of each run and their median, and the kernels by device time, with the
 port's own kernels grouped under their wrappers' names. The full table goes
-to chiprun_out/train_profile.json (with ``--dropout`` or ``--options``:
-train_profile_<rate>_<options>.json)."""
+to chiprun_out/train_profile[_<rate>_<options>][_<activation>][_<tree>].json
+(the parts for ``--dropout`` or ``--options``, ``--activation`` and
+``--tree``)."""
 
 from __future__ import annotations
 
@@ -43,26 +50,11 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-
-from chemprop_tpu_torch.data import (  # noqa: E402
-    MoleculeDatapoint,
-    MoleculeDataset,
-    collate_batch,
-)
-from chemprop_tpu_torch.models import MPNN  # noqa: E402
-from chemprop_tpu_torch.nn import (  # noqa: E402
-    BondMessagePassing,
-    MeanAggregation,
-    RegressionFFN,
-)
-from chemprop_tpu_torch.ops import KernelOptions  # noqa: E402
-from chemprop_tpu_torch.train import Trainer  # noqa: E402
-
 MOL_CSV = REPO / "tests/data/regression/mol/mol.csv"
 # the port's device functions, by the wrapper that launches them
 OWN_KERNELS = {
-    "plain_message_kernel": "A message",
+    "message_tiles_kernel": "A message (one launch over the tiles)",
+    "plain_message_kernel": "A message (without a tile table)",
     "fused_iter_kernel": "B fused_iter",
     "seg_kernel": "C sorted_segment_sum",
     "bwd_premul_kernel": "H bwd_message_premul (one launch over the tiles)",
@@ -87,6 +79,8 @@ def kernel_group(name: str) -> str:
 
 
 def benchmark_batch(molecules: int):
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset, collate_batch
+
     with open(MOL_CSV, newline="") as f:
         rows = list(csv.reader(f))[1:]
     ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([float(y)])) for s, y in rows])
@@ -96,7 +90,7 @@ def benchmark_batch(molecules: int):
     return collate_batch(data).to("cuda")
 
 
-def wall_ms_per_step(trainer: Trainer, batch, steps: int) -> float:
+def wall_ms_per_step(trainer, batch, steps: int) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -105,7 +99,7 @@ def wall_ms_per_step(trainer: Trainer, batch, steps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def traced_run(trainer: Trainer, batch, steps: int, wall_ms: float) -> dict:
+def traced_run(trainer, batch, steps: int, wall_ms: float) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
@@ -137,9 +131,25 @@ def main() -> int:
                     help="dropout rate: above 0 the step takes the per-iteration ops")
     ap.add_argument("--options", default="",
                     help="comma-separated opt-in kernels: iter2, fused_bwd, grad_w")
+    ap.add_argument("--activation", default="relu",
+                    help="another than relu: the composed path")
+    ap.add_argument("--dtypes", default="float32,bfloat16")
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="import chemprop_tpu_torch from this checkout instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
+        return 2
+    tree = (args.tree or REPO).resolve()
+    sys.path.insert(0, str(tree))
+    import chemprop_tpu_torch
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.ops import KernelOptions
+    from chemprop_tpu_torch.train import Trainer
+
+    if Path(chemprop_tpu_torch.__file__).resolve().parent.parent != tree:
+        print(f"imported {chemprop_tpu_torch.__file__}, not {tree}", file=sys.stderr)
         return 2
 
     card = subprocess.run(
@@ -149,11 +159,14 @@ def main() -> int:
     batch = benchmark_batch(args.molecules)
     options = KernelOptions(**{name: True for name in args.options.split(",") if name})
     report = {"card": card, "molecules": args.molecules, "steps": args.steps,
-              "dropout": args.dropout, "options": args.options}
+              "dropout": args.dropout, "options": args.options, "activation": args.activation,
+              "tree": str(tree)}
     trainers, walls = {}, {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for name in args.dtypes.split(","):
+        dt = getattr(torch, name)
         model = MPNN(
-            BondMessagePassing(compute_dtype=dt, dropout=args.dropout, kernel_options=options),
+            BondMessagePassing(compute_dtype=dt, dropout=args.dropout, kernel_options=options,
+                               activation=args.activation),
             MeanAggregation(),
             RegressionFFN(output_transform=False, dropout=args.dropout),
             batch_norm=True,
@@ -170,6 +183,8 @@ def main() -> int:
         summary = {
             "dtype": name,
             "card": card,
+            "activation": args.activation,
+            "tree": str(tree),
             "wall_ms_per_step": statistics.median(r["wall_ms_per_step"] for r in runs),
             "device_ms_per_step": statistics.median(r["device_ms_per_step"] for r in runs),
             "idle_share_by_run": [r["idle_share"] for r in runs],
@@ -181,6 +196,8 @@ def main() -> int:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     tag = f"_{args.dropout}_{args.options.replace(',', '+')}" if args.dropout or args.options else ""
+    tag += "" if args.activation == "relu" else f"_{args.activation}"
+    tag += "" if args.tree is None else f"_{tree.name}"
     (out / f"train_profile{tag}.json").write_text(json.dumps(report, indent=1))
     return 0
 

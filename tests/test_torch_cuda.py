@@ -1155,3 +1155,168 @@ def test_message_iter_hands_the_table_to_the_tiled_kernel(bmg, cuda, d):
     scale = float(grads[False][2].float().abs().max())
     torch.testing.assert_close(grads[True][2].float(), grads[False][2].float(), rtol=0.02,
                                atol=1e-3 * scale)
+
+
+# ---------------------------------------------- A (message) over the tiles
+MESSAGE_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _check_message(H, graph, tiles):
+    """A with the tile table against the plain version (float32: summation
+    order only; bfloat16: f32 sums rounded once, one ulp), against
+    message.cu's form without a table and a second call bit for bit on every
+    row, padding zeros included; one launch of the tiled kernel, no call
+    unserved."""
+    before = LAUNCHES["message"]
+    UNSERVED.clear()
+    got = message(H, *graph, tiles)
+    assert LAUNCHES["message"] == before + 1 and UNSERVED["message"] == 0
+    assert got.dtype == H.dtype
+    want = message_plain(H, *graph)
+    rtol, atol = (1e-5, 1e-5) if H.dtype == torch.float32 else (BF16_ULP, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    pad = graph[1] == graph[3].numel() - 2
+    assert not got[pad].any()
+    assert torch.equal(got, message(H, *graph))  # message.cu's form
+    assert UNSERVED["message"] == 1
+    assert torch.equal(got, message(H, *graph, tiles))
+    return got
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+@pytest.mark.parametrize("d", [128, 384, 512])
+@pytest.mark.parametrize("case", sorted(NODE_LAYOUTS))
+def test_tiled_message_layouts(cuda, case, d, dtype):
+    """Salts, one-atom molecules ("C") and a run of 200 "C" in one tile."""
+    b = _node_layout_bmg(case, cuda)
+    _check_message(_randn((b.E.shape[0], d), 110, cuda, dtype), _graph(b), b.tile_ptr)
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+@pytest.mark.parametrize("d", [128, 384, 512])
+def test_tiled_message_tiles_of_every_size(cuda, d, dtype):
+    """Tiles of 64 and 128 rows (a chain, and a star whose hub has 64
+    in-edges: sums longer than the four read at once), of 65 (with the first
+    padding row), then padding tiles of 1, 100 and 28 rows."""
+    *graph, tiles = _tiled_graph(cuda)
+    assert 128 in (tiles[1:] - tiles[:-1]).tolist()
+    _check_message(_randn((graph[0].shape[0], d), 111, cuda, dtype), tuple(graph), tiles)
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+@pytest.mark.parametrize("d", [128, 384])
+def test_tiled_message_small_batches(any_bmg, cuda, d, dtype):
+    b = any_bmg
+    _check_message(_randn((b.E.shape[0], d), 112, cuda, dtype), _graph(b), b.tile_ptr)
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+def test_tiled_message_benchmark_batch(cuda, bench_bmg, dtype):
+    """The main path's shape: the benchmark batch's table at d = 384, the
+    same bits in repeated calls, and the launch shape (bfloat16: one copy of
+    each whole tile, float32: two column slices, one copy a row)."""
+    from chemprop_tpu_torch.ops.message import message_info
+
+    b = bench_bmg
+    H = _randn((b.E.shape[0], 384), 113, cuda, dtype)
+    got = _check_message(H, _graph(b), b.tile_ptr)
+    for _ in range(3):
+        assert torch.equal(got, message(H, *_graph(b), b.tile_ptr))
+    info = message_info(384, dtype, b.tile_ptr.numel() - 1)
+    assert info["slices"] == (1 if dtype == torch.bfloat16 else 2)
+    assert info["stages"] >= 2 and info["blocks_per_sm"] >= 1
+    assert info["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+@pytest.mark.parametrize("d", [128, 512])
+def test_tiled_message_flags_every_row_it_cannot_form(any_bmg, cuda, d, dtype):
+    """A table that passes check_tiles but cuts molecules (a tile every 40
+    rows): every row whose source's in-edges, or whose reverse, are not all
+    inside its tile is NaN, whole; every other row has the bits of the form
+    without a table."""
+    b = any_bmg
+    n = b.E.shape[0]
+    tiles = torch.tensor(list(range(0, n, 40)) + [n], dtype=torch.int32)
+    H = _randn((n, d), 114, cuda, dtype)
+    got = message(H, *_graph(b), tiles.to(cuda))
+    want = message(H, *_graph(b))
+    src, rev, ptr = b.src.cpu().long(), b.rev.cpu().long(), b.edge_ptr.cpu().long()
+    tile = torch.bucketize(torch.arange(n), tiles[1:].long(), right=True)
+    first_pad = int(ptr[-2])
+    want_bad = torch.zeros(n, dtype=torch.bool)
+    for e in range(first_pad):
+        ins = torch.arange(int(ptr[src[e]]), int(ptr[src[e] + 1]))
+        want_bad[e] = not ((tile[ins] == tile[e]).all() and tile[rev[e]] == tile[e])
+    assert want_bad.any() and not want_bad[:first_pad].all()
+    nan = got.isnan().cpu()
+    assert torch.equal(nan.any(1), want_bad) and torch.equal(nan.all(1), want_bad)
+    assert torch.equal(got[~want_bad.to(cuda)], want[~want_bad.to(cuda)])
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+def test_tiled_message_gradient_is_unchanged(bmg, cuda, dtype):
+    """The backward is F's masked transposed message, whatever the forward
+    took: the same gradient bit for bit with and without the table."""
+    H = _randn((bmg.E.shape[0], 128), 115, cuda, dtype)
+    c = _randn((bmg.E.shape[0], 128), 116, cuda, dtype)
+    grads = []
+    for tiles in (bmg.tile_ptr, None):
+        x = H.clone().requires_grad_()
+        before = LAUNCHES["bwd_message"]
+        (g,) = torch.autograd.grad(message(x, *_graph(bmg), tiles), x, c)
+        assert LAUNCHES["bwd_message"] == before + 1
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1])
+    want = bwd_message_plain(c, None, *_graph(bmg))[0]
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_ULP, 1e-6)
+    torch.testing.assert_close(grads[0].float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_tiled_message_raises_instead_of_falling_back(bmg, cuda):
+    n = bmg.E.shape[0]
+    H = torch.zeros((n, 128), device=cuda)
+    with pytest.raises(ValueError):  # the table on another device
+        message(H, *_graph(bmg), bmg.tile_ptr.cpu())
+    short = bmg.tile_ptr.clone()
+    short[-1] -= 1  # a table that ends short of the rows, read back from the card
+    with pytest.raises(ValueError):
+        message(H, *_graph(bmg), short)
+    wide = torch.tensor([0, ITER2_TILE_ROWS + 1, n], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # a tile of more rows than the kernel holds
+        message(H, *_graph(bmg), wide)
+    with pytest.raises(TypeError):
+        message(H.half(), *_graph(bmg), bmg.tile_ptr)
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+def test_a_width_or_a_batch_the_tiled_message_does_not_take(bmg, cuda, dtype):
+    """d = 64 with a table, and a batch without one: message.cu's form, each
+    call counted in UNSERVED, the plain version's values."""
+    H = _randn((bmg.E.shape[0], 64), 117, cuda, dtype)
+    big = _big_bmg(cuda)
+    Hb = _randn((big.E.shape[0], 128), 118, cuda, dtype)
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_ULP, 1e-6)
+    for x, b in ((H, bmg), (Hb, big)):
+        UNSERVED.clear()
+        before = LAUNCHES["message"]
+        got = message(x, *_graph(b), b.tile_ptr)
+        assert LAUNCHES["message"] == before + 1 and UNSERVED["message"] == 1
+        torch.testing.assert_close(got.float(), message_plain(x, *_graph(b)).float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("dtype", MESSAGE_DTYPES)
+@pytest.mark.parametrize("kwargs", [dict(activation="tanh"), dict(undirected=True)],
+                         ids=["tanh", "undirected"])
+def test_composed_path_launches_the_tiled_message(bmg, cuda, dtype, kwargs):
+    """The composed path on the card: depth - 1 launches of A, none of them
+    unserved."""
+    from chemprop_tpu_torch.nn import BondMessagePassing
+
+    mp = BondMessagePassing(d_h=64, compute_dtype=dtype, **kwargs).to(cuda)
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    out = mp(bmg)
+    assert torch.isfinite(out.float()).all()
+    assert LAUNCHES["message"] == mp.depth - 1 and UNSERVED["message"] == 0

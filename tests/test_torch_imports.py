@@ -25,6 +25,8 @@ PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "experiments" / "torch_iter_bwd_parts.py",
     REPO / "experiments" / "torch_iter2.py",
     REPO / "experiments" / "torch_iter2_parts.py",
+    REPO / "experiments" / "torch_message.py",
+    REPO / "experiments" / "torch_message_parts.py",
 ]
 # the JAX stack, and what the machine with the card does not have either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
