@@ -1,5 +1,9 @@
 """``predict``: SMILES in a CSV -> predictions in a CSV (cf.
-``chemprop_tpu/cli/predict.py``), for one reference regression checkpoint.
+``chemprop_tpu/cli/predict.py``), for one regression checkpoint: a reference
+``.pt``/``.ckpt`` or a ``CPTPU001`` file of the JAX package or of the port's
+``Trainer``, told apart by its magic bytes. A model that takes extra inputs
+(descriptors, extra atom or bond features) is refused: the options that read
+them are not ported yet.
 
     python -m chemprop_tpu_torch.cli predict --model-path X.pt -i in.csv -o out.csv \\
         [--device cpu] [--dtype float32|bfloat16] [--batch-size N]
@@ -29,7 +33,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    parser.add_argument("--model-path", type=Path, required=True, help="reference .pt/.ckpt")
+    parser.add_argument("--model-path", type=Path, required=True,
+                        help="reference .pt/.ckpt, or a CPTPU001 checkpoint")
     parser.add_argument("-i", "--data-path", type=Path, required=True, help="input CSV")
     parser.add_argument("-o", "--output", type=Path, help="output CSV (default <input>_preds.csv)")
     parser.add_argument("--device", help="torch device (default: cuda; raises without a GPU)")
@@ -50,6 +55,11 @@ def predict(
 ) -> np.ndarray:
     """``[len(smiles), n_tasks]`` float32 predictions."""
     featurizer = SimpleMoleculeMolGraphFeaturizer()
+    mp = model.message_passing
+    if (mp.d_vd or model.predictor.input_dim != mp.output_dim
+            or (mp.d_v, mp.d_e) != featurizer.shape):
+        raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "
+                         "features), which predict does not read yet")
     preds = []
     for i in range(0, len(smiles), batch_size):
         mgs = [featurizer(make_mol(s)) for s in smiles[i : i + batch_size]]

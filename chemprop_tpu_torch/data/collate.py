@@ -47,9 +47,18 @@ class BatchMolGraph:
     # [n_tiles + 1] int32 row offsets of the edge tiles, or None where a
     # molecule has more edge rows than a tile holds
     tile_ptr: torch.Tensor | None = None
+    # whether the last node row is padding, so that only padding edges name it
+    # (the row gather's zero rule); the collate always reserves it. None: not
+    # known on the host, read from node_mask
+    last_node_padding: bool | None = None
 
     def __len__(self) -> int:
         return self.n_graphs
+
+    def last_node_is_padding(self) -> bool:
+        if self.last_node_padding is None:
+            return not bool(self.node_mask[-1])
+        return self.last_node_padding
 
     def to(self, device: str | torch.device) -> "BatchMolGraph":
         """The batch on ``device``; the tile table is checked before it moves,
@@ -193,14 +202,23 @@ def batch_mol_graphs(
         edge_mask=t(edge_mask),
         n_graphs=pad.n_graphs,
         tile_ptr=None if tiles is None else t(tiles),
+        last_node_padding=True,  # n_real_nodes < pad.n_nodes, checked above
     )
     return (bmg, perm) if return_perm else bmg
 
 
 class TrainingBatch(NamedTuple):
+    """The JAX package's fields in its order, so that a batch unpacks the same
+    way: ``bmg, V_d, X_d, Y, w, lt_mask, gt_mask``. The bounded losses are not
+    ported, so ``lt_mask`` and ``gt_mask`` are always None."""
+
     bmg: BatchMolGraph
+    V_d: torch.Tensor | None  # [N_pad, d_vd] float32 atom descriptors; padding rows 0
+    X_d: torch.Tensor | None  # [B, d_xd] float32 molecule descriptors; padding rows 0
     Y: torch.Tensor | None  # [B, t] float32; padding rows are NaN, masked by isfinite
     w: torch.Tensor  # [B, 1] float32 sample weights; padding rows are 0
+    lt_mask: None = None
+    gt_mask: None = None
 
     @property
     def pad_mask(self) -> np.ndarray:
@@ -208,22 +226,39 @@ class TrainingBatch(NamedTuple):
         return self.w.reshape(-1).cpu().numpy() > 0
 
     def to(self, device: str | torch.device) -> "TrainingBatch":
-        Y = None if self.Y is None else self.Y.to(device, non_blocking=True)
-        return TrainingBatch(self.bmg.to(device), Y, self.w.to(device, non_blocking=True))
+        def move(x):
+            return None if x is None else x.to(device, non_blocking=True)
+
+        return TrainingBatch(self.bmg.to(device), move(self.V_d), move(self.X_d), move(self.Y),
+                             move(self.w))
 
 
 def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
-    """Collate ``Datum`` tuples ``(mg, y, weight)`` into a padded
-    :class:`TrainingBatch`. Padding samples get NaN targets and zero weight,
-    so that the masked loss ignores them."""
-    mgs, ys, weights = zip(*data)
+    """Collate ``Datum`` tuples ``(mg, V_d, x_d, y, weight, lt_mask,
+    gt_mask)`` into a padded :class:`TrainingBatch`. Padding samples get NaN
+    targets and zero weight, so that the masked loss ignores them; padding
+    rows of the descriptors are zero."""
+    mgs, V_ds, x_ds, ys, weights, *_ = zip(*data)
     pad = pad or PadSpec.for_graphs(mgs)
     bmg = batch_mol_graphs(mgs, pad)
     b_real, b_pad = len(mgs), pad.n_graphs
+    t = torch.from_numpy
+    V_d = None
+    if V_ds[0] is not None:
+        V_d = np.zeros((pad.n_nodes, V_ds[0].shape[1]), dtype=np.float32)
+        v0 = 0
+        for mg, vd in zip(mgs, V_ds):
+            if vd is not None:
+                V_d[v0 : v0 + vd.shape[0]] = vd
+            v0 += mg.V.shape[0]
+    X_d = None
+    if x_ds[0] is not None:
+        X_d = np.zeros((b_pad, len(x_ds[0])), dtype=np.float32)
+        X_d[:b_real] = np.array(x_ds, dtype=np.float32)
     Y = None
     if ys[0] is not None:
         Y = np.full((b_pad, len(ys[0])), np.nan, dtype=np.float32)
         Y[:b_real] = np.array(ys, dtype=np.float32)
     w = np.zeros((b_pad, 1), dtype=np.float32)
     w[:b_real, 0] = weights
-    return TrainingBatch(bmg, None if Y is None else torch.from_numpy(Y), torch.from_numpy(w))
+    return TrainingBatch(bmg, *(None if x is None else t(x) for x in (V_d, X_d, Y)), t(w))

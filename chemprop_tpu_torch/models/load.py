@@ -1,6 +1,8 @@
 """Model loading (cf. ``chemprop_tpu/models/torch_convert.py``).
 
-:func:`load_model` reads a reference chemprop v2 ``.pt``/``.ckpt``
+:func:`load_model` reads the JAX package's ``CPTPU001`` checkpoints
+(:mod:`chemprop_tpu_torch.models.serialize`), told apart by their magic bytes,
+and reference chemprop v2 ``.pt``/``.ckpt`` files: it reads the latter
 (``{hyper_parameters, state_dict, ...}``) without the chemprop or Lightning
 packages: classes the pickle names but this environment lacks become
 dict-backed stubs that remember their qualified name, which is all the
@@ -9,7 +11,8 @@ names and layouts, so the state dict loads as it is.
 
 :func:`from_jax_params` maps a ``chemprop_tpu`` flax parameter tree (dense
 kernels in (in, out) layout) onto the port's state dict, so that both
-packages can compute with the same weights."""
+packages can compute with the same weights; :func:`jax_path` names the place
+of each of the port's parameters in such a tree."""
 
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
 from chemprop_tpu_torch.nn.predictors import RegressionFFN
+from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.utils.device import resolve_device, use_full_float32
 
@@ -91,23 +95,26 @@ def build_model(
 ) -> MPNN:
     """The port's MPNN for a reference single-molecule regression D-MPNN,
     with its ``bias``, ``dropout``, ``undirected`` and both ``activation``
-    hyperparameters (message passing's and the head's).
+    hyperparameters (message passing's and the head's), atom descriptors
+    (``d_vd``), and the scaling transforms its state dict holds.
     Anything the port does not run raises instead of loading wrongly."""
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
     unsupported = []
     if _cls_name(mp_hp["cls"]) != "BondMessagePassing":
         unsupported.append(f"message passing {_cls_name(mp_hp['cls'])}")
-    if mp_hp.get("d_vd"):
-        unsupported.append("atom descriptors")
     if _cls_name(p_hp["cls"]) != "RegressionFFN":
         unsupported.append(f"predictor {_cls_name(p_hp['cls'])}")
-    if hp.get("X_d_transform") is not None:
-        unsupported.append("molecule descriptors")
     if agg_name not in AGGREGATIONS:
         unsupported.append(f"aggregation {agg_name}")
     if unsupported:
         raise ValueError(f"checkpoint needs what the port does not run yet: {unsupported}")
+
+    def transform(prefix: str) -> ScaleTransform | None:
+        key = f"{prefix}.mean"
+        return ScaleTransform.identity(sd[key].shape[-1]) if key in sd else None
+
+    graph = [transform(f"message_passing.graph_transform.{k}_transform") for k in "VE"]
     W_i = sd["message_passing.W_i.weight"]
     d_h = int(mp_hp.get("d_h", W_i.shape[0]))
     d_v = int(mp_hp.get("d_v", sd["message_passing.W_o.weight"].shape[1] - d_h))
@@ -122,6 +129,9 @@ def build_model(
         dropout=float(mp_hp.get("dropout", 0.0)),
         undirected=bool(mp_hp.get("undirected", False)),
         kernel_options=kernel_options,
+        d_vd=int(mp_hp.get("d_vd") or 0) or None,
+        V_d_transform=transform("message_passing.V_d_transform"),
+        graph_transform=GraphTransform(*graph) if any(graph) else None,
     )
     agg = AGGREGATIONS[agg_name]()
     if agg_name == "NormAggregation":
@@ -136,18 +146,27 @@ def build_model(
         dropout=float(p_hp.get("dropout", 0.0)),
         activation=_activation(p_hp.get("activation", "relu")),
     )
-    return MPNN(mp, agg, predictor, batch_norm="bn.running_mean" in sd)
+    return MPNN(mp, agg, predictor, batch_norm="bn.running_mean" in sd,
+                X_d_transform=transform("X_d_transform"))
 
 
 def load_model(
     path: str | Path,
     device: str | torch.device | None = None,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype | None = None,
     kernel_options: KernelOptions | None = None,
 ) -> tuple[MPNN, list[str] | None]:
-    """Reference checkpoint -> (port model in eval mode on ``device``,
-    output column names or None)."""
+    """Checkpoint -> (port model in eval mode on ``device``, output column
+    names or None). A ``CPTPU001`` file of the JAX package (or of the port's
+    ``Trainer``) is told apart by its magic bytes; its compute dtype is the
+    manifest's unless ``compute_dtype`` is given. Any other file is read as a
+    reference checkpoint, in float32 unless ``compute_dtype`` is given."""
+    from chemprop_tpu_torch.models import serialize
+
+    if serialize.is_cptpu(path):
+        return serialize.load_model(path, device, compute_dtype, kernel_options)
     device = resolve_device(device)
+    compute_dtype = compute_dtype or torch.float32
     if compute_dtype == torch.float32:
         use_full_float32()
     d = load_checkpoint(path)
@@ -191,3 +210,24 @@ def from_jax_params(
         sd[f"{pre}.weight"] = t(layer["kernel"]).T.contiguous()
         sd[f"{pre}.bias"] = t(layer["bias"])
     return sd
+
+
+_LINEAR = {"weight": "kernel", "bias": "bias"}
+_BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+       "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def jax_path(name: str) -> tuple[str, tuple[str, ...]] | None:
+    """The collection and the path in a ``chemprop_tpu`` variable tree of the
+    port's parameter or batch-norm statistic ``name`` (the inverse of
+    :func:`from_jax_params`; a weight is the transpose of its kernel there),
+    or None for a buffer that is configuration in JAX (the transforms)."""
+    parts = name.split(".")
+    if parts[0] == "message_passing" and len(parts) == 3 and parts[2] in _LINEAR:
+        return "params", ("message_passing", parts[1], _LINEAR[parts[2]])
+    if parts[0] == "bn" and len(parts) == 2 and parts[1] in _BN:
+        collection, leaf = _BN[parts[1]]
+        return collection, ("bn", leaf)
+    if parts[:2] == ["predictor", "ffn"] and len(parts) == 5 and parts[4] in _LINEAR:
+        return "params", ("predictor", "ffn", f"block{parts[2]}", _LINEAR[parts[4]])
+    return None

@@ -12,68 +12,88 @@ from chemprop_tpu_torch.nn.batchnorm import BatchNorm
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
 from chemprop_tpu_torch.nn.metrics import ChempropMetric
 from chemprop_tpu_torch.nn.predictors import RegressionFFN
+from chemprop_tpu_torch.nn.transforms import ScaleTransform
 
 
 class MPNN(nn.Module):
+    """``V_d`` are the ``[N_pad, d_vd]`` atom descriptors of a message passing
+    with ``d_vd``; ``X_d`` the ``[n_graphs, d_xd]`` molecule descriptors,
+    scaled at evaluation by ``X_d_transform`` and concatenated to the
+    fingerprint after the batch norm, in float32 as in the JAX package."""
+
     def __init__(
         self,
         message_passing: BondMessagePassing,
         agg: nn.Module,
         predictor: RegressionFFN,
         batch_norm: bool = False,
+        X_d_transform: ScaleTransform | None = None,
     ):
         super().__init__()
         self.message_passing = message_passing
         self.agg = agg
         self.predictor = predictor
         self.bn = BatchNorm(message_passing.output_dim) if batch_norm else None
+        self.X_d_transform = X_d_transform
 
     @property
     def criterion(self) -> ChempropMetric:
         return self.predictor.get_criterion()
 
     def fingerprint(
-        self, bmg: BatchMolGraph, is_training: bool = False, mc_dropout: bool = False,
-        generator: torch.Generator | None = None,
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
+        is_training: bool = False, mc_dropout: bool = False,
+        generator: torch.Generator | None = None, taps: dict | None = None,
     ) -> torch.Tensor:
-        """``[n_graphs, d_h]`` float32 graph fingerprints; ``is_training``
-        normalises with the batch's own statistics over the real graphs and
-        turns dropout on, ``mc_dropout`` turns only dropout on; the masks are
-        drawn from ``generator``."""
-        H_v = self.message_passing(bmg, is_training, mc_dropout, generator)
+        """``[n_graphs, output_dim (+ d_xd)]`` float32 graph fingerprints;
+        ``is_training`` normalises with the batch's own statistics over the
+        real graphs and turns dropout on, ``mc_dropout`` turns only dropout
+        on; the masks are drawn from ``generator``. ``taps`` collects the
+        message passing's activations (``BondMessagePassing.forward``)."""
+        mp = self.message_passing
+        H_v = mp(bmg, V_d, is_training, mc_dropout, generator, taps)
         # the readouts accumulate in f32; the lane padding is cut at graph level
-        H = self.agg(H_v, bmg).float()[:, : self.message_passing.output_dim]
-        if self.bn is None:
+        H = self.agg(H_v, bmg).float()[:, : mp.output_dim]
+        if self.bn is not None:
+            # real graphs have at least one node
+            mask = (bmg.node_ptr[1:] > bmg.node_ptr[:-1])[: bmg.n_graphs]
+            H = self.bn(H, mask, is_training)
+        if X_d is None:
             return H
-        # real graphs have at least one node
-        mask = (bmg.node_ptr[1:] > bmg.node_ptr[:-1])[: bmg.n_graphs]
-        return self.bn(H, mask, is_training)
+        if self.X_d_transform is not None:
+            X_d = self.X_d_transform(X_d, is_training)
+        return torch.cat([H, X_d], dim=1)
 
     def forward(
-        self, bmg: BatchMolGraph, is_training: bool = False,
-        generator: torch.Generator | None = None,
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
+        is_training: bool = False, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Inference-space predictions ``[n_graphs, n_tasks]``; with
         ``is_training`` (batch statistics, dropout) the output is not unscaled."""
-        Z = self.fingerprint(bmg, is_training, generator=generator)
+        Z = self.fingerprint(bmg, V_d, X_d, is_training, generator=generator)
         if is_training:
             return self.predictor.train_step(Z, True, generator)
         return self.predictor(Z)
 
-    def mc_dropout_preds(self, bmg: BatchMolGraph, generator: torch.Generator) -> torch.Tensor:
+    def mc_dropout_preds(
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         """One Monte-Carlo-dropout sample of the inference-space predictions:
         the dropout layers on, batch norm and the unscaling as in inference."""
-        Z = self.fingerprint(bmg, False, mc_dropout=True, generator=generator)
+        Z = self.fingerprint(bmg, V_d, X_d, False, mc_dropout=True, generator=generator)
         return self.predictor.mc_step(Z, generator)
 
     def train_step_preds(
-        self, bmg: BatchMolGraph, is_training: bool = True,
-        generator: torch.Generator | None = None,
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
+        is_training: bool = True, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """Criterion-space predictions."""
-        Z = self.fingerprint(bmg, is_training, generator=generator)
+        Z = self.fingerprint(bmg, V_d, X_d, is_training, generator=generator)
         return self.predictor.train_step(Z, is_training, generator)
 
-    def val_step_preds(self, bmg: BatchMolGraph) -> torch.Tensor:
+    def val_step_preds(
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
+    ) -> torch.Tensor:
         """Validation-metric predictions: evaluation statistics, no unscaling."""
-        return self.predictor.val_step(self.fingerprint(bmg, False))
+        return self.predictor.val_step(self.fingerprint(bmg, V_d, X_d, False))

@@ -7,6 +7,7 @@
                                                     (depth - 1 times)
     M_v   = sum_{e: dst_e = v} H_e
     H_v   = dropout(tau(W_o([V_v ; M_v])))
+    H_v   = dropout(W_d([H_v ; V_d_v]))                 (with atom descriptors)
 
 With ``undirected`` every iteration first averages each edge's state with its
 reverse's, ``H = (H + H[rev]) / 2``.
@@ -20,7 +21,10 @@ no dropout drawn in this call, ``kernel_options.fused_readout``) the whole
 depth loop and the ``M_v`` readout are one differentiable op,
 ``ops.loop_readout``; otherwise each iteration is one op, ``ops.first_iter``
 then ``ops.message_iter``, with the dropout between them, and ``M_v`` a
-``sorted_segment_sum``. All three have hand-written backwards over the CUDA
+``sorted_segment_sum``. With ``kernel_options.depth_loop`` and no dropout
+drawn, the whole loop is one op that returns the last ``H``,
+``ops.depth_loop``, taken before ``loop_readout`` as in the JAX package. All
+four have hand-written backwards over the CUDA
 kernels (``ops/message.py``); in float32 the products are ``torch.matmul``,
 as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
@@ -29,7 +33,29 @@ either dtype. Every message kernel takes the batch's tile table
 gradient, and W_h's where ``iter_bwd`` does not form it (the composed path's
 included), are ``grad_weight`` kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
 compute dtype are made in every forward, so gradients flow through the pad
-and the cast."""
+and the cast.
+
+With ``kernel_options.window_gather`` in bfloat16, W_i's input gather ``V[src]``
+is the ``row_gather`` kernel (``ops.gather``), whose zero rule (the last row
+gives zeros) is exact only where the last node is padding: every padding edge
+names it and no real edge does, as the collate guarantees. A batch without
+that padding node takes the library gather and counts in
+``UNSERVED["row_gather"]``. The kernel moves 16-byte chunks, so a node table
+of another width (the 75 columns of a model with extra atom features) is
+zero-padded to one for the gather and cut back after it.
+
+Atom descriptors (``d_vd``) add ``W_d`` after ``W_o``, with no activation, as
+in the JAX package. Its output is zero-padded to a multiple of 128 columns
+(zero weight columns and a zero bias, exact), so that the node table keeps a
+lane-padded width for the readout kernel; ``W_d``'s kernel takes zero rows at
+the padding columns of ``W_o``'s output. ``V_d_transform`` and
+``graph_transform`` scale ``V_d`` and the batch's feature tables at
+evaluation (``nn.transforms``).
+
+``taps``, a dict, collects the activations as the JAX package's
+``intermediates`` collection does: ``H_0``, each iteration's ``H`` (the depth
+loop's last one only) and ``M_v``, each a tuple of the padded tables; asking
+for them turns ``loop_readout`` off."""
 
 from __future__ import annotations
 
@@ -38,9 +64,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from chemprop_tpu_torch.data.collate import BatchMolGraph
+from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
 from chemprop_tpu_torch.nn.utils import Dropout, get_activation_function
+from chemprop_tpu_torch.ops.build import UNSERVED
+from chemprop_tpu_torch.ops.gather import row_gather
 from chemprop_tpu_torch.ops.grad_weight import matmul
-from chemprop_tpu_torch.ops.message import first_iter, loop_readout, message, message_iter
+from chemprop_tpu_torch.ops.message import (
+    depth_loop, first_iter, loop_readout, message, message_iter,
+)
 from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.ops.segment import sorted_segment_sum
 
@@ -50,6 +81,15 @@ def _pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     if x.dim() == 1:
         return F.pad(x, (0, cols - x.shape[0]))
     return F.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
+
+
+def _lane(d: int) -> int:
+    return -(-d // 128) * 128
+
+
+def _sow(taps: dict | None, name: str, value: torch.Tensor) -> None:
+    if taps is not None:
+        taps[name] = taps.get(name, ()) + (value,)
 
 
 class BondMessagePassing(nn.Module):
@@ -70,6 +110,9 @@ class BondMessagePassing(nn.Module):
         dropout: float = 0.0,
         undirected: bool = False,
         kernel_options: KernelOptions | None = None,
+        d_vd: int | None = None,
+        V_d_transform: ScaleTransform | None = None,
+        graph_transform: GraphTransform | None = None,
     ):
         super().__init__()
         if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -80,15 +123,20 @@ class BondMessagePassing(nn.Module):
         self.compute_dtype = compute_dtype
         self.undirected = undirected
         self.kernel_options = kernel_options or KernelOptions.from_env()
-        self.d_pad = -(-d_h // 128) * 128
+        self.d_pad = _lane(d_h)
         self.W_i = nn.Linear(d_v + d_e, d_h, bias=bias)
         self.W_h = nn.Linear(d_h, d_h, bias=bias)
         self.W_o = nn.Linear(d_v + d_h, d_h, bias=True)
+        self.d_vd = d_vd or None
+        if self.d_vd:
+            self.W_d = nn.Linear(d_h + d_vd, d_h + d_vd, bias=True)
+        self.V_d_transform = V_d_transform
+        self.graph_transform = graph_transform
         self.drop = Dropout(dropout)
 
     @property
     def output_dim(self) -> int:
-        return self.d_h
+        return self.d_h + (self.d_vd or 0)
 
     @property
     def dropout(self) -> float:
@@ -102,37 +150,77 @@ class BondMessagePassing(nn.Module):
         b = None if layer.bias is None else _pad(layer.bias, 0, cols).to(dt).contiguous()
         return W, b
 
+    def _v_src(self, V: torch.Tensor, bmg: BatchMolGraph) -> torch.Tensor:
+        """``V[src]``: with ``window_gather`` in bfloat16 the row gather kernel,
+        where its zero rule is exact for the batch."""
+        if self.kernel_options.window_gather and V.dtype == torch.bfloat16:
+            if bmg.last_node_is_padding():
+                d = V.shape[1]
+                chunk = 16 // V.element_size()  # the kernel's rows are 16-byte chunks
+                d_row = -(-d // chunk) * chunk
+                if d_row == d:
+                    return row_gather(V, bmg.src)
+                return row_gather(_pad(V, V.shape[0], d_row), bmg.src)[:, :d]
+            UNSERVED["row_gather"] += 1
+        return V[bmg.src.long()]
+
+    def _descriptors(self, H_v, V_d, is_training, drop_on, generator):
+        """``dropout(W_d([H_v ; V_d]))`` at the lane-padded width."""
+        dt, dh, dp = self.compute_dtype, self.d_h, self.d_pad
+        if self.V_d_transform is not None:
+            V_d = self.V_d_transform(V_d, is_training)
+        out = _lane(self.output_dim)
+        K = self.W_d.weight.t()
+        K = torch.cat([_pad(K[:dh], dp, out), _pad(K[dh:], self.d_vd, out)]).to(dt)
+        b = _pad(self.W_d.bias, 0, out).to(dt)
+        x = torch.cat([H_v, V_d.to(dt)], dim=1)
+        return self.drop(x @ K + b, drop_on, generator)
+
     def forward(
-        self, bmg: BatchMolGraph, is_training: bool = False, mc_dropout: bool = False,
-        generator: torch.Generator | None = None,
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, is_training: bool = False,
+        mc_dropout: bool = False, generator: torch.Generator | None = None,
+        taps: dict | None = None,
     ) -> torch.Tensor:
-        """``[N_pad, d_pad]`` node table in the compute dtype; columns past
-        ``d_h`` are zero. Dropout is drawn when ``is_training`` or
-        ``mc_dropout`` (Monte-Carlo dropout: the dropout layers alone), from
-        ``generator``."""
+        """``[N_pad, d_out]`` node table in the compute dtype, ``d_out`` the
+        output width lane-padded; columns past ``output_dim`` are zero.
+        Dropout is drawn when ``is_training`` or ``mc_dropout`` (Monte-Carlo
+        dropout: the dropout layers alone), from ``generator``; the transforms
+        scale at evaluation (not ``is_training``). ``V_d``: the
+        ``[N_pad, d_vd]`` atom descriptors, required with ``d_vd``."""
         dt, dp, opts = self.compute_dtype, self.d_pad, self.kernel_options
         drop_on = (is_training or mc_dropout) and self.dropout > 0
+        if (V_d is None) != (self.d_vd is None):
+            raise ValueError("V_d must be given exactly when d_vd is configured")
+        if self.graph_transform is not None:
+            bmg = self.graph_transform(bmg, is_training)
         # with grad_w in bfloat16, [V[src] ; E] is zero-padded to a multiple of
         # 128 columns and W_i's kernel takes zero rows there, as the JAX package
         # pads them, so that dW_i = x^T g streams through the grad_weight kernel
         # (the composed path's W_h takes the same rule)
         gw_i = opts.grad_w and dt == torch.bfloat16
         d_in = self.d_v + self.d_e
-        d_x = -(-d_in // 128) * 128 if gw_i else d_in
+        d_x = _lane(d_in) if gw_i else d_in
         W_i, b_i = self._padded(self.W_i, d_x, dp)
-        parts = [bmg.V.to(dt)[bmg.src.long()], bmg.E.to(dt)]
+        V = bmg.V.to(dt)
+        parts = [self._v_src(V, bmg), bmg.E.to(dt)]
         if d_x != d_in:
             parts.append(bmg.E.new_zeros((bmg.E.shape[0], d_x - d_in), dtype=dt))
         x = torch.cat(parts, dim=1)
         H0 = matmul(x, W_i, use_kernel=True) if gw_i else x @ W_i
         if b_i is not None:
             H0 = H0 + b_i
+        _sow(taps, "H_0", H0)
 
         graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
         fuse_iter = self.depth > 1 and self.activation == "relu" and not self.undirected
         if self.depth > 1:
             W_h, b_h = self._padded(self.W_h, dp, dp)
-        if fuse_iter and self.depth >= 3 and not drop_on and opts.fused_readout:
+        if fuse_iter and opts.depth_loop and not drop_on:
+            H = depth_loop(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr)
+            _sow(taps, "H", H)
+            M_v = sorted_segment_sum(H, bmg.dst, bmg.edge_ptr)
+        elif (fuse_iter and self.depth >= 3 and not drop_on and opts.fused_readout
+              and taps is None):
             M_v = loop_readout(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr)
         else:
             H = self.tau(H0)
@@ -151,9 +239,14 @@ class BondMessagePassing(nn.Module):
                         z = z + b_h
                     H = self.tau(H0 + z)
                 H = self.drop(H, drop_on, generator)
+                _sow(taps, "H", H)
             M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
+        _sow(taps, "M_v", M_v)
         # M_v's padding columns sit at the end of [V ; M_v], so W_o's kernel
         # takes zero rows there and zero columns past d_h
         W_o, b_o = self._padded(self.W_o, self.d_v + dp, dp)
-        VM = torch.cat([bmg.V.to(dt), M_v], dim=1)
-        return self.drop(self.tau(VM @ W_o + b_o), drop_on, generator)
+        VM = torch.cat([V, M_v], dim=1)
+        H_v = self.drop(self.tau(VM @ W_o + b_o), drop_on, generator)
+        if V_d is not None:
+            H_v = self._descriptors(H_v, V_d, is_training, drop_on, generator)
+        return H_v

@@ -28,7 +28,9 @@ class RegressionFFN(nn.Module):
         activation: str = "relu",
     ):
         super().__init__()
-        self.n_tasks = n_tasks
+        self.n_tasks, self.input_dim, self.n_layers = n_tasks, input_dim, n_layers
+        self.hidden_dim = hidden_dim if isinstance(hidden_dim, int) else list(hidden_dim)
+        self.dropout, self.activation = dropout, activation
         self.criterion = criterion
         self.ffn = MLP(input_dim, n_tasks, hidden_dim, n_layers, dropout, activation)
         self.output_transform = UnscaleTransform(n_tasks) if output_transform else None

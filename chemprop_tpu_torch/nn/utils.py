@@ -1,7 +1,8 @@
 """Activations and dropout (cf. ``chemprop_tpu/nn/utils.py`` and flax's
 ``nn.Dropout``). ReLU is the reference default and is built into the fused
-iteration kernels; message passing composes any other activation from the
-message kernel and library products."""
+iteration kernels; message passing composes any other activation, and any
+name with arguments (``"leakyrelu:0.1"``), from the message kernel and
+library products."""
 
 from __future__ import annotations
 
@@ -24,13 +25,27 @@ _ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+# the activations whose first argument after the colon sets their slope or alpha
+_WITH_ARGUMENT: dict[str, Callable[[float], Callable[[torch.Tensor], torch.Tensor]]] = {
+    "leakyrelu": lambda a: lambda x: F.leaky_relu(x, a),
+    "prelu": lambda a: lambda x: torch.where(x >= 0, x, a * x),
+    "elu": lambda a: lambda x: F.elu(x, a),
+}
+
+
 def get_activation_function(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    try:
-        return _ACTIVATIONS[name.lower()]
-    except KeyError:
-        raise ValueError(
-            f"unknown activation {name!r}; supported: {sorted(_ACTIVATIONS)}"
-        ) from None
+    """The activation a name gives. A name may carry arguments after a colon,
+    as in the JAX package (``"leakyrelu:0.1"``, ``"prelu:0.2"``, ``"elu:0.5"``):
+    the first sets the slope or alpha of these three, and the other
+    activations ignore theirs. The string stays the module's configuration,
+    so that a checkpoint carries it."""
+    base, _, argstr = name.lower().partition(":")
+    args = [float(a) for a in argstr.split(",") if a]
+    if base not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; supported: {sorted(_ACTIVATIONS)}")
+    if args and base in _WITH_ARGUMENT:
+        return _WITH_ARGUMENT[base](args[0])
+    return _ACTIVATIONS[base]
 
 
 class Activation(nn.Module):

@@ -8,6 +8,7 @@ from chemprop_tpu_torch.ops.message import (
     bwd_message,
     bwd_message_nodes,
     bwd_message_premul,
+    depth_loop,
     first_iter,
     fused_iter,
     fused_iter2,
@@ -27,6 +28,7 @@ __all__ = [
     "bwd_message",
     "bwd_message_nodes",
     "bwd_message_premul",
+    "depth_loop",
     "first_iter",
     "fused_iter",
     "fused_iter2",

@@ -13,6 +13,7 @@ iteration and the whole depth loop with the M_v readout as differentiable ops
     iter_bwd:            dH = bf16(G) W^T, gz and dW = H^T bf16(G), G never written,
                          one launch over the batch's molecule tiles
     first_iter, message_iter:  one iteration each, backward by hand
+    depth_loop:          the last H of the whole depth loop, backward by hand
     loop_readout:        M_v of the whole depth loop, backward by hand
 
 where ``((S - R)^T gz)[e] = sum_{k : src[k] == dst[e]} gz[k] - gz[rev[e]]``.
@@ -758,23 +759,87 @@ def loop_readout(
     return _LoopReadout.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(), tiles)
 
 
+def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False) -> list:
+    """The outputs of iterations 1 .. depth - 1 of the ReLU depth loop: the
+    first with ``relu(H0)`` streamed (bfloat16) or formed (float32), each
+    later one from the one before; with ``iter2`` (bfloat16, depth >= 3) the
+    first two as one :func:`fused_iter2` launch over the tile table."""
+    ys = []
+    if H0.dtype == torch.bfloat16 and iter2 and depth >= 3:
+        if tiles is not None and H0.shape[1] in ITER2_WIDTHS:
+            ys = list(fused_iter2(H0, W, b, *graph, tiles))
+        else:
+            UNSERVED["fused_iter2"] += 1
+    if not ys:
+        first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
+        ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first,
+                         tiles=tiles)]
+    for _ in range(len(ys) + 1, depth):
+        ys.append(_iteration(ys[-1], H0, W, b, graph, tiles=tiles))
+    return ys
+
+
+def _loop_chain_bwd(g, ys, H0, W, b, graph, grad_w: bool):
+    """``(dH0, dW, db)`` of the depth loop whose iterations gave ``ys``, from
+    the cotangent ``g`` of the last one's output: the per-iteration chain, each
+    step one :func:`bwd_message` with the running ``dH0`` accumulated in the
+    kernel (``gz_acc``), ``G @ W^T`` a ``torch.matmul`` and ``x_t^T G`` through
+    :func:`grad_weight`; ``db`` is the accumulator's column sum."""
+    relu_H0 = torch.relu(H0)
+    dW, acc = None, None
+    for t in range(len(ys), 0, -1):
+        x = ys[t - 2] if t >= 2 else relu_H0  # the input of iteration t
+        g, acc, dWt = _iteration_bwd(g, ys[t - 1], x, W, graph, grad_w, gz_acc=acc)
+        dW = dWt if dW is None else dW + dWt
+    # the first iteration's input was relu(H0): chain through the activation
+    return acc + g * (H0 > 0), dW.to(W.dtype), _bias_grad(acc, b)
+
+
+def depth_loop(
+    H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, depth: int,
+    options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The whole ReLU depth loop as one differentiable op (cf.
+    ``fused_depth_loop``), for ``depth >= 2``; it returns the last ``H``:
+
+        H = relu(H0); repeat depth - 1 times: H = relu(H0 + message(H) @ W [+ b])
+
+    In bfloat16 every iteration is one :func:`fused_iter` kernel (the first
+    with ``relu_stream``); in float32 the message kernel over the tile table
+    ``tiles`` and a ``torch.matmul``. The backward is written by hand: the
+    per-iteration chain from the cotangent of ``H``, each iteration one
+    :func:`bwd_message` that adds the running ``dH0`` in the kernel, the
+    weight gradients through :func:`grad_weight` (its kernel with
+    ``options.grad_w`` in bfloat16), ``db`` the sum of the accumulator."""
+    if depth < 2:
+        raise ValueError("depth_loop needs depth >= 2")
+    return _DepthLoop.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(), tiles)
+
+
+class _DepthLoop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles):
+        H0 = H0.contiguous()
+        ys = _loop_forward(H0, W, b, (src, dst, rev, ptr), depth, tiles)
+        ctx.save_for_backward(H0, W, b, src, dst, rev, ptr, *ys)
+        ctx.grad_w = options.grad_w and H0.dtype == torch.bfloat16
+        return ys[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        H0, W, b, src, dst, rev, ptr, *ys = ctx.saved_tensors
+        g = g.to(H0.dtype).contiguous()
+        grads = _loop_chain_bwd(g, ys, H0, W, b, (src, dst, rev, ptr), ctx.grad_w)
+        return *grads, *(None,) * 7
+
+
 class _LoopReadout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles):
         graph = (src, dst, rev, ptr)
         H0 = H0.contiguous()
-        ys = []
-        if H0.dtype == torch.bfloat16 and options.iter2 and depth >= 3:
-            if tiles is not None and H0.shape[1] in ITER2_WIDTHS:
-                ys = list(fused_iter2(H0, W, b, *graph, tiles))
-            else:
-                UNSERVED["fused_iter2"] += 1
-        if not ys:
-            first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
-            ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first,
-                             tiles=tiles)]
-        for _ in range(len(ys) + 1, depth):
-            ys.append(_iteration(ys[-1], H0, W, b, graph, tiles=tiles))
+        ys = _loop_forward(H0, W, b, graph, depth, tiles, options.iter2)
         ctx.save_for_backward(H0, W, b, *graph, *ys)
         ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
         ctx.tiles = tiles
@@ -786,13 +851,13 @@ class _LoopReadout(torch.autograd.Function):
         graph = (src, dst, rev, ptr)
         depth, dt, grad_w = ctx.depth, H0.dtype, ctx.grad_w
         g_Mv = g_Mv.to(dt).contiguous()
-        relu_H0 = torch.relu(H0)
         none = (None,) * 7
-
-        def x_of(t):  # the input of iteration t
-            return ys[t - 2] if t >= 2 else relu_H0
-
         if dt == torch.bfloat16 and b is None and depth >= 3:
+            relu_H0 = torch.relu(H0)
+
+            def x_of(t):  # the input of iteration t
+                return ys[t - 2] if t >= 2 else relu_H0
+
             if ctx.tiles is None:
                 UNSERVED["bwd_message_nodes"] += 1
             G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph, tiles=ctx.tiles)
@@ -805,11 +870,5 @@ class _LoopReadout(torch.autograd.Function):
                 dW = dW + grad_weight(x_of(t), G, grad_w)
                 dH0 = dH0 + z
             return dH0, dW.to(W.dtype), None, *none
-        # the per-iteration chain
-        g = g_Mv[dst.long()]
-        dW, acc = None, None
-        for t in range(depth - 1, 0, -1):
-            g, acc, dWt = _iteration_bwd(g, ys[t - 1], x_of(t), W, graph, grad_w, gz_acc=acc)
-            dW = dWt if dW is None else dW + dWt
-        dH0 = acc + g * (H0 > 0)
-        return dH0, dW.to(W.dtype), _bias_grad(acc, b), *none
+        # the per-iteration chain, from the cotangent of the last H
+        return *_loop_chain_bwd(g_Mv[dst.long()], ys, H0, W, b, graph, grad_w), *none

@@ -60,16 +60,37 @@ failure:
    without its tile table (``ops.UNSERVED``), the message of every float32
    iteration and of the composed tanh step, the ``iter2`` fit's two chained
    iterations and the ``fused_bwd`` fit's whole-iteration backward included;
-6. on the benchmark batch: the launches of one forward and of one training
+6. the rest of message passing and of the trainer, at full width, each
+   part fatal: (a) a descriptor model (atom descriptors through W_d, 303
+   columns padded to 384; molecule descriptors; extra atom and bond features,
+   each with its scaling transform, from the repo's .npz files) trained in
+   bfloat16 for 30 epochs with validation metrics (MAE, RMSE, R2, every
+   epoch finite), ``monitor="val_rmse"``, ``patience`` and
+   ``checkpoint_dir``, to the bars ``DESCRIPTOR_TRAIN_LOSS`` and
+   ``DESCRIPTOR_VAL_RMSE``; ``best.ckpt`` and ``last.ckpt`` reload through
+   ``load_model``, the best one's predictions equal ``Trainer.predict``'s bit
+   for bit; (b) six epochs of it with dropout against three, ``last.ckpt``,
+   ``resume_from`` and three more: losses and predictions bit for bit; (c)
+   ``freeze`` of message passing: its tensors bit-equal, the head's moved;
+   (d) the depth loop: one float32 step against the CPU's, the bfloat16
+   overfit run to phase 4's bar with and without ``grad_w``, F carrying the
+   running dH0 in its second launch of a step, no G or H; (e) the bfloat16
+   forward with ``window_gather`` on and off bit for bit, I launched in the
+   forward, nothing refused; (f) one float32 step with
+   ``activation="leakyrelu:0.1"`` against the CPU's; (g) the float32 taps
+   against the CPU's. The phase's seconds are printed on their own line;
+7. on the benchmark batch: the launches of one forward and of one training
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
-   function, where there is one (the message's sparse product, the weight
+   function, where there is one (the message's sparse product and F's,
+   the transposed one, the weight
    gradient at W_h's and W_i's shapes, the segment sum at both readouts),
    the message without a table, the unfused routes of the fused iteration,
    of the two tiled backward kernels and of the whole-iteration backward,
    and the device time of the message in both dtypes and both forms, of the
    segment sum, of the node-cotangent backward, of the two chained
-   iterations and of the whole-iteration backward from a trace; the
+   iterations, of the whole-iteration backward and of F (with its sparse
+   product, and in bfloat16 with the running dH0) from a trace; the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
    (its W_h product composed through autograd).
@@ -92,7 +113,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "tests/data/example_model_v2_regression_mol.pt"
-MOL_CSV = REPO / "tests/data/regression/mol/mol.csv"
+MOL_DIR = REPO / "tests/data/regression/mol"
+MOL_CSV = MOL_DIR / "mol.csv"
 BATCH_SIZE = 2048  # bench.py's benchmark batch
 BF16_ULP = 2.0**-7  # relative spacing of bfloat16
 
@@ -211,6 +233,32 @@ PATH_KERNELS = {
     # iteration's W_h
     "train_bfloat16_tanh_depth2_grad_w": {"message": 1, "sorted_segment_sum": 2,
                                           "bwd_message": 1, "row_gather": 1, "grad_weight": 2},
+    # the depth loop: B (A in f32) per iteration, then M_v by C; its backward
+    # is F per iteration, the second with the running dH0 (gz_acc), never G
+    # or H; grad_w: W_i's dW and W_h's two by J
+    "train_float32_depth_loop": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
+    "train_bfloat16_depth_loop": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message": 2,
+                                  "row_gather": 1},
+    "train_bfloat16_depth_loop_grad_w": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                         "bwd_message": 2, "row_gather": 1, "grad_weight": 3},
+    # window_gather: W_i's input gather V[src] by I in the forward, beside the
+    # mean readout's backward
+    "predict_bfloat16_window_gather": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                       "row_gather": 1},
+    "predict_descriptors_bfloat16_window_gather": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                                   "row_gather": 1},
+    "train_bfloat16_window_gather": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                     "bwd_message_nodes": 1, "bwd_message_premul": 1,
+                                     "row_gather": 2},
+    # the descriptor model (V_d through W_d at 303 columns padded to 384, X_d,
+    # V_f and E_f): the default bf16 step's kernels at the new node width
+    "train_descriptors_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                   "bwd_message_nodes": 1, "bwd_message_premul": 1,
+                                   "row_gather": 1},
+    # dropout: the per-iteration ops
+    "train_descriptors_dropout_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2,
+                                           "bwd_message": 2, "row_gather": 1},
+    "train_float32_leakyrelu": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
 }
 # the training steps timed and counted on the benchmark batch: dtype, dropout
 # rate, opt-in kernels and other message-passing arguments; each is held to
@@ -231,8 +279,15 @@ STEPS = {
     # autograd; grad_w routes W_h's products there too (depth 2: one iteration)
     "bfloat16_tanh_depth2_grad_w": ("bfloat16", 0.0, dict(grad_w=True),
                                     dict(activation="tanh", depth=2)),
+    "float32_depth_loop": ("float32", 0.0, dict(depth_loop=True)),
+    "bfloat16_depth_loop": ("bfloat16", 0.0, dict(depth_loop=True)),
+    "bfloat16_depth_loop_grad_w": ("bfloat16", 0.0, dict(depth_loop=True, grad_w=True)),
+    "bfloat16_window_gather": ("bfloat16", 0.0, dict(window_gather=True)),
 }
 OVERFIT_BATCH_STATS_MSE, OVERFIT_RUNNING_STATS_MSE = 0.05, 0.10
+# phase 6(a): the descriptor model's 30 epochs must bring the last epoch's train
+# loss (normalised targets) to this, and the best epoch's val_rmse to the other
+DESCRIPTOR_TRAIN_LOSS, DESCRIPTOR_VAL_RMSE = 0.05, 0.5
 
 
 def fail(msg: str) -> None:
@@ -485,7 +540,7 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     g32 = torch.randn((n_e, d), generator=g, device=dev)
     y32 = torch.randn((n_e, d), generator=g, device=dev).clamp_min(0)  # a ReLU output
     acc32 = torch.randn((n_e, d), generator=g, device=dev)
-    gb, yb = g32.to(torch.bfloat16), y32.to(torch.bfloat16)
+    gb, yb, accb = g32.to(torch.bfloat16), y32.to(torch.bfloat16), acc32.to(torch.bfloat16)
     g_nodes = torch.randn((n_v, d), generator=g, device=dev).to(torch.bfloat16)
     g_nodes[-1] = 0  # the sacrificial node's cotangent
     Mg = torch.randn((bmg.n_graphs + 1, d), generator=g, device=dev).to(torch.bfloat16)
@@ -500,12 +555,21 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         ("float32,acc=False", g32, y32, None, 1e-5, 1e-5),
         ("float32,acc=True", g32, y32, acc32, 1e-5, 1e-5),
         ("bfloat16,acc=False", gb, yb, None, BF16_ULP, 1e-6),
+        ("bfloat16,acc=True", gb, yb, accb, BF16_ULP, 1e-6),
     ):
         G, gz = bwd_message(gg, yy, *graph, gz_acc=acc)
         want_G, want_gz = bwd_message_plain(gg, yy, *graph, gz_acc=acc)
         check(f"bwd_message[{tag},G]", G, want_G, rtol, atol, errs)
         check(f"bwd_message[{tag},gz]", gz, want_gz, rtol, atol, errs)
         zeros_on_padding(f"bwd_message[{tag}]", G, gz)
+        if tag == "float32,acc=False":
+            want_G32 = want_G
+    # F's library yardstick: the sparse product of (S - R)^T, in CSR form,
+    # with the masked cotangent computes G in one call (f32, summation order)
+    SRt = SR.to_sparse_coo().t().coalesce().to_sparse_csr()
+    gz32m = g32 * (y32 > 0)
+    check("bwd_message[sparse_yardstick,G]", torch.sparse.mm(SRt, gz32m), want_G32, 1e-5, 1e-5,
+          errs)
     # G: the same sums from the node table; gz is a masked copy, so exact.
     # With the tile table it is one launch of the tile kernel; without one
     # (a molecule larger than a tile) the node-warp kernel: the same bits
@@ -609,8 +673,9 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         if not torch.equal(dWj, grad_weight(X, Gj, use_kernel=True)):
             fail(f"{tag}: two runs differ")
     torch.cuda.synchronize()
-    tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, SR=SR, g32=g32, y32=y32, acc32=acc32, gb=gb,
-                   yb=yb, g_nodes=g_nodes, Mg=Mg, Hx=Hx, Gt=Gt, Xi=Xi)
+    tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, SR=SR, SRt=SRt, g32=g32, y32=y32,
+                   acc32=acc32, accb=accb, gz32m=gz32m, gb=gb, yb=yb, g_nodes=g_nodes, Mg=Mg,
+                   Hx=Hx, Gt=Gt, Xi=Xi)
     return tensors, errs
 
 
@@ -712,48 +777,55 @@ def train_mse(trainer, loader, ds, use_batch_statistics: bool) -> float:
     return float(np.mean((preds[:, 0] - ds.Y[:, 0]) ** 2))
 
 
-def train_path(ds) -> tuple[dict, dict]:
-    """Phase 4a: the reference's overfit run through ``Trainer.fit`` and
-    ``Trainer.predict`` on cuda, in float32, in bfloat16, and in bfloat16 with
-    the ``iter2`` and ``grad_w`` options on."""
-    import torch
-
+def overfit(ds, name: str, dt, options: dict) -> tuple[dict, dict]:
+    """The reference's overfit run through ``Trainer.fit`` and
+    ``Trainer.predict`` on cuda: 50 epochs over the 100 rows of mol.csv in
+    unshuffled batches of 32, held to the bar with batch statistics and with
+    the running ones, and to the path's kernels (``train_<name>``)."""
     from chemprop_tpu_torch.data import DataLoader
     from chemprop_tpu_torch.ops import LAUNCHES
     from chemprop_tpu_torch.train import Trainer
+
+    loader = DataLoader(ds, batch_size=32, shuffle=False)
+    LAUNCHES.clear()
+    t0 = time.time()
+    trainer = Trainer(default_model(dt, **options), max_epochs=50, warmup_epochs=2, seed=12)
+    trainer.fit(loader)
+    fit_s = time.time() - t0
+    if trainer.device.type != "cuda":
+        fail(f"the Trainer chose {trainer.device}")
+    eval_loader = DataLoader(ds, batch_size=32)
+    mse_batch = train_mse(trainer, eval_loader, ds, True)
+    mse_running = train_mse(trainer, eval_loader, ds, False)
+    launches = dict(LAUNCHES)
+    losses = [h["train_loss"] for h in trainer.history]
+    res = {"epochs": len(losses), "steps": trainer.state.step, "fit_s": fit_s,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "train_mse_batch_statistics": mse_batch, "limit_batch_statistics":
+           OVERFIT_BATCH_STATS_MSE, "train_mse_running_statistics": mse_running,
+           "limit_running_statistics": OVERFIT_RUNNING_STATS_MSE, "launches": launches}
+    print(json.dumps({"train_path": {name: res}}))
+    if not all(map(math.isfinite, losses)):
+        fail(f"{name} training: a loss is not finite")
+    if mse_batch > OVERFIT_BATCH_STATS_MSE:
+        fail(f"{name} overfit MSE {mse_batch} > {OVERFIT_BATCH_STATS_MSE} (batch statistics)")
+    if mse_running > OVERFIT_RUNNING_STATS_MSE:
+        fail(f"{name} overfit MSE {mse_running} > {OVERFIT_RUNNING_STATS_MSE} "
+             "(running statistics)")
+    check_path_launches(f"train_{name}", launches, exact=False)
+    return launches, res
+
+
+def train_path(ds) -> tuple[dict, dict]:
+    """Phase 4a: the reference's overfit run in float32, in bfloat16, and in
+    bfloat16 with the ``iter2`` and ``grad_w`` options on."""
+    import torch
 
     launches, res = {}, {}
     for name, dt, options in (("float32", torch.float32, {}), ("bfloat16", torch.bfloat16, {}),
                               ("bfloat16_iter2_grad_w", torch.bfloat16,
                                dict(iter2=True, grad_w=True))):
-        loader = DataLoader(ds, batch_size=32, shuffle=False)
-        LAUNCHES.clear()
-        t0 = time.time()
-        trainer = Trainer(default_model(dt, **options), max_epochs=50, warmup_epochs=2, seed=12)
-        trainer.fit(loader)
-        fit_s = time.time() - t0
-        if trainer.device.type != "cuda":
-            fail(f"the Trainer chose {trainer.device}")
-        eval_loader = DataLoader(ds, batch_size=32)
-        mse_batch = train_mse(trainer, eval_loader, ds, True)
-        mse_running = train_mse(trainer, eval_loader, ds, False)
-        launches[f"train_{name}"] = dict(LAUNCHES)
-        losses = [h["train_loss"] for h in trainer.history]
-        res[name] = {"epochs": len(losses), "steps": trainer.state.step, "fit_s": fit_s,
-                     "first_loss": losses[0], "last_loss": losses[-1],
-                     "train_mse_batch_statistics": mse_batch, "limit_batch_statistics":
-                     OVERFIT_BATCH_STATS_MSE, "train_mse_running_statistics": mse_running,
-                     "limit_running_statistics": OVERFIT_RUNNING_STATS_MSE,
-                     "launches": launches[f"train_{name}"]}
-        print(json.dumps({"train_path": {name: res[name]}}))
-        if not all(map(math.isfinite, losses)):
-            fail(f"{name} training: a loss is not finite")
-        if mse_batch > OVERFIT_BATCH_STATS_MSE:
-            fail(f"{name} overfit MSE {mse_batch} > {OVERFIT_BATCH_STATS_MSE} (batch statistics)")
-        if mse_running > OVERFIT_RUNNING_STATS_MSE:
-            fail(f"{name} overfit MSE {mse_running} > {OVERFIT_RUNNING_STATS_MSE} "
-                 "(running statistics)")
-        check_path_launches(f"train_{name}", launches[f"train_{name}"], exact=False)
+        launches[f"train_{name}"], res[name] = overfit(ds, name, dt, options)
     return launches, res
 
 
@@ -784,23 +856,30 @@ def compare_steps(states: dict, losses: dict, tag: str) -> dict:
     return res
 
 
-def step_against_cpu(ds) -> dict:
+def step_against_cpu(ds, tag: str = "train_step_cuda_vs_cpu", mp_kwargs: dict | None = None,
+                     path: str = "train_float32", **options) -> dict:
     """Phase 4b: one float32 training step on the card against the same step
-    on the CPU, from the same state (the same seed) on the same batch."""
+    on the CPU, from the same state (the same seed) on the same batch; with
+    ``mp_kwargs`` and ``options`` another model or route (phase 6). The
+    card's step launches ``path``'s kernels, each as often as one step does."""
     import torch
 
     from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.ops import LAUNCHES
     from chemprop_tpu_torch.train import Trainer
 
     batch = next(iter(DataLoader(ds, batch_size=32)))
     states, losses = {}, {}
     for device in ("cpu", None):
-        trainer = Trainer(default_model(torch.float32), max_epochs=50, warmup_epochs=2, seed=12,
-                          device=device)
+        trainer = Trainer(default_model(torch.float32, mp_kwargs=mp_kwargs, **options),
+                          max_epochs=50, warmup_epochs=2, seed=12, device=device)
         trainer.init_state(batch, 4)
+        LAUNCHES.clear()
         losses[device] = float(trainer.train_step(batch))
         states[device] = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    return compare_steps(states, losses, "train_step_cuda_vs_cpu")
+    launches = dict(LAUNCHES)
+    check_path_launches(path, launches, exact=True)
+    return {**compare_steps(states, losses, tag), "launches": launches}
 
 
 def repeated_fits(ds) -> dict:
@@ -938,6 +1017,342 @@ def dropout_step_against_cpu(ds) -> dict:
     return res
 
 
+def descriptor_datasets():
+    """Phase 6: the 100 rows of mol.csv with their molecule descriptors (1
+    each), atom descriptors (3 per atom), atom features (3) and bond features
+    (2), from the repo's .npz files. The training set's targets and extra
+    inputs are normalised (the scalers returned); the evaluation set keeps the
+    raw inputs, which the model's transforms scale at evaluation, and the
+    normalised targets."""
+    import numpy as np
+
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
+    from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
+
+    with open(MOL_CSV, newline="") as f:
+        rows = list(csv.reader(f))[1:]
+
+    def arrays(name):
+        z = np.load(MOL_DIR / f"{name}.npz")
+        return [z[f"arr_{i}"] for i in range(len(z.files))]
+
+    x_d = np.load(MOL_DIR / "descriptors.npz")["arr_0"]
+    V_d, V_f, E_f = arrays("atom_descriptors"), arrays("atom_features"), arrays("bond_features")
+    dps = [MoleculeDatapoint.from_smi(s, y=np.array([float(y)]), x_d=x_d[i], V_d=V_d[i],
+                                      V_f=V_f[i], E_f=E_f[i]) for i, (s, y) in enumerate(rows)]
+    out = []
+    for normalise in (True, False):
+        ds = MoleculeDataset(dps, featurizer=SimpleMoleculeMolGraphFeaturizer(
+            extra_atom_fdim=3, extra_bond_fdim=2))
+        ds.normalize_targets()
+        if normalise:
+            scalers = {key: ds.normalize_inputs(key) for key in ("X_d", "V_f", "E_f", "V_d")}
+        ds.cache = True
+        out.append(ds)
+    return out[0], out[1], scalers
+
+
+def descriptor_model(dtype, scalers: dict, dropout: float = 0.0, **options):
+    """The default model at full width with atom descriptors (W_d: 303
+    columns, padded to 384), molecule descriptors after the batch norm, and
+    the extra atom and bond features, each with its scaling transform;
+    ``options`` the opt-in kernels (the environment is not read)."""
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import (
+        BondMessagePassing, GraphTransform, MeanAggregation, RegressionFFN, ScaleTransform,
+    )
+    from chemprop_tpu_torch.ops import KernelOptions
+
+    def scale(key, pad=0):
+        return ScaleTransform.from_standard_scaler(scalers[key], pad=pad)
+
+    mp = BondMessagePassing(d_v=75, d_e=16, compute_dtype=dtype, dropout=dropout, d_vd=3,
+                            kernel_options=KernelOptions(**options), V_d_transform=scale("V_d"),
+                            graph_transform=GraphTransform(scale("V_f", 72), scale("E_f", 14)))
+    return MPNN(mp, MeanAggregation(), RegressionFFN(input_dim=304, output_transform=False,
+                                                     dropout=dropout),
+                batch_norm=True, X_d_transform=scale("X_d"))
+
+
+def predict_loaded(model, loader):
+    """Inference-space predictions of a loaded model over ``loader``, real
+    rows in order (what ``Trainer.predict`` computes)."""
+    import numpy as np
+    import torch
+
+    chunks = []
+    with torch.inference_mode():
+        for host in loader:
+            b = host.to("cuda")
+            chunks.append(model(b.bmg, b.V_d, b.X_d).float().cpu().numpy()[host.pad_mask])
+    return np.concatenate(chunks)
+
+
+def extras_fit(train, raw, scalers, ckpt_dir: Path) -> tuple[dict, dict]:
+    """Phase 6(a): the descriptor model in bf16 for 30 epochs with validation
+    metrics, ``monitor`` on val_rmse, ``patience`` and ``checkpoint_dir``;
+    ``best.ckpt`` and ``last.ckpt`` reloaded through ``load_model``, the
+    best one's predictions held to ``Trainer.predict``'s bit for bit."""
+    import numpy as np
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.models import load_model
+    from chemprop_tpu_torch.nn.metrics import MAE, RMSE, R2Score
+    from chemprop_tpu_torch.ops import LAUNCHES
+    from chemprop_tpu_torch.train import Trainer
+
+    LAUNCHES.clear()
+    trainer = Trainer(descriptor_model(torch.bfloat16, scalers), max_epochs=30, warmup_epochs=2,
+                      seed=12, val_metrics={"mae": MAE(), "rmse": RMSE(), "r2": R2Score()},
+                      monitor="val_rmse", patience=10, checkpoint_dir=ckpt_dir)
+    val = DataLoader(raw, batch_size=32)
+    trainer.fit(DataLoader(train, batch_size=32), val)
+    preds = trainer.predict(val)
+    launches = dict(LAUNCHES)
+    check_path_launches("train_descriptors_bfloat16", launches, exact=False)
+    hist = trainer.history
+    best_rmse = min(h["val_rmse"] for h in hist)
+    res = {"epochs": len(hist), "first_loss": hist[0]["train_loss"],
+           "last_loss": hist[-1]["train_loss"], "limit_last_loss": DESCRIPTOR_TRAIN_LOSS,
+           "best_epoch": trainer.best_epoch, "best_val_rmse": best_rmse,
+           "limit_val_rmse": DESCRIPTOR_VAL_RMSE,
+           "last_record": {k: v for k, v in hist[-1].items() if k != "time_s"},
+           "launches": launches}
+    metrics_ok = all(math.isfinite(h[f"val_{k}"]) for h in hist for k in ("mae", "rmse", "r2"))
+    files = {tag: (ckpt_dir / f"{tag}.ckpt").exists() for tag in ("best", "last")}
+    if all(files.values()):
+        best_model, _ = load_model(ckpt_dir / "best.ckpt")
+        last_model, _ = load_model(ckpt_dir / "last.ckpt")
+        res["best_ckpt_equals_predict"] = bool(np.array_equal(predict_loaded(best_model, val),
+                                                              preds))
+        res["last_ckpt_finite"] = bool(np.isfinite(predict_loaded(last_model, val)).all())
+    print(json.dumps({"descriptors_fit": res}))
+    if not metrics_ok:
+        fail("the descriptor fit recorded a non-finite validation metric")
+    if hist[-1]["train_loss"] > DESCRIPTOR_TRAIN_LOSS or best_rmse > DESCRIPTOR_VAL_RMSE:
+        fail(f"the descriptor fit reached train loss {hist[-1]['train_loss']} (bar "
+             f"{DESCRIPTOR_TRAIN_LOSS}) and val_rmse {best_rmse} (bar {DESCRIPTOR_VAL_RMSE})")
+    if not all(files.values()):
+        fail(f"checkpoint_dir holds {files}")
+    if not res["best_ckpt_equals_predict"] or not res["last_ckpt_finite"]:
+        fail("best.ckpt does not predict what Trainer.predict does, or last.ckpt does not load")
+    return launches, res
+
+
+def extras_resume(train, scalers, ckpt_dir: Path) -> tuple[dict, dict]:
+    """Phase 6(b): the descriptor model with dropout 0.1 in bf16, six epochs
+    straight against three, ``last.ckpt``, ``resume_from`` and three more;
+    the loss histories and the predictions must be equal bit for bit (the
+    kernels give the same bits in two calls, and the file holds the dropout
+    generator's state)."""
+    import numpy as np
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.ops import LAUNCHES
+    from chemprop_tpu_torch.train import Trainer
+
+    def trainer(**kw):
+        return Trainer(descriptor_model(torch.bfloat16, scalers, dropout=0.1), max_epochs=6,
+                       warmup_epochs=2, seed=12, **kw)
+
+    LAUNCHES.clear()
+    full = trainer()
+    full.fit(DataLoader(train, batch_size=32, shuffle=True, seed=3))
+    launches = dict(LAUNCHES)
+    check_path_launches("train_descriptors_dropout_bfloat16", launches, exact=False)
+    loader = DataLoader(train, batch_size=32, shuffle=True, seed=3)
+    first = trainer(checkpoint_dir=ckpt_dir)
+    first.init_state(None, len(loader))
+    first.max_epochs = 3  # init_state fixed the schedule for six epochs
+    first.fit(loader)
+    resumed = trainer()
+    resumed.start_epoch = resumed.resume_from(ckpt_dir / "last.ckpt", None, len(loader))
+    resumed.fit(loader)  # the interrupted run's loader: its epochs' order goes on
+    eval_loader = DataLoader(train, batch_size=32)
+    preds = []
+    for t in (full, resumed):
+        t.best_variables = None  # the last state
+        preds.append(t.predict(eval_loader))
+    straight = [h["train_loss"] for h in full.history]
+    pieced = [h["train_loss"] for h in first.history + resumed.history]
+    res = {"start_epoch": resumed.start_epoch, "straight": straight, "resumed": pieced,
+           "losses_equal": straight == pieced,
+           "predictions_equal": bool(np.array_equal(*preds)), "launches": launches}
+    print(json.dumps({"resume": res}))
+    if resumed.start_epoch != 3 or not res["losses_equal"] or not res["predictions_equal"]:
+        fail("resuming from last.ckpt did not continue the fit bit for bit")
+    return launches, res
+
+
+def extras_freeze(ds) -> dict:
+    """Phase 6(c): ``freeze`` on message passing's JAX paths: its tensors are
+    bit-equal before and after a bf16 fit, the head's move."""
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.train import Trainer
+
+    loader = DataLoader(ds, batch_size=32)
+    trainer = Trainer(default_model(torch.bfloat16), max_epochs=3, warmup_epochs=1, seed=12,
+                      grad_clip=1.0, freeze=lambda path: path.startswith("message_passing"))
+    trainer.init_state(None, len(loader))
+    before = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    trainer.fit(loader)
+    after = trainer.state.params
+    frozen = [k for k in before if k.startswith("message_passing")]
+    res = {"frozen_tensors": len(frozen),
+           "frozen_equal": all(torch.equal(before[k], after[k]) for k in frozen),
+           "head_moved": all(not torch.equal(before[k], after[k]) for k in before
+                             if k.startswith("predictor"))}
+    print(json.dumps({"freeze": res}))
+    if not frozen or not res["frozen_equal"] or not res["head_moved"]:
+        fail(f"freeze: {res}")
+    return res
+
+
+def depth_loop_gz_acc(ds) -> dict:
+    """Phase 6(d): one bf16 step of the depth loop on the card, each F launch
+    recorded with whether it carried the running dH0 (``gz_acc``)."""
+    import importlib
+
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.ops import LAUNCHES
+    from chemprop_tpu_torch.train import Trainer
+
+    # the module (the package exports its function of the same name)
+    message_ops = importlib.import_module("chemprop_tpu_torch.ops.message")
+    real, calls = message_ops.bwd_message, []
+
+    def spy(*args, gz_acc=None, **kwargs):
+        calls.append(gz_acc is not None)
+        return real(*args, gz_acc=gz_acc, **kwargs)
+
+    batch = next(iter(DataLoader(ds, batch_size=32)))
+    trainer = Trainer(default_model(torch.bfloat16, depth_loop=True), seed=12)
+    trainer.init_state(batch, 4)
+    message_ops.bwd_message = spy
+    try:
+        LAUNCHES.clear()
+        trainer.train_step(batch)
+    finally:
+        message_ops.bwd_message = real
+    res = {"bwd_message_calls_with_gz_acc": calls, "launches": dict(LAUNCHES)}
+    print(json.dumps({"depth_loop_step": res}))
+    if calls != [False, True] or res["launches"].get("bwd_message") != 2:
+        fail(f"the depth loop's backward did not carry dH0 in F: {res}")
+    return res
+
+
+def window_gather_forward(bmg, desc, scalers: dict) -> tuple[dict, dict]:
+    """Phase 6(e): the bf16 forward with ``window_gather`` on and off, bit
+    for bit, with I's forward launch counted and nothing refused: the default
+    model on the benchmark batch, and the descriptor model (75-column node
+    rows, padded to the kernel's 16-byte chunks) on ``desc``, a batch of its
+    evaluation set."""
+    import torch
+
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+    from chemprop_tpu_torch.train import Trainer
+
+    refused = UNSERVED["row_gather"]
+    launches, res = {}, {}
+    cases = {"predict_bfloat16_window_gather": (
+                 lambda on: default_model(torch.bfloat16, window_gather=on), (bmg,)),
+             "predict_descriptors_bfloat16_window_gather": (
+                 lambda on: descriptor_model(torch.bfloat16, scalers, window_gather=on),
+                 (desc.bmg, desc.V_d, desc.X_d))}
+    for path, (make, inputs) in cases.items():
+        outs = []
+        for on in (False, True):
+            trainer = Trainer(make(on), seed=12)
+            trainer.init_state(None, 1)
+            LAUNCHES.clear()
+            with torch.inference_mode():
+                outs.append(trainer.model.fingerprint(*inputs))
+            if on:
+                launches[path] = dict(LAUNCHES)
+        res[path] = {"equal": bool(torch.equal(*outs)), "launches": launches[path]}
+    res["unserved"] = UNSERVED["row_gather"] - refused
+    print(json.dumps({"window_gather": res}))
+    for path in cases:
+        check_path_launches(path, launches[path], exact=True)
+    if not all(res[path]["equal"] for path in cases) or res["unserved"]:
+        fail(f"window_gather: {res}")
+    return launches, res
+
+
+def taps_against_cpu(ds) -> dict:
+    """Phase 6(g): the f32 activation taps (H_0, each iteration's H, M_v) on the
+    card against the CPU's, real rows, at the f32 limits of phase 3."""
+    import copy
+
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.train import Trainer
+
+    batch = next(iter(DataLoader(ds, batch_size=32)))
+    trainer = Trainer(default_model(torch.float32), seed=12)
+    trainer.init_state(None, 1)
+    taps = {}
+    with torch.inference_mode():
+        for dev, model in (("cuda", trainer.model), ("cpu", copy.deepcopy(trainer.model).cpu())):
+            taps[dev] = {}
+            model.fingerprint(batch.bmg.to(dev), taps=taps[dev])
+    res, ok = {}, set(taps["cuda"]) == set(taps["cpu"]) == {"H_0", "H", "M_v"}
+    for name, values in taps["cpu"].items():
+        rows = batch.bmg.node_mask if name == "M_v" else batch.bmg.edge_mask
+        for i, want in enumerate(values):
+            got = taps["cuda"][name][i].cpu()
+            res[f"{name}[{i}]"] = float((got - want)[rows].abs().max())
+            ok &= bool(torch.allclose(got[rows], want[rows], rtol=1e-5, atol=1e-4))
+    print(json.dumps({"taps_cuda_vs_cpu": res}))
+    if not ok or len(taps["cpu"]["H"]) != 2:
+        fail(f"the f32 taps on cuda disagree with the CPU's: {res}")
+    return res
+
+
+def extras_phase(ds, bmg, out_dir: Path) -> tuple[dict, dict]:
+    """Phase 6: descriptors, validation metrics, checkpoints, resume, freeze,
+    the depth loop, the window gather, an activation argument and the taps."""
+    import shutil
+
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+
+    t0 = time.time()
+    ckpt = out_dir / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    train, raw, scalers = descriptor_datasets()
+    launches, res = {}, {}
+    launches["train_descriptors_bfloat16"], res["descriptors"] = extras_fit(
+        train, raw, scalers, ckpt / "fit")
+    launches["train_descriptors_dropout_bfloat16"], res["resume"] = extras_resume(
+        train, scalers, ckpt / "resume")
+    res["freeze"] = extras_freeze(ds)
+    res["depth_loop_float32_step"] = step_against_cpu(
+        ds, "train_depth_loop_step_cuda_vs_cpu", path="train_float32_depth_loop", depth_loop=True)
+    for name, options in (("bfloat16_depth_loop", dict(depth_loop=True)),
+                          ("bfloat16_depth_loop_grad_w", dict(depth_loop=True, grad_w=True))):
+        launches[f"train_{name}"], res[name] = overfit(ds, name, torch.bfloat16, options)
+    res["depth_loop_step"] = depth_loop_gz_acc(ds)
+    desc = next(iter(DataLoader(raw, batch_size=32))).to("cuda")
+    wg_launches, res["window_gather"] = window_gather_forward(bmg, desc, scalers)
+    launches.update(wg_launches)
+    res["leakyrelu_float32_step"] = step_against_cpu(
+        ds, "train_leakyrelu_step_cuda_vs_cpu", mp_kwargs=dict(activation="leakyrelu:0.1"),
+        path="train_float32_leakyrelu")
+    res["taps"] = taps_against_cpu(ds)
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"phase": "extras", "seconds": res["seconds"]}))
+    return launches, res
+
+
 def time_ms(fn, reps: int, inner: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls between two
     CUDA events, per call, after a warm-up."""
@@ -975,7 +1390,7 @@ def device_ms(fn, calls: int = 10) -> float:
 
 
 def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
-    """Phase 4: kernel, plain and library times with the least time the card
+    """Phase 7: kernel, plain and library times with the least time the card
     could take (bytes over the memory rate or operations over the peak)."""
     import torch
 
@@ -1085,10 +1500,15 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     f_ids = 4 * (n_e + n_v + 1)
     b_ms, b_by = bound(4 * n_e * d * 4 + f_ids, 3 * n_real * d, f32_peak)
     b_acc, _ = bound(5 * n_e * d * 4 + f_ids, 4 * n_real * d, f32_peak)
+    # The library call beside it: the sparse product of (S - R)^T with the
+    # masked cotangent (G only; the mask is formed outside the timed call).
+    # bf16 as the depth loop's backward calls it: with gz_acc read as well
     out["bwd_message"] = dict(
         ms=time_ms(lambda: bwd_message(t["g32"], t["y32"], *graph), reps),
         plain_ms=time_ms(lambda: bwd_message_plain(t["g32"], t["y32"], *graph), reps),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="float32",
+        library_ms=time_ms(lambda: torch.sparse.mm(t["SRt"], t["gz32m"]), reps),
+        library="torch.sparse.mm((S - R)^T in CSR, g * [y > 0])",
+        bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="float32",
         with_gz_acc=dict(
             ms=time_ms(lambda: bwd_message(t["g32"], t["y32"], *graph, gz_acc=t["acc32"]), reps),
             bound_ms=b_acc,
@@ -1096,8 +1516,14 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         bfloat16=dict(
             ms=time_ms(lambda: bwd_message(t["gb"], t["yb"], *graph), reps),
             bound_ms=bound(4 * n_e * d * 2 + f_ids, 3 * n_real * d, f32_peak)[0],
+            with_gz_acc=dict(
+                ms=time_ms(lambda: bwd_message(t["gb"], t["yb"], *graph, gz_acc=t["accb"]),
+                           reps),
+                bound_ms=bound(5 * n_e * d * 2 + f_ids, 4 * n_real * d, f32_peak)[0],
+            ),
         ),
     )
+    out["bwd_message"]["share_of_bound"] = b_ms / out["bwd_message"]["ms"]
     # G, bf16, over the batch's tile table (bwd_nodes_bytes). Beside it the
     # form without a table and the unfused route: the node table gathered at
     # dst by index_select, then F
@@ -1277,7 +1703,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from chemprop_tpu_torch.ops import (
-        UNSERVED, build_all, bwd_message_nodes, iter_bwd, sorted_segment_sum,
+        UNSERVED, build_all, bwd_message, bwd_message_nodes, iter_bwd, sorted_segment_sum,
         sorted_segment_sum_counts,
     )
     from chemprop_tpu_torch.ops.build import sass_contains
@@ -1374,6 +1800,8 @@ def main() -> int:
     dropout_launches, dropout_res = dropout_path(ds)
     launches.update(dropout_launches)
     dropout_step_res = dropout_step_against_cpu(ds)
+    extras_launches, extras_res = extras_phase(ds, bmg, out_dir)
+    launches.update(extras_launches)
     # the timings take A's form without a table on purpose: the main paths'
     # unserved calls are read before them, the benchmark steps' after
     unserved = dict(UNSERVED)
@@ -1402,8 +1830,14 @@ def main() -> int:
     times["iter_bwd"]["device_ms"] = device_ms(
         lambda: iter_bwd(tensors["gb"], tensors["yb"], tensors["Hx"], tensors["W"], bmg.src,
                          bmg.dst, bmg.rev, bmg.edge_ptr, tiles=bmg.tile_ptr))
-    # A's device time in both dtypes, in both forms, and the sparse product's
     graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
+    # F's device time (f32; bf16 with gz_acc) and its sparse yardstick's
+    F = times["bwd_message"]
+    F["device_ms"] = device_ms(lambda: bwd_message(tensors["g32"], tensors["y32"], *graph))
+    F["library_device_ms"] = device_ms(lambda: torch.sparse.mm(tensors["SRt"], tensors["gz32m"]))
+    F["bfloat16"]["with_gz_acc"]["device_ms"] = device_ms(
+        lambda: bwd_message(tensors["gb"], tensors["yb"], *graph, gz_acc=tensors["accb"]))
+    # A's device time in both dtypes, in both forms, and the sparse product's
     for entry, x in ((times["message"], tensors["H"]),
                      (times["message"]["float32"], tensors["H32"])):
         entry["device_ms"] = device_ms(lambda: message(x, *graph, bmg.tile_ptr))
@@ -1412,9 +1846,10 @@ def main() -> int:
             SR = tensors["SR"].to(x.dtype)
             entry["library_device_ms"] = device_ms(lambda: torch.sparse.mm(SR, x))
     print(json.dumps({"unserved": unserved}))
-    for name in ("message", "fused_iter2", "bwd_message_premul", "bwd_message_nodes", "iter_bwd"):
+    for name in ("message", "fused_iter2", "bwd_message_premul", "bwd_message_nodes", "iter_bwd",
+                 "row_gather"):
         if unserved.get(name, 0):
-            fail(f"{name} left {unserved[name]} batches without tiles")
+            fail(f"{name} left {unserved[name]} batches unserved")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -1450,7 +1885,8 @@ def main() -> int:
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
-              "train_dropout_step_cuda_vs_cpu": dropout_step_res, "forward": rates,
+              "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
+              "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

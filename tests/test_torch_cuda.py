@@ -1320,3 +1320,123 @@ def test_composed_path_launches_the_tiled_message(bmg, cuda, dtype, kwargs):
     out = mp(bmg)
     assert torch.isfinite(out.float()).all()
     assert LAUNCHES["message"] == mp.depth - 1 and UNSERVED["message"] == 0
+
+
+# ------------------------------------------- depth loop, window-gather route
+@pytest.mark.parametrize("grad_w", [False, True], ids=["library_dw", "grad_w"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("dtype,depth", [(torch.float32, 3), (torch.bfloat16, 2),
+                                         (torch.bfloat16, 3)])
+def test_depth_loop_on_card_matches_cpu(bmg, cuda, dtype, depth, bias, grad_w):
+    """``depth_loop``'s forward and backward through the kernels against the
+    same op on the CPU's plain versions: B (A over the tile table in f32) for
+    every iteration, F with the running dH0 for every backward step, J with
+    ``grad_w`` in bf16; never G or H. At loop_readout's test width: B may put
+    a saved y one bf16 ulp from the plain version's, which flips a ReLU mask
+    where y is near zero, and at a wider width more such elements carry a
+    flip into the largest terms (test_loop_readout_gradients_on_card_match_cpu)."""
+    from chemprop_tpu_torch.ops import depth_loop
+
+    d = 128
+    H0 = _randn((bmg.E.shape[0], d), 41, cuda, dtype)
+    H0[_pad_rows(bmg)] = 0
+    W = _randn((d, d), 42, cuda, dtype, scale=d**-0.5)
+    b = _randn((d,), 43, cuda, dtype, scale=0.1) if bias else None
+    c = _randn((bmg.E.shape[0], d), 44, cuda, dtype)
+    c[_pad_rows(bmg)] = 0
+    opts = KernelOptions(grad_w=grad_w)
+
+    def run(H0, W, b, c, g):
+        xs = [t.clone().requires_grad_() for t in (H0, W) + ((b,) if bias else ())]
+        out = depth_loop(xs[0], xs[1], xs[2] if bias else None, *_graph(g), depth, opts,
+                         g.tile_ptr)
+        return (out, *torch.autograd.grad(out, xs, c))
+
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    got = run(H0, W, b, c, bmg)
+    n = depth - 1
+    want_launches = {"bwd_message": n}
+    if dtype == torch.bfloat16:
+        want_launches["fused_iter"] = n
+        if grad_w:
+            want_launches["grad_weight"] = n
+    else:
+        want_launches["message"] = n
+    assert dict(LAUNCHES) == want_launches and UNSERVED["message"] == 0
+    want = run(*(t if t is None else t.cpu() for t in (H0, W, b, c)), bmg.to("cpu"))
+    real = ~_pad_rows(bmg).cpu()
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().float().cpu(), w.detach().float()
+        if i in (0, 1):  # the edge tables: the real rows
+            g, w = g[real], w[real]
+        scale = float(w.abs().max())
+        if dtype == torch.float32:  # summation order only, through W's products
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * scale)
+        else:  # a bf16 ulp in a saved y may flip a ReLU mask downstream
+            err = (g - w).abs()
+            assert float(err.max()) <= 0.05 * scale and float(err.mean()) <= 2e-3 * scale
+    assert not got[1][_pad_rows(bmg)].any()  # dH0's padding rows: zeros
+
+
+def _exactly_full_bmg(device):
+    """A batch whose real nodes fill every row but the last, the padding
+    node the collate always keeps."""
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    mgs = [feat(make_mol(s)) for s in SMIS]
+    n_real = sum(mg.V.shape[0] for mg in mgs)
+    b = batch_mol_graphs(mgs, PadSpec(n_real + 1, 768, len(SMIS)))
+    assert b.node_mask[:-1].all() and not b.node_mask[-1]
+    return b.to(device)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["padded", "exactly_full"])
+def test_row_gather_on_the_v_src_route(bmg, cuda, full):
+    """I on W_i's input gather: ``row_gather(V, src)`` is ``V[src]`` bit for
+    bit (the padding edges name the zero padding row), on a collated batch
+    and on one filled to N_pad - 1 real nodes; through the message passing
+    with ``window_gather`` one forward launch of I, no refusal, and the same
+    forward bits as the library gather."""
+    from chemprop_tpu_torch.nn import BondMessagePassing
+
+    b = _exactly_full_bmg(cuda) if full else bmg
+    V = b.V.to(torch.bfloat16)
+    assert torch.equal(row_gather(V, b.src), V[b.src.long()])
+    outs = []
+    for on in (False, True):
+        torch.manual_seed(0)
+        mp = BondMessagePassing(d_h=300, compute_dtype=torch.bfloat16,
+                                kernel_options=KernelOptions(window_gather=on)).to(cuda)
+        LAUNCHES.clear()
+        UNSERVED.clear()
+        with torch.inference_mode():
+            outs.append(mp(b))
+        assert LAUNCHES["row_gather"] == int(on) and UNSERVED["row_gather"] == 0
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_window_gather_serves_the_descriptor_model(bmg, cuda):
+    """The descriptor model's node table (72 + 3 extra columns, 150-byte
+    rows in bf16) goes through I with ``window_gather``: one forward launch,
+    nothing refused, and the forward (W_d's output included) bit-equal to the
+    library gather's."""
+    from dataclasses import replace
+
+    from chemprop_tpu_torch.nn import BondMessagePassing
+
+    n, m = bmg.V.shape[0], bmg.E.shape[0]
+    V_f = _randn((n, 3), 81, cuda) * bmg.node_mask[:, None]
+    E_f = _randn((m, 2), 82, cuda) * bmg.edge_mask[:, None]
+    b = replace(bmg, V=torch.cat([bmg.V, V_f], 1), E=torch.cat([bmg.E, E_f], 1))
+    V_d = _randn((n, 3), 83, cuda) * bmg.node_mask[:, None]
+    outs = []
+    for on in (False, True):
+        torch.manual_seed(0)
+        mp = BondMessagePassing(d_v=75, d_e=16, d_h=300, d_vd=3, compute_dtype=torch.bfloat16,
+                                kernel_options=KernelOptions(window_gather=on)).to(cuda)
+        LAUNCHES.clear()
+        UNSERVED.clear()
+        with torch.inference_mode():
+            outs.append(mp(b, V_d))
+        assert LAUNCHES["row_gather"] == int(on) and UNSERVED["row_gather"] == 0
+    assert torch.equal(outs[0], outs[1])

@@ -234,7 +234,8 @@ def test_predict_mc_dropout_uses_the_best_epoch(datasets):
 
 def test_no_improving_epoch_keeps_the_last_state(datasets):
     trainer = Trainer(_model(), max_epochs=2, warmup_epochs=1, seed=3, device="cpu")
-    trainer.evaluate = lambda loader: float("nan")  # a NaN score never improves
+    # a NaN score never improves
+    trainer._validate = lambda loader, metrics: {"val_loss": float("nan")}
     loader = DataLoader(datasets["val"], batch_size=30)
     trainer.fit(loader, loader)
     assert trainer.best_epoch == -1

@@ -33,7 +33,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "panda
 NEW_MODULES = (
     "ops/gather.py", "nn/metrics.py", "data/datapoints.py", "data/datasets.py",
     "data/samplers.py", "data/dataloader.py", "train/__init__.py", "train/schedulers.py",
-    "train/trainer.py", "ops/options.py", "ops/grad_weight.py",
+    "train/trainer.py", "ops/options.py", "ops/grad_weight.py", "models/serialize.py",
+    "utils/msgpack_codec.py", "nn/transforms.py",
 )
 
 
