@@ -30,7 +30,8 @@
 // * Persistent blocks over (tile, column slice) items, warp-specialised. A
 //   producer warp reads a tile's dst and rev (a lane to four rows), finds
 //   the nodes that own its rows and each row's in-edge range with ballots
-//   over dst (the rows of a node are contiguous: dst is sorted), packs them
+//   over dst (the rows of a node are contiguous: dst is sorted; tiles.cuh,
+//   shared with kernel F's message_bwd_tiles.cu), packs them
 //   into the stage, and brings the tile's y rows in by bulk copies
 //   (cp.async.bulk): one copy of the whole tile when a block takes every
 //   column (d <= 384), one per row of the slice otherwise. Sixteen consumer
@@ -68,25 +69,23 @@
 // Without a tile table (a batch holding a molecule of more than 128 rows) the
 // caller takes the node-warp form of message_bwd.cu.
 #include "sm90.cuh"
-#include "vec.cuh"
+#include "tiles.cuh"
 
-constexpr int BN_ROWS = 128;                        // the most rows a tile holds
 constexpr int BN_CONSUMER_WARPS = 16;
 constexpr int BN_CONSUMERS = 32 * BN_CONSUMER_WARPS;  // threads 0-511; the producer warp after
 constexpr int BN_THREADS = BN_CONSUMERS + 32;
 constexpr int BN_MAX_STAGES = 4;
-constexpr int BN_SMEM_MAX = 232448;                 // a block's shared memory on sm_90
 constexpr int BN_BARS = 128;                        // bytes of the barriers: 2 per stage
-constexpr int BN_IDS = 4 * (BN_ROWS + (BN_ROWS + 4) + BN_ROWS + 4);  // ids, starts, nodes, header
+// ids, starts, nodes, header
+constexpr int BN_IDS = 4 * (TILE_ROWS + (TILE_ROWS + 4) + TILE_ROWS + 4);
 constexpr int BN_UNROLL = 8;                        // g_nodes loads in flight per thread
-constexpr uint32_t BN_BAD = 1u << 24;               // id flag: a neighbour outside the tile
 
 // the bytes of a stage at slice width n: the y (then gz) rows, then per row
 // its packed id (reverse | first in-edge << 8 | end << 16, in local rows),
 // the first row of each node (and the end), each node's id, and the header
 // (first row, rows, real rows, nodes)
 __host__ __device__ inline int bn_stage_bytes(int n) {
-  return (BN_ROWS * n * 2 + BN_IDS + 127) & ~127;
+  return (TILE_ROWS * n * 2 + BN_IDS + 127) & ~127;
 }
 
 struct BnStage {
@@ -100,35 +99,11 @@ struct BnStage {
 __device__ __forceinline__ BnStage bn_stage(uint8_t* stages, int s, int n) {
   BnStage st;
   st.data = stages + s * bn_stage_bytes(n);
-  st.ids = reinterpret_cast<uint32_t*>(st.data + BN_ROWS * n * 2);
-  st.starts = reinterpret_cast<int*>(st.ids + BN_ROWS);
-  st.nodes = st.starts + BN_ROWS + 4;
-  st.hdr = st.nodes + BN_ROWS;
+  st.ids = reinterpret_cast<uint32_t*>(st.data + TILE_ROWS * n * 2);
+  st.starts = reinterpret_cast<int*>(st.ids + TILE_ROWS);
+  st.nodes = st.starts + TILE_ROWS + 4;
+  st.hdr = st.nodes + TILE_ROWS;
   return st;
-}
-
-// gz = g [y > 0] of one 16-byte chunk, in f32 and rounded back: the bits of
-// message_bwd.cu's mask4 and store4
-__device__ __forceinline__ uint4 mask_chunk(uint4 g, uint4 y) {
-  const uint32_t gw[4] = {g.x, g.y, g.z, g.w}, yw[4] = {y.x, y.y, y.z, y.w};
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 a = unpack2(gw[i]), m = unpack2(yw[i]);
-    o[i] = pack2(m.x > 0.f ? a.x : 0.f, m.y > 0.f ? a.y : 0.f);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// t += the 8 bf16 of a chunk, in f32
-__device__ __forceinline__ void add_chunk(float (&t)[8], uint4 v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = unpack2(w[i]);
-    t[2 * i] += f.x;
-    t[2 * i + 1] += f.y;
-  }
 }
 
 // the producer warp: per item, the tile's ids (loaded before it waits for a
@@ -139,109 +114,23 @@ __device__ void bn_produce(const bf16* __restrict__ y, const int* __restrict__ d
                            const int* __restrict__ rev, const int* __restrict__ tiles,
                            uint8_t* stages, uint32_t bars, int n_items, int n_edges, int d,
                            int first_pad, int n_stages) {
-  constexpr int Q = BN_ROWS / 32;  // rows a lane holds
   const int lane = threadIdx.x % 32, slices = d / N;
   int c = 0;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++c) {
     const int s = c % n_stages, t = item / slices, n0 = (item % slices) * N;
     const int r0 = __ldg(tiles + t);
-    const int rows = max(0, min(__ldg(tiles + t + 1) - r0, BN_ROWS));
+    const int rows = max(0, min(__ldg(tiles + t + 1) - r0, TILE_ROWS));
     const int real = max(0, min(rows, first_pad - r0));  // rows before the padding
-    int v[Q], rv[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int i = lane + 32 * q;
-      v[q] = i < real ? __ldg(dst + r0 + i) : -1;
-      rv[q] = i < real ? __ldg(rev + r0 + i) - r0 : 0;
-    }
-    // the rows just outside the tile: a node whose in-edges go on past the
-    // tile's real rows is not whole in it
-    const int before = real > 0 && r0 > 0 ? __ldg(dst + r0 - 1) : -1;
-    const int after = real > 0 && r0 + real < n_edges ? __ldg(dst + r0 + real) : -1;
-    // a node's first row: the first row, or a row whose dst differs from the row before
-    uint32_t m[Q];
-    int prev_last = -1;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      int up = __shfl_up_sync(~0u, v[q], 1);
-      if (lane == 0) up = prev_last;
-      prev_last = __shfl_sync(~0u, v[q], 31);
-      const int i = lane + 32 * q;
-      m[q] = __ballot_sync(~0u, i < real && (i == 0 || v[q] != up));
-    }
-    // rows whose reverse is not in the tile
-    uint32_t ob[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int i = lane + 32 * q;
-      ob[q] = __ballot_sync(~0u, i < real && (rv[q] < 0 || rv[q] >= real));
-    }
-    const int v_first = __shfl_sync(~0u, v[0], 0);
-    int v_last = -1;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int src = (real - 1) - 32 * q;
-      const int x = __shfl_sync(~0u, v[q], src >= 0 && src < 32 ? src : 0);
-      if (src >= 0 && src < 32) v_last = x;
-    }
-    const bool bad_first = before >= 0 && before == v_first;
-    const bool bad_last = after >= 0 && after == v_last;
-    int n_nodes = 0;
-#pragma unroll
-    for (int q = 0; q < Q; ++q) n_nodes += __popc(m[q]);
-
+    const TileRows tr = tile_rows(dst, rev, r0, real, n_edges);
     if (c >= n_stages) mbar_wait(bars + 8 * (n_stages + s), (c / n_stages - 1) & 1);
     const BnStage st = bn_stage(stages, s, N);
-    int below = 0;  // nodes that start in the words before q
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int i = lane + 32 * q;
-      const uint32_t le = (2u << lane) - 1;  // bits 0 .. lane
-      if (i < real) {
-        // the in-edge range of this row's node: its last start at or
-        // before i, and its next start after i (or the real rows' end)
-        int lo = 0, hi = real;
-        if (m[q] & le) {
-          lo = 32 * q + 31 - __clz(m[q] & le);
-        } else {
-#pragma unroll
-          for (int p = Q - 1; p >= 0; --p)
-            if (p < q && lo == 0 && m[p] != 0) lo = 32 * p + 31 - __clz(m[p]);
-        }
-        if (m[q] & ~le) {
-          hi = 32 * q + __ffs(m[q] & ~le) - 1;
-        } else {
-#pragma unroll
-          for (int p = 0; p < Q; ++p)
-            if (p > q && hi == real && m[p] != 0) hi = 32 * p + __ffs(m[p]) - 1;
-        }
-        // a reverse outside the tile is replaced by the row itself, so that
-        // no read leaves the stage; every row of a node that sums such a
-        // row's reverse ([lo, hi) holds one) is flagged, not only that row
-        const bool outside = rv[q] < 0 || rv[q] >= real;
-        bool node_bad = false;
-#pragma unroll
-        for (int p = 0; p < Q; ++p) {
-          const int a = max(lo - 32 * p, 0), b = min(hi - 32 * p, 32);
-          if (a < b) node_bad |= ((ob[p] >> a) & (b - a == 32 ? ~0u : (1u << (b - a)) - 1)) != 0;
-        }
-        const bool bad = node_bad || (lo == 0 && bad_first) || (hi == real && bad_last);
-        st.ids[i] = (uint32_t)(outside ? i : rv[q]) | (uint32_t)lo << 8 | (uint32_t)hi << 16 |
-                    (bad ? BN_BAD : 0u);
-        if (m[q] >> lane & 1u) {
-          const int k = below + __popc(m[q] & (le >> 1));
-          st.starts[k] = i;
-          st.nodes[k] = v[q];
-        }
-      }
-      below += __popc(m[q]);
-    }
+    tile_store_ids(tr, real, st.ids);
+    tile_store_nodes(tr, real, st.starts, st.nodes);
     if (lane == 0) {
-      st.starts[n_nodes] = real;
       st.hdr[0] = r0;
       st.hdr[1] = rows;
       st.hdr[2] = real;
-      st.hdr[3] = n_nodes;
+      st.hdr[3] = tr.n_nodes;
     }
     __syncwarp();
     const uint32_t full = bars + 8 * s, data = smem_addr(st.data);
@@ -296,7 +185,7 @@ __device__ void bn_consume(const bf16* __restrict__ g_nodes, bf16* __restrict__ 
         if (task >= tasks) continue;
         const int k = task / CH, ch = task % CH;
         for (int i = st.starts[k]; i < st.starts[k + 1]; ++i) {
-          const uint4 z = mask_chunk(g[u], *chunk(i, ch));
+          const uint4 z = mask_chunk<bf16>(g[u], *chunk(i, ch));
           *chunk(i, ch) = z;
           *out(gz_out, i, ch) = z;
         }
@@ -310,34 +199,11 @@ __device__ void bn_consume(const bf16* __restrict__ g_nodes, bf16* __restrict__ 
     }
     asm volatile("bar.sync 1, %0;" ::"n"(BN_CONSUMERS) : "memory");  // the tile's gz is in
 
-    // G: T[dst] over the in-edges in their order, less the row's reverse;
-    // the first four of them (most atoms have at most four neighbours) read
-    // at once
+    // G: T[dst] over the in-edges in their order, less the row's reverse
     for (int task = tid; task < real * CH; task += BN_CONSUMERS) {
       const int i = task / CH, ch = task % CH;
-      const uint32_t id = st.ids[i];
-      uint4 o4 = make_uint4(0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u);  // NaN
-      if (!(id & BN_BAD)) {
-        const int lo = (id >> 8) & 0xFF, hi = (id >> 16) & 0xFF;
-        uint4 v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = lo + q < hi ? *chunk(st.ids[lo + q] & 0xFF, ch) : zero4;
-        const uint4 x4 = *chunk(id & 0xFF, ch);
-        float t[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (lo + q < hi) add_chunk(t, v[q]);
-        for (int j = lo + 4; j < hi; ++j) add_chunk(t, *chunk(st.ids[j] & 0xFF, ch));
-        const uint32_t xw[4] = {x4.x, x4.y, x4.z, x4.w};
-        uint32_t o[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 xr = unpack2(xw[q]);
-          o[q] = pack2(t[2 * q] - xr.x, t[2 * q + 1] - xr.y);
-        }
-        o4 = make_uint4(o[0], o[1], o[2], o[3]);
-      }
-      *out(G, i, ch) = o4;
+      *out(G, i, ch) =
+          transposed_chunk<bf16, CH>(reinterpret_cast<const uint4*>(st.data), st.ids, i, ch);
     }
     // the stage goes back only after this warp's last read of it (and its
     // writes of gz are ordered before the bulk copy that refills it)
@@ -378,7 +244,7 @@ __global__ void __launch_bounds__(BN_THREADS, 1)
 
 // the stages of slice width n that fit a block
 static int bn_stages(int n) {
-  const int s = (BN_SMEM_MAX - 128 - BN_BARS) / bn_stage_bytes(n);
+  const int s = (TILE_SMEM_MAX - 128 - BN_BARS) / bn_stage_bytes(n);
   return s < BN_MAX_STAGES ? s : BN_MAX_STAGES;
 }
 
@@ -395,13 +261,6 @@ static int bn_width(int d) {
   return 0;
 }
 
-// one block per SM (the stages take most of its shared memory), no more
-// blocks than items
-static int bn_grid(int d, int n, int n_tiles) {
-  const int items = n_tiles * (d / n);
-  return items < sm_count() ? items : sm_count();
-}
-
 template <int N>
 static cudaError_t bn_launch(const void* g_nodes, const void* y, const int* dst, const int* rev,
                              const int* ptr, const int* tiles, void* G, void* gz, int n_edges,
@@ -416,7 +275,7 @@ static cudaError_t bn_launch(const void* g_nodes, const void* y, const int* dst,
   if (blocks_per_sm != nullptr)  // how many blocks of it one SM runs at once
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_nodes_kernel<N>,
                                                          BN_THREADS, smem);
-  bwd_nodes_kernel<N><<<bn_grid(d, N, n_tiles), BN_THREADS, smem, stream>>>(
+  bwd_nodes_kernel<N><<<tile_grid(n_tiles * (d / N)), BN_THREADS, smem, stream>>>(
       (const bf16*)g_nodes, (const bf16*)y, dst, rev, ptr, tiles, (bf16*)G, (bf16*)gz, n_edges,
       d, pad_node, n_tiles, stages);
   return cudaGetLastError();
@@ -460,7 +319,7 @@ extern "C" int bwd_nodes_info(int d, int n_tiles, int* info) {
   info[1] = d / n;
   info[2] = bn_stages(n);
   info[3] = (int)bn_smem(n, info[2]);
-  info[4] = bn_grid(d, n, n_tiles);
+  info[4] = tile_grid(n_tiles * (d / n));
   return (int)bn_dispatch(n, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                           nullptr, 0, d, 0, n_tiles, nullptr, &info[5]);
 }

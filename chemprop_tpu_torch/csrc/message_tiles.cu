@@ -64,14 +64,13 @@
 // Without a tile table (a batch holding a molecule of more than 128 rows), or
 // at a width that is not a multiple of 128, the caller takes message.cu.
 #include "sm90.cuh"
-#include "vec.cuh"
+#include "tiles.cuh"
 
 constexpr int MT_ROWS = 128;  // the most rows a tile holds
 constexpr int MT_CONSUMER_WARPS = 16;
 constexpr int MT_CONSUMERS = 32 * MT_CONSUMER_WARPS;  // threads 0-511; the producer warp after
 constexpr int MT_THREADS = MT_CONSUMERS + 32;
 constexpr int MT_MAX_STAGES = 4;
-constexpr int MT_SMEM_MAX = 232448;         // a block's shared memory on sm_90
 constexpr int MT_BARS = 128;                // bytes of the barriers: 2 per stage
 constexpr int MT_IDS = 4 * (MT_ROWS + 4);  // packed ids, then the header
 constexpr uint32_t MT_BAD = 1u << 24;       // id flag: a row the tile cannot form
@@ -81,49 +80,6 @@ constexpr uint32_t MT_BAD = 1u << 24;       // id flag: a row the tile cannot fo
 // in rows of the tile), then the header (first row, rows, real rows)
 __host__ __device__ inline int mt_stage_bytes(int rb) {
   return (MT_ROWS * rb + MT_IDS + 127) & ~127;
-}
-
-// t += a chunk of 16 bytes in f32: 8 bf16 or 4 float32 values
-__device__ __forceinline__ void add_chunk(float (&t)[8], uint4 v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = unpack2(w[i]);
-    t[2 * i] += f.x;
-    t[2 * i + 1] += f.y;
-  }
-}
-
-__device__ __forceinline__ void add_chunk(float (&t)[4], uint4 v) {
-  t[0] += __uint_as_float(v.x);
-  t[1] += __uint_as_float(v.y);
-  t[2] += __uint_as_float(v.z);
-  t[3] += __uint_as_float(v.w);
-}
-
-// t - x, rounded once to the chunk's type
-__device__ __forceinline__ uint4 sub_chunk(const float (&t)[8], uint4 x) {
-  const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 r = unpack2(xw[i]);
-    o[i] = pack2(t[2 * i] - r.x, t[2 * i + 1] - r.y);
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-__device__ __forceinline__ uint4 sub_chunk(const float (&t)[4], uint4 x) {
-  return make_uint4(__float_as_uint(t[0] - __uint_as_float(x.x)),
-                    __float_as_uint(t[1] - __uint_as_float(x.y)),
-                    __float_as_uint(t[2] - __uint_as_float(x.z)),
-                    __float_as_uint(t[3] - __uint_as_float(x.w)));
-}
-
-template <typename T>
-__device__ __forceinline__ uint4 nan_chunk() {
-  return sizeof(T) == 2 ? make_uint4(0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u)
-                        : make_uint4(0x7FC00000u, 0x7FC00000u, 0x7FC00000u, 0x7FC00000u);
 }
 
 struct MtStage {
@@ -297,7 +253,7 @@ __global__ void __launch_bounds__(MT_THREADS, 1)
 
 // the stages of rb-byte rows that fit a block
 static int mt_stages(int rb) {
-  const int s = (MT_SMEM_MAX - 128 - MT_BARS) / mt_stage_bytes(rb);
+  const int s = (TILE_SMEM_MAX - 128 - MT_BARS) / mt_stage_bytes(rb);
   return s < MT_MAX_STAGES ? s : MT_MAX_STAGES;
 }
 
@@ -315,10 +271,6 @@ static int mt_row_bytes(int d, int es) {
   return 0;
 }
 
-// one block per SM (the stages take most of its shared memory), no more
-// blocks than items
-static int mt_grid(int items) { return items < sm_count() ? items : sm_count(); }
-
 template <typename T, int N>
 static cudaError_t mt_launch(const void* H, const int* src, const int* rev, const int* ptr,
                              const int* tiles, void* M, int d, int pad_node, int n_tiles,
@@ -334,7 +286,7 @@ static cudaError_t mt_launch(const void* H, const int* src, const int* rev, cons
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
                                                          message_tiles_kernel<T, N>, MT_THREADS,
                                                          smem);
-  message_tiles_kernel<T, N><<<mt_grid(n_tiles * (d / N)), MT_THREADS, smem, stream>>>(
+  message_tiles_kernel<T, N><<<tile_grid(n_tiles * (d / N)), MT_THREADS, smem, stream>>>(
       (const T*)H, src, rev, ptr, tiles, (T*)M, d, pad_node, n_tiles, stages);
   return cudaGetLastError();
 }
@@ -357,8 +309,6 @@ static cudaError_t mt_dispatch(int dtype, int rb, const void* H, const int* src,
   return cudaErrorInvalidValue;
 }
 
-static int mt_es(int dtype) { return dtype == DT_BF16 ? 2 : dtype == DT_F32 ? 4 : 0; }
-
 // M from the edge table H [n_edges x d], float32 or bfloat16, d a multiple of
 // 128 up to MAX_WIDTH, over a tile table of n_tiles tiles (ascending row
 // offsets from 0 to n_edges, at most 128 rows each, no molecule in two
@@ -366,7 +316,7 @@ static int mt_es(int dtype) { return dtype == DT_BF16 ? 2 : dtype == DT_F32 ? 4 
 extern "C" int message_tiles(const void* H, const int* src, const int* rev, const int* ptr,
                              const int* tiles, void* M, int n_edges, int d, int pad_node,
                              int n_tiles, int dtype, cudaStream_t stream) {
-  const int es = mt_es(dtype);
+  const int es = dtype_bytes(dtype);
   if (es == 0 || d % 128 != 0 || d > MAX_WIDTH || n_edges < 0 || tiles == nullptr ||
       n_tiles < 1)
     return (int)cudaErrorInvalidValue;
@@ -380,7 +330,7 @@ extern "C" int message_tiles(const void* H, const int* src, const int* rev, cons
 // width N, slices, stages, shared-memory bytes per block, blocks of the grid,
 // and blocks of the kernel that one SM runs at once
 extern "C" int message_tiles_info(int d, int dtype, int n_tiles, int* info) {
-  const int es = mt_es(dtype);
+  const int es = dtype_bytes(dtype);
   const int rb = es != 0 && d % 128 == 0 && d <= MAX_WIDTH ? mt_row_bytes(d, es) : 0;
   if (rb == 0 || n_tiles <= 0) return (int)cudaErrorInvalidValue;
   const int n = rb / es;
@@ -388,7 +338,7 @@ extern "C" int message_tiles_info(int d, int dtype, int n_tiles, int* info) {
   info[1] = d / n;
   info[2] = mt_stages(rb);
   info[3] = (int)mt_smem(rb, info[2]);
-  info[4] = mt_grid(n_tiles * (d / n));
+  info[4] = tile_grid(n_tiles * (d / n));
   return (int)mt_dispatch(dtype, rb, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, d, 0,
                           n_tiles, nullptr, &info[5]);
 }

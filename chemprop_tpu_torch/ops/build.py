@@ -33,8 +33,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = (
-    "message", "message_tiles", "fused_iter", "iter2", "message_bwd", "bwd_premul", "bwd_nodes",
-    "iter_bwd", "segment", "gather", "grad_weight",
+    "message", "message_tiles", "fused_iter", "iter2", "message_bwd", "message_bwd_tiles",
+    "bwd_premul", "bwd_nodes", "iter_bwd", "segment", "gather", "grad_weight",
 )
 
 # C signatures of the exported functions: P a pointer (a tensor's data_ptr,
@@ -58,6 +58,10 @@ SIGNATURES = {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd_splits": [I],
+    },
+    "message_bwd_tiles": {
+        "bwd_message_tiles": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+        "bwd_message_tiles_info": [I, I, I, I, P],
     },
     "bwd_premul": {
         "bwd_premul": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P],

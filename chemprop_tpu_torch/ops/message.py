@@ -5,7 +5,8 @@ iteration and the whole depth loop with the M_v readout as differentiable ops
     message:     M[e] = sum_{k : dst[k] == src[e]} H[k] - H[rev[e]]
     fused_iter:  y[e] = relu(H0[e] + bf16(M[e]) @ W [+ b])
     fused_iter2: y1 = fused_iter(relu(H0)), y2 = fused_iter(y1), one launch
-    bwd_message:         gz = g * [y > 0] (+ gz_acc),  G = (S - R)^T (g * [y > 0])
+    bwd_message:         gz = g * [y > 0] (+ gz_acc),  G = (S - R)^T (g * [y > 0]),
+                         one launch over the batch's molecule tiles
     bwd_message_nodes:   the same with g = g_nodes[dst] never formed, one
                          launch over the batch's molecule tiles
     bwd_message_premul:  the same with g = G_in @ W^T formed inside the kernel,
@@ -25,12 +26,12 @@ the JAX kernels', which leave garbage there; no real row depends on them.
 The backward kernels zero the padding rows of ``G``, ``gz`` and ``z`` too: the
 weight gradients sum over every row. On a CUDA tensor the kernels in
 ``csrc/message_tiles.cu`` (or ``csrc/message.cu``), ``csrc/fused_iter.cu``,
-``csrc/iter2.cu``, ``csrc/message_bwd.cu``, ``csrc/bwd_nodes.cu``,
-``csrc/bwd_premul.cu`` and ``csrc/iter_bwd.cu`` run; on a CPU tensor the plain
-versions below.
+``csrc/iter2.cu``, ``csrc/message_bwd_tiles.cu`` (or ``csrc/message_bwd.cu``),
+``csrc/bwd_nodes.cu``, ``csrc/bwd_premul.cu`` and ``csrc/iter_bwd.cu`` run; on
+a CPU tensor the plain versions below.
 
-The tile kernels (``message``, ``fused_iter2``, ``bwd_message_nodes``,
-``bwd_message_premul``, ``iter_bwd``) take the batch's tile table
+The tile kernels (``message``, ``fused_iter2``, ``bwd_message``,
+``bwd_message_nodes``, ``bwd_message_premul``, ``iter_bwd``) take the batch's tile table
 (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
 the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
 rows in two runs, so that every row a tile's row gathers lies in the tile."""
@@ -54,13 +55,15 @@ ITER2_WIDTHS = (128, 256, 384, 512)
 # the widths the tiled ``iter_bwd`` takes: a cluster of d / 64 blocks shares a
 # tile, and the buffers of d = 512 would not fit a block's shared memory
 ITER_BWD_TILE_WIDTHS = (128, 256, 384)
-# the tiled message kernel (``csrc/message_tiles.cu``) takes the lane-padded
+# the tiled message kernel (``csrc/message_tiles.cu``) and the tiled masked
+# transposed message (``csrc/message_bwd_tiles.cu``) take the lane-padded
 # widths, multiples of 128 up to this, in both dtypes
 MESSAGE_TILE_MAX_WIDTH = 1024
 
 
 def message_tile_width(d: int) -> bool:
-    """Whether the tiled message kernel takes width ``d``."""
+    """Whether the tiled message kernel, and the tiled :func:`bwd_message`,
+    take width ``d``."""
     return d % 128 == 0 and 0 < d <= MESSAGE_TILE_MAX_WIDTH
 
 
@@ -400,21 +403,72 @@ def _launch_bwd(g, y, acc, dst, rev, ptr, nodes: bool, with_gz: bool):
 
 
 def bwd_message(
-    g: torch.Tensor, y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor,
-    ptr: torch.Tensor, gz_acc: torch.Tensor | None = None,
+    g: torch.Tensor, y: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
+    rev: torch.Tensor, ptr: torch.Tensor, gz_acc: torch.Tensor | None = None,
+    tiles: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(G, gz)`` of one depth iteration's backward from the edge cotangent
     ``g`` and the saved output ``y``: ``gz = g * [y > 0] (+ gz_acc)`` and
-    ``G = (S - R)^T (g * [y > 0])``, float32 or bfloat16."""
+    ``G = (S - R)^T (g * [y > 0])``, float32 or bfloat16; ``y=None``: no mask.
+
+    With the batch's tile table ``tiles`` (:func:`check_tiles`) at a width
+    :func:`message_tile_width` takes, it is one launch of
+    ``csrc/message_bwd_tiles.cu`` over the molecule tiles; without one (a
+    molecule of more than ``ITER2_TILE_ROWS`` rows), or at another width, the
+    node-warp kernel of ``csrc/message_bwd.cu``, and ``UNSERVED["bwd_message"]``
+    counts the call. Both give the same bits."""
     _check_graph(g, src, dst, rev, ptr)
     if g.dtype not in DTYPES:
         raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
     _check_tables(g, {"y": y, "gz_acc": gz_acc})
+    return _transposed(g, y, gz_acc, (src, dst, rev, ptr), tiles, with_gz=True)
+
+
+def _transposed(g, y, acc, graph, tiles, with_gz: bool):
+    """F on checked tables: over the tile table where it serves, else the
+    node-warp form; ``gz`` is None unless ``with_gz``."""
+    src, dst, rev, ptr = graph
+    n, d = g.shape
+    if tiles is not None:
+        check_tiles(tiles, n, g.device)
+    tiled = tiles is not None and message_tile_width(d)
+    if not tiled:
+        UNSERVED["bwd_message"] += 1
     if g.device.type == "cpu":
-        return bwd_message_plain(g, y, src, dst, rev, ptr, gz_acc)
-    out = _launch_bwd(g, y, gz_acc, dst, rev, ptr, nodes=False, with_gz=True)
+        G, gz = bwd_message_plain(g, y, *graph, gz_acc=acc)
+        return G, gz if with_gz else None
+    if not tiled:
+        out = _launch_bwd(g, y, acc, dst, rev, ptr, nodes=False, with_gz=with_gz)
+    else:
+        if any(t.data_ptr() % 16 != 0 for t in (g, y, acc) if t is not None):
+            raise ValueError("bwd_message needs 16-byte aligned tables")
+        out = torch.empty_like(g), torch.empty_like(g) if with_gz else None
+        if n == 0:
+            return out
+        call(library("message_bwd_tiles"), "bwd_message_tiles", g, y, acc, dst.contiguous(),
+             rev.contiguous(), ptr.contiguous(), tiles.contiguous(), *out, n, d,
+             ptr.numel() - 2, tiles.numel() - 1, DTYPES[g.dtype])
     LAUNCHES["bwd_message"] += 1
     return out
+
+
+def bwd_message_info(d: int, dtype: torch.dtype, n_tiles: int, tables: int = 2) -> dict[str, int]:
+    """The shape of the tiled :func:`bwd_message` launch on the current card
+    at width ``d`` in ``dtype`` over ``n_tiles`` tiles with ``tables`` tables
+    staged (1: the message's own backward, ``g`` alone; 2: ``g`` and ``y``; 3:
+    with ``gz_acc`` too): the column slice of an item, the slices, the stages,
+    the shared memory per block, the grid, the blocks of the kernel that one
+    SM runs at once, and the rows of a TMA box of a slice (0: one bulk copy of
+    each whole tile and table, or one a row)."""
+    import ctypes
+
+    info = (ctypes.c_int * 7)()
+    err = library("message_bwd_tiles").bwd_message_tiles_info(d, DTYPES[dtype], tables, n_tiles,
+                                                                info)
+    if err != 0:
+        raise RuntimeError(f"bwd_message_tiles_info: CUDA error {err}")
+    keys = ("slice_width", "slices", "stages", "smem_bytes", "grid", "blocks_per_sm", "box_rows")
+    return dict(zip(keys, info))
 
 
 def bwd_message_nodes(
@@ -613,18 +667,15 @@ class _Message(torch.autograd.Function):
     @staticmethod
     def forward(ctx, H, src, dst, rev, ptr, tiles):
         ctx.save_for_backward(src, dst, rev, ptr)
+        ctx.tiles = tiles
         return _message_fwd(H, src, dst, rev, ptr, tiles)
 
     @staticmethod
     def backward(ctx, g):
-        src, dst, rev, ptr = ctx.saved_tensors
-        g = g.contiguous()
-        if g.device.type == "cpu":
-            return bwd_message_plain(g, None, src, dst, rev, ptr)[0], *(None,) * 5
-        # the message kernel with the roles of src and dst swapped: the
-        # node-wise backward kernel without its mask
-        G, _ = _launch_bwd(g, None, None, dst, rev, ptr, nodes=False, with_gz=False)
-        LAUNCHES["bwd_message"] += 1
+        # the message with the roles of src and dst swapped: F without its
+        # mask and without gz, over the same tile table
+        G, _ = _transposed(g.contiguous(), None, None, ctx.saved_tensors, ctx.tiles,
+                           with_gz=False)
         return G, *(None,) * 5
 
 
@@ -640,11 +691,11 @@ def _iteration(H, H0, W, b, graph, relu_stream=False, tiles=None):
     return torch.relu(H0 + z)
 
 
-def _iteration_bwd(g, y, x, W, graph, grad_w: bool, gz_acc=None):
+def _iteration_bwd(g, y, x, W, graph, grad_w: bool, gz_acc=None, tiles=None):
     """``(dH, gz, dW)`` of one iteration with input ``x`` and output ``y``:
-    the masked transposed message, then ``G @ W^T`` (a library product) and
-    ``x^T G`` through :func:`grad_weight`."""
-    G, gz = bwd_message(g, y, *graph, gz_acc=gz_acc)
+    the masked transposed message over the tile table ``tiles``, then
+    ``G @ W^T`` (a library product) and ``x^T G`` through :func:`grad_weight`."""
+    G, gz = bwd_message(g, y, *graph, gz_acc=gz_acc, tiles=tiles)
     dW = grad_weight(x, G, grad_w and x.dtype == torch.bfloat16)
     return (G @ W.t()).to(g.dtype), gz, dW
 
@@ -690,14 +741,15 @@ class _FirstIter(torch.autograd.Function):
         H0 = H0.contiguous()
         y = _iteration(H0, H0, W, b, (src, dst, rev, ptr), relu_stream=True, tiles=tiles)
         ctx.save_for_backward(y, H0, W, b, src, dst, rev, ptr)
-        ctx.options = options
+        ctx.options, ctx.tiles = options, tiles
         return y
 
     @staticmethod
     def backward(ctx, g):
         y, H0, W, b, *graph = ctx.saved_tensors
         g = g.to(y.dtype).contiguous()
-        dH, gz, dW = _iteration_bwd(g, y, torch.relu(H0), W, graph, ctx.options.grad_w)
+        dH, gz, dW = _iteration_bwd(g, y, torch.relu(H0), W, graph, ctx.options.grad_w,
+                                    tiles=ctx.tiles)
         dH0 = gz + dH * (H0 > 0)
         return dH0, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
 
@@ -721,7 +773,8 @@ class _MessageIter(torch.autograd.Function):
                 UNSERVED["iter_bwd"] += 1
             dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles)
         else:
-            dH, gz, dW = _iteration_bwd(g, y, H, W, graph, ctx.options.grad_w)
+            dH, gz, dW = _iteration_bwd(g, y, H, W, graph, ctx.options.grad_w,
+                                        tiles=ctx.tiles)
         return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
 
 
@@ -779,17 +832,19 @@ def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False) -> li
     return ys
 
 
-def _loop_chain_bwd(g, ys, H0, W, b, graph, grad_w: bool):
+def _loop_chain_bwd(g, ys, H0, W, b, graph, grad_w: bool, tiles):
     """``(dH0, dW, db)`` of the depth loop whose iterations gave ``ys``, from
     the cotangent ``g`` of the last one's output: the per-iteration chain, each
-    step one :func:`bwd_message` with the running ``dH0`` accumulated in the
-    kernel (``gz_acc``), ``G @ W^T`` a ``torch.matmul`` and ``x_t^T G`` through
-    :func:`grad_weight`; ``db`` is the accumulator's column sum."""
+    step one :func:`bwd_message` over the tile table ``tiles`` with the
+    running ``dH0`` accumulated in the kernel (``gz_acc``), ``G @ W^T`` a
+    ``torch.matmul`` and ``x_t^T G`` through :func:`grad_weight`; ``db`` is the
+    accumulator's column sum."""
     relu_H0 = torch.relu(H0)
     dW, acc = None, None
     for t in range(len(ys), 0, -1):
         x = ys[t - 2] if t >= 2 else relu_H0  # the input of iteration t
-        g, acc, dWt = _iteration_bwd(g, ys[t - 1], x, W, graph, grad_w, gz_acc=acc)
+        g, acc, dWt = _iteration_bwd(g, ys[t - 1], x, W, graph, grad_w, gz_acc=acc,
+                                     tiles=tiles)
         dW = dWt if dW is None else dW + dWt
     # the first iteration's input was relu(H0): chain through the activation
     return acc + g * (H0 > 0), dW.to(W.dtype), _bias_grad(acc, b)
@@ -824,13 +879,14 @@ class _DepthLoop(torch.autograd.Function):
         ys = _loop_forward(H0, W, b, (src, dst, rev, ptr), depth, tiles)
         ctx.save_for_backward(H0, W, b, src, dst, rev, ptr, *ys)
         ctx.grad_w = options.grad_w and H0.dtype == torch.bfloat16
+        ctx.tiles = tiles
         return ys[-1]
 
     @staticmethod
     def backward(ctx, g):
         H0, W, b, src, dst, rev, ptr, *ys = ctx.saved_tensors
         g = g.to(H0.dtype).contiguous()
-        grads = _loop_chain_bwd(g, ys, H0, W, b, (src, dst, rev, ptr), ctx.grad_w)
+        grads = _loop_chain_bwd(g, ys, H0, W, b, (src, dst, rev, ptr), ctx.grad_w, ctx.tiles)
         return *grads, *(None,) * 7
 
 
@@ -871,4 +927,4 @@ class _LoopReadout(torch.autograd.Function):
                 dH0 = dH0 + z
             return dH0, dW.to(W.dtype), None, *none
         # the per-iteration chain, from the cotangent of the last H
-        return *_loop_chain_bwd(g_Mv[dst.long()], ys, H0, W, b, graph, grad_w), *none
+        return *_loop_chain_bwd(g_Mv[dst.long()], ys, H0, W, b, graph, grad_w, ctx.tiles), *none

@@ -16,7 +16,11 @@ failure:
    in float32 and bfloat16, bit for bit equal to its form without a table
    (message.cu) on every row and in a second call, its padding rows zero,
    and the sparse product of S - R with H that is timed beside it; the
-   fused iteration in its four forms,
+   masked transposed message over the tile table in float32 and bfloat16,
+   with and without gz_acc, and its unmasked form (the message's
+   backward), bit for bit equal to its node-warp form (message_bwd.cu) and
+   in a second call, its padding rows zero, and the sparse product of
+   (S - R)^T timed beside it; the fused iteration in its four forms,
    its padding rows and a second call bit for bit, its launch shape (the
    blocks the card runs at once); the weight-gradient kernel also at W_i's
    shape (128 input columns), at a ragged and at a short table, each twice,
@@ -31,8 +35,9 @@ failure:
    padding rows zero where H0's are, and its launch shape (clusters of one
    block per W slice); the machine code of the five Hopper kernels read for
    ``wgmma`` and TMA (the two chained iterations and the whole-iteration
-   backward also for bulk copies), and of the message over the tiles, the
-   segment sum and the node-cotangent backward for bulk copies
+   backward also for bulk copies), of the message over the tiles, the
+   segment sum and the node-cotangent backward for bulk copies, and of the
+   masked transposed message over the tiles for bulk copies and TMA
    (``cuobjdump -sass``);
 3. the serving path: ``python -m chemprop_tpu_torch.cli predict`` on the 100
    rows of mol.csv with the reference checkpoint
@@ -83,14 +88,16 @@ failure:
    step of each path, counted on their own; timing with CUDA events of each
    kernel, its plain version and the one PyTorch call that computes the same
    function, where there is one (the message's sparse product and F's,
-   the transposed one, the weight
+   the transposed one, in both dtypes, the weight
    gradient at W_h's and W_i's shapes, the segment sum at both readouts),
-   the message without a table, the unfused routes of the fused iteration,
+   F's two-call library route (the mask, then the sparse product), the
+   message and F without a table, the unfused routes of the fused iteration,
    of the two tiled backward kernels and of the whole-iteration backward,
    and the device time of the message in both dtypes and both forms, of the
    segment sum, of the node-cotangent backward, of the two chained
-   iterations, of the whole-iteration backward and of F (with its sparse
-   product, and in bfloat16 with the running dH0) from a trace; the
+   iterations, of the whole-iteration backward and of F in float32 and
+   bfloat16, each with and without the running dH0 and without a table,
+   with its sparse product, from a trace; the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
    (its W_h product composed through autograd).
@@ -148,7 +155,7 @@ KERNELS = {
         timed="sorted_segment_sum[edge->node,torch.bfloat16->torch.bfloat16]",
     ),
     "bwd_message": dict(
-        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        source="chemprop_tpu_torch/csrc/message_bwd_tiles.cu",
         replaces="chemprop_tpu/ops/fused_message.py:729",
         tpu_kernel="_bwd_msg_kernel via _bwd_msg_impl",
         timed="bwd_message[float32,acc=False,G]",
@@ -347,6 +354,22 @@ def bwd_nodes_bytes(bmg, d: int) -> int:
     return (n_real + owners + 2 * bmg.E.shape[0]) * d * 2 + 8 * n_real + 4 * (n_tiles + 1) + 4
 
 
+def bwd_message_bytes(bmg, d: int, itemsize: int, acc: bool = False, masked: bool = True) -> int:
+    """The bytes kernel F (``bwd_message`` over the tile table) must move at
+    width ``d`` in a dtype of ``itemsize`` bytes: ``g`` read over the real
+    rows, with ``masked`` (a depth iteration's F) ``y`` read over the real
+    rows and ``gz`` written over every row, with ``acc`` ``gz_acc`` read over
+    the real rows, ``G`` written over every row (the padding rows as zeros,
+    with no load), ``dst`` and ``rev`` of the real rows, the tile table, and
+    the one entry of ``ptr`` that marks the first padding row. Unmasked (the
+    message's own backward) it forms ``G`` alone."""
+    n_real = int(bmg.edge_mask.sum())
+    n_tiles = bmg.tile_ptr.numel() - 1
+    reads = n_real * (1 + int(masked) + int(acc))
+    writes = bmg.E.shape[0] * (1 + int(masked))
+    return (reads + writes) * d * itemsize + 8 * n_real + 4 * (n_tiles + 1) + 4
+
+
 def iter_bwd_bytes(bmg, d: int) -> int:
     """The bytes kernel E (``iter_bwd`` over the tile table) must move at
     width ``d``: ``g``, ``y`` and ``H`` read over the real rows, ``dH`` and
@@ -448,6 +471,7 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     )
     from chemprop_tpu_torch.ops.gather import row_gather_plain
     from chemprop_tpu_torch.ops.grad_weight import grad_weight_plain
+    from chemprop_tpu_torch.ops.message import _transposed as transposed
     from chemprop_tpu_torch.ops.message import (
         bwd_message_nodes_plain, bwd_message_plain, bwd_message_premul_plain,
         fused_iter2_plain, fused_iter_plain, iter_bwd_plain, message_plain,
@@ -549,21 +573,38 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
         if any(t[pad_rows].any() for t in tables):
             fail(f"{tag}: a padding row is not zero")
 
-    # F. f32: only the summation order differs; bf16: f32 sums rounded once, so
-    # a sum taken in another order may round to the neighbouring bf16 value
+    # F over the batch's tile table. f32: only the summation order differs;
+    # bf16: f32 sums rounded once, so a sum taken in another order may round
+    # to the neighbouring bf16 value. The node-warp form of message_bwd.cu (a
+    # batch without a table) sums the same values in the same order: the same
+    # bits on every row, and a second call the same bits again. Beside the
+    # masked forms, the message's own backward (no mask, no gz)
     for tag, gg, yy, acc, rtol, atol in (
         ("float32,acc=False", g32, y32, None, 1e-5, 1e-5),
         ("float32,acc=True", g32, y32, acc32, 1e-5, 1e-5),
         ("bfloat16,acc=False", gb, yb, None, BF16_ULP, 1e-6),
         ("bfloat16,acc=True", gb, yb, accb, BF16_ULP, 1e-6),
     ):
-        G, gz = bwd_message(gg, yy, *graph, gz_acc=acc)
+        G, gz = bwd_message(gg, yy, *graph, gz_acc=acc, tiles=bmg.tile_ptr)
         want_G, want_gz = bwd_message_plain(gg, yy, *graph, gz_acc=acc)
         check(f"bwd_message[{tag},G]", G, want_G, rtol, atol, errs)
         check(f"bwd_message[{tag},gz]", gz, want_gz, rtol, atol, errs)
         zeros_on_padding(f"bwd_message[{tag}]", G, gz)
+        node_warp = bwd_message(gg, yy, *graph, gz_acc=acc)
+        if not (torch.equal(G, node_warp[0]) and torch.equal(gz, node_warp[1])):
+            fail(f"bwd_message[{tag}]: the tiled and the node-warp form differ")
+        again = bwd_message(gg, yy, *graph, gz_acc=acc, tiles=bmg.tile_ptr)
+        if not (torch.equal(G, again[0]) and torch.equal(gz, again[1])):
+            fail(f"bwd_message[{tag}]: two calls differ")
         if tag == "float32,acc=False":
             want_G32 = want_G
+    for tag, gg, rtol, atol in (("float32", g32, 1e-5, 1e-5), ("bfloat16", gb, BF16_ULP, 1e-6)):
+        G = transposed(gg, None, None, graph, bmg.tile_ptr, with_gz=False)[0]
+        check(f"bwd_message[{tag},unmasked,G]", G, bwd_message_plain(gg, None, *graph)[0], rtol,
+              atol, errs)
+        zeros_on_padding(f"bwd_message[{tag},unmasked]", G)
+        if not torch.equal(G, transposed(gg, None, None, graph, None, with_gz=False)[0]):
+            fail(f"bwd_message[{tag},unmasked]: the tiled and the node-warp form differ")
     # F's library yardstick: the sparse product of (S - R)^T, in CSR form,
     # with the masked cotangent computes G in one call (f32, summation order)
     SRt = SR.to_sparse_coo().t().coalesce().to_sparse_csr()
@@ -1494,36 +1535,48 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     )
     out["sorted_segment_sum_counts"]["share_of_bound"] = (
         b_ms / out["sorted_segment_sum_counts"]["ms"])
-    # F, f32 as in the float32 training step: g and y read (and gz_acc, in
-    # the second call of a step), G and gz written; rev and ptr read. Per real
-    # row and element: one add into the node's sum, one subtraction, one mask
-    f_ids = 4 * (n_e + n_v + 1)
-    b_ms, b_by = bound(4 * n_e * d * 4 + f_ids, 3 * n_real * d, f32_peak)
-    b_acc, _ = bound(5 * n_e * d * 4 + f_ids, 4 * n_real * d, f32_peak)
-    # The library call beside it: the sparse product of (S - R)^T with the
-    # masked cotangent (G only; the mask is formed outside the timed call).
-    # bf16 as the depth loop's backward calls it: with gz_acc read as well
-    out["bwd_message"] = dict(
-        ms=time_ms(lambda: bwd_message(t["g32"], t["y32"], *graph), reps),
-        plain_ms=time_ms(lambda: bwd_message_plain(t["g32"], t["y32"], *graph), reps),
-        library_ms=time_ms(lambda: torch.sparse.mm(t["SRt"], t["gz32m"]), reps),
-        library="torch.sparse.mm((S - R)^T in CSR, g * [y > 0])",
-        bound_ms=b_ms, bound_by=b_by, shape=[n_e, d], dtype="float32",
-        with_gz_acc=dict(
-            ms=time_ms(lambda: bwd_message(t["g32"], t["y32"], *graph, gz_acc=t["acc32"]), reps),
-            bound_ms=b_acc,
-        ),
-        bfloat16=dict(
-            ms=time_ms(lambda: bwd_message(t["gb"], t["yb"], *graph), reps),
-            bound_ms=bound(4 * n_e * d * 2 + f_ids, 3 * n_real * d, f32_peak)[0],
-            with_gz_acc=dict(
-                ms=time_ms(lambda: bwd_message(t["gb"], t["yb"], *graph, gz_acc=t["accb"]),
-                           reps),
-                bound_ms=bound(5 * n_e * d * 2 + f_ids, 4 * n_real * d, f32_peak)[0],
-            ),
-        ),
-    )
-    out["bwd_message"]["share_of_bound"] = b_ms / out["bwd_message"]["ms"]
+    # F over the batch's tile table (bwd_message_bytes): f32 as in the float32
+    # training step, bf16 as in the bf16 dropout step, and each with gz_acc
+    # as the depth loop's (and the f32 chain's) second call; per real row and
+    # element an add into the node's sum, a subtraction and a mask (and the
+    # add of gz_acc). Beside it the node-warp form (a batch without a table)
+    # and two library routes: the one call that forms G alone, the sparse
+    # product of (S - R)^T in CSR with the masked cotangent (made outside the
+    # timed call), and the two calls that form both outputs, the mask (with
+    # gz_acc added) and then that product
+    def f_times(gg, yy, acc):
+        isz = gg.element_size()
+        b_ms, b_by = bound(bwd_message_bytes(bmg, d, isz, acc is not None),
+                           (3 + int(acc is not None)) * n_real * d, f32_peak)
+        ms = time_ms(lambda: bwd_message(gg, yy, *graph, gz_acc=acc, tiles=bmg.tile_ptr), reps)
+        res = dict(
+            ms=ms, plain_ms=time_ms(lambda: bwd_message_plain(gg, yy, *graph, gz_acc=acc), reps),
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms, shape=[n_e, d],
+            dtype=str(gg.dtype).removeprefix("torch."),
+            without_tiles=dict(ms=time_ms(lambda: bwd_message(gg, yy, *graph, gz_acc=acc),
+                                          reps)))
+        gzm = gg * (yy > 0)
+        try:  # the matrix is made once, outside the timed calls
+            SRt = t["SRt"].to(gg.dtype)
+
+            def two_calls():
+                z = gg * (yy > 0)
+                return torch.sparse.mm(SRt, z), z if acc is None else z + acc
+
+            res["library_ms"] = time_ms(lambda: torch.sparse.mm(SRt, gzm), reps)
+            res["library_two_call_ms"] = time_ms(two_calls, reps)
+        except RuntimeError as e:  # the yardstick only: the card's PyTorch may refuse bf16
+            res["library_ms"] = res["library_two_call_ms"] = (
+                f"torch.sparse.mm refused {gg.dtype}: {e}".splitlines()[0])
+        return res
+
+    out["bwd_message"] = f_times(t["g32"], t["y32"], None)
+    out["bwd_message"]["with_gz_acc"] = f_times(t["g32"], t["y32"], t["acc32"])
+    out["bwd_message"]["bfloat16"] = f_times(t["gb"], t["yb"], None)
+    out["bwd_message"]["bfloat16"]["with_gz_acc"] = f_times(t["gb"], t["yb"], t["accb"])
+    out["bwd_message"]["library"] = "torch.sparse.mm((S - R)^T in CSR, g * [y > 0]): G alone"
+    out["bwd_message"]["library_two_call"] = (
+        "g * [y > 0] (+ gz_acc), then torch.sparse.mm((S - R)^T in CSR, .): G and gz")
     # G, bf16, over the batch's tile table (bwd_nodes_bytes). Beside it the
     # form without a table and the unfused route: the node table gathered at
     # dst by index_select, then F
@@ -1538,7 +1591,7 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         without_tiles=dict(ms=time_ms(lambda: bwd_message_nodes(t["g_nodes"], t["yb"], *graph),
                                       reps), bound_ms=b_ms),
         composed_ms=time_ms(lambda: bwd_message(torch.index_select(t["g_nodes"], 0, dst64),
-                                                t["yb"], *graph), reps),
+                                                t["yb"], *graph, tiles=bmg.tile_ptr), reps),
     )
     out["bwd_message_nodes"]["share_of_bound"] = b_ms / out["bwd_message_nodes"]["ms"]
     # H with fold_h0, as at depth 3, over the batch's tile table: G_in, y and
@@ -1546,6 +1599,7 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     # W^T on the tensor cores. Without fold_h0 (from depth 4) H0 is not read.
     # Beside it the form without a tile table and the unfused route: a library
     # product dh = G_in W^T, F's masked transposed message, then z in PyTorch
+    f_ids = 4 * (n_e + n_v + 1)
     b_ms, b_by = bound(5 * n_e * d * 2 + d * d * 2 + f_ids, 2 * n_real * d * d, bf16_peak)
     b_nofold, _ = bound(4 * n_e * d * 2 + d * d * 2 + f_ids, 2 * n_real * d * d, bf16_peak)
 
@@ -1554,7 +1608,7 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
 
     def unfused_premul():
         dh = torch.mm(t["gb"], t["W"].t())
-        G, gz = bwd_message(dh, t["yb"], *graph)
+        G, gz = bwd_message(dh, t["yb"], *graph, tiles=bmg.tile_ptr)
         return G, gz + dh * (t["H0"] > 0)
 
     out["bwd_message_premul"] = dict(
@@ -1602,7 +1656,7 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
     b_ms, b_by = bound(iter_bwd_bytes(bmg, d), 4 * n_real * d * d, bf16_peak)
 
     def composed_bwd():
-        G, gz = bwd_message(t["gb"], t["yb"], *graph)
+        G, gz = bwd_message(t["gb"], t["yb"], *graph, tiles=bmg.tile_ptr)
         return G @ t["W"].t(), gz, grad_weight(t["Hx"], G)
 
     def e_bwd(tiles=bmg.tile_ptr):
@@ -1708,8 +1762,8 @@ def main() -> int:
     )
     from chemprop_tpu_torch.ops.build import sass_contains
     from chemprop_tpu_torch.ops.message import (
-        bwd_message_nodes_info, bwd_message_premul_info, fused_iter2, fused_iter2_info,
-        fused_iter_info, iter_bwd_info, message, message_info,
+        bwd_message_info, bwd_message_nodes_info, bwd_message_premul_info, fused_iter2,
+        fused_iter2_info, fused_iter_info, iter_bwd_info, message, message_info,
     )
     from chemprop_tpu_torch.ops.segment import sorted_segment_sum_info
 
@@ -1727,13 +1781,15 @@ def main() -> int:
     # B's, D's, H's, J's and E's products run on wgmma (HGMMA), and W, W^T,
     # H0, G_in, J's tables and E's g, y, H and W come in by TMA (UTMALDG); C's
     # ranges and A's and G's tiles come in by bulk copies (UBLKCP), and so do
-    # E's G and D's message stages from the other blocks of their clusters
+    # E's G and D's message stages from the other blocks of their clusters;
+    # F's column slices come in by TMA boxes, its whole tiles by bulk copies
     sass = {}
     for name, opcodes in (("fused_iter", ("HGMMA", "UTMALDG")),
                           ("iter2", ("HGMMA", "UTMALDG", "UBLKCP")),
                           ("bwd_premul", ("HGMMA", "UTMALDG")),
                           ("grad_weight", ("HGMMA", "UTMALDG")), ("segment", ("UBLKCP",)),
                           ("bwd_nodes", ("UBLKCP",)), ("message_tiles", ("UBLKCP",)),
+                          ("message_bwd_tiles", ("UBLKCP", "UTMALDG")),
                           ("iter_bwd", ("HGMMA", "UTMALDG", "UBLKCP"))):
         print(json.dumps({"build": f"csrc/{name}.cu", "seconds": logs[name][1]}))
         sass[name] = sass_contains(name, opcodes)
@@ -1774,6 +1830,13 @@ def main() -> int:
     # runs at once
     iter_bwd_launch = iter_bwd_info(d, bmg.tile_ptr.numel() - 1)
     print(json.dumps({"iter_bwd_launch": iter_bwd_launch}))
+    # F's persistent grid over the same tiles, in both dtypes, with g alone
+    # (the message's backward), g and y, and g, y and gz_acc staged
+    bwd_message_launch = {
+        f"{str(dt).removeprefix('torch.')},tables={k}": bwd_message_info(
+            d, dt, bmg.tile_ptr.numel() - 1, k)
+        for dt in (torch.bfloat16, torch.float32) for k in (1, 2, 3)}
+    print(json.dumps({"bwd_message_launch": bwd_message_launch}))
     # A's persistent grid over the same tiles, in both dtypes
     message_launch = {
         str(dt).removeprefix("torch."): message_info(d, dt, bmg.tile_ptr.numel() - 1)
@@ -1802,8 +1865,8 @@ def main() -> int:
     dropout_step_res = dropout_step_against_cpu(ds)
     extras_launches, extras_res = extras_phase(ds, bmg, out_dir)
     launches.update(extras_launches)
-    # the timings take A's form without a table on purpose: the main paths'
-    # unserved calls are read before them, the benchmark steps' after
+    # the timings take A's and F's forms without a table on purpose: the main
+    # paths' unserved calls are read before them, the benchmark steps' after
     unserved = dict(UNSERVED)
 
     times = timings(bmg, tensors, d, args.reps, kind)
@@ -1831,12 +1894,19 @@ def main() -> int:
         lambda: iter_bwd(tensors["gb"], tensors["yb"], tensors["Hx"], tensors["W"], bmg.src,
                          bmg.dst, bmg.rev, bmg.edge_ptr, tiles=bmg.tile_ptr))
     graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
-    # F's device time (f32; bf16 with gz_acc) and its sparse yardstick's
+    # F's device time in its four forms, over the tile table and without one,
+    # and the sparse yardstick's
     F = times["bwd_message"]
-    F["device_ms"] = device_ms(lambda: bwd_message(tensors["g32"], tensors["y32"], *graph))
-    F["library_device_ms"] = device_ms(lambda: torch.sparse.mm(tensors["SRt"], tensors["gz32m"]))
-    F["bfloat16"]["with_gz_acc"]["device_ms"] = device_ms(
-        lambda: bwd_message(tensors["gb"], tensors["yb"], *graph, gz_acc=tensors["accb"]))
+    for entry, gg, yy, acc in ((F, "g32", "y32", None), (F["with_gz_acc"], "g32", "y32", "acc32"),
+                               (F["bfloat16"], "gb", "yb", None),
+                               (F["bfloat16"]["with_gz_acc"], "gb", "yb", "accb")):
+        args = (tensors[gg], tensors[yy], *graph)
+        kw = {"gz_acc": tensors[acc] if acc else None}
+        entry["device_ms"] = device_ms(lambda: bwd_message(*args, **kw, tiles=bmg.tile_ptr))
+        entry["without_tiles"]["device_ms"] = device_ms(lambda: bwd_message(*args, **kw))
+        if not isinstance(entry["library_ms"], str):
+            SRt, gzm = tensors["SRt"].to(tensors[gg].dtype), tensors[gg] * (tensors[yy] > 0)
+            entry["library_device_ms"] = device_ms(lambda: torch.sparse.mm(SRt, gzm))
     # A's device time in both dtypes, in both forms, and the sparse product's
     for entry, x in ((times["message"], tensors["H"]),
                      (times["message"]["float32"], tensors["H32"])):
@@ -1846,8 +1916,8 @@ def main() -> int:
             SR = tensors["SR"].to(x.dtype)
             entry["library_device_ms"] = device_ms(lambda: torch.sparse.mm(SR, x))
     print(json.dumps({"unserved": unserved}))
-    for name in ("message", "fused_iter2", "bwd_message_premul", "bwd_message_nodes", "iter_bwd",
-                 "row_gather"):
+    for name in ("message", "fused_iter2", "bwd_message", "bwd_message_premul",
+                 "bwd_message_nodes", "iter_bwd", "row_gather"):
         if unserved.get(name, 0):
             fail(f"{name} left {unserved[name]} batches unserved")
 
@@ -1880,7 +1950,7 @@ def main() -> int:
               "sass": sass, "fused_iter_launch": launch, "fused_iter2_launch": iter2_launch,
               "bwd_message_premul_launch": premul_launch,
               "bwd_message_nodes_launch": nodes_launch, "iter_bwd_launch": iter_bwd_launch,
-              "message_launch": message_launch,
+              "message_launch": message_launch, "bwd_message_launch": bwd_message_launch,
               "sorted_segment_sum_launch": seg_launch, "unserved": unserved,
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,

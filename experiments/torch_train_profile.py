@@ -58,6 +58,7 @@ OWN_KERNELS = {
     "fused_iter_kernel": "B fused_iter",
     "seg_kernel": "C sorted_segment_sum",
     "bwd_premul_kernel": "H bwd_message_premul (one launch over the tiles)",
+    "bwd_tiles_kernel": "F bwd_message (one launch over the tiles)",
     "bwd_message_kernel": "F/G node pass (bwd_message*; H's without a tile table)",
     "row_gather_kernel": "I row_gather",
     "iter2_kernel": "D fused_iter2 (clusters over the tiles)",

@@ -1440,3 +1440,240 @@ def test_window_gather_serves_the_descriptor_model(bmg, cuda):
             outs.append(mp(b, V_d))
         assert LAUNCHES["row_gather"] == int(on) and UNSERVED["row_gather"] == 0
     assert torch.equal(outs[0], outs[1])
+
+
+# ------------------------------------------- F (bwd_message) over the tiles
+def _graph_of(mols, n_pad, tiles):
+    """``(src, dst, rev, ptr)`` of molecules given as bond lists, sorted by
+    dst, then ``n_pad`` padding rows, and the tile table ``tiles``."""
+    src, dst, rev, n_atoms, n_rows = [], [], [], 0, 0
+    for bonds in mols:
+        nb = len(bonds)
+        s = [a for a, _ in bonds] + [b for _, b in bonds]
+        t = [b for _, b in bonds] + [a for a, _ in bonds]
+        order = np.argsort(np.asarray(t), kind="stable")
+        inv = np.empty_like(order)
+        inv[order] = np.arange(2 * nb)
+        r = np.concatenate([np.arange(nb, 2 * nb), np.arange(nb)])
+        src += list(np.asarray(s)[order] + n_atoms)
+        dst += list(np.asarray(t)[order] + n_atoms)
+        rev += list(inv[r[order]] + n_rows)
+        n_atoms += max(max(a, b) for a, b in bonds) + 1
+        n_rows += 2 * nb
+    pad_node = n_atoms
+    src += [pad_node] * n_pad
+    dst += [pad_node] * n_pad
+    rev += list(range(n_rows, n_rows + n_pad))
+    ptr = np.searchsorted(np.asarray(dst), np.arange(pad_node + 2), side="left")
+    return tuple(np.asarray(x, np.int32) for x in (src, dst, rev, ptr, tiles))
+
+
+def _every_tile_size_graph(device):
+    """Tiles of every size from 1 to 128 rows: a chain of b bonds alone in a
+    tile of 2 b rows (b = 1 .. 64: every even size, 128 included), a chain of
+    one bond with the first padding row (a tile of 3 rows), then padding
+    tiles of every size from 1 to 128."""
+    mols = [[(i, i + 1) for i in range(b)] for b in range(1, 65)] + [[(0, 1)]]
+    sizes = [2 * b for b in range(1, 65)] + [3] + list(range(1, 129))
+    n_pad = 1 + sum(range(1, 129))
+    tiles = np.concatenate([[0], np.cumsum(sizes)])
+    assert tiles[-1] == sum(2 * len(m) for m in mols) + n_pad
+    return tuple(torch.from_numpy(x).to(device) for x in _graph_of(mols, n_pad, tiles))
+
+
+F_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _f_inputs(n, d, dtype, device, seed=120):
+    g = _randn((n, d), seed, device, dtype)
+    y = _randn((n, d), seed + 1, device, dtype).clamp_min(0)  # a ReLU output
+    acc = _randn((n, d), seed + 2, device, dtype)
+    return g, y, acc
+
+
+def _check_f(g, y, acc, graph, tiles, with_gz=True):
+    """F with the tile table against the node-warp form of message_bwd.cu bit
+    for bit on every row, and against the plain version (float32: summation
+    order only; bfloat16: f32 sums rounded once, one ulp); padding rows exact
+    zeros; a second call the same bits; one launch, nothing unserved."""
+    from chemprop_tpu_torch.ops.message import _transposed
+
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    G, gz = _transposed(g, y, acc, graph, tiles, with_gz=with_gz)
+    assert LAUNCHES["bwd_message"] == 1 and UNSERVED["bwd_message"] == 0
+    assert (gz is not None) == with_gz and G.dtype == g.dtype
+    G2, gz2 = _transposed(g, y, acc, graph, None, with_gz=with_gz)  # the node-warp form
+    assert UNSERVED["bwd_message"] == 1
+    assert torch.equal(G, G2)
+    want_G, want_gz = bwd_message_plain(g, y, *graph, gz_acc=acc)
+    rtol, atol = (1e-5, 1e-5) if g.dtype == torch.float32 else (BF16_ULP, 1e-6)
+    torch.testing.assert_close(G.float(), want_G.float(), rtol=rtol, atol=atol)
+    pad = graph[1] == graph[3].numel() - 2
+    assert not G[pad].any()
+    G3, gz3 = _transposed(g, y, acc, graph, tiles, with_gz=with_gz)
+    assert torch.equal(G, G3)
+    if with_gz:
+        assert torch.equal(gz, gz2) and torch.equal(gz, gz3)
+        torch.testing.assert_close(gz.float(), want_gz.float(), rtol=rtol, atol=atol)
+        assert not gz[pad].any()
+    return G, gz
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+@pytest.mark.parametrize("with_gz", [True, False], ids=["gz", "no_gz"])
+@pytest.mark.parametrize("with_acc", [False, True], ids=["no_acc", "acc"])
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("dtype", F_DTYPES)
+def test_tiled_bwd_message_matches_the_node_warp_form(bmg, cuda, dtype, masked, with_acc,
+                                                      with_gz, d):
+    g, y, acc = _f_inputs(bmg.E.shape[0], d, dtype, cuda)
+    _check_f(g, y if masked else None, acc if with_acc else None, _graph(bmg), bmg.tile_ptr,
+             with_gz)
+
+
+@pytest.mark.parametrize("d", [128, 384, 512])
+@pytest.mark.parametrize("dtype", F_DTYPES)
+def test_tiled_bwd_message_tiles_of_every_size(cuda, dtype, d):
+    *graph, tiles = _every_tile_size_graph(cuda)
+    assert sorted(set((tiles[1:] - tiles[:-1]).tolist())) == list(range(1, 129))
+    g, y, acc = _f_inputs(graph[0].shape[0], d, dtype, cuda, seed=121)
+    for a in (None, acc):
+        _check_f(g, y, a, tuple(graph), tiles)
+    # a star whose hub has 64 in-edges: sums longer than the four read at once
+    *graph, tiles = _tiled_graph(cuda)
+    g, y, acc = _f_inputs(graph[0].shape[0], d, dtype, cuda, seed=122)
+    _check_f(g, y, acc, tuple(graph), tiles)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("dtype", F_DTYPES)
+@pytest.mark.parametrize("case", sorted(NODE_LAYOUTS))
+def test_tiled_bwd_message_layouts(cuda, case, dtype, d):
+    """Salts, one-atom molecules ("C") and a run of 200 "C" in one tile."""
+    b = _node_layout_bmg(case, cuda)
+    g, y, acc = _f_inputs(b.E.shape[0], d, dtype, cuda, seed=123)
+    _check_f(g, y, acc, _graph(b), b.tile_ptr)
+
+
+@pytest.mark.parametrize("dtype", F_DTYPES)
+def test_tiled_bwd_message_benchmark_batch(cuda, bench_bmg, dtype):
+    """The main path's shape: the benchmark batch's table at d = 384, with and
+    without gz_acc, the same bits in repeated calls, and the launch shape:
+    g and y (and gz_acc) staged in column slices by TMA boxes of 32 rows
+    (then of 8; bfloat16: two
+    of 192 columns, three of 128 with gz_acc; float32: four of 96, six of
+    64), two stages; the message's own backward (g alone) in bfloat16 one
+    copy of each whole tile."""
+    from chemprop_tpu_torch.ops.message import bwd_message_info
+
+    b = bench_bmg
+    g, y, acc = _f_inputs(b.E.shape[0], 384, dtype, cuda, seed=124)
+    for a in (None, acc):
+        G, gz = _check_f(g, y, a, _graph(b), b.tile_ptr)
+        for _ in range(2):
+            again = bwd_message(g, y, *_graph(b), gz_acc=a, tiles=b.tile_ptr)
+            assert torch.equal(G, again[0]) and torch.equal(gz, again[1])
+    bf16 = dtype == torch.bfloat16
+    for tables, slices in ((1, 1 if bf16 else 2), (2, 2 if bf16 else 4), (3, 3 if bf16 else 6)):
+        info = bwd_message_info(384, dtype, b.tile_ptr.numel() - 1, tables)
+        assert info["slices"] == slices
+        assert info["box_rows"] == (0 if slices == 1 else 32)
+        assert info["stages"] >= 2 and info["blocks_per_sm"] >= 1
+        assert info["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("dtype", F_DTYPES)
+@pytest.mark.parametrize("d", [128, 384])
+def test_tiled_bwd_message_flags_every_row_it_cannot_form(any_bmg, cuda, dtype, d):
+    """A table that passes check_tiles but cuts molecules (a tile every 40
+    rows): every row of a node with an in-edge, or the reverse of one,
+    outside its tile is NaN in G, whole; every other row has the bits of the
+    node-warp form, and gz is whole everywhere."""
+    b = any_bmg
+    n = b.E.shape[0]
+    tiles = torch.tensor(list(range(0, n, 40)) + [n], dtype=torch.int32)
+    g, y, acc = _f_inputs(n, d, dtype, cuda, seed=125)
+    G, gz = bwd_message(g, y, *_graph(b), gz_acc=acc, tiles=tiles.to(cuda))
+    want_G, want_gz = bwd_message(g, y, *_graph(b), gz_acc=acc)
+    assert torch.equal(gz, want_gz)
+    rev, ptr = b.rev.cpu().long(), b.edge_ptr.cpu().long()
+    tile = torch.bucketize(torch.arange(n), tiles[1:].long(), right=True)
+    first_pad = int(ptr[-2])
+    want_bad = torch.zeros(n, dtype=torch.bool)
+    for v in range(b.V.shape[0] - 1):
+        ins = torch.arange(int(ptr[v]), int(ptr[v + 1]))
+        if ins.numel():
+            home = tile[ins[0]]
+            want_bad[ins] = not ((tile[ins] == home).all() and (tile[rev[ins]] == home).all())
+    assert want_bad.any() and not want_bad[:first_pad].all()
+    nan = G.isnan().cpu()
+    assert torch.equal(nan.any(1), want_bad) and torch.equal(nan.all(1), want_bad)
+    assert torch.equal(G[~want_bad.to(cuda)], want_G[~want_bad.to(cuda)])
+
+
+def test_tiled_bwd_message_raises_instead_of_falling_back(bmg, cuda):
+    n = bmg.E.shape[0]
+    z = torch.zeros((n, 128), device=cuda)
+    with pytest.raises(ValueError):  # the table on another device
+        bwd_message(z, z, *_graph(bmg), tiles=bmg.tile_ptr.cpu())
+    short = bmg.tile_ptr.clone()
+    short[-1] -= 1  # a table that ends short of the rows, read back from the card
+    with pytest.raises(ValueError):
+        bwd_message(z, z, *_graph(bmg), tiles=short)
+    wide = torch.tensor([0, ITER2_TILE_ROWS + 1, n], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # a tile of more rows than the kernel holds
+        bwd_message(z, z, *_graph(bmg), tiles=wide)
+    with pytest.raises(TypeError):
+        bwd_message(z.half(), z.half(), *_graph(bmg), tiles=bmg.tile_ptr)
+
+
+@pytest.mark.parametrize("dtype", F_DTYPES)
+def test_a_width_or_a_batch_the_tiled_bwd_message_does_not_take(bmg, cuda, dtype):
+    """d = 64 with a table, and a batch without one: the node-warp form, each
+    call counted in UNSERVED, the plain version's values."""
+    big = _big_bmg(cuda)
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (BF16_ULP, 1e-6)
+    for b, d in ((bmg, 64), (big, 128)):
+        g, y, acc = _f_inputs(b.E.shape[0], d, dtype, cuda, seed=126)
+        UNSERVED.clear()
+        LAUNCHES.clear()
+        G, gz = bwd_message(g, y, *_graph(b), gz_acc=acc, tiles=b.tile_ptr)
+        assert LAUNCHES["bwd_message"] == 1 and UNSERVED["bwd_message"] == 1
+        want_G, want_gz = bwd_message_plain(g, y, *_graph(b), gz_acc=acc)
+        torch.testing.assert_close(G.float(), want_G.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(gz.float(), want_gz.float(), rtol=rtol, atol=atol)
+
+
+# each training route that runs F: dtype, dropout, options, other arguments,
+# and F's launches in one step
+F_ROUTES = {
+    "float32": (torch.float32, 0.0, {}, {}, 2),
+    "float32_dropout": (torch.float32, 0.1, {}, {}, 2),
+    "bfloat16_dropout": (torch.bfloat16, 0.1, {}, {}, 2),
+    "bfloat16_dropout_fused_bwd": (torch.bfloat16, 0.1, dict(fused_bwd=True), {}, 1),
+    "bfloat16_per_iteration": (torch.bfloat16, 0.0, dict(fused_readout=False), {}, 2),
+    "float32_depth_loop": (torch.float32, 0.0, dict(depth_loop=True), {}, 2),
+    "bfloat16_depth_loop": (torch.bfloat16, 0.0, dict(depth_loop=True), {}, 2),
+    "bfloat16_tanh": (torch.bfloat16, 0.0, {}, dict(activation="tanh"), 2),
+    "float32_undirected": (torch.float32, 0.0, {}, dict(undirected=True), 2),
+}
+
+
+@pytest.mark.parametrize("route", sorted(F_ROUTES))
+def test_every_training_route_serves_f_over_the_tiles(cuda, bench_bmg, route):
+    """One training step's forward and backward of message passing at the
+    benchmark batch: F's launches as the route makes them, none of them
+    without the tile table."""
+    from chemprop_tpu_torch.nn import BondMessagePassing
+
+    dtype, dropout, options, kwargs, launches = F_ROUTES[route]
+    mp = BondMessagePassing(d_h=300, compute_dtype=dtype, dropout=dropout,
+                            kernel_options=KernelOptions(**options), **kwargs).to(cuda)
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    out = mp(bench_bmg, is_training=True,
+             generator=torch.Generator(device=cuda).manual_seed(0))
+    grads = torch.autograd.grad(out.float().sum(), list(mp.parameters()))
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    assert LAUNCHES["bwd_message"] == launches and UNSERVED["bwd_message"] == 0
