@@ -66,8 +66,11 @@
 // row of a node whose in-edges, or their reverses, are not all inside its
 // tile gets NaN in G: no row it cannot form comes out finite.
 //
-// Without a tile table (a batch holding a molecule of more than 128 rows) the
-// caller takes the node-warp form of message_bwd.cu.
+// With a split table, whose tiles cut a molecule of more than 128 rows at its
+// nodes' boundaries, the rows whose sum reads a row of another tile get NaN
+// as above, and the caller forms them again from the gz written out
+// (cross_rows of message_bwd.cu). Without any tile table the caller takes the
+// node-warp form of message_bwd.cu.
 #include "sm90.cuh"
 #include "tiles.cuh"
 

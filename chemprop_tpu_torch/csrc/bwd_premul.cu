@@ -55,6 +55,11 @@
 // of padding rows takes no product. Every output row is written by one block
 // in one fixed order with no atomics: two calls give the same bits.
 //
+// With a split table, whose tiles cut a molecule of more than 128 rows at its
+// nodes' boundaries, a row whose sum reads a row of another tile comes out
+// wrong (NaN, or the sum of rows of its own tile); the caller, which knows
+// those rows, forms them again from gz, which the launch then writes out too.
+//
 // Without a tile table (a batch holding a molecule of more than 128 rows) the
 // same kernel runs over fixed 128-row tiles and writes gz out (into z itself
 // without fold_h0); the caller then forms G with the node pass of
@@ -503,7 +508,10 @@ static int pm_tiles(int n_edges, int n_table) {
 // * with a tile table of n_table tiles (ascending row offsets from 0 to
 //   n_edges, at most 128 rows each, no molecule in two tiles): G and z;
 // * with tiles null (n_table 0): z, and gz into gz_out (null without H0:
-//   then z is gz); the caller forms G from gz with bwd_message.
+//   then z is gz); the caller forms G from gz with bwd_message;
+// * with a split table (a molecule cut at its nodes' boundaries) and gz_out
+//   (or z, without H0): G at every row that reads only its tile, z, and gz;
+//   the caller forms G at the other rows with cross_rows (message_bwd.cu).
 extern "C" int bwd_premul(const void* G_in, const void* y, const void* H0, const void* W,
                           const int* dst, const int* rev, const int* ptr, const int* tiles,
                           void* G, void* z, void* gz_out, int n_edges, int d, int pad_node,

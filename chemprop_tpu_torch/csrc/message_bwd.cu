@@ -167,6 +167,48 @@ extern "C" int bwd_message(const void* g, const void* y, const void* acc, const 
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ cross rows
+// G at the listed rows only, from a bf16 gz table already in device memory:
+// the rows of a split tile table (a molecule of more than 128 rows cut at
+// its nodes' boundaries) whose sum reads a row of another tile, which the
+// tile kernels of bwd_nodes.cu and bwd_premul.cu cannot form inside their
+// tile. One warp per listed row sums gz[rev[j]] over the in-edges j of the
+// row's node in f32 in row order, less gz[rev[e]], rounded once: the node
+// pass's sums in its order, so the bits every other row gets.
+__global__ void __launch_bounds__(NODE_THREADS)
+    cross_rows_kernel(const bf16* __restrict__ gz, const int* __restrict__ dst,
+                      const int* __restrict__ rev, const int* __restrict__ ptr,
+                      const int* __restrict__ rows, bf16* __restrict__ G, int n_rows, int d) {
+  const int w = (blockIdx.x * NODE_THREADS + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= n_rows) return;
+  const int nv = d >> 2, e = rows[w], v = dst[e];
+  float4 t[MAXV];
+  zero(t);
+  for (int j = ptr[v]; j < ptr[v + 1]; ++j) add_row(t, gz + (size_t)rev[j] * d, lane, nv, false);
+  const bf16* x = gz + (size_t)rev[e] * d;
+#pragma unroll
+  for (int i = 0; i < MAXV; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= nv) continue;
+    const float4 r = load4(x + 4 * c);
+    store4(G + (size_t)e * d + 4 * c,
+           make_float4(t[i].x - r.x, t[i].y - r.y, t[i].z - r.z, t[i].w - r.w));
+  }
+}
+
+// G [n_edges x d] at the n_rows rows listed in rows, from gz of the same
+// shape, both bf16; every other row of G is left as it is
+extern "C" int cross_rows(const void* gz, const int* dst, const int* rev, const int* ptr,
+                          const int* rows, void* G, int n_rows, int d, cudaStream_t stream) {
+  if (d % 4 != 0 || d > MAX_WIDTH || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  const int grid = (n_rows + NODE_THREADS / 32 - 1) / (NODE_THREADS / 32);
+  cross_rows_kernel<<<grid, NODE_THREADS, 0, stream>>>((const bf16*)gz, dst, rev, ptr, rows,
+                                                       (bf16*)G, n_rows, d);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------ G_tile W^T
 constexpr int BM = 64;   // edge rows per block
 constexpr int BN = 128;  // output columns per pass over W^T

@@ -17,7 +17,13 @@ pointers the CUDA kernels read: ``edge_ptr`` over the sorted ``dst``
 ``node_ptr`` over ``batch`` (the nodes of graph ``g``). A molecule's edge rows
 are contiguous (``edge_ptr[node_ptr[g]] .. edge_ptr[node_ptr[g+1]]``), and
 ``tile_ptr`` packs whole molecules into runs of at most ``ITER2_TILE_ROWS``
-rows for the chained two-iteration kernel (:func:`iter2_tiles`)."""
+rows for the chained two-iteration kernel (:func:`iter2_tiles`). A batch
+holding a molecule of more rows than that has no ``tile_ptr``; it carries
+``split_ptr`` instead, where such a molecule spans several tiles cut at its
+nodes' boundaries (:func:`split_tiles`), and ``cross_rows``, the rows whose
+transposed message reads a row of another tile (:func:`cross_rows`): the
+last iterations' backward kernels G and H take that table and form those
+rows in a second pass."""
 
 from __future__ import annotations
 
@@ -51,6 +57,11 @@ class BatchMolGraph:
     # (the row gather's zero rule); the collate always reserves it. None: not
     # known on the host, read from node_mask
     last_node_padding: bool | None = None
+    # where tile_ptr is None: [n_tiles + 1] int32 row offsets of tiles that
+    # cut the larger molecules at their nodes' boundaries, and the ascending
+    # int32 rows whose transposed message reads a row of another tile
+    split_ptr: torch.Tensor | None = None
+    cross_rows: torch.Tensor | None = None
 
     def __len__(self) -> int:
         return self.n_graphs
@@ -61,15 +72,18 @@ class BatchMolGraph:
         return self.last_node_padding
 
     def to(self, device: str | torch.device) -> "BatchMolGraph":
-        """The batch on ``device``; the tile table is checked before it moves,
-        so that the tile kernels need not read it back (``ops.message.tiles_to``)."""
+        """The batch on ``device``; the tile tables are checked before they
+        move, so that the tile kernels need not read them back
+        (``ops.message.tiles_to``)."""
+        tables = ("tile_ptr", "split_ptr")
         moved = {
             f.name: getattr(self, f.name).to(device, non_blocking=True)
             for f in fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor) and f.name != "tile_ptr"
+            if isinstance(getattr(self, f.name), torch.Tensor) and f.name not in tables
         }
-        if self.tile_ptr is not None:
-            moved["tile_ptr"] = tiles_to(self.tile_ptr, self.E.shape[0], device)
+        for name in tables:
+            if getattr(self, name) is not None:
+                moved[name] = tiles_to(getattr(self, name), self.E.shape[0], device)
         return replace(self, **moved)
 
 
@@ -94,10 +108,49 @@ def iter2_tiles(graph_ptr: np.ndarray, n_edges: int) -> np.ndarray | None:
     rows of molecule ``g``); the rows past ``graph_ptr[-1]``, the padding
     edges, are cut every ``ITER2_TILE_ROWS`` rows. None if a molecule has more
     rows than a tile."""
+    bounds = np.unique(np.asarray(graph_ptr, dtype=np.int64))
+    if bounds.size > 1 and np.diff(bounds).max() > ITER2_TILE_ROWS:
+        return None
+    return _pack_tiles(bounds, n_edges)
+
+
+def split_tiles(graph_ptr: np.ndarray, node_ptr: np.ndarray, n_edges: int) -> np.ndarray | None:
+    """:func:`iter2_tiles` for a batch that holds molecules of more rows than
+    a tile: such a molecule may be cut at the boundaries of its nodes
+    (``node_ptr[v] .. node_ptr[v+1]`` are the rows of node ``v``, its
+    in-edges), every other molecule stays whole. None if a node has more
+    rows than a tile."""
     tile = ITER2_TILE_ROWS
     bounds = np.unique(np.asarray(graph_ptr, dtype=np.int64))
+    node_ptr = np.asarray(node_ptr, dtype=np.int64)
+    cuts = [bounds]
+    for i in np.flatnonzero(np.diff(bounds) > tile):
+        lo, hi = bounds[i], bounds[i + 1]
+        cuts.append(node_ptr[(node_ptr > lo) & (node_ptr < hi)])
+    bounds = np.unique(np.concatenate(cuts))
     if bounds.size > 1 and np.diff(bounds).max() > tile:
         return None
+    return _pack_tiles(bounds, n_edges)
+
+
+def cross_rows(tiles: np.ndarray, dst: np.ndarray, rev: np.ndarray, n_real: int) -> np.ndarray:
+    """The real rows ``e`` of a tile table whose transposed message
+    ``sum_{j in in(dst[e])} gz[rev[j]] - gz[rev[e]]`` reads a row of another
+    tile: every row of a node one of whose in-edges has its reverse in
+    another tile (the node's own rows lie in one tile, and ``e`` is one of
+    them). Ascending int32; empty where no molecule spans two tiles."""
+    tile_of = np.searchsorted(tiles, np.arange(n_real), side="right") - 1
+    crossing = tile_of[rev[:n_real]] != tile_of
+    node_crosses = np.zeros(int(dst[:n_real].max(initial=-1)) + 1, dtype=bool)
+    node_crosses[dst[:n_real][crossing]] = True
+    return np.flatnonzero(node_crosses[dst[:n_real]]).astype(np.int32)
+
+
+def _pack_tiles(bounds: np.ndarray, n_edges: int) -> np.ndarray:
+    """Greedy tiles of at most ``ITER2_TILE_ROWS`` rows cut only at
+    ``bounds`` (ascending, no gap wider than a tile), then the rows past the
+    last bound every ``ITER2_TILE_ROWS`` rows."""
+    tile = ITER2_TILE_ROWS
     # the last boundary a tile that starts at boundary i can reach
     reach = np.searchsorted(bounds, bounds + tile, side="right") - 1
     offsets, i = [int(bounds[0])], 0
@@ -186,7 +239,13 @@ def batch_mol_graphs(
     node_ptr = np.searchsorted(batch, np.arange(pad.n_graphs + 2)).astype(np.int32)
     # rows of graph g; padding nodes other than the last own no edge, so the
     # last offset is the first padding row
-    tiles = iter2_tiles(edge_ptr[node_ptr[: pad.n_graphs + 1]], pad.n_edges)
+    graph_rows = edge_ptr[node_ptr[: pad.n_graphs + 1]]
+    tiles = iter2_tiles(graph_rows, pad.n_edges)
+    split = crossing = None
+    if tiles is None:
+        split = split_tiles(graph_rows, edge_ptr[: n_real_nodes + 1], pad.n_edges)
+        if split is not None:
+            crossing = cross_rows(split, dst, rev, n_real_edges)
 
     t = torch.from_numpy
     bmg = BatchMolGraph(
@@ -203,22 +262,23 @@ def batch_mol_graphs(
         n_graphs=pad.n_graphs,
         tile_ptr=None if tiles is None else t(tiles),
         last_node_padding=True,  # n_real_nodes < pad.n_nodes, checked above
+        split_ptr=None if split is None else t(split),
+        cross_rows=None if crossing is None else t(crossing),
     )
     return (bmg, perm) if return_perm else bmg
 
 
 class TrainingBatch(NamedTuple):
     """The JAX package's fields in its order, so that a batch unpacks the same
-    way: ``bmg, V_d, X_d, Y, w, lt_mask, gt_mask``. The bounded losses are not
-    ported, so ``lt_mask`` and ``gt_mask`` are always None."""
+    way: ``bmg, V_d, X_d, Y, w, lt_mask, gt_mask``."""
 
     bmg: BatchMolGraph
     V_d: torch.Tensor | None  # [N_pad, d_vd] float32 atom descriptors; padding rows 0
     X_d: torch.Tensor | None  # [B, d_xd] float32 molecule descriptors; padding rows 0
     Y: torch.Tensor | None  # [B, t] float32; padding rows are NaN, masked by isfinite
     w: torch.Tensor  # [B, 1] float32 sample weights; padding rows are 0
-    lt_mask: None = None
-    gt_mask: None = None
+    lt_mask: torch.Tensor | None = None  # [B, t] bool; padding rows False
+    gt_mask: torch.Tensor | None = None
 
     @property
     def pad_mask(self) -> np.ndarray:
@@ -230,15 +290,15 @@ class TrainingBatch(NamedTuple):
             return None if x is None else x.to(device, non_blocking=True)
 
         return TrainingBatch(self.bmg.to(device), move(self.V_d), move(self.X_d), move(self.Y),
-                             move(self.w))
+                             move(self.w), move(self.lt_mask), move(self.gt_mask))
 
 
 def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
     """Collate ``Datum`` tuples ``(mg, V_d, x_d, y, weight, lt_mask,
     gt_mask)`` into a padded :class:`TrainingBatch`. Padding samples get NaN
-    targets and zero weight, so that the masked loss ignores them; padding
-    rows of the descriptors are zero."""
-    mgs, V_ds, x_ds, ys, weights, *_ = zip(*data)
+    targets, zero weight and false bounds, so that the masked loss ignores
+    them; padding rows of the descriptors are zero."""
+    mgs, V_ds, x_ds, ys, weights, lt_masks, gt_masks = zip(*data)
     pad = pad or PadSpec.for_graphs(mgs)
     bmg = batch_mol_graphs(mgs, pad)
     b_real, b_pad = len(mgs), pad.n_graphs
@@ -261,4 +321,12 @@ def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
         Y[:b_real] = np.array(ys, dtype=np.float32)
     w = np.zeros((b_pad, 1), dtype=np.float32)
     w[:b_real, 0] = weights
-    return TrainingBatch(bmg, *(None if x is None else t(x) for x in (V_d, X_d, Y)), t(w))
+    bounds = []
+    for masks in (lt_masks, gt_masks):
+        m = None
+        if masks[0] is not None:
+            m = np.zeros((b_pad, len(masks[0])), dtype=bool)
+            m[:b_real] = np.array(masks)
+        bounds.append(m)
+    return TrainingBatch(bmg, *(None if x is None else t(x) for x in (V_d, X_d, Y)), t(w),
+                         *(None if m is None else t(m) for m in bounds))

@@ -1,6 +1,8 @@
 """Datapoint records (cf. ``chemprop_tpu/data/datapoints.py``): one sample is
-a molecule with its targets ``y`` (NaN encodes a missing task), a sample
-``weight`` and optional extra inputs: molecule descriptors ``x_d``, extra atom
+a molecule with its targets ``y`` (NaN encodes a missing task; a multiclass
+task's target is its class id), a sample ``weight``, the bounded losses'
+``lt_mask`` and ``gt_mask`` (per task: the target is an upper, or a lower,
+bound) and optional extra inputs: molecule descriptors ``x_d``, extra atom
 and bond features ``V_f`` and ``E_f`` (concatenated to the featurizer's
 before message passing) and atom descriptors ``V_d`` (after it). NaNs in the
 extra inputs become 0; targets keep them."""
@@ -27,6 +29,8 @@ class MoleculeDatapoint:
     mol: Mol
     y: np.ndarray | None = None
     weight: float = 1.0
+    gt_mask: np.ndarray | None = None
+    lt_mask: np.ndarray | None = None
     name: str | None = None
     x_d: np.ndarray | None = None
     V_f: np.ndarray | None = None
@@ -38,6 +42,9 @@ class MoleculeDatapoint:
             raise ValueError("mol is required")
         if self.y is not None:
             self.y = np.asarray(self.y, dtype=np.float64)
+        for key in ("gt_mask", "lt_mask"):
+            if getattr(self, key) is not None:
+                setattr(self, key, np.asarray(getattr(self, key), dtype=bool))
         self.x_d, self.V_f, self.E_f, self.V_d = map(
             _nan_to_zero, (self.x_d, self.V_f, self.E_f, self.V_d))
 

@@ -16,16 +16,15 @@ from chemprop_tpu_torch.types import MolGraph
 
 
 class Datum(NamedTuple):
-    """The JAX package's fields in its order; the bounded losses are not
-    ported, so ``lt_mask`` and ``gt_mask`` are always None."""
+    """The JAX package's fields in its order."""
 
     mg: MolGraph
     V_d: np.ndarray | None
     x_d: np.ndarray | None
     y: np.ndarray | None
     weight: float
-    lt_mask: None = None
-    gt_mask: None = None
+    lt_mask: np.ndarray | None = None
+    gt_mask: np.ndarray | None = None
 
 
 class StandardScaler:
@@ -71,7 +70,7 @@ class MoleculeDataset:
         d = self.data[idx]
         mg = self._cache[idx] if self._cache is not None else self._featurize(idx)
         return Datum(mg, self.V_ds[idx], self.X_d[idx], None if d.y is None else self.Y[idx],
-                     d.weight)
+                     d.weight, d.lt_mask, d.gt_mask)
 
     def _featurize(self, idx: int) -> MolGraph:
         return self.featurizer(self.data[idx].mol, self.V_fs[idx], self.E_fs[idx])

@@ -26,7 +26,7 @@ import torch
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
-from chemprop_tpu_torch.nn.predictors import RegressionFFN
+from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, PredictorRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.utils.device import resolve_device, use_full_float32
@@ -89,21 +89,28 @@ def _activation(v) -> str:
     return v.lower() if isinstance(v, str) else _cls_name(v).lower()
 
 
+# every head of the JAX package, by class name
+HEADS = {cls.__name__: cls for cls in PredictorRegistry.values()}
+
+
 def build_model(
     hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.float32,
     kernel_options: KernelOptions | None = None,
 ) -> MPNN:
-    """The port's MPNN for a reference single-molecule regression D-MPNN,
-    with its ``bias``, ``dropout``, ``undirected`` and both ``activation``
+    """The port's MPNN for a reference single-molecule D-MPNN with any of the
+    JAX package's heads (``n_classes`` for a multiclass one), with its
+    ``bias``, ``dropout``, ``undirected`` and both ``activation``
     hyperparameters (message passing's and the head's), atom descriptors
-    (``d_vd``), and the scaling transforms its state dict holds.
+    (``d_vd``), and the scaling transforms its state dict holds. As in the
+    JAX package's converter, the head's criterion is its default one.
     Anything the port does not run raises instead of loading wrongly."""
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
     unsupported = []
     if _cls_name(mp_hp["cls"]) != "BondMessagePassing":
         unsupported.append(f"message passing {_cls_name(mp_hp['cls'])}")
-    if _cls_name(p_hp["cls"]) != "RegressionFFN":
+    head = HEADS.get(_cls_name(p_hp["cls"]))
+    if head is None:
         unsupported.append(f"predictor {_cls_name(p_hp['cls'])}")
     if agg_name not in AGGREGATIONS:
         unsupported.append(f"aggregation {agg_name}")
@@ -137,7 +144,9 @@ def build_model(
     if agg_name == "NormAggregation":
         agg.norm = float(agg_hp.get("norm", 100.0))
     hidden = p_hp.get("hidden_dim", 300)
-    predictor = RegressionFFN(
+    multiclass = issubclass(head, MulticlassClassificationFFN)
+    extra = {"n_classes": int(p_hp.get("n_classes", 3))} if multiclass else {}
+    predictor = head(
         n_tasks=int(p_hp.get("n_tasks", 1)),
         input_dim=int(p_hp.get("input_dim", d_h)),
         hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
@@ -145,6 +154,7 @@ def build_model(
         output_transform="predictor.output_transform.mean" in sd,
         dropout=float(p_hp.get("dropout", 0.0)),
         activation=_activation(p_hp.get("activation", "relu")),
+        **extra,
     )
     return MPNN(mp, agg, predictor, batch_norm="bn.running_mean" in sd,
                 X_d_transform=transform("X_d_transform"))
@@ -188,8 +198,9 @@ def from_jax_params(
     norm, ``variables["batch_stats"]``) -> the port's state dict. Output
     unscaling and the activations are module configuration in JAX, not
     parameters, so they are not part of the result: the port's modules are
-    built with the JAX modules' activations (``RegressionFFN(activation=...)``
-    for the head), and the weights carry across unchanged."""
+    built with the JAX modules' activations (``activation=...`` of the head),
+    and the weights carry across unchanged. Every head keeps its MLP under
+    ``predictor/ffn``, so one mapping serves them all."""
 
     def t(x) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=np.float32))

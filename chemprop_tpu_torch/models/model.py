@@ -1,6 +1,8 @@
 """The MPNN: message passing -> aggregation -> [batch norm] -> predictor
-(cf. ``chemprop_tpu/models/model.py``). Gradients are on: a caller that only
-predicts wraps its calls in ``torch.inference_mode()``."""
+(cf. ``chemprop_tpu/models/model.py``), with any of ``nn.predictors``'s
+heads; each output keeps the head's trailing dimensions (``[n, t]``,
+``[n, t, k]``). Gradients are on: a caller that only predicts wraps its calls
+in ``torch.inference_mode()``."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from chemprop_tpu_torch.data.collate import BatchMolGraph
 from chemprop_tpu_torch.nn.batchnorm import BatchNorm
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
 from chemprop_tpu_torch.nn.metrics import ChempropMetric
-from chemprop_tpu_torch.nn.predictors import RegressionFFN
+from chemprop_tpu_torch.nn.predictors import _FFNPredictorBase
 from chemprop_tpu_torch.nn.transforms import ScaleTransform
 
 
@@ -25,7 +27,7 @@ class MPNN(nn.Module):
         self,
         message_passing: BondMessagePassing,
         agg: nn.Module,
-        predictor: RegressionFFN,
+        predictor: _FFNPredictorBase,
         batch_norm: bool = False,
         X_d_transform: ScaleTransform | None = None,
     ):
@@ -39,6 +41,10 @@ class MPNN(nn.Module):
     @property
     def criterion(self) -> ChempropMetric:
         return self.predictor.get_criterion()
+
+    @property
+    def n_targets(self) -> int:
+        return self.predictor.n_targets
 
     def fingerprint(
         self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
@@ -68,12 +74,10 @@ class MPNN(nn.Module):
         self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
         is_training: bool = False, generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """Inference-space predictions ``[n_graphs, n_tasks]``; with
+        """Inference-space predictions ``[n_graphs, n_tasks(, k)]``; with
         ``is_training`` (batch statistics, dropout) the output is not unscaled."""
         Z = self.fingerprint(bmg, V_d, X_d, is_training, generator=generator)
-        if is_training:
-            return self.predictor.train_step(Z, True, generator)
-        return self.predictor(Z)
+        return self.predictor(Z, is_training, generator)
 
     def mc_dropout_preds(
         self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,

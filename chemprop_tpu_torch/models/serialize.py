@@ -13,25 +13,27 @@ in a trainer's ``last.ckpt`` also ``opt_state`` (optax's Adam state),
 inverse of :func:`~chemprop_tpu_torch.models.load.from_jax_params`.
 
 The port builds what it runs: a single-molecule ``MPNN`` with a
-``BondMessagePassing``, a sum, mean or norm readout and a ``RegressionFFN``
-with the MSE criterion; a manifest that needs anything else raises and names
-it, as ``load.build_model`` does for reference checkpoints."""
+``BondMessagePassing``, a sum, mean or norm readout and any of the JAX
+package's heads, with its criterion (by ``__metric__`` and ``kwargs``),
+``task_weights``, ``threshold``, ``n_classes`` and ``spectral_activation``;
+a manifest that needs anything else raises and names it, as
+``load.build_model`` does for reference checkpoints."""
 
 from __future__ import annotations
 
 import json
+from dataclasses import fields
 from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from chemprop_tpu_torch.models.load import from_jax_params, jax_path
+from chemprop_tpu_torch.models.load import HEADS, from_jax_params, jax_path
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
-from chemprop_tpu_torch.nn.metrics import MSE
-from chemprop_tpu_torch.nn.predictors import RegressionFFN
+from chemprop_tpu_torch.nn.metrics import ChempropMetric, LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
 from chemprop_tpu_torch.utils import msgpack_codec
@@ -40,6 +42,7 @@ from chemprop_tpu_torch.utils.device import resolve_device, use_full_float32
 MAGIC = b"CPTPU001"
 FORMAT = "chemprop_tpu.mpnn.v1"
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+METRICS = {cls.__name__: cls for cls in (*LossFunctionRegistry.values(), *MetricRegistry.values())}
 
 
 # ------------------------------------------------------------------ manifest
@@ -67,6 +70,23 @@ def _decode_transform(v: dict | None):
     return ScaleTransform(v["mean"], v["scale"])
 
 
+def _encode_metric(m: ChempropMetric | None) -> dict | None:
+    """A criterion as the JAX package writes it: its class name and the
+    arguments of its constructor."""
+    if m is None:
+        return None
+    kwargs = {}
+    for f in fields(m):
+        if f.init:
+            v = getattr(m, f.name)
+            kwargs[f.name] = np.asarray(v).tolist() if isinstance(v, (list, tuple, np.ndarray)) else v
+    return {"__metric__": type(m).__name__, "kwargs": kwargs}
+
+
+def _decode_metric(v: dict | None) -> ChempropMetric | None:
+    return None if v is None else METRICS[v["__metric__"]](**v["kwargs"])
+
+
 def model_config(model: MPNN) -> dict:
     """The manifest's ``model`` entry for the port's ``model``: the JAX
     modules' constructor arguments, so that the JAX package rebuilds it."""
@@ -74,7 +94,16 @@ def model_config(model: MPNN) -> dict:
     agg_cfg = {"cls": type(agg).__name__}
     if hasattr(agg, "norm"):
         agg_cfg["norm"] = agg.norm
-    crit = pred.criterion
+    head = {
+        "cls": type(pred).__name__, "n_tasks": pred.n_tasks, "input_dim": pred.input_dim,
+        "hidden_dim": pred.hidden_dim, "n_layers": pred.n_layers, "dropout": pred.dropout,
+        "activation": pred.activation.lower(), "criterion": _encode_metric(pred.criterion),
+        "task_weights": pred.task_weights, "threshold": pred.threshold,
+        "output_transform": _encode_transform(pred.output_transform), "n_targets": pred.n_targets,
+    }
+    for key in ("n_classes", "spectral_activation"):
+        if hasattr(pred, key):
+            head[key] = getattr(pred, key)
     return {
         "format": FORMAT,
         "model_cls": "MPNN",
@@ -87,16 +116,7 @@ def model_config(model: MPNN) -> dict:
             "compute_dtype": DTYPE_NAMES[mp.compute_dtype],
         },
         "agg": agg_cfg,
-        "predictor": {
-            "cls": "RegressionFFN", "n_tasks": pred.n_tasks, "input_dim": pred.input_dim,
-            "hidden_dim": pred.hidden_dim, "n_layers": pred.n_layers, "dropout": pred.dropout,
-            "activation": pred.activation.lower(),
-            "criterion": None if crit is None else {
-                "__metric__": "MSE",
-                "kwargs": {"task_weights": np.asarray(crit.task_weights).tolist()}},
-            "task_weights": None, "threshold": None,
-            "output_transform": _encode_transform(pred.output_transform), "n_targets": 1,
-        },
+        "predictor": head,
         "batch_norm": model.bn is not None,
         "X_d_transform": _encode_transform(model.X_d_transform),
     }
@@ -111,16 +131,14 @@ def _check_config(cfg: Mapping) -> None:
         unsupported.append(f"message passing {mp['cls']}")
     if agg["cls"] not in AGGREGATIONS:
         unsupported.append(f"aggregation {agg['cls']}")
-    if pred["cls"] != "RegressionFFN":
+    head = HEADS.get(pred["cls"])
+    if head is None:
         unsupported.append(f"predictor {pred['cls']}")
+    elif pred.get("n_targets", head.n_targets) != head.n_targets:
+        unsupported.append(f"{pred['n_targets']} targets per task in a {pred['cls']}")
     crit = pred.get("criterion")
-    if crit is not None and crit.get("__metric__") != "MSE":
+    if crit is not None and crit.get("__metric__") not in METRICS:
         unsupported.append(f"criterion {crit.get('__metric__')}")
-    for key in ("task_weights", "threshold"):
-        if pred.get(key) is not None:
-            unsupported.append(f"predictor {key}")
-    if pred.get("n_targets", 1) != 1:
-        unsupported.append(f"{pred['n_targets']} targets per task")
     if unsupported:
         raise ValueError(f"checkpoint needs what the port does not run yet: {unsupported}")
 
@@ -159,15 +177,17 @@ def model_from_config(
     agg = AGGREGATIONS[agg_cfg["cls"]]()
     if "norm" in agg_cfg:
         agg.norm = float(agg_cfg["norm"])
-    crit = pred_cfg.get("criterion")
     hidden = pred_cfg.get("hidden_dim", 300)
-    predictor = RegressionFFN(
+    extra = {k: pred_cfg[k] for k in ("n_classes", "spectral_activation") if k in pred_cfg}
+    predictor = HEADS[pred_cfg["cls"]](
         n_tasks=int(pred_cfg.get("n_tasks", 1)), input_dim=int(pred_cfg.get("input_dim", d_h)),
         hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
         n_layers=int(pred_cfg.get("n_layers", 1)), output_transform=False,
-        criterion=None if crit is None else MSE(**crit["kwargs"]),
+        criterion=_decode_metric(pred_cfg.get("criterion")),
         dropout=float(pred_cfg.get("dropout", 0.0)),
         activation=pred_cfg.get("activation", "relu"),
+        task_weights=pred_cfg.get("task_weights"), threshold=pred_cfg.get("threshold"),
+        **extra,
     )
     predictor.output_transform = _decode_transform(pred_cfg.get("output_transform"))
     return MPNN(mp, agg, predictor, batch_norm=bool(cfg.get("batch_norm", False)),

@@ -39,7 +39,19 @@ class MLP(nn.Sequential):
     ) -> torch.Tensor:
         """``is_training`` turns the dropout of the later blocks on; its masks
         come from ``generator``."""
-        H = self[0](X)
-        for act, drop, linear in list(self)[1:]:
-            H = linear(drop(act(H), is_training, generator))
+        return self.encode(X, len(self), is_training, generator)
+
+    def encode(
+        self, X: torch.Tensor, i: int, is_training: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """Blocks ``[:i]`` (a slice, so ``i = -1`` applies all but the last:
+        the fingerprint hook)."""
+        H = X
+        for b in range(len(self))[:i]:
+            if b == 0:
+                H = self[0](H)
+            else:
+                act, drop, linear = self[b]
+                H = linear(drop(act(H), is_training, generator))
         return H

@@ -29,7 +29,9 @@ kernels (``ops/message.py``); in float32 the products are ``torch.matmul``,
 as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
 either dtype. Every message kernel takes the batch's tile table
-(``bmg.tile_ptr``). With ``kernel_options.grad_w`` in bfloat16 W_i's weight
+(``bmg.tile_ptr``); where a molecule is larger than a tile, ``loop_readout``'s
+backward kernels G and H take its split table (``bmg.split_ptr``,
+``bmg.cross_rows``). With ``kernel_options.grad_w`` in bfloat16 W_i's weight
 gradient, and W_h's where ``iter_bwd`` does not form it (the composed path's
 included), are ``grad_weight`` kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
 compute dtype are made in every forward, so gradients flow through the pad
@@ -221,7 +223,8 @@ class BondMessagePassing(nn.Module):
             M_v = sorted_segment_sum(H, bmg.dst, bmg.edge_ptr)
         elif (fuse_iter and self.depth >= 3 and not drop_on and opts.fused_readout
               and taps is None):
-            M_v = loop_readout(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr)
+            split = None if bmg.split_ptr is None else (bmg.split_ptr, bmg.cross_rows)
+            M_v = loop_readout(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr, split)
         else:
             H = self.tau(H0)
             for it in range(1, self.depth):

@@ -55,6 +55,11 @@ class UnscaleTransform(nn.Module):
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return X * self.scale + self.mean
 
+    def transform_variance(self, var: torch.Tensor) -> torch.Tensor:
+        """A variance in training units in raw units, ``var * scale**2`` (at
+        inference, as ``forward``)."""
+        return var * self.scale.square()
+
 
 class GraphTransform(nn.Module):
     """Scales a batch's atom and bond feature tables at evaluation; the

@@ -58,6 +58,7 @@ SIGNATURES = {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd_splits": [I],
+        "cross_rows": [P, P, P, P, P, P, I, I, P],
     },
     "message_bwd_tiles": {
         "bwd_message_tiles": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],

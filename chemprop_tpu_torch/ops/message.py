@@ -34,7 +34,12 @@ The tile kernels (``message``, ``fused_iter2``, ``bwd_message``,
 ``bwd_message_nodes``, ``bwd_message_premul``, ``iter_bwd``) take the batch's tile table
 (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
 the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
-rows in two runs, so that every row a tile's row gathers lies in the tile."""
+rows in two runs, so that every row a tile's row gathers lies in the tile.
+A batch with a molecule of more rows than that has none; G and H
+(``bwd_message_nodes``, ``bwd_message_premul``) then take its split table
+(``BatchMolGraph.split_ptr``, the molecule cut at its nodes' boundaries)
+with its ``cross_rows``: the tile kernel forms every other row of ``G``, and
+:func:`_cross_rows` forms those from the ``gz`` table it wrote."""
 
 from __future__ import annotations
 
@@ -402,6 +407,25 @@ def _launch_bwd(g, y, acc, dst, rev, ptr, nodes: bool, with_gz: bool):
     return G, gz
 
 
+def _check_cross(cross: torch.Tensor | None, tiles: torch.Tensor | None, y: torch.Tensor) -> None:
+    if cross is None:
+        return
+    if tiles is None:
+        raise ValueError("cross rows come with the split tile table")
+    if cross.dtype != torch.int32 or cross.dim() != 1 or cross.device != y.device:
+        raise ValueError(f"cross must be a 1-d int32 tensor on {y.device}")
+
+
+def _cross_rows(gz, dst, rev, ptr, cross, G) -> None:
+    """``G`` at the rows ``cross`` formed again from the bfloat16 ``gz`` table
+    in device memory (``csrc/message_bwd.cu``, one warp a row, the node
+    pass's sums in its order: the bits the tile kernels give their other
+    rows)."""
+    if cross.numel():
+        call(library("message_bwd"), "cross_rows", gz, dst, rev, ptr, cross.contiguous(), G,
+             cross.numel(), gz.shape[1])
+
+
 def bwd_message(
     g: torch.Tensor, y: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
     rev: torch.Tensor, ptr: torch.Tensor, gz_acc: torch.Tensor | None = None,
@@ -474,6 +498,7 @@ def bwd_message_info(d: int, dtype: torch.dtype, n_tiles: int, tables: int = 2) 
 def bwd_message_nodes(
     g_nodes: torch.Tensor, y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor | None = None,
+    cross: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`bwd_message` for the last iteration, whose cotangent arrives as
     the ``[N, d]`` node table of the M_v readout: ``g = g_nodes[dst]`` is
@@ -483,10 +508,13 @@ def bwd_message_nodes(
     With the batch's tile table ``tiles`` (:func:`check_tiles`; ``d`` a
     multiple of 128) it is one launch of ``csrc/bwd_nodes.cu`` over the
     molecule tiles; without one (a molecule of more than ``ITER2_TILE_ROWS``
-    rows) the node-warp kernel of ``csrc/message_bwd.cu``. Both give the same
+    rows) the node-warp kernel of ``csrc/message_bwd.cu``. With a split table
+    (``BatchMolGraph.split_ptr``) and its ``cross`` rows it is the tile
+    launch, then :func:`_cross_rows` over those rows. All give the same
     bits."""
     _check_graph(y, src, dst, rev, ptr)
     n, d = y.shape
+    _check_cross(cross, tiles, y)
     if y.dtype != torch.bfloat16 or g_nodes.dtype != torch.bfloat16:
         raise TypeError("bwd_message_nodes takes bfloat16 g_nodes and y")
     if g_nodes.shape != (ptr.numel() - 1, d) or g_nodes.device != y.device:
@@ -510,6 +538,9 @@ def bwd_message_nodes(
         call(library("bwd_nodes"), "bwd_nodes", g_nodes, y, dst.contiguous(), rev.contiguous(),
              ptr.contiguous(), tiles.contiguous(), *out, n, d, ptr.numel() - 2,
              tiles.numel() - 1)
+        if cross is not None:
+            _cross_rows(out[1], dst.contiguous(), rev.contiguous(), ptr.contiguous(), cross,
+                        out[0])
     LAUNCHES["bwd_message_nodes"] += 1
     return out
 
@@ -533,6 +564,7 @@ def bwd_message_premul(
     G_in: torch.Tensor, y: torch.Tensor, H0: torch.Tensor | None, W: torch.Tensor,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
     fold_h0: bool = False, tiles: torch.Tensor | None = None,
+    cross: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(G, z)`` of an earlier iteration's backward from the next stage's
     ``G_in``: ``dh = G_in @ W^T`` is formed inside the kernel,
@@ -544,9 +576,13 @@ def bwd_message_premul(
     launch, and ``gz`` stays on chip; without one (a molecule of more than
     ``ITER2_TILE_ROWS`` rows) the same product over fixed tiles writes ``gz``,
     then the node pass of :func:`bwd_message` forms ``G``: two launches, equal
-    to the one bit for bit."""
+    to the one bit for bit. With a split table (``BatchMolGraph.split_ptr``)
+    and its ``cross`` rows the tile launch also writes ``gz`` (``z`` itself
+    without ``fold_h0``), and :func:`_cross_rows` forms ``G`` at those rows
+    from it: the same bits again."""
     _check_graph(y, src, dst, rev, ptr)
     n, d = y.shape
+    _check_cross(cross, tiles, y)
     if y.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
         raise TypeError("bwd_message_premul takes bfloat16 tables and W")
     if fold_h0 and H0 is None:
@@ -568,8 +604,11 @@ def bwd_message_premul(
     pad_node = ptr.numel() - 2
     lib = library("bwd_premul")
     if tiles is not None:
-        call(lib, "bwd_premul", G_in, y, H0, W, *graph, tiles.contiguous(), G, z, None, n, d,
-             pad_node, tiles.numel() - 1)
+        gz = (torch.empty_like(y) if fold_h0 else z) if cross is not None else None
+        call(lib, "bwd_premul", G_in, y, H0, W, *graph, tiles.contiguous(), G, z,
+             gz if fold_h0 else None, n, d, pad_node, tiles.numel() - 1)
+        if cross is not None:
+            _cross_rows(gz, *graph, cross, G)
     else:  # gz written out (into z itself without fold_h0), then F's node pass
         gz = torch.empty_like(y) if fold_h0 else z
         call(lib, "bwd_premul", G_in, y, H0, W, *graph, None, None, z,
@@ -782,6 +821,7 @@ def loop_readout(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, depth: int,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
+    split: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The whole ReLU depth loop and the M_v readout as one differentiable op
     (cf. ``fused_loop_readout``), for ``depth >= 2``:
@@ -799,8 +839,10 @@ def loop_readout(
     bfloat16 with no bias and ``depth >= 3`` no cotangent edge table is formed
     outside a kernel: :func:`bwd_message_nodes` for the last iteration and
     :func:`bwd_message_premul` for the earlier ones, the first with
-    ``fold_h0``, both over the tile table; a batch without a table takes
-    their forms without one, and ``UNSERVED["bwd_message_nodes"]`` and
+    ``fold_h0``, both over the tile table; a batch without one takes its
+    split table and cross rows ``split`` (``BatchMolGraph.split_ptr``,
+    ``cross_rows``) where it is given; without either they take their forms
+    without a table, and ``UNSERVED["bwd_message_nodes"]`` and
     ``UNSERVED["bwd_message_premul"]`` count each such call. Otherwise
     (float32, a bias, depth 2) it is the per-iteration
     chain through :func:`bwd_message` with the running ``dH0`` accumulated in
@@ -809,7 +851,8 @@ def loop_readout(
     or with ``options.grad_w`` in bfloat16 its kernel."""
     if depth < 2:
         raise ValueError("loop_readout needs depth >= 2")
-    return _LoopReadout.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(), tiles)
+    return _LoopReadout.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(),
+                              tiles, split)
 
 
 def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False) -> list:
@@ -892,13 +935,13 @@ class _DepthLoop(torch.autograd.Function):
 
 class _LoopReadout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles):
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles, split):
         graph = (src, dst, rev, ptr)
         H0 = H0.contiguous()
         ys = _loop_forward(H0, W, b, graph, depth, tiles, options.iter2)
         ctx.save_for_backward(H0, W, b, *graph, *ys)
         ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
-        ctx.tiles = tiles
+        ctx.tiles, ctx.split = tiles, split
         return _segment_sum(ys[-1], dst, ptr, H0.dtype, False)[0]
 
     @staticmethod
@@ -907,22 +950,25 @@ class _LoopReadout(torch.autograd.Function):
         graph = (src, dst, rev, ptr)
         depth, dt, grad_w = ctx.depth, H0.dtype, ctx.grad_w
         g_Mv = g_Mv.to(dt).contiguous()
-        none = (None,) * 7
+        none = (None,) * 8
         if dt == torch.bfloat16 and b is None and depth >= 3:
             relu_H0 = torch.relu(H0)
 
             def x_of(t):  # the input of iteration t
                 return ys[t - 2] if t >= 2 else relu_H0
 
-            if ctx.tiles is None:
+            tiles, cross = ctx.tiles, None
+            if tiles is None and ctx.split is not None:
+                tiles, cross = ctx.split
+            if tiles is None:
                 UNSERVED["bwd_message_nodes"] += 1
-            G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph, tiles=ctx.tiles)
+            G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph, tiles=tiles, cross=cross)
             dW = grad_weight(x_of(depth - 1), G, grad_w)
             for t in range(depth - 2, 0, -1):
-                if ctx.tiles is None:
+                if tiles is None:
                     UNSERVED["bwd_message_premul"] += 1
                 G, z = bwd_message_premul(G, ys[t - 1], H0, W, *graph, fold_h0=t == 1,
-                                          tiles=ctx.tiles)
+                                          tiles=tiles, cross=cross)
                 dW = dW + grad_weight(x_of(t), G, grad_w)
                 dH0 = dH0 + z
             return dH0, dW.to(W.dtype), None, *none

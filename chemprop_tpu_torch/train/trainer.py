@@ -2,8 +2,9 @@
 training step (masked loss -> backward -> clipping -> Adam at the Noam-like
 rate) and a thin epoch loop, with the JAX package's numerics:
 
-* the loss is the criterion over the finite targets, weighted per sample
-  and divided by the number of finite targets;
+* the loss is the model's criterion over the finite targets, weighted per
+  sample, with the batch's ``lt_mask`` and ``gt_mask`` (false where the
+  batch has none);
 * Adam is ``optax.adam``: b1 0.9, b2 0.999, eps 1e-8 added outside the root,
   both moments bias-corrected, and the rate read at the number of updates
   made before this one;
@@ -27,10 +28,14 @@ the JAX package; ``evaluate`` computes with the current state, as the JAX
 validation does. Every fit runs epochs ``start_epoch .. max_epochs - 1``
 from the state it finds, as the JAX trainer's loop does.
 
-With a validation loader each epoch records ``val_loss`` (the criterion on
-the criterion-space predictions) and, for each of ``val_metrics``,
-``val_<name>`` on ``val_step_preds`` over the real rows; a metric that fails
-records NaN and the fit goes on. ``checkpoint_dir`` receives ``best.ckpt``
+Each epoch records ``epoch``, ``train_loss``, ``time_s``, ``edges_per_s``
+(the real edges of the epoch's batches, counted on the host, over
+``time_s``) and ``lr``, the JAX trainer's keys. With a validation loader it
+also records ``val_loss`` (the criterion's streaming state over every batch,
+on the criterion-space predictions) and, for each of ``val_metrics``,
+``val_<name>`` on ``val_step_preds`` over the real rows (a multi-target
+head's point prediction, channel 0), a collected metric from the gathered
+arrays; a metric that fails records NaN and the fit goes on. ``checkpoint_dir`` receives ``best.ckpt``
 whenever an epoch improves and ``last.ckpt`` after every epoch, in the JAX
 package's ``CPTPU001`` format (``models.serialize``): ``last.ckpt`` holds the
 whole training state (Adam's moments and count in optax's layout, the step,
@@ -91,6 +96,16 @@ class TrainState:
     nu: list[torch.Tensor]
     step: int = 0
     rng: torch.Generator | None = None  # the dropout masks of the training steps
+
+
+def _targets(batch: TrainingBatch) -> tuple[torch.Tensor, ...]:
+    """``(mask, targets, lt_mask, gt_mask)`` of a batch: the finite targets,
+    the targets with 0 for the others, and the bounds (false where the batch
+    has none)."""
+    mask = torch.isfinite(batch.Y)
+    lt = torch.zeros_like(mask) if batch.lt_mask is None else batch.lt_mask
+    gt = torch.zeros_like(mask) if batch.gt_mask is None else batch.gt_mask
+    return mask, torch.nan_to_num(batch.Y), lt, gt
 
 
 def _restore_order(preds: np.ndarray, loader) -> np.ndarray:
@@ -184,9 +199,8 @@ class Trainer:
         """The training criterion on one batch (on the trainer's device)."""
         preds = self.model.train_step_preds(batch.bmg, batch.V_d, batch.X_d, is_training=True,
                                             generator=self.state.rng)
-        mask = torch.isfinite(batch.Y)
-        targets = torch.nan_to_num(batch.Y)
-        return self.model.criterion(preds, targets, mask, batch.w[:, 0])
+        mask, targets, lt, gt = _targets(batch)
+        return self.model.criterion(preds, targets, mask, batch.w[:, 0], lt, gt)
 
     def train_step(self, batch: TrainingBatch) -> torch.Tensor:
         """One update on ``batch``; returns the loss, still on the device. The
@@ -231,13 +245,18 @@ class Trainer:
         since_best = 0
         for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.time()
-            losses = [self.train_step(batch) for batch in train_loader]
+            losses, n_edges = [], 0
+            for batch in train_loader:
+                n_edges += int(batch.bmg.edge_mask.sum())  # the host batch's real edges
+                losses.append(self.train_step(batch))
             # one device -> host fetch per epoch
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            dt = time.time() - t0
             record = {
                 "epoch": epoch,
                 "train_loss": train_loss,
-                "time_s": time.time() - t0,
+                "time_s": dt,
+                "edges_per_s": n_edges / max(dt, 1e-9),
                 "lr": noam_lr(self.state.step, *self._sched_args),
             }
             if val_loader is not None:
@@ -281,40 +300,47 @@ class Trainer:
                 v.data = saved[k]
 
     def evaluate(self, loader: DataLoader) -> float:
-        """The criterion over ``loader`` with the running statistics: the sum
-        of the weighted losses over the number of finite targets."""
+        """The criterion over ``loader`` with the running statistics, from its
+        streaming state over every batch."""
         return self._validate(loader, False)["val_loss"]
 
     @torch.inference_mode()
     def _validate(self, loader: DataLoader, metrics: bool) -> dict[str, float]:
         """``val_loss`` and, with ``metrics``, each of ``val_metrics`` as
         ``val_<name>`` over the real rows of ``loader`` (the JAX trainer's
-        ``_run_validation``): the metrics take ``val_step_preds``, every row's
-        weight 1 and the finite targets as the mask."""
+        ``_run_validation``): the metrics take ``val_step_preds`` (channel 0
+        of a multi-target head's), every row's weight 1, the finite targets
+        as the mask and no bounds; a collected metric takes the arrays."""
         model, criterion = self.model, self.model.criterion
-        total = torch.zeros((), device=self.device)
-        n = torch.zeros((), device=self.device)
+        state = criterion.init_state()
         chunks = []
         for host in loader:
             batch = host.to(self.device)
             # one fingerprint serves the criterion's and the metrics' heads
             Z = model.fingerprint(batch.bmg, batch.V_d, batch.X_d, False)
             preds = model.predictor.train_step(Z, False)
-            mask = torch.isfinite(batch.Y)
-            k = mask.sum()
-            total += criterion(preds, torch.nan_to_num(batch.Y), mask, batch.w[:, 0]) * k.clamp_min(1)
-            n += k
+            mask, targets, lt, gt = _targets(batch)
+            state = criterion.update_state(state, preds, targets, mask, batch.w[:, 0], lt, gt)
             if metrics:
                 real = host.pad_mask
                 val_preds = model.predictor.val_step(Z).float().cpu()
                 chunks.append((val_preds[real], host.Y[real]))
-        record = {"val_loss": float(total / n.clamp_min(1))}
+        record = {"val_loss": float(criterion.compute(state))}
         if chunks:
             preds, Y = (torch.cat(parts) for parts in zip(*chunks))
+            if preds.ndim == 3 and model.n_targets > 1:  # the point prediction
+                preds = preds[..., 0]
             mask, targets = torch.isfinite(Y), torch.nan_to_num(Y)
+            no_bounds = torch.zeros_like(mask)
             for name, metric in self.val_metrics.items():
                 try:
-                    value = float(metric(preds, targets, mask, torch.ones(len(Y))))
+                    if metric.needs_collection:
+                        value = metric.compute_from_arrays(preds.numpy(), Y.numpy(), mask.numpy())
+                    else:
+                        value = metric.compute(metric.update_state(
+                            metric.init_state(), preds, targets, mask, torch.ones(len(Y)),
+                            no_bounds, no_bounds))
+                    value = float(value)
                 except Exception as e:  # a failed metric must not stop the fit
                     logger.warning(f"val metric {name} failed: {e}")
                     value = float("nan")
@@ -374,8 +400,8 @@ class Trainer:
     # --------------------------------------------------------------- predict
     @torch.inference_mode()
     def predict(self, loader: DataLoader, use_batch_statistics: bool = False) -> np.ndarray:
-        """Predictions over ``loader`` in dataset order, padding rows cut,
-        from ``best_variables`` after a fit.
+        """``[n, n_tasks(, k)]`` predictions over ``loader`` in dataset order,
+        padding rows cut, from ``best_variables`` after a fit.
         ``use_batch_statistics`` normalises each batch with its own moments
         (the model as training leaves it) and leaves the output unscaled; the
         running statistics are not touched either way. As in the JAX package
@@ -398,7 +424,7 @@ class Trainer:
     ) -> np.ndarray:
         """``sampling_size`` stochastic forward passes with the dropout layers
         on and everything else as in inference (Monte-Carlo dropout):
-        ``[sampling_size, n, n_tasks]`` inference-space predictions in dataset
+        ``[sampling_size, n, n_tasks(, k)]`` inference-space predictions in dataset
         order; the caller takes the mean and the variance over axis 0. The
         masks come from one generator made from ``seed``."""
         if self.state is None:

@@ -26,7 +26,10 @@ failure:
    shape (128 input columns), at a ragged and at a short table, each twice,
    bit for bit; the premultiplied backward and the node-cotangent backward
    with the batch's tile table and without one, both forms equal bit for bit
-   and two calls equal; the segment sum at both readouts (edges to nodes,
+   and two calls equal, and both again on Tox21's 500 molecules in one batch
+   (no tile table: its split table, molecules of more than 128 rows cut at
+   their nodes' boundaries, and the cross rows formed again), bit for bit
+   equal to their forms without a table; the segment sum at both readouts (edges to nodes,
    nodes to graphs) in all three dtype pairs, with and without counts, two
    calls equal; the whole-iteration backward with the batch's tile table and
    without one, gz equal bit for bit to the plain version in both forms, two
@@ -100,7 +103,26 @@ failure:
    with its sparse product, from a trace; the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
-   (its W_h product composed through autograd).
+   (its W_h product composed through autograd);
+8. the task heads, each part fatal: (a) ``cli predict`` of the seven
+   reference checkpoints whose heads are not regression ones (binary,
+   multiclass, binary and multiclass Dirichlet, MVE, evidential, quantile) on
+   the 100 rows of mol.csv on ``cuda`` in float32 and bfloat16, against the
+   CPU's in each dtype at phase 3's limits (class labels equal where the
+   CPU's two best classes are apart), each run launching its dtype's kernels;
+   (b) bfloat16 fits at full width of a BCE model on
+   classification/mol.csv (four tasks with missing labels, ``roc`` and
+   ``prc`` validation metrics), a CE model on mol_multiclass.csv and an MVE
+   model on mol.csv, ``HEAD_FIT_EPOCHS`` epochs each, the last train loss
+   below its bar, every validation metric finite, twice from one seed with
+   equal histories bit for bit; a shuffled batch that holds a molecule of
+   more than 128 directed edges has no tile table, and its step's G and H
+   take its split table (counted on the host, reported beside the fit), so
+   that nothing is left unserved; (c) one float32 step of BCE, CE, Dirichlet,
+   evidential, quantile and bounded MSE (regression/bounded.csv, its ``<``
+   and ``>`` targets as the masks) against the CPU's; (d) every fit's
+   ``edges_per_s`` positive and finite. The phase's seconds are printed on
+   their own line.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -266,6 +288,17 @@ PATH_KERNELS = {
     "train_descriptors_dropout_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2,
                                            "bwd_message": 2, "row_gather": 1},
     "train_float32_leakyrelu": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
+    # phase 8: every head sits on the same message passing, so its paths launch
+    # the default model's kernels: serving the seven reference checkpoints of
+    # other heads (all depth 3) in each dtype, the bf16 fits of three heads and
+    # one f32 step of six criteria
+    "predict_heads_float32": {"message": 2, "sorted_segment_sum": 2},
+    "predict_heads_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2},
+    **{f"train_heads_bfloat16_{name}": {
+        "fused_iter": 2, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
+        "bwd_message_premul": 1, "row_gather": 1} for name in ("bce", "ce", "mve")},
+    **{f"train_heads_float32_{name}": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2}
+       for name in ("bce", "ce", "dirichlet", "evidential", "quantile", "bounded")},
 }
 # the training steps timed and counted on the benchmark batch: dtype, dropout
 # rate, opt-in kernels and other message-passing arguments; each is held to
@@ -292,6 +325,26 @@ STEPS = {
     "bfloat16_window_gather": ("bfloat16", 0.0, dict(window_gather=True)),
 }
 OVERFIT_BATCH_STATS_MSE, OVERFIT_RUNNING_STATS_MSE = 0.05, 0.10
+# phase 8: the reference checkpoints of the other heads, served by the CLI
+HEAD_CHECKPOINTS = [
+    "example_model_v2_classification_mol.pt",
+    "example_model_v2_classification_mol_multiclass.pt",
+    "example_model_v2_classification_dirichlet_mol.pt",
+    "example_model_v2_multiclass_dirichlet_mol.pt",
+    "example_model_v2_regression_mve_mol.pt",
+    "example_model_v2_regression_evidential_mol.pt",
+    "example_model_v2_regression_quantile_mol.pt",
+]
+# phase 8(b): the bf16 fits of three heads, HEAD_FIT_EPOCHS epochs each; the
+# last epoch's train loss must fall below the bar. The bars come from the same
+# fits in bf16 on the CPU (experiments/torch_head_fits.py, which runs
+# head_fit(name, torch.bfloat16, "cpu") beside the card's): first and last
+# epochs' losses 0.552 -> 0.113 (BCE), 0.960 -> 0.037 (CE), 1.742 -> 0.363
+# (MVE), the card's first epochs within 7e-4 of them. Each bar is about twice
+# the CPU's last loss: the fits part in their last epochs (summation order;
+# MVE's loss rose by 0.46 from one epoch to the next on the CPU)
+HEAD_FIT_EPOCHS = 20
+HEAD_FIT_BARS = {"bce": 0.25, "ce": 0.08, "mve": 0.8}
 # phase 6(a): the descriptor model's 30 epochs must bring the last epoch's train
 # loss (normalised targets) to this, and the best epoch's val_rmse to the other
 DESCRIPTOR_TRAIN_LOSS, DESCRIPTOR_VAL_RMSE = 0.05, 0.5
@@ -1394,6 +1447,360 @@ def extras_phase(ds, bmg, out_dir: Path) -> tuple[dict, dict]:
     return launches, res
 
 
+def check_split_tables(d: int, seed: int, errs: dict) -> dict:
+    """Phase 2, G and H on a split tile table: Tox21's 500 molecules
+    (classification/mol.csv, 8 of them of more than 128 directed edges) in one
+    batch, which has no tile table; its split table cuts those molecules at
+    their nodes' boundaries, and ``cross_rows`` lists the rows that read
+    another tile. G and H (``fold_h0`` on and off) with the split table must
+    give the bits of their forms without a table on every row, in two calls,
+    and hold against their plain versions at the limits of the tiled
+    check."""
+    import torch
+
+    from chemprop_tpu_torch.chem import make_mol
+    from chemprop_tpu_torch.data.collate import batch_mol_graphs
+    from chemprop_tpu_torch.featurizers import SimpleMoleculeMolGraphFeaturizer
+    from chemprop_tpu_torch.ops import bwd_message_nodes, bwd_message_premul
+    from chemprop_tpu_torch.ops.message import (
+        bwd_message_nodes_plain, bwd_message_premul_plain,
+    )
+
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    rows = read_targets(REPO / "tests/data/classification/mol.csv")
+    b = batch_mol_graphs([feat(make_mol(smi)) for smi, *_ in rows]).to("cuda")
+    if b.tile_ptr is not None or b.split_ptr is None or not b.cross_rows.numel():
+        fail("the Tox21 batch should have a split table with cross rows and no tile table")
+    graph = (b.src, b.dst, b.rev, b.edge_ptr)
+    n_e, n_v = b.E.shape[0], b.V.shape[0]
+    pad_rows = b.dst == n_v - 1
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    yb = torch.randn((n_e, d), generator=g, device="cuda").to(torch.bfloat16)
+    gb = torch.randn((n_e, d), generator=g, device="cuda").to(torch.bfloat16)
+    H0 = torch.randn((n_e, d), generator=g, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((d, d), generator=g, device="cuda") * d**-0.5).to(torch.bfloat16)
+    g_nodes = torch.randn((n_v, d), generator=g, device="cuda").to(torch.bfloat16)
+    g_nodes[-1] = 0
+    split = {"tiles": b.split_ptr, "cross": b.cross_rows}
+
+    def same(tag, got, want):
+        if not all(torch.equal(x, w) for x, w in zip(got, want)):
+            fail(f"{tag}: the split table's bits differ from the form without a table")
+        if any(t[pad_rows].any() for t in got):
+            fail(f"{tag}: a padding row is not zero")
+
+    out = bwd_message_nodes(g_nodes, yb, *graph, **split)
+    same("bwd_message_nodes[split]", out, bwd_message_nodes(g_nodes, yb, *graph))
+    same("bwd_message_nodes[split,again]", bwd_message_nodes(g_nodes, yb, *graph, **split), out)
+    want_G, want_gz = bwd_message_nodes_plain(g_nodes, yb, *graph)
+    check("bwd_message_nodes[split,G]", out[0], want_G, BF16_ULP, 1e-6, errs)
+    check("bwd_message_nodes[split,gz]", out[1], want_gz, 0.0, 0.0, errs)
+    for fold in (True, False):
+        tag = f"bwd_message_premul[split,fold_h0={fold}"
+        out = bwd_message_premul(gb, yb, H0, W, *graph, fold_h0=fold, **split)
+        same(f"{tag}]", out, bwd_message_premul(gb, yb, H0, W, *graph, fold_h0=fold))
+        same(f"{tag},again]", bwd_message_premul(gb, yb, H0, W, *graph, fold_h0=fold, **split),
+             out)
+        want_G, want_z = bwd_message_premul_plain(gb, yb, H0, W, *graph, fold_h0=fold)
+        gz_abs = ((gb.float() @ W.float().t()) * (yb > 0)).abs()
+        terms = torch.zeros((n_v, d), device="cuda").index_add_(0, b.dst.long(),
+                                                                 gz_abs[b.rev.long()])
+        check(f"{tag},G]", out[0], want_G, 2 * BF16_ULP, 1e-4, errs, terms[b.dst.long()])
+        check(f"{tag},z]", out[1], want_z, 2 * BF16_ULP, 1e-4, errs)
+    res = {"rows": n_e, "real_rows": int(b.edge_mask.sum()), "tiles": b.split_ptr.numel() - 1,
+           "cross_rows": b.cross_rows.numel(), "d": d}
+    print(json.dumps({"split_tables": res}))
+    return res
+
+
+def read_targets(path: Path, bounded: bool = False) -> list[tuple]:
+    """``(smiles, y, lt, gt)`` of each row of a CSV whose first column is the
+    SMILES: an empty target is NaN; with ``bounded``, ``<x`` and ``>x`` set
+    the row's lt and gt masks."""
+    import numpy as np
+
+    out = []
+    with open(path, newline="") as f:
+        for row in list(csv.reader(f))[1:]:
+            cells = [v.strip() for v in row[1:]]
+            lt = np.array([bounded and v.startswith("<") for v in cells])
+            gt = np.array([bounded and v.startswith(">") for v in cells])
+            y = np.array([float(v.lstrip("<>=")) if v else np.nan for v in cells])
+            out.append((row[0], y, lt, gt))
+    return out
+
+
+def head_dataset(rows, normalize_with=None, bounded: bool = False):
+    """A dataset of ``rows``; regression targets normalised with the scaler
+    given (``True``: its own)."""
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
+
+    ds = MoleculeDataset([MoleculeDatapoint.from_smi(
+        s, y=y, lt_mask=lt if bounded else None, gt_mask=gt if bounded else None)
+        for s, y, lt, gt in rows])
+    scaler = None
+    if normalize_with is not None:
+        scaler = ds.normalize_targets(None if normalize_with is True else normalize_with)
+    ds.cache = True
+    return ds, scaler
+
+
+def head_model(dtype, head: str, **kwargs):
+    """The default model at full width (hidden width 300, depth 3, batch
+    norm) with the head ``head`` of ``nn.predictors``."""
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, predictors
+    from chemprop_tpu_torch.ops import KernelOptions
+
+    cls = getattr(predictors, head)
+    if issubclass(cls, predictors.RegressionFFN):
+        kwargs.setdefault("output_transform", False)
+    return MPNN(BondMessagePassing(compute_dtype=dtype, kernel_options=KernelOptions()),
+                MeanAggregation(), cls(**kwargs), batch_norm=True)
+
+
+def head_fit_data(name: str) -> tuple:
+    """Phase 8(b)'s fits: (train, val, head, head arguments, validation
+    metrics). BCE on classification/mol.csv (four tasks with missing labels),
+    CE on mol_multiclass.csv, MVE on mol.csv; the last rows validate."""
+    from chemprop_tpu_torch.nn import metrics
+
+    data = REPO / "tests/data"
+    if name == "bce":
+        rows = read_targets(data / "classification/mol.csv")
+        return (*[head_dataset(part)[0] for part in (rows[:400], rows[400:])],
+                "BinaryClassificationFFN", {"n_tasks": 4},
+                {"roc": metrics.BinaryAUROC(), "prc": metrics.BinaryAUPRC()})
+    if name == "ce":
+        rows = read_targets(data / "classification/mol_multiclass.csv")
+        return (*[head_dataset(part)[0] for part in (rows[:400], rows[400:])],
+                "MulticlassClassificationFFN", {"n_classes": 3},
+                {"multiclass-mcc": metrics.MulticlassMCCMetric(n_classes=3)})
+    rows = read_targets(MOL_CSV)
+    train, scaler = head_dataset(rows[:80], True)
+    return (train, head_dataset(rows[80:], scaler)[0], "MveFFN", {}, {"rmse": metrics.RMSE()})
+
+
+class CountUntiled:
+    """A loader that counts the batches it yields, and those without a tile
+    table (a molecule of more than ``ITER2_TILE_ROWS`` directed edges), whose
+    steps give G and H the batch's split table."""
+
+    def __init__(self, loader):
+        self.loader, self.untiled, self.batches = loader, 0, 0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.untiled += batch.bmg.tile_ptr is None
+            self.batches += 1
+            yield batch
+
+
+def head_fit(name: str, dtype, device=None) -> tuple[list, int, int]:
+    """One of phase 8(b)'s fits: HEAD_FIT_EPOCHS epochs in shuffled batches of
+    50 with a validation loader; its history, its training batches without a
+    tile table and its training batches."""
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.train import Trainer
+
+    train, val, head, kwargs, val_metrics = head_fit_data(name)
+    trainer = Trainer(head_model(dtype, head, **kwargs), max_epochs=HEAD_FIT_EPOCHS,
+                      warmup_epochs=2, seed=12, val_metrics=val_metrics, device=device)
+    loader = CountUntiled(DataLoader(train, batch_size=50, shuffle=True, seed=3))
+    trainer.fit(loader, DataLoader(val, batch_size=50))
+    return trainer.history, loader.untiled, loader.batches
+
+
+def head_csv(path: Path):
+    """(header, values, labels) of a predictions CSV: a multiclass head's
+    class probabilities ``[n, t, c]`` and labels ``[n, t]``, any other head's
+    point values ``[n, t]`` and no labels."""
+    import numpy as np
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:]
+    probs = [i for i, h in enumerate(header) if h.endswith("_prob")]
+    if not probs:
+        return header, np.array([[float(x) for x in r[1:]] for r in body]), None
+    return (header, np.array([[[float(x) for x in r[i].split(",")] for i in probs] for r in body]),
+            np.array([[int(r[i - 1]) for i in probs] for r in body]))
+
+
+def serve_heads(out_dir: Path) -> tuple[dict, dict]:
+    """Phase 8(a): ``cli predict`` of each of the seven checkpoints on the
+    100 rows of mol.csv on cuda in f32 and bf16, against the CPU's in each
+    dtype, at phase 3's limits; each run's launches counted on their own."""
+    import numpy as np
+
+    from chemprop_tpu_torch.cli.main import main
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    launches = {f"predict_heads_{dt}": {} for dt in ("float32", "bfloat16")}
+    res = {}
+    for ckpt in HEAD_CHECKPOINTS:
+        out = {}
+        for dt in ("float32", "bfloat16"):
+            for device in (None, "cpu"):
+                path = out_dir / f"{ckpt}.{dt}.{device or 'cuda'}.csv"
+                argv = ["predict", "--model-path", str(REPO / "tests/data" / ckpt), "-i",
+                        str(MOL_CSV), "-o", str(path), "--dtype", dt]
+                LAUNCHES.clear()
+                if main(argv + (["--device", device] if device else [])) != 0:
+                    fail(f"predict {ckpt} --dtype {dt} returned non-zero")
+                if device is None:
+                    run = dict(LAUNCHES)
+                    check_path_launches(f"predict_heads_{dt}", run, exact=False)
+                    total = launches[f"predict_heads_{dt}"]
+                    for k, v in run.items():
+                        total[k] = total.get(k, 0) + v
+                out[dt, device] = head_csv(path)
+        header, f32, labels = out["float32", "cpu"]
+        errs = {
+            "f32_vs_cpu_f32": float(np.abs(out["float32", None][1] - f32).max()),
+            "bf16_vs_cpu_bf16": float(np.abs(out["bfloat16", None][1]
+                                             - out["bfloat16", "cpu"][1]).max()),
+            "bf16_vs_cpu_f32": float(np.abs(out["bfloat16", None][1] - f32).max()),
+        }
+        res[ckpt] = {"header": header, "shape": list(f32.shape), **errs}
+        if any(h != header or v.shape != f32.shape or not np.isfinite(v).all()
+               for h, v, _ in out.values()) or len(f32) != 100:
+            fail(f"predict {ckpt}: the runs' columns, shapes or values disagree: {res[ckpt]}")
+        # phase 3's limits (f32: summation order; bf16: the odd rounding flip)
+        if not np.allclose(out["float32", None][1], f32, rtol=1e-5, atol=1e-4):
+            fail(f"{ckpt}: float32 predictions on cuda disagree with the CPU's")
+        if not np.allclose(out["bfloat16", None][1], out["bfloat16", "cpu"][1], rtol=0, atol=1e-3):
+            fail(f"{ckpt}: bfloat16 predictions on cuda disagree with the CPU's bfloat16 ones")
+        if not np.allclose(out["bfloat16", None][1], f32, rtol=0.05, atol=0.1):
+            fail(f"{ckpt}: bfloat16 predictions on cuda leave the float32 envelope")
+        if labels is not None:
+            # a class label may differ only where the CPU's two best classes
+            # are closer than twice the dtype's limit
+            top2 = np.sort(f32, axis=-1)[..., -2:]
+            for (dt, device), (_, _, lab) in out.items():
+                decided = top2[..., 1] - top2[..., 0] > (2e-4 if dt == "float32" else 2e-3)
+                if not np.array_equal(lab[decided], labels[decided]):
+                    fail(f"{ckpt}: {dt} {device or 'cuda'} class labels disagree")
+    print(json.dumps({"heads_serve": res, "launches": launches}))
+    return launches, res
+
+
+def heads_fits() -> tuple[dict, dict]:
+    """Phase 8(b, d): the bf16 fits of BCE, CE and MVE at full width, each
+    twice from one seed (loss histories equal bit for bit), below its bar,
+    every validation metric and edge rate finite; the first fit's launches.
+    Tox21's and the multiclass set's largest molecules (8 of 500 and 3 of
+    499 have more than 128 directed edges) leave a shuffled batch without a
+    tile table now and then: its step's G and H take its split table, so the
+    fits must leave nothing in ``ops.UNSERVED``; such batches are counted on
+    the host and reported."""
+    import torch
+
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    launches, res = {}, {}
+    for name in ("bce", "ce", "mve"):
+        LAUNCHES.clear()
+        before = dict(UNSERVED)
+        t0 = time.time()
+        first, untiled, batches = head_fit(name, torch.bfloat16)
+        fit_s = time.time() - t0
+        launches[f"train_heads_bfloat16_{name}"] = dict(LAUNCHES)
+        again, untiled_again, batches_again = head_fit(name, torch.bfloat16)
+        untiled, batches = untiled + untiled_again, batches + batches_again
+        unserved = {k: v - before.get(k, 0) for k, v in UNSERVED.items() if v != before.get(k, 0)}
+        if unserved:
+            fail(f"the {name} fits left {unserved} unserved ({untiled} of their batches had "
+                 "no tile table)")
+        losses = [h["train_loss"] for h in first]
+        val_keys = sorted(k for k in first[0] if k.startswith("val_"))
+        rates = [h["edges_per_s"] for h in first]
+        res[name] = {"fit_s": fit_s, "epochs": len(first), "first_loss": losses[0],
+                     "last_loss": losses[-1], "bar": HEAD_FIT_BARS[name],
+                     "last_val": {k: first[-1][k] for k in val_keys},
+                     "edges_per_s_median": statistics.median(rates),
+                     "repeated_fit_equal": [h["train_loss"] for h in again] == losses
+                     and all(a[k] == b[k] for a, b in zip(first, again) for k in val_keys),
+                     "split_table_batches_of_both_fits": untiled,
+                     "batches_of_both_fits": batches,
+                     "launches": launches[f"train_heads_bfloat16_{name}"]}
+        print(json.dumps({"heads_fit": {name: res[name]}}))
+        if not all(map(math.isfinite, losses)) or not losses[-1] < HEAD_FIT_BARS[name]:
+            fail(f"the {name} fit's last loss {losses[-1]} is not below {HEAD_FIT_BARS[name]}")
+        if not all(math.isfinite(h[k]) for h in first for k in val_keys) or len(val_keys) < 2:
+            fail(f"the {name} fit recorded a validation metric that is not finite: {val_keys}")
+        if not all(math.isfinite(r) and r > 0 for r in rates):
+            fail(f"the {name} fit's edges_per_s is not positive and finite: {rates}")
+        if not res[name]["repeated_fit_equal"]:
+            fail(f"two {name} fits from one seed gave different histories")
+        check_path_launches(f"train_heads_bfloat16_{name}", launches[f"train_heads_bfloat16_{name}"],
+                            exact=False)
+    return launches, res
+
+
+def heads_steps() -> tuple[dict, dict]:
+    """Phase 8(c): one float32 training step of six criteria on the card
+    against the same step on the CPU (phase 4b's limits), each launching the
+    f32 step's kernels once."""
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.nn import metrics
+    from chemprop_tpu_torch.ops import LAUNCHES
+    from chemprop_tpu_torch.train import Trainer
+
+    data = REPO / "tests/data"
+    clf = head_dataset(read_targets(data / "classification/mol.csv")[:32])[0]
+    multi = head_dataset(read_targets(data / "classification/mol_multiclass.csv")[:32])[0]
+    reg = head_dataset(read_targets(MOL_CSV)[:32], True)[0]
+    bounded = read_targets(data / "regression/bounded.csv", bounded=True)
+    # ten "<", ten ">" and twelve plain targets
+    bnd = head_dataset(bounded[40:60] + bounded[100:112], True, bounded=True)[0]
+    cases = {
+        "bce": (clf, "BinaryClassificationFFN", {"n_tasks": 4}),
+        "ce": (multi, "MulticlassClassificationFFN", {"n_classes": 3}),
+        "dirichlet": (clf, "BinaryDirichletFFN", {"n_tasks": 4}),
+        "evidential": (reg, "EvidentialFFN", {}),
+        "quantile": (reg, "QuantileFFN", {}),
+        "bounded": (bnd, "RegressionFFN", {"criterion": metrics.BoundedMSE(task_weights=[1.0])}),
+    }
+    launches, res = {}, {}
+    for name, (ds, head, kwargs) in cases.items():
+        batch = next(iter(DataLoader(ds, batch_size=32)))
+        states, losses = {}, {}
+        for device in ("cpu", None):
+            trainer = Trainer(head_model(torch.float32, head, **kwargs), max_epochs=50,
+                              warmup_epochs=2, seed=12, device=device)
+            trainer.init_state(batch, 4)
+            LAUNCHES.clear()
+            losses[device] = float(trainer.train_step(batch))
+            states[device] = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+        path = f"train_heads_float32_{name}"
+        launches[path] = dict(LAUNCHES)
+        check_path_launches(path, launches[path], exact=True)
+        res[name] = {**compare_steps(states, losses, f"heads_step_{name}"),
+                     "launches": launches[path]}
+    return launches, res
+
+
+def heads_phase(out_dir: Path) -> tuple[dict, dict]:
+    """Phase 8: the task heads (serving, bf16 fits, f32 steps)."""
+    t0 = time.time()
+    (out_dir / "chip_smoke_heads").mkdir(parents=True, exist_ok=True)
+    launches, res = {}, {}
+    serve_launches, res["serve"] = serve_heads(out_dir / "chip_smoke_heads")
+    fit_launches, res["fits"] = heads_fits()
+    step_launches, res["steps"] = heads_steps()
+    for part in (serve_launches, fit_launches, step_launches):
+        launches.update(part)
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"phase": "heads", "seconds": res["seconds"]}))
+    return launches, res
+
+
 def time_ms(fn, reps: int, inner: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls between two
     CUDA events, per call, after a warm-up."""
@@ -1851,6 +2258,7 @@ def main() -> int:
     }
     print(json.dumps({"sorted_segment_sum_launch": seg_launch}))
     tensors, errs = check_kernels(bmg, d, args.seed)
+    split_res = check_split_tables(d, args.seed, errs)
 
     out_dir = REPO / "chiprun_out"
     (out_dir / "chip_smoke_preds").mkdir(parents=True, exist_ok=True)
@@ -1865,6 +2273,8 @@ def main() -> int:
     dropout_step_res = dropout_step_against_cpu(ds)
     extras_launches, extras_res = extras_phase(ds, bmg, out_dir)
     launches.update(extras_launches)
+    heads_launches, heads_res = heads_phase(out_dir)
+    launches.update(heads_launches)
     # the timings take A's and F's forms without a table on purpose: the main
     # paths' unserved calls are read before them, the benchmark steps' after
     unserved = dict(UNSERVED)
@@ -1952,10 +2362,12 @@ def main() -> int:
               "bwd_message_nodes_launch": nodes_launch, "iter_bwd_launch": iter_bwd_launch,
               "message_launch": message_launch, "bwd_message_launch": bwd_message_launch,
               "sorted_segment_sum_launch": seg_launch, "unserved": unserved,
+              "split_tables": split_res,
               "benchmark_batch": shapes,
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
+              "heads": heads_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

@@ -29,7 +29,7 @@ from chemprop_tpu.models.torch_convert import convert_model
 from chemprop_tpu.nn import BondMessagePassing as JaxBondMP
 from chemprop_tpu.nn import MeanAggregation as JaxMean
 from chemprop_tpu.nn import RegressionFFN as JaxRegressionFFN
-from chemprop_tpu.nn.predictors import MveFFN
+from chemprop_tpu.nn.agg import AttentiveAggregation as JaxAttentive
 from chemprop_tpu.train import Trainer as JaxTrainer
 from chemprop_tpu.train.schedulers import noam_lr_host
 from chemprop_tpu_torch.cli.main import main
@@ -245,13 +245,13 @@ def test_reference_model_round_trip_and_cli(data_dir, tmp_path):
 
 def test_a_manifest_the_port_cannot_build_raises(tmp_path, datasets):
     jds, _ = datasets
-    model = JaxMPNN(message_passing=JaxBondMP(d_h=D_H), agg=JaxMean(),
-                    predictor=MveFFN(input_dim=D_H, hidden_dim=D_H))
+    model = JaxMPNN(message_passing=JaxBondMP(d_h=D_H), agg=JaxAttentive(output_size=D_H),
+                    predictor=JaxRegressionFFN(input_dim=D_H, hidden_dim=D_H))
     batch = next(iter(jdata.DataLoader(jds, batch_size=4, prefetch=0)))
     variables = model.init(jax.random.PRNGKey(0), batch.bmg, None, None, False)
-    jserialize.save_model(tmp_path / "mve.ckpt", model, jax.device_get(variables))
-    with pytest.raises(ValueError, match="predictor MveFFN"):
-        load_model(tmp_path / "mve.ckpt", "cpu")
+    jserialize.save_model(tmp_path / "attentive.ckpt", model, jax.device_get(variables))
+    with pytest.raises(ValueError, match="aggregation AttentiveAggregation"):
+        load_model(tmp_path / "attentive.ckpt", "cpu")
     cfg = serialize.model_config(_port_model())
     cfg["message_passing"]["cls"] = "AtomMessagePassing"
     cfg["agg"]["cls"] = "AttentiveAggregation"

@@ -1677,3 +1677,192 @@ def test_every_training_route_serves_f_over_the_tiles(cuda, bench_bmg, route):
     grads = torch.autograd.grad(out.float().sum(), list(mp.parameters()))
     assert all(torch.isfinite(g.float()).all() for g in grads)
     assert LAUNCHES["bwd_message"] == launches and UNSERVED["bwd_message"] == 0
+
+
+# ------------------------------------------------------------ the task heads
+# head, extra arguments, targets of one molecule for 2 tasks
+HEADS = {
+    "RegressionFFN": ({}, lambda r: r.standard_normal(2)),
+    "MveFFN": ({}, lambda r: r.standard_normal(2)),
+    "EvidentialFFN": ({}, lambda r: r.standard_normal(2)),
+    "QuantileFFN": ({}, lambda r: r.standard_normal(2)),
+    "BinaryClassificationFFN": ({}, lambda r: (r.uniform(size=2) > 0.5).astype(float)),
+    "BinaryDirichletFFN": ({}, lambda r: (r.uniform(size=2) > 0.5).astype(float)),
+    "MulticlassClassificationFFN": ({"n_classes": 3}, lambda r: r.integers(0, 3, 2).astype(float)),
+    "MulticlassDirichletFFN": ({"n_classes": 3}, lambda r: r.integers(0, 3, 2).astype(float)),
+    "SpectralFFN": ({}, lambda r: np.full(2, 0.5)),
+}
+
+
+def _head_batch(name):
+    from chemprop_tpu_torch.data import DataLoader, MoleculeDatapoint, MoleculeDataset
+
+    rng = np.random.default_rng(3)
+    ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=HEADS[name][1](rng)) for s in SMIS])
+    return next(iter(DataLoader(ds, batch_size=len(SMIS))))
+
+
+def _head_model(name, dtype):
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, predictors
+
+    extra = dict(HEADS[name][0])
+    if name in ("RegressionFFN", "MveFFN", "EvidentialFFN", "QuantileFFN"):
+        extra["output_transform"] = False
+    return MPNN(BondMessagePassing(d_h=128, compute_dtype=dtype, kernel_options=KernelOptions()),
+                MeanAggregation(), getattr(predictors, name)(n_tasks=2, input_dim=128,
+                                                             hidden_dim=64, **extra),
+                batch_norm=True)
+
+
+@pytest.mark.parametrize("dtype", F_DTYPES)
+@pytest.mark.parametrize("name", sorted(HEADS))
+def test_head_forward_and_step_match_the_cpu(cuda, name, dtype):
+    """Each head's inference output and one training step on the card against
+    the CPU's, from one seed: f32 to summation order, bf16 to the odd bf16
+    rounding flip of a hidden value."""
+    from chemprop_tpu_torch.train import Trainer
+
+    batch = _head_batch(name)
+    outs, losses, states = {}, {}, {}
+    for device in ("cpu", cuda):
+        trainer = Trainer(_head_model(name, dtype), seed=7, device=device)
+        trainer.init_state(batch, 4)
+        b = batch.to(device)
+        with torch.inference_mode():
+            outs[device] = trainer.model(b.bmg).float().cpu()
+        UNSERVED.clear()
+        losses[device] = float(trainer.train_step(batch))
+        assert not any(UNSERVED.values())
+        states[device] = {k: v.detach().float().cpu() for k, v in trainer.model.state_dict().items()}
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=0, atol=2e-2)
+    assert outs[cuda].shape == outs["cpu"].shape and outs["cpu"].shape[:2] == (len(SMIS), 2)
+    torch.testing.assert_close(outs[cuda], outs["cpu"], **tol)
+    assert losses[cuda] == pytest.approx(losses["cpu"], rel=1e-5 if dtype == torch.float32 else 2e-2)
+    lr = 1e-4  # Adam's first step moves a weight by at most the rate
+    for k, want in states["cpu"].items():
+        assert float((states[cuda][k] - want).abs().max()) <= 2 * lr * (1 + 1e-3) + (
+            0 if dtype == torch.float32 or not k.startswith("bn.running") else 0.05), k
+
+
+@pytest.mark.parametrize("alias", ["mse", "bounded-mse", "r2", "binary-mcc", "multiclass-mcc",
+                                   "sid", "binned-roc", "binned-prc"])
+def test_streaming_metrics_on_cuda_tensors(cuda, alias):
+    from chemprop_tpu_torch.nn import metrics
+
+    metric = metrics.MetricRegistry[alias](**({"n_classes": 3} if "multiclass" in alias else {}))
+    rng = np.random.default_rng(5)
+    shape = (40, 3, 3) if "multiclass" in alias else (40, 3)
+    preds = torch.from_numpy(rng.uniform(0.01, 1, shape).astype(np.float32))
+    targets = torch.from_numpy((rng.uniform(0.01, 1, (40, 3)) if alias == "sid" else rng.integers(
+        0, 3 if "multiclass" in alias else 2, (40, 3))).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(40, 3)) > 0.2)
+    lt = gt = torch.zeros(40, 3, dtype=torch.bool)
+    args = (preds, targets, mask, torch.ones(40), lt, gt)
+    want = metric.compute(metric.update_state(metric.init_state(), *args))
+    got = metric.compute(metric.update_state(metric.init_state(), *(a.to(cuda) for a in args)))
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_collected_metrics_of_a_fit_on_the_card(cuda):
+    """AUROC, AUPRC, F1 and accuracy of a validation on the card (the card's
+    predictions gathered to the host) equal those of the CPU's validation of
+    the same model, and the CPU's own functions on the gathered arrays."""
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.nn import metrics
+    from chemprop_tpu_torch.train import Trainer
+
+    val = {m: metrics.MetricRegistry[m]() for m in ("roc", "prc", "f1", "accuracy")}
+    loader = DataLoader(_head_batch_dataset(), batch_size=8)
+    records = {}
+    for device in ("cpu", cuda):
+        trainer = Trainer(_head_model("BinaryClassificationFFN", torch.float32), seed=7,
+                          device=device, val_metrics=val)
+        trainer.init_state(None, 1)
+        records[device] = trainer._validate(loader, True)
+        preds = trainer.predict(loader)
+    Y = np.stack([d.y for d in loader.dataset.data]).astype(np.float32)
+    for m in val:
+        assert records[cuda][f"val_{m}"] == pytest.approx(records["cpu"][f"val_{m}"], abs=1e-6)
+        assert records[cuda][f"val_{m}"] == pytest.approx(
+            val[m].compute_from_arrays(preds, Y, np.isfinite(Y)), abs=1e-12)
+
+
+def _head_batch_dataset():
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
+
+    rng = np.random.default_rng(11)
+    return MoleculeDataset([MoleculeDatapoint.from_smi(s, y=(rng.uniform(size=2) > 0.5) * 1.0)
+                            for s in SMIS * 2])
+
+
+# ------------------------------------------------ G and H over a split table
+def _tox21_bmg(device):
+    """Tox21's 500 molecules in one batch: 8 of them have more edge rows than
+    a tile, so the batch has a split table and cross rows, no tile table."""
+    import csv
+
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    with open(DATA / "classification" / "mol.csv", newline="") as f:
+        smis = [row[0] for row in list(csv.reader(f))[1:]]
+    b = batch_mol_graphs([feat(make_mol(s)) for s in smis]).to(device)
+    assert b.tile_ptr is None and b.split_ptr is not None and b.cross_rows.numel() > 0
+    return b
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_g_and_h_over_the_split_table_match_their_forms_without_one(cuda, d):
+    """The tile kernels over the split table, the cross rows formed again
+    from gz: every row, padding included, bit-equal to the forms without a
+    table, two calls equal, one launch counted per call."""
+    b = _tox21_bmg(cuda)
+    graph = _graph(b)
+    n_e, n_v = b.E.shape[0], b.V.shape[0]
+    y = _randn((n_e, d), 81, cuda, torch.bfloat16)
+    g_in = _randn((n_e, d), 82, cuda, torch.bfloat16)
+    H0 = _randn((n_e, d), 83, cuda, torch.bfloat16)
+    W = _randn((d, d), 84, cuda, torch.bfloat16, scale=d**-0.5)
+    g_nodes = _randn((n_v, d), 85, cuda, torch.bfloat16)
+    split = {"tiles": b.split_ptr, "cross": b.cross_rows}
+    LAUNCHES.clear()
+    got = bwd_message_nodes(g_nodes, y, *graph, **split)
+    assert LAUNCHES["bwd_message_nodes"] == 1
+    assert all(torch.equal(x, w) for x, w in zip(got, bwd_message_nodes(g_nodes, y, *graph)))
+    assert all(torch.equal(x, w)
+               for x, w in zip(got, bwd_message_nodes(g_nodes, y, *graph, **split)))
+    for fold in (True, False):
+        LAUNCHES.clear()
+        got = bwd_message_premul(g_in, y, H0, W, *graph, fold_h0=fold, **split)
+        assert LAUNCHES["bwd_message_premul"] == 1
+        want = bwd_message_premul(g_in, y, H0, W, *graph, fold_h0=fold)
+        assert all(torch.equal(x, w) for x, w in zip(got, want)), fold
+        again = bwd_message_premul(g_in, y, H0, W, *graph, fold_h0=fold, **split)
+        assert all(torch.equal(x, w) for x, w in zip(got, again)), fold
+
+
+@pytest.mark.parametrize("depth", [3, 4])
+def test_loop_readout_over_the_split_table_serves_g_and_h(cuda, depth):
+    """A batch with a chain of 70 carbons: ``loop_readout`` with the split
+    table gives the bits of the forms without a table, forward and
+    gradients, and leaves nothing unserved."""
+    b, d = _big_bmg(cuda), 128
+    assert b.tile_ptr is None and b.cross_rows.numel() > 0
+    H0 = _randn((b.E.shape[0], d), 86, cuda, torch.bfloat16)
+    H0[_pad_rows(b)] = 0
+    W = _randn((d, d), 87, cuda, torch.bfloat16, scale=d**-0.5)
+    c = _randn((b.V.shape[0], d), 88, cuda, torch.bfloat16)
+    c[-1] = 0
+
+    def run(split):
+        x, w = H0.clone().requires_grad_(), W.clone().requires_grad_()
+        out = loop_readout(x, w, None, *_graph(b), depth, None, None, split)
+        return (out, *torch.autograd.grad(out, [x, w], c))
+
+    want = run(None)
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    got = run((b.split_ptr, b.cross_rows))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert UNSERVED["bwd_message_nodes"] == UNSERVED["bwd_message_premul"] == 0
+    assert LAUNCHES["bwd_message_nodes"] == 1 and LAUNCHES["bwd_message_premul"] == depth - 2

@@ -1,4 +1,4 @@
-"""Five faults of the port against the JAX package, each held to it:
+"""Six faults of the port against the JAX package, each held to it:
 
 * the FFN's activation: ``MLP`` and ``RegressionFFN`` build the activation
   they are given, ``build_model`` reads the head's from the checkpoint's
@@ -14,7 +14,9 @@
   to bfloat16 and divide in bfloat16, as the JAX package's kernel path does
   (``segment_sum`` with ``out_dtype = data.dtype``);
 * a second ``Trainer.fit`` trains ``max_epochs`` more epochs from the state
-  the first one left, as the JAX trainer's loop from ``start_epoch`` does.
+  the first one left, as the JAX trainer's loop from ``start_epoch`` does;
+* each epoch record of ``fit`` has the JAX trainer's keys, ``edges_per_s``
+  among them: the real edges of the epoch's host batches over ``time_s``.
 
 Small sizes throughout: widths of 16-64, the 100 molecules of
 tests/data/regression/mol/mol.csv."""
@@ -43,6 +45,7 @@ from chemprop_tpu.nn import NormAggregation as JaxNorm
 from chemprop_tpu.nn import RegressionFFN as JaxRegressionFFN
 from chemprop_tpu.nn import SumAggregation as JaxSum
 from chemprop_tpu.nn.ffn import MLP as JaxMLP
+from chemprop_tpu.nn.metrics import MAE as JaxMAE
 from chemprop_tpu.train import Trainer as JaxTrainer
 from chemprop_tpu_torch.data import DataLoader, MoleculeDatapoint, MoleculeDataset
 from chemprop_tpu_torch.data.collate import PadSpec, batch_mol_graphs
@@ -55,6 +58,7 @@ from chemprop_tpu_torch.nn import (
     RegressionFFN,
     SumAggregation,
 )
+from chemprop_tpu_torch.nn.metrics import MAE
 from chemprop_tpu_torch.ops import KernelOptions
 from chemprop_tpu_torch.train import Trainer
 
@@ -393,3 +397,33 @@ def test_a_second_fit_trains_max_epochs_more_as_jax_does(data_dir):
     want = from_jax_params(jtrainer.state.params, {})
     for k, v in model.state_dict().items():
         torch.testing.assert_close(v, want[k], rtol=1e-3, atol=1e-5)
+
+
+# ------------------------------------------------ (f) the epoch's edge rate
+
+
+def test_fit_records_have_jax_keys_and_the_edge_rate(datasets):
+    """Each record has the JAX trainer's keys (with a validation loader and a
+    metric), and ``edges_per_s * time_s`` is the sum of ``edge_mask`` over
+    the epoch's batches."""
+    train, val = datasets["train"], datasets["val"]
+    jds = jdata.MoleculeDataset([jdata.MoleculeDatapoint.from_smi(d.name, y=d.y)
+                                 for d in train.data[:8]])
+    jmodel = JaxMPNN(message_passing=JaxBondMP(d_h=16, depth=2), agg=JaxMean(),
+                     predictor=JaxRegressionFFN(input_dim=16, hidden_dim=16), batch_norm=False)
+    jtrainer = JaxTrainer(jmodel, max_epochs=1, seed=5, val_metrics={"mae": JaxMAE()})
+    jloader = jdata.DataLoader(jds, batch_size=8, prefetch=0)
+    jtrainer.fit(jloader, jloader)
+
+    loader = DataLoader(train, batch_size=16, shuffle=True, seed=2)
+    edges = sum(int(b.bmg.edge_mask.sum()) for b in loader)
+    assert edges == sum(d.mol.num_bonds for d in train.data) * 2
+    model = MPNN(BondMessagePassing(d_h=16, depth=2), MeanAggregation(),
+                 RegressionFFN(input_dim=16, hidden_dim=16, output_transform=False))
+    trainer = Trainer(model, max_epochs=2, seed=5, device="cpu", val_metrics={"mae": MAE()})
+    trainer.fit(loader, DataLoader(val, batch_size=30))
+    assert len(trainer.history) == 2
+    for rec in trainer.history:
+        assert list(rec) == list(jtrainer.history[0])
+        assert rec["edges_per_s"] > 0
+        assert rec["edges_per_s"] * rec["time_s"] == pytest.approx(edges, rel=1e-9)
