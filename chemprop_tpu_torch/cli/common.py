@@ -1,0 +1,139 @@
+"""The argument groups that ``train`` shares with the other subcommands (cf.
+``chemprop_tpu/cli/common.py``): the JAX package's flags under its names, so
+that a run's ``config.json`` has its keys, and the port's own ``--device`` and
+``--dtype``. ``--molecule-featurizers`` and
+``--use-cuikmolmaker-featurization`` are parsed and then refused by ``train``
+(``ROADMAP.md`` §1 items 6 and 5); ``--accelerator`` and ``--devices`` are
+the JAX package's platform and mesh choice, where the port takes
+``--device`` and one GPU."""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    group = parser.add_argument_group("Shared input args")
+    # also accepted after the subcommand; the defaults themselves are
+    # injected before parsing by cli.main._apply_config_defaults
+    group.add_argument("--config-path", type=Path, help="JSON/TOML file of argument defaults")
+    group.add_argument(
+        "-i",
+        "--data-path",
+        type=Path,
+        nargs="+",
+        help="input CSV path(s). train accepts one, two, or three files "
+        "(reference cli/train.py:126-133): one = train/val/test split; two = "
+        "the first is train/val-split and the second is the test set; three = "
+        "fixed train, val, test. Other subcommands take exactly one.",
+    )
+    group.add_argument(
+        "-s", "--smiles-columns", nargs="+", help="SMILES column name(s); >1 = multicomponent"
+    )
+    group.add_argument(
+        "--reaction-columns", nargs="+", help="reaction SMILES column name(s)"
+    )
+    group.add_argument("--no-header-row", action="store_true")
+    group.add_argument(
+        "--multi-hot-atom-featurizer-mode",
+        default="v2",
+        choices=["v1", "v2", "organic", "rigr"],
+    )
+    group.add_argument(
+        "--rxn-mode",
+        "--reaction-mode",
+        default="reac_diff",
+        choices=[
+            "reac_prod",
+            "reac_prod_balance",
+            "reac_diff",
+            "reac_diff_balance",
+            "prod_diff",
+            "prod_diff_balance",
+        ],
+    )
+    group.add_argument("--keep-h", action="store_true")
+    group.add_argument("--add-h", action="store_true")
+    group.add_argument("--ignore-stereo", action="store_true")
+    group.add_argument(
+        "--reorder-atoms",
+        action="store_true",
+        help="reorder atoms by atom map numbers (cf. reference common.py:95)",
+    )
+    group.add_argument(
+        "--molecule-featurizers",
+        "--features-generators",
+        nargs="+",
+        help="extra global descriptor featurizers (not ported yet: refused)",
+    )
+    group.add_argument("--descriptors-path", type=Path, help=".npz of extra descriptors X_d")
+    group.add_argument(
+        "--descriptors-columns",
+        nargs="+",
+        help="input-CSV column names holding extra datapoint descriptors (e.g. temperature)",
+    )
+    # a single PATH (component 0) or (IDX PATH) pairs for multicomponent
+    # inputs — reference per-component syntax (common.py:194-231)
+    group.add_argument(
+        "--atom-features-path", nargs="+",
+        help=".npz extra atom features V_f: PATH, or IDX PATH pairs",
+    )
+    group.add_argument(
+        "--bond-features-path", nargs="+",
+        help=".npz extra bond features E_f: PATH, or IDX PATH pairs",
+    )
+    group.add_argument(
+        "--atom-descriptors-path", nargs="+",
+        help=".npz extra atom descriptors V_d: PATH, or IDX PATH pairs",
+    )
+    group.add_argument(
+        "--bond-descriptors-path", nargs="+",
+        help=".npz extra bond descriptors E_d (mol/atom/bond models only): "
+        "PATH, or IDX PATH pairs",
+    )
+    group.add_argument("--no-descriptor-scaling", action="store_true")
+    group.add_argument("--no-atom-feature-scaling", action="store_true")
+    group.add_argument("--no-atom-descriptor-scaling", action="store_true")
+    group.add_argument("--no-bond-feature-scaling", action="store_true")
+    group.add_argument("--no-bond-descriptor-scaling", action="store_true")
+    group.add_argument(
+        "--use-cuikmolmaker-featurization",
+        action="store_true",
+        help="use the native C++ batch featurizer (csrc/featurizer.cpp) for "
+        "accelerated atom/bond featurization (cuik-molmaker equivalent)",
+    )
+    group.add_argument("-n", "--num-workers", type=int, default=0)
+    group.add_argument("-b", "--batch-size", type=int, default=64)
+    group.add_argument(
+        "--accelerator", default="auto",
+        help="the JAX package's platform choice; the port takes --device (only 'auto')",
+    )
+    group.add_argument(
+        "--devices",
+        default="auto",
+        help="devices for data-parallel training: the port runs on one ('auto' or 1)",
+    )
+    add_device_args(group)
+    return parser
+
+
+def add_device_args(group) -> None:
+    """The port's ``--device`` and ``--dtype``."""
+    group.add_argument("--device", help="torch device (default: cuda; raises without a GPU)")
+    group.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                       help="message-passing compute dtype")
+
+
+def check_devices(args) -> None:
+    """Refuse the JAX package's platform and mesh options beyond one device."""
+    if getattr(args, "accelerator", "auto") not in (None, "auto"):
+        raise ValueError("--accelerator is the JAX package's platform choice; "
+                         "the port takes --device")
+    if getattr(args, "devices", "auto") not in (None, "auto", 1, "1"):
+        raise ValueError("training on more than one device is not ported yet "
+                         "(ROADMAP.md section 1 item 12, multi-GPU)")

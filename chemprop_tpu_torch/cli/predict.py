@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.chem import make_mol
+from chemprop_tpu_torch.cli.common import DTYPES, add_device_args
 from chemprop_tpu_torch.data.collate import batch_mol_graphs
 from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.models.load import load_model
@@ -33,7 +34,6 @@ from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, MulticlassDirichletFFN
 from chemprop_tpu_torch.utils.device import resolve_device
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -41,9 +41,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="reference .pt/.ckpt, or a CPTPU001 checkpoint")
     parser.add_argument("-i", "--data-path", type=Path, required=True, help="input CSV")
     parser.add_argument("-o", "--output", type=Path, help="output CSV (default <input>_preds.csv)")
-    parser.add_argument("--device", help="torch device (default: cuda; raises without a GPU)")
-    parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
-                        help="message-passing compute dtype")
+    add_device_args(parser)
     parser.add_argument("-b", "--batch-size", type=int, default=64)
     return parser
 
@@ -59,11 +57,7 @@ def predict(
 ) -> np.ndarray:
     """``[len(smiles), n_tasks(, k)]`` float32 predictions."""
     featurizer = SimpleMoleculeMolGraphFeaturizer()
-    mp = model.message_passing
-    if (mp.d_vd or model.predictor.input_dim != mp.output_dim
-            or (mp.d_v, mp.d_e) != featurizer.shape):
-        raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "
-                         "features), which predict does not read yet")
+    check_plain_inputs(model, featurizer)
     preds = []
     for i in range(0, len(smiles), batch_size):
         mgs = [featurizer(make_mol(s)) for s in smiles[i : i + batch_size]]
@@ -71,6 +65,15 @@ def predict(
         with torch.inference_mode():
             preds.append(model(bmg)[: len(mgs)].float().cpu().numpy())
     return np.concatenate(preds, 0)
+
+
+def check_plain_inputs(model: MPNN, featurizer: SimpleMoleculeMolGraphFeaturizer) -> None:
+    """Raise where ``model`` takes more than ``featurizer``'s graphs."""
+    mp = model.message_passing
+    if (mp.d_vd or model.predictor.input_dim != mp.output_dim
+            or (mp.d_v, mp.d_e) != featurizer.shape):
+        raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "
+                         "features), which predict and serve do not read yet")
 
 
 def main(args: argparse.Namespace) -> int:

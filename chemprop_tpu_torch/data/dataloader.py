@@ -1,8 +1,12 @@
 """Batch iteration (cf. ``chemprop_tpu/data/dataloader.py``): every batch is
 padded to bucketed node and edge counts and to a constant graph count, as in
 the JAX package, so that both packages train on the same tables. Batches lie
-on the CPU; the trainer moves them. Shards and class balance are not ported
-yet."""
+on the CPU; the trainer moves them. ``class_balance`` takes the
+``ClassBalanceSampler`` over the dataset's targets (shuffled where
+``shuffle`` is), as the JAX loader does. Not ported: shards, and the JAX
+loader's isolation of molecules wider than its kernel's window (more than 192
+bonds) into batches of their own; the port's kernels take such a molecule's
+split tile table instead."""
 
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ import numpy as np
 
 from chemprop_tpu_torch.data.collate import PadSpec, TrainingBatch, collate_batch
 from chemprop_tpu_torch.data.datasets import MoleculeDataset
-from chemprop_tpu_torch.data.samplers import SeededSampler
+from chemprop_tpu_torch.data.samplers import ClassBalanceSampler, SeededSampler
 
 
 class DataLoader:
@@ -22,6 +26,7 @@ class DataLoader:
         batch_size: int = 64,
         shuffle: bool = False,
         seed: int | None = None,
+        class_balance: bool = False,
         drop_last: bool = False,
         pad_spec: PadSpec | None = None,
     ):
@@ -29,8 +34,10 @@ class DataLoader:
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.pad_spec = pad_spec
-        self._reshuffles = bool(shuffle)
-        if shuffle:
+        self._reshuffles = bool(shuffle or class_balance)
+        if class_balance:
+            self.sampler = ClassBalanceSampler(dataset.Y, seed, shuffle)
+        elif shuffle:
             self.sampler = SeededSampler(len(dataset), 0 if seed is None else seed)
         else:
             self.sampler = range(len(dataset))
@@ -41,7 +48,7 @@ class DataLoader:
 
     def emitted_order(self) -> np.ndarray | None:
         """Dataset indices in emission order, or None for a loader whose
-        order changes between iterations (shuffle)."""
+        order changes between iterations (shuffle, class balance)."""
         if self._reshuffles:
             return None
         idxs = [i for batch in self._index_batches() for i in batch]

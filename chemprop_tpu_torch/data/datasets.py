@@ -76,6 +76,15 @@ class MoleculeDataset:
         return self.featurizer(self.data[idx].mol, self.V_fs[idx], self.E_fs[idx])
 
     @property
+    def names(self) -> list[str | None]:
+        return [d.name for d in self.data]
+
+    @property
+    def t(self) -> int | None:
+        """The number of tasks (targets per datapoint)."""
+        return None if not len(self.data) or self.data[0].y is None else self.data[0].y.size
+
+    @property
     def cache(self) -> bool:
         return self._cache is not None
 

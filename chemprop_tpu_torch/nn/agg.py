@@ -12,14 +12,21 @@ from torch import nn
 
 from chemprop_tpu_torch.data.collate import BatchMolGraph
 from chemprop_tpu_torch.ops.segment import sorted_segment_sum, sorted_segment_sum_counts
+from chemprop_tpu_torch.utils.registry import ClassRegistry
 
 
 class SumAggregation(nn.Module):
+    def __init__(self):  # no options (``Factory.build`` reads the signature)
+        super().__init__()
+
     def forward(self, H: torch.Tensor, bmg: BatchMolGraph) -> torch.Tensor:
         return sorted_segment_sum(H, bmg.batch, bmg.node_ptr, H.dtype)[: bmg.n_graphs]
 
 
 class MeanAggregation(nn.Module):
+    def __init__(self):
+        super().__init__()
+
     def forward(self, H: torch.Tensor, bmg: BatchMolGraph) -> torch.Tensor:
         totals, counts = sorted_segment_sum_counts(H, bmg.batch, bmg.node_ptr, torch.float32)
         return totals[: bmg.n_graphs] / counts[: bmg.n_graphs, None].clamp_min(1.0)
@@ -40,3 +47,9 @@ AGGREGATIONS = {
     "MeanAggregation": MeanAggregation,
     "NormAggregation": NormAggregation,
 }
+# the command line's names (``--aggregation``); attentive aggregation is not
+# ported yet
+AggregationRegistry = ClassRegistry()
+for _alias, _cls in (("sum", SumAggregation), ("mean", MeanAggregation),
+                     ("norm", NormAggregation)):
+    AggregationRegistry.register(_alias)(_cls)

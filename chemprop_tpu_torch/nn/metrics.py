@@ -16,8 +16,9 @@ interpolation, F1 counts a zero division as 0. One divergence: AUROC of
 targets of one class raises ``ValueError``, where scikit-learn 1.8 and later
 warns and returns NaN; a fit records NaN for the metric either way.
 
-``LossFunctionRegistry`` and ``MetricRegistry`` map the JAX package's aliases
-(``"bce"``, ``"roc"``, ``"pinball"``, ...) to the classes."""
+``LossFunctionRegistry`` and ``MetricRegistry`` (``utils.registry.ClassRegistry``)
+map the JAX package's aliases (``"bce"``, ``"roc"``, ``"pinball"``, ...) to the
+classes."""
 
 from __future__ import annotations
 
@@ -29,17 +30,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-LossFunctionRegistry: dict[str, type] = {}
-MetricRegistry: dict[str, type] = {}
+from chemprop_tpu_torch.utils.registry import ClassRegistry
+
+LossFunctionRegistry = ClassRegistry()
+MetricRegistry = ClassRegistry()
 
 
-def _register(registry: dict, *aliases: str):
-    def decorator(cls):
-        cls.alias = aliases[0]
-        registry.update({a: cls for a in aliases})
-        return cls
-
-    return decorator
+def _register(registry: ClassRegistry, *aliases: str):
+    return registry.register(aliases)
 
 
 def _task_weights(task_weights, like: torch.Tensor) -> torch.Tensor:

@@ -37,16 +37,13 @@ from chemprop_tpu_torch.nn.metrics import (
     QuantileLoss,
 )
 from chemprop_tpu_torch.nn.transforms import UnscaleTransform
+from chemprop_tpu_torch.utils.registry import ClassRegistry
 
-PredictorRegistry: dict[str, type] = {}
+PredictorRegistry = ClassRegistry()
 
 
 def _register(*aliases: str):
-    def decorator(cls):
-        PredictorRegistry.update({a: cls for a in aliases})
-        return cls
-
-    return decorator
+    return PredictorRegistry.register(aliases)
 
 
 class _FFNPredictorBase(nn.Module):

@@ -52,6 +52,14 @@ class UnscaleTransform(nn.Module):
         self.register_buffer("mean", torch.zeros(1, n_tasks))
         self.register_buffer("scale", torch.ones(1, n_tasks))
 
+    @classmethod
+    def from_standard_scaler(cls, scaler) -> "UnscaleTransform":
+        """The inverse of the targets' normalisation by ``scaler``."""
+        t = cls(len(np.atleast_1d(scaler.mean_)))
+        t.mean.copy_(torch.from_numpy(np.asarray(scaler.mean_, dtype=np.float32)).reshape(1, -1))
+        t.scale.copy_(torch.from_numpy(np.asarray(scaler.scale_, dtype=np.float32)).reshape(1, -1))
+        return t
+
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return X * self.scale + self.mean
 

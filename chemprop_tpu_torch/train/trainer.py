@@ -46,8 +46,15 @@ seeds the generator from ``seed``. ``freeze`` takes a parameter's path in the
 JAX package's tree (``"message_passing/W_i/kernel"``): the parameters it
 names get no update and keep zero moments, and the clipping norm counts only
 the others' gradients, as optax's ``multi_transform`` with ``set_to_zero``
-around the clipped Adam does. Not ported yet: tensorboard and profiler
-output, chained steps and meshes."""
+around the clipped Adam does.
+
+``log_every`` logs every ``log_every``-th epoch's record; ``tensorboard_dir``
+receives each epoch's record as scalar events (``utils.tbevents``, the JAX
+package's bytes), after its validation; ``profile_dir`` receives a Chrome
+trace of ``torch.profiler`` over ``profile_steps`` steps of the first epoch
+of a fit, from its second step on (the first builds the kernels), as the JAX
+trainer traces with ``jax.profiler`` after its compile step. Not ported yet:
+chained steps and meshes."""
 
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ from chemprop_tpu_torch.nn.init import init_parameters
 from chemprop_tpu_torch.nn.metrics import ChempropMetric
 from chemprop_tpu_torch.train.schedulers import noam_lr
 from chemprop_tpu_torch.utils.device import resolve_device, use_full_float32
+from chemprop_tpu_torch.utils.tbevents import ScalarEventWriter
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # the key of the dropout generator's state in a last.ckpt
@@ -136,6 +144,13 @@ class Trainer:
     freeze: Callable[[str], bool] | None = None
     param_init: str = "lecun"
     device: str | torch.device | None = None
+    # log every log_every-th epoch's record (0: none)
+    log_every: int = 0
+    # each epoch's record as TensorBoard scalar events
+    tensorboard_dir: str | Path | None = None
+    # a Chrome trace of steps 1 .. profile_steps of the first epoch of a fit
+    profile_dir: str | Path | None = None
+    profile_steps: int = 5
 
     # the first epoch of every fit, as in the JAX trainer: a second fit trains
     # max_epochs - start_epoch more epochs from the state the first one left
@@ -240,15 +255,52 @@ class Trainer:
         steps_per_epoch = len(train_loader)
         if self.state is None:
             self.init_state(None, steps_per_epoch)
-        best_score = np.inf if self.mode == "min" else -np.inf
         self.best_variables, self.best_epoch = None, -1
+        tb = None
+        if self.tensorboard_dir is not None:
+            tb = ScalarEventWriter(self.tensorboard_dir)
+        try:
+            self._fit_epochs(train_loader, val_loader, tb)
+        finally:
+            if tb is not None:
+                tb.close()
+        if self.best_variables is None:
+            self.best_variables = {k: v.detach().clone() for k, v in self._variables().items()}
+        return self.state
+
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def _stop_profiler(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = Path(self.profile_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path / "trace.json"))
+        logger.info(f"wrote a torch.profiler trace to {path / 'trace.json'}")
+
+    def _fit_epochs(self, train_loader, val_loader, tb: ScalarEventWriter | None) -> None:
+        best_score = np.inf if self.mode == "min" else -np.inf
         since_best = 0
         for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.time()
             losses, n_edges = [], 0
-            for batch in train_loader:
+            prof = None
+            for step_i, batch in enumerate(train_loader):
+                if self.profile_dir is not None and epoch == self.start_epoch and step_i == 1:
+                    prof = self._profiler()
+                    prof.start()
                 n_edges += int(batch.bmg.edge_mask.sum())  # the host batch's real edges
                 losses.append(self.train_step(batch))
+                if prof is not None and step_i >= self.profile_steps:
+                    self._stop_profiler(prof)
+                    prof = None
+            if prof is not None:
+                self._stop_profiler(prof)
             # one device -> host fetch per epoch
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             dt = time.time() - t0
@@ -262,6 +314,12 @@ class Trainer:
             if val_loader is not None:
                 record.update(self._validate(val_loader, bool(self.val_metrics)))
             self.history.append(record)
+            if tb is not None:
+                tb.add_scalars(record, step=epoch)
+                tb.flush()
+            if self.log_every and epoch % self.log_every == 0:
+                logger.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
+                                     for k, v in record.items()))
             score = record.get(self.monitor, train_loss)
             if (score < best_score - self.min_delta if self.mode == "min"
                     else score > best_score + self.min_delta):
@@ -276,10 +334,8 @@ class Trainer:
             if self.checkpoint_dir is not None:
                 self._save_checkpoint("last", epoch + 1)
             if self.patience is not None and since_best > self.patience:
+                logger.info(f"early stopping at epoch {epoch} (best epoch {self.best_epoch})")
                 break
-        if self.best_variables is None:
-            self.best_variables = {k: v.detach().clone() for k, v in self._variables().items()}
-        return self.state
 
     @contextlib.contextmanager
     def _best(self):

@@ -122,7 +122,33 @@ failure:
    evidential, quantile and bounded MSE (regression/bounded.csv, its ``<``
    and ``>`` targets as the masks) against the CPU's; (d) every fit's
    ``edges_per_s`` positive and finite. The phase's seconds are printed on
-   their own line.
+   their own line;
+9. the command line's ``train`` and ``serve``, in this process so that the
+   launch counts see them, each part fatal: (a) ``train`` on mol.csv at full
+   width with batch norm, the mean readout, a scaffold-balanced split and an
+   ensemble of two,
+   ``CLI_TRAIN_EPOCHS`` epochs in float32 and in bfloat16, each run's
+   launches counted on their own (A, C, F in f32; B, C, G, H, I in bf16;
+   nothing unserved); the first member's first epoch against the same
+   command on the CPU (rtol 1e-4 in f32, 1e-3 in bf16), and the parameters
+   after one epoch of the same command (two Adam steps) on the card
+   against the CPU's, each tensor's share of elements apart by more than
+   ``CLI_PARAM_TAU`` within ``CLI_PARAM_SHARE`` (a kernel of the backward
+   with its output zeroed breaks it, where the loss moves by 1e-3 or less:
+   experiments/torch_cli_train_check.py); bfloat16's last
+   epoch below ``CLI_TRAIN_BF16_BAR`` (0.15: the same command on the CPU
+   ended its two members at 0.0416 and 0.0686);
+   every artefact written; each ``best.ckpt`` through ``predict`` on the
+   card against its ``test_predictions.csv`` at phase 3's limits; (b)
+   ``make_server`` on port 0 in a thread over (a)'s bfloat16 ``best.ckpt``
+   and, in float32, the reference checkpoint: a burst of ``SERVE_CLIENTS``
+   concurrent clients, each with 4-8 SMILES of mol.csv and one invalid one,
+   every row against ``predict`` of the same checkpoint on the card at phase
+   3's limits, the invalid rows null with their errors, fewer dispatches
+   than requests, 413 over ``--max-batch``, each dispatch launching one
+   forward's kernels; the burst's requests per second and its p50 and p99
+   latency are printed with the card's name and power limit. The phase's
+   seconds are printed on their own line.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -299,6 +325,13 @@ PATH_KERNELS = {
         "bwd_message_premul": 1, "row_gather": 1} for name in ("bce", "ce", "mve")},
     **{f"train_heads_float32_{name}": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2}
        for name in ("bce", "ce", "dirichlet", "evidential", "quantile", "bounded")},
+    # phase 9: `train` through the CLI (its steps, validation and test
+    # predictions) and `serve` (one forward per dispatch)
+    "train_cli_float32": {"message": 2, "sorted_segment_sum": 2, "bwd_message": 2},
+    "train_cli_bfloat16": {"fused_iter": 2, "sorted_segment_sum": 2, "bwd_message_nodes": 1,
+                           "bwd_message_premul": 1, "row_gather": 1},
+    "serve_bfloat16_best_ckpt": {"fused_iter": 2, "sorted_segment_sum": 2},
+    "serve_float32_reference_pt": {"message": 2, "sorted_segment_sum": 2},
 }
 # the training steps timed and counted on the benchmark batch: dtype, dropout
 # rate, opt-in kernels and other message-passing arguments; each is held to
@@ -345,6 +378,28 @@ HEAD_CHECKPOINTS = [
 # MVE's loss rose by 0.46 from one epoch to the next on the CPU)
 HEAD_FIT_EPOCHS = 20
 HEAD_FIT_BARS = {"bce": 0.25, "ce": 0.08, "mve": 0.8}
+# phase 9(a): `train` on mol.csv, CLI_TRAIN_EPOCHS epochs; bf16's last epoch's
+# train loss (normalised MSE) must fall below the bar. The same command in bf16
+# on the CPU (`python -m chemprop_tpu_torch.cli train ... --device cpu`, the
+# H100 machine's CPU) went 2.168 -> 0.0416 (first member) and 1.207 -> 0.0686
+# (second); the card's first member went 2.167 -> 0.0446, its second ended at
+# 0.0554. The losses still move by up to 0.1 between the last epochs, so the
+# bar is about twice the CPU's larger last loss
+CLI_TRAIN_EPOCHS = 20
+CLI_TRAIN_BF16_BAR = 0.15
+# phase 9(a): the first epoch's two Adam steps (rates 1e-4 and 3.25e-4 of the
+# warm-up) on the card against the CPU: no parameter tensor may have more than
+# CLI_PARAM_SHARE of its elements apart by more than CLI_PARAM_TAU, half the
+# two rates. experiments/torch_cli_train_check.py on the H100 (700 W): the
+# port's worst tensor 0.02 (f32) and 0.03 (bf16), both W_o's bias, whose
+# gradient under batch norm is near zero, so Adam's step takes its rounding's
+# sign (W_h 0 and 0.0081, W_i 0 and 0.0032); with a kernel's output zeroed,
+# W_h 0.635 (F, f32) and 0.632 (G, bf16), W_i 0.148 (H's cotangent of H0, bf16)
+CLI_FIRST_LRS = 1e-4 + 3.25e-4
+CLI_PARAM_TAU = CLI_FIRST_LRS / 2
+CLI_PARAM_SHARE = 0.07
+# phase 9(b): the burst of concurrent clients, their SMILES drawn from SERVE_SEED
+SERVE_CLIENTS, SERVE_SEED = 16, 0
 # phase 6(a): the descriptor model's 30 epochs must bring the last epoch's train
 # loss (normalised targets) to this, and the best epoch's val_rmse to the other
 DESCRIPTOR_TRAIN_LOSS, DESCRIPTOR_VAL_RMSE = 0.05, 0.5
@@ -804,6 +859,15 @@ def check_path_launches(path: str, launches: dict, exact: bool) -> None:
         if not ok:
             fail(f"the {path} path launched {name} {got} times, expected "
                  f"{want}{'' if exact or want == 0 else ' or more'}")
+
+
+def unserved_since(before: dict) -> dict:
+    """The calls ``ops.UNSERVED`` counted since it held ``before``. A phase
+    reads its own share this way and never clears the counter, which the
+    final gate reads over every main path."""
+    from chemprop_tpu_torch.ops import UNSERVED
+
+    return {k: v - before.get(k, 0) for k, v in UNSERVED.items() if v != before.get(k, 0)}
 
 
 def main_path(out_dir: Path) -> tuple[dict, dict]:
@@ -1711,7 +1775,7 @@ def heads_fits() -> tuple[dict, dict]:
         launches[f"train_heads_bfloat16_{name}"] = dict(LAUNCHES)
         again, untiled_again, batches_again = head_fit(name, torch.bfloat16)
         untiled, batches = untiled + untiled_again, batches + batches_again
-        unserved = {k: v - before.get(k, 0) for k, v in UNSERVED.items() if v != before.get(k, 0)}
+        unserved = unserved_since(before)
         if unserved:
             fail(f"the {name} fits left {unserved} unserved ({untiled} of their batches had "
                  "no tile table)")
@@ -1798,6 +1862,285 @@ def heads_phase(out_dir: Path) -> tuple[dict, dict]:
         launches.update(part)
     res["seconds"] = time.time() - t0
     print(json.dumps({"phase": "heads", "seconds": res["seconds"]}))
+    return launches, res
+
+
+def cli_train(out: Path, dtype: str, device: str | None, epochs: int,
+              members: int = 2) -> list[list[dict]]:
+    """Phase 9(a): ``python -m chemprop_tpu_torch.cli train`` in this process
+    on mol.csv at full width (batch norm, a scaffold-balanced split, an
+    ensemble of ``members``; the mean readout of the reference checkpoint,
+    whose bf16 backward is kernel I, where the default norm readout's is an
+    indexing); each member's history."""
+    from chemprop_tpu_torch.cli.main import main
+
+    argv = ["-q", "train", "-i", str(MOL_CSV), "-o", str(out), "--batch-norm", "--split",
+            "scaffold_balanced", "--ensemble-size", str(members), "--epochs", str(epochs),
+            "--aggregation", "mean", "--dtype", dtype]
+    if main(argv + (["--device", device] if device else [])) != 0:
+        fail(f"train --dtype {dtype} on {device or 'cuda'} returned non-zero")
+    dirs = [out / f"model_{m}" for m in range(members)] if members > 1 else [out]
+    return [json.loads((d / "history.json").read_text()) for d in dirs]
+
+
+def param_drift(path: Path, ref: Path, taus: dict) -> dict:
+    """For each parameter tensor of two ``CPTPU001`` files, its size, the
+    largest difference and, for each name of ``taus``, how many elements
+    differ by more than that absolute limit."""
+    import numpy as np
+
+    from chemprop_tpu_torch.models import serialize
+
+    out = {}
+
+    def walk(a, b, key):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{key}/{k}" if key else k)
+            return
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err = np.abs(a - b)
+        out[key] = {"n": int(err.size), "max": float(err.max()),
+                    **{name: int((err > tau).sum()) for name, tau in taus.items()}}
+
+    walk(serialize.read_checkpoint(path)[1]["params"], serialize.read_checkpoint(ref)[1]["params"],
+         "")
+    return out
+
+
+def first_epoch_params(card: Path, cpu: Path) -> dict:
+    """The parameters after ``train``'s first epoch (two Adam steps, rates
+    ``CLI_FIRST_LRS``) on the card against the CPU's: each tensor's share of
+    elements that moved apart by more than ``CLI_PARAM_TAU``, which must stay
+    within ``CLI_PARAM_SHARE``. Adam's first steps move an element by about
+    its rate whatever the gradient's size, in the sign of the gradient, so a
+    backward that is wrong or zero parts many elements of the tensors behind
+    it, where the loss of two steps moves little."""
+    drift = param_drift(card, cpu, {"off": CLI_PARAM_TAU})
+    shares = {k: v["off"] / v["n"] for k, v in drift.items()}
+    worst = max(shares, key=shares.get)
+    return {"tau": CLI_PARAM_TAU, "share_limit": CLI_PARAM_SHARE, "worst": worst,
+            "worst_share": shares[worst], "shares": shares,
+            "max_diff": max(v["max"] for v in drift.values())}
+
+
+def cli_train_phase(out_dir: Path) -> tuple[dict, dict]:
+    """Phase 9(a): ``train`` on the card in f32 and bf16, each run's launches
+    counted on their own; the first epoch's loss against the same command on
+    the CPU, and a one-epoch run's parameters against the CPU's
+    (``first_epoch_params``); bf16's last epoch below its bar; every
+    artefact; each ``best.ckpt`` through ``predict`` on the card against its
+    ``test_predictions.csv``. The phase's unserved calls are read as a
+    difference: ``ops.UNSERVED`` keeps every main path's for the final
+    gate."""
+    import shutil
+
+    import numpy as np
+
+    from chemprop_tpu_torch.cli.main import main
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    launches, res = {}, {}
+    for dt in ("float32", "bfloat16"):
+        out = out_dir / f"train_{dt}"
+        shutil.rmtree(out, ignore_errors=True)
+        LAUNCHES.clear()
+        before = dict(UNSERVED)
+        card = cli_train(out, dt, None, CLI_TRAIN_EPOCHS)
+        launches[f"train_cli_{dt}"] = dict(LAUNCHES)
+        check_path_launches(f"train_cli_{dt}", launches[f"train_cli_{dt}"], exact=False)
+        unserved = unserved_since(before)
+        if unserved:
+            fail(f"train --dtype {dt} left calls unserved: {unserved}")
+        # the first member's first epoch does not depend on --epochs (its
+        # steps are all in the warm-up) nor on the ensemble's size (the
+        # members share the loader, so the second one's epochs do)
+        cpu = cli_train(out_dir / f"train_{dt}_cpu", dt, "cpu", 1, members=1)
+        cli_train(out_dir / f"train_{dt}_one", dt, None, 1, members=1)
+        params = first_epoch_params(out_dir / f"train_{dt}_one/best.ckpt",
+                                    out_dir / f"train_{dt}_cpu/best.ckpt")
+        r = {"train_loss_first": card[0][0]["train_loss"],
+             "train_loss_first_cpu": cpu[0][0]["train_loss"],
+             "train_loss_last": [h[-1]["train_loss"] for h in card],
+             "val_loss_last": [h[-1]["val_loss"] for h in card],
+             "edges_per_s_last": [h[-1]["edges_per_s"] for h in card]}
+        # f32: summation order only. bf16: the card's kernels and the CPU's
+        # plain versions sum in f32 and round once, so a value may land on the
+        # neighbouring bf16 number; phase 3 holds such predictions to atol 1e-3
+        # (a loss near 1 moves by about twice that relative to itself), and
+        # phase 8's bf16 fits' first epochs came within 7e-4 of the CPU's
+        rtol = 1e-4 if dt == "float32" else 1e-3
+        r["rtol"] = rtol
+        if not np.isclose(r["train_loss_first"], r["train_loss_first_cpu"], rtol=rtol, atol=0):
+            fail(f"train --dtype {dt}: the first epoch's loss on cuda disagrees with the CPU's: "
+                 f"{r}")
+        r["first_epoch_params"] = {k: v for k, v in params.items() if k != "shares"}
+        if not params["worst_share"] <= params["share_limit"]:
+            fail(f"train --dtype {dt}: after the first epoch {params['worst']} on cuda parts from "
+                 f"the CPU's in {params['worst_share']} of its elements: {params}")
+        if dt == "bfloat16" and max(r["train_loss_last"]) > CLI_TRAIN_BF16_BAR:
+            fail(f"train --dtype bfloat16: last epoch's loss above {CLI_TRAIN_BF16_BAR}: {r}")
+        for name in ("config.json", "splits.json", "test_scores.json"):
+            if not (out / name).is_file():
+                fail(f"train --dtype {dt} wrote no {name}")
+        r["predict_vs_test_predictions"] = []
+        for m in range(2):
+            d = out / f"model_{m}"
+            for name in ("best.ckpt", "history.json", "test_predictions.csv",
+                         "checkpoints/best.ckpt", "checkpoints/last.ckpt"):
+                if not (d / name).is_file():
+                    fail(f"train --dtype {dt} wrote no model_{m}/{name}")
+            with open(d / "test_predictions.csv", newline="") as f:
+                rows = list(csv.reader(f))
+            smis, want = [row[0] for row in rows[1:]], np.array([float(row[1]) for row in rows[1:]])
+            with open(d / "test.csv", "w", newline="") as f:
+                csv.writer(f).writerows([["smiles"]] + [[smi] for smi in smis])
+            LAUNCHES.clear()
+            argv = ["-q", "predict", "--model-path", str(d / "best.ckpt"), "-i", str(d / "test.csv"),
+                    "-o", str(d / "predict.csv"), "--dtype", dt]
+            if main(argv) != 0:
+                fail(f"predict of train --dtype {dt}'s model_{m}/best.ckpt returned non-zero")
+            check_path_launches(f"predict_{dt}", dict(LAUNCHES), exact=False)
+            with open(d / "predict.csv", newline="") as f:
+                got = np.array([float(row[1]) for row in list(csv.reader(f))[1:]])
+            r["predict_vs_test_predictions"].append(float(np.abs(got - want).max()))
+            # phase 3's limits on one device: the same model, the same batch
+            tol = dict(rtol=1e-5, atol=1e-4) if dt == "float32" else dict(rtol=0, atol=1e-3)
+            if not (np.isfinite(got).all() and np.allclose(got, want, **tol)):
+                fail(f"predict of train --dtype {dt}'s model_{m}/best.ckpt disagrees with its "
+                     f"test_predictions.csv")
+        res[dt] = r
+    print(json.dumps({"cli_train": res}))
+    return launches, res
+
+
+def post(port: int, path: str, body=None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_burst(model_path: Path, dtype: str, card: str, out_dir: Path) -> tuple[dict, dict]:
+    """Phase 9(b): ``make_server`` on port 0 in a thread over ``model_path``,
+    a burst of SERVE_CLIENTS concurrent clients, each with 4-8 SMILES of
+    mol.csv and one invalid SMILES; every row against ``predict`` of the same
+    checkpoint on the card at phase 3's limits, the invalid rows null with
+    their errors, fewer dispatches than requests, 413 over ``--max-batch``,
+    and each dispatch's launches."""
+    import threading
+
+    import numpy as np
+
+    from chemprop_tpu_torch.cli.main import construct_parser, main
+    from chemprop_tpu_torch.cli.serve import make_server
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    with open(MOL_CSV, newline="") as f:
+        smis = [row[0] for row in list(csv.reader(f))[1:]]
+    ref = out_dir / f"serve_{dtype}_predict.csv"
+    argv = ["-q", "predict", "--model-path", str(model_path), "-i", str(MOL_CSV), "-o", str(ref),
+            "--dtype", dtype]
+    if main(argv) != 0:
+        fail(f"predict of {model_path.name} returned non-zero")
+    with open(ref, newline="") as f:
+        want = {row[0]: float(row[1]) for row in list(csv.reader(f))[1:]}
+    args = construct_parser().parse_args(["serve", "--model-paths", str(model_path), "--port", "0",
+                                          "--dtype", dtype])
+    server, service = make_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    rng = np.random.default_rng(SERVE_SEED)
+    bodies = [[smis[i] for i in rng.choice(len(smis), int(rng.integers(4, 9)), replace=False)]
+              for _ in range(SERVE_CLIENTS)]
+    for body in bodies:
+        body.insert(int(rng.integers(0, len(body) + 1)), "C1CC")  # an unclosed ring
+    results, latency = [None] * SERVE_CLIENTS, [0.0] * SERVE_CLIENTS
+    barrier = threading.Barrier(SERVE_CLIENTS)
+
+    def client(i):
+        barrier.wait()
+        t = time.perf_counter()
+        results[i] = post(port, "/predict", {"smiles": bodies[i]})
+        latency[i] = time.perf_counter() - t
+
+    try:
+        _, before = post(port, "/health")
+        LAUNCHES.clear()
+        unserved_before = dict(UNSERVED)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        run = dict(LAUNCHES)
+        _, after = post(port, "/health")
+        too_big = post(port, "/predict", {"smiles": smis[:1] * (args.max_batch + 1)})[0]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join()
+    requests = after["requests"] - before["requests"]
+    dispatches = after["dispatches"] - before["dispatches"]
+    ms = sorted(1e3 * x for x in latency)
+    res = {"checkpoint": model_path.name, "dtype": dtype, "clients": SERVE_CLIENTS,
+           "requests": requests, "dispatches": dispatches, "launches": run,
+           "requests_per_s": SERVE_CLIENTS / wall, "wall_s": wall,
+           "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+           "max_ms": ms[-1], "card": card, "status_over_max_batch": too_big}
+    errs = []
+    for (status, out), body in zip(results, bodies):
+        if status != 200 or len(out["preds"]) != len(body):
+            fail(f"serve {model_path.name}: a request failed: {status} {out}")
+        bad = [i for i, s in enumerate(body) if s == "C1CC"]
+        if [i for i, p in enumerate(out["preds"]) if p is None] != bad or sorted(
+                map(int, out.get("errors", {}))) != bad:
+            fail(f"serve {model_path.name}: the invalid rows are not null with their errors")
+        errs += [abs(p[0] - want[s]) for p, s in zip(out["preds"], body) if p is not None]
+    res["max_abs_err_vs_predict"] = max(errs)
+    print(json.dumps({"serve": res}))
+    # phase 3's limits: another batch composition changes only the products'
+    # summation order (f32) or the odd bf16 rounding
+    tol = (1e-4 + 1e-5 * max(abs(v) for v in want.values()) if dtype == "float32" else 1e-3)
+    if max(errs) > tol:
+        fail(f"serve {model_path.name}: rows disagree with predict's (max {max(errs)})")
+    if requests != SERVE_CLIENTS or not 1 <= dispatches < requests:
+        fail(f"serve {model_path.name}: {requests} requests in {dispatches} dispatches")
+    if too_big != 413:
+        fail(f"serve {model_path.name}: a request over --max-batch got {too_big}")
+    unserved = unserved_since(unserved_before)
+    if unserved:
+        fail(f"serve {model_path.name} left calls unserved: {unserved}")
+    # each dispatch launches one forward's kernels (depth 3: two iterations,
+    # the M_v and the mean readout)
+    per = PATH_KERNELS[f"predict_{dtype}"]
+    if {k: v for k, v in run.items() if v} != {k: v * dispatches for k, v in per.items()}:
+        fail(f"serve {model_path.name}: {run} launched in {dispatches} dispatches")
+    return run, res
+
+
+def cli_phase(out_dir: Path, card: str) -> tuple[dict, dict]:
+    """Phase 9: the ``train`` and ``serve`` entry points on the card."""
+    t0 = time.time()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    launches, res = cli_train_phase(out_dir)
+    res["serve"] = {}
+    for key, path, dt in (("bfloat16_best_ckpt", out_dir / "train_bfloat16/model_0/best.ckpt",
+                           "bfloat16"), ("float32_reference_pt", CKPT, "float32")):
+        launches[f"serve_{key}"], res["serve"][key] = serve_burst(path, dt, card, out_dir)
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"phase": "cli", "seconds": res["seconds"]}))
     return launches, res
 
 
@@ -2275,6 +2618,8 @@ def main() -> int:
     launches.update(extras_launches)
     heads_launches, heads_res = heads_phase(out_dir)
     launches.update(heads_launches)
+    cli_launches, cli_res = cli_phase(out_dir / "chip_smoke_cli", card)
+    launches.update(cli_launches)
     # the timings take A's and F's forms without a table on purpose: the main
     # paths' unserved calls are read before them, the benchmark steps' after
     unserved = dict(UNSERVED)
@@ -2367,7 +2712,7 @@ def main() -> int:
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
-              "heads": heads_res,
+              "heads": heads_res, "cli": cli_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

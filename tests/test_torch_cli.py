@@ -81,3 +81,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_gpu, data_dir, tmp_path):
         main(["predict", "--model-path", str(data_dir / CKPT), "-i", str(in_csv),
               "-o", str(tmp_path / "p.csv")])
     assert not (tmp_path / "p.csv").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "-i", str(in_csv), "-o", str(tmp_path / "train"), "--epochs", "1"])
+    assert not (tmp_path / "train").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--model-paths", str(data_dir / CKPT), "--port", "0"])

@@ -1866,3 +1866,94 @@ def test_loop_readout_over_the_split_table_serves_g_and_h(cuda, depth):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert UNSERVED["bwd_message_nodes"] == UNSERVED["bwd_message_premul"] == 0
     assert LAUNCHES["bwd_message_nodes"] == 1 and LAUNCHES["bwd_message_premul"] == depth - 2
+
+
+# ------------------------------------------------------- train and serve (CLI)
+def _train_run(out, device: str):
+    import json
+
+    from chemprop_tpu_torch.cli.main import main
+
+    argv = ["train", "-i", str(DATA / "regression/mol/mol.csv"), "-o", str(out), "--epochs", "1",
+            "--batch-norm", "--device", device]
+    assert main(argv) == 0
+    return json.loads((out / "history.json").read_text())
+
+
+def _pred_column(path):
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return [r[0] for r in rows[1:]], np.array([float(r[1]) for r in rows[1:]])
+
+
+def test_cli_train_one_epoch_on_card_matches_cpu(cuda, tmp_path):
+    """One float32 epoch (two steps) of ``train`` at full width on the card
+    against the same run on the CPU: losses within rtol 1e-4, parameters
+    within Adam's two steps (twice their rates where summation order flips a
+    gradient's sign, rtol 1e-4 / atol 1e-6 for all but a thousandth), and the
+    card's test predictions equal to its ``best.ckpt`` served on the CPU at
+    the serving path's float32 limits (rtol 1e-5, atol 1e-4)."""
+    from chemprop_tpu_torch.cli.predict import predict
+    from chemprop_tpu_torch.models import serialize
+    from chemprop_tpu_torch.train.schedulers import noam_lr
+
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    got = _train_run(tmp_path / "cuda", "cuda")
+    assert LAUNCHES["message"] > 0 and LAUNCHES["bwd_message"] > 0
+    assert LAUNCHES["sorted_segment_sum"] > 0 and not any(UNSERVED.values())
+    want = _train_run(tmp_path / "cpu", "cpu")
+    for key in ("train_loss", "val_loss"):
+        np.testing.assert_allclose(got[0][key], want[0][key], rtol=1e-4, err_msg=key)
+    _, a = serialize.read_checkpoint(tmp_path / "cuda/best.ckpt")
+    _, b = serialize.read_checkpoint(tmp_path / "cpu/best.ckpt")
+    lrs = noam_lr(0, 4, 1, 1e-4, 1e-3, 1e-4) + noam_lr(1, 4, 1, 1e-4, 1e-3, 1e-4)
+    n_off = n_all = 0
+
+    def walk(x, y):
+        nonlocal n_off, n_all
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+            return
+        err = np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64))
+        assert err.max() <= 2 * lrs * (1 + 1e-3)
+        n_off += int((err > 1e-6 + 1e-4 * np.abs(np.asarray(y))).sum())
+        n_all += err.size
+
+    walk(a["params"], b["params"])
+    assert n_off <= 1e-3 * n_all, (n_off, n_all)
+    names, preds = _pred_column(tmp_path / "cuda/test_predictions.csv")
+    model, _ = load_model(tmp_path / "cuda/best.ckpt", "cpu")
+    cpu = predict(model, names, torch.device("cpu"))[:, 0]
+    np.testing.assert_allclose(preds, cpu, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_served_request_on_card_matches_cpu(cuda, dtype):
+    """The reference checkpoint served on the card and on the CPU: the same
+    rows at the serving path's limits (float32: rtol 1e-5, atol 1e-4;
+    bfloat16: atol 1e-3 of the CPU's bfloat16), the invalid SMILES refused
+    alike; the dispatcher thread launches the kernels."""
+    from chemprop_tpu_torch.cli.serve import ModelService
+
+    smis = SMIS + ["C1CC", "CC(=O)[O-].[Na+]"]
+    out = {}
+    for device in ("cuda", "cpu"):
+        service = ModelService([DATA / "example_model_v2_regression_mol.pt"], device=device,
+                               dtype=dtype)
+        LAUNCHES.clear()
+        try:
+            out[device] = service.predict(smis)
+        finally:
+            service.close()
+        if device == "cuda":
+            kernel = "message" if dtype == "float32" else "fused_iter"
+            assert LAUNCHES[kernel] == 2 and LAUNCHES["sorted_segment_sum"] == 2
+    (got, got_err), (want, want_err) = out["cuda"], out["cpu"]
+    assert got_err == want_err and set(got_err) == {10}
+    rows = [i for i, w in enumerate(want) if w is not None]
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" else dict(rtol=0, atol=1e-3)
+    np.testing.assert_allclose([got[i] for i in rows], [want[i] for i in rows], **tol)

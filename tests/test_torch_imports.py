@@ -27,6 +27,12 @@ PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "experiments" / "torch_iter2_parts.py",
     REPO / "experiments" / "torch_message.py",
     REPO / "experiments" / "torch_message_parts.py",
+    REPO / "experiments" / "torch_bwd_message.py",
+    REPO / "experiments" / "torch_bwd_message_parts.py",
+    REPO / "experiments" / "torch_head_fits.py",
+    REPO / "experiments" / "torch_split_tiles.py",
+    REPO / "experiments" / "torch_tanh_bits.py",
+    REPO / "experiments" / "torch_cli_train_check.py",
 ]
 # the JAX stack, and what the machine with the card does not have either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
