@@ -1,7 +1,7 @@
 """The argument groups that ``train`` shares with the other subcommands (cf.
 ``chemprop_tpu/cli/common.py``): the JAX package's flags under its names, so
 that a run's ``config.json`` has its keys, and the port's own ``--device`` and
-``--dtype``. ``--molecule-featurizers`` and
+``--dtype``, and :func:`find_models`. ``--molecule-featurizers`` and
 ``--use-cuikmolmaker-featurization`` are parsed and then refused by ``train``
 (``ROADMAP.md`` §1 items 6 and 5); ``--accelerator`` and ``--devices`` are
 the JAX package's platform and mesh choice, where the port takes
@@ -137,3 +137,24 @@ def check_devices(args) -> None:
     if getattr(args, "devices", "auto") not in (None, "auto", 1, "1"):
         raise ValueError("training on more than one device is not ported yet "
                          "(ROADMAP.md section 1 item 12, multi-GPU)")
+
+
+def find_models(model_paths: list[Path]) -> list[Path]:
+    """Model files from ``--model-paths``: a ``.ckpt`` or ``.pt`` file as it
+    is; a training output directory its ``best.ckpt`` (never the copy under
+    ``checkpoints/``, nor ``last.ckpt``, which carries the optimizer's state
+    for resuming); any other directory every ``*.ckpt`` and ``*.pt`` below
+    it but ``last.ckpt``, sorted."""
+    found = []
+    for p in map(Path, model_paths):
+        if p.suffix in (".ckpt", ".pt"):
+            found.append(p)
+        elif p.is_dir():
+            if (p / "best.ckpt").exists():
+                found.append(p / "best.ckpt")
+            else:
+                found.extend(f for f in sorted(list(p.rglob("*.ckpt")) + list(p.rglob("*.pt")))
+                             if f.name != "last.ckpt")
+        else:
+            raise ValueError(f"cannot interpret model path {p}")
+    return found

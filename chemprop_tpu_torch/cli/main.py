@@ -1,10 +1,11 @@
 """Entry point of the port's command line (cf. ``chemprop_tpu/cli/main.py``):
-the ``train``, ``predict`` and ``serve`` subcommands, logging (``-v`` /
+the ``train``, ``predict``, ``fingerprint``, ``convert`` and ``serve``
+subcommands, logging (``-v`` /
 ``-q`` / ``--logfile``), and argument defaults from a JSON or TOML file
 (``--config-path``, before or after the subcommand; a flag given on the
 command line wins).
 
-    python -m chemprop_tpu_torch.cli {train,predict,serve} ..."""
+    python -m chemprop_tpu_torch.cli {train,predict,fingerprint,convert,serve} ..."""
 
 from __future__ import annotations
 
@@ -14,14 +15,16 @@ import logging
 import sys
 from pathlib import Path
 
-from chemprop_tpu_torch.cli import predict, serve, train
+from chemprop_tpu_torch.cli import convert, fingerprint, predict, serve, train
 
 logger = logging.getLogger(__name__)
 
 LOG_LEVELS = {0: logging.INFO, 1: logging.DEBUG, -1: logging.WARNING, -2: logging.ERROR}
 SUBCOMMANDS = {
     "train": (train, "train a model from a CSV"),
-    "predict": (predict, "predict with a trained model"),
+    "predict": (predict, "predict with trained models"),
+    "fingerprint": (fingerprint, "compute the learned representations of trained models"),
+    "convert": (convert, "convert a reference checkpoint to a CPTPU001 file"),
     "serve": (serve, "serve trained models over HTTP"),
 }
 

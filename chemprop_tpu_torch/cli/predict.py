@@ -1,61 +1,370 @@
 """``predict``: SMILES in a CSV -> predictions in a CSV (cf.
-``chemprop_tpu/cli/predict.py``), for one checkpoint of any head: a reference
-``.pt``/``.ckpt`` or a ``CPTPU001`` file of the JAX package or of the port's
-``Trainer``, told apart by its magic bytes. A model that takes extra inputs
-(descriptors, extra atom or bond features) is refused: the options that read
-them are not ported yet.
+``chemprop_tpu/cli/predict.py``), averaged over an ensemble, with the JAX
+CLI's uncertainty, calibration and evaluation.
 
-    python -m chemprop_tpu_torch.cli predict --model-path X.pt -i in.csv -o out.csv \\
-        [--device cpu] [--dtype float32|bfloat16] [--batch-size N]
+    python -m chemprop_tpu_torch.cli predict -i in.csv -o out.csv \\
+        --model-paths A.pt B.ckpt DIR ... [--device cpu] [--dtype float32|bfloat16] \\
+        [--uncertainty-method ensemble|mve|dropout|...] \\
+        [--calibration-method zscaling|isotonic|... --cal-path cal.csv] \\
+        [--evaluation-methods nll-regression spearman ...]
+
+``--model-paths`` takes reference v1 and v2 ``.pt`` / ``.ckpt`` files and
+``CPTPU001`` files of the JAX package or of the port's ``train``, told apart
+by their contents, and directories (``cli.common.find_models``: a training
+output directory gives its ``best.ckpt``). The input is read with the
+shared options of ``cli.common.add_common_args`` (``--smiles-columns``,
+``--no-header-row``, ``--add-h`` / ``--keep-h`` / ``--ignore-stereo``,
+``--multi-hot-atom-featurizer-mode``) and the extra inputs
+(``--descriptors-path``, ``--descriptors-columns``, ``--atom-features-path``,
+``--bond-features-path``, ``--atom-descriptors-path``); a first model whose
+``W_i`` takes another width than the chosen featurizer gives switches to the
+featurizer mode that fits it (the 133-wide v1 atom features of a v1 file).
+``--uncertainty-method dropout`` runs ``Trainer.predict_mc_dropout`` with
+every dropout rate set to ``--uncertainty-dropout-p``.
 
 The output has the JAX CLI's columns: ``name`` (the SMILES), then for each
 task, named by the checkpoint's output columns or ``pred_<j>``, its point
 value (channel 0 of an MVE, evidential, quantile or Dirichlet head); a
 multiclass head writes the task's class label and ``<task>_prob``, its class
-probabilities as ``%.6f`` joined by commas (a Dirichlet head's uncertainty
-left out). Uncertainty columns are not ported yet. With no ``--device`` it
-runs on the GPU, and raises where there is none."""
+probabilities as ``%.6f`` joined by commas; then each task's ``<task>_unc``
+(a conformal set's memberships joined by commas). With
+``--evaluation-methods`` the evaluations against the input's own targets
+are printed as one JSON line. With no ``--device`` it runs on the GPU, and
+raises where there is none. What the port does not have yet is refused
+(``REFUSED``), each with the ``ROADMAP.md`` item that will port it; so is a
+``.pkl`` output, which the JAX package writes with pandas."""
 
 from __future__ import annotations
 
 import argparse
 import csv
+import json
+import logging
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from chemprop_tpu_torch.chem import make_mol
-from chemprop_tpu_torch.cli.common import DTYPES, add_device_args
-from chemprop_tpu_torch.data.collate import batch_mol_graphs
+from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices, find_models
+from chemprop_tpu_torch.cli.parsing import (
+    REFUSED_COMPONENTS,
+    REFUSED_MOLECULE_FEATURIZERS,
+    REFUSED_REACTIONS,
+    build_datasets,
+    featurizer_for,
+    load_component_feats,
+    load_input_feats,
+    make_datapoints,
+    parse_csv,
+    read_columns,
+)
+from chemprop_tpu_torch.data import DataLoader
 from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, MulticlassDirichletFFN
+from chemprop_tpu_torch.nn.utils import Dropout
+from chemprop_tpu_torch.train import Trainer
+from chemprop_tpu_torch.uncertainty import (
+    CalibratorRegistry,
+    UncertaintyEstimatorRegistry,
+    UncertaintyEvaluatorRegistry,
+)
 from chemprop_tpu_torch.utils.device import resolve_device
+from chemprop_tpu_torch.utils.registry import Factory
 
+logger = logging.getLogger(__name__)
+
+UNCERTAINTY_METHODS = ["none", "ensemble", "mve", "evidential-total", "evidential-epistemic",
+                       "evidential-aleatoric", "classification", "classification-dirichlet",
+                       "multiclass-dirichlet", "quantile-regression", "dropout"]
+CALIBRATION_METHODS = ["none", "zscaling", "zelikman-interval", "mve-weighting", "platt",
+                       "isotonic", "conformal-regression", "conformal-multilabel",
+                       "conformal-multiclass", "conformal-adaptive", "isotonic-multiclass"]
 
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    parser.add_argument("--model-path", type=Path, required=True,
-                        help="reference .pt/.ckpt, or a CPTPU001 checkpoint")
-    parser.add_argument("-i", "--data-path", type=Path, required=True, help="input CSV")
-    parser.add_argument("-o", "--output", type=Path, help="output CSV (default <input>_preds.csv)")
-    add_device_args(parser)
-    parser.add_argument("-b", "--batch-size", type=int, default=64)
+    add_common_args(parser)
+    g = parser.add_argument_group("Predict args")
+    g.add_argument("-o", "--output", "--preds-path", type=Path, default=None,
+                   help="output CSV (default <input>_preds.csv)")
+    g.add_argument("--model-paths", "--model-path", nargs="+", type=Path, required=True,
+                   help="reference v1/v2 .pt/.ckpt, CPTPU001 files, or directories")
+    g.add_argument("--drop-extra-columns", action="store_true")
+    g.add_argument("--edge-partition", type=int, nargs="?", const=0, default=None, metavar="N",
+                   help="edge-partitioned inference (not ported yet: refused)")
+    g.add_argument("--constraints-path", type=Path, default=None,
+                   help="mol-atom-bond constraints (not ported yet: refused)")
+    g.add_argument("--constraints-to-targets", nargs="+", default=None)
+    g.add_argument("--uncertainty-method", choices=UNCERTAINTY_METHODS, default="none")
+    g.add_argument("--uncertainty-dropout-p", type=float, default=0.1,
+                   help="every dropout rate of Monte-Carlo dropout")
+    g.add_argument("--dropout-sampling-size", type=int, default=10,
+                   help="stochastic forward passes of Monte-Carlo dropout")
+    g.add_argument("--calibration-interval-percentile", type=float, default=95,
+                   help="percentile of the interval calibration methods, in (1, 100)")
+    g.add_argument("--conformal-alpha", type=float, default=0.1,
+                   help="target error rate of conformal prediction, in (0, 1)")
+    g.add_argument("--cal-path", type=Path, help="calibration set CSV")
+    g.add_argument("--cal-descriptors-path", type=Path,
+                   help="extra descriptors (.npz) of the calibration set")
+    g.add_argument("--cal-atom-features-path", nargs="+",
+                   help="extra atom features (.npz) of the calibration set: PATH, or IDX PATH pairs")
+    g.add_argument("--cal-atom-descriptors-path", nargs="+",
+                   help="atom descriptors (.npz) of the calibration set: PATH, or IDX PATH pairs")
+    g.add_argument("--cal-bond-features-path", nargs="+",
+                   help="extra bond features (.npz) of the calibration set: PATH, or IDX PATH pairs")
+    g.add_argument("--cal-bond-descriptors-path", nargs="+",
+                   help="bond descriptors of the calibration set (not ported yet: refused)")
+    g.add_argument("--cal-constraints-path", type=Path,
+                   help="constraints of the calibration set (not ported yet: refused)")
+    g.add_argument("--test-path", dest="data_path", type=Path,
+                   help="alias for -i/--data-path")
+    g.add_argument("--calibration-method", choices=CALIBRATION_METHODS, default="none")
+    g.add_argument("--evaluation-methods", "--evaluation-method", nargs="+")
+    g.add_argument("--callback", choices=["myerson", "mcts"],
+                   help="interpretation callback (not ported yet: refused)")
+    g.add_argument("--callback-params", type=json.loads, default={})
     return parser
 
 
-def read_smiles(path: Path) -> list[str]:
-    """The first column of a CSV with a header row."""
-    with open(path, newline="") as f:
-        return [row[0] for row in list(csv.reader(f))[1:]]
+# what the port refuses, by the argument that asks for it; each message names
+# the ROADMAP.md item that will port it (mol-atom-bond and multicomponent
+# checkpoints are refused where they load, models/load.py). INPUT_REFUSED is
+# shared with fingerprint
+INPUT_REFUSED = (
+    (lambda a: a.edge_partition is not None,
+     "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
+    (lambda a: a.bond_descriptors_path,
+     "bond descriptors are not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
+    (lambda a: a.reaction_columns, REFUSED_REACTIONS),
+    (lambda a: a.smiles_columns and len(a.smiles_columns) > 1, REFUSED_COMPONENTS),
+    (lambda a: a.molecule_featurizers, REFUSED_MOLECULE_FEATURIZERS),
+    (lambda a: a.use_cuikmolmaker_featurization,
+     "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
+     "the native featurizer)"),
+)
+REFUSED = INPUT_REFUSED + (
+    (lambda a: a.constraints_path is not None or a.constraints_to_targets
+     or a.cal_constraints_path is not None or a.cal_bond_descriptors_path,
+     "--constraints-path is not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
+    (lambda a: a.callback is not None,
+     "--callback is not ported yet (ROADMAP.md section 1 item 10, interpretation)"),
+    (lambda a: a.output is not None and a.output.suffix == ".pkl",
+     "a .pkl output is not written: the JAX package writes it with pandas, which the port "
+     "does not use; write a .csv"),
+)
+
+
+def refuse_unported(args, refused=REFUSED) -> None:
+    """Raise for the first option that asks for what the port does not have."""
+    for asks, message in refused:
+        if asks(args):
+            raise ValueError(message)
+    check_devices(args)
+
+
+def match_featurizer(args, model: MPNN) -> None:
+    """Switch ``--multi-hot-atom-featurizer-mode`` to the first mode whose
+    atom and bond widths make the width ``model``'s ``W_i`` takes (the v1
+    mode for a v1 file), as the JAX CLI does."""
+    d_in = model.message_passing.W_i.in_features
+
+    def widths(mode):
+        atom, bond = featurizer_for(mode).shape
+        return atom + bond, atom
+
+    if d_in in widths(args.multi_hot_atom_featurizer_mode):
+        return
+    for mode in ("v2", "v1", "organic", "rigr"):
+        if d_in in widths(mode):
+            logger.warning(f"model expects {d_in}-dim W_i input; switching atom featurizer mode "
+                           f"{args.multi_hot_atom_featurizer_mode!r} -> {mode!r}")
+            args.multi_hot_atom_featurizer_mode = mode
+            return
+    logger.warning(f"model W_i input dim {d_in} matches no known featurizer mode "
+                   "(extra atom/bond features?); proceeding unchanged")
+
+
+def build_loader(args, path: Path, with_targets: bool = False):
+    """``(loader, dataset, targets)`` of a CSV and its extra inputs; the
+    targets are the CSV's other columns with ``with_targets``, else none."""
+    descriptors_cols = list(args.descriptors_columns or [])
+    smis, rxns, Y, weights, lt, gt = parse_csv(
+        path, args.smiles_columns, args.reaction_columns,
+        target_cols=None if with_targets else [],
+        ignore_cols=descriptors_cols if with_targets else None,
+        no_header_row=args.no_header_row,
+    )[:6]
+    n = len(next(iter(smis.values())))
+    X_d = load_input_feats(args.descriptors_path, n)
+    if descriptors_cols:
+        col_X = read_columns(path, descriptors_cols, args.no_header_row)
+        X_d = list(col_X) if X_d is None else [np.concatenate([a, b]) for a, b in zip(X_d, col_X)]
+    components = make_datapoints(
+        smis, rxns, Y if Y.size else np.full((n, 1), np.nan), weights, lt, gt,
+        keep_h=args.keep_h, add_h=args.add_h, ignore_stereo=args.ignore_stereo, X_d=X_d,
+        V_fs=load_component_feats(args.atom_features_path, n),
+        E_fs=load_component_feats(args.bond_features_path, n),
+        V_ds=load_component_feats(args.atom_descriptors_path, n),
+    )
+    dset = build_datasets(components, multi_hot_atom_featurizer_mode=
+                          args.multi_hot_atom_featurizer_mode, rxn_mode=args.rxn_mode)
+    return DataLoader(dset, batch_size=args.batch_size), dset, Y
+
+
+def override_dropout(model: MPNN, p: float) -> MPNN:
+    """``model`` with every dropout rate set to ``p`` (none changed for
+    ``p = 0``), as the JAX CLI rebuilds its model: the masks of Monte-Carlo
+    dropout are drawn only where a rate is above 0."""
+    if p:
+        for module in model.modules():
+            if isinstance(module, Dropout):
+                module.rate = float(p)
+        model.predictor.dropout = float(p)
+    return model
+
+
+def trainer_for(model: MPNN, device: torch.device) -> Trainer:
+    """A ``Trainer`` over ``model``'s own parameters, for prediction."""
+    trainer = Trainer(model, device=device)
+    trainer.init_state(keep_parameters=True)
+    return trainer
+
+
+def run_models(models: list[MPNN], loader, args, device) -> tuple[np.ndarray, np.ndarray | None]:
+    """Each member's predictions over ``loader``, stacked ``[m, n, ...]``,
+    and with ``dropout`` the members' mean Monte-Carlo variance."""
+    preds, variances = [], []
+    for model in models:
+        trainer = trainer_for(model, device)
+        if args.uncertainty_method == "dropout":
+            mc = trainer.predict_mc_dropout(loader, sampling_size=args.dropout_sampling_size)
+            preds.append(mc.mean(axis=0))
+            variances.append((mc[..., 0] if mc.ndim == 4 else mc).var(axis=0))
+        else:
+            preds.append(trainer.predict(loader))
+    return np.stack(preds), (np.stack(variances).mean(axis=0) if variances else None)
+
+
+def point(preds: np.ndarray) -> np.ndarray:
+    """Point predictions: channel 0 of a head with several outputs per task."""
+    return preds[..., 0] if preds.ndim == 3 else preds
+
+
+def estimate_uncertainty(method: str, stacked: np.ndarray, model: MPNN) -> np.ndarray | None:
+    """``[m, n, t(, u)]`` outputs -> ``[n, t]`` (or ``[n, t, c]``) uncertainties."""
+    if method == "none":
+        return None
+    if method == "classification" and isinstance(model.predictor, MulticlassDirichletFFN):
+        stacked = stacked[..., :-1]  # the Dirichlet u channel
+    return UncertaintyEstimatorRegistry[method]()(stacked)
+
+
+def targets_and_mask(Y: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    return np.nan_to_num(Y).astype(np.float32), np.isfinite(Y)
+
+
+def main(args: argparse.Namespace) -> int:
+    refuse_unported(args)
+    device = resolve_device(args.device)  # raises where there is no GPU
+    dtype = DTYPES[args.dtype]
+    model_paths = find_models(args.model_paths)
+    models, output_columns = [], None
+    for path in model_paths:
+        model, cols = load_model(path, device, dtype)
+        models.append(override_dropout(model, args.uncertainty_dropout_p)
+                      if args.uncertainty_method == "dropout" else model)
+        output_columns = cols or output_columns
+    if not (args.atom_features_path or args.bond_features_path):
+        match_featurizer(args, models[0])
+    loader, dset, _ = build_loader(args, args.data_path)
+
+    stacked, mc_uncs = run_models(models, loader, args, device)
+    mean_preds = stacked.mean(0)
+    uncs = (mc_uncs if args.uncertainty_method == "dropout"
+            else estimate_uncertainty(args.uncertainty_method, stacked, models[-1]))
+    if uncs is not None and args.calibration_method != "none" and args.cal_path:
+        # the calibration set carries its own extra-input files
+        cal_args = argparse.Namespace(**vars(args))
+        cal_args.descriptors_path = args.cal_descriptors_path
+        cal_args.atom_features_path = args.cal_atom_features_path
+        cal_args.atom_descriptors_path = args.cal_atom_descriptors_path
+        cal_args.bond_features_path = args.cal_bond_features_path
+        cal_args.descriptors_columns = []
+        cal_loader, _, cal_Y = build_loader(cal_args, args.cal_path, with_targets=True)
+        cal_stack, cal_mc = run_models(models, cal_loader, args, device)
+        cal_uncs = (cal_mc if args.uncertainty_method == "dropout"
+                    else estimate_uncertainty(args.uncertainty_method, cal_stack, models[-1]))
+        calibrator = Factory.build(CalibratorRegistry[args.calibration_method],
+                                   p=args.calibration_interval_percentile / 100,
+                                   alpha=args.conformal_alpha)
+        calibrator.fit(point(cal_stack.mean(0)), cal_uncs, *targets_and_mask(cal_Y))
+        uncs = calibrator.apply(uncs)
+
+    if args.evaluation_methods and uncs is not None:
+        # against the input CSV's own targets
+        eval_Y = parse_csv(args.data_path, args.smiles_columns, args.reaction_columns, None,
+                           list(args.descriptors_columns or []),
+                           no_header_row=args.no_header_row)[2]
+        evaluations = {}
+        for name in args.evaluation_methods:
+            vals = UncertaintyEvaluatorRegistry[name]().evaluate(
+                point(mean_preds), uncs, *targets_and_mask(eval_Y))
+            evaluations[name] = np.asarray(vals).tolist()
+            logger.info(f"uncertainty evaluation {name}: {evaluations[name]}")
+        print(json.dumps({"uncertainty_evaluations": evaluations}))
+
+    header, rows = columns(models[-1], mean_preds, output_columns, uncs)
+    out = args.output or args.data_path.with_name(args.data_path.stem + "_preds.csv")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["name", *header])
+        for name, row in zip(dset.names, rows):
+            w.writerow([name, *row])
+    logger.info(f"wrote predictions for {len(rows)} rows to {out}")
+    print(f"wrote {out}")
+    return 0
+
+
+def columns(
+    model: MPNN, preds: np.ndarray, output_columns: list[str] | None,
+    uncs: np.ndarray | None = None,
+) -> tuple[list[str], list[list[str]]]:
+    """The JAX CLI's columns for ``model``'s head: its header and each row's
+    cells, with ``<task>_unc`` after them where there are uncertainties."""
+    pred = model.predictor
+    if isinstance(pred, MulticlassClassificationFFN):
+        probs = preds[..., :-1] if isinstance(pred, MulticlassDirichletFFN) else preds
+        labels = probs.argmax(axis=-1)
+        cols = (output_columns or [f"pred_{j}" for j in range(labels.shape[1])])[: labels.shape[1]]
+        header = [name for c in cols for name in (c, f"{c}_prob")]
+        rows = [[cell for j in range(len(cols))
+                 for cell in (str(int(lab[j])), ",".join(f"{p:.6f}" for p in prob[j]))]
+                for lab, prob in zip(labels, probs)]
+    else:
+        values = point(preds)
+        cols = (output_columns or [f"pred_{j}" for j in range(values.shape[1])])[: values.shape[1]]
+        header = list(cols)
+        rows = [[repr(float(x)) for x in row[: len(cols)]] for row in values]
+    if uncs is not None:
+        unc_cols = cols[: uncs.shape[1]]
+        header += [f"{c}_unc" for c in unc_cols]
+        for row, u in zip(rows, uncs):
+            row += [",".join(f"{x:g}" for x in u[j]) if uncs.ndim == 3 else repr(float(u[j]))
+                    for j in range(len(unc_cols))]
+    return header, rows
 
 
 def predict(
     model: MPNN, smiles: list[str], device: torch.device, batch_size: int = 64
 ) -> np.ndarray:
-    """``[len(smiles), n_tasks(, k)]`` float32 predictions."""
+    """``[len(smiles), n_tasks(, k)]`` float32 predictions of a model that
+    reads the default featurizer's graphs alone."""
+    from chemprop_tpu_torch.chem import make_mol
+    from chemprop_tpu_torch.data.collate import batch_mol_graphs
+
     featurizer = SimpleMoleculeMolGraphFeaturizer()
     check_plain_inputs(model, featurizer)
     preds = []
@@ -68,46 +377,11 @@ def predict(
 
 
 def check_plain_inputs(model: MPNN, featurizer: SimpleMoleculeMolGraphFeaturizer) -> None:
-    """Raise where ``model`` takes more than ``featurizer``'s graphs."""
+    """Raise where ``model`` takes more than ``featurizer``'s graphs. ``serve``
+    reads no extra inputs yet (``ROADMAP.md`` section 1 item 4)."""
     mp = model.message_passing
     if (mp.d_vd or model.predictor.input_dim != mp.output_dim
             or (mp.d_v, mp.d_e) != featurizer.shape):
         raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "
-                         "features), which predict and serve do not read yet")
-
-
-def main(args: argparse.Namespace) -> int:
-    device = resolve_device(args.device)
-    model, output_columns = load_model(args.model_path, device, DTYPES[args.dtype])
-    smiles = read_smiles(args.data_path)
-    preds = predict(model, smiles, device, args.batch_size)
-    header, rows = columns(model, preds, output_columns)
-    out = args.output or args.data_path.with_name(args.data_path.stem + "_preds.csv")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with open(out, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["name", *header])
-        for smi, row in zip(smiles, rows):
-            w.writerow([smi, *row])
-    print(f"wrote {out}")
-    return 0
-
-
-def columns(
-    model: MPNN, preds: np.ndarray, output_columns: list[str] | None
-) -> tuple[list[str], list[list[str]]]:
-    """The JAX CLI's prediction columns for ``model``'s head: its header and
-    each row's cells."""
-    pred = model.predictor
-    if isinstance(pred, MulticlassClassificationFFN):
-        probs = preds[..., :-1] if isinstance(pred, MulticlassDirichletFFN) else preds
-        labels = probs.argmax(axis=-1)
-        cols = (output_columns or [f"pred_{j}" for j in range(labels.shape[1])])[: labels.shape[1]]
-        header = [name for c in cols for name in (c, f"{c}_prob")]
-        rows = [[cell for j in range(len(cols))
-                 for cell in (str(int(lab[j])), ",".join(f"{p:.6f}" for p in prob[j]))]
-                for lab, prob in zip(labels, probs)]
-        return header, rows
-    point = preds[..., 0] if preds.ndim == 3 else preds
-    cols = (output_columns or [f"pred_{j}" for j in range(point.shape[1])])[: point.shape[1]]
-    return cols, [[repr(float(x)) for x in row[: len(cols)]] for row in point]
+                         "features), which serve does not read yet (ROADMAP.md section 1 "
+                         "item 4)")

@@ -28,8 +28,10 @@ Refused, each with the ``ROADMAP.md`` item that will port it: atom and bond
 targets (item 8), reaction columns and more than one SMILES column (item
 7), ``--edge-partition`` and more than one device (item 12),
 ``--atom-messages``, attentive aggregation and ``--molecule-featurizers``
-(item 6), ``--use-cuikmolmaker-featurization`` (item 5), ``--from-foundation``
-(item 2), and the ``kmeans`` split (item 4). A batch holding a molecule of
+(item 6), ``--use-cuikmolmaker-featurization`` (item 5), and the ``kmeans``
+split (item 4). ``--from-foundation PATH`` seeds each member's message
+passing from a local v2 ``.pt``, v1 ``.pt`` or ``CPTPU001`` file (nothing is
+downloaded). A batch holding a molecule of
 more than 128 directed edges has no tile table: the kernels that take a
 split table do, the others take their forms without a table, and the run
 logs how many such calls there were (``ops.UNSERVED``)."""
@@ -58,6 +60,7 @@ from chemprop_tpu_torch.cli.parsing import (
 from chemprop_tpu_torch.data import DataLoader
 from chemprop_tpu_torch.data.splitting import make_split_indices, split_data_by_indices
 from chemprop_tpu_torch.models import serialize
+from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AggregationRegistry
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
@@ -212,7 +215,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     )
     g.add_argument(
         "--from-foundation",
-        help="warm-start the encoder from a foundation model (not ported yet: refused)",
+        help="warm-start the message passing from a local checkpoint: a v2 .pt, a v1 .pt "
+        "or a CPTPU001 file",
     )
     g.add_argument("--freeze-encoder", action="store_true")
     g.add_argument("--frzn-ffn-layers", type=int, default=0)
@@ -335,8 +339,10 @@ REFUSED = (
     (lambda a: a.use_cuikmolmaker_featurization,
      "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
      "the native featurizer)"),
-    (lambda a: a.from_foundation is not None,
-     "--from-foundation is not ported yet (ROADMAP.md section 1 item 2: its .pt converter)"),
+    (lambda a: a.from_foundation is not None and not Path(a.from_foundation).is_file(),
+     "fetching a named foundation model is not ported yet: --from-foundation takes a local "
+     "checkpoint file, as in the JAX package, which downloads nothing (ROADMAP.md section 1 "
+     "item 2)"),
     (lambda a: a.split == "kmeans" and a.splits_column is None and a.splits_file is None
      and len(a.data_paths) < 3,
      "the kmeans split is not ported yet (it needs scikit-learn's KMeans; ROADMAP.md "
@@ -470,6 +476,21 @@ def _draw_first_batch(loader: DataLoader) -> None:
     next(iter(loader))
 
 
+def graft_message_passing(model: MPNN, path) -> None:
+    """``--from-foundation``: the message-passing parameters of a local v2
+    ``.pt``, v1 ``.pt`` or ``CPTPU001`` file over ``model``'s (its transforms
+    stay the model's, as the JAX package grafts parameters alone)."""
+    source = dict(load_model(path, "cpu")[0].message_passing.named_parameters())
+    target = dict(model.message_passing.named_parameters())
+    shapes = {k: tuple(v.shape) for k, v in source.items()}
+    if shapes != {k: tuple(v.shape) for k, v in target.items()}:
+        raise ValueError(f"{path}'s message passing {shapes} does not fit the model's "
+                         f"{ {k: tuple(v.shape) for k, v in target.items()} }")
+    with torch.no_grad():
+        for k, p in target.items():
+            p.copy_(source[k])
+
+
 def _jsonable(v):
     try:
         json.dumps(v)
@@ -601,6 +622,10 @@ def main(args) -> int:
                 checkpoint_dir=model_dir / "checkpoints", seed=args.seed + member,
                 log_every=1, freeze=_freeze_predicate(args), device=device,
             )
+            if args.from_foundation is not None:
+                _draw_first_batch(train_loader)
+                trainer.init_state(None, len(train_loader))
+                graft_message_passing(model, args.from_foundation)
             if args.checkpoint is not None:
                 # the file's parameters and batch-norm statistics over a fresh
                 # state: Adam starts from zero moments

@@ -2,12 +2,15 @@
 
 :func:`load_model` reads the JAX package's ``CPTPU001`` checkpoints
 (:mod:`chemprop_tpu_torch.models.serialize`), told apart by their magic bytes,
-and reference chemprop v2 ``.pt``/``.ckpt`` files: it reads the latter
-(``{hyper_parameters, state_dict, ...}``) without the chemprop or Lightning
+reference chemprop v2 ``.pt``/``.ckpt`` files and chemprop v1 ``.pt`` files.
+It reads the latter two (``{hyper_parameters, state_dict, ...}`` and
+``{args, state_dict, data_scaler, ...}``) without the chemprop or Lightning
 packages: classes the pickle names but this environment lacks become
 dict-backed stubs that remember their qualified name, which is all the
-hyper-parameters need. The port's modules carry the reference's parameter
-names and layouts, so the state dict loads as it is.
+hyper-parameters need. The port's modules carry the v2 reference's parameter
+names and layouts, so a v2 state dict loads as it is; :func:`build_v1_model`
+renames a v1 one (cf. ``convert_v1_model`` in
+``chemprop_tpu/models/torch_convert.py``).
 
 :func:`from_jax_params` maps a ``chemprop_tpu`` flax parameter tree (dense
 kernels in (in, out) layout) onto the port's state dict, so that both
@@ -89,6 +92,11 @@ def _activation(v) -> str:
     return v.lower() if isinstance(v, str) else _cls_name(v).lower()
 
 
+REFUSED_MAB = ("mol-atom-bond models are not ported yet (ROADMAP.md section 1 item 8, "
+               "mol-atom-bond)")
+REFUSED_MULTICOMPONENT = ("multicomponent models are not ported yet (ROADMAP.md section 1 "
+                          "item 7, multicomponent inputs)")
+
 # every head of the JAX package, by class name
 HEADS = {cls.__name__: cls for cls in PredictorRegistry.values()}
 
@@ -104,9 +112,13 @@ def build_model(
     (``d_vd``), and the scaling transforms its state dict holds. As in the
     JAX package's converter, the head's criterion is its default one.
     Anything the port does not run raises instead of loading wrongly."""
+    if any(k in hp for k in ("mol_predictor", "atom_predictor", "bond_predictor")):
+        raise ValueError(REFUSED_MAB)
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
     unsupported = []
+    if _cls_name(mp_hp["cls"]) == "MulticomponentMessagePassing":
+        raise ValueError(REFUSED_MULTICOMPONENT)
     if _cls_name(mp_hp["cls"]) != "BondMessagePassing":
         unsupported.append(f"message passing {_cls_name(mp_hp['cls'])}")
     head = HEADS.get(_cls_name(p_hp["cls"]))
@@ -160,6 +172,100 @@ def build_model(
                 X_d_transform=transform("X_d_transform"))
 
 
+# v1 files the port does not serve, each with the ROADMAP.md item that will
+V1_REFUSED = (
+    (lambda a, sd: bool(getattr(a, "atom_messages", False)),
+     "a v1 model with atom_messages is not ported yet (ROADMAP.md section 1 item 6, "
+     "AtomMessagePassing)"),
+    (lambda a, sd: int(getattr(a, "number_of_molecules", 1) or 1) > 1
+     or len({k.split(".")[2] for k in sd if k.startswith("encoder.encoder.")}) > 1,
+     "a v1 model of several molecules is not ported yet (ROADMAP.md section 1 item 7, "
+     "multicomponent inputs)"),
+    (lambda a, sd: getattr(a, "atom_descriptors", None) is not None
+     or any("atom_descriptors_layer" in k for k in sd),
+     "a v1 model with atom descriptors is not ported yet (ROADMAP.md section 1 item 6, "
+     "v1 atom descriptors)"),
+    (lambda a, sd: bool(getattr(a, "use_input_features", False)
+                        or getattr(a, "features_generator", None)
+                        or getattr(a, "features_path", None)),
+     "a v1 model with molecule features is not ported yet (ROADMAP.md section 1 item 6, "
+     "featurizers/molecule.py)"),
+)
+V1_HEADS = {"regression": "RegressionFFN", "classification": "BinaryClassificationFFN",
+            "multiclass": "MulticlassClassificationFFN"}
+
+
+def is_v1(d: Mapping) -> bool:
+    """Whether a loaded ``.pt`` is a chemprop v1 file."""
+    return "hyper_parameters" not in d and "args" in d
+
+
+def build_v1_model(
+    d: Mapping, compute_dtype: torch.dtype = torch.float32,
+    kernel_options: KernelOptions | None = None,
+) -> tuple[MPNN, dict[str, torch.Tensor], list[str] | None]:
+    """A loaded chemprop v1 file -> (the port's MPNN, its state dict in the
+    port's names, the task names or None). v1's single-molecule bond message
+    passing is the port's ``BondMessagePassing``: ``encoder.encoder.0.W_{i,h,o}``
+    become ``message_passing.W_{i,h,o}`` (W_i takes the 133-wide v1 atom
+    features and the 14 bond features, W_o the atom features and the
+    hidden width); the sorted Linear indices of the ``readout`` Sequential
+    become the FFN's blocks; ``data_scaler``'s means and stds the output
+    unscaling. There is no batch norm, and ``cached_zero_vector`` is
+    dropped. Anything else raises and names its ``ROADMAP.md`` item."""
+    args, raw = d["args"], d["state_dict"]
+
+    def arg(name, default=None):
+        v = getattr(args, name, default)
+        return default if v is None else v
+
+    for asks, message in V1_REFUSED:
+        if asks(args, raw):
+            raise ValueError(message)
+    enc = "encoder.encoder.0."
+    sd = {f"message_passing.{k[len(enc):]}": v.float() for k, v in raw.items()
+          if k.startswith(enc) and k.split(".")[3] in ("W_i", "W_h", "W_o")}
+    d_h = int(arg("hidden_size", 300))
+    W_i, W_o = sd["message_passing.W_i.weight"], sd["message_passing.W_o.weight"]
+    d_v = W_o.shape[1] - d_h
+    activation = _activation(arg("activation", "ReLU"))
+    dropout = float(arg("dropout", 0.0))
+    mp = BondMessagePassing(
+        d_v=d_v, d_e=W_i.shape[1] - d_v, d_h=d_h, bias=bool(arg("bias", False)),
+        depth=int(arg("depth", 3)), activation=activation, compute_dtype=compute_dtype,
+        dropout=dropout, undirected=bool(arg("undirected", False)),
+        kernel_options=kernel_options,
+    )
+    linears = sorted({int(k.split(".")[1]) for k in raw
+                      if k.startswith("readout.") and k.endswith(".weight")})
+    for b, j in enumerate(linears):
+        for leaf in ("weight", "bias"):
+            sd[f"predictor.ffn.{b}.{0 if b == 0 else 2}.{leaf}"] = raw[f"readout.{j}.{leaf}"].float()
+    if raw[f"readout.{linears[0]}.weight"].shape[1] != d_h:
+        raise ValueError("a v1 model whose FFN takes more than the fingerprint is not ported "
+                         "yet (ROADMAP.md section 1 item 6, featurizers/molecule.py)")
+    task_names = list(arg("task_names", None) or [])
+    n_tasks = int(arg("num_tasks", 0) or len(task_names) or 1)
+    dataset_type = str(arg("dataset_type", "regression"))
+    head = HEADS[V1_HEADS.get(dataset_type, "RegressionFFN")]
+    extra = ({"n_classes": int(arg("multiclass_num_classes", 3))}
+             if issubclass(head, MulticlassClassificationFFN) else {})
+    scaler = d.get("data_scaler")
+    unscale = scaler is not None and scaler.get("means") is not None
+    predictor = head(n_tasks=n_tasks, input_dim=d_h, hidden_dim=int(arg("ffn_hidden_size", 300)),
+                     n_layers=len(linears) - 1, output_transform=unscale, dropout=dropout,
+                     activation=activation, **extra)
+    if unscale:
+        for key, name in (("mean", "means"), ("scale", "stds")):
+            sd[f"predictor.output_transform.{key}"] = torch.from_numpy(
+                np.asarray(scaler[name], dtype=np.float32).reshape(1, -1))
+    agg = AGGREGATIONS[{"mean": "MeanAggregation", "sum": "SumAggregation",
+                        "norm": "NormAggregation"}[str(arg("aggregation", "mean")).lower()]]()
+    if hasattr(agg, "norm"):
+        agg.norm = float(arg("aggregation_norm", 100))
+    return MPNN(mp, agg, predictor), sd, task_names or None
+
+
 def load_model(
     path: str | Path,
     device: str | torch.device | None = None,
@@ -170,7 +276,8 @@ def load_model(
     names or None). A ``CPTPU001`` file of the JAX package (or of the port's
     ``Trainer``) is told apart by its magic bytes; its compute dtype is the
     manifest's unless ``compute_dtype`` is given. Any other file is read as a
-    reference checkpoint, in float32 unless ``compute_dtype`` is given."""
+    reference checkpoint (v2, or v1 by its ``args``), in float32 unless
+    ``compute_dtype`` is given."""
     from chemprop_tpu_torch.models import serialize
 
     if serialize.is_cptpu(path):
@@ -180,6 +287,10 @@ def load_model(
     if compute_dtype == torch.float32:
         use_full_float32()
     d = load_checkpoint(path)
+    if is_v1(d):
+        model, sd, output_columns = build_v1_model(d, compute_dtype, kernel_options)
+        model.load_state_dict(sd)
+        return model.to(device).eval(), output_columns
     skip = ("num_batches_tracked", "criterion", "metrics")  # training state, not weights
     sd = {
         k: v.float()

@@ -70,6 +70,14 @@ class MPNN(nn.Module):
             X_d = self.X_d_transform(X_d, is_training)
         return torch.cat([H, X_d], dim=1)
 
+    def encoding(
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
+        i: int = -1, is_training: bool = False,
+    ) -> torch.Tensor:
+        """The fingerprint through the predictor's FFN blocks ``[:i]`` (``-1``:
+        all but the last; ``0``: the fingerprint itself)."""
+        return self.predictor.encode(self.fingerprint(bmg, V_d, X_d, is_training), i, is_training)
+
     def forward(
         self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, X_d: torch.Tensor | None = None,
         is_training: bool = False, generator: torch.Generator | None = None,

@@ -29,7 +29,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from chemprop_tpu_torch.models.load import HEADS, from_jax_params, jax_path
+from chemprop_tpu_torch.models.load import (
+    HEADS, REFUSED_MAB, REFUSED_MULTICOMPONENT, from_jax_params, jax_path,
+)
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
 from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
@@ -123,6 +125,9 @@ def model_config(model: MPNN) -> dict:
 
 
 def _check_config(cfg: Mapping) -> None:
+    refused = {"MolAtomBondMPNN": REFUSED_MAB, "MulticomponentMPNN": REFUSED_MULTICOMPONENT}
+    if cfg.get("model_cls") in refused:
+        raise ValueError(refused[cfg["model_cls"]])
     mp, agg, pred = cfg["message_passing"], cfg["agg"], cfg["predictor"]
     unsupported = []
     if cfg.get("model_cls", "MPNN") != "MPNN":

@@ -171,20 +171,23 @@ class Trainer:
             use_full_float32()
 
     # ------------------------------------------------------------------ setup
-    def init_state(self, batch: TrainingBatch | None = None, steps_per_epoch: int = 1) -> TrainState:
+    def init_state(self, batch: TrainingBatch | None = None, steps_per_epoch: int = 1,
+                   keep_parameters: bool = False) -> TrainState:
         """Initialise the parameters from ``seed`` with ``param_init``, reset
         the batch-norm statistics, move the model to the device and make the
-        optimizer's state. ``batch`` is accepted for the JAX signature's sake:
-        the port's parameter shapes do not depend on it."""
-        gen = torch.Generator().manual_seed(self.seed)
-        init_parameters(self.model, self.param_init, gen)
+        optimizer's state. With ``keep_parameters`` the model's own
+        parameters and statistics (a loaded checkpoint's) are the state's, as
+        the JAX trainer takes ``variables``. ``batch`` is accepted for the JAX
+        signature's sake: the port's parameter shapes do not depend on it."""
         bn = self.model.bn
-        if bn is not None:
-            with torch.no_grad():
-                bn.weight.fill_(1.0)
-                bn.bias.zero_()
-                bn.running_mean.zero_()
-                bn.running_var.fill_(1.0)
+        if not keep_parameters:
+            init_parameters(self.model, self.param_init, torch.Generator().manual_seed(self.seed))
+            if bn is not None:
+                with torch.no_grad():
+                    bn.weight.fill_(1.0)
+                    bn.bias.zero_()
+                    bn.running_mean.zero_()
+                    bn.running_var.fill_(1.0)
         self.model.to(self.device)
         self._sched_args = (
             self.warmup_epochs * steps_per_epoch,

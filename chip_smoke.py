@@ -148,7 +148,24 @@ failure:
    than requests, 413 over ``--max-batch``, each dispatch launching one
    forward's kernels; the burst's requests per second and its p50 and p99
    latency are printed with the card's name and power limit. The phase's
-   seconds are printed on their own line.
+   seconds are printed on their own line;
+10. the prediction side of the command line, in this process, each run's
+   launches held exactly to its forwards' and steps', nothing unserved: (a)
+   ``predict`` of the chemprop v1 file (its featurizer mode found by
+   ``predict``) on its 50 reference SMILES in float32 and bfloat16, against
+   the CPU at phase 3's limits, float32 also within 1e-4 of the v1
+   reference's predictions; (b) ``convert`` of the v1 and the v2 file, whose
+   outputs ``predict`` on the card to their sources' CSVs byte for byte;
+   (c) ``predict`` with uncertainty, each output CSV against the CPU's at
+   phase 3's float32 limits: an ensemble of the reference checkpoint and
+   phase 9's first float32 member with ``zscaling`` calibration, the MVE,
+   evidential (total), binary (``isotonic`` calibration on Tox21's rows
+   50-99) and multiclass Dirichlet checkpoints with their methods; (d)
+   Monte-Carlo dropout in bfloat16 with the CPU's masks carried across; (e)
+   ``fingerprint`` in float32; (f) one epoch of ``train --from-foundation``
+   the v2 file in float32 and bfloat16 against the CPU as phase 9(a) holds
+   ``train``. The phase's seconds are printed on their own line with the
+   card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -400,6 +417,18 @@ CLI_PARAM_TAU = CLI_FIRST_LRS / 2
 CLI_PARAM_SHARE = 0.07
 # phase 9(b): the burst of concurrent clients, their SMILES drawn from SERVE_SEED
 SERVE_CLIENTS, SERVE_SEED = 16, 0
+# phase 10: the reference v1 file and its predictions, Tox21 (its first 100
+# rows the binary head's inputs and calibration set), the rows of each input
+# and calibration set, the Monte-Carlo samples
+V1_CKPT = REPO / "tests/data/example_model_v1_regression_mol.pt"
+V1_GOLDEN = REPO / "tests/data/example_model_v1_regression_mol_prediction.csv"
+TOX21_CSV = REPO / "tests/data/classification/mol.csv"
+PREDICT_BATCH, PREDICT_ROWS, MC_SAMPLES = 64, 50, 4
+# scipy's Nelder-Mead stops when its simplex lies within 1e-4 in x and in the
+# objective: inputs 1e-7 apart moved zscaling's fitted variance scale by up to
+# 8e-4 of itself in five seeded fits of 50 rows (tests/test_torch_uncertainty.py
+# ::test_zscaling_scale_moves_within_the_fits_tolerance)
+FITTED_SCALE_RTOL = 5e-3
 # phase 6(a): the descriptor model's 30 epochs must bring the last epoch's train
 # loss (normalised targets) to this, and the best epoch's val_rmse to the other
 DESCRIPTOR_TRAIN_LOSS, DESCRIPTOR_VAL_RMSE = 0.05, 0.5
@@ -850,15 +879,17 @@ def cli_predict(dtype: str, device: str | None, out: Path):
     return preds
 
 
-def check_path_launches(path: str, launches: dict, exact: bool) -> None:
+def check_path_launches(path: str, launches: dict, exact: bool, want: dict | None = None) -> None:
     """Fail unless the path launched its kernels (with ``exact``, each the
-    number of times one forward or one training step does) and no other."""
+    number of times one forward or one training step does, or ``want``'s
+    count for a run of several) and no other."""
+    counts = PATH_KERNELS[path] if want is None else want
     for name in KERNELS:
-        want, got = PATH_KERNELS[path].get(name, 0), launches.get(name, 0)
-        ok = got == want if exact or want == 0 else got > 0
+        n, got = counts.get(name, 0), launches.get(name, 0)
+        ok = got == n if exact or n == 0 else got > 0
         if not ok:
             fail(f"the {path} path launched {name} {got} times, expected "
-                 f"{want}{'' if exact or want == 0 else ' or more'}")
+                 f"{n}{'' if exact or n == 0 else ' or more'}")
 
 
 def unserved_since(before: dict) -> dict:
@@ -1866,7 +1897,7 @@ def heads_phase(out_dir: Path) -> tuple[dict, dict]:
 
 
 def cli_train(out: Path, dtype: str, device: str | None, epochs: int,
-              members: int = 2) -> list[list[dict]]:
+              members: int = 2, extra: tuple = ()) -> list[list[dict]]:
     """Phase 9(a): ``python -m chemprop_tpu_torch.cli train`` in this process
     on mol.csv at full width (batch norm, a scaffold-balanced split, an
     ensemble of ``members``; the mean readout of the reference checkpoint,
@@ -1876,7 +1907,7 @@ def cli_train(out: Path, dtype: str, device: str | None, epochs: int,
 
     argv = ["-q", "train", "-i", str(MOL_CSV), "-o", str(out), "--batch-norm", "--split",
             "scaffold_balanced", "--ensemble-size", str(members), "--epochs", str(epochs),
-            "--aggregation", "mean", "--dtype", dtype]
+            "--aggregation", "mean", "--dtype", dtype, *extra]
     if main(argv + (["--device", device] if device else [])) != 0:
         fail(f"train --dtype {dtype} on {device or 'cuda'} returned non-zero")
     dirs = [out / f"model_{m}" for m in range(members)] if members > 1 else [out]
@@ -2141,6 +2172,328 @@ def cli_phase(out_dir: Path, card: str) -> tuple[dict, dict]:
         launches[f"serve_{key}"], res["serve"][key] = serve_burst(path, dt, card, out_dir)
     res["seconds"] = time.time() - t0
     print(json.dumps({"phase": "cli", "seconds": res["seconds"]}))
+    return launches, res
+
+
+def read_rows(path: Path) -> tuple[list[str], list[list[str]]]:
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def predict_table(path: Path):
+    """(header, names, values ``[n, k]``, labels ``[n, t]`` or None) of an
+    output CSV: every numeric cell, the comma-joined ones spread out, a
+    multiclass head's class labels apart."""
+    import numpy as np
+
+    header, rows = read_rows(path)
+    label_cols = [i for i, h in enumerate(header) if f"{h}_prob" in header]
+    values = np.array([[float(x) for i, cell in enumerate(r)
+                        if i and i not in label_cols for x in cell.split(",")] for r in rows])
+    labels = np.array([[int(r[i]) for i in label_cols] for r in rows]) if label_cols else None
+    return header, [r[0] for r in rows], values, labels
+
+
+def run_cli(sub: str, flags: list, out: Path, device: str | None) -> Path:
+    """One subcommand of the port's command line in this process, so that its
+    launches count; ``device`` None is the default, the card."""
+    from chemprop_tpu_torch.cli.main import main
+
+    argv = ["-q", sub, "-o", str(out), *map(str, flags)]
+    if main(argv + (["--device", device] if device else [])) != 0:
+        fail(f"{sub} {flags} on {device or 'cuda'} returned non-zero")
+    return out
+
+
+def path_launches(forward_path: str, forwards: int, step_path: str | None = None,
+                  steps: int = 0) -> dict:
+    """The launches of ``forwards`` forwards and ``steps`` training steps."""
+    want: dict = {}
+    for path, n in ((forward_path, forwards), (step_path, steps)):
+        for name, k in PATH_KERNELS.get(path, {}).items():
+            want[name] = want.get(name, 0) + k * n
+    return want
+
+
+def batches(n_rows: int) -> int:
+    return -(-n_rows // PREDICT_BATCH)
+
+
+def card_and_cpu(tag: str, sub: str, flags: list, out_dir: Path, forward_path: str,
+                 forwards: int, launches: dict):
+    """``sub`` on the card, its launches exactly ``forwards`` forwards', then
+    on the CPU: the two output paths."""
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    LAUNCHES.clear()
+    card = run_cli(sub, flags, out_dir / f"{tag}.cuda.csv", None)
+    launches[f"{sub}_{tag}"] = dict(LAUNCHES)
+    check_path_launches(forward_path, launches[f"{sub}_{tag}"], exact=True,
+                        want=path_launches(forward_path, forwards))
+    cpu = run_cli(sub, flags, out_dir / f"{tag}.cpu.csv", "cpu")
+    return card, cpu
+
+
+def hold_to_cpu(tag: str, card: Path, cpu: Path, rtol: float, atol: float,
+                fitted: tuple = ()) -> float:
+    """Fail unless two output CSVs have one header and one name column, their
+    values agree within ``rtol`` / ``atol`` and their class labels agree
+    where the CPU's two best classes are further apart than twice the
+    limit; the largest difference. The value columns ``fitted`` (a
+    calibrator's output) may first differ by one factor each, within
+    ``FITTED_SCALE_RTOL`` of 1."""
+    import numpy as np
+
+    (ch, cn, cv, cl), (ph, pn, pv, pl) = predict_table(card), predict_table(cpu)
+    if ch != ph or cn != pn or cv.shape != pv.shape or not np.isfinite(cv).all():
+        fail(f"predict {tag}: the card's columns, names or shape differ from the CPU's")
+    for j in fitted:
+        scale = float(np.median(pv[:, j] / cv[:, j]))
+        print(json.dumps({"fitted_scale_cpu_over_card": {tag: scale}}))
+        if not abs(scale - 1) <= FITTED_SCALE_RTOL:
+            fail(f"predict {tag}: the card's fitted scale is {scale} of the CPU's")
+        cv[:, j] *= scale
+    if not np.allclose(cv, pv, rtol=rtol, atol=atol):
+        fail(f"predict {tag}: the card's values disagree with the CPU's "
+             f"(largest difference {float(np.abs(cv - pv).max())})")
+    if cl is not None:
+        _, rows = read_rows(cpu)
+        probs = [[[float(x) for x in r[i].split(",")] for i, h in enumerate(ph)
+                  if h.endswith("_prob")] for r in rows]
+        top2 = np.sort(np.array(probs), axis=-1)[..., -2:]
+        decided = top2[..., 1] - top2[..., 0] > 2 * atol
+        if not np.array_equal(cl[decided], pl[decided]):
+            fail(f"predict {tag}: the card's class labels disagree with the CPU's")
+    return float(np.abs(cv - pv).max())
+
+
+def write_rows(path: Path, src: Path, rows: slice) -> Path:
+    header, body = read_rows(src)
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows([header] + body[rows])
+    return path
+
+
+def predict_v1(out_dir: Path, launches: dict) -> dict:
+    """Phase 10(a): the v1 file through ``predict`` in f32 and bf16 (its
+    featurizer mode found by ``predict``)."""
+    import numpy as np
+
+    with open(V1_GOLDEN, newline="") as f:
+        golden = np.array([float(r["logSolubility"]) for r in csv.DictReader(f)])
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        flags = ["--model-paths", V1_CKPT, "-i", V1_GOLDEN, "--dtype", dt]
+        card, cpu = card_and_cpu(f"v1_{dt}", "predict", flags, out_dir, f"predict_{dt}",
+                                 batches(len(golden)), launches)
+        out[dt] = [predict_table(p) for p in (card, cpu)]
+        if out[dt][0][0] != ["name", "logSolubility"] or len(out[dt][0][1]) != len(golden):
+            fail(f"predict of the v1 file in {dt}: unexpected CSV {out[dt][0][0]}")
+    (_, _, f32, _), (_, _, f32_cpu, _) = out["float32"]
+    (_, _, bf16, _), (_, _, bf16_cpu, _) = out["bfloat16"]
+    res = {"f32_vs_cpu_f32": float(np.abs(f32 - f32_cpu).max()),
+           "f32_vs_golden": float(np.abs(f32[:, 0] - golden).max()),
+           "bf16_vs_cpu_bf16": float(np.abs(bf16 - bf16_cpu).max()),
+           "bf16_vs_cpu_f32": float(np.abs(bf16 - f32_cpu).max())}
+    # phase 3's limits; the golden at the JAX package's 1e-5 widened to 1e-4
+    # for the card's summation order
+    if not np.allclose(f32, f32_cpu, rtol=1e-5, atol=1e-4):
+        fail(f"the v1 file's float32 predictions on cuda disagree with the CPU's: {res}")
+    if not np.allclose(f32[:, 0], golden, rtol=0, atol=1e-4):
+        fail(f"the v1 file's float32 predictions on cuda leave its golden: {res}")
+    if not np.allclose(bf16, bf16_cpu, rtol=0, atol=1e-3):
+        fail(f"the v1 file's bfloat16 predictions on cuda disagree with the CPU's: {res}")
+    if not np.allclose(bf16, f32_cpu, rtol=0.05, atol=0.1):
+        fail(f"the v1 file's bfloat16 predictions leave the float32 envelope: {res}")
+    return res
+
+
+def predict_converted(out_dir: Path, mol_head: Path, launches: dict) -> dict:
+    """Phase 10(b): ``convert`` of the v1 and the v2 file; ``predict`` on the
+    card of each output gives its source's CSV byte for byte."""
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    res = {}
+    for name, src in (("v1", V1_CKPT), ("v2", CKPT)):
+        conv = run_cli("convert", ["-i", src], out_dir / f"{name}.tpu.ckpt", None)
+        texts = []
+        for tag, model in (("source", src), ("converted", conv)):
+            LAUNCHES.clear()
+            out = run_cli("predict", ["--model-paths", model, "-i", mol_head],
+                          out_dir / f"{name}_{tag}.cuda.csv", None)
+            launches[f"predict_{name}_{tag}"] = dict(LAUNCHES)
+            check_path_launches("predict_float32", dict(LAUNCHES), exact=True,
+                                want=path_launches("predict_float32", batches(PREDICT_ROWS)))
+            texts.append(out.read_text())
+        res[name] = texts[0] == texts[1]
+        if not res[name]:
+            fail(f"predict of the converted {name} file differs from its source's")
+    return res
+
+
+def predict_uncertainty(out_dir: Path, mol_head: Path, mol_tail: Path, member: Path,
+                        launches: dict) -> dict:
+    """Phase 10(c): an ensemble of the reference checkpoint and phase 9's
+    first f32 member with ``zscaling`` calibration, then the MVE,
+    evidential, binary (``isotonic`` calibration) and multiclass Dirichlet
+    checkpoints with their methods, each against the CPU at phase 3's
+    f32 limits. Tox21's first 100 rows are the binary head's inputs and
+    calibration set (none holds a molecule of more than 128 directed edges,
+    so every batch has its tile table)."""
+    tox_head = write_rows(out_dir / "tox21_head.csv", TOX21_CSV, slice(0, PREDICT_ROWS))
+    tox_tail = write_rows(out_dir / "tox21_tail.csv", TOX21_CSV,
+                          slice(PREDICT_ROWS, 2 * PREDICT_ROWS))
+    data = REPO / "tests/data"
+    cases = {
+        "ensemble_zscaling": ([CKPT, member], mol_head,
+                              ["--uncertainty-method", "ensemble", "--calibration-method",
+                               "zscaling", "--cal-path", mol_tail]),
+        "mve": ([data / "example_model_v2_regression_mve_mol.pt"], mol_head,
+                ["--uncertainty-method", "mve"]),
+        "evidential_total": ([data / "example_model_v2_regression_evidential_mol.pt"], mol_head,
+                             ["--uncertainty-method", "evidential-total"]),
+        "binary_isotonic": ([data / "example_model_v2_classification_mol.pt"], tox_head,
+                            ["--uncertainty-method", "classification", "--calibration-method",
+                             "isotonic", "--cal-path", tox_tail]),
+        "multiclass_dirichlet": ([data / "example_model_v2_multiclass_dirichlet_mol.pt"],
+                                 mol_head, ["--uncertainty-method", "multiclass-dirichlet"]),
+    }
+    # the value column of the ensemble's calibrated variance: zscaling's one
+    # factor is a Nelder-Mead fit, which inputs that differ in their last bits
+    # may end elsewhere within its tolerance
+    fitted = {"ensemble_zscaling": (1,)}
+    res = {}
+    for tag, (models, inputs, flags) in cases.items():
+        calibrated = "--cal-path" in flags
+        forwards = len(models) * batches(PREDICT_ROWS) * (2 if calibrated else 1)
+        card, cpu = card_and_cpu(tag, "predict", ["--model-paths", *models, "-i", inputs, *flags],
+                                 out_dir, "predict_float32", forwards, launches)
+        if not any(h.endswith("_unc") for h in read_rows(card)[0]):
+            fail(f"predict {tag} wrote no uncertainty column")
+        res[tag] = hold_to_cpu(tag, card, cpu, rtol=1e-5, atol=1e-4,
+                               fitted=fitted.get(tag, ()))
+    return res
+
+
+def predict_mc_dropout(out_dir: Path, mol_head: Path, launches: dict) -> dict:
+    """Phase 10(d): ``--uncertainty-method dropout`` in bf16 on the card
+    against the CPU. The two devices' generators give other streams, so the
+    masks are drawn on the CPU from one seed and copied, as phase 5b does."""
+    import torch
+
+    from chemprop_tpu_torch.nn import utils as nn_utils
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    flags = ["--model-paths", CKPT, "-i", mol_head, "--uncertainty-method", "dropout",
+             "--dropout-sampling-size", MC_SAMPLES, "--dtype", "bfloat16"]
+    draw, masks = nn_utils.dropout_mask, []
+    cpu_gen = torch.Generator().manual_seed(7)
+
+    def record(shape, rate, generator, device):
+        masks.append(draw(shape, rate, cpu_gen, torch.device("cpu")))
+        return masks[-1]
+
+    try:
+        nn_utils.dropout_mask = record
+        cpu = run_cli("predict", flags, out_dir / "mc_dropout.cpu.csv", "cpu")
+        replay = list(masks)
+        nn_utils.dropout_mask = lambda shape, rate, generator, dev: replay.pop(0).to(dev)
+        LAUNCHES.clear()
+        card = run_cli("predict", flags, out_dir / "mc_dropout.cuda.csv", None)
+    finally:
+        nn_utils.dropout_mask = draw
+    launches["predict_mc_dropout_bfloat16"] = dict(LAUNCHES)
+    forwards = MC_SAMPLES * batches(PREDICT_ROWS)
+    check_path_launches("predict_bfloat16", dict(LAUNCHES), exact=True,
+                        want=path_launches("predict_bfloat16", forwards))
+    # two iterations, the node table and the head's hidden layer per forward
+    if len(masks) != 4 * forwards or replay:
+        fail(f"MC dropout drew {len(masks)} masks on the CPU, {len(replay)} left on the card")
+    _, _, values, _ = predict_table(card)
+    if not (values[:, 1] > 0).all():
+        fail("MC dropout on the card: a row without spread")
+    # phase 3's bf16 limit for the mean; the variance of the samples moves by
+    # about twice their spread times that
+    return {"masks": len(masks), "max_diff": hold_to_cpu("mc_dropout", card, cpu, 0, 1e-3)}
+
+
+def foundation_train(out_dir: Path, launches: dict) -> dict:
+    """Phase 10(f): one epoch of ``train --from-foundation`` the v2 file in f32
+    and bf16 on the card against the CPU, as phase 9(a) holds ``train``: the
+    epoch's loss, and each parameter tensor's share of elements apart by more
+    than ``CLI_PARAM_TAU``; the launches exactly the run's steps and
+    forwards (validation each epoch, the test set once)."""
+    import shutil
+
+    import numpy as np
+
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        card_dir, cpu_dir = out_dir / f"foundation_{dt}", out_dir / f"foundation_{dt}_cpu"
+        for d in (card_dir, cpu_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        extra = ("--from-foundation", str(CKPT))
+        LAUNCHES.clear()
+        card = cli_train(card_dir, dt, None, 1, members=1, extra=extra)
+        launches[f"train_foundation_{dt}"] = dict(LAUNCHES)
+        split = json.loads((card_dir / "splits.json").read_text())[0]
+        steps = batches(len(split["train"]))
+        forwards = batches(len(split["val"])) + batches(len(split["test"]))
+        check_path_launches(f"train_cli_{dt}", dict(LAUNCHES), exact=True,
+                            want=path_launches(f"predict_{dt}", forwards, f"train_cli_{dt}",
+                                               steps))
+        cpu = cli_train(cpu_dir, dt, "cpu", 1, members=1, extra=extra)
+        params = first_epoch_params(card_dir / "best.ckpt", cpu_dir / "best.ckpt")
+        r = {"train_loss": card[0][0]["train_loss"], "train_loss_cpu": cpu[0][0]["train_loss"],
+             "steps": steps, "forwards": forwards,
+             "first_epoch_params": {k: v for k, v in params.items() if k != "shares"}}
+        rtol = 1e-4 if dt == "float32" else 1e-3  # phase 9(a)'s limits
+        if not np.isclose(r["train_loss"], r["train_loss_cpu"], rtol=rtol, atol=0):
+            fail(f"train --from-foundation --dtype {dt}: the epoch's loss on cuda disagrees "
+                 f"with the CPU's: {r}")
+        if not params["worst_share"] <= params["share_limit"]:
+            fail(f"train --from-foundation --dtype {dt}: {params['worst']} on cuda parts from "
+                 f"the CPU's in {params['worst_share']} of its elements")
+        res[dt] = r
+    return res
+
+
+def predict_phase(out_dir: Path, card: str, cli_dir: Path) -> tuple[dict, dict]:
+    """Phase 10: the prediction side of the command line on the card (a)-(f);
+    the phase's unserved calls are read as a difference."""
+    import numpy as np
+
+    from chemprop_tpu_torch.ops import UNSERVED
+
+    t0 = time.time()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    before = dict(UNSERVED)
+    launches, res = {}, {}
+    mol_head = write_rows(out_dir / "mol_head.csv", MOL_CSV, slice(0, PREDICT_ROWS))
+    mol_tail = write_rows(out_dir / "mol_tail.csv", MOL_CSV, slice(PREDICT_ROWS, None))
+    res["v1"] = predict_v1(out_dir, launches)
+    res["convert"] = predict_converted(out_dir, mol_head, launches)
+    res["uncertainty"] = predict_uncertainty(out_dir, mol_head, mol_tail,
+                                             cli_dir / "train_float32/model_0", launches)
+    res["mc_dropout"] = predict_mc_dropout(out_dir, mol_head, launches)
+    card_fp, cpu_fp = card_and_cpu("v2", "fingerprint",
+                                   ["--model-paths", CKPT, "-i", mol_head], out_dir,
+                                   "predict_float32", batches(PREDICT_ROWS), launches)
+    (fh, _, fv, _), (ph, _, pv, _) = predict_table(card_fp), predict_table(cpu_fp)
+    res["fingerprint"] = {"shape": list(fv.shape), "max_diff": float(np.abs(fv - pv).max())}
+    if fh != ph or fv.shape != (PREDICT_ROWS, 300) or not np.allclose(fv, pv, rtol=1e-5,
+                                                                       atol=1e-4):
+        fail(f"fingerprint on cuda disagrees with the CPU's: {res['fingerprint']}")
+    res["foundation"] = foundation_train(out_dir, launches)
+    unserved = unserved_since(before)
+    if unserved:
+        fail(f"phase 10 left calls unserved: {unserved}")
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"predict_phase": res}))
+    print(json.dumps({"phase": "predict", "seconds": res["seconds"], "card": card}))
     return launches, res
 
 
@@ -2620,6 +2973,9 @@ def main() -> int:
     launches.update(heads_launches)
     cli_launches, cli_res = cli_phase(out_dir / "chip_smoke_cli", card)
     launches.update(cli_launches)
+    predict_launches, predict_res = predict_phase(out_dir / "chip_smoke_predict", card,
+                                                  out_dir / "chip_smoke_cli")
+    launches.update(predict_launches)
     # the timings take A's and F's forms without a table on purpose: the main
     # paths' unserved calls are read before them, the benchmark steps' after
     unserved = dict(UNSERVED)
@@ -2712,7 +3068,7 @@ def main() -> int:
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
-              "heads": heads_res, "cli": cli_res,
+              "heads": heads_res, "cli": cli_res, "predict": predict_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

@@ -1957,3 +1957,69 @@ def test_served_request_on_card_matches_cpu(cuda, dtype):
     rows = [i for i, w in enumerate(want) if w is not None]
     tol = dict(rtol=1e-5, atol=1e-4) if dtype == "float32" else dict(rtol=0, atol=1e-3)
     np.testing.assert_allclose([got[i] for i in rows], [want[i] for i in rows], **tol)
+
+
+def _predict_cli(tmp_path, tag, device, *argv):
+    import csv
+
+    from chemprop_tpu_torch.cli.main import main
+
+    out = tmp_path / f"{tag}.{device}.csv"
+    assert main(["-q", "predict", "-o", str(out), "--device", device, *argv]) == 0
+    with open(out, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [r[0] for r in rows[1:]], np.array([[float(x) for x in r[1:]]
+                                                        for r in rows[1:]])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v1_checkpoint_on_card_matches_cpu(cuda, tmp_path, dtype):
+    """The chemprop v1 file through ``cli predict`` (the v1 featurizer mode
+    found by itself) on the card and on the CPU, at the serving path's
+    limits; float32 also within 1e-4 of the v1 reference's predictions."""
+    import csv
+
+    golden = DATA / "example_model_v1_regression_mol_prediction.csv"
+    argv = ["--model-paths", str(DATA / "example_model_v1_regression_mol.pt"), "-i", str(golden),
+            "--dtype", dtype]
+    LAUNCHES.clear()
+    header, names, got = _predict_cli(tmp_path, "v1", "cuda", *argv)
+    kernel = "message" if dtype == "float32" else "fused_iter"
+    assert LAUNCHES[kernel] == 2 and LAUNCHES["sorted_segment_sum"] == 2
+    _, _, want = _predict_cli(tmp_path, "v1", "cpu", *argv)
+    assert header == ["name", "logSolubility"] and len(names) == 50
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+        with open(golden, newline="") as f:
+            ref = np.array([float(r["logSolubility"]) for r in csv.DictReader(f)])
+        np.testing.assert_allclose(got[:, 0], ref, rtol=0, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+def test_ensemble_uncertainty_on_card_matches_cpu(cuda, tmp_path):
+    """A two-member ensemble (the reference checkpoint, and a copy with noise
+    on its parameters and its unscaling shifted by 0.3) with
+    ``--uncertainty-method ensemble``: the point and ``_unc`` columns on the
+    card against the CPU's (rtol 1e-5, atol 1e-4; each member's float32
+    prediction moves by summation order only, and the members stay 0.3
+    apart, so their variance moves by about as much)."""
+    from chemprop_tpu_torch.models import serialize
+
+    model, cols = load_model(DATA / "example_model_v2_regression_mol.pt", "cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.02)
+        model.predictor.output_transform.mean += 0.3
+    serialize.save_model(tmp_path / "member/best.ckpt", model, cols)
+    argv = ["--model-paths", str(DATA / "example_model_v2_regression_mol.pt"),
+            str(tmp_path / "member"), "-i", str(DATA / "regression/mol/mol.csv"),
+            "--uncertainty-method", "ensemble"]
+    LAUNCHES.clear()
+    header, _, got = _predict_cli(tmp_path, "ens", "cuda", *argv)
+    assert LAUNCHES["message"] == 2 * 2 * 2  # two members, two batches of 64
+    _, _, want = _predict_cli(tmp_path, "ens", "cpu", *argv)
+    assert header == ["name", "pred_0", "pred_0_unc"] and got.shape == (100, 2)
+    assert (got[:, 1] > 0.01).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)

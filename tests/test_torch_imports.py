@@ -40,7 +40,9 @@ NEW_MODULES = (
     "ops/gather.py", "nn/metrics.py", "data/datapoints.py", "data/datasets.py",
     "data/samplers.py", "data/dataloader.py", "train/__init__.py", "train/schedulers.py",
     "train/trainer.py", "ops/options.py", "ops/grad_weight.py", "models/serialize.py",
-    "utils/msgpack_codec.py", "nn/transforms.py",
+    "utils/msgpack_codec.py", "nn/transforms.py", "uncertainty/__init__.py",
+    "uncertainty/estimator.py", "uncertainty/calibrator.py", "uncertainty/evaluator.py",
+    "cli/fingerprint.py", "cli/convert.py",
 )
 
 
