@@ -1,11 +1,11 @@
 """Entry point of the port's command line (cf. ``chemprop_tpu/cli/main.py``):
-the ``train``, ``predict``, ``fingerprint``, ``convert`` and ``serve``
-subcommands, logging (``-v`` /
+the ``train``, ``predict``, ``fingerprint``, ``convert``, ``serve`` and
+``hpopt`` subcommands, logging (``-v`` /
 ``-q`` / ``--logfile``), and argument defaults from a JSON or TOML file
 (``--config-path``, before or after the subcommand; a flag given on the
 command line wins).
 
-    python -m chemprop_tpu_torch.cli {train,predict,fingerprint,convert,serve} ..."""
+    python -m chemprop_tpu_torch.cli {train,predict,fingerprint,convert,serve,hpopt} ..."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import logging
 import sys
 from pathlib import Path
 
-from chemprop_tpu_torch.cli import convert, fingerprint, predict, serve, train
+from chemprop_tpu_torch.cli import convert, fingerprint, hpopt, predict, serve, train
 
 logger = logging.getLogger(__name__)
 
@@ -26,6 +26,7 @@ SUBCOMMANDS = {
     "fingerprint": (fingerprint, "compute the learned representations of trained models"),
     "convert": (convert, "convert a reference checkpoint to a CPTPU001 file"),
     "serve": (serve, "serve trained models over HTTP"),
+    "hpopt": (hpopt, "search the hyperparameters of train"),
 }
 
 

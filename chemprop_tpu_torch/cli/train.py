@@ -23,12 +23,14 @@ batch-norm statistics from a ``CPTPU001`` file, ``--resume`` continues from a
 ``last.ckpt``; ``--freeze-encoder`` and ``--frzn-ffn-layers`` freeze by the
 JAX package's paths. ``--tensorboard`` and ``--profile`` write TensorBoard
 events and a ``torch.profiler`` trace under each model's directory.
+``--atom-messages`` builds atom message passing, ``--aggregation attentive``
+the attentive readout over the message passing's output width.
 
 Refused, each with the ``ROADMAP.md`` item that will port it: atom and bond
 targets (item 8), reaction columns and more than one SMILES column (item
 7), ``--edge-partition`` and more than one device (item 12),
-``--atom-messages``, attentive aggregation and ``--molecule-featurizers``
-(item 6), ``--use-cuikmolmaker-featurization`` (item 5), and the ``kmeans``
+``--molecule-featurizers`` (item 6), ``--use-cuikmolmaker-featurization``
+(item 5), and the ``kmeans``
 split (item 4). ``--from-foundation PATH`` seeds each member's message
 passing from a local v2 ``.pt``, v1 ``.pt`` or ``CPTPU001`` file (nothing is
 downloaded). A batch holding a molecule of
@@ -63,7 +65,7 @@ from chemprop_tpu_torch.models import serialize
 from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AggregationRegistry
-from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
 from chemprop_tpu_torch.nn.metrics import LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.predictors import PredictorRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
@@ -121,10 +123,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--activation", default="relu")
     g.add_argument("--atom-messages", action="store_true")
     # the default is "norm" (sum / 100), as in the reference
-    g.add_argument(
-        "--aggregation", "--agg", default="norm",
-        choices=sorted([*AggregationRegistry.keys(), "attentive"]),
-    )
+    g.add_argument("--aggregation", "--agg", default="norm",
+                   choices=sorted(AggregationRegistry.keys()))
     g.add_argument("--aggregation-norm", type=float, default=100.0)
     g.add_argument("--batch-norm", action="store_true")
     g.add_argument("--mpn-shared", action="store_true")
@@ -328,11 +328,6 @@ REFUSED = (
      "multicomponent inputs)"),
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
-    (lambda a: a.atom_messages,
-     "--atom-messages is not ported yet (ROADMAP.md section 1 item 6, AtomMessagePassing)"),
-    (lambda a: a.aggregation == "attentive",
-     "attentive aggregation is not ported yet (ROADMAP.md section 1 item 6, "
-     "AttentiveAggregation)"),
     (lambda a: a.molecule_featurizers,
      "--molecule-featurizers is not ported yet (ROADMAP.md section 1 item 6, "
      "featurizers/molecule.py)"),
@@ -364,14 +359,16 @@ def build_model(args, train_dset, output_transform=None, X_d_transform=None, V_d
     targets and extra inputs; the regression heads unscale by
     ``output_transform``."""
     d_v, d_e = train_dset.featurizer.shape
-    mp = BondMessagePassing(
+    mp_cls = AtomMessagePassing if args.atom_messages else BondMessagePassing
+    mp = mp_cls(
         d_v=d_v, d_e=d_e, d_h=args.message_hidden_dim, bias=args.message_bias,
         depth=args.depth, dropout=args.dropout, activation=args.activation,
         undirected=args.undirected, compute_dtype=DTYPES[args.dtype],
         d_vd=train_dset.d_vd or None, V_d_transform=V_d_transform,
         graph_transform=graph_transform,
     )
-    agg = Factory.build(AggregationRegistry[args.aggregation], norm=args.aggregation_norm)
+    agg = Factory.build(AggregationRegistry[args.aggregation], norm=args.aggregation_norm,
+                        output_size=mp.output_dim)
     # the criterion is always built here, so that the loss's own arguments
     # (--v-kl, --eps, --alpha, ...) reach the default loss too
     loss_cls = (LossFunctionRegistry[args.loss_function] if args.loss_function is not None

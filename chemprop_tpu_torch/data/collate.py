@@ -62,6 +62,10 @@ class BatchMolGraph:
     # int32 rows whose transposed message reads a row of another tile
     split_ptr: torch.Tensor | None = None
     cross_rows: torch.Tensor | None = None
+    # whether the last edge row is padding, so that only it names itself as
+    # its reverse (the zero rule of the row gather by rev); None: read from
+    # edge_mask
+    last_edge_padding: bool | None = None
 
     def __len__(self) -> int:
         return self.n_graphs
@@ -70,6 +74,11 @@ class BatchMolGraph:
         if self.last_node_padding is None:
             return not bool(self.node_mask[-1])
         return self.last_node_padding
+
+    def last_edge_is_padding(self) -> bool:
+        if self.last_edge_padding is None:
+            return not bool(self.edge_mask[-1])
+        return self.last_edge_padding
 
     def to(self, device: str | torch.device) -> "BatchMolGraph":
         """The batch on ``device``; the tile tables are checked before they
@@ -264,6 +273,7 @@ def batch_mol_graphs(
         last_node_padding=True,  # n_real_nodes < pad.n_nodes, checked above
         split_ptr=None if split is None else t(split),
         cross_rows=None if crossing is None else t(crossing),
+        last_edge_padding=n_real_edges < pad.n_edges,
     )
     return (bmg, perm) if return_perm else bmg
 

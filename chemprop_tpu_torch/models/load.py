@@ -28,7 +28,7 @@ import torch
 
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
-from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, PredictorRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
@@ -99,14 +99,26 @@ REFUSED_MULTICOMPONENT = ("multicomponent models are not ported yet (ROADMAP.md 
 
 # every head of the JAX package, by class name
 HEADS = {cls.__name__: cls for cls in PredictorRegistry.values()}
+# the single-molecule message passings, by class name
+MESSAGE_PASSINGS = {cls.__name__: cls for cls in (BondMessagePassing, AtomMessagePassing)}
+
+
+def feature_widths(mp_cls: type, d_h: int, W_i_in: int, W_h_in: int, W_o_in: int
+                   ) -> tuple[int, int]:
+    """``(d_v, d_e)`` from the input widths of ``W_i``, ``W_h`` and ``W_o``:
+    ``W_o`` takes ``[V ; M_v]``; bond message passing's ``W_i`` takes
+    ``[V[src] ; E]``, atom message passing's ``W_h`` takes ``[H ; E]``."""
+    d_v = W_o_in - d_h
+    return d_v, (W_h_in - d_h if mp_cls is AtomMessagePassing else W_i_in - d_v)
 
 
 def build_model(
     hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.float32,
     kernel_options: KernelOptions | None = None,
 ) -> MPNN:
-    """The port's MPNN for a reference single-molecule D-MPNN with any of the
-    JAX package's heads (``n_classes`` for a multiclass one), with its
+    """The port's MPNN for a reference single-molecule message passing (bond
+    or atom), a sum, mean, norm or attentive readout and any of the JAX
+    package's heads (``n_classes`` for a multiclass one), with its
     ``bias``, ``dropout``, ``undirected`` and both ``activation``
     hyperparameters (message passing's and the head's), atom descriptors
     (``d_vd``), and the scaling transforms its state dict holds. As in the
@@ -119,7 +131,8 @@ def build_model(
     unsupported = []
     if _cls_name(mp_hp["cls"]) == "MulticomponentMessagePassing":
         raise ValueError(REFUSED_MULTICOMPONENT)
-    if _cls_name(mp_hp["cls"]) != "BondMessagePassing":
+    mp_cls = MESSAGE_PASSINGS.get(_cls_name(mp_hp["cls"]))
+    if mp_cls is None:
         unsupported.append(f"message passing {_cls_name(mp_hp['cls'])}")
     head = HEADS.get(_cls_name(p_hp["cls"]))
     if head is None:
@@ -136,10 +149,11 @@ def build_model(
     graph = [transform(f"message_passing.graph_transform.{k}_transform") for k in "VE"]
     W_i = sd["message_passing.W_i.weight"]
     d_h = int(mp_hp.get("d_h", W_i.shape[0]))
-    d_v = int(mp_hp.get("d_v", sd["message_passing.W_o.weight"].shape[1] - d_h))
-    mp = BondMessagePassing(
-        d_v=d_v,
-        d_e=W_i.shape[1] - d_v,
+    d_v, d_e = feature_widths(mp_cls, d_h, W_i.shape[1], sd["message_passing.W_h.weight"].shape[1],
+                              sd["message_passing.W_o.weight"].shape[1])
+    mp = mp_cls(
+        d_v=int(mp_hp.get("d_v", d_v)),
+        d_e=int(mp_hp.get("d_e", d_e)),
         d_h=d_h,
         bias=bool(mp_hp.get("bias", False)),
         depth=int(mp_hp.get("depth", 3)),
@@ -152,7 +166,10 @@ def build_model(
         V_d_transform=transform("message_passing.V_d_transform"),
         graph_transform=GraphTransform(*graph) if any(graph) else None,
     )
-    agg = AGGREGATIONS[agg_name]()
+    if agg_name == "AttentiveAggregation":
+        agg = AGGREGATIONS[agg_name](sd["agg.W.weight"].shape[1])
+    else:
+        agg = AGGREGATIONS[agg_name]()
     if agg_name == "NormAggregation":
         agg.norm = float(agg_hp.get("norm", 100.0))
     hidden = p_hp.get("hidden_dim", 300)
@@ -174,9 +191,6 @@ def build_model(
 
 # v1 files the port does not serve, each with the ROADMAP.md item that will
 V1_REFUSED = (
-    (lambda a, sd: bool(getattr(a, "atom_messages", False)),
-     "a v1 model with atom_messages is not ported yet (ROADMAP.md section 1 item 6, "
-     "AtomMessagePassing)"),
     (lambda a, sd: int(getattr(a, "number_of_molecules", 1) or 1) > 1
      or len({k.split(".")[2] for k in sd if k.startswith("encoder.encoder.")}) > 1,
      "a v1 model of several molecules is not ported yet (ROADMAP.md section 1 item 7, "
@@ -212,7 +226,10 @@ def build_v1_model(
     hidden width); the sorted Linear indices of the ``readout`` Sequential
     become the FFN's blocks; ``data_scaler``'s means and stds the output
     unscaling. There is no batch norm, and ``cached_zero_vector`` is
-    dropped. Anything else raises and names its ``ROADMAP.md`` item."""
+    dropped. With ``atom_messages`` the encoder is the port's
+    ``AtomMessagePassing``, as the JAX package's converter builds it (``W_i``
+    takes the atom features, ``W_h`` the hidden width and the 14 bond
+    features). Anything else raises and names its ``ROADMAP.md`` item."""
     args, raw = d["args"], d["state_dict"]
 
     def arg(name, default=None):
@@ -226,12 +243,13 @@ def build_v1_model(
     sd = {f"message_passing.{k[len(enc):]}": v.float() for k, v in raw.items()
           if k.startswith(enc) and k.split(".")[3] in ("W_i", "W_h", "W_o")}
     d_h = int(arg("hidden_size", 300))
-    W_i, W_o = sd["message_passing.W_i.weight"], sd["message_passing.W_o.weight"]
-    d_v = W_o.shape[1] - d_h
+    mp_cls = AtomMessagePassing if bool(arg("atom_messages", False)) else BondMessagePassing
+    d_v, d_e = feature_widths(mp_cls, d_h, *(sd[f"message_passing.{w}.weight"].shape[1]
+                                             for w in ("W_i", "W_h", "W_o")))
     activation = _activation(arg("activation", "ReLU"))
     dropout = float(arg("dropout", 0.0))
-    mp = BondMessagePassing(
-        d_v=d_v, d_e=W_i.shape[1] - d_v, d_h=d_h, bias=bool(arg("bias", False)),
+    mp = mp_cls(
+        d_v=d_v, d_e=d_e, d_h=d_h, bias=bool(arg("bias", False)),
         depth=int(arg("depth", 3)), activation=activation, compute_dtype=compute_dtype,
         dropout=dropout, undirected=bool(arg("undirected", False)),
         kernel_options=kernel_options,
@@ -321,6 +339,9 @@ def from_jax_params(
         sd[f"message_passing.{name}.weight"] = t(layer["kernel"]).T.contiguous()
         if "bias" in layer:
             sd[f"message_passing.{name}.bias"] = t(layer["bias"])
+    if "agg" in params:  # the attentive readout's W
+        sd["agg.W.weight"] = t(params["agg"]["W"]["kernel"]).T.contiguous()
+        sd["agg.W.bias"] = t(params["agg"]["W"]["bias"])
     if "bn" in params:
         sd["bn.weight"] = t(params["bn"]["scale"])
         sd["bn.bias"] = t(params["bn"]["bias"])
@@ -345,8 +366,8 @@ def jax_path(name: str) -> tuple[str, tuple[str, ...]] | None:
     :func:`from_jax_params`; a weight is the transpose of its kernel there),
     or None for a buffer that is configuration in JAX (the transforms)."""
     parts = name.split(".")
-    if parts[0] == "message_passing" and len(parts) == 3 and parts[2] in _LINEAR:
-        return "params", ("message_passing", parts[1], _LINEAR[parts[2]])
+    if parts[0] in ("message_passing", "agg") and len(parts) == 3 and parts[2] in _LINEAR:
+        return "params", (parts[0], parts[1], _LINEAR[parts[2]])
     if parts[0] == "bn" and len(parts) == 2 and parts[1] in _BN:
         collection, leaf = _BN[parts[1]]
         return collection, ("bn", leaf)

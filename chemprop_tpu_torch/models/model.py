@@ -11,7 +11,7 @@ from torch import nn
 
 from chemprop_tpu_torch.data.collate import BatchMolGraph
 from chemprop_tpu_torch.nn.batchnorm import BatchNorm
-from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
 from chemprop_tpu_torch.nn.metrics import ChempropMetric
 from chemprop_tpu_torch.nn.predictors import _FFNPredictorBase
 from chemprop_tpu_torch.nn.transforms import ScaleTransform
@@ -25,7 +25,7 @@ class MPNN(nn.Module):
 
     def __init__(
         self,
-        message_passing: BondMessagePassing,
+        message_passing: BondMessagePassing | AtomMessagePassing,
         agg: nn.Module,
         predictor: _FFNPredictorBase,
         batch_norm: bool = False,

@@ -13,7 +13,8 @@ in a trainer's ``last.ckpt`` also ``opt_state`` (optax's Adam state),
 inverse of :func:`~chemprop_tpu_torch.models.load.from_jax_params`.
 
 The port builds what it runs: a single-molecule ``MPNN`` with a
-``BondMessagePassing``, a sum, mean or norm readout and any of the JAX
+``BondMessagePassing`` or an ``AtomMessagePassing``, a sum, mean, norm or
+attentive readout and any of the JAX
 package's heads, with its criterion (by ``__metric__`` and ``kwargs``),
 ``task_weights``, ``threshold``, ``n_classes`` and ``spectral_activation``;
 a manifest that needs anything else raises and names it, as
@@ -30,11 +31,11 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.models.load import (
-    HEADS, REFUSED_MAB, REFUSED_MULTICOMPONENT, from_jax_params, jax_path,
+    HEADS, MESSAGE_PASSINGS, REFUSED_MAB, REFUSED_MULTICOMPONENT, feature_widths,
+    from_jax_params, jax_path,
 )
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
-from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
 from chemprop_tpu_torch.nn.metrics import ChempropMetric, LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
@@ -94,8 +95,9 @@ def model_config(model: MPNN) -> dict:
     modules' constructor arguments, so that the JAX package rebuilds it."""
     mp, agg, pred = model.message_passing, model.agg, model.predictor
     agg_cfg = {"cls": type(agg).__name__}
-    if hasattr(agg, "norm"):
-        agg_cfg["norm"] = agg.norm
+    for key in ("norm", "output_size"):
+        if hasattr(agg, key):
+            agg_cfg[key] = getattr(agg, key)
     head = {
         "cls": type(pred).__name__, "n_tasks": pred.n_tasks, "input_dim": pred.input_dim,
         "hidden_dim": pred.hidden_dim, "n_layers": pred.n_layers, "dropout": pred.dropout,
@@ -110,7 +112,7 @@ def model_config(model: MPNN) -> dict:
         "format": FORMAT,
         "model_cls": "MPNN",
         "message_passing": {
-            "cls": "BondMessagePassing", "d_h": mp.d_h, "bias": mp.W_i.bias is not None,
+            "cls": type(mp).__name__, "d_h": mp.d_h, "bias": mp.W_i.bias is not None,
             "depth": mp.depth, "dropout": mp.dropout, "activation": mp.activation,
             "undirected": mp.undirected, "d_vd": mp.d_vd,
             "V_d_transform": _encode_transform(mp.V_d_transform),
@@ -132,7 +134,7 @@ def _check_config(cfg: Mapping) -> None:
     unsupported = []
     if cfg.get("model_cls", "MPNN") != "MPNN":
         unsupported.append(f"model {cfg['model_cls']}")
-    if mp["cls"] != "BondMessagePassing":
+    if mp["cls"] not in MESSAGE_PASSINGS:
         unsupported.append(f"message passing {mp['cls']}")
     if agg["cls"] not in AGGREGATIONS:
         unsupported.append(f"aggregation {agg['cls']}")
@@ -154,23 +156,25 @@ def model_from_config(
 ) -> MPNN:
     """The port's model for a manifest's ``model`` entry, with fresh
     parameters. The atom and bond feature widths, which the JAX modules infer
-    from the data, come from the ``params`` tree where it is given (W_o's and
-    W_i's kernels), else from the graph transform or the featurizer's
+    from the data, come from the ``params`` tree where it is given (the
+    kernels' input widths), else from the graph transform or the featurizer's
     defaults. ``compute_dtype`` overrides the manifest's."""
     _check_config(cfg)
     mp_cfg, pred_cfg = cfg["message_passing"], cfg["predictor"]
+    mp_cls = MESSAGE_PASSINGS[mp_cfg["cls"]]
     d_h = int(mp_cfg["d_h"])
     graph = _decode_transform(mp_cfg.get("graph_transform"))
     if params is not None:
         layers = params["message_passing"]
-        d_v = np.shape(layers["W_o"]["kernel"])[0] - d_h
-        d_e = np.shape(layers["W_i"]["kernel"])[0] - d_v
+        # bond message passing of depth 1 has no W_h in the JAX tree
+        d_v, d_e = feature_widths(mp_cls, d_h, *(np.shape(layers[w]["kernel"])[0] if w in layers
+                                                 else None for w in ("W_i", "W_h", "W_o")))
     else:
         V_t, E_t = (graph.V_transform, graph.E_transform) if graph else (None, None)
         d_v = 72 if V_t is None else V_t.mean.shape[1]
         d_e = 14 if E_t is None else E_t.mean.shape[1]
     dtype = compute_dtype or getattr(torch, mp_cfg.get("compute_dtype", "float32"))
-    mp = BondMessagePassing(
+    mp = mp_cls(
         d_v=d_v, d_e=d_e, d_h=d_h, bias=bool(mp_cfg.get("bias", False)),
         depth=int(mp_cfg.get("depth", 3)), activation=mp_cfg.get("activation", "relu"),
         compute_dtype=dtype, dropout=float(mp_cfg.get("dropout", 0.0)),
@@ -179,7 +183,8 @@ def model_from_config(
         V_d_transform=_decode_transform(mp_cfg.get("V_d_transform")), graph_transform=graph,
     )
     agg_cfg = cfg["agg"]
-    agg = AGGREGATIONS[agg_cfg["cls"]]()
+    agg = AGGREGATIONS[agg_cfg["cls"]](
+        **({"output_size": int(agg_cfg["output_size"])} if "output_size" in agg_cfg else {}))
     if "norm" in agg_cfg:
         agg.norm = float(agg_cfg["norm"])
     hidden = pred_cfg.get("hidden_dim", 300)

@@ -1,7 +1,9 @@
-from chemprop_tpu_torch.nn.agg import MeanAggregation, NormAggregation, SumAggregation
+from chemprop_tpu_torch.nn.agg import (
+    AttentiveAggregation, MeanAggregation, NormAggregation, SumAggregation,
+)
 from chemprop_tpu_torch.nn.batchnorm import BatchNorm
 from chemprop_tpu_torch.nn.ffn import MLP
-from chemprop_tpu_torch.nn.message_passing import BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
 from chemprop_tpu_torch.nn.predictors import (
     BinaryClassificationFFN,
     BinaryDirichletFFN,
@@ -18,6 +20,8 @@ from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, Uns
 
 __all__ = [
     "MLP",
+    "AtomMessagePassing",
+    "AttentiveAggregation",
     "BatchNorm",
     "BinaryClassificationFFN",
     "BinaryDirichletFFN",

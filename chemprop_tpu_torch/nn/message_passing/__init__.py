@@ -1,3 +1,3 @@
-from chemprop_tpu_torch.nn.message_passing.base import BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing.base import AtomMessagePassing, BondMessagePassing
 
-__all__ = ["BondMessagePassing"]
+__all__ = ["AtomMessagePassing", "BondMessagePassing"]

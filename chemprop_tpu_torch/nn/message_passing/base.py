@@ -1,5 +1,6 @@
-"""Bond (D-MPNN) message passing, for training and inference (cf.
-``chemprop_tpu/nn/message_passing/base.py``):
+"""Bond (D-MPNN) and atom message passing, for training and inference (cf.
+``chemprop_tpu/nn/message_passing/base.py``); ``AtomMessagePassing`` at the
+end of the file says what it does otherwise. Bond message passing:
 
     H0_e  = W_i([V[src_e] ; E_e])
     H_e   = tau(H0_e)
@@ -69,7 +70,7 @@ from chemprop_tpu_torch.data.collate import BatchMolGraph
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
 from chemprop_tpu_torch.nn.utils import Dropout, get_activation_function
 from chemprop_tpu_torch.ops.build import UNSERVED
-from chemprop_tpu_torch.ops.gather import row_gather
+from chemprop_tpu_torch.ops.gather import gather_rev, gather_src, row_gather
 from chemprop_tpu_torch.ops.grad_weight import matmul
 from chemprop_tpu_torch.ops.message import (
     depth_loop, first_iter, loop_readout, message, message_iter,
@@ -94,11 +95,16 @@ def _sow(taps: dict | None, name: str, value: torch.Tensor) -> None:
         taps[name] = taps.get(name, ()) + (value,)
 
 
-class BondMessagePassing(nn.Module):
+class _MessagePassingBase(nn.Module):
     """Parameters in ``torch.nn.Linear`` layout under the reference's names
     (``W_i``, ``W_h``, ``W_o``), so a reference state dict loads as it is.
     ``kernel_options`` selects the opt-in kernels; None reads the JAX
-    package's environment variables once, here."""
+    package's environment variables once, here. A subclass sets the input
+    widths of ``W_i`` and ``W_h`` (``_input_widths``) and the forward."""
+
+    @staticmethod
+    def _input_widths(d_v: int, d_e: int, d_h: int) -> tuple[int, int]:
+        raise NotImplementedError
 
     def __init__(
         self,
@@ -126,8 +132,9 @@ class BondMessagePassing(nn.Module):
         self.undirected = undirected
         self.kernel_options = kernel_options or KernelOptions.from_env()
         self.d_pad = _lane(d_h)
-        self.W_i = nn.Linear(d_v + d_e, d_h, bias=bias)
-        self.W_h = nn.Linear(d_h, d_h, bias=bias)
+        d_i, d_hin = self._input_widths(d_v, d_e, d_h)
+        self.W_i = nn.Linear(d_i, d_h, bias=bias)
+        self.W_h = nn.Linear(d_hin, d_h, bias=bias)
         self.W_o = nn.Linear(d_v + d_h, d_h, bias=True)
         self.d_vd = d_vd or None
         if self.d_vd:
@@ -178,6 +185,33 @@ class BondMessagePassing(nn.Module):
         x = torch.cat([H_v, V_d.to(dt)], dim=1)
         return self.drop(x @ K + b, drop_on, generator)
 
+    def _prologue(self, bmg, V_d, is_training, mc_dropout):
+        """The forward's checks, the graph transform and whether dropout is
+        drawn."""
+        if (V_d is None) != (self.d_vd is None):
+            raise ValueError("V_d must be given exactly when d_vd is configured")
+        if self.graph_transform is not None:
+            bmg = self.graph_transform(bmg, is_training)
+        return bmg, (is_training or mc_dropout) and self.dropout > 0
+
+    def _node_output(self, V, M_v, V_d, is_training, drop_on, generator):
+        """``H_v = dropout(tau(W_o([V ; M_v])))`` at the lane-padded width,
+        then the atom descriptors' layer."""
+        # M_v's padding columns sit at the end of [V ; M_v], so W_o's kernel
+        # takes zero rows there and zero columns past d_h
+        W_o, b_o = self._padded(self.W_o, self.d_v + self.d_pad, self.d_pad)
+        VM = torch.cat([V, M_v], dim=1)
+        H_v = self.drop(self.tau(VM @ W_o + b_o), drop_on, generator)
+        if V_d is not None:
+            H_v = self._descriptors(H_v, V_d, is_training, drop_on, generator)
+        return H_v
+
+
+class BondMessagePassing(_MessagePassingBase):
+    @staticmethod
+    def _input_widths(d_v: int, d_e: int, d_h: int) -> tuple[int, int]:
+        return d_v + d_e, d_h
+
     def forward(
         self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, is_training: bool = False,
         mc_dropout: bool = False, generator: torch.Generator | None = None,
@@ -190,11 +224,7 @@ class BondMessagePassing(nn.Module):
         scale at evaluation (not ``is_training``). ``V_d``: the
         ``[N_pad, d_vd]`` atom descriptors, required with ``d_vd``."""
         dt, dp, opts = self.compute_dtype, self.d_pad, self.kernel_options
-        drop_on = (is_training or mc_dropout) and self.dropout > 0
-        if (V_d is None) != (self.d_vd is None):
-            raise ValueError("V_d must be given exactly when d_vd is configured")
-        if self.graph_transform is not None:
-            bmg = self.graph_transform(bmg, is_training)
+        bmg, drop_on = self._prologue(bmg, V_d, is_training, mc_dropout)
         # with grad_w in bfloat16, [V[src] ; E] is zero-padded to a multiple of
         # 128 columns and W_i's kernel takes zero rows there, as the JAX package
         # pads them, so that dW_i = x^T g streams through the grad_weight kernel
@@ -245,11 +275,79 @@ class BondMessagePassing(nn.Module):
                 _sow(taps, "H", H)
             M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
         _sow(taps, "M_v", M_v)
-        # M_v's padding columns sit at the end of [V ; M_v], so W_o's kernel
-        # takes zero rows there and zero columns past d_h
-        W_o, b_o = self._padded(self.W_o, self.d_v + dp, dp)
-        VM = torch.cat([V, M_v], dim=1)
-        H_v = self.drop(self.tau(VM @ W_o + b_o), drop_on, generator)
-        if V_d is not None:
-            H_v = self._descriptors(H_v, V_d, is_training, drop_on, generator)
-        return H_v
+        return self._node_output(V, M_v, V_d, is_training, drop_on, generator)
+
+
+class AtomMessagePassing(_MessagePassingBase):
+    """Atom-centred message passing (cf. ``AtomMessagePassing`` of
+    ``chemprop_tpu/nn/message_passing/base.py``): the hidden states live on
+    the edges, each initialised from its source atom alone, and an edge's
+    message sums the states and bond features of every edge into its source,
+    its own reverse included::
+
+        H0_e = W_i(V)[src_e]
+        H_e  = dropout(tau(H0_e + W_h M_e)),  M_e = sum_{k: dst_k = src_e} [H_k ; E_k]
+                                                        (depth - 1 times)
+
+    then the ``M_v`` readout and ``W_o`` (and ``W_d``) as in bond message
+    passing. ``W_i`` takes the atom features, ``W_h`` the hidden width and
+    the bond features. The JAX package keeps these tables at the unpadded
+    ``d_h``; here the hidden width is lane-padded as in
+    ``BondMessagePassing`` (zero weight columns, so the real columns are
+    JAX's), and the message table ``[H ; E]`` is laid out as ``[H ; E ; 0]``
+    to a multiple of 8 columns, 16-byte rows for kernel C, with ``W_h``'s
+    kernel taking zero rows at both pads. Each message is kernel C over the
+    edges' CSR pointers followed by ``ops.gather_src``, whose backward is C
+    again; the ``M_v`` readout is C; with ``undirected`` the average with the
+    reverse goes through ``ops.gather_rev`` (its bf16 backward is kernel I).
+    ``kernel_options`` is kept for the loaders' sake: none of the opt-in
+    kernels serves this layout, as none of the JAX package's does."""
+
+    @staticmethod
+    def _input_widths(d_v: int, d_e: int, d_h: int) -> tuple[int, int]:
+        return d_v, d_h + d_e
+
+    @property
+    def d_message(self) -> int:
+        """The width of the message table ``[H ; E ; 0]``."""
+        return -(-(self.d_pad + self.d_e) // 8) * 8
+
+    def forward(
+        self, bmg: BatchMolGraph, V_d: torch.Tensor | None = None, is_training: bool = False,
+        mc_dropout: bool = False, generator: torch.Generator | None = None,
+        taps: dict | None = None,
+    ) -> torch.Tensor:
+        """As ``BondMessagePassing.forward``; ``taps`` collects ``H_0``, each
+        iteration's ``H`` and ``M_v``."""
+        dt, dp, dh = self.compute_dtype, self.d_pad, self.d_h
+        bmg, drop_on = self._prologue(bmg, V_d, is_training, mc_dropout)
+        graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
+        V = bmg.V.to(dt)
+        W_i, b_i = self._padded(self.W_i, self.d_v, dp)
+        H_nodes = V @ W_i
+        if b_i is not None:
+            H_nodes = H_nodes + b_i
+        H0 = gather_src(H_nodes, *graph)
+        _sow(taps, "H_0", H0)
+        H = self.tau(H0)
+        if self.depth > 1:
+            # W_h's kernel rows: the hidden width, zero at its pad, then the
+            # bond features, then zero to the message table's width
+            K = self.W_h.weight.t()
+            K = torch.cat([_pad(K[:dh], dp, dp), _pad(K[dh:], self.d_message - dp, dp)])
+            W_h = K.to(dt).contiguous()
+            b_h = None if self.W_h.bias is None else _pad(self.W_h.bias, 0, dp).to(dt)
+            E = _pad(bmg.E.to(dt), bmg.E.shape[0], self.d_message - dp)
+        for _ in range(1, self.depth):
+            if self.undirected:
+                H = (H + gather_rev(H, bmg.rev, bmg.last_edge_is_padding())) / 2
+            M = gather_src(sorted_segment_sum(torch.cat([H, E], dim=1), bmg.dst, bmg.edge_ptr),
+                           *graph)
+            z = M @ W_h
+            if b_h is not None:
+                z = z + b_h
+            H = self.drop(self.tau(H0 + z), drop_on, generator)
+            _sow(taps, "H", H)
+        M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
+        _sow(taps, "M_v", M_v)
+        return self._node_output(V, M_v, V_d, is_training, drop_on, generator)

@@ -2,7 +2,7 @@
 CUDA tensor and takes its plain PyTorch version on a CPU tensor."""
 
 from chemprop_tpu_torch.ops.build import LAUNCHES, UNSERVED, build_all
-from chemprop_tpu_torch.ops.gather import row_gather
+from chemprop_tpu_torch.ops.gather import gather_rev, gather_src, row_gather
 from chemprop_tpu_torch.ops.grad_weight import grad_weight
 from chemprop_tpu_torch.ops.message import (
     bwd_message,
@@ -32,6 +32,8 @@ __all__ = [
     "first_iter",
     "fused_iter",
     "fused_iter2",
+    "gather_rev",
+    "gather_src",
     "grad_weight",
     "iter_bwd",
     "loop_readout",

@@ -5,13 +5,29 @@
 It expands the mean readout's graph cotangent to the node table: padding
 nodes belong to the sacrificial graph, the last row, whose cotangent is zero
 by construction. On a CUDA tensor the kernel in ``csrc/gather.cu`` runs; on a
-CPU tensor the plain version below."""
+CPU tensor the plain version below.
+
+:func:`gather_src` and :func:`gather_rev` are the edge gathers of atom
+message passing with the JAX package's scatter-free transposes
+(``chemprop_tpu/ops/gather.py``). Every edge ``e`` has a reverse ``rev[e]``
+with ``src[e] == dst[rev[e]]`` and ``rev[rev[e]] == e`` (the identity on
+padding, whose edges run from the last node to itself), so
+
+* the transpose of ``M[src]`` is the sorted segment sum by ``dst`` of
+  ``g[rev]``: kernel C over the edges' CSR pointers;
+* the transpose of ``H[rev]`` is the gather ``g[rev]``: in bfloat16 the row
+  gather above, whose zero rule takes the last row, a padding edge read only
+  by itself, whose cotangent is zero (a padding edge feeds only the
+  sacrificial node and graph); where the batch has no padding edge it is a
+  library gather, counted in ``UNSERVED["row_gather"]``.
+
+No backward runs a generic scatter."""
 
 from __future__ import annotations
 
 import torch
 
-from chemprop_tpu_torch.ops.build import LAUNCHES, call, library
+from chemprop_tpu_torch.ops.build import LAUNCHES, UNSERVED, call, library
 
 
 def row_gather_plain(M: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -40,3 +56,50 @@ def row_gather(M: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
          row_bytes)
     LAUNCHES["row_gather"] += 1
     return out
+
+
+def gather_src(M: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor,
+               edge_ptr: torch.Tensor) -> torch.Tensor:
+    """``M[src]`` for a ``[n_nodes, d]`` node table, differentiable in ``M``:
+    its backward is kernel C by ``dst`` (``edge_ptr`` its CSR pointers) of
+    the cotangent gathered by ``rev``, in the cotangent's dtype."""
+    return _GatherSrc.apply(M, src, dst, rev, edge_ptr)
+
+
+def gather_rev(H: torch.Tensor, rev: torch.Tensor, last_edge_padding: bool) -> torch.Tensor:
+    """``H[rev]`` for an ``[n_edges, d]`` edge table, differentiable in ``H``;
+    its backward gathers by ``rev`` again. ``last_edge_padding`` says that
+    the last row is a padding edge (the row gather's zero rule is then
+    exact)."""
+    return _GatherRev.apply(H, rev, last_edge_padding)
+
+
+class _GatherSrc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, M, src, dst, rev, edge_ptr):
+        ctx.save_for_backward(dst, rev, edge_ptr)
+        return M[src.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        from chemprop_tpu_torch.ops.segment import sorted_segment_sum
+
+        dst, rev, edge_ptr = ctx.saved_tensors
+        return sorted_segment_sum(g[rev.long()], dst, edge_ptr, g.dtype), None, None, None, None
+
+
+class _GatherRev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, H, rev, last_edge_padding):
+        ctx.save_for_backward(rev)
+        ctx.last_edge_padding = last_edge_padding
+        return H[rev.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rev,) = ctx.saved_tensors
+        if g.dtype == torch.bfloat16:
+            if ctx.last_edge_padding:
+                return row_gather(g.contiguous(), rev), None, None
+            UNSERVED["row_gather"] += 1
+        return g[rev.long()], None, None

@@ -14,7 +14,21 @@ Both entry points are differentiable in ``data`` (cf. the custom VJPs of
 ``sorted_segments.py``): the cotangent of a sum is the gather ``g[ids]``, a
 plain indexing as in the JAX package, and for bfloat16 ``data`` the sum with
 counts (the mean readout) expands it with the row-gather kernel of
-``ops/gather.py``."""
+``ops/gather.py``.
+
+The kernel takes widths that are multiples of 4 columns, and bulk-copies a
+range where a row is a multiple of 16 bytes. The atom-message table
+``[H ; E]`` (``AtomMessagePassing``) is 384 + 14 columns wide: its caller
+lays it out as ``[H ; E ; 0]`` to the next multiple of 8 columns (400, so
+16-byte rows in both dtypes), and ``W_h`` takes zero rows at the pad, where
+the JAX package sums the 314 unpadded columns. The zero columns sum to zero
+and meet zero weights, so the real columns are JAX's; the kernel keeps one
+width rule and its bulk copies, where teaching it odd widths would add a
+second staging route for one caller.
+
+:func:`segment_softmax_weights` is the attentive readout's softmax within
+each segment, in plain PyTorch as the JAX package's is in plain ``jax.ops``
+(its sums are one column wide: no kernel takes them)."""
 
 from __future__ import annotations
 
@@ -200,3 +214,20 @@ class _SegmentSum(torch.autograd.Function):
             # casting the small table first equals casting the expanded one
             return row_gather(g.to(torch.bfloat16).contiguous(), ids), None, None, None, None
         return g[ids.long()].to(ctx.data_dtype), None, None, None, None
+
+
+def segment_softmax_weights(logits: torch.Tensor, ids: torch.Tensor, num_segments: int
+                            ) -> torch.Tensor:
+    """Per-segment softmax weights of ``[n, k]`` logits (cf.
+    ``chemprop_tpu/ops/segment.py:segment_softmax_weights``): each segment's
+    maximum is subtracted before the exponent, an empty segment's (``-inf``)
+    counts as 0, and the denominator is floored at ``1e-12``. The maximum
+    is a constant of the softmax, so no gradient flows through it, where the
+    JAX package's flows through one and sums to zero."""
+    idx = ids.long()
+    seg_max = logits.new_full((num_segments, logits.shape[1]), float("-inf")).scatter_reduce(
+        0, idx[:, None].expand_as(logits), logits.detach(), "amax")
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
+    expl = torch.exp(logits - seg_max[idx])
+    denom = expl.new_zeros((num_segments, logits.shape[1])).index_add(0, idx, expl)
+    return expl / denom[idx].clamp_min(1e-12)

@@ -165,7 +165,28 @@ failure:
    ``fingerprint`` in float32; (f) one epoch of ``train --from-foundation``
    the v2 file in float32 and bfloat16 against the CPU as phase 9(a) holds
    ``train``. The phase's seconds are printed on their own line with the
-   card's name and power limit.
+   card's name and power limit;
+11. ``hpopt`` and the other architectures, in this process, each run first
+   on the CPU, whose plain versions' calls count the launches the card's run
+   must make exactly (``rehearsal``), nothing unserved: (a)(b) one epoch of
+   ``train`` with ``--atom-messages``, with ``--aggregation attentive`` and
+   with both, in float32 and bfloat16 without batch norm, held to the CPU's
+   run as phase 9(a) holds ``train`` (the attentive readout's bias, which has
+   no gradient, exempt from the parameters' share), then ``predict`` of its
+   ``best.ckpt``
+   on the card against its ``test_predictions.csv`` and the CPU's at phase
+   3's limits; (c) ``hpopt`` with FIFO and random draws, three trials of two
+   epochs over every keyword in bfloat16 from ``HPOPT_SEED``, the CPU's
+   dropout masks replayed on the card: the same trials as the CPU's, a
+   hidden width of 600 or more, another activation than ReLU and a dropout
+   among them, every score finite and within the CPU's by phase 3's bf16
+   limit carried into the loss plus ``HPOPT_LOSS_RTOL`` times the trial's
+   sum of step rates over phase 9(a)'s (``hold_trials``); (d) ``hpopt`` with ASHA, three trials, eta 3, three epochs: the
+   survivor resumed from its ``last.ckpt`` for epochs 1-2. The phase's
+   seconds are printed on their own line with the card's name and power
+   limit. Phase 2 also holds the segment sum at atom message passing's
+   message table, [H ; E ; 0] at 400 columns, in both dtypes, and phase 7
+   times it.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -432,6 +453,55 @@ FITTED_SCALE_RTOL = 5e-3
 # phase 6(a): the descriptor model's 30 epochs must bring the last epoch's train
 # loss (normalised targets) to this, and the best epoch's val_rmse to the other
 DESCRIPTOR_TRAIN_LOSS, DESCRIPTOR_VAL_RMSE = 0.05, 0.5
+# phase 11(a)(b): the other architectures of `train`, each a one-epoch run on
+# the card and on the CPU in both dtypes, without batch norm: under it the
+# fingerprint's columns lose their offsets, so W_o's bias has a gradient
+# near zero, whose sign Adam's first steps follow: on the H100 (700 W) a bf16
+# epoch of atom message passing with batch norm had 0.107 of W_o's bias apart
+# by more than CLI_PARAM_TAU (phase 9's bond model 0.02-0.03). The attentive
+# readout's bias has no gradient at all (a softmax is unchanged by a shift of
+# its logits), so it is exempt from the share of elements apart
+ARCHITECTURES = {
+    "atom_messages": ("--atom-messages",),
+    "attentive": ("--aggregation", "attentive"),
+    "atom_messages_attentive": ("--atom-messages", "--aggregation", "attentive"),
+}
+ZERO_GRADIENT = ("agg/W/bias",)
+# phase 11(c): hpopt's draws come from numpy's generator, so a seed picks the
+# trials. HPOPT_SEED was found by drawing the configs of seeds 0, 1, ... on
+# the CPU with `cli.hpopt._sample` (the first whose three trials hold a hidden
+# width of 600 or more, an activation other than ReLU and a dropout above 0,
+# and a ReLU trial of depth 3 or more without dropout, whose steps take B, G
+# and H, at the least work): a ReLU trial at width 600 (lane-padded to 640),
+# and two tanh trials with dropout 0.05 and 0.2, one at depth 4 in batches of
+# 32. The phase asserts those properties of the trials it ran
+HPOPT_SEED = 552
+HPOPT_TRIALS, HPOPT_EPOCHS = 3, 2
+# a trial's score (its best validation loss, an MSE of scaled targets) on the
+# card against the CPU's, the dropout masks carried across, is held to two
+# terms. The forward's: phase 3 holds bf16 predictions to atol
+# BF16_PREDICT_ATOL, which moves an MSE of L by up to 2 sqrt(L) times it. The
+# steps': phase 9(a) holds the bf16 loss after two Adam steps, whose rates
+# sum to CLI_FIRST_LRS, to rtol HPOPT_LOSS_RTOL; an Adam step moves an
+# element by at most its rate, in the sign its gradient has on each device,
+# so the two runs part in proportion to the sum of the rates of the steps
+# taken. (On the H100, 700 W, a tanh trial whose six steps' rates sum to
+# 5.9e-3 read 5.4e-3 of the CPU's score, a ReLU trial whose two steps'
+# rates sum to 2.1e-4 read 8.3e-4.)
+BF16_PREDICT_ATOL = 1e-3
+HPOPT_LOSS_RTOL = 1e-3
+# phase 11: the plain versions that the wrappers take on a CPU tensor where
+# they launch their kernels on a CUDA one, by module and kernel name; a
+# rehearsal on the CPU counts their calls (not those nested in another plain
+# version) as the launches of the same run on the card
+PLAIN_VERSIONS = {
+    "message": {"message_plain": "message", "fused_iter_plain": "fused_iter",
+                "fused_iter2_plain": "fused_iter2", "bwd_message_plain": "bwd_message",
+                "bwd_message_nodes_plain": "bwd_message_nodes",
+                "bwd_message_premul_plain": "bwd_message_premul", "iter_bwd_plain": "iter_bwd"},
+    "segment": {"sorted_segment_sum_plain": "sorted_segment_sum"},
+    "gather": {"row_gather_plain": "row_gather"},
+}
 
 
 def fail(msg: str) -> None:
@@ -572,6 +642,13 @@ def fused_iter2_bytes(bmg, d: int) -> int:
             + 4 * (n_tiles + 1))
 
 
+def atom_message_width(d: int, d_e: int) -> int:
+    """The width of atom message passing's message table [H ; E ; 0]: the
+    lane-padded hidden width and the bond features, to a multiple of 8
+    (``AtomMessagePassing.d_message``)."""
+    return -(-(d + d_e) // 8) * 8
+
+
 def max_err(got, want) -> tuple[float, float]:
     """(max abs error, max |want|)."""
     return float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
@@ -696,6 +773,23 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
                     fail(f"{tag}: counts disagree")
                 if not torch.equal(got, sorted_segment_sum(data, ids, ptr, out_dtype)):
                     fail(f"{tag}: two calls differ")
+    # C at the atom-message width: atom message passing's message table
+    # [H ; E ; 0], 384 + 14 bond features laid out to 400 columns (16-byte
+    # rows), edges to nodes in both dtypes, with the limits above; drawn from
+    # a generator of its own, so that the other checks keep their inputs
+    g_msg = torch.Generator(device=dev).manual_seed(seed + 1)
+    d_msg = atom_message_width(d, bmg.E.shape[1])
+    HE32 = torch.randn((n_e, d_msg), generator=g_msg, device=dev)
+    for data in (HE32, HE32.to(torch.bfloat16)):
+        tag = f"sorted_segment_sum[atom-message,{data.dtype}->{data.dtype}]"
+        got = sorted_segment_sum(data, bmg.dst, bmg.edge_ptr)
+        want = sorted_segment_sum_plain(data, bmg.dst, bmg.edge_ptr, data.dtype)[0]
+        if data.dtype == torch.bfloat16:
+            check(tag, got, want, BF16_ULP, 1e-4, errs)
+        else:
+            check(tag, got, want, 1e-5, 1e-6, errs, abs_sums(data, bmg.dst, bmg.edge_ptr))
+        if not torch.equal(got, sorted_segment_sum(data, bmg.dst, bmg.edge_ptr)):
+            fail(f"{tag}: two calls differ")
 
     # the backward kernels, at the shapes the training step gives them
     g32 = torch.randn((n_e, d), generator=g, device=dev)
@@ -853,7 +947,7 @@ def check_kernels(bmg, d: int, seed: int) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     tensors = dict(H32=H32, H=H, H0=H0, W=W, Hv=Hv, SR=SR, SRt=SRt, g32=g32, y32=y32,
                    acc32=acc32, accb=accb, gz32m=gz32m, gb=gb, yb=yb, g_nodes=g_nodes, Mg=Mg,
-                   Hx=Hx, Gt=Gt, Xi=Xi)
+                   Hx=Hx, Gt=Gt, Xi=Xi, HE32=HE32, HE=HE32.to(torch.bfloat16))
     return tensors, errs
 
 
@@ -1897,7 +1991,7 @@ def heads_phase(out_dir: Path) -> tuple[dict, dict]:
 
 
 def cli_train(out: Path, dtype: str, device: str | None, epochs: int,
-              members: int = 2, extra: tuple = ()) -> list[list[dict]]:
+              members: int = 2, extra: tuple = (), batch_norm: bool = True) -> list[list[dict]]:
     """Phase 9(a): ``python -m chemprop_tpu_torch.cli train`` in this process
     on mol.csv at full width (batch norm, a scaffold-balanced split, an
     ensemble of ``members``; the mean readout of the reference checkpoint,
@@ -1905,9 +1999,10 @@ def cli_train(out: Path, dtype: str, device: str | None, epochs: int,
     indexing); each member's history."""
     from chemprop_tpu_torch.cli.main import main
 
-    argv = ["-q", "train", "-i", str(MOL_CSV), "-o", str(out), "--batch-norm", "--split",
+    argv = ["-q", "train", "-i", str(MOL_CSV), "-o", str(out), "--split",
             "scaffold_balanced", "--ensemble-size", str(members), "--epochs", str(epochs),
-            "--aggregation", "mean", "--dtype", dtype, *extra]
+            "--aggregation", "mean", "--dtype", dtype, *(["--batch-norm"] if batch_norm else []),
+            *extra]
     if main(argv + (["--device", device] if device else [])) != 0:
         fail(f"train --dtype {dtype} on {device or 'cuda'} returned non-zero")
     dirs = [out / f"model_{m}" for m in range(members)] if members > 1 else [out]
@@ -1939,20 +2034,23 @@ def param_drift(path: Path, ref: Path, taus: dict) -> dict:
     return out
 
 
-def first_epoch_params(card: Path, cpu: Path) -> dict:
+def first_epoch_params(card: Path, cpu: Path, exempt: tuple = ()) -> dict:
     """The parameters after ``train``'s first epoch (two Adam steps, rates
     ``CLI_FIRST_LRS``) on the card against the CPU's: each tensor's share of
     elements that moved apart by more than ``CLI_PARAM_TAU``, which must stay
     within ``CLI_PARAM_SHARE``. Adam's first steps move an element by about
     its rate whatever the gradient's size, in the sign of the gradient, so a
     backward that is wrong or zero parts many elements of the tensors behind
-    it, where the loss of two steps moves little."""
+    it, where the loss of two steps moves little. The tensors of ``exempt``,
+    whose gradient is zero by construction (rounding noise, whose sign
+    Adam's step takes), are reported and not held."""
     drift = param_drift(card, cpu, {"off": CLI_PARAM_TAU})
-    shares = {k: v["off"] / v["n"] for k, v in drift.items()}
+    shares = {k: v["off"] / v["n"] for k, v in drift.items() if k not in exempt}
     worst = max(shares, key=shares.get)
     return {"tau": CLI_PARAM_TAU, "share_limit": CLI_PARAM_SHARE, "worst": worst,
             "worst_share": shares[worst], "shares": shares,
-            "max_diff": max(v["max"] for v in drift.values())}
+            "max_diff": max(v["max"] for v in drift.values()),
+            **({"exempt": {k: drift[k] for k in exempt}} if exempt else {})}
 
 
 def cli_train_phase(out_dir: Path) -> tuple[dict, dict]:
@@ -2497,6 +2595,291 @@ def predict_phase(out_dir: Path, card: str, cli_dir: Path) -> tuple[dict, dict]:
     return launches, res
 
 
+class rehearsal:
+    """``with rehearsal() as counts:`` a run on the CPU that counts, in
+    ``counts``, the launches the same run makes on the card: a wrapper takes
+    its kernel's plain version on a CPU tensor where it launches the kernel
+    on a CUDA one, so every call of a plain version that is not inside
+    another is one launch of that kernel (``PLAIN_VERSIONS``). ``ops.LAUNCHES``
+    is not touched."""
+
+    def __enter__(self):
+        import collections
+        import importlib
+
+        self.counts, self.saved, depth = collections.Counter(), [], [0]
+        for module_name, names in PLAIN_VERSIONS.items():
+            module = importlib.import_module(f"chemprop_tpu_torch.ops.{module_name}")
+            for attr, kernel in names.items():
+                fn = getattr(module, attr)
+
+                def counted(*a, _fn=fn, _kernel=kernel, **k):
+                    if depth[0] == 0:
+                        self.counts[_kernel] += 1
+                    depth[0] += 1
+                    try:
+                        return _fn(*a, **k)
+                    finally:
+                        depth[0] -= 1
+
+                self.saved.append((module, attr, fn))
+                setattr(module, attr, counted)
+        return self.counts
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+        return False
+
+
+def card_after_rehearsal(tag: str, run, launches: dict):
+    """``run(device)`` on the CPU under a rehearsal, then on the card, whose
+    launches must be exactly the rehearsal's: the two results."""
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    with rehearsal() as want:
+        cpu = run("cpu")
+    LAUNCHES.clear()
+    card = run(None)
+    launches[tag] = dict(LAUNCHES)
+    check_path_launches(tag, launches[tag], exact=True, want=dict(want))
+    if not launches[tag]:
+        fail(f"{tag} launched no kernel on the card")
+    return card, cpu
+
+
+def architecture_runs(out_dir: Path, launches: dict) -> dict:
+    """Phase 11(a)(b): ``train`` with ``--atom-messages``, with ``--aggregation
+    attentive`` and with both, one epoch in f32 and bf16 on the card against
+    the same run on the CPU as phase 9(a) holds ``train`` (the epoch's loss,
+    each parameter tensor's share of elements apart), then ``predict`` of
+    the card's ``best.ckpt`` on the card against its ``test_predictions.csv``
+    and against the same ``predict`` on the CPU at phase 3's limits."""
+    import shutil
+
+    import numpy as np
+
+    from chemprop_tpu_torch.models import serialize
+
+    res = {}
+    for arch, flags in ARCHITECTURES.items():
+        for dt in ("float32", "bfloat16"):
+            tag = f"{arch}_{dt}"
+            dirs = {"cuda": out_dir / tag, "cpu": out_dir / f"{tag}_cpu"}
+            for d in dirs.values():
+                shutil.rmtree(d, ignore_errors=True)
+            card, cpu = card_after_rehearsal(
+                f"train_{tag}",
+                lambda dev: cli_train(dirs[dev or "cuda"], dt, dev, 1, members=1, extra=flags,
+                                      batch_norm=False),
+                launches)
+            manifest = serialize.read_checkpoint(dirs["cuda"] / "best.ckpt")[0]["model"]
+            want_cls = ("AtomMessagePassing" if "--atom-messages" in flags else
+                        "BondMessagePassing", "AttentiveAggregation" if "attentive" in flags
+                        else "MeanAggregation")
+            if (manifest["message_passing"]["cls"], manifest["agg"]["cls"]) != want_cls:
+                fail(f"train {tag} wrote a {manifest['message_passing']['cls']} with a "
+                     f"{manifest['agg']['cls']}")
+            params = first_epoch_params(dirs["cuda"] / "best.ckpt", dirs["cpu"] / "best.ckpt",
+                                        ZERO_GRADIENT if "attentive" in flags else ())
+            r = {"train_loss": card[0][0]["train_loss"], "train_loss_cpu": cpu[0][0]["train_loss"],
+                 "first_epoch_params": {k: v for k, v in params.items() if k != "shares"}}
+            rtol = 1e-4 if dt == "float32" else 1e-3  # phase 9(a)'s limits
+            if not np.isclose(r["train_loss"], r["train_loss_cpu"], rtol=rtol, atol=0):
+                fail(f"train {tag}: the epoch's loss on cuda disagrees with the CPU's: {r}")
+            if not params["worst_share"] <= params["share_limit"]:
+                fail(f"train {tag}: {params['worst']} on cuda parts from the CPU's in "
+                     f"{params['worst_share']} of its elements")
+            # predict the card's model on the card and on the CPU
+            with open(dirs["cuda"] / "test_predictions.csv", newline="") as f:
+                rows = list(csv.reader(f))[1:]
+            test = dirs["cuda"] / "test.csv"
+            with open(test, "w", newline="") as f:
+                csv.writer(f).writerows([["smiles"]] + [[row[0]] for row in rows])
+            want = np.array([float(row[1]) for row in rows])
+            got, got_cpu = card_after_rehearsal(
+                f"predict_{tag}",
+                lambda dev: predict_table(run_cli(
+                    "predict", ["--model-path", dirs["cuda"] / "best.ckpt", "-i", test, "--dtype",
+                                dt], dirs["cuda"] / f"predict.{dev or 'cuda'}.csv", dev))[2],
+                launches)
+            tol = dict(rtol=1e-5, atol=1e-4) if dt == "float32" else dict(rtol=0, atol=1e-3)
+            r["predict_vs_test_predictions"] = float(np.abs(got[:, 0] - want).max())
+            r["predict_vs_cpu"] = float(np.abs(got - got_cpu).max())
+            if not (np.isfinite(got).all() and np.allclose(got[:, 0], want, **tol)
+                    and np.allclose(got, got_cpu, **tol)):
+                fail(f"predict of train {tag}'s best.ckpt on cuda disagrees: {r}")
+            res[tag] = r
+    return res
+
+
+def run_hpopt(out: Path, flags: list, device: str | None) -> list[dict]:
+    """``hpopt`` in this process (its closing line kept off this script's
+    output); its ``all_progress.json``."""
+    import contextlib
+    import io
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_cli("hpopt", ["-i", MOL_CSV, *flags], out, device)
+    return json.loads((out / "all_progress.json").read_text())
+
+
+def trial_rates(n_train: int, cfg: dict, budgets: list[int]) -> float:
+    """The sum of the rates of the Adam steps of one trial, run to each epoch
+    budget of ``budgets`` in turn (each resumed from the last): ``train``'s
+    defaults with the config's values set as ``hpopt`` sets them (in the
+    config's order, so that ``final_lr`` is ``final_lr_ratio`` times the
+    ``max_lr`` before the config's own), and its schedule over each run's
+    epochs."""
+    from chemprop_tpu_torch.train.schedulers import noam_lr
+
+    a = {"batch_size": 64, "warmup_epochs": 2, "init_lr": 1e-4, "max_lr": 1e-3, "final_lr": 1e-4}
+    for k, v in cfg.items():
+        if k == "final_lr_ratio":
+            a["final_lr"] = v * a["max_lr"]
+        else:
+            a[k] = v
+    steps = -(-n_train // a["batch_size"])
+    total, done = 0.0, 0
+    for epochs in budgets:
+        sched = (a["warmup_epochs"] * steps, max(1, (epochs - a["warmup_epochs"]) * steps),
+                 a["init_lr"], a["max_lr"], a["final_lr"])
+        total += sum(noam_lr(k, *sched) for k in range(done, epochs * steps))
+        done = epochs * steps
+    return total
+
+
+def hold_trials(tag: str, card: list[dict], cpu: list[dict], n_train: int) -> list[dict]:
+    """Fail unless the card's trials are the CPU's (config, rung, epochs),
+    every score is finite, and each is within ``2 sqrt(L) BF16_PREDICT_ATOL
+    + HPOPT_LOSS_RTOL L`` times the trial's sum of rates over
+    ``CLI_FIRST_LRS`` of the CPU's ``L``; each trial's scores and limits."""
+    import numpy as np
+
+    strip = [{k: v for k, v in r.items() if k != "score"} for r in card]
+    if strip != [{k: v for k, v in r.items() if k != "score"} for r in cpu]:
+        fail(f"hpopt {tag}: the card's trials are not the CPU's")
+    out = []
+    for r, c in zip(card, cpu):
+        # FIFO trials run HPOPT_EPOCHS; an ASHA trial each rung's budget up to its own
+        budgets = [e.get("epochs", HPOPT_EPOCHS) for e in card if e["trial"] == r["trial"]
+                   and e.get("rung", 0) <= r.get("rung", 0)]
+        rtol = HPOPT_LOSS_RTOL * trial_rates(n_train, r["config"], budgets) / CLI_FIRST_LRS
+        atol = 2 * math.sqrt(abs(c["score"])) * BF16_PREDICT_ATOL
+        out.append({"trial": r["trial"], "score": r["score"], "score_cpu": c["score"],
+                    "abs_diff": abs(r["score"] - c["score"]), "rtol": rtol, "atol": atol})
+    print(json.dumps({f"hpopt_{tag}_scores": out}))
+    for r, c, o in zip(card, cpu, out):
+        if not math.isfinite(r["score"]):
+            fail(f"hpopt {tag}: trial {r['trial']} failed on the card (score {r['score']}); "
+                 f"its traceback is in the log above")
+        if not np.isclose(r["score"], c["score"], rtol=o["rtol"], atol=o["atol"]):
+            fail(f"hpopt {tag}: trial {r['trial']} scores {r['score']} on the card, "
+                 f"{c['score']} on the CPU, beyond its limits {o}")
+    return out
+
+
+def hpopt_fifo(out_dir: Path, launches: dict) -> dict:
+    """Phase 11(c): ``hpopt`` with FIFO and random draws, three trials of two
+    epochs in bf16 over every keyword, on the CPU (the rehearsal, its masks
+    recorded) and on the card (the same masks replayed, as phase 10(d)
+    does): the same trials, finite scores within ``hold_trials``'s limits."""
+    from chemprop_tpu_torch.nn import utils as nn_utils
+
+    flags = ["--num-trials", HPOPT_TRIALS, "--epochs", HPOPT_EPOCHS, "--search-algorithm",
+             "random", "--search-parameter-keywords", "all", "--hyperopt-random-state-seed",
+             HPOPT_SEED, "--dtype", "bfloat16"]
+    draw, masks, replay = nn_utils.dropout_mask, [], []
+
+    def record(shape, rate, generator, device):
+        masks.append(draw(shape, rate, generator, device))
+        return masks[-1]
+
+    def run(dev):
+        if dev == "cpu":
+            nn_utils.dropout_mask = record
+        else:
+            replay.extend(masks)
+            nn_utils.dropout_mask = lambda shape, rate, generator, d: replay.pop(0).to(d)
+        return run_hpopt(out_dir / f"hpopt_fifo.{dev or 'cuda'}", flags, dev)
+
+    try:
+        card, cpu = card_after_rehearsal("hpopt_fifo_bfloat16", run, launches)
+    finally:
+        nn_utils.dropout_mask = draw
+    if replay or not masks:
+        fail(f"hpopt: {len(masks)} masks drawn on the CPU, {len(replay)} left on the card")
+    cfgs = [r["config"] for r in card]
+    if not (any(c["message_hidden_dim"] >= 600 for c in cfgs)
+            and any(c["activation"] != "relu" for c in cfgs) and any(c["dropout"] > 0 for c in cfgs)
+            and any(c["activation"] == "relu" and c["dropout"] == 0 and c["depth"] >= 3
+                    for c in cfgs)):
+        fail(f"hpopt with seed {HPOPT_SEED} drew trials without the widths, activations or "
+             f"dropout the phase is for: {cfgs}")
+    n_train = len(json.loads((out_dir / "hpopt_fifo.cuda/trial_0/splits.json").read_text())[0]
+                  ["train"])
+    return {"configs": cfgs, "scores": hold_trials("fifo", card, cpu, n_train),
+            "masks": len(masks)}
+
+
+def hpopt_asha(out_dir: Path, launches: dict) -> dict:
+    """Phase 11(d): ``hpopt`` with ASHA, three trials of the default model
+    over the learning-rate keywords, eta 3, three epochs, bf16: every trial
+    one epoch, the best resumed from its ``last.ckpt`` to three, on the card
+    and on the CPU."""
+    from chemprop_tpu_torch.models import serialize
+
+    flags = ["--num-trials", 3, "--scheduler", "asha", "--asha-eta", 3, "--epochs", 3,
+             "--search-algorithm", "random", "--search-parameter-keywords", "learning_rate",
+             "--hyperopt-random-state-seed", HPOPT_SEED, "--dtype", "bfloat16"]
+    card, cpu = card_after_rehearsal(
+        "hpopt_asha_bfloat16",
+        lambda dev: run_hpopt(out_dir / f"hpopt_asha.{dev or 'cuda'}", flags, dev), launches)
+    rungs = [(r["rung"], r["epochs"]) for r in card]
+    if rungs != [(0, 1)] * 3 + [(1, 3)]:
+        fail(f"hpopt asha ran the rungs {rungs}, not three trials of one epoch and one of three")
+    survivor = out_dir / "hpopt_asha.cuda" / f"trial_{card[-1]['trial']}"
+    scores = hold_trials("asha", card, cpu,
+                         len(json.loads((survivor / "splits.json").read_text())[0]["train"]))
+    history = json.loads((survivor / "history.json").read_text())
+    epoch = int(serialize.read_checkpoint(survivor / "checkpoints/last.ckpt")[1]["epoch"])
+    if len(history) != 2 or epoch != 3:
+        fail(f"hpopt asha: the survivor ran {len(history)} epochs after its resume and its "
+             f"last.ckpt names epoch {epoch}, not 2 and 3")
+    return {"rungs": rungs, "scores": scores, "survivor": card[-1]["trial"],
+            "epochs_after_resume": len(history)}
+
+
+def hpopt_phase(card: str) -> tuple[dict, dict]:
+    """Phase 11: the other architectures of ``train`` and ``hpopt`` on the
+    card, each run's launches exactly its CPU rehearsal's; the phase's
+    unserved calls are read as a difference. Its runs write into a
+    temporary directory, removed after it: the trials' checkpoints come to
+    tens of megabytes."""
+    import tempfile
+
+    from chemprop_tpu_torch.ops import UNSERVED
+
+    t0 = time.time()
+    before = dict(UNSERVED)
+    launches, res = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hpopt_") as tmp:
+        out_dir = Path(tmp)
+        res["architectures"] = architecture_runs(out_dir, launches)
+        res["hpopt_fifo"] = hpopt_fifo(out_dir, launches)
+        res["hpopt_asha"] = hpopt_asha(out_dir, launches)
+    unserved = unserved_since(before)
+    if unserved:
+        fail(f"phase 11 left calls unserved: {unserved}")
+    res["launches"] = launches
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"hpopt_phase": res}))
+    print(json.dumps({"phase": "hpopt", "seconds": res["seconds"], "card": card}))
+    return launches, res
+
+
 def time_ms(fn, reps: int, inner: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls between two
     CUDA events, per call, after a warm-up."""
@@ -2622,6 +3005,25 @@ def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
         ),
     )
     out["sorted_segment_sum"]["share_of_bound"] = b_ms / out["sorted_segment_sum"]["ms"]
+    # the same kernel at atom message passing's message table, edges to
+    # nodes: E rows of [H ; E ; 0] read, N rows written, ids and ptr read;
+    # beside it index_add_ into a table of the data's dtype
+    d_msg = t["HE"].shape[1]
+
+    def atom_message_times(x):
+        b_ms, b_by = bound((n_e + n_v) * d_msg * x.element_size() + 4 * (n_e + n_v + 1),
+                           n_e * d_msg, f32_peak)
+        acc_m = torch.zeros((n_v, d_msg), dtype=x.dtype, device=x.device)
+        ms = time_ms(lambda: sorted_segment_sum(x, bmg.dst, bmg.edge_ptr), reps)
+        return dict(
+            ms=ms, plain_ms=time_ms(lambda: sorted_segment_sum_plain(
+                x, bmg.dst, bmg.edge_ptr, x.dtype), reps),
+            library_ms=time_ms(lambda: acc_m.index_add_(0, ids64, x), reps), bound_ms=b_ms,
+            bound_by=b_by, share_of_bound=b_ms / ms, shape=[n_e, d_msg],
+            dtype=str(x.dtype).removeprefix("torch."))
+
+    out["sorted_segment_sum"]["atom_message"] = atom_message_times(t["HE"])
+    out["sorted_segment_sum"]["atom_message"]["float32"] = atom_message_times(t["HE32"])
     # the same kernel at the mean readout's shape, bf16 node table to f32
     # graph rows with counts: N rows read, G rows and counts written, ids and
     # ptr read. index_add_ sums in the table's dtype, here bf16's
@@ -2951,6 +3353,9 @@ def main() -> int:
                                               torch.bfloat16),
         "node->graph": sorted_segment_sum_info(shapes["N_pad"], bmg.node_ptr.numel() - 1, d,
                                                torch.bfloat16, torch.float32),
+        "atom-message": sorted_segment_sum_info(shapes["E_pad"], shapes["N_pad"],
+                                                atom_message_width(d, bmg.E.shape[1]),
+                                                torch.bfloat16, torch.bfloat16),
     }
     print(json.dumps({"sorted_segment_sum_launch": seg_launch}))
     tensors, errs = check_kernels(bmg, d, args.seed)
@@ -2976,6 +3381,8 @@ def main() -> int:
     predict_launches, predict_res = predict_phase(out_dir / "chip_smoke_predict", card,
                                                   out_dir / "chip_smoke_cli")
     launches.update(predict_launches)
+    hpopt_launches, hpopt_res = hpopt_phase(card)
+    launches.update(hpopt_launches)
     # the timings take A's and F's forms without a table on purpose: the main
     # paths' unserved calls are read before them, the benchmark steps' after
     unserved = dict(UNSERVED)
@@ -2995,6 +3402,9 @@ def main() -> int:
         lambda: sorted_segment_sum(tensors["H"], bmg.dst, bmg.edge_ptr))
     times["sorted_segment_sum_counts"]["device_ms"] = device_ms(
         lambda: sorted_segment_sum_counts(tensors["Hv"], bmg.batch, bmg.node_ptr))
+    atom = times["sorted_segment_sum"]["atom_message"]
+    for entry, x in ((atom, tensors["HE"]), (atom["float32"], tensors["HE32"])):
+        entry["device_ms"] = device_ms(lambda: sorted_segment_sum(x, bmg.dst, bmg.edge_ptr))
     times["bwd_message_nodes"]["device_ms"] = device_ms(
         lambda: bwd_message_nodes(tensors["g_nodes"], tensors["yb"], bmg.src, bmg.dst, bmg.rev,
                                   bmg.edge_ptr, tiles=bmg.tile_ptr))
@@ -3068,7 +3478,7 @@ def main() -> int:
               "main_path": path_res, "train_path": train_res, "train_step_cuda_vs_cpu": step_res,
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
-              "heads": heads_res, "cli": cli_res, "predict": predict_res,
+              "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

@@ -313,8 +313,6 @@ REFUSALS = {
     "two_smiles_columns": (["-s", "smiles", "smiles"], "item 7"),
     "edge_partition": (["--edge-partition"], "item 12"),
     "devices": (["--devices", "2"], "item 12"),
-    "atom_messages": (["--atom-messages"], "item 6"),
-    "attentive": (["--aggregation", "attentive"], "item 6"),
     "molecule_featurizers": (["--molecule-featurizers", "morgan_binary"], "item 6"),
     "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),
     "foundation": (["--from-foundation", "chemeleon"], "item 2"),

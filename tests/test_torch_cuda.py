@@ -2023,3 +2023,158 @@ def test_ensemble_uncertainty_on_card_matches_cpu(cuda, tmp_path):
     assert header == ["name", "pred_0", "pred_0_unc"] and got.shape == (100, 2)
     assert (got[:, 1] > 0.01).all()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+# ------------------------- atom message passing and the attentive readout
+ATOM_VARIANTS = {"plain": dict(), "bias_undirected_tanh": dict(bias=True, undirected=True,
+                                                               activation="tanh"),
+                 "dropout": dict(dropout=0.2)}
+
+
+def _atom_model(dtype, agg, **kwargs):
+    """A small model of atom message passing (d_h = 64, lane-padded to 128;
+    the message table [H ; E ; 0] 144 columns wide) and ``agg``."""
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import AtomMessagePassing, RegressionFFN
+
+    model = MPNN(AtomMessagePassing(d_h=64, compute_dtype=dtype, **kwargs), agg,
+                 RegressionFFN(input_dim=64, hidden_dim=64, output_transform=False,
+                               dropout=kwargs.get("dropout", 0.0)))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    return model
+
+
+def _card_and_cpu_grads(model, bmg, cuda):
+    """Predictions and parameter gradients of ``model`` in training mode on
+    the CPU, then on the card with the CPU's dropout masks, and the card's
+    launches (forward and backward)."""
+    from chemprop_tpu_torch.nn import utils as nn_utils
+
+    draws, masks, real_mask = torch.Generator().manual_seed(5), [], nn_utils.dropout_mask
+
+    def record(shape, rate, generator, device):
+        masks.append(real_mask(shape, rate, draws, torch.device("cpu")))
+        return masks[-1]
+
+    def run(b):
+        out = model(b, is_training=True, generator=draws)
+        c = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(out.shape)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad((out * c).sum(), params)
+        return out.detach().cpu(), {n: g.cpu() for n, g in zip(names, grads)}
+
+    nn_utils.dropout_mask = record
+    try:
+        want = run(bmg.to("cpu"))
+        replayed = list(masks)
+        nn_utils.dropout_mask = lambda shape, rate, generator, device: replayed.pop(0).to(device)
+        model.to(cuda)
+        LAUNCHES.clear()
+        got = run(bmg)
+        launches = dict(LAUNCHES)
+    finally:
+        nn_utils.dropout_mask = real_mask
+        model.cpu()
+    return got, want, launches
+
+
+def _hold(got, want, dtype):
+    """The card's output and gradients against the CPU's. A gradient's limit
+    scales with its own largest element, but not below a thousandth of the
+    model's largest gradient: a tensor whose gradient is zero by
+    construction (the attentive readout's bias: a softmax is unchanged by a
+    shift of its logits) holds rounding noise on both devices. In bf16 the
+    mean error may reach one bf16 ulp of the largest element: a bias's
+    gradient sums the bf16 cotangents of every row, each of which may round
+    one ulp apart on the two devices (on the H100, 700 W, 0.0029 of it on
+    W_i's bias with a bias, undirected messages and tanh)."""
+    (out, grads), (w_out, w_grads) = got, want
+    if dtype == torch.float32:  # summation order only
+        torch.testing.assert_close(out, w_out, rtol=1e-4, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), w_out.float(), rtol=0.05, atol=0.05)
+    floor = 1e-3 * max(float(w.abs().max()) for w in w_grads.values())
+    for name, w in w_grads.items():
+        g, scale = grads[name], max(float(w.abs().max()), floor)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * scale, msg=name)
+        else:  # bf16 tables round at other places; a flipped rounding moves downstream
+            err = (g.float() - w.float()).abs()
+            assert float(err.max()) <= 0.05 * scale and float(err.mean()) <= BF16_ULP * scale, (
+                name, float(err.max()), float(err.mean()), scale)
+
+
+@pytest.mark.parametrize("variant", ATOM_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_atom_message_passing_on_card_matches_cpu(bmg, cuda, dtype, variant):
+    """The whole model with atom message passing and the mean readout on the
+    card against the CPU's plain versions, forward and gradients, and C's
+    launches: two messages, M_v and the mean readout in the forward, the
+    three gathers by source in the backward (I for the undirected averages'
+    backward in bf16 and for the mean readout's)."""
+    from chemprop_tpu_torch.nn import MeanAggregation
+
+    kwargs = ATOM_VARIANTS[variant]
+    got, want, launches = _card_and_cpu_grads(_atom_model(dtype, MeanAggregation(), **kwargs),
+                                              bmg, cuda)
+    bf16 = dtype == torch.bfloat16
+    row_gathers = bf16 * (1 + 2 * bool(kwargs.get("undirected")))
+    assert launches == {"sorted_segment_sum": 7, **({"row_gather": row_gathers} if bf16 else {})}
+    _hold(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attentive_readout_on_card_matches_cpu(bmg, cuda, dtype):
+    """Atom message passing with the attentive readout, whose weighted sum is
+    C over the node pointers in float32."""
+    from chemprop_tpu_torch.nn import AttentiveAggregation
+
+    got, want, launches = _card_and_cpu_grads(_atom_model(dtype, AttentiveAggregation(64)), bmg,
+                                              cuda)
+    assert launches == {"sorted_segment_sum": 7}
+    _hold(got, want, dtype)
+
+
+@pytest.mark.parametrize("data_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [144, 400, 912])
+@pytest.mark.parametrize("case", ["edges", "boundary", "span"])
+def test_segment_sum_at_atom_message_widths(bmg, cuda, data_dtype, d, case):
+    """C at the message table's widths: [H ; E ; 0] at d_h 64, 300 and 896
+    (hpopt's widest hidden width, 800, lane-padded), 16-byte rows."""
+    ids, ptr = (bmg.dst, bmg.edge_ptr) if case == "edges" else _segment_layout(case, cuda)
+    x = _randn((ids.shape[0], d), 8, cuda, data_dtype)
+    before = LAUNCHES["sorted_segment_sum"]
+    _check_segment_sum(x, ids, ptr, data_dtype, False)
+    assert LAUNCHES["sorted_segment_sum"] == before + 1
+
+
+@pytest.mark.parametrize("kwargs", [dict(), dict(dropout=0.2), dict(activation="tanh")],
+                         ids=["loop_readout", "dropout", "tanh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_widest_hpopt_width_on_card_matches_cpu(bmg, cuda, dtype, kwargs):
+    """Bond message passing at hpopt's widest hidden width, 800 (lane-padded
+    to 896), down each route a trial can take (the ReLU loop with its
+    readout, the per-iteration ops with dropout, another activation through
+    the composed ops), on the card against the CPU, forward and gradients."""
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+
+    model = MPNN(BondMessagePassing(d_h=800, compute_dtype=dtype, **kwargs), MeanAggregation(),
+                 RegressionFFN(input_dim=800, hidden_dim=64, output_transform=False))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-1] ** -0.5)
+    got, want, launches = _card_and_cpu_grads(model, bmg, cuda)
+    bf16 = dtype == torch.bfloat16
+    if kwargs.get("activation") == "tanh" or not bf16:
+        route = {"message", "bwd_message"}
+    elif kwargs.get("dropout"):
+        route = {"fused_iter", "bwd_message"}
+    else:
+        route = {"fused_iter", "bwd_message_nodes", "bwd_message_premul"}
+    assert route | {"sorted_segment_sum"} <= set(launches), launches
+    _hold(got, want, dtype)

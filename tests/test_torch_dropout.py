@@ -246,9 +246,10 @@ def test_reference_checkpoint_hyperparameters_load(data_dir, batch, hp):
     assert model.predictor.ffn[1][1].rate == hp.get("dropout", 0.0)
     out = model.eval()(batch.bmg)
     assert out.shape == (batch.bmg.n_graphs, 1) and torch.isfinite(out).all()
-    # what the port does not run is refused (atom descriptors load since they
-    # were ported: tests/test_torch_extra_features.py)
-    hyper["message_passing"]["cls"] = type("AtomMessagePassing", (), {})
+    # what the port does not run is refused (atom descriptors and atom message
+    # passing load since they were ported: tests/test_torch_extra_features.py,
+    # tests/test_torch_atom_messages.py)
+    hyper["message_passing"]["cls"] = type("MABBondMessagePassing", (), {})
     with pytest.raises(ValueError):
         build_model(hyper, sd)
 

@@ -42,7 +42,7 @@ NEW_MODULES = (
     "train/trainer.py", "ops/options.py", "ops/grad_weight.py", "models/serialize.py",
     "utils/msgpack_codec.py", "nn/transforms.py", "uncertainty/__init__.py",
     "uncertainty/estimator.py", "uncertainty/calibrator.py", "uncertainty/evaluator.py",
-    "cli/fingerprint.py", "cli/convert.py",
+    "cli/fingerprint.py", "cli/convert.py", "cli/hpopt.py",
 )
 
 

@@ -116,8 +116,9 @@ def test_v1_state_dict_in_the_ports_names(data_dir):
     assert float(sd["predictor.output_transform.scale"]) == pytest.approx(2.07632995)
 
 
+# a v1 file with atom_messages loads since AtomMessagePassing was ported
+# (tests/test_torch_atom_messages.py)
 V1_REFUSALS = {
-    "atom_messages": (dict(atom_messages=True), "item 6"),
     "two_molecules": (dict(number_of_molecules=2), "item 7"),
     "atom_descriptors": (dict(atom_descriptors="descriptor"), "item 6"),
     "features": (dict(features_generator=["morgan"]), "item 6"),
