@@ -200,3 +200,12 @@ def rdkit_morgan_binary(
     for inv in morgan_environment_invariants(mol, radius, include_chirality):
         fp[inv % length] = 1
     return fp
+
+
+def rdkit_morgan_count(
+    mol: Mol, radius: int = 2, length: int = 2048, include_chirality: bool = False
+) -> np.ndarray:
+    fp = np.zeros(length, dtype=np.int32)
+    for inv in morgan_environment_invariants(mol, radius, include_chirality):
+        fp[inv % length] += 1
+    return fp

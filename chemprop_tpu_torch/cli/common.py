@@ -1,9 +1,9 @@
 """The argument groups that ``train`` shares with the other subcommands (cf.
 ``chemprop_tpu/cli/common.py``): the JAX package's flags under its names, so
 that a run's ``config.json`` has its keys, and the port's own ``--device`` and
-``--dtype``, and :func:`find_models`. ``--molecule-featurizers`` and
-``--use-cuikmolmaker-featurization`` are parsed and then refused by ``train``
-(``ROADMAP.md`` §1 items 6 and 5); ``--accelerator`` and ``--devices`` are
+``--dtype``, and :func:`find_models`. ``--use-cuikmolmaker-featurization``
+is parsed and then refused (``ROADMAP.md`` §1 item 5); ``--accelerator`` and
+``--devices`` are
 the JAX package's platform and mesh choice, where the port takes
 ``--device`` and one GPU."""
 
@@ -69,7 +69,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         "--molecule-featurizers",
         "--features-generators",
         nargs="+",
-        help="extra global descriptor featurizers (not ported yet: refused)",
+        help="molecule featurizers whose vectors join the first SMILES column's X_d "
+        "(morgan_binary, morgan_count, charge, rdkit_2d, v1_rdkit_2d, "
+        "v1_rdkit_2d_normalized)",
     )
     group.add_argument("--descriptors-path", type=Path, help=".npz of extra descriptors X_d")
     group.add_argument(

@@ -7,11 +7,13 @@ trained models (cf. ``chemprop_tpu/cli/fingerprint.py``).
 Each model's ``MPNN.encoding``: the fingerprint through its FFN's blocks
 ``[:i]`` for ``--ffn-block-index i`` (``-1``, the default: all but the last;
 ``0``: the fingerprint itself). The input options and extra inputs are
-``predict``'s, and so is the featurizer mode's switch to fit the first
-model. The output is a CSV of ``name`` and ``fp_0``, ``fp_1``, ..., or with
-an ``.npz`` suffix one array ``fps``; with several models, one file for each,
+``predict``'s (several SMILES columns, reaction columns, the molecule
+featurizers), and so are the featurizer mode's switch and the component
+order's fix to fit the first model. The output is a CSV of ``name`` and
+``fp_0``, ``fp_1``, ..., or with an ``.npz`` suffix one array ``fps``; with
+several models, one file for each,
 ``<output>_model_<k>``. The inputs ``predict`` refuses are refused
-(``predict.INPUT_REFUSED``: ``--edge-partition``, reactions, ...)."""
+(``predict.INPUT_REFUSED``: ``--edge-partition``, ...)."""
 
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ def main(args: argparse.Namespace) -> int:
     models = [load_model(p, device, DTYPES[args.dtype])[0] for p in model_paths]
     if not (args.atom_features_path or args.bond_features_path):
         match_featurizer(args, models[0])
-    loader, dset, _ = build_loader(args, args.data_path)
+    loader, dset, _ = build_loader(args, args.data_path, model=models[0])
     for k, model in enumerate(models):
         fps = encodings(model, loader, device, args.ffn_block_index)
         out = args.output or args.data_path.with_name(args.data_path.stem + "_fingerprint.csv")

@@ -1,8 +1,8 @@
 """CSV -> datapoints for the command line (cf. ``chemprop_tpu/cli/parsing.py``),
 with the ``csv`` module where the JAX package reads through pandas: the same
-columns, targets, bounds, weights and splits. Single-molecule data only:
-reaction columns and more than one SMILES column raise (``ROADMAP.md`` §1
-item 7), as do molecule featurizers (item 6)."""
+columns, targets, bounds, weights and splits; several SMILES columns and
+reaction columns give one component each, and the molecule featurizers'
+vectors join the first SMILES column's ``X_d``."""
 
 from __future__ import annotations
 
@@ -12,24 +12,20 @@ from pathlib import Path
 
 import numpy as np
 
-from chemprop_tpu_torch.data.datapoints import MoleculeDatapoint
-from chemprop_tpu_torch.data.datasets import MoleculeDataset
+from chemprop_tpu_torch.chem import make_mol
+from chemprop_tpu_torch.data.datapoints import MoleculeDatapoint, ReactionDatapoint
+from chemprop_tpu_torch.data.datasets import (
+    MoleculeDataset, MulticomponentDataset, ReactionDataset,
+)
 from chemprop_tpu_torch.featurizers.atom import get_multi_hot_atom_featurizer
 from chemprop_tpu_torch.featurizers.bond import MultiHotBondFeaturizer, RIGRBondFeaturizer
 from chemprop_tpu_torch.featurizers.molgraph.molecule import SimpleMoleculeMolGraphFeaturizer
+from chemprop_tpu_torch.featurizers.molgraph.reaction import CondensedGraphOfReactionFeaturizer
 
 logger = logging.getLogger(__name__)
 
 # the cells pandas reads as missing targets in the JAX package
 _MISSING = ("", "nan", "None", "NaN")
-
-REFUSED_REACTIONS = ("reaction columns are not ported yet (ROADMAP.md section 1 item 7, "
-                     "multicomponent and reaction inputs)")
-REFUSED_COMPONENTS = ("more than one SMILES column is not ported yet (ROADMAP.md section 1 "
-                      "item 7, multicomponent inputs)")
-REFUSED_MOLECULE_FEATURIZERS = ("molecule featurizers are not ported yet (ROADMAP.md section 1 "
-                                "item 6, featurizers/molecule.py)")
-
 
 def read_table(path: str | Path, no_header_row: bool = False) -> tuple[list[str], list[list[str]]]:
     """``(column names, rows of cells)`` of a CSV; without a header row the
@@ -140,8 +136,6 @@ def load_component_feats(value, n: int) -> dict[int, list] | None:
     paths = parse_indexed_paths(value)
     if paths is None:
         return None
-    if set(paths) - {0}:
-        raise ValueError(REFUSED_COMPONENTS)
     return {k: load_input_feats(pth, n) for k, pth in paths.items()}
 
 
@@ -180,38 +174,53 @@ def make_datapoints(
     V_fs: list | dict | None = None,
     E_fs: list | dict | None = None,
     V_ds: list | dict | None = None,
-) -> list[list[MoleculeDatapoint]]:
-    """One list of datapoints per input column: the port reads one SMILES
-    column. ``V_fs``, ``E_fs`` and ``V_ds`` are per-row lists, or
-    ``{0: per-row lists}``."""
-    if rxns:
-        raise ValueError(REFUSED_REACTIONS)
-    if len(smis) != 1:
-        raise ValueError(REFUSED_COMPONENTS)
-    if molecule_featurizers:
-        raise ValueError(REFUSED_MOLECULE_FEATURIZERS)
+) -> list[list]:
+    """One list of datapoints per input column, the SMILES columns first and
+    then the reaction columns, as the JAX package orders them. The first
+    SMILES column's datapoints carry ``X_d`` with each molecule featurizer's
+    vector concatenated after it; a reaction's carries none. ``V_fs``,
+    ``E_fs`` and ``V_ds`` are per-row lists (component 0) or
+    ``{component_index: per-row lists}``; a reaction component takes none."""
 
-    def component0(v):
-        if isinstance(v, dict):
-            if set(v) - {0}:
-                raise ValueError(REFUSED_COMPONENTS)
-            return v.get(0)
-        return v
+    def by_comp(v):
+        if v is None or isinstance(v, dict):
+            return v or {}
+        return {0: v}
 
-    V_fs, E_fs, V_ds = component0(V_fs), component0(E_fs), component0(V_ds)
-    (col_smis,) = smis.values()
-    return [[
-        MoleculeDatapoint.from_smi(
-            smi, keep_h=keep_h, add_h=add_h, ignore_stereo=ignore_stereo, y=Y[i], weight=float(weights[i]),
-            lt_mask=lt_mask[i] if lt_mask is not None else None,
-            gt_mask=gt_mask[i] if gt_mask is not None else None,
-            x_d=X_d[i] if X_d is not None else None,
-            V_f=V_fs[i] if V_fs is not None else None,
-            E_f=E_fs[i] if E_fs is not None else None,
-            V_d=V_ds[i] if V_ds is not None else None,
-        )
-        for i, smi in enumerate(col_smis)
-    ]]
+    V_fs, E_fs, V_ds = by_comp(V_fs), by_comp(E_fs), by_comp(V_ds)
+    bounds = dict(lt_mask=lt_mask, gt_mask=gt_mask)
+    flags = dict(keep_h=keep_h, add_h=add_h, ignore_stereo=ignore_stereo)
+
+    def common(i):
+        return dict(y=Y[i], weight=float(weights[i]),
+                    **{k: None if m is None else m[i] for k, m in bounds.items()})
+
+    components: list[list] = []
+    for c, col_smis in enumerate(smis.values()):
+        dps = []
+        for i, smi in enumerate(col_smis):
+            x_d = None
+            if c == 0:
+                x_d = X_d[i] if X_d is not None else None
+                if molecule_featurizers:
+                    mol = make_mol(smi, keep_h, add_h, ignore_stereo)
+                    fp = np.concatenate([mf(mol) for mf in molecule_featurizers])
+                    x_d = fp if x_d is None else np.concatenate([x_d, fp])
+            dps.append(MoleculeDatapoint.from_smi(
+                smi, **flags, **common(i), x_d=x_d,
+                V_f=V_fs[c][i] if c in V_fs else None,
+                E_f=E_fs[c][i] if c in E_fs else None,
+                V_d=V_ds[c][i] if c in V_ds else None,
+            ))
+        components.append(dps)
+    for c, col_rxns in enumerate(rxns.values(), start=len(smis)):
+        if c in V_fs or c in E_fs or c in V_ds:
+            raise NotImplementedError(
+                f"extra atom/bond features for REACTION component {c} are not supported "
+                "(molecule components only)")
+        components.append([ReactionDatapoint.from_smi(rxn, **flags, **common(i))
+                           for i, rxn in enumerate(col_rxns)])
+    return components
 
 
 def featurizer_for(mode: str = "v2", extra_atom_fdim: int = 0,
@@ -224,20 +233,32 @@ def featurizer_for(mode: str = "v2", extra_atom_fdim: int = 0,
     )
 
 
-def make_dataset(data: list[MoleculeDatapoint], multi_hot_atom_featurizer_mode: str = "v2",
+def reaction_featurizer_for(mode: str = "v2", rxn_mode: str = "reac_diff"
+                            ) -> CondensedGraphOfReactionFeaturizer:
+    """The condensed graph of reaction over the featurizer mode's atom and
+    bond featurizers, in ``--rxn-mode``."""
+    f = featurizer_for(mode)
+    return CondensedGraphOfReactionFeaturizer(atom_featurizer=f.atom_featurizer,
+                                              bond_featurizer=f.bond_featurizer, mode_=rxn_mode)
+
+
+def make_dataset(data: list, multi_hot_atom_featurizer_mode: str = "v2",
                  rxn_mode: str = "reac_diff") -> MoleculeDataset:
-    """Datapoints -> a ``MoleculeDataset`` with the mode's featurizers, widened
-    by the datapoints' extra atom and bond features. ``rxn_mode`` is accepted
-    for the JAX signature's sake: reactions are not ported."""
+    """Datapoints -> a ``ReactionDataset`` of reactions in ``rxn_mode``, or a
+    ``MoleculeDataset`` with the mode's featurizers, widened by the
+    datapoints' extra atom and bond features."""
+    if data and isinstance(data[0], ReactionDatapoint):
+        return ReactionDataset(data, reaction_featurizer_for(multi_hot_atom_featurizer_mode,
+                                                             rxn_mode))
     extra_atom_fdim = data[0].V_f.shape[1] if data and data[0].V_f is not None else 0
     extra_bond_fdim = data[0].E_f.shape[1] if data and data[0].E_f is not None else 0
     featurizer = featurizer_for(multi_hot_atom_featurizer_mode, extra_atom_fdim, extra_bond_fdim)
     return MoleculeDataset(data, featurizer)
 
 
-def build_datasets(components: list[list], **kwargs) -> MoleculeDataset:
-    """Lists of datapoints, one per component -> the dataset of the one
-    component the port reads."""
-    if len(components) != 1:
-        raise ValueError(REFUSED_COMPONENTS)
-    return make_dataset(components[0], **kwargs)
+def build_datasets(components: list[list], **kwargs):
+    """Lists of datapoints, one per component -> a dataset, multicomponent
+    where there is more than one."""
+    if len(components) == 1:
+        return make_dataset(components[0], **kwargs)
+    return MulticomponentDataset([make_dataset(c, **kwargs) for c in components])

@@ -13,12 +13,16 @@ CLI's uncertainty, calibration and evaluation.
 by their contents, and directories (``cli.common.find_models``: a training
 output directory gives its ``best.ckpt``). The input is read with the
 shared options of ``cli.common.add_common_args`` (``--smiles-columns``,
-``--no-header-row``, ``--add-h`` / ``--keep-h`` / ``--ignore-stereo``,
-``--multi-hot-atom-featurizer-mode``) and the extra inputs
-(``--descriptors-path``, ``--descriptors-columns``, ``--atom-features-path``,
+``--reaction-columns`` and ``--rxn-mode``, ``--no-header-row``, ``--add-h`` /
+``--keep-h`` / ``--ignore-stereo``, ``--multi-hot-atom-featurizer-mode``,
+``--molecule-featurizers``) and the extra inputs (``--descriptors-path``,
+``--descriptors-columns``, ``--atom-features-path``,
 ``--bond-features-path``, ``--atom-descriptors-path``); a first model whose
 ``W_i`` takes another width than the chosen featurizer gives switches to the
-featurizer mode that fits it (the 133-wide v1 atom features of a v1 file).
+featurizer mode that fits it (the 133-wide v1 atom features of a v1 file),
+and a multicomponent model's blocks get the input's components in their
+order (:func:`reorder_components`). A multicomponent row's name is the tuple
+of its inputs, as the JAX CLI writes it.
 ``--uncertainty-method dropout`` runs ``Trainer.predict_mc_dropout`` with
 every dropout rate set to ``--uncertainty-dropout-p``.
 
@@ -47,9 +51,6 @@ import torch
 
 from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices, find_models
 from chemprop_tpu_torch.cli.parsing import (
-    REFUSED_COMPONENTS,
-    REFUSED_MOLECULE_FEATURIZERS,
-    REFUSED_REACTIONS,
     build_datasets,
     featurizer_for,
     load_component_feats,
@@ -57,11 +58,15 @@ from chemprop_tpu_torch.cli.parsing import (
     make_datapoints,
     parse_csv,
     read_columns,
+    reaction_featurizer_for,
 )
 from chemprop_tpu_torch.data import DataLoader
+from chemprop_tpu_torch.data.datapoints import ReactionDatapoint
+from chemprop_tpu_torch.featurizers.molecule import MoleculeFeaturizerRegistry
 from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.nn.message_passing import MulticomponentMessagePassing
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, MulticlassDirichletFFN
 from chemprop_tpu_torch.nn.utils import Dropout
 from chemprop_tpu_torch.train import Trainer
@@ -129,17 +134,13 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 # what the port refuses, by the argument that asks for it; each message names
-# the ROADMAP.md item that will port it (mol-atom-bond and multicomponent
-# checkpoints are refused where they load, models/load.py). INPUT_REFUSED is
-# shared with fingerprint
+# the ROADMAP.md item that will port it (mol-atom-bond checkpoints are refused
+# where they load, models/load.py). INPUT_REFUSED is shared with fingerprint
 INPUT_REFUSED = (
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
     (lambda a: a.bond_descriptors_path,
      "bond descriptors are not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
-    (lambda a: a.reaction_columns, REFUSED_REACTIONS),
-    (lambda a: a.smiles_columns and len(a.smiles_columns) > 1, REFUSED_COMPONENTS),
-    (lambda a: a.molecule_featurizers, REFUSED_MOLECULE_FEATURIZERS),
     (lambda a: a.use_cuikmolmaker_featurization,
      "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
      "the native featurizer)"),
@@ -168,6 +169,8 @@ def match_featurizer(args, model: MPNN) -> None:
     """Switch ``--multi-hot-atom-featurizer-mode`` to the first mode whose
     atom and bond widths make the width ``model``'s ``W_i`` takes (the v1
     mode for a v1 file), as the JAX CLI does."""
+    if args.reaction_columns or isinstance(model.message_passing, MulticomponentMessagePassing):
+        return  # a reaction's widths depend on its mode; several blocks, on their components
     d_in = model.message_passing.W_i.in_features
 
     def widths(mode):
@@ -186,9 +189,45 @@ def match_featurizer(args, model: MPNN) -> None:
                    "(extra atom/bond features?); proceeding unchanged")
 
 
-def build_loader(args, path: Path, with_targets: bool = False):
+def reorder_components(components: list[list], model: MPNN, args) -> list[list]:
+    """The JAX CLI's component-order fix: where the blocks of a
+    multicomponent ``model`` take other ``W_i`` widths than the input's
+    components give in their order, but a permutation of the components
+    gives them, the components are permuted to the model's order (the
+    reference's ``rxn+mol`` model has its blocks as (molecule, reaction))."""
+    mp = model.message_passing
+    if (not isinstance(mp, MulticomponentMessagePassing) or len(mp.blocks) < 2
+            or len(mp.blocks) != len(components)):
+        return components
+
+    def width(comp) -> int:
+        if comp and isinstance(comp[0], ReactionDatapoint):
+            f = reaction_featurizer_for(args.multi_hot_atom_featurizer_mode, args.rxn_mode)
+        else:
+            f = featurizer_for(args.multi_hot_atom_featurizer_mode)
+        return sum(f.shape)
+
+    want = [b.W_i.in_features for b in mp.blocks]
+    have = [width(c) for c in components]
+    if have == want:
+        return components
+    perm: list[int] = []
+    for w in want:
+        match = next((i for i, h in enumerate(have) if h == w and i not in perm), None)
+        if match is None:
+            return components  # no permutation fits; the model's error will say so
+        perm.append(match)
+    logger.warning(f"input component order (dims {have}) does not match the checkpoint's "
+                   f"block order (dims {want}); reordering components {perm}")
+    return [components[i] for i in perm]
+
+
+def build_loader(args, path: Path, with_targets: bool = False, model: MPNN | None = None):
     """``(loader, dataset, targets)`` of a CSV and its extra inputs; the
-    targets are the CSV's other columns with ``with_targets``, else none."""
+    targets are the CSV's other columns with ``with_targets``, else none.
+    The first SMILES column's molecules get the ``--molecule-featurizers``'
+    vectors after their ``X_d``; with ``model`` the components are put in
+    its blocks' order (:func:`reorder_components`)."""
     descriptors_cols = list(args.descriptors_columns or [])
     smis, rxns, Y, weights, lt, gt = parse_csv(
         path, args.smiles_columns, args.reaction_columns,
@@ -196,18 +235,23 @@ def build_loader(args, path: Path, with_targets: bool = False):
         ignore_cols=descriptors_cols if with_targets else None,
         no_header_row=args.no_header_row,
     )[:6]
-    n = len(next(iter(smis.values())))
+    n = len(next(iter(smis.values()), next(iter(rxns.values()), [])))
     X_d = load_input_feats(args.descriptors_path, n)
     if descriptors_cols:
         col_X = read_columns(path, descriptors_cols, args.no_header_row)
         X_d = list(col_X) if X_d is None else [np.concatenate([a, b]) for a, b in zip(X_d, col_X)]
     components = make_datapoints(
         smis, rxns, Y if Y.size else np.full((n, 1), np.nan), weights, lt, gt,
-        keep_h=args.keep_h, add_h=args.add_h, ignore_stereo=args.ignore_stereo, X_d=X_d,
+        keep_h=args.keep_h, add_h=args.add_h, ignore_stereo=args.ignore_stereo,
+        molecule_featurizers=[MoleculeFeaturizerRegistry[name]()
+                              for name in (args.molecule_featurizers or [])],
+        X_d=X_d,
         V_fs=load_component_feats(args.atom_features_path, n),
         E_fs=load_component_feats(args.bond_features_path, n),
         V_ds=load_component_feats(args.atom_descriptors_path, n),
     )
+    if model is not None:
+        components = reorder_components(components, model, args)
     dset = build_datasets(components, multi_hot_atom_featurizer_mode=
                           args.multi_hot_atom_featurizer_mode, rxn_mode=args.rxn_mode)
     return DataLoader(dset, batch_size=args.batch_size), dset, Y
@@ -278,7 +322,7 @@ def main(args: argparse.Namespace) -> int:
         output_columns = cols or output_columns
     if not (args.atom_features_path or args.bond_features_path):
         match_featurizer(args, models[0])
-    loader, dset, _ = build_loader(args, args.data_path)
+    loader, dset, _ = build_loader(args, args.data_path, model=models[0])
 
     stacked, mc_uncs = run_models(models, loader, args, device)
     mean_preds = stacked.mean(0)
@@ -292,7 +336,8 @@ def main(args: argparse.Namespace) -> int:
         cal_args.atom_descriptors_path = args.cal_atom_descriptors_path
         cal_args.bond_features_path = args.cal_bond_features_path
         cal_args.descriptors_columns = []
-        cal_loader, _, cal_Y = build_loader(cal_args, args.cal_path, with_targets=True)
+        cal_loader, _, cal_Y = build_loader(cal_args, args.cal_path, with_targets=True,
+                                            model=models[0])
         cal_stack, cal_mc = run_models(models, cal_loader, args, device)
         cal_uncs = (cal_mc if args.uncertainty_method == "dropout"
                     else estimate_uncertainty(args.uncertainty_method, cal_stack, models[-1]))
@@ -378,8 +423,13 @@ def predict(
 
 def check_plain_inputs(model: MPNN, featurizer: SimpleMoleculeMolGraphFeaturizer) -> None:
     """Raise where ``model`` takes more than ``featurizer``'s graphs. ``serve``
-    reads no extra inputs yet (``ROADMAP.md`` section 1 item 4)."""
+    reads no extra inputs yet (``ROADMAP.md`` section 1 item 4), and takes one
+    SMILES per row, as the JAX package's ``serve`` does, which applies its
+    models to one graph."""
     mp = model.message_passing
+    if isinstance(mp, MulticomponentMessagePassing):
+        raise ValueError(f"the model takes {mp.n_components} components per row; serve takes "
+                         "one SMILES per row, as the JAX package's serve does: use predict")
     if (mp.d_vd or model.predictor.input_dim != mp.output_dim
             or (mp.d_v, mp.d_e) != featurizer.shape):
         raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "

@@ -1,6 +1,7 @@
 """``train``: CSV -> splits -> trained models and their artefacts (cf.
-``chemprop_tpu/cli/train.py``), for single-molecule data with every task
-head of the port, on the GPU unless ``--device`` says otherwise.
+``chemprop_tpu/cli/train.py``), for molecules, reactions and several
+components, with every task head of the port, on the GPU unless
+``--device`` says otherwise.
 
     python -m chemprop_tpu_torch.cli train -i data.csv -o out [--device cpu]
         [--dtype float32|bfloat16] [--split scaffold_balanced] [--epochs N] ...
@@ -24,13 +25,17 @@ batch-norm statistics from a ``CPTPU001`` file, ``--resume`` continues from a
 JAX package's paths. ``--tensorboard`` and ``--profile`` write TensorBoard
 events and a ``torch.profiler`` trace under each model's directory.
 ``--atom-messages`` builds atom message passing, ``--aggregation attentive``
-the attentive readout over the message passing's output width.
+the attentive readout over one component's output width. Several
+``--smiles-columns`` and ``--reaction-columns`` (condensed graphs of
+reaction in ``--rxn-mode``) give a ``MulticomponentMPNN``, one block per
+component or one for all with ``--mpn-shared``; a single reaction column
+gives an ``MPNN`` over its graphs. ``--molecule-featurizers`` append their
+vectors to the first SMILES column's ``X_d``; the extra atom and bond inputs
+take ``IDX PATH`` pairs, one per molecule component.
 
 Refused, each with the ``ROADMAP.md`` item that will port it: atom and bond
-targets (item 8), reaction columns and more than one SMILES column (item
-7), ``--edge-partition`` and more than one device (item 12),
-``--molecule-featurizers`` (item 6), ``--use-cuikmolmaker-featurization``
-(item 5), and the ``kmeans``
+targets (item 8), ``--edge-partition`` and more than one device (item 12),
+``--use-cuikmolmaker-featurization`` (item 5), and the ``kmeans``
 split (item 4). ``--from-foundation PATH`` seeds each member's message
 passing from a local v2 ``.pt``, v1 ``.pt`` or ``CPTPU001`` file (nothing is
 downloaded). A batch holding a molecule of
@@ -60,12 +65,18 @@ from chemprop_tpu_torch.cli.parsing import (
     read_columns,
 )
 from chemprop_tpu_torch.data import DataLoader
+from chemprop_tpu_torch.data.datapoints import ReactionDatapoint
+from chemprop_tpu_torch.data.datasets import MulticomponentDataset
 from chemprop_tpu_torch.data.splitting import make_split_indices, split_data_by_indices
 from chemprop_tpu_torch.models import serialize
 from chemprop_tpu_torch.models.load import load_model
+from chemprop_tpu_torch.featurizers.molecule import MoleculeFeaturizerRegistry
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.models.multi import MulticomponentMPNN
 from chemprop_tpu_torch.nn.agg import AggregationRegistry
-from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing import (
+    AtomMessagePassing, BondMessagePassing, MulticomponentMessagePassing,
+)
 from chemprop_tpu_torch.nn.metrics import LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.predictors import PredictorRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
@@ -320,17 +331,8 @@ def process_train_args(args) -> None:
 REFUSED = (
     (lambda a: a.atom_target_columns or a.bond_target_columns,
      "atom and bond targets are not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
-    (lambda a: a.reaction_columns,
-     "reaction columns are not ported yet (ROADMAP.md section 1 item 7, multicomponent "
-     "and reaction inputs)"),
-    (lambda a: a.smiles_columns and len(a.smiles_columns) > 1,
-     "more than one SMILES column is not ported yet (ROADMAP.md section 1 item 7, "
-     "multicomponent inputs)"),
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
-    (lambda a: a.molecule_featurizers,
-     "--molecule-featurizers is not ported yet (ROADMAP.md section 1 item 6, "
-     "featurizers/molecule.py)"),
     (lambda a: a.use_cuikmolmaker_featurization,
      "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
      "the native featurizer)"),
@@ -355,20 +357,33 @@ def refuse_unported(args) -> None:
 
 def build_model(args, train_dset, output_transform=None, X_d_transform=None, V_d_transform=None,
                 graph_transform=None) -> MPNN:
-    """The model the arguments describe, for ``train_dset``'s featurizer,
+    """The model the arguments describe, for ``train_dset``'s featurizers,
     targets and extra inputs; the regression heads unscale by
-    ``output_transform``."""
-    d_v, d_e = train_dset.featurizer.shape
+    ``output_transform``. A ``MulticomponentDataset`` gives a
+    ``MulticomponentMPNN`` with one block per component, or one block for
+    all with ``--mpn-shared``, each block at its component's input widths
+    with its component's transforms (lists, one per component)."""
+    multi = isinstance(train_dset, MulticomponentDataset)
+    datasets = train_dset.datasets if multi else [train_dset]
+    n_blocks = 1 if args.mpn_shared else len(datasets)
+    V_d_ts = V_d_transform if isinstance(V_d_transform, list) else [V_d_transform] * n_blocks
+    graph_ts = (graph_transform if isinstance(graph_transform, list)
+                else [graph_transform] * n_blocks)
     mp_cls = AtomMessagePassing if args.atom_messages else BondMessagePassing
-    mp = mp_cls(
-        d_v=d_v, d_e=d_e, d_h=args.message_hidden_dim, bias=args.message_bias,
-        depth=args.depth, dropout=args.dropout, activation=args.activation,
-        undirected=args.undirected, compute_dtype=DTYPES[args.dtype],
-        d_vd=train_dset.d_vd or None, V_d_transform=V_d_transform,
-        graph_transform=graph_transform,
-    )
+    blocks = []
+    for k in range(n_blocks):
+        d_v, d_e = datasets[k].featurizer.shape
+        blocks.append(mp_cls(
+            d_v=d_v, d_e=d_e, d_h=args.message_hidden_dim, bias=args.message_bias,
+            depth=args.depth, dropout=args.dropout, activation=args.activation,
+            undirected=args.undirected, compute_dtype=DTYPES[args.dtype],
+            d_vd=datasets[k].d_vd or None, V_d_transform=V_d_ts[k], graph_transform=graph_ts[k],
+        ))
+    mp = (MulticomponentMessagePassing(blocks, len(datasets), args.mpn_shared) if multi
+          else blocks[0])
+    # the attentive readout's W takes one component's node table
     agg = Factory.build(AggregationRegistry[args.aggregation], norm=args.aggregation_norm,
-                        output_size=mp.output_dim)
+                        output_size=blocks[0].output_dim)
     # the criterion is always built here, so that the loss's own arguments
     # (--v-kl, --eps, --alpha, ...) reach the default loss too
     loss_cls = (LossFunctionRegistry[args.loss_function] if args.loss_function is not None
@@ -387,7 +402,8 @@ def build_model(args, train_dset, output_transform=None, X_d_transform=None, V_d
     )
     if output_transform is not None:
         predictor.output_transform = output_transform
-    return MPNN(mp, agg, predictor, batch_norm=args.batch_norm, X_d_transform=X_d_transform)
+    return (MulticomponentMPNN if multi else MPNN)(
+        mp, agg, predictor, batch_norm=args.batch_norm, X_d_transform=X_d_transform)
 
 
 def build_splits(args, components):
@@ -401,7 +417,7 @@ def build_splits(args, components):
         return ([s.get("train", []) for s in splits], [s.get("val", []) for s in splits],
                 [s.get("test", []) for s in splits])
     key = min(getattr(args, "split_key_molecule", 0), len(components) - 1)
-    mols = [dp.mol for dp in components[key]]
+    mols = [dp.rct if isinstance(dp, ReactionDatapoint) else dp.mol for dp in components[key]]
     return make_split_indices(
         mols, args.split, tuple(args.split_sizes), args.data_seed, args.num_replicates
     )
@@ -410,31 +426,45 @@ def build_splits(args, components):
 def normalize_inputs(train_dset, val_dset, args):
     """Fit the extra inputs' scalers on train, apply them to train and
     validation, and return the transforms that scale them in the model at
-    evaluation: ``(X_d_transform, V_d_transform, graph_transform)``."""
-    X_d_transform = V_d_transform = graph_transform = None
-    if train_dset.d_xd > 0 and not args.no_descriptor_scaling:
-        scaler = train_dset.normalize_inputs("X_d")
-        if val_dset is not None:
-            val_dset.normalize_inputs("X_d", scaler)
-        X_d_transform = ScaleTransform.from_standard_scaler(scaler)
-    if train_dset.d_vd > 0 and not args.no_atom_descriptor_scaling:
-        scaler = train_dset.normalize_inputs("V_d")
-        if val_dset is not None:
-            val_dset.normalize_inputs("V_d", scaler)
-        V_d_transform = ScaleTransform.from_standard_scaler(scaler)
-    # the extra atom and bond features scale the featurizer's last columns
-    feats = {}
-    for key, width, off, fdim in (
-            ("V_f", train_dset.d_vf, args.no_atom_feature_scaling, train_dset.featurizer.atom_fdim),
-            ("E_f", train_dset.d_ef, args.no_bond_feature_scaling, train_dset.featurizer.bond_fdim)):
-        if width > 0 and not off:
-            scaler = train_dset.normalize_inputs(key)
-            if val_dset is not None:
-                val_dset.normalize_inputs(key, scaler)
-            feats[key] = ScaleTransform.from_standard_scaler(scaler, pad=fdim - width)
-    if feats:
-        graph_transform = GraphTransform(feats.get("V_f"), feats.get("E_f"))
-    return X_d_transform, V_d_transform, graph_transform
+    evaluation: ``(X_d_transform, V_d_transform, graph_transform)``. A
+    multicomponent dataset's ``X_d`` is component 0's, and its atom
+    descriptors and extra features are scaled per component (a reaction's
+    have none): the last two are then lists, one per component."""
+    multi = isinstance(train_dset, MulticomponentDataset)
+    datasets = train_dset.datasets if multi else [train_dset]
+    val_datasets = ([None] * len(datasets) if val_dset is None
+                    else val_dset.datasets if multi else [val_dset])
+
+    def fit(d, vd, key):
+        scaler = d.normalize_inputs(key)
+        if vd is not None:
+            vd.normalize_inputs(key, scaler)
+        return scaler
+
+    X_d_transform = None
+    if datasets[0].d_xd > 0 and not args.no_descriptor_scaling:
+        X_d_transform = ScaleTransform.from_standard_scaler(fit(datasets[0], val_datasets[0],
+                                                                "X_d"))
+    V_d_ts, graph_ts = [], []
+    for d, vd in zip(datasets, val_datasets):
+        V_d_t = graph_t = None
+        if d.d_vd > 0 and not args.no_atom_descriptor_scaling:
+            V_d_t = ScaleTransform.from_standard_scaler(fit(d, vd, "V_d"))
+        # the extra atom and bond features scale the featurizer's last columns
+        feats = {}
+        for key, width, off, fdim in (
+                ("V_f", d.d_vf, args.no_atom_feature_scaling, d.featurizer.atom_fdim),
+                ("E_f", d.d_ef, args.no_bond_feature_scaling, d.featurizer.bond_fdim)):
+            if width > 0 and not off:
+                feats[key] = ScaleTransform.from_standard_scaler(fit(d, vd, key),
+                                                                 pad=fdim - width)
+        if feats:
+            graph_t = GraphTransform(feats.get("V_f"), feats.get("E_f"))
+        V_d_ts.append(V_d_t)
+        graph_ts.append(graph_t)
+    if not multi:
+        return X_d_transform, V_d_ts[0], graph_ts[0]
+    return X_d_transform, V_d_ts, graph_ts
 
 
 def _read_inputs(args, path, descriptors_cols, with_side_files: bool):
@@ -461,6 +491,8 @@ def _read_inputs(args, path, descriptors_cols, with_side_files: bool):
     components = make_datapoints(
         smis, rxns, Y, weights, lt, gt, keep_h=args.keep_h, add_h=args.add_h,
         ignore_stereo=args.ignore_stereo, X_d=X_d, **side,
+        molecule_featurizers=[MoleculeFeaturizerRegistry[name]()
+                              for name in (args.molecule_featurizers or [])],
     )
     return parsed, components
 
@@ -534,6 +566,8 @@ def main(args) -> int:
             c.extend(extra)
         for col in smis:
             smis[col].extend(parsed2[0][col])
+        for col in rxns:
+            rxns[col].extend(parsed2[1][col])
         Y = np.concatenate([Y, parsed2[2]], axis=0)
         extra_ns.append(len(parsed2[2]))
 
@@ -560,13 +594,14 @@ def main(args) -> int:
         json.dump([{"train": list(map(int, t)), "val": list(map(int, v)),
                     "test": list(map(int, s))} for t, v, s in zip(trains, vals, tests)], f)
 
+    multi = len(components) > 1
     all_scores = []
     for rep, (tr_i, va_i, te_i) in enumerate(zip(trains, vals, tests)):
         (train_data,), (val_data,), (test_data,) = split_data_by_indices(
-            components[0], [tr_i], [va_i], [te_i])
+            components if multi else components[0], [tr_i], [va_i], [te_i])
 
         def mk(data):
-            return build_datasets([data], multi_hot_atom_featurizer_mode=
+            return build_datasets(data if multi else [data], multi_hot_atom_featurizer_mode=
                                   args.multi_hot_atom_featurizer_mode, rxn_mode=args.rxn_mode)
 
         train_dset = mk(train_data)
@@ -577,7 +612,8 @@ def main(args) -> int:
         rep_dir = out_dir / (f"replicate_{rep}" if len(trains) > 1 else ".")
         if args.save_smiles_splits or args.save_data_splits:
             rep_dir.mkdir(parents=True, exist_ok=True)
-            _save_split_csvs(rep_dir, args, (tr_i, va_i, te_i), smis, Y, target_cols)
+            _save_split_csvs(rep_dir, args, (tr_i, va_i, te_i), {**smis, **rxns}, Y,
+                             target_cols)
 
         X_d_t, V_d_t, graph_t = normalize_inputs(train_dset, val_dset, args)
         output_transform = None
@@ -686,7 +722,9 @@ def _cell(v: float) -> str:
 
 def _save_split_csvs(split_dir, args, split_idxs, smis, Y, target_cols) -> None:
     """``{train,val,test}_smiles.csv`` (``--save-smiles-splits``) and
-    ``{train,val,test}_full.csv`` with the targets (``--save-data-splits``)."""
+    ``{train,val,test}_full.csv`` with the targets (``--save-data-splits``);
+    ``smis`` holds every input column, the SMILES columns' and then the
+    reaction columns'."""
     input_cols = list(smis)
     for name, idxs in zip(("train", "val", "test"), split_idxs):
         idxs = list(map(int, idxs))

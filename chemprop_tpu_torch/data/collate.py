@@ -280,10 +280,13 @@ def batch_mol_graphs(
 
 class TrainingBatch(NamedTuple):
     """The JAX package's fields in its order, so that a batch unpacks the same
-    way: ``bmg, V_d, X_d, Y, w, lt_mask, gt_mask``."""
+    way: ``bmg, V_d, X_d, Y, w, lt_mask, gt_mask``. A multicomponent batch
+    (:func:`collate_multicomponent`) holds a tuple of graphs in ``bmg``, one
+    per component, and a tuple of their atom descriptors (or None) in
+    ``V_d``."""
 
-    bmg: BatchMolGraph
-    V_d: torch.Tensor | None  # [N_pad, d_vd] float32 atom descriptors; padding rows 0
+    bmg: BatchMolGraph | tuple[BatchMolGraph, ...]
+    V_d: torch.Tensor | tuple | None  # [N_pad, d_vd] float32 atom descriptors; padding rows 0
     X_d: torch.Tensor | None  # [B, d_xd] float32 molecule descriptors; padding rows 0
     Y: torch.Tensor | None  # [B, t] float32; padding rows are NaN, masked by isfinite
     w: torch.Tensor  # [B, 1] float32 sample weights; padding rows are 0
@@ -297,10 +300,19 @@ class TrainingBatch(NamedTuple):
 
     def to(self, device: str | torch.device) -> "TrainingBatch":
         def move(x):
+            if isinstance(x, tuple):
+                return tuple(move(part) for part in x)
+            if isinstance(x, BatchMolGraph):
+                return x.to(device)
             return None if x is None else x.to(device, non_blocking=True)
 
-        return TrainingBatch(self.bmg.to(device), move(self.V_d), move(self.X_d), move(self.Y),
+        return TrainingBatch(move(self.bmg), move(self.V_d), move(self.X_d), move(self.Y),
                              move(self.w), move(self.lt_mask), move(self.gt_mask))
+
+    @property
+    def graphs(self) -> tuple[BatchMolGraph, ...]:
+        """The batch's graphs: one, or one per component."""
+        return self.bmg if isinstance(self.bmg, tuple) else (self.bmg,)
 
 
 def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
@@ -340,3 +352,20 @@ def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
         bounds.append(m)
     return TrainingBatch(bmg, *(None if x is None else t(x) for x in (V_d, X_d, Y)), t(w),
                          *(None if m is None else t(m) for m in bounds))
+
+
+def collate_multicomponent(data: Iterable, pads: Sequence[PadSpec | None] | None = None
+                           ) -> TrainingBatch:
+    """Collate rows of per-component ``Datum`` lists (cf.
+    ``collate_multicomponent`` of ``chemprop_tpu/data/collate.py``): each
+    component is collated on its own, into a padded graph with its own tile
+    table (or split table and cross rows); ``bmg`` and ``V_d`` are tuples of
+    the components' (``V_d`` None where no component has atom descriptors),
+    and the targets, weights, bounds and ``X_d`` are component 0's."""
+    rows = list(data)
+    columns = [[row[i] for row in rows] for i in range(len(rows[0]))]
+    tbs = [collate_batch(col, pad) for col, pad in zip(columns, pads or [None] * len(columns))]
+    first = tbs[0]
+    V_d = tuple(tb.V_d for tb in tbs) if any(tb.V_d is not None for tb in tbs) else None
+    return TrainingBatch(tuple(tb.bmg for tb in tbs), V_d, first.X_d, first.Y, first.w,
+                         first.lt_mask, first.gt_mask)

@@ -3,7 +3,9 @@ padded to bucketed node and edge counts and to a constant graph count, as in
 the JAX package, so that both packages train on the same tables. Batches lie
 on the CPU; the trainer moves them. ``class_balance`` takes the
 ``ClassBalanceSampler`` over the dataset's targets (shuffled where
-``shuffle`` is), as the JAX loader does. Not ported: shards, and the JAX
+``shuffle`` is), as the JAX loader does. A ``MulticomponentDataset``'s rows
+collate into one padded graph per component (``collate_multicomponent``),
+each padded to its own bucket. Not ported: shards, and the JAX
 loader's isolation of molecules wider than its kernel's window (more than 192
 bonds) into batches of their own; the port's kernels take such a molecule's
 split tile table instead."""
@@ -14,7 +16,9 @@ from typing import Iterator
 
 import numpy as np
 
-from chemprop_tpu_torch.data.collate import PadSpec, TrainingBatch, collate_batch
+from chemprop_tpu_torch.data.collate import (
+    PadSpec, TrainingBatch, collate_batch, collate_multicomponent,
+)
 from chemprop_tpu_torch.data.datasets import MoleculeDataset
 from chemprop_tpu_torch.data.samplers import ClassBalanceSampler, SeededSampler
 
@@ -67,6 +71,12 @@ class DataLoader:
     def __iter__(self) -> Iterator[TrainingBatch]:
         for idxs in self._index_batches():
             data = [self.dataset[i] for i in idxs]
+            if isinstance(data[0], list):  # multicomponent rows: a pad per component
+                pads = self.pad_spec or [
+                    PadSpec.for_graphs([row[c].mg for row in data], n_graphs=self.batch_size)
+                    for c in range(len(data[0]))]
+                yield collate_multicomponent(data, pads)
+                continue
             pad = self.pad_spec or PadSpec.for_graphs(
                 [d.mg for d in data], n_graphs=self.batch_size
             )

@@ -1,7 +1,10 @@
 """Datasets (cf. ``chemprop_tpu/data/datasets.py``): index -> featurised
 ``Datum``, raw and normalised views of the targets and of the extra inputs
 (``normalize_inputs``, one scaler per key), and an optional cache of the
-featurised graphs."""
+featurised graphs. ``ReactionDataset`` featurises reactions with the
+condensed graph of reaction; ``MulticomponentDataset`` holds one dataset per
+input component, all of one length, whose rows index as lists of ``Datum``
+(the targets, weights and bounds are component 0's)."""
 
 from __future__ import annotations
 
@@ -10,8 +13,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-from chemprop_tpu_torch.data.datapoints import MoleculeDatapoint
+from chemprop_tpu_torch.data.datapoints import MoleculeDatapoint, ReactionDatapoint
 from chemprop_tpu_torch.featurizers.molgraph.molecule import SimpleMoleculeMolGraphFeaturizer
+from chemprop_tpu_torch.featurizers.molgraph.reaction import CondensedGraphOfReactionFeaturizer
 from chemprop_tpu_torch.types import MolGraph
 
 
@@ -184,3 +188,89 @@ class MoleculeDataset:
         self._scaled = {key: self._raw(key) for key in ("V_f", "E_f", "V_d")}
         self._scaled["X_d"] = np.array(self._raw("X_d"))
         self._cache = None
+
+
+@dataclass
+class ReactionDataset(MoleculeDataset):
+    """Reactions featurised by the condensed graph of reaction (cf.
+    ``ReactionDataset`` of ``chemprop_tpu/data/datasets.py``): no extra atom
+    or bond inputs, only the molecule descriptors ``X_d``."""
+
+    data: list[ReactionDatapoint]
+    featurizer: CondensedGraphOfReactionFeaturizer = field(
+        default_factory=CondensedGraphOfReactionFeaturizer
+    )
+
+    def _featurize(self, idx: int) -> MolGraph:
+        d = self.data[idx]
+        return self.featurizer((d.rct, d.pdt))
+
+    def _raw(self, key: str) -> list:
+        return [d.x_d if key == "X_d" else None for d in self.data]
+
+    def normalize_inputs(self, key: str = "X_d", scaler: StandardScaler | None = None):
+        """As ``MoleculeDataset.normalize_inputs``; a reaction has only ``X_d``."""
+        return super().normalize_inputs(key, scaler) if key == "X_d" else scaler
+
+
+class MulticomponentDataset:
+    """One dataset per input component, indexed together (cf.
+    ``MulticomponentDataset`` of ``chemprop_tpu/data/datasets.py``): row
+    ``i`` is the list of every component's ``Datum``; the targets, weights,
+    bounds and ``X_d`` are component 0's."""
+
+    def __init__(self, datasets: list):
+        sizes = {len(d) for d in datasets}
+        if len(sizes) != 1:
+            raise ValueError(f"component datasets have mismatched lengths: {sizes}")
+        self.datasets = datasets
+
+    def __len__(self) -> int:
+        return len(self.datasets[0])
+
+    def __getitem__(self, idx: int) -> list[Datum]:
+        return [d[idx] for d in self.datasets]
+
+    @property
+    def data(self) -> list:
+        return self.datasets[0].data
+
+    @property
+    def names(self) -> list[tuple]:
+        return list(zip(*[d.names for d in self.datasets]))
+
+    @property
+    def t(self) -> int | None:
+        return self.datasets[0].t
+
+    @property
+    def d_xd(self) -> int:
+        return self.datasets[0].d_xd
+
+    @property
+    def _Y(self) -> np.ndarray:
+        return self.datasets[0]._Y
+
+    @property
+    def Y(self) -> np.ndarray:
+        return self.datasets[0].Y
+
+    def normalize_targets(self, scaler: StandardScaler | None = None) -> StandardScaler:
+        return self.datasets[0].normalize_targets(scaler)
+
+    def normalize_inputs(self, key: str = "X_d", scaler=None) -> list:
+        """Each component's scaler of ``key`` (``scaler`` applied to all)."""
+        return [d.normalize_inputs(key, scaler) for d in self.datasets]
+
+    def reset(self) -> None:
+        for d in self.datasets:
+            d.reset()
+
+    @property
+    def cache(self) -> bool:
+        return all(d.cache for d in self.datasets)
+
+    @cache.setter
+    def cache(self, cache: bool) -> None:
+        for d in self.datasets:
+            d.cache = cache

@@ -27,8 +27,11 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.models.multi import MulticomponentMPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
-from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
+from chemprop_tpu_torch.nn.message_passing import (
+    AtomMessagePassing, BondMessagePassing, MulticomponentMessagePassing,
+)
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, PredictorRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
@@ -94,8 +97,6 @@ def _activation(v) -> str:
 
 REFUSED_MAB = ("mol-atom-bond models are not ported yet (ROADMAP.md section 1 item 8, "
                "mol-atom-bond)")
-REFUSED_MULTICOMPONENT = ("multicomponent models are not ported yet (ROADMAP.md section 1 "
-                          "item 7, multicomponent inputs)")
 
 # every head of the JAX package, by class name
 HEADS = {cls.__name__: cls for cls in PredictorRegistry.values()}
@@ -121,19 +122,21 @@ def build_model(
     package's heads (``n_classes`` for a multiclass one), with its
     ``bias``, ``dropout``, ``undirected`` and both ``activation``
     hyperparameters (message passing's and the head's), atom descriptors
-    (``d_vd``), and the scaling transforms its state dict holds. As in the
-    JAX package's converter, the head's criterion is its default one.
-    Anything the port does not run raises instead of loading wrongly."""
+    (``d_vd``), and the scaling transforms its state dict holds. A
+    ``MulticomponentMessagePassing`` (its blocks under
+    ``message_passing.blocks.<i>``, or one ``shared`` block) gives a
+    ``MulticomponentMPNN``, as the JAX package's converter routes it. As in
+    that converter, the head's criterion is its default one. Anything the
+    port does not run raises instead of loading wrongly."""
     if any(k in hp for k in ("mol_predictor", "atom_predictor", "bond_predictor")):
         raise ValueError(REFUSED_MAB)
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
-    unsupported = []
-    if _cls_name(mp_hp["cls"]) == "MulticomponentMessagePassing":
-        raise ValueError(REFUSED_MULTICOMPONENT)
-    mp_cls = MESSAGE_PASSINGS.get(_cls_name(mp_hp["cls"]))
-    if mp_cls is None:
-        unsupported.append(f"message passing {_cls_name(mp_hp['cls'])}")
+    multi = _cls_name(mp_hp["cls"]) == "MulticomponentMessagePassing"
+    blocks = ([(b, f"message_passing.blocks.{i}") for i, b in enumerate(mp_hp["blocks"])]
+              if multi else [(mp_hp, "message_passing")])
+    unsupported = [f"message passing {_cls_name(b['cls'])}" for b, _ in blocks
+                   if _cls_name(b["cls"]) not in MESSAGE_PASSINGS]
     head = HEADS.get(_cls_name(p_hp["cls"]))
     if head is None:
         unsupported.append(f"predictor {_cls_name(p_hp['cls'])}")
@@ -146,26 +149,35 @@ def build_model(
         key = f"{prefix}.mean"
         return ScaleTransform.identity(sd[key].shape[-1]) if key in sd else None
 
-    graph = [transform(f"message_passing.graph_transform.{k}_transform") for k in "VE"]
-    W_i = sd["message_passing.W_i.weight"]
-    d_h = int(mp_hp.get("d_h", W_i.shape[0]))
-    d_v, d_e = feature_widths(mp_cls, d_h, W_i.shape[1], sd["message_passing.W_h.weight"].shape[1],
-                              sd["message_passing.W_o.weight"].shape[1])
-    mp = mp_cls(
-        d_v=int(mp_hp.get("d_v", d_v)),
-        d_e=int(mp_hp.get("d_e", d_e)),
-        d_h=d_h,
-        bias=bool(mp_hp.get("bias", False)),
-        depth=int(mp_hp.get("depth", 3)),
-        activation=_activation(mp_hp.get("activation", "relu")),
-        compute_dtype=compute_dtype,
-        dropout=float(mp_hp.get("dropout", 0.0)),
-        undirected=bool(mp_hp.get("undirected", False)),
-        kernel_options=kernel_options,
-        d_vd=int(mp_hp.get("d_vd") or 0) or None,
-        V_d_transform=transform("message_passing.V_d_transform"),
-        graph_transform=GraphTransform(*graph) if any(graph) else None,
-    )
+    def block(b_hp: Mapping, pre: str):
+        mp_cls = MESSAGE_PASSINGS[_cls_name(b_hp["cls"])]
+        graph = [transform(f"{pre}.graph_transform.{k}_transform") for k in "VE"]
+        W_i = sd[f"{pre}.W_i.weight"]
+        d_h = int(b_hp.get("d_h", W_i.shape[0]))
+        d_v, d_e = feature_widths(mp_cls, d_h, W_i.shape[1], sd[f"{pre}.W_h.weight"].shape[1],
+                                  sd[f"{pre}.W_o.weight"].shape[1])
+        return mp_cls(
+            d_v=int(b_hp.get("d_v", d_v)),
+            d_e=int(b_hp.get("d_e", d_e)),
+            d_h=d_h,
+            bias=bool(b_hp.get("bias", False)),
+            depth=int(b_hp.get("depth", 3)),
+            activation=_activation(b_hp.get("activation", "relu")),
+            compute_dtype=compute_dtype,
+            dropout=float(b_hp.get("dropout", 0.0)),
+            undirected=bool(b_hp.get("undirected", False)),
+            kernel_options=kernel_options,
+            d_vd=int(b_hp.get("d_vd") or 0) or None,
+            V_d_transform=transform(f"{pre}.V_d_transform"),
+            graph_transform=GraphTransform(*graph) if any(graph) else None,
+        )
+
+    mp = [block(b, pre) for b, pre in blocks]
+    if multi:
+        mp = MulticomponentMessagePassing(mp, int(mp_hp.get("n_components", len(mp))),
+                                          bool(mp_hp.get("shared", False)))
+    else:
+        mp = mp[0]
     if agg_name == "AttentiveAggregation":
         agg = AGGREGATIONS[agg_name](sd["agg.W.weight"].shape[1])
     else:
@@ -177,7 +189,7 @@ def build_model(
     extra = {"n_classes": int(p_hp.get("n_classes", 3))} if multiclass else {}
     predictor = head(
         n_tasks=int(p_hp.get("n_tasks", 1)),
-        input_dim=int(p_hp.get("input_dim", d_h)),
+        input_dim=int(p_hp.get("input_dim", mp.output_dim)),
         hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
         n_layers=int(p_hp.get("n_layers", 1)),
         output_transform="predictor.output_transform.mean" in sd,
@@ -185,8 +197,9 @@ def build_model(
         activation=_activation(p_hp.get("activation", "relu")),
         **extra,
     )
-    return MPNN(mp, agg, predictor, batch_norm="bn.running_mean" in sd,
-                X_d_transform=transform("X_d_transform"))
+    return (MulticomponentMPNN if multi else MPNN)(
+        mp, agg, predictor, batch_norm="bn.running_mean" in sd,
+        X_d_transform=transform("X_d_transform"))
 
 
 # v1 files the port does not serve, each with the ROADMAP.md item that will
@@ -194,7 +207,7 @@ V1_REFUSED = (
     (lambda a, sd: int(getattr(a, "number_of_molecules", 1) or 1) > 1
      or len({k.split(".")[2] for k in sd if k.startswith("encoder.encoder.")}) > 1,
      "a v1 model of several molecules is not ported yet (ROADMAP.md section 1 item 7, "
-     "multicomponent inputs)"),
+     "v1 files of several molecules)"),
     (lambda a, sd: getattr(a, "atom_descriptors", None) is not None
      or any("atom_descriptors_layer" in k for k in sd),
      "a v1 model with atom descriptors is not ported yet (ROADMAP.md section 1 item 6, "
@@ -203,7 +216,7 @@ V1_REFUSED = (
                         or getattr(a, "features_generator", None)
                         or getattr(a, "features_path", None)),
      "a v1 model with molecule features is not ported yet (ROADMAP.md section 1 item 6, "
-     "featurizers/molecule.py)"),
+     "v1 molecule features)"),
 )
 V1_HEADS = {"regression": "RegressionFFN", "classification": "BinaryClassificationFFN",
             "multiclass": "MulticlassClassificationFFN"}
@@ -261,7 +274,7 @@ def build_v1_model(
             sd[f"predictor.ffn.{b}.{0 if b == 0 else 2}.{leaf}"] = raw[f"readout.{j}.{leaf}"].float()
     if raw[f"readout.{linears[0]}.weight"].shape[1] != d_h:
         raise ValueError("a v1 model whose FFN takes more than the fingerprint is not ported "
-                         "yet (ROADMAP.md section 1 item 6, featurizers/molecule.py)")
+                         "yet (ROADMAP.md section 1 item 6, v1 molecule features)")
     task_names = list(arg("task_names", None) or [])
     n_tasks = int(arg("num_tasks", 0) or len(task_names) or 1)
     dataset_type = str(arg("dataset_type", "regression"))
@@ -335,10 +348,17 @@ def from_jax_params(
         return torch.from_numpy(np.array(x, dtype=np.float32))
 
     sd: dict[str, torch.Tensor] = {}
-    for name, layer in params["message_passing"].items():
-        sd[f"message_passing.{name}.weight"] = t(layer["kernel"]).T.contiguous()
-        if "bias" in layer:
-            sd[f"message_passing.{name}.bias"] = t(layer["bias"])
+
+    def layers(tree, prefix):
+        for name, layer in tree.items():
+            if name.startswith("blocks_"):  # a multicomponent block
+                layers(layer, f"{prefix}.blocks.{name.removeprefix('blocks_')}")
+                continue
+            sd[f"{prefix}.{name}.weight"] = t(layer["kernel"]).T.contiguous()
+            if "bias" in layer:
+                sd[f"{prefix}.{name}.bias"] = t(layer["bias"])
+
+    layers(params["message_passing"], "message_passing")
     if "agg" in params:  # the attentive readout's W
         sd["agg.W.weight"] = t(params["agg"]["W"]["kernel"]).T.contiguous()
         sd["agg.W.bias"] = t(params["agg"]["W"]["bias"])
@@ -366,6 +386,8 @@ def jax_path(name: str) -> tuple[str, tuple[str, ...]] | None:
     :func:`from_jax_params`; a weight is the transpose of its kernel there),
     or None for a buffer that is configuration in JAX (the transforms)."""
     parts = name.split(".")
+    if parts[:2] == ["message_passing", "blocks"] and len(parts) == 5 and parts[4] in _LINEAR:
+        return "params", (parts[0], f"blocks_{parts[2]}", parts[3], _LINEAR[parts[4]])
     if parts[0] in ("message_passing", "agg") and len(parts) == 3 and parts[2] in _LINEAR:
         return "params", (parts[0], parts[1], _LINEAR[parts[2]])
     if parts[0] == "bn" and len(parts) == 2 and parts[1] in _BN:

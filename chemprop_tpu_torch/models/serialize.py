@@ -13,7 +13,10 @@ in a trainer's ``last.ckpt`` also ``opt_state`` (optax's Adam state),
 inverse of :func:`~chemprop_tpu_torch.models.load.from_jax_params`.
 
 The port builds what it runs: a single-molecule ``MPNN`` with a
-``BondMessagePassing`` or an ``AtomMessagePassing``, a sum, mean, norm or
+``BondMessagePassing`` or an ``AtomMessagePassing``, or a
+``MulticomponentMPNN`` over a ``MulticomponentMessagePassing`` of such
+blocks (the JAX manifest's ``blocks``, ``n_components`` and ``shared``), a
+sum, mean, norm or
 attentive readout and any of the JAX
 package's heads, with its criterion (by ``__metric__`` and ``kwargs``),
 ``task_weights``, ``threshold``, ``n_classes`` and ``spectral_activation``;
@@ -31,11 +34,12 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.models.load import (
-    HEADS, MESSAGE_PASSINGS, REFUSED_MAB, REFUSED_MULTICOMPONENT, feature_widths,
-    from_jax_params, jax_path,
+    HEADS, MESSAGE_PASSINGS, REFUSED_MAB, feature_widths, from_jax_params, jax_path,
 )
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.models.multi import MulticomponentMPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
+from chemprop_tpu_torch.nn.message_passing import MulticomponentMessagePassing
 from chemprop_tpu_torch.nn.metrics import ChempropMetric, LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
 from chemprop_tpu_torch.ops.options import KernelOptions
@@ -108,17 +112,16 @@ def model_config(model: MPNN) -> dict:
     for key in ("n_classes", "spectral_activation"):
         if hasattr(pred, key):
             head[key] = getattr(pred, key)
+    if isinstance(mp, MulticomponentMessagePassing):
+        mp_cfg = {"cls": "MulticomponentMessagePassing",
+                  "blocks": [{"__submodule__": _block_config(b)} for b in mp.blocks],
+                  "n_components": mp.n_components, "shared": mp.shared}
+    else:
+        mp_cfg = _block_config(mp)
     return {
         "format": FORMAT,
-        "model_cls": "MPNN",
-        "message_passing": {
-            "cls": type(mp).__name__, "d_h": mp.d_h, "bias": mp.W_i.bias is not None,
-            "depth": mp.depth, "dropout": mp.dropout, "activation": mp.activation,
-            "undirected": mp.undirected, "d_vd": mp.d_vd,
-            "V_d_transform": _encode_transform(mp.V_d_transform),
-            "graph_transform": _encode_transform(mp.graph_transform),
-            "compute_dtype": DTYPE_NAMES[mp.compute_dtype],
-        },
+        "model_cls": type(model).__name__,
+        "message_passing": mp_cfg,
         "agg": agg_cfg,
         "predictor": head,
         "batch_norm": model.bn is not None,
@@ -126,16 +129,38 @@ def model_config(model: MPNN) -> dict:
     }
 
 
+def _block_config(mp) -> dict:
+    """A bond or atom message passing's constructor arguments."""
+    return {
+        "cls": type(mp).__name__, "d_h": mp.d_h, "bias": mp.W_i.bias is not None,
+        "depth": mp.depth, "dropout": mp.dropout, "activation": mp.activation,
+        "undirected": mp.undirected, "d_vd": mp.d_vd,
+        "V_d_transform": _encode_transform(mp.V_d_transform),
+        "graph_transform": _encode_transform(mp.graph_transform),
+        "compute_dtype": DTYPE_NAMES[mp.compute_dtype],
+    }
+
+
+def _blocks(mp_cfg: Mapping) -> list[Mapping]:
+    """The single-molecule message passings a manifest's entry holds."""
+    if mp_cfg["cls"] == "MulticomponentMessagePassing":
+        return [b["__submodule__"] for b in mp_cfg["blocks"]]
+    return [mp_cfg]
+
+
 def _check_config(cfg: Mapping) -> None:
-    refused = {"MolAtomBondMPNN": REFUSED_MAB, "MulticomponentMPNN": REFUSED_MULTICOMPONENT}
-    if cfg.get("model_cls") in refused:
-        raise ValueError(refused[cfg["model_cls"]])
+    if cfg.get("model_cls") == "MolAtomBondMPNN":
+        raise ValueError(REFUSED_MAB)
     mp, agg, pred = cfg["message_passing"], cfg["agg"], cfg["predictor"]
     unsupported = []
-    if cfg.get("model_cls", "MPNN") != "MPNN":
-        unsupported.append(f"model {cfg['model_cls']}")
-    if mp["cls"] not in MESSAGE_PASSINGS:
-        unsupported.append(f"message passing {mp['cls']}")
+    model_cls = cfg.get("model_cls", "MPNN")
+    if model_cls not in ("MPNN", "MulticomponentMPNN"):
+        unsupported.append(f"model {model_cls}")
+    elif (model_cls == "MulticomponentMPNN") != (mp["cls"] == "MulticomponentMessagePassing"):
+        unsupported.append(f"model {model_cls} over {mp['cls']}")
+    for block in _blocks(mp):
+        if block["cls"] not in MESSAGE_PASSINGS:
+            unsupported.append(f"message passing {block['cls']}")
     if agg["cls"] not in AGGREGATIONS:
         unsupported.append(f"aggregation {agg['cls']}")
     head = HEADS.get(pred["cls"])
@@ -161,36 +186,51 @@ def model_from_config(
     defaults. ``compute_dtype`` overrides the manifest's."""
     _check_config(cfg)
     mp_cfg, pred_cfg = cfg["message_passing"], cfg["predictor"]
-    mp_cls = MESSAGE_PASSINGS[mp_cfg["cls"]]
-    d_h = int(mp_cfg["d_h"])
-    graph = _decode_transform(mp_cfg.get("graph_transform"))
-    if params is not None:
-        layers = params["message_passing"]
-        # bond message passing of depth 1 has no W_h in the JAX tree
-        d_v, d_e = feature_widths(mp_cls, d_h, *(np.shape(layers[w]["kernel"])[0] if w in layers
-                                                 else None for w in ("W_i", "W_h", "W_o")))
+    multi = mp_cfg["cls"] == "MulticomponentMessagePassing"
+
+    def block(b_cfg: Mapping, layers: Mapping | None):
+        mp_cls = MESSAGE_PASSINGS[b_cfg["cls"]]
+        d_h = int(b_cfg["d_h"])
+        graph = _decode_transform(b_cfg.get("graph_transform"))
+        if layers is not None:
+            # bond message passing of depth 1 has no W_h in the JAX tree
+            d_v, d_e = feature_widths(mp_cls, d_h, *(
+                np.shape(layers[w]["kernel"])[0] if w in layers else None
+                for w in ("W_i", "W_h", "W_o")))
+        else:
+            V_t, E_t = (graph.V_transform, graph.E_transform) if graph else (None, None)
+            d_v = 72 if V_t is None else V_t.mean.shape[1]
+            d_e = 14 if E_t is None else E_t.mean.shape[1]
+        dtype = compute_dtype or getattr(torch, b_cfg.get("compute_dtype", "float32"))
+        return mp_cls(
+            d_v=d_v, d_e=d_e, d_h=d_h, bias=bool(b_cfg.get("bias", False)),
+            depth=int(b_cfg.get("depth", 3)), activation=b_cfg.get("activation", "relu"),
+            compute_dtype=dtype, dropout=float(b_cfg.get("dropout", 0.0)),
+            undirected=bool(b_cfg.get("undirected", False)), kernel_options=kernel_options,
+            d_vd=b_cfg.get("d_vd") or None,
+            V_d_transform=_decode_transform(b_cfg.get("V_d_transform")), graph_transform=graph,
+        )
+
+    layers = None if params is None else params["message_passing"]
+    if multi:
+        blocks = [block(b, None if layers is None else layers[f"blocks_{i}"])
+                  for i, b in enumerate(_blocks(mp_cfg))]
+        mp = MulticomponentMessagePassing(blocks, int(mp_cfg["n_components"]),
+                                          bool(mp_cfg.get("shared", False)))
     else:
-        V_t, E_t = (graph.V_transform, graph.E_transform) if graph else (None, None)
-        d_v = 72 if V_t is None else V_t.mean.shape[1]
-        d_e = 14 if E_t is None else E_t.mean.shape[1]
-    dtype = compute_dtype or getattr(torch, mp_cfg.get("compute_dtype", "float32"))
-    mp = mp_cls(
-        d_v=d_v, d_e=d_e, d_h=d_h, bias=bool(mp_cfg.get("bias", False)),
-        depth=int(mp_cfg.get("depth", 3)), activation=mp_cfg.get("activation", "relu"),
-        compute_dtype=dtype, dropout=float(mp_cfg.get("dropout", 0.0)),
-        undirected=bool(mp_cfg.get("undirected", False)), kernel_options=kernel_options,
-        d_vd=mp_cfg.get("d_vd") or None,
-        V_d_transform=_decode_transform(mp_cfg.get("V_d_transform")), graph_transform=graph,
-    )
+        mp = block(mp_cfg, layers)
     agg_cfg = cfg["agg"]
-    agg = AGGREGATIONS[agg_cfg["cls"]](
-        **({"output_size": int(agg_cfg["output_size"])} if "output_size" in agg_cfg else {}))
+    size = agg_cfg.get("output_size")
+    if params is not None and "agg" in params:  # the attentive readout's W takes a block's width
+        size = np.shape(params["agg"]["W"]["kernel"])[0]
+    agg = AGGREGATIONS[agg_cfg["cls"]](**({"output_size": int(size)} if size is not None else {}))
     if "norm" in agg_cfg:
         agg.norm = float(agg_cfg["norm"])
     hidden = pred_cfg.get("hidden_dim", 300)
     extra = {k: pred_cfg[k] for k in ("n_classes", "spectral_activation") if k in pred_cfg}
     predictor = HEADS[pred_cfg["cls"]](
-        n_tasks=int(pred_cfg.get("n_tasks", 1)), input_dim=int(pred_cfg.get("input_dim", d_h)),
+        n_tasks=int(pred_cfg.get("n_tasks", 1)),
+        input_dim=int(pred_cfg.get("input_dim", mp.output_dim)),
         hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
         n_layers=int(pred_cfg.get("n_layers", 1)), output_transform=False,
         criterion=_decode_metric(pred_cfg.get("criterion")),
@@ -200,8 +240,9 @@ def model_from_config(
         **extra,
     )
     predictor.output_transform = _decode_transform(pred_cfg.get("output_transform"))
-    return MPNN(mp, agg, predictor, batch_norm=bool(cfg.get("batch_norm", False)),
-                X_d_transform=_decode_transform(cfg.get("X_d_transform")))
+    return (MulticomponentMPNN if multi else MPNN)(
+        mp, agg, predictor, batch_norm=bool(cfg.get("batch_norm", False)),
+        X_d_transform=_decode_transform(cfg.get("X_d_transform")))
 
 
 # ----------------------------------------------------------------- variables

@@ -29,8 +29,8 @@ validation does. Every fit runs epochs ``start_epoch .. max_epochs - 1``
 from the state it finds, as the JAX trainer's loop does.
 
 Each epoch records ``epoch``, ``train_loss``, ``time_s``, ``edges_per_s``
-(the real edges of the epoch's batches, counted on the host, over
-``time_s``) and ``lr``, the JAX trainer's keys. With a validation loader it
+(the real edges of the epoch's batches, of every component of a
+multicomponent batch, counted on the host, over ``time_s``) and ``lr``, the JAX trainer's keys. With a validation loader it
 also records ``val_loss`` (the criterion's streaming state over every batch,
 on the criterion-space predictions) and, for each of ``val_metrics``,
 ``val_<name>`` on ``val_step_preds`` over the real rows (a multi-target
@@ -297,7 +297,8 @@ class Trainer:
                 if self.profile_dir is not None and epoch == self.start_epoch and step_i == 1:
                     prof = self._profiler()
                     prof.start()
-                n_edges += int(batch.bmg.edge_mask.sum())  # the host batch's real edges
+                # the host batch's real edges, of every component
+                n_edges += sum(int(g.edge_mask.sum()) for g in batch.graphs)
                 losses.append(self.train_step(batch))
                 if prof is not None and step_i >= self.profile_steps:
                     self._stop_profiler(prof)

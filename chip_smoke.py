@@ -186,7 +186,25 @@ failure:
    seconds are printed on their own line with the card's name and power
    limit. Phase 2 also holds the segment sum at atom message passing's
    message table, [H ; E ; 0] at 400 columns, in both dtypes, and phase 7
-   times it.
+   times it;
+12. molecule featurizers, multicomponent and reaction models, in this
+   process, each run first rehearsed on the CPU: its launches and its calls
+   without a tile table (``ops.UNSERVED``: mol+mol.csv's dyes of more than
+   128 directed edges leave A and F without one in f32) exactly the
+   rehearsal's, printed as ``{"multicomponent_unserved": ...}``: (a) one
+   bf16 ``train`` epoch on mol.csv with ``--molecule-featurizers
+   morgan_binary v1_rdkit_2d``, its loss within phase 9(a)'s limit of the
+   CPU's, then ``predict`` of its ``best.ckpt`` with them against the CPU's
+   and its ``test_predictions.csv``; (b) ``predict`` of the reference
+   mol+mol, rxn and rxn+mol checkpoints on their CSVs in f32 and bf16
+   against the CPU's (the rxn+mol components through the component-order
+   fix); (c) one ``train`` epoch in f32 and bf16 of mol+mol with two blocks,
+   of mol+mol with ``--mpn-shared``, of rxn (the condensed graph of
+   reaction, reac_diff) and of rxn+mol, without batch norm, each held to
+   the CPU's as phase 9(a) holds ``train`` (loss, each parameter tensor's
+   share of elements apart). Predictions are held at phase 3's limits in
+   the units of each model's unscaling. The phase's seconds are printed on
+   their own line with the card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -490,6 +508,34 @@ HPOPT_TRIALS, HPOPT_EPOCHS = 3, 2
 # rates sum to 2.1e-4 read 8.3e-4.)
 BF16_PREDICT_ATOL = 1e-3
 HPOPT_LOSS_RTOL = 1e-3
+# phase 12(a): the molecule featurizers of the bf16 train epoch on mol.csv, and
+# the width of their vectors (2048 Morgan bits and 200 descriptors)
+MOLECULE_FEATURIZERS = ("morgan_binary", "v1_rdkit_2d")
+MOLECULE_FEATURIZER_WIDTH = 2048 + 200
+# phase 12(b): the reference multicomponent and reaction checkpoints, their
+# bundled CSVs (under tests/data/regression) and input columns
+MULTI_REFERENCES = {
+    "mol+mol": ("example_model_v2_regression_mol+mol.pt", "mol+mol/mol+mol.csv",
+                ["-s", "smiles", "solvent"]),
+    "rxn": ("example_model_v2_regression_rxn.pt", "rxn/rxn.csv", ["--reaction-columns", "smiles"]),
+    "rxn+mol": ("example_model_v2_regression_rxn+mol.pt", "rxn+mol/rxn+mol.csv",
+                ["--reaction-columns", "rxn_smiles", "-s", "solvent_smiles"]),
+}
+# phase 12(c): one train epoch of each, full width, no batch norm (phase 11's
+# finding: under it W_o's bias has a gradient near zero, whose sign Adam's
+# first steps follow); each epoch is two steps, as phase 9(a)'s, so that
+# first_epoch_params' limits apply: 79 and 80 training rows in batches of 64,
+# rxn+mol's 320 in batches of 160; each with the blocks its model must have
+# (0: a single-molecule MPNN over the condensed graph of reaction)
+_MM = REPO / "tests/data/regression/mol+mol/mol+mol.csv"
+MULTI_TRAINS = {
+    "mol_mol": (["-i", _MM, "-s", "smiles", "solvent"], 2),
+    "mol_mol_shared": (["-i", _MM, "-s", "smiles", "solvent", "--mpn-shared"], 1),
+    "rxn": (["-i", REPO / "tests/data/regression/rxn/rxn.csv", "--reaction-columns", "smiles",
+             "--rxn-mode", "reac_diff"], 0),
+    "rxn_mol": (["-i", REPO / "tests/data/regression/rxn+mol/rxn+mol.csv", "--reaction-columns",
+                 "rxn_smiles", "-s", "solvent_smiles", "-b", 160], 2),
+}
 # phase 11: the plain versions that the wrappers take on a CPU tensor where
 # they launch their kernels on a CUDA one, by module and kernel name; a
 # rehearsal on the CPU counts their calls (not those nested in another plain
@@ -2880,6 +2926,180 @@ def hpopt_phase(card: str) -> tuple[dict, dict]:
     return launches, res
 
 
+# ---------------------------------------------------------------- phase 12
+def rehearsed(tag: str, run, launches: dict, unserved: dict):
+    """``card_after_rehearsal`` that also holds the card's calls without a
+    tile table (``ops.UNSERVED``) to the rehearsal's, exactly: the two
+    results."""
+    from chemprop_tpu_torch.ops import UNSERVED
+
+    counts = {}
+
+    def counted(dev):
+        before = dict(UNSERVED)
+        out = run(dev)
+        counts[dev or "cuda"] = unserved_since(before)
+        return out
+
+    card, cpu = card_after_rehearsal(tag, counted, launches)
+    if counts["cuda"] != counts["cpu"]:
+        fail(f"{tag}: calls without a tile table on cuda {counts['cuda']}, in the CPU "
+             f"rehearsal {counts['cpu']}")
+    if counts["cuda"]:
+        unserved[tag] = counts["cuda"]
+    return card, cpu
+
+
+def mc_train(out: Path, dtype: str, device: str | None, flags: list) -> list[dict]:
+    """One epoch of ``train`` in this process, one member at full width; its
+    history."""
+    import shutil
+
+    from chemprop_tpu_torch.cli.main import main
+
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["-q", "train", "-o", str(out), "--epochs", "1", "--dtype", dtype, *map(str, flags)]
+    if main(argv + (["--device", device] if device else [])) != 0:
+        fail(f"train {flags} --dtype {dtype} on {device or 'cuda'} returned non-zero")
+    return json.loads((out / "history.json").read_text())
+
+
+def hold_scaled(tag: str, card, cpu, scale, dt: str) -> float:
+    """Fail unless the card's predictions are the CPU's within phase 3's
+    limits (f32 rtol 1e-5 / atol 1e-4, bf16 atol 1e-3) in the units of the
+    model's unscaling (a target's standard deviation: phase 3 holds lipo's
+    predictions, whose scale is about 1); the largest scaled difference."""
+    import numpy as np
+
+    card, cpu = (np.asarray(x, dtype=np.float64) / np.asarray(scale) for x in (card, cpu))
+    rtol, atol = (1e-5, 1e-4) if dt == "float32" else (0.0, 1e-3)
+    gap = float(np.abs(card - cpu).max())
+    if not (np.isfinite(card).all() and np.allclose(card, cpu, rtol=rtol, atol=atol)):
+        fail(f"{tag}: the card's predictions part from the CPU's by {gap} (scaled units)")
+    return gap
+
+
+def molecule_featurizer_run(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 12(a): one bf16 ``train`` epoch on mol.csv with
+    ``--molecule-featurizers`` ``MOLECULE_FEATURIZERS`` (2248 columns of
+    ``X_d``) on the CPU and on the card, then ``predict`` of the card's
+    ``best.ckpt`` on both: the epoch's loss within phase 9(a)'s bf16 limit,
+    the predictions within phase 3's and against ``test_predictions.csv``."""
+    import numpy as np
+
+    from chemprop_tpu_torch.models import load_model
+
+    flags = ["-i", MOL_CSV, "--aggregation", "mean", "--molecule-featurizers",
+             *MOLECULE_FEATURIZERS]
+    dirs = {"cuda": out_dir / "molfeat", "cpu": out_dir / "molfeat_cpu"}
+    card, cpu = rehearsed("train_molecule_featurizers_bfloat16", lambda dev: mc_train(
+        dirs[dev or "cuda"], "bfloat16", dev, flags), launches, unserved)
+    r = {"train_loss": card[0]["train_loss"], "train_loss_cpu": cpu[0]["train_loss"]}
+    if not np.isclose(r["train_loss"], r["train_loss_cpu"], rtol=1e-3, atol=0):
+        fail(f"train with molecule featurizers: the epoch's loss on cuda disagrees: {r}")
+    model, _ = load_model(dirs["cuda"] / "best.ckpt", "cpu")
+    r["ffn_input_dim"] = model.predictor.input_dim
+    if model.predictor.input_dim != 300 + MOLECULE_FEATURIZER_WIDTH:
+        fail(f"train with molecule featurizers built an FFN of {model.predictor.input_dim} inputs")
+    _, rows = read_rows(dirs["cuda"] / "test_predictions.csv")
+    test = dirs["cuda"] / "test.csv"
+    with open(test, "w", newline="") as f:
+        csv.writer(f).writerows([["smiles"]] + [[row[0]] for row in rows])
+    want = np.array([float(row[1]) for row in rows])
+    got, got_cpu = rehearsed("predict_molecule_featurizers_bfloat16", lambda dev: predict_table(
+        run_cli("predict", ["--model-path", dirs["cuda"] / "best.ckpt", "-i", test, "--dtype",
+                            "bfloat16", "--molecule-featurizers", *MOLECULE_FEATURIZERS],
+                dirs["cuda"] / f"predict.{dev or 'cuda'}.csv", dev))[2], launches, unserved)
+    scale = model.predictor.output_transform.scale.numpy().reshape(1, -1)
+    r["predict_vs_cpu"] = hold_scaled("predict with molecule featurizers", got, got_cpu, scale,
+                                      "bfloat16")
+    r["predict_vs_test_predictions"] = hold_scaled(
+        "predict with molecule featurizers against its test_predictions.csv", got[:, :1],
+        want[:, None], scale, "bfloat16")
+    return r
+
+
+def reference_predictions(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 12(b): ``predict`` of the reference multicomponent and reaction
+    checkpoints on their bundled CSVs in f32 and bf16, on the card against
+    the CPU at phase 3's limits in scaled units; rxn+mol's components go
+    through the component-order fix (``cli.predict.reorder_components``)."""
+    from chemprop_tpu_torch.models import load_model
+
+    res = {}
+    for name, (ckpt, rel, flags) in MULTI_REFERENCES.items():
+        model, _ = load_model(REPO / "tests/data" / ckpt, "cpu")
+        scale = model.predictor.output_transform.scale.numpy().reshape(1, -1)
+        for dt in ("float32", "bfloat16"):
+            tag = f"predict_{name}_{dt}"
+            got, cpu = rehearsed(tag, lambda dev: predict_table(run_cli(
+                "predict", ["--model-path", REPO / "tests/data" / ckpt, "-i",
+                            REPO / "tests/data/regression" / rel, "--dtype", dt, *flags],
+                out_dir / f"{tag}.{dev or 'cuda'}.csv", dev))[2], launches, unserved)
+            res[tag] = {"rows": len(got), "vs_cpu": hold_scaled(tag, got, cpu, scale, dt)}
+    return res
+
+
+def multicomponent_training(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 12(c): one ``train`` epoch of each of ``MULTI_TRAINS`` in f32 and
+    bf16 at full width on the card against the same command on the CPU as
+    phase 9(a) holds ``train``: the epoch's loss (rtol 1e-4 f32, 1e-3 bf16)
+    and each parameter tensor's share of elements apart
+    (``first_epoch_params``), a shared block's tensors taking both
+    components' gradients."""
+    import numpy as np
+
+    from chemprop_tpu_torch.models import serialize
+
+    res = {}
+    for name, (flags, want_blocks) in MULTI_TRAINS.items():
+        for dt in ("float32", "bfloat16"):
+            tag = f"train_{name}_{dt}"
+            dirs = {"cuda": out_dir / tag, "cpu": out_dir / f"{tag}_cpu"}
+            card, cpu = rehearsed(tag, lambda dev: mc_train(dirs[dev or "cuda"], dt, dev, flags),
+                                  launches, unserved)
+            manifest = serialize.read_checkpoint(dirs["cuda"] / "best.ckpt")[0]["model"]
+            blocks = len(manifest["message_passing"].get("blocks", []))
+            if blocks != want_blocks:
+                fail(f"{tag} wrote a model of {blocks} blocks, expected {want_blocks}")
+            params = first_epoch_params(dirs["cuda"] / "best.ckpt", dirs["cpu"] / "best.ckpt")
+            r = {"train_loss": card[0]["train_loss"], "train_loss_cpu": cpu[0]["train_loss"],
+                 "edges_per_s": card[0]["edges_per_s"],
+                 "first_epoch_params": {k: v for k, v in params.items() if k != "shares"}}
+            rtol = 1e-4 if dt == "float32" else 1e-3
+            if not np.isclose(r["train_loss"], r["train_loss_cpu"], rtol=rtol, atol=0):
+                fail(f"{tag}: the epoch's loss on cuda disagrees with the CPU's: {r}")
+            if not params["worst_share"] <= params["share_limit"]:
+                fail(f"{tag}: {params['worst']} on cuda parts from the CPU's in "
+                     f"{params['worst_share']} of its elements")
+            res[tag] = r
+    return res
+
+
+def multicomponent_phase(card: str) -> tuple[dict, dict]:
+    """Phase 12: molecule featurizers, the reference multicomponent and
+    reaction checkpoints, and multicomponent and reaction training, each run
+    first rehearsed on the CPU: launches and calls without a tile table
+    exactly the rehearsal's (mol+mol's dyes of more than 128 directed edges
+    leave A and F without a table in f32)."""
+    import tempfile
+
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        out_dir = Path(tmp)
+        res["molecule_featurizers"] = molecule_featurizer_run(out_dir, launches, unserved)
+        res["reference_predictions"] = reference_predictions(out_dir, launches, unserved)
+        res["training"] = multicomponent_training(out_dir, launches, unserved)
+    res["launches"] = launches
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"multicomponent_phase": res}))
+    print(json.dumps({"multicomponent_unserved": unserved}))
+    print(json.dumps({"phase": "multicomponent", "seconds": res["seconds"], "card": card}))
+    return launches, res
+
+
 def time_ms(fn, reps: int, inner: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls between two
     CUDA events, per call, after a warm-up."""
@@ -3384,8 +3604,11 @@ def main() -> int:
     hpopt_launches, hpopt_res = hpopt_phase(card)
     launches.update(hpopt_launches)
     # the timings take A's and F's forms without a table on purpose: the main
-    # paths' unserved calls are read before them, the benchmark steps' after
+    # paths' unserved calls are read before them, the benchmark steps' after;
+    # phase 12's are held to its rehearsal's inside it (mol+mol's dyes)
     unserved = dict(UNSERVED)
+    multi_launches, multi_res = multicomponent_phase(card)
+    launches.update(multi_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -3479,6 +3702,7 @@ def main() -> int:
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
+              "multicomponent": multi_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

@@ -309,15 +309,38 @@ def test_the_model_is_the_jax_packages(tmp_path, data_dir):
 REFUSALS = {
     "atom_targets": (["--atom-target-columns", "a"], "item 8"),
     "bond_targets": (["--bond-target-columns", "b"], "item 8"),
-    "reactions": (["--reaction-columns", "rxn"], "item 7"),
-    "two_smiles_columns": (["-s", "smiles", "smiles"], "item 7"),
     "edge_partition": (["--edge-partition"], "item 12"),
     "devices": (["--devices", "2"], "item 12"),
-    "molecule_featurizers": (["--molecule-featurizers", "morgan_binary"], "item 6"),
     "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),
     "foundation": (["--from-foundation", "chemeleon"], "item 2"),
     "kmeans": (["--split", "kmeans"], "item 4"),
 }
+
+
+# the options train refused before it took reactions, several SMILES columns
+# and molecule featurizers: the CSV (its first 40 rows) and the flags
+LIFTED = {
+    "reactions": ("regression/rxn/rxn.csv", ["--reaction-columns", "smiles"]),
+    "two_smiles_columns": ("regression/mol+mol/mol+mol.csv", ["-s", "smiles", "solvent"]),
+    "molecule_featurizers": ("regression/mol/mol.csv",
+                             ["--molecule-featurizers", "morgan_binary", "charge"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIFTED))
+def test_formerly_refused_options_match_jax(tmp_path, data_dir, case):
+    """Each option ``test_unported_options_are_refused`` refused before, in one
+    epoch of both command lines from one warm start: the same splits, losses
+    at rtol 1e-5, ``best.ckpt`` within the two steps' limits, and the test
+    predictions within 1e-4."""
+    from test_torch_multicomponent import CLI_STEPS_LRS, _head, assert_runs_match, train_both
+
+    rel, flags = LIFTED[case]
+    csv_in = _head(data_dir / rel, tmp_path / "in.csv", 40)
+    jax_dir, port_dir = train_both(tmp_path, ["-i", str(csv_in), *flags, "--batch-norm", "-b",
+                                              "16", "--message-hidden-dim", "32",
+                                              "--ffn-hidden-dim", "16"])
+    assert_runs_match(jax_dir, port_dir, CLI_STEPS_LRS)
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))

@@ -2047,10 +2047,13 @@ def _atom_model(dtype, agg, **kwargs):
     return model
 
 
-def _card_and_cpu_grads(model, bmg, cuda):
+def _card_and_cpu_grads(model, bmg, cuda, offset: float = 0.0):
     """Predictions and parameter gradients of ``model`` in training mode on
     the CPU, then on the card with the CPU's dropout masks, and the card's
-    launches (forward and backward)."""
+    launches (forward and backward). ``bmg`` may be a tuple of graphs, one
+    per component of a multicomponent model. The cotangent runs from -1 to
+    1 over the outputs, plus ``offset``: without one the output bias's
+    gradient is zero by construction, rounding noise on either device."""
     from chemprop_tpu_torch.nn import utils as nn_utils
 
     draws, masks, real_mask = torch.Generator().manual_seed(5), [], nn_utils.dropout_mask
@@ -2061,14 +2064,14 @@ def _card_and_cpu_grads(model, bmg, cuda):
 
     def run(b):
         out = model(b, is_training=True, generator=draws)
-        c = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(out.shape)
+        c = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(out.shape) + offset
         names, params = zip(*model.named_parameters())
         grads = torch.autograd.grad((out * c).sum(), params)
         return out.detach().cpu(), {n: g.cpu() for n, g in zip(names, grads)}
 
     nn_utils.dropout_mask = record
     try:
-        want = run(bmg.to("cpu"))
+        want = run(tuple(g.to("cpu") for g in bmg) if isinstance(bmg, tuple) else bmg.to("cpu"))
         replayed = list(masks)
         nn_utils.dropout_mask = lambda shape, rate, generator, device: replayed.pop(0).to(device)
         model.to(cuda)
@@ -2177,4 +2180,115 @@ def test_widest_hpopt_width_on_card_matches_cpu(bmg, cuda, dtype, kwargs):
     else:
         route = {"fused_iter", "bwd_message_nodes", "bwd_message_premul"}
     assert route | {"sorted_segment_sum"} <= set(launches), launches
+    _hold(got, want, dtype)
+
+
+# ------------------------------------------- multicomponent and reaction models
+def _rows_of(rel: str, cols: dict, rows: list[int]):
+    """The port's datapoints of ``rows`` of a CSV under tests/data/regression,
+    one list per component (``cols``: ``smiles`` and ``reactions`` columns)."""
+    from chemprop_tpu_torch.cli import parsing
+
+    smis, rxns, Y, w, lt, gt = parsing.parse_csv(DATA / "regression" / rel, cols.get("smiles"),
+                                                 cols.get("reactions"), None)[:6]
+    pick = lambda d: {k: [v[i] for i in rows] for k, v in d.items()}  # noqa: E731
+    return parsing.make_datapoints(pick(smis), pick(rxns), Y[rows], w[rows], None, None)
+
+
+def _batch_of(components, cuda):
+    from chemprop_tpu_torch.cli import parsing
+    from chemprop_tpu_torch.data import DataLoader
+
+    ds = parsing.build_datasets(components)
+    b = next(iter(DataLoader(ds, batch_size=len(ds)))).to(cuda)
+    return b.bmg
+
+
+# mol+mol rows 20-27 hold the dye of 196 directed edges (row 22), so its
+# component takes a split table; rxn+mol rows 0-11
+MULTI = {
+    "two_blocks": ("mol+mol/mol+mol.csv", dict(smiles=["smiles", "solvent"]), range(20, 28),
+                   False),
+    "shared": ("mol+mol/mol+mol.csv", dict(smiles=["smiles", "solvent"]), range(20, 28), True),
+    "rxn_mol": ("rxn+mol/rxn+mol.csv", dict(smiles=["solvent_smiles"], reactions=["rxn_smiles"]),
+                range(12), False),
+}
+
+
+@pytest.mark.parametrize("case", MULTI)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multicomponent_step_on_card_matches_cpu(cuda, dtype, case):
+    """A multicomponent model (d_h = 64, batch norm) in training mode on the
+    card against the CPU, forward and every gradient (a shared block's the
+    sum of both components' contributions): each component's graph carries
+    its own tile table, the dye's component its split table."""
+    from chemprop_tpu_torch.models import MulticomponentMPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.nn.message_passing import MulticomponentMessagePassing
+
+    rel, cols, rows, shared = MULTI[case]
+    bmgs = _batch_of(_rows_of(rel, cols, list(rows)), cuda)
+    widths = [(g.V.shape[1], g.E.shape[1]) for g in bmgs]
+    blocks = [BondMessagePassing(d_v=v, d_e=e, d_h=64, compute_dtype=dtype)
+              for v, e in (widths[:1] if shared else widths)]
+    model = MulticomponentMPNN(MulticomponentMessagePassing(blocks, 2, shared), MeanAggregation(),
+                               RegressionFFN(input_dim=128, hidden_dim=64,
+                                             output_transform=False), batch_norm=True)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-1] ** -0.5)
+    if case != "rxn_mol":
+        assert bmgs[0].tile_ptr is None and bmgs[0].split_ptr is not None
+    assert bmgs[1].tile_ptr is not None
+    got, want, launches = _card_and_cpu_grads(model, bmgs, cuda, offset=0.5)
+    # each component's readouts: M_v and the mean
+    assert launches.get("sorted_segment_sum", 0) == 4, launches
+    _hold(got, want, dtype)
+
+
+@pytest.mark.parametrize("fused_readout", [True, False], ids=["default", "per_iteration"])
+def test_w_i_at_cgr_width_with_grad_w_on_card_matches_cpu(cuda, fused_readout):
+    """Bond message passing over a CGR batch (106 atom and 28 bond columns,
+    so W_i takes 134 inputs, padded to 256 for J) in bfloat16 with
+    ``grad_w`` on the card against the CPU, and J launched for W_i."""
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+
+    (comp,) = _rows_of("rxn/rxn.csv", dict(reactions=["smiles"]), list(range(40)))
+    bmg = _batch_of([comp], cuda)
+    assert (bmg.V.shape[1], bmg.E.shape[1]) == (106, 28) and bmg.tile_ptr is not None
+    model = MPNN(BondMessagePassing(d_v=106, d_e=28, d_h=300, compute_dtype=torch.bfloat16,
+                                    kernel_options=KernelOptions(grad_w=True,
+                                                                 fused_readout=fused_readout)),
+                 MeanAggregation(), RegressionFFN(input_dim=300, hidden_dim=64,
+                                                  output_transform=False))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-1] ** -0.5)
+    got, want, launches = _card_and_cpu_grads(model, bmg, cuda, offset=0.5)
+    assert launches.get("grad_weight", 0) >= 1, launches
+    _hold(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_atom_message_passing_over_cgr_on_card_matches_cpu(cuda, dtype):
+    """Atom message passing over a CGR batch at d_h = 300: its message table
+    [H ; E ; 0] is 384 + 28 columns padded to 416 for C."""
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import AtomMessagePassing, MeanAggregation, RegressionFFN
+
+    (comp,) = _rows_of("rxn/rxn.csv", dict(reactions=["smiles"]), list(range(40)))
+    bmg = _batch_of([comp], cuda)
+    mp = AtomMessagePassing(d_v=106, d_e=28, d_h=300, compute_dtype=dtype)
+    assert mp.d_message == 416
+    model = MPNN(mp, MeanAggregation(), RegressionFFN(input_dim=300, hidden_dim=64,
+                                                      output_transform=False))
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-1] ** -0.5)
+    got, want, launches = _card_and_cpu_grads(model, bmg, cuda, offset=0.5)
+    assert launches.get("sorted_segment_sum", 0) == 7, launches
     _hold(got, want, dtype)

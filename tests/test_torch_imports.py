@@ -43,6 +43,9 @@ NEW_MODULES = (
     "utils/msgpack_codec.py", "nn/transforms.py", "uncertainty/__init__.py",
     "uncertainty/estimator.py", "uncertainty/calibrator.py", "uncertainty/evaluator.py",
     "cli/fingerprint.py", "cli/convert.py", "cli/hpopt.py",
+    "chem/smarts.py", "chem/charges.py", "chem/estate.py", "chem/fragments.py",
+    "chem/surface.py", "chem/descriptors.py", "featurizers/molecule.py",
+    "featurizers/molgraph/reaction.py", "nn/message_passing/multi.py", "models/multi.py",
 )
 
 

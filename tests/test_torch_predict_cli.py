@@ -357,9 +357,6 @@ REFUSALS = {
     "constraints": (["--constraints-path", "c.csv"], "item 8"),
     "bond_descriptors": (["--bond-descriptors-path", "b.npz"], "item 8"),
     "callback": (["--callback", "myerson"], "item 10"),
-    "reactions": (["--reaction-columns", "rxn"], "item 7"),
-    "two_smiles_columns": (["-s", "smiles", "smiles"], "item 7"),
-    "molecule_featurizers": (["--molecule-featurizers", "morgan_binary"], "item 6"),
     "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),
     "devices": (["--devices", "2"], "item 12"),
 }
@@ -376,14 +373,60 @@ def test_unported_options_are_refused(env, case):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("path,item", [("example_model_v2_regression_rxn+mol.pt", "item 7"),
-                                       ("mol_atom_bond/example_models/regression_mve.pt",
+@pytest.mark.parametrize("path,item", [("mol_atom_bond/example_models/regression_mve.pt",
                                         "item 8")])
 def test_unported_models_are_refused(env, path, item):
     with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
         port_main(["predict", "-i", str(env["inputs"]["reg"]), "--model-paths",
                    str(env["data_dir"] / path), "-o", str(env["root"] / "m.csv"),
                    "--device", "cpu"])
+
+
+# the inputs and model the port refused before it took reactions, several
+# SMILES columns and molecule featurizers: (reference checkpoint, CSV and its
+# first rows' count, flags)
+LIFTED = {
+    "reactions": ("example_model_v2_regression_rxn.pt", "regression/rxn/rxn.csv",
+                  ["--reaction-columns", "smiles"]),
+    "two_smiles_columns": ("example_model_v2_regression_mol+mol.pt",
+                           "regression/mol+mol/mol+mol.csv", ["-s", "smiles", "solvent"]),
+    "molecule_featurizers": ("example_model_v2_regression_mol.pt", "regression/mol/mol.csv",
+                             ["--molecule-featurizers", "morgan_binary"]),
+    "rxn+mol_model": ("example_model_v2_regression_rxn+mol.pt", "regression/rxn+mol/rxn+mol.csv",
+                      ["--reaction-columns", "rxn_smiles", "-s", "solvent_smiles"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIFTED))
+def test_formerly_refused_inputs_match_the_jax_cli(env, capsys, case):
+    """Each input that ``test_unported_options_are_refused`` and
+    ``test_unported_models_are_refused`` refused before (reactions, two
+    SMILES columns, a molecule featurizer, the rxn+mol checkpoint) served by
+    both command lines: the same CSV. The molecule featurizer's 2048 bits
+    reach a model that reads no ``X_d`` only in the manifest's check, so its
+    case serves a model trained with them: the port's ``train`` output."""
+    ckpt, rel, flags = LIFTED[case]
+    root = env["root"] / f"lifted_{case}"
+    root.mkdir()
+    with open(env["data_dir"] / rel, newline="") as f:
+        header, *rows = list(csv.reader(f))
+    data = _write_rows(root / "in.csv", header, rows[:N_ROWS])
+    model = env["data_dir"] / ckpt
+    if case == "molecule_featurizers":
+        assert port_main(["train", "-i", str(data), "-o", str(root / "trained"), "--epochs",
+                          "1", "--message-hidden-dim", "16", "--ffn-hidden-dim", "16",
+                          "--device", "cpu", *flags]) == 0
+        model = jax_model = root / "trained" / "best.ckpt"
+    else:
+        jax_model = root / "model.ckpt"
+        assert jax_main(["convert", "-i", str(model), "-o", str(jax_model)]) in (0, None)
+    out = {}
+    for who, main, path, extra in (("port", port_main, model, ["--device", "cpu"]),
+                                   ("jax", jax_main, jax_model, [])):
+        assert main(["predict", "--model-paths", str(path), "-i", str(data), *flags,
+                     "-o", str(root / f"{who}.csv"), *extra]) in (0, None)
+        out[who] = (*_read(root / f"{who}.csv"), None)
+    assert_same_csv(out["port"], out["jax"])
 
 
 def test_pkl_output_is_refused(env):

@@ -134,12 +134,38 @@ def test_v1_files_the_port_does_not_serve_are_refused(data_dir, case):
         build_v1_model(d)
 
 
-@pytest.mark.parametrize("path,item", [("example_model_v2_regression_mol+mol.pt", "item 7"),
-                                       ("mol_atom_bond/example_models/regression.pt",
+@pytest.mark.parametrize("path,item", [("mol_atom_bond/example_models/regression.pt",
                                         "item 8")])
 def test_other_models_are_refused_with_their_item(data_dir, path, item):
     with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
         load_model(data_dir / path, "cpu")
+
+
+def _leaves(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: np.asarray(tree)}
+    return {k2: v2 for k, v in tree.items() for k2, v2 in _leaves(v, f"{prefix}/{k}").items()}
+
+
+def test_multicomponent_model_loads_as_jax_converts_it(data_dir, tmp_path):
+    """The mol+mol checkpoint, refused before, loads as a two-block model and
+    ``convert`` writes it as the JAX package's converter does: the same
+    manifest and parameters."""
+    from chemprop_tpu.models.torch_convert import convert_model
+    from chemprop_tpu_torch.models import serialize
+
+    src = data_dir / "example_model_v2_regression_mol+mol.pt"
+    model, cols = load_model(src, "cpu")
+    assert type(model).__name__ == "MulticomponentMPNN" and len(model.message_passing.blocks) == 2
+    assert port_main(["convert", "-i", str(src), "-o", str(tmp_path / "port.ckpt")]) == 0
+    manifest, variables = serialize.read_checkpoint(tmp_path / "port.ckpt")
+    jmodel, jvars, _ = convert_model(src)
+    assert manifest["model"]["model_cls"] == type(jmodel).__name__
+    assert manifest["model"]["message_passing"]["n_components"] == 2
+    got, want = _leaves(variables["params"]), _leaves(jvars["params"])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 # ------------------------------------------------------------------ convert
