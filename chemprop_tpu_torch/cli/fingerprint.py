@@ -12,8 +12,9 @@ featurizers), and so are the featurizer mode's switch and the component
 order's fix to fit the first model. The output is a CSV of ``name`` and
 ``fp_0``, ``fp_1``, ..., or with an ``.npz`` suffix one array ``fps``; with
 several models, one file for each,
-``<output>_model_<k>``. The inputs ``predict`` refuses are refused
-(``predict.INPUT_REFUSED``: ``--edge-partition``, ...)."""
+``<output>_model_<k>``. A mol-atom-bond model writes one ``.npz`` of its
+fingerprints by kind (``cli.mab.fingerprint_MAB``). The inputs ``predict``
+refuses are refused (``predict.INPUT_REFUSED``: ``--edge-partition``, ...)."""
 
 from __future__ import annotations
 
@@ -28,7 +29,9 @@ from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, find_models
 from chemprop_tpu_torch.cli.predict import (
     INPUT_REFUSED, build_loader, match_featurizer, refuse_unported,
 )
+from chemprop_tpu_torch.cli.mab import fingerprint_MAB
 from chemprop_tpu_torch.models.load import load_model
+from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
 from chemprop_tpu_torch.train.trainer import _restore_order
 from chemprop_tpu_torch.utils.device import resolve_device
 
@@ -62,6 +65,8 @@ def main(args: argparse.Namespace) -> int:
     device = resolve_device(args.device)  # raises where there is no GPU
     model_paths = find_models(args.model_paths)
     models = [load_model(p, device, DTYPES[args.dtype])[0] for p in model_paths]
+    if isinstance(models[0], MolAtomBondMPNN):
+        return fingerprint_MAB(args, models, device)
     if not (args.atom_features_path or args.bond_features_path):
         match_featurizer(args, models[0])
     loader, dset, _ = build_loader(args, args.data_path, model=models[0])

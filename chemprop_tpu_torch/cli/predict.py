@@ -34,9 +34,12 @@ probabilities as ``%.6f`` joined by commas; then each task's ``<task>_unc``
 (a conformal set's memberships joined by commas). With
 ``--evaluation-methods`` the evaluations against the input's own targets
 are printed as one JSON line. With no ``--device`` it runs on the GPU, and
-raises where there is none. What the port does not have yet is refused
-(``REFUSED``), each with the ``ROADMAP.md`` item that will port it; so is a
-``.pkl`` output, which the JAX package writes with pandas."""
+raises where there is none. A mol-atom-bond model (``MolAtomBondMPNN``)
+goes to ``cli.mab.predict_MAB``, which also reads ``--bond-descriptors-path``,
+``--constraints-path`` and ``--constraints-to-targets``. What the port does
+not have yet is refused (``REFUSED``), each with the ``ROADMAP.md`` item
+that will port it; so is a ``.pkl`` output, which the JAX package writes
+with pandas."""
 
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices, find_models
+from chemprop_tpu_torch.cli.mab import predict_MAB
 from chemprop_tpu_torch.cli.parsing import (
     build_datasets,
     featurizer_for,
@@ -66,6 +70,7 @@ from chemprop_tpu_torch.featurizers.molecule import MoleculeFeaturizerRegistry
 from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
 from chemprop_tpu_torch.nn.message_passing import MulticomponentMessagePassing
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, MulticlassDirichletFFN
 from chemprop_tpu_torch.nn.utils import Dropout
@@ -99,7 +104,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--edge-partition", type=int, nargs="?", const=0, default=None, metavar="N",
                    help="edge-partitioned inference (not ported yet: refused)")
     g.add_argument("--constraints-path", type=Path, default=None,
-                   help="mol-atom-bond constraints (not ported yet: refused)")
+                   help="per-molecule sums of a mol-atom-bond model's atom and bond targets")
     g.add_argument("--constraints-to-targets", nargs="+", default=None)
     g.add_argument("--uncertainty-method", choices=UNCERTAINTY_METHODS, default="none")
     g.add_argument("--uncertainty-dropout-p", type=float, default=0.1,
@@ -120,9 +125,11 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--cal-bond-features-path", nargs="+",
                    help="extra bond features (.npz) of the calibration set: PATH, or IDX PATH pairs")
     g.add_argument("--cal-bond-descriptors-path", nargs="+",
-                   help="bond descriptors of the calibration set (not ported yet: refused)")
+                   help="bond descriptors of the calibration set (a mol-atom-bond "
+                   "predict is not calibrated, as in the JAX package)")
     g.add_argument("--cal-constraints-path", type=Path,
-                   help="constraints of the calibration set (not ported yet: refused)")
+                   help="constraints of the calibration set (a mol-atom-bond predict is not "
+                   "calibrated, as in the JAX package)")
     g.add_argument("--test-path", dest="data_path", type=Path,
                    help="alias for -i/--data-path")
     g.add_argument("--calibration-method", choices=CALIBRATION_METHODS, default="none")
@@ -134,21 +141,16 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 # what the port refuses, by the argument that asks for it; each message names
-# the ROADMAP.md item that will port it (mol-atom-bond checkpoints are refused
-# where they load, models/load.py). INPUT_REFUSED is shared with fingerprint
+# the ROADMAP.md item that will port it. INPUT_REFUSED is shared with
+# fingerprint
 INPUT_REFUSED = (
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
-    (lambda a: a.bond_descriptors_path,
-     "bond descriptors are not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
     (lambda a: a.use_cuikmolmaker_featurization,
      "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
      "the native featurizer)"),
 )
 REFUSED = INPUT_REFUSED + (
-    (lambda a: a.constraints_path is not None or a.constraints_to_targets
-     or a.cal_constraints_path is not None or a.cal_bond_descriptors_path,
-     "--constraints-path is not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
     (lambda a: a.callback is not None,
      "--callback is not ported yet (ROADMAP.md section 1 item 10, interpretation)"),
     (lambda a: a.output is not None and a.output.suffix == ".pkl",
@@ -317,9 +319,12 @@ def main(args: argparse.Namespace) -> int:
     models, output_columns = [], None
     for path in model_paths:
         model, cols = load_model(path, device, dtype)
-        models.append(override_dropout(model, args.uncertainty_dropout_p)
-                      if args.uncertainty_method == "dropout" else model)
+        models.append(model)
         output_columns = cols or output_columns
+    if isinstance(models[0], MolAtomBondMPNN):  # the first model's columns, as in JAX
+        return predict_MAB(args, models, load_model(model_paths[0], "cpu", dtype)[1], device)
+    if args.uncertainty_method == "dropout":
+        models = [override_dropout(m, args.uncertainty_dropout_p) for m in models]
     if not (args.atom_features_path or args.bond_features_path):
         match_featurizer(args, models[0])
     loader, dset, _ = build_loader(args, args.data_path, model=models[0])
@@ -423,15 +428,20 @@ def predict(
 
 def check_plain_inputs(model: MPNN, featurizer: SimpleMoleculeMolGraphFeaturizer) -> None:
     """Raise where ``model`` takes more than ``featurizer``'s graphs. ``serve``
-    reads no extra inputs yet (``ROADMAP.md`` section 1 item 4), and takes one
-    SMILES per row, as the JAX package's ``serve`` does, which applies its
-    models to one graph."""
+    reads one SMILES per row and no extra inputs, as the JAX package's
+    ``serve`` does: its ``ModelService`` applies a model to one graph and
+    passes no descriptors or extra features (``chemprop_tpu/cli/serve.py``),
+    so such a model fails there at its first request; the port refuses it
+    where it loads. A mol-atom-bond model's three heads are ``predict``'s."""
     mp = model.message_passing
+    if not hasattr(model, "predictor"):
+        raise ValueError("the model is a mol-atom-bond model; serve returns one prediction per "
+                         "molecule, as the JAX package's serve does: use predict")
     if isinstance(mp, MulticomponentMessagePassing):
         raise ValueError(f"the model takes {mp.n_components} components per row; serve takes "
                          "one SMILES per row, as the JAX package's serve does: use predict")
     if (mp.d_vd or model.predictor.input_dim != mp.output_dim
             or (mp.d_v, mp.d_e) != featurizer.shape):
         raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "
-                         "features), which serve does not read yet (ROADMAP.md section 1 "
-                         "item 4)")
+                         "features), which serve does not read: the JAX package's serve "
+                         "passes none either; use predict")

@@ -33,8 +33,10 @@ gives an ``MPNN`` over its graphs. ``--molecule-featurizers`` append their
 vectors to the first SMILES column's ``X_d``; the extra atom and bond inputs
 take ``IDX PATH`` pairs, one per molecule component.
 
-Refused, each with the ``ROADMAP.md`` item that will port it: atom and bond
-targets (item 8), ``--edge-partition`` and more than one device (item 12),
+Atom and bond targets (``--atom-target-columns``, ``--bond-target-columns``)
+train a mol-atom-bond model (``cli.mab.main_MAB``). Refused, each with the
+``ROADMAP.md`` item that will port it: ``--edge-partition`` and more than
+one device (item 12),
 ``--use-cuikmolmaker-featurization`` (item 5), and the ``kmeans``
 split (item 4). ``--from-foundation PATH`` seeds each member's message
 passing from a local v2 ``.pt``, v1 ``.pt`` or ``CPTPU001`` file (nothing is
@@ -56,6 +58,7 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices
+from chemprop_tpu_torch.cli.mab import is_mab, main_MAB
 from chemprop_tpu_torch.cli.parsing import (
     build_datasets,
     load_component_feats,
@@ -283,6 +286,9 @@ def process_train_args(args) -> None:
     )
     args.data_paths = [Path(p) for p in paths]
     if len(args.data_paths) > 1:
+        if is_mab(args):
+            raise ValueError(
+                "multiple -i files are not supported for atom/bond-target (MAB) training")
         for name in ("descriptors_path", "atom_features_path", "bond_features_path",
                      "atom_descriptors_path"):
             if getattr(args, name, None):
@@ -329,8 +335,6 @@ def process_train_args(args) -> None:
 # what the port refuses, by the argument that asks for it; each message names
 # the ROADMAP.md item that will port it
 REFUSED = (
-    (lambda a: a.atom_target_columns or a.bond_target_columns,
-     "atom and bond targets are not ported yet (ROADMAP.md section 1 item 8, mol-atom-bond)"),
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
     (lambda a: a.use_cuikmolmaker_featurization,
@@ -546,6 +550,8 @@ def _freeze_predicate(args):
 def main(args) -> int:
     process_train_args(args)
     refuse_unported(args)
+    if is_mab(args):
+        return main_MAB(args)
     device = resolve_device(args.device)  # raises where there is no GPU
     unserved_before = dict(UNSERVED)
 

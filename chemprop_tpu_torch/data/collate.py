@@ -23,7 +23,9 @@ holding a molecule of more rows than that has no ``tile_ptr``; it carries
 nodes' boundaries (:func:`split_tiles`), and ``cross_rows``, the rows whose
 transposed message reads a row of another tile (:func:`cross_rows`): the
 last iterations' backward kernels G and H take that table and form those
-rows in a second pass."""
+rows in a second pass. A mol-atom-bond batch (:func:`collate_mol_atom_bond_batch`)
+is such a graph with the per-atom tables on its node rows and the per-bond
+tables on both of a bond's directed edges, in the sorted order."""
 
 from __future__ import annotations
 
@@ -278,6 +280,16 @@ def batch_mol_graphs(
     return (bmg, perm) if return_perm else bmg
 
 
+def _move(x, device):
+    """A batch field on ``device``: a tensor, a graph, None, or a tuple of
+    them."""
+    if isinstance(x, tuple):
+        return tuple(_move(part, device) for part in x)
+    if isinstance(x, BatchMolGraph):
+        return x.to(device)
+    return None if x is None else x.to(device, non_blocking=True)
+
+
 class TrainingBatch(NamedTuple):
     """The JAX package's fields in its order, so that a batch unpacks the same
     way: ``bmg, V_d, X_d, Y, w, lt_mask, gt_mask``. A multicomponent batch
@@ -299,15 +311,7 @@ class TrainingBatch(NamedTuple):
         return self.w.reshape(-1).cpu().numpy() > 0
 
     def to(self, device: str | torch.device) -> "TrainingBatch":
-        def move(x):
-            if isinstance(x, tuple):
-                return tuple(move(part) for part in x)
-            if isinstance(x, BatchMolGraph):
-                return x.to(device)
-            return None if x is None else x.to(device, non_blocking=True)
-
-        return TrainingBatch(move(self.bmg), move(self.V_d), move(self.X_d), move(self.Y),
-                             move(self.w), move(self.lt_mask), move(self.gt_mask))
+        return TrainingBatch(*(_move(x, device) for x in self))
 
     @property
     def graphs(self) -> tuple[BatchMolGraph, ...]:
@@ -369,3 +373,130 @@ def collate_multicomponent(data: Iterable, pads: Sequence[PadSpec | None] | None
     V_d = tuple(tb.V_d for tb in tbs) if any(tb.V_d is not None for tb in tbs) else None
     return TrainingBatch(tuple(tb.bmg for tb in tbs), V_d, first.X_d, first.Y, first.w,
                          first.lt_mask, first.gt_mask)
+
+
+class MABTrainingBatch(NamedTuple):
+    """A mol-atom-bond batch (cf. ``MABTrainingBatch`` of
+    ``chemprop_tpu/data/collate.py``), the JAX package's fields in its order:
+    the targets ``Ys``, weights ``ws`` and bounds' masks per kind (mol,
+    atom, bond): molecule tables ``[B, t]``, atom tables ``[N_pad, ta]`` on
+    the node rows, bond tables ``[E_pad, tb]`` on both directed edges of each
+    bond in the sorted edge order, NaN targets and zero weights on padding.
+    A bond's weight counts on its primary edge alone (``e < rev[e]``), so
+    that each bond counts once. ``constraints`` is ``(atom [B, ca] or None,
+    bond [B, cb] or None)`` or None; ``E_d`` the bond descriptors on the
+    directed edges; ``edge_origin`` the sort permutation (row ``i`` of the
+    sorted edges is directed edge ``edge_origin[i]`` of the concatenation,
+    bond ``edge_origin[i] // 2``)."""
+
+    bmg: BatchMolGraph
+    V_d: torch.Tensor | None
+    E_d: torch.Tensor | None
+    X_d: torch.Tensor | None
+    Ys: tuple
+    ws: tuple
+    lt_masks: tuple
+    gt_masks: tuple
+    constraints: tuple | None
+    edge_origin: np.ndarray | None = None
+
+    def to(self, device: str | torch.device) -> "MABTrainingBatch":
+        """The batch on ``device``; ``edge_origin`` stays a host array."""
+        return MABTrainingBatch(*(_move(x, device) for x in self[:-1]), self.edge_origin)
+
+    @property
+    def graphs(self) -> tuple[BatchMolGraph, ...]:
+        return (self.bmg,)
+
+    @property
+    def pad_mask(self) -> np.ndarray:
+        """[B] bool: True for real samples."""
+        return self.ws[0].reshape(-1).cpu().numpy() > 0
+
+
+def collate_mol_atom_bond_batch(data: Iterable, pad: PadSpec | None = None) -> MABTrainingBatch:
+    """Collate ``MABDatum`` rows into a padded :class:`MABTrainingBatch` (cf.
+    ``collate_mol_atom_bond_batch`` of ``chemprop_tpu/data/collate.py``): the
+    graph and its tile table as :func:`batch_mol_graphs` makes them, the
+    per-atom tables packed onto the node rows, the per-bond ones repeated
+    onto both directed edges and routed through the sort permutation."""
+    rows = list(data)
+    mgs = [r.mg for r in rows]
+    pad = pad or PadSpec.for_graphs(mgs)
+    bmg, perm = batch_mol_graphs(mgs, pad, return_perm=True)
+    b_real, b_pad = len(rows), pad.n_graphs
+    nvs = np.array([mg.V.shape[0] for mg in mgs], dtype=np.int64)
+    nes = np.array([mg.E.shape[0] for mg in mgs], dtype=np.int64)
+    n_nodes, n_edges = int(nvs.sum()), int(nes.sum())
+
+    def pack_nodes(values, width, fill=0.0):
+        out = np.full((pad.n_nodes, width), fill, dtype=np.float32)
+        out[:n_nodes] = np.concatenate([
+            np.zeros((nv, width), np.float32) if v is None else np.reshape(v, (-1, width))
+            for v, nv in zip(values, nvs)])
+        return out
+
+    def pack_edges(values, width, fill=0.0):
+        out = np.full((pad.n_edges, width), fill, dtype=np.float32)
+        if n_edges:
+            out[:n_edges] = np.repeat(np.concatenate([
+                np.zeros((ne // 2, width), np.float32) if v is None
+                else np.reshape(v, (-1, width)) for v, ne in zip(values, nes)]), 2, axis=0)
+        return out[perm]
+
+    def width(v) -> int:
+        return v.shape[1] if v.ndim > 1 else 1
+
+    def per_mol(values, dtype=np.float32, fill=np.nan):
+        out = np.full((b_pad, len(values[0])), fill, dtype=dtype)
+        out[:b_real] = np.array(values, dtype=dtype)
+        return out
+
+    V_d = None if rows[0].V_d is None else pack_nodes([r.V_d for r in rows],
+                                                      rows[0].V_d.shape[1])
+    E_d = None if rows[0].E_d is None else pack_edges([r.E_d for r in rows],
+                                                      rows[0].E_d.shape[1])
+    X_d = None if rows[0].x_d is None else per_mol([r.x_d for r in rows], fill=0.0)
+
+    mol_ys, atom_ys, bond_ys = ([r.ys[k] for r in rows] for k in range(3))
+    Ys = (None if mol_ys[0] is None else per_mol(mol_ys),
+          None if atom_ys[0] is None else pack_nodes(atom_ys, atom_ys[0].shape[1], np.nan),
+          None if bond_ys[0] is None else pack_edges(bond_ys, width(bond_ys[0]), np.nan))
+
+    def masks(triples):
+        mol, atom, bond = ([tr[k] for tr in triples] for k in range(3))
+        return (None if mol[0] is None else per_mol(mol, bool, False),
+                None if atom[0] is None else pack_nodes(atom, atom[0].shape[1]).astype(bool),
+                None if bond[0] is None else pack_edges(bond, width(bond[0])).astype(bool))
+
+    lt_masks, gt_masks = masks([r.lt_masks for r in rows]), masks([r.gt_masks for r in rows])
+
+    w_dp = np.array([r.weight for r in rows], dtype=np.float32)
+    w_mol = np.zeros((b_pad, 1), dtype=np.float32)
+    w_mol[:b_real, 0] = w_dp
+    w_atom = np.zeros((pad.n_nodes, 1), dtype=np.float32)
+    w_atom[:n_nodes, 0] = np.repeat(w_dp, nvs)
+    w_bond = np.zeros((pad.n_edges, 1), dtype=np.float32)
+    w_bond[:n_edges, 0] = np.repeat(w_dp, nes)
+    rev, edge_mask = bmg.rev.numpy(), bmg.edge_mask.numpy()
+    primary = (np.arange(pad.n_edges) < rev) & edge_mask
+    w_bond = w_bond[perm] * primary[:, None]
+
+    constraints = None
+    if rows[0].constraints is not None:
+        ac, bc = ([r.constraints[k] for r in rows] for k in range(2))
+        atom_c = None if ac[0] is None else per_mol(ac, fill=0.0)
+        bond_c = None if bc[0] is None else per_mol(bc, fill=0.0)
+        if atom_c is not None or bond_c is not None:
+            constraints = (atom_c, bond_c)
+
+    t = torch.from_numpy
+
+    def tensors(xs):
+        return tuple(None if x is None else t(x) for x in xs)
+
+    return MABTrainingBatch(bmg, *tensors((V_d, E_d, X_d)), tensors(Ys),
+                            tensors((w_mol, w_atom, w_bond)), tensors(lt_masks),
+                            tensors(gt_masks),
+                            None if constraints is None else tensors(constraints),
+                            np.asarray(perm))

@@ -5,10 +5,15 @@ on the CPU; the trainer moves them. ``class_balance`` takes the
 ``ClassBalanceSampler`` over the dataset's targets (shuffled where
 ``shuffle`` is), as the JAX loader does. A ``MulticomponentDataset``'s rows
 collate into one padded graph per component (``collate_multicomponent``),
-each padded to its own bucket. Not ported: shards, and the JAX
+each padded to its own bucket; a ``MolAtomBondDataset``'s rows collate into
+a ``MABTrainingBatch`` (``collate_mol_atom_bond_batch``). Not ported: shards
+(the JAX loader refuses them for mol-atom-bond rows too), and the JAX
 loader's isolation of molecules wider than its kernel's window (more than 192
 bonds) into batches of their own; the port's kernels take such a molecule's
-split tile table instead."""
+split tile table instead. So ``emitted_order`` is the dataset's order
+wherever it is not None: ``Trainer.predict`` leaves its rows as they are, and
+the mol-atom-bond trainer and ``fingerprint`` need no counterpart of the JAX
+package's ``restore_mab_order``."""
 
 from __future__ import annotations
 
@@ -17,9 +22,9 @@ from typing import Iterator
 import numpy as np
 
 from chemprop_tpu_torch.data.collate import (
-    PadSpec, TrainingBatch, collate_batch, collate_multicomponent,
+    PadSpec, TrainingBatch, collate_batch, collate_mol_atom_bond_batch, collate_multicomponent,
 )
-from chemprop_tpu_torch.data.datasets import MoleculeDataset
+from chemprop_tpu_torch.data.datasets import MABDatum, MoleculeDataset
 from chemprop_tpu_torch.data.samplers import ClassBalanceSampler, SeededSampler
 
 
@@ -80,4 +85,7 @@ class DataLoader:
             pad = self.pad_spec or PadSpec.for_graphs(
                 [d.mg for d in data], n_graphs=self.batch_size
             )
+            if isinstance(data[0], MABDatum):
+                yield collate_mol_atom_bond_batch(data, pad)
+                continue
             yield collate_batch(data, pad)

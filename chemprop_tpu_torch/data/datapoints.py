@@ -67,6 +67,35 @@ class MoleculeDatapoint:
 
 
 @dataclass
+class MolAtomBondDatapoint(MoleculeDatapoint):
+    """A molecule with per-atom and per-bond targets beside its own (cf.
+    ``MolAtomBondDatapoint`` of ``chemprop_tpu/data/datapoints.py``):
+    ``atom_y`` ``[n_atoms, ta]`` and ``bond_y`` ``[n_bonds, tb]`` in the
+    molecule's atom and bond order, their bounded losses' masks, bond
+    descriptors ``E_d`` ``[n_bonds, d_ed]`` (NaN -> 0), and optional
+    per-molecule sums ``atom_constraints`` / ``bond_constraints``, one per
+    atom or bond target (NaN: that target is not constrained)."""
+
+    E_d: np.ndarray | None = None
+    atom_y: np.ndarray | None = None
+    bond_y: np.ndarray | None = None
+    atom_constraints: np.ndarray | None = None
+    bond_constraints: np.ndarray | None = None
+    atom_lt_mask: np.ndarray | None = None
+    atom_gt_mask: np.ndarray | None = None
+    bond_lt_mask: np.ndarray | None = None
+    bond_gt_mask: np.ndarray | None = None
+
+    def __post_init__(self):
+        self.E_d = _nan_to_zero(self.E_d)
+        if self.atom_y is not None:
+            self.atom_y = np.asarray(self.atom_y, dtype=np.float64)
+        if self.bond_y is not None:
+            self.bond_y = np.asarray(self.bond_y, dtype=np.float64)
+        super().__post_init__()
+
+
+@dataclass
 class ReactionDatapoint:
     """An atom-mapped reaction: its reactant ``rct`` and product ``pdt`` side
     (cf. ``ReactionDatapoint`` of ``chemprop_tpu/data/datapoints.py``)."""

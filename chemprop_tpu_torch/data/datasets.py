@@ -4,7 +4,9 @@
 featurised graphs. ``ReactionDataset`` featurises reactions with the
 condensed graph of reaction; ``MulticomponentDataset`` holds one dataset per
 input component, all of one length, whose rows index as lists of ``Datum``
-(the targets, weights and bounds are component 0's)."""
+(the targets, weights and bounds are component 0's). ``MolAtomBondDataset``
+holds molecules with atom and bond targets, whose rows index as
+``MABDatum``."""
 
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ from typing import NamedTuple
 
 import numpy as np
 
-from chemprop_tpu_torch.data.datapoints import MoleculeDatapoint, ReactionDatapoint
+from chemprop_tpu_torch.data.datapoints import (
+    MolAtomBondDatapoint, MoleculeDatapoint, ReactionDatapoint,
+)
 from chemprop_tpu_torch.featurizers.molgraph.molecule import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.featurizers.molgraph.reaction import CondensedGraphOfReactionFeaturizer
 from chemprop_tpu_torch.types import MolGraph
@@ -211,6 +215,105 @@ class ReactionDataset(MoleculeDataset):
     def normalize_inputs(self, key: str = "X_d", scaler: StandardScaler | None = None):
         """As ``MoleculeDataset.normalize_inputs``; a reaction has only ``X_d``."""
         return super().normalize_inputs(key, scaler) if key == "X_d" else scaler
+
+
+class MABDatum(NamedTuple):
+    """The JAX package's fields in its order: the targets, bounds' masks and
+    constraints per kind, (mol, atom, bond) and (atom, bond)."""
+
+    mg: MolGraph
+    V_d: np.ndarray | None
+    E_d: np.ndarray | None
+    x_d: np.ndarray | None
+    ys: tuple
+    weight: float
+    constraints: tuple | None
+    lt_masks: tuple = (None, None, None)
+    gt_masks: tuple = (None, None, None)
+
+
+@dataclass
+class MolAtomBondDataset(MoleculeDataset):
+    """``MolAtomBondDatapoint``s (cf. ``MolAtomBondDataset`` of
+    ``chemprop_tpu/data/datasets.py``): targets normalised per kind
+    (``normalize_targets("mol" | "atom" | "bond")``), the bond descriptors
+    ``E_d`` as a fifth kind of extra input, and the constraints rescaled with
+    their kind's targets: where ``y' = (y - mu) / sigma``, a molecule's sum
+    over its ``n`` atoms (bonds) becomes ``C' = (C - n mu) / sigma``."""
+
+    data: list[MolAtomBondDatapoint]
+
+    def __getitem__(self, idx: int) -> MABDatum:
+        d = self.data[idx]
+        mg = self._cache[idx] if self._cache is not None else self._featurize(idx)
+        constraints = None
+        if d.atom_constraints is not None or d.bond_constraints is not None:
+            constraints = (self._scaled_atom_c[idx], self._scaled_bond_c[idx])
+        # a datapoint without molecule targets reads a NaN scalar here
+        y = self.Y[idx]
+        if not isinstance(y, np.ndarray) or y.ndim == 0:
+            y = None
+        return MABDatum(mg, self.V_ds[idx], self.E_ds[idx], self.X_d[idx],
+                        (y, self.atom_Y[idx], self.bond_Y[idx]), d.weight, constraints,
+                        (d.lt_mask, d.atom_lt_mask, d.bond_lt_mask),
+                        (d.gt_mask, d.atom_gt_mask, d.bond_gt_mask))
+
+    @property
+    def atom_Y(self) -> list:
+        return self._scaled_atom_Y
+
+    @property
+    def bond_Y(self) -> list:
+        return self._scaled_bond_Y
+
+    @property
+    def E_ds(self) -> list:
+        return self._scaled["E_d"]
+
+    @property
+    def d_ed(self) -> int:
+        return self._width("E_d")
+
+    def normalize_inputs(self, key: str = "X_d", scaler: StandardScaler | None = None):
+        """As ``MoleculeDataset.normalize_inputs``, and ``E_d`` over every
+        bond."""
+        if key != "E_d":
+            return super().normalize_inputs(key, scaler)
+        if self.d_ed == 0:
+            return scaler
+        raw = self._raw(key)
+        if scaler is None:
+            scaler = StandardScaler().fit(np.concatenate(raw, axis=0))
+        self._scaled[key] = [scaler.transform(x) if x.size else x for x in raw]
+        return scaler
+
+    def reset(self) -> None:
+        super().reset()
+        self._scaled["E_d"] = self._raw("E_d")
+        self._scaled_atom_Y = [d.atom_y for d in self.data]
+        self._scaled_bond_Y = [d.bond_y for d in self.data]
+        self._scaled_atom_c = [d.atom_constraints for d in self.data]
+        self._scaled_bond_c = [d.bond_constraints for d in self.data]
+
+    def normalize_targets(self, kind: str = "mol", scaler: StandardScaler | None = None):
+        """Standardise one kind's targets (over every atom or bond for those)
+        and rescale its constraints; returns the scaler, None for an atom or
+        bond kind the dataset has no targets of."""
+        if kind == "mol":
+            return super().normalize_targets(scaler)
+        if kind not in ("atom", "bond"):
+            raise ValueError(f"invalid kind {kind!r}")
+        ys = [getattr(d, f"{kind}_y") for d in self.data]
+        if ys[0] is None:
+            return scaler
+        if scaler is None:
+            scaler = StandardScaler().fit(np.concatenate(ys, axis=0))
+        setattr(self, f"_scaled_{kind}_Y", [scaler.transform(y) if y.size else y for y in ys])
+        cs = getattr(self, f"_scaled_{kind}_c")
+        setattr(self, f"_scaled_{kind}_c", [
+            None if c is None else (c - len(y) * scaler.mean_) / scaler.scale_
+            for c, y in zip(cs, ys)])
+        return scaler
 
 
 class MulticomponentDataset:

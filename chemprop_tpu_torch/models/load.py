@@ -27,10 +27,13 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
 from chemprop_tpu_torch.models.multi import MulticomponentMPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
+from chemprop_tpu_torch.nn.ffn import ConstrainerFFN
 from chemprop_tpu_torch.nn.message_passing import (
-    AtomMessagePassing, BondMessagePassing, MulticomponentMessagePassing,
+    AtomMessagePassing, BondMessagePassing, MABAtomMessagePassing, MABBondMessagePassing,
+    MulticomponentMessagePassing,
 )
 from chemprop_tpu_torch.nn.predictors import MulticlassClassificationFFN, PredictorRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform
@@ -95,13 +98,18 @@ def _activation(v) -> str:
     return v.lower() if isinstance(v, str) else _cls_name(v).lower()
 
 
-REFUSED_MAB = ("mol-atom-bond models are not ported yet (ROADMAP.md section 1 item 8, "
-               "mol-atom-bond)")
+REFUSED_MAB_BATCH_NORM = ("a mol-atom-bond model with batch norm is refused, as the JAX "
+                          "package's converter refuses it: no reference file has one")
 
 # every head of the JAX package, by class name
 HEADS = {cls.__name__: cls for cls in PredictorRegistry.values()}
 # the single-molecule message passings, by class name
 MESSAGE_PASSINGS = {cls.__name__: cls for cls in (BondMessagePassing, AtomMessagePassing)}
+# the mol-atom-bond message passings, by class name
+MAB_MESSAGE_PASSINGS = {cls.__name__: cls for cls in (MABBondMessagePassing,
+                                                       MABAtomMessagePassing)}
+MAB_HEADS = ("mol_predictor", "atom_predictor", "bond_predictor")
+MAB_CONSTRAINERS = ("atom_constrainer", "bond_constrainer")
 
 
 def feature_widths(mp_cls: type, d_h: int, W_i_in: int, W_h_in: int, W_o_in: int
@@ -110,7 +118,17 @@ def feature_widths(mp_cls: type, d_h: int, W_i_in: int, W_h_in: int, W_o_in: int
     ``W_o`` takes ``[V ; M_v]``; bond message passing's ``W_i`` takes
     ``[V[src] ; E]``, atom message passing's ``W_h`` takes ``[H ; E]``."""
     d_v = W_o_in - d_h
-    return d_v, (W_h_in - d_h if mp_cls is AtomMessagePassing else W_i_in - d_v)
+    return d_v, (W_h_in - d_h if issubclass(mp_cls, AtomMessagePassing) else W_i_in - d_v)
+
+
+def mab_feature_widths(mp_cls: type, d_h: int, W_i_in: int, W_h_in: int, W_vo_in: int | None,
+                       W_eo_in: int | None) -> tuple[int, int]:
+    """``feature_widths`` of a MAB message passing, whose ``W_vo`` is ``W_o``;
+    without node embeddings (no ``W_vo``), ``W_eo`` takes ``[E ; H]``."""
+    if W_vo_in is not None:
+        return feature_widths(mp_cls, d_h, W_i_in, W_h_in, W_vo_in)
+    d_e = W_eo_in - d_h
+    return (W_i_in if issubclass(mp_cls, AtomMessagePassing) else W_i_in - d_e), d_e
 
 
 def build_model(
@@ -128,8 +146,8 @@ def build_model(
     ``MulticomponentMPNN``, as the JAX package's converter routes it. As in
     that converter, the head's criterion is its default one. Anything the
     port does not run raises instead of loading wrongly."""
-    if any(k in hp for k in ("mol_predictor", "atom_predictor", "bond_predictor")):
-        raise ValueError(REFUSED_MAB)
+    if any(k in hp for k in MAB_HEADS):
+        return build_mab_model(hp, sd, compute_dtype, kernel_options)
     mp_hp, agg_hp, p_hp = hp["message_passing"], hp["agg"], hp["predictor"]
     agg_name = _cls_name(agg_hp["cls"])
     multi = _cls_name(mp_hp["cls"]) == "MulticomponentMessagePassing"
@@ -145,13 +163,9 @@ def build_model(
     if unsupported:
         raise ValueError(f"checkpoint needs what the port does not run yet: {unsupported}")
 
-    def transform(prefix: str) -> ScaleTransform | None:
-        key = f"{prefix}.mean"
-        return ScaleTransform.identity(sd[key].shape[-1]) if key in sd else None
-
     def block(b_hp: Mapping, pre: str):
         mp_cls = MESSAGE_PASSINGS[_cls_name(b_hp["cls"])]
-        graph = [transform(f"{pre}.graph_transform.{k}_transform") for k in "VE"]
+        graph = [_transform(sd, f"{pre}.graph_transform.{k}_transform") for k in "VE"]
         W_i = sd[f"{pre}.W_i.weight"]
         d_h = int(b_hp.get("d_h", W_i.shape[0]))
         d_v, d_e = feature_widths(mp_cls, d_h, W_i.shape[1], sd[f"{pre}.W_h.weight"].shape[1],
@@ -168,7 +182,7 @@ def build_model(
             undirected=bool(b_hp.get("undirected", False)),
             kernel_options=kernel_options,
             d_vd=int(b_hp.get("d_vd") or 0) or None,
-            V_d_transform=transform(f"{pre}.V_d_transform"),
+            V_d_transform=_transform(sd, f"{pre}.V_d_transform"),
             graph_transform=GraphTransform(*graph) if any(graph) else None,
         )
 
@@ -184,25 +198,115 @@ def build_model(
         agg = AGGREGATIONS[agg_name]()
     if agg_name == "NormAggregation":
         agg.norm = float(agg_hp.get("norm", 100.0))
-    hidden = p_hp.get("hidden_dim", 300)
+    predictor = _head(head, p_hp, sd, "predictor", mp.output_dim)
+    return (MulticomponentMPNN if multi else MPNN)(
+        mp, agg, predictor, batch_norm="bn.running_mean" in sd,
+        X_d_transform=_transform(sd, "X_d_transform"))
+
+
+def _transform(sd: Mapping, prefix: str) -> ScaleTransform | None:
+    """An identity ``ScaleTransform`` of the width of ``prefix``'s buffers in
+    ``sd`` (which then load into it), or None."""
+    key = f"{prefix}.mean"
+    return ScaleTransform.identity(sd[key].shape[-1]) if key in sd else None
+
+
+def _hidden(v):
+    return list(v) if isinstance(v, (list, tuple)) else int(v)
+
+
+def _head(head: type, p_hp: Mapping, sd: Mapping, prefix: str, input_dim: int):
+    """A reference head from its hyperparameters, with an output unscaling
+    where ``sd`` holds one; its criterion is its default, as in the JAX
+    package's converter."""
     multiclass = issubclass(head, MulticlassClassificationFFN)
     extra = {"n_classes": int(p_hp.get("n_classes", 3))} if multiclass else {}
-    predictor = head(
+    return head(
         n_tasks=int(p_hp.get("n_tasks", 1)),
-        input_dim=int(p_hp.get("input_dim", mp.output_dim)),
-        hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
+        input_dim=int(p_hp.get("input_dim", input_dim)),
+        hidden_dim=_hidden(p_hp.get("hidden_dim", 300)),
         n_layers=int(p_hp.get("n_layers", 1)),
-        output_transform="predictor.output_transform.mean" in sd,
+        output_transform=f"{prefix}.output_transform.mean" in sd,
         dropout=float(p_hp.get("dropout", 0.0)),
         activation=_activation(p_hp.get("activation", "relu")),
         **extra,
     )
-    return (MulticomponentMPNN if multi else MPNN)(
-        mp, agg, predictor, batch_norm="bn.running_mean" in sd,
-        X_d_transform=transform("X_d_transform"))
 
 
-# v1 files the port does not serve, each with the ROADMAP.md item that will
+def build_mab_model(
+    hp: Mapping, sd: Mapping, compute_dtype: torch.dtype = torch.float32,
+    kernel_options: KernelOptions | None = None,
+) -> MolAtomBondMPNN:
+    """The port's ``MolAtomBondMPNN`` for a reference mol-atom-bond
+    checkpoint (cf. ``_convert_mab_model`` of
+    ``chemprop_tpu/models/torch_convert.py``): its MAB message passing with
+    the atom and bond descriptors' widths and transforms, up to three heads,
+    the readout where there is a molecule head, and the constrainers. Batch
+    norm is refused, as the JAX converter refuses it."""
+    mp_hp = hp["message_passing"]
+    name = _cls_name(mp_hp["cls"])
+    unsupported = [] if name in MAB_MESSAGE_PASSINGS else [f"message passing {name}"]
+    heads = {k: None if hp.get(k) is None else HEADS.get(_cls_name(hp[k]["cls"]))
+             for k in MAB_HEADS}
+    unsupported += [f"{k} {_cls_name(hp[k]['cls'])}" for k, h in heads.items()
+                    if h is None and hp.get(k) is not None]
+    agg_name = None if hp.get("agg") is None else _cls_name(hp["agg"]["cls"])
+    if heads["mol_predictor"] is not None and agg_name not in AGGREGATIONS:
+        unsupported.append(f"aggregation {agg_name}")
+    if unsupported:
+        raise ValueError(f"checkpoint needs what the port does not run yet: {unsupported}")
+    if bool(hp.get("batch_norm")) or any(k.startswith(("bns.", "bn_")) for k in sd):
+        raise ValueError(REFUSED_MAB_BATCH_NORM)
+    mp_cls = MAB_MESSAGE_PASSINGS[name]
+    pre = "message_passing"
+    d_h = int(mp_hp.get("d_h", sd[f"{pre}.W_i.weight"].shape[0]))
+    vertex = bool(mp_hp.get("return_vertex_embeddings", True))
+    edge = bool(mp_hp.get("return_edge_embeddings", True))
+    d_v, d_e = mab_feature_widths(mp_cls, d_h, *(
+        sd[f"{pre}.{w}.weight"].shape[1] if f"{pre}.{w}.weight" in sd else None
+        for w in ("W_i", "W_h", "W_vo", "W_eo")))
+    graph = [_transform(sd, f"{pre}.graph_transform.{k}_transform") for k in "VE"]
+    mp = mp_cls(
+        d_v=int(mp_hp.get("d_v", d_v)), d_e=int(mp_hp.get("d_e", d_e)), d_h=d_h,
+        bias=bool(mp_hp.get("bias", False)), depth=int(mp_hp.get("depth", 3)),
+        activation=_activation(mp_hp.get("activation", "relu")), compute_dtype=compute_dtype,
+        dropout=float(mp_hp.get("dropout", 0.0)), undirected=bool(mp_hp.get("undirected", False)),
+        kernel_options=kernel_options, d_vd=int(mp_hp.get("d_vd") or 0) or None,
+        d_ed=int(mp_hp.get("d_ed") or 0) or None, return_vertex_embeddings=vertex,
+        return_edge_embeddings=edge, V_d_transform=_transform(sd, f"{pre}.V_d_transform"),
+        E_d_transform=_transform(sd, f"{pre}.E_d_transform"),
+        graph_transform=GraphTransform(*graph) if any(graph) else None,
+    )
+    d_vout, d_eout = mp.output_dims
+    agg = None
+    if heads["mol_predictor"] is not None:
+        agg = (AGGREGATIONS[agg_name](sd["agg.W.weight"].shape[1])
+               if agg_name == "AttentiveAggregation" else AGGREGATIONS[agg_name]())
+        if agg_name == "NormAggregation":
+            agg.norm = float(hp["agg"].get("norm", 100.0))
+    widths = {"mol_predictor": d_vout, "atom_predictor": d_vout,
+              "bond_predictor": None if d_eout is None else 2 * d_eout}
+    built = {k: None if h is None else _head(h, hp[k], sd, k, widths[k])
+             for k, h in heads.items()}
+
+    def constrainer(k):
+        c_hp = hp.get(k)
+        if c_hp is None:
+            return None
+        return ConstrainerFFN(
+            n_constraints=int(c_hp.get("n_constraints", 1)), fp_dim=int(c_hp.get("fp_dim", 300)),
+            hidden_dim=_hidden(c_hp.get("hidden_dim", 300)), n_layers=int(c_hp.get("n_layers", 1)),
+            dropout=float(c_hp.get("dropout", 0.0)),
+            activation=_activation(c_hp.get("activation", "relu")))
+
+    return MolAtomBondMPNN(mp, agg, **built, **{k: constrainer(k) for k in MAB_CONSTRAINERS},
+                           X_d_transform=_transform(sd, "X_d_transform"))
+
+
+# v1 files the port does not serve: several molecules, with the ROADMAP.md
+# item that will port them; atom descriptors and molecule features, which the
+# JAX package's converter loads as a model that ignores them, so that it
+# serves them wrongly (ROADMAP.md section 3, divergences by design)
 V1_REFUSED = (
     (lambda a, sd: int(getattr(a, "number_of_molecules", 1) or 1) > 1
      or len({k.split(".")[2] for k in sd if k.startswith("encoder.encoder.")}) > 1,
@@ -210,13 +314,15 @@ V1_REFUSED = (
      "v1 files of several molecules)"),
     (lambda a, sd: getattr(a, "atom_descriptors", None) is not None
      or any("atom_descriptors_layer" in k for k in sd),
-     "a v1 model with atom descriptors is not ported yet (ROADMAP.md section 1 item 6, "
-     "v1 atom descriptors)"),
+     "a v1 model with atom descriptors is refused: the JAX package's converter would "
+     "mis-serve it, as a model that ignores them (ROADMAP.md section 3, v1 atom "
+     "descriptors)"),
     (lambda a, sd: bool(getattr(a, "use_input_features", False)
                         or getattr(a, "features_generator", None)
                         or getattr(a, "features_path", None)),
-     "a v1 model with molecule features is not ported yet (ROADMAP.md section 1 item 6, "
-     "v1 molecule features)"),
+     "a v1 model with molecule features is refused: the JAX package's converter would "
+     "mis-serve it, as a model that ignores them (ROADMAP.md section 3, v1 molecule "
+     "features)"),
 )
 V1_HEADS = {"regression": "RegressionFFN", "classification": "BinaryClassificationFFN",
             "multiclass": "MulticlassClassificationFFN"}
@@ -273,8 +379,9 @@ def build_v1_model(
         for leaf in ("weight", "bias"):
             sd[f"predictor.ffn.{b}.{0 if b == 0 else 2}.{leaf}"] = raw[f"readout.{j}.{leaf}"].float()
     if raw[f"readout.{linears[0]}.weight"].shape[1] != d_h:
-        raise ValueError("a v1 model whose FFN takes more than the fingerprint is not ported "
-                         "yet (ROADMAP.md section 1 item 6, v1 molecule features)")
+        raise ValueError("a v1 model whose FFN takes more than the fingerprint is refused: the "
+                         "JAX package's converter would mis-serve it, as a model that ignores "
+                         "its molecule features (ROADMAP.md section 3, v1 molecule features)")
     task_names = list(arg("task_names", None) or [])
     n_tasks = int(arg("num_tasks", 0) or len(task_names) or 1)
     dataset_type = str(arg("dataset_type", "regression"))
@@ -322,7 +429,7 @@ def load_model(
         model, sd, output_columns = build_v1_model(d, compute_dtype, kernel_options)
         model.load_state_dict(sd)
         return model.to(device).eval(), output_columns
-    skip = ("num_batches_tracked", "criterion", "metrics")  # training state, not weights
+    skip = ("num_batches_tracked", "criterion", "metrics", "metricss")  # not weights
     sd = {
         k: v.float()
         for k, v in d["state_dict"].items()
@@ -342,7 +449,9 @@ def from_jax_params(
     parameters, so they are not part of the result: the port's modules are
     built with the JAX modules' activations (``activation=...`` of the head),
     and the weights carry across unchanged. Every head keeps its MLP under
-    ``predictor/ffn``, so one mapping serves them all."""
+    ``predictor/ffn`` (a mol-atom-bond model's three heads and two
+    constrainers under their own names, each ``ffn``), so one mapping serves
+    them all.""" 
 
     def t(x) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=np.float32))
@@ -358,21 +467,29 @@ def from_jax_params(
             if "bias" in layer:
                 sd[f"{prefix}.{name}.bias"] = t(layer["bias"])
 
-    layers(params["message_passing"], "message_passing")
+    layers(params.get("message_passing", {}), "message_passing")
     if "agg" in params:  # the attentive readout's W
         sd["agg.W.weight"] = t(params["agg"]["W"]["kernel"]).T.contiguous()
         sd["agg.W.bias"] = t(params["agg"]["W"]["bias"])
-    if "bn" in params:
-        sd["bn.weight"] = t(params["bn"]["scale"])
-        sd["bn.bias"] = t(params["bn"]["bias"])
-        sd["bn.running_mean"] = t(batch_stats["bn"]["mean"])
-        sd["bn.running_var"] = t(batch_stats["bn"]["var"])
-    for name, layer in params["predictor"]["ffn"].items():
-        i = int(name.removeprefix("block"))
-        pre = f"predictor.ffn.{i}.{0 if i == 0 else 2}"
-        sd[f"{pre}.weight"] = t(layer["kernel"]).T.contiguous()
-        sd[f"{pre}.bias"] = t(layer["bias"])
+    for bn in BATCH_NORMS:
+        if bn in params:
+            sd[f"{bn}.weight"] = t(params[bn]["scale"])
+            sd[f"{bn}.bias"] = t(params[bn]["bias"])
+            sd[f"{bn}.running_mean"] = t(batch_stats[bn]["mean"])
+            sd[f"{bn}.running_var"] = t(batch_stats[bn]["var"])
+    for head in FFN_OWNERS:
+        for name, layer in params.get(head, {}).get("ffn", {}).items():
+            i = int(name.removeprefix("block"))
+            pre = f"{head}.ffn.{i}.{0 if i == 0 else 2}"
+            sd[f"{pre}.weight"] = t(layer["kernel"]).T.contiguous()
+            sd[f"{pre}.bias"] = t(layer["bias"])
     return sd
+
+
+# the modules that own an MLP under ``ffn``, and the batch norms, in either
+# model's tree
+FFN_OWNERS = ("predictor", *MAB_HEADS, *MAB_CONSTRAINERS)
+BATCH_NORMS = ("bn", "bn_mol", "bn_atom", "bn_bond")
 
 
 _LINEAR = {"weight": "kernel", "bias": "bias"}
@@ -390,9 +507,9 @@ def jax_path(name: str) -> tuple[str, tuple[str, ...]] | None:
         return "params", (parts[0], f"blocks_{parts[2]}", parts[3], _LINEAR[parts[4]])
     if parts[0] in ("message_passing", "agg") and len(parts) == 3 and parts[2] in _LINEAR:
         return "params", (parts[0], parts[1], _LINEAR[parts[2]])
-    if parts[0] == "bn" and len(parts) == 2 and parts[1] in _BN:
+    if parts[0] in BATCH_NORMS and len(parts) == 2 and parts[1] in _BN:
         collection, leaf = _BN[parts[1]]
-        return collection, ("bn", leaf)
-    if parts[:2] == ["predictor", "ffn"] and len(parts) == 5 and parts[4] in _LINEAR:
-        return "params", ("predictor", "ffn", f"block{parts[2]}", _LINEAR[parts[4]])
+        return collection, (parts[0], leaf)
+    if parts[0] in FFN_OWNERS and parts[1] == "ffn" and len(parts) == 5 and parts[4] in _LINEAR:
+        return "params", (parts[0], "ffn", f"block{parts[2]}", _LINEAR[parts[4]])
     return None

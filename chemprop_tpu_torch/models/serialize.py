@@ -20,8 +20,12 @@ sum, mean, norm or
 attentive readout and any of the JAX
 package's heads, with its criterion (by ``__metric__`` and ``kwargs``),
 ``task_weights``, ``threshold``, ``n_classes`` and ``spectral_activation``;
-a manifest that needs anything else raises and names it, as
-``load.build_model`` does for reference checkpoints."""
+or a ``MolAtomBondMPNN`` (``"model_cls": "MolAtomBondMPNN"``: a MAB message
+passing with its ``d_ed``, ``return_vertex_embeddings`` /
+``return_edge_embeddings`` and ``E_d_transform``, up to three such heads,
+the constrainers, batch norm per head). A manifest that needs anything else
+raises and names it, as ``load.build_model`` does for reference
+checkpoints."""
 
 from __future__ import annotations
 
@@ -34,11 +38,14 @@ import numpy as np
 import torch
 
 from chemprop_tpu_torch.models.load import (
-    HEADS, MESSAGE_PASSINGS, REFUSED_MAB, feature_widths, from_jax_params, jax_path,
+    HEADS, MAB_CONSTRAINERS, MAB_HEADS, MAB_MESSAGE_PASSINGS, MESSAGE_PASSINGS, feature_widths,
+    from_jax_params, jax_path, mab_feature_widths,
 )
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
 from chemprop_tpu_torch.models.multi import MulticomponentMPNN
 from chemprop_tpu_torch.nn.agg import AGGREGATIONS
+from chemprop_tpu_torch.nn.ffn import ConstrainerFFN
 from chemprop_tpu_torch.nn.message_passing import MulticomponentMessagePassing
 from chemprop_tpu_torch.nn.metrics import ChempropMetric, LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
@@ -94,14 +101,19 @@ def _decode_metric(v: dict | None) -> ChempropMetric | None:
     return None if v is None else METRICS[v["__metric__"]](**v["kwargs"])
 
 
-def model_config(model: MPNN) -> dict:
-    """The manifest's ``model`` entry for the port's ``model``: the JAX
-    modules' constructor arguments, so that the JAX package rebuilds it."""
-    mp, agg, pred = model.message_passing, model.agg, model.predictor
-    agg_cfg = {"cls": type(agg).__name__}
+def _agg_config(agg) -> dict | None:
+    if agg is None:
+        return None
+    cfg = {"cls": type(agg).__name__}
     for key in ("norm", "output_size"):
         if hasattr(agg, key):
-            agg_cfg[key] = getattr(agg, key)
+            cfg[key] = getattr(agg, key)
+    return cfg
+
+
+def _head_config(pred) -> dict | None:
+    if pred is None:
+        return None
     head = {
         "cls": type(pred).__name__, "n_tasks": pred.n_tasks, "input_dim": pred.input_dim,
         "hidden_dim": pred.hidden_dim, "n_layers": pred.n_layers, "dropout": pred.dropout,
@@ -112,6 +124,42 @@ def model_config(model: MPNN) -> dict:
     for key in ("n_classes", "spectral_activation"):
         if hasattr(pred, key):
             head[key] = getattr(pred, key)
+    return head
+
+
+def _constrainer_config(c: ConstrainerFFN | None) -> dict | None:
+    if c is None:
+        return None
+    return {"cls": "ConstrainerFFN", "n_constraints": c.n_constraints, "fp_dim": c.fp_dim,
+            "hidden_dim": c.hidden_dim, "n_layers": c.n_layers, "dropout": c.dropout,
+            "activation": c.activation.lower()}
+
+
+def _mab_config(model: MolAtomBondMPNN) -> dict:
+    mp = model.message_passing
+    return {
+        "format": FORMAT,
+        "model_cls": "MolAtomBondMPNN",
+        "message_passing": {
+            **_block_config(mp), "d_ed": mp.d_ed,
+            "return_vertex_embeddings": mp.return_vertex_embeddings,
+            "return_edge_embeddings": mp.return_edge_embeddings,
+            "E_d_transform": _encode_transform(mp.E_d_transform)},
+        "agg": _agg_config(model.agg),
+        **{k: _head_config(getattr(model, k)) for k in MAB_HEADS},
+        **{k: _constrainer_config(getattr(model, k)) for k in MAB_CONSTRAINERS},
+        "batch_norm": model.batch_norm,
+        "X_d_transform": _encode_transform(model.X_d_transform),
+    }
+
+
+def model_config(model: MPNN | MolAtomBondMPNN) -> dict:
+    """The manifest's ``model`` entry for the port's ``model``: the JAX
+    modules' constructor arguments, so that the JAX package rebuilds it."""
+    if isinstance(model, MolAtomBondMPNN):
+        return _mab_config(model)
+    mp = model.message_passing
+    agg_cfg, head = _agg_config(model.agg), _head_config(model.predictor)
     if isinstance(mp, MulticomponentMessagePassing):
         mp_cfg = {"cls": "MulticomponentMessagePassing",
                   "blocks": [{"__submodule__": _block_config(b)} for b in mp.blocks],
@@ -149,28 +197,31 @@ def _blocks(mp_cfg: Mapping) -> list[Mapping]:
 
 
 def _check_config(cfg: Mapping) -> None:
-    if cfg.get("model_cls") == "MolAtomBondMPNN":
-        raise ValueError(REFUSED_MAB)
-    mp, agg, pred = cfg["message_passing"], cfg["agg"], cfg["predictor"]
+    mp, agg = cfg["message_passing"], cfg["agg"]
     unsupported = []
     model_cls = cfg.get("model_cls", "MPNN")
-    if model_cls not in ("MPNN", "MulticomponentMPNN"):
+    mab = model_cls == "MolAtomBondMPNN"
+    if model_cls not in ("MPNN", "MulticomponentMPNN", "MolAtomBondMPNN"):
         unsupported.append(f"model {model_cls}")
     elif (model_cls == "MulticomponentMPNN") != (mp["cls"] == "MulticomponentMessagePassing"):
         unsupported.append(f"model {model_cls} over {mp['cls']}")
     for block in _blocks(mp):
-        if block["cls"] not in MESSAGE_PASSINGS:
+        if block["cls"] not in (MAB_MESSAGE_PASSINGS if mab else MESSAGE_PASSINGS):
             unsupported.append(f"message passing {block['cls']}")
-    if agg["cls"] not in AGGREGATIONS:
+    if agg is not None and agg["cls"] not in AGGREGATIONS:
         unsupported.append(f"aggregation {agg['cls']}")
-    head = HEADS.get(pred["cls"])
-    if head is None:
-        unsupported.append(f"predictor {pred['cls']}")
-    elif pred.get("n_targets", head.n_targets) != head.n_targets:
-        unsupported.append(f"{pred['n_targets']} targets per task in a {pred['cls']}")
-    crit = pred.get("criterion")
-    if crit is not None and crit.get("__metric__") not in METRICS:
-        unsupported.append(f"criterion {crit.get('__metric__')}")
+    for key in MAB_HEADS if mab else ("predictor",):
+        pred = cfg.get(key)
+        if pred is None:
+            continue
+        head = HEADS.get(pred["cls"])
+        if head is None:
+            unsupported.append(f"{key} {pred['cls']}")
+        elif pred.get("n_targets", head.n_targets) != head.n_targets:
+            unsupported.append(f"{pred['n_targets']} targets per task in a {pred['cls']}")
+        crit = pred.get("criterion")
+        if crit is not None and crit.get("__metric__") not in METRICS:
+            unsupported.append(f"criterion {crit.get('__metric__')}")
     if unsupported:
         raise ValueError(f"checkpoint needs what the port does not run yet: {unsupported}")
 
@@ -185,18 +236,26 @@ def model_from_config(
     kernels' input widths), else from the graph transform or the featurizer's
     defaults. ``compute_dtype`` overrides the manifest's."""
     _check_config(cfg)
-    mp_cfg, pred_cfg = cfg["message_passing"], cfg["predictor"]
+    mp_cfg = cfg["message_passing"]
     multi = mp_cfg["cls"] == "MulticomponentMessagePassing"
+    mab = cfg.get("model_cls") == "MolAtomBondMPNN"
 
     def block(b_cfg: Mapping, layers: Mapping | None):
-        mp_cls = MESSAGE_PASSINGS[b_cfg["cls"]]
+        mp_cls = (MAB_MESSAGE_PASSINGS if mab else MESSAGE_PASSINGS)[b_cfg["cls"]]
         d_h = int(b_cfg["d_h"])
         graph = _decode_transform(b_cfg.get("graph_transform"))
+        kw = {}
+        if mab:
+            kw = dict(d_ed=b_cfg.get("d_ed") or None,
+                      return_vertex_embeddings=bool(b_cfg.get("return_vertex_embeddings", True)),
+                      return_edge_embeddings=bool(b_cfg.get("return_edge_embeddings", True)),
+                      E_d_transform=_decode_transform(b_cfg.get("E_d_transform")))
         if layers is not None:
             # bond message passing of depth 1 has no W_h in the JAX tree
-            d_v, d_e = feature_widths(mp_cls, d_h, *(
+            widths = mab_feature_widths if mab else feature_widths
+            d_v, d_e = widths(mp_cls, d_h, *(
                 np.shape(layers[w]["kernel"])[0] if w in layers else None
-                for w in ("W_i", "W_h", "W_o")))
+                for w in (("W_i", "W_h", "W_vo", "W_eo") if mab else ("W_i", "W_h", "W_o"))))
         else:
             V_t, E_t = (graph.V_transform, graph.E_transform) if graph else (None, None)
             d_v = 72 if V_t is None else V_t.mean.shape[1]
@@ -209,6 +268,7 @@ def model_from_config(
             undirected=bool(b_cfg.get("undirected", False)), kernel_options=kernel_options,
             d_vd=b_cfg.get("d_vd") or None,
             V_d_transform=_decode_transform(b_cfg.get("V_d_transform")), graph_transform=graph,
+            **kw,
         )
 
     layers = None if params is None else params["message_passing"]
@@ -219,18 +279,34 @@ def model_from_config(
                                           bool(mp_cfg.get("shared", False)))
     else:
         mp = block(mp_cfg, layers)
-    agg_cfg = cfg["agg"]
-    size = agg_cfg.get("output_size")
-    if params is not None and "agg" in params:  # the attentive readout's W takes a block's width
-        size = np.shape(params["agg"]["W"]["kernel"])[0]
-    agg = AGGREGATIONS[agg_cfg["cls"]](**({"output_size": int(size)} if size is not None else {}))
-    if "norm" in agg_cfg:
-        agg.norm = float(agg_cfg["norm"])
+    agg_cfg, agg = cfg["agg"], None
+    if agg_cfg is not None:
+        size = agg_cfg.get("output_size")
+        if params is not None and "agg" in params:  # the attentive readout's W: a block's width
+            size = np.shape(params["agg"]["W"]["kernel"])[0]
+        agg = AGGREGATIONS[agg_cfg["cls"]](**({"output_size": int(size)} if size is not None
+                                              else {}))
+        if "norm" in agg_cfg:
+            agg.norm = float(agg_cfg["norm"])
+    X_d_transform = _decode_transform(cfg.get("X_d_transform"))
+    if mab:
+        return MolAtomBondMPNN(
+            mp, agg, **{k: _head_from_config(cfg.get(k), None) for k in MAB_HEADS},
+            **{k: _constrainer_from_config(cfg.get(k)) for k in MAB_CONSTRAINERS},
+            batch_norm=bool(cfg.get("batch_norm", False)), X_d_transform=X_d_transform)
+    return (MulticomponentMPNN if multi else MPNN)(
+        mp, agg, _head_from_config(cfg["predictor"], mp.output_dim),
+        batch_norm=bool(cfg.get("batch_norm", False)), X_d_transform=X_d_transform)
+
+
+def _head_from_config(pred_cfg: Mapping | None, input_dim: int | None):
+    if pred_cfg is None:
+        return None
     hidden = pred_cfg.get("hidden_dim", 300)
     extra = {k: pred_cfg[k] for k in ("n_classes", "spectral_activation") if k in pred_cfg}
     predictor = HEADS[pred_cfg["cls"]](
         n_tasks=int(pred_cfg.get("n_tasks", 1)),
-        input_dim=int(pred_cfg.get("input_dim", mp.output_dim)),
+        input_dim=int(pred_cfg.get("input_dim", input_dim)),
         hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
         n_layers=int(pred_cfg.get("n_layers", 1)), output_transform=False,
         criterion=_decode_metric(pred_cfg.get("criterion")),
@@ -240,9 +316,18 @@ def model_from_config(
         **extra,
     )
     predictor.output_transform = _decode_transform(pred_cfg.get("output_transform"))
-    return (MulticomponentMPNN if multi else MPNN)(
-        mp, agg, predictor, batch_norm=bool(cfg.get("batch_norm", False)),
-        X_d_transform=_decode_transform(cfg.get("X_d_transform")))
+    return predictor
+
+
+def _constrainer_from_config(c_cfg: Mapping | None) -> ConstrainerFFN | None:
+    if c_cfg is None:
+        return None
+    hidden = c_cfg.get("hidden_dim", 300)
+    return ConstrainerFFN(
+        n_constraints=int(c_cfg.get("n_constraints", 1)), fp_dim=int(c_cfg.get("fp_dim", 300)),
+        hidden_dim=list(hidden) if isinstance(hidden, (list, tuple)) else int(hidden),
+        n_layers=int(c_cfg.get("n_layers", 1)), dropout=float(c_cfg.get("dropout", 0.0)),
+        activation=c_cfg.get("activation", "relu"))
 
 
 # ----------------------------------------------------------------- variables

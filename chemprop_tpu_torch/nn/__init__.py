@@ -2,8 +2,10 @@ from chemprop_tpu_torch.nn.agg import (
     AttentiveAggregation, MeanAggregation, NormAggregation, SumAggregation,
 )
 from chemprop_tpu_torch.nn.batchnorm import BatchNorm
-from chemprop_tpu_torch.nn.ffn import MLP
-from chemprop_tpu_torch.nn.message_passing import AtomMessagePassing, BondMessagePassing
+from chemprop_tpu_torch.nn.ffn import MLP, ConstrainerFFN
+from chemprop_tpu_torch.nn.message_passing import (
+    AtomMessagePassing, BondMessagePassing, MABAtomMessagePassing, MABBondMessagePassing,
+)
 from chemprop_tpu_torch.nn.predictors import (
     BinaryClassificationFFN,
     BinaryDirichletFFN,
@@ -26,8 +28,11 @@ __all__ = [
     "BinaryClassificationFFN",
     "BinaryDirichletFFN",
     "BondMessagePassing",
+    "ConstrainerFFN",
     "EvidentialFFN",
     "GraphTransform",
+    "MABAtomMessagePassing",
+    "MABBondMessagePassing",
     "MeanAggregation",
     "MulticlassClassificationFFN",
     "MulticlassDirichletFFN",

@@ -135,13 +135,18 @@ class _MessagePassingBase(nn.Module):
         d_i, d_hin = self._input_widths(d_v, d_e, d_h)
         self.W_i = nn.Linear(d_i, d_h, bias=bias)
         self.W_h = nn.Linear(d_hin, d_h, bias=bias)
-        self.W_o = nn.Linear(d_v + d_h, d_h, bias=True)
         self.d_vd = d_vd or None
-        if self.d_vd:
-            self.W_d = nn.Linear(d_h + d_vd, d_h + d_vd, bias=True)
+        self._output_layers()
         self.V_d_transform = V_d_transform
         self.graph_transform = graph_transform
         self.drop = Dropout(dropout)
+
+    def _output_layers(self) -> None:
+        """The node output's layers: ``W_o`` on ``[V ; M_v]`` and, with atom
+        descriptors, ``W_d``."""
+        self.W_o = nn.Linear(self.d_v + self.d_h, self.d_h, bias=True)
+        if self.d_vd:
+            self.W_d = nn.Linear(self.d_h + self.d_vd, self.d_h + self.d_vd, bias=True)
 
     @property
     def output_dim(self) -> int:
@@ -173,16 +178,18 @@ class _MessagePassingBase(nn.Module):
             UNSERVED["row_gather"] += 1
         return V[bmg.src.long()]
 
-    def _descriptors(self, H_v, V_d, is_training, drop_on, generator):
-        """``dropout(W_d([H_v ; V_d]))`` at the lane-padded width."""
+    def _descriptors(self, H, X, layer, transform, is_training, drop_on, generator):
+        """``dropout(layer([H ; X]))`` at the lane-padded width: ``H`` is a
+        lane-padded table of ``d_h`` real columns, ``X`` its descriptors
+        (scaled by ``transform`` at evaluation)."""
         dt, dh, dp = self.compute_dtype, self.d_h, self.d_pad
-        if self.V_d_transform is not None:
-            V_d = self.V_d_transform(V_d, is_training)
-        out = _lane(self.output_dim)
-        K = self.W_d.weight.t()
-        K = torch.cat([_pad(K[:dh], dp, out), _pad(K[dh:], self.d_vd, out)]).to(dt)
-        b = _pad(self.W_d.bias, 0, out).to(dt)
-        x = torch.cat([H_v, V_d.to(dt)], dim=1)
+        if transform is not None:
+            X = transform(X, is_training)
+        out = _lane(layer.out_features)
+        K = layer.weight.t()
+        K = torch.cat([_pad(K[:dh], dp, out), _pad(K[dh:], X.shape[1], out)]).to(dt)
+        b = _pad(layer.bias, 0, out).to(dt)
+        x = torch.cat([H, X.to(dt)], dim=1)
         return self.drop(x @ K + b, drop_on, generator)
 
     def _prologue(self, bmg, V_d, is_training, mc_dropout):
@@ -194,16 +201,18 @@ class _MessagePassingBase(nn.Module):
             bmg = self.graph_transform(bmg, is_training)
         return bmg, (is_training or mc_dropout) and self.dropout > 0
 
-    def _node_output(self, V, M_v, V_d, is_training, drop_on, generator):
+    def _node_output(self, V, M_v, V_d, is_training, drop_on, generator, W_o=None, W_d=None):
         """``H_v = dropout(tau(W_o([V ; M_v])))`` at the lane-padded width,
-        then the atom descriptors' layer."""
+        then the atom descriptors' layer ``W_d`` (the module's own two by
+        default)."""
         # M_v's padding columns sit at the end of [V ; M_v], so W_o's kernel
         # takes zero rows there and zero columns past d_h
-        W_o, b_o = self._padded(self.W_o, self.d_v + self.d_pad, self.d_pad)
+        W_o, b_o = self._padded(W_o or self.W_o, self.d_v + self.d_pad, self.d_pad)
         VM = torch.cat([V, M_v], dim=1)
         H_v = self.drop(self.tau(VM @ W_o + b_o), drop_on, generator)
         if V_d is not None:
-            H_v = self._descriptors(H_v, V_d, is_training, drop_on, generator)
+            H_v = self._descriptors(H_v, V_d, W_d or self.W_d, self.V_d_transform, is_training,
+                                    drop_on, generator)
         return H_v
 
 
@@ -223,8 +232,20 @@ class BondMessagePassing(_MessagePassingBase):
         dropout: the dropout layers alone), from ``generator``; the transforms
         scale at evaluation (not ``is_training``). ``V_d``: the
         ``[N_pad, d_vd]`` atom descriptors, required with ``d_vd``."""
-        dt, dp, opts = self.compute_dtype, self.d_pad, self.kernel_options
         bmg, drop_on = self._prologue(bmg, V_d, is_training, mc_dropout)
+        H, M_v = self._edge_states(bmg, drop_on, generator, taps, readout=True)
+        if M_v is None:
+            M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
+        _sow(taps, "M_v", M_v)
+        return self._node_output(bmg.V.to(self.compute_dtype), M_v, V_d, is_training, drop_on,
+                                 generator)
+
+    def _edge_states(self, bmg, drop_on, generator, taps, readout: bool):
+        """``(H, None)``, the last iteration's lane-padded edge states, or
+        ``(None, M_v)`` where ``readout`` lets the depth loop and the ``M_v``
+        readout be one op (``ops.loop_readout``), whose backward takes the
+        cotangent of ``M_v`` alone."""
+        dt, dp, opts = self.compute_dtype, self.d_pad, self.kernel_options
         # with grad_w in bfloat16, [V[src] ; E] is zero-padded to a multiple of
         # 128 columns and W_i's kernel takes zero rows there, as the JAX package
         # pads them, so that dW_i = x^T g streams through the grad_weight kernel
@@ -250,32 +271,30 @@ class BondMessagePassing(_MessagePassingBase):
         if fuse_iter and opts.depth_loop and not drop_on:
             H = depth_loop(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr)
             _sow(taps, "H", H)
-            M_v = sorted_segment_sum(H, bmg.dst, bmg.edge_ptr)
-        elif (fuse_iter and self.depth >= 3 and not drop_on and opts.fused_readout
-              and taps is None):
+            return H, None
+        if (readout and fuse_iter and self.depth >= 3 and not drop_on and opts.fused_readout
+                and taps is None):
             split = None if bmg.split_ptr is None else (bmg.split_ptr, bmg.cross_rows)
-            M_v = loop_readout(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr, split)
-        else:
-            H = self.tau(H0)
-            for it in range(1, self.depth):
-                if self.undirected:
-                    H = (H + H[bmg.rev.long()]) / 2
-                if fuse_iter:
-                    if it == 1:  # relu(H0) streams through the kernel, never written
-                        H = first_iter(H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
-                    else:
-                        H = message_iter(H, H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
+            return None, loop_readout(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr,
+                                      split)
+        H = self.tau(H0)
+        for it in range(1, self.depth):
+            if self.undirected:
+                H = (H + H[bmg.rev.long()]) / 2
+            if fuse_iter:
+                if it == 1:  # relu(H0) streams through the kernel, never written
+                    H = first_iter(H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
                 else:
-                    M = message(H, *graph, bmg.tile_ptr)
-                    z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h
-                    if b_h is not None:
-                        z = z + b_h
-                    H = self.tau(H0 + z)
-                H = self.drop(H, drop_on, generator)
-                _sow(taps, "H", H)
-            M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
-        _sow(taps, "M_v", M_v)
-        return self._node_output(V, M_v, V_d, is_training, drop_on, generator)
+                    H = message_iter(H, H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
+            else:
+                M = message(H, *graph, bmg.tile_ptr)
+                z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h
+                if b_h is not None:
+                    z = z + b_h
+                H = self.tau(H0 + z)
+            H = self.drop(H, drop_on, generator)
+            _sow(taps, "H", H)
+        return H, None
 
 
 class AtomMessagePassing(_MessagePassingBase):
@@ -319,12 +338,19 @@ class AtomMessagePassing(_MessagePassingBase):
     ) -> torch.Tensor:
         """As ``BondMessagePassing.forward``; ``taps`` collects ``H_0``, each
         iteration's ``H`` and ``M_v``."""
-        dt, dp, dh = self.compute_dtype, self.d_pad, self.d_h
         bmg, drop_on = self._prologue(bmg, V_d, is_training, mc_dropout)
+        H, _ = self._edge_states(bmg, drop_on, generator, taps)
+        M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
+        _sow(taps, "M_v", M_v)
+        return self._node_output(bmg.V.to(self.compute_dtype), M_v, V_d, is_training, drop_on,
+                                 generator)
+
+    def _edge_states(self, bmg, drop_on, generator, taps, readout: bool = False):
+        """``(H, None)``: the last iteration's lane-padded edge states."""
+        dt, dp, dh = self.compute_dtype, self.d_pad, self.d_h
         graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
-        V = bmg.V.to(dt)
         W_i, b_i = self._padded(self.W_i, self.d_v, dp)
-        H_nodes = V @ W_i
+        H_nodes = bmg.V.to(dt) @ W_i
         if b_i is not None:
             H_nodes = H_nodes + b_i
         H0 = gather_src(H_nodes, *graph)
@@ -348,6 +374,4 @@ class AtomMessagePassing(_MessagePassingBase):
                 z = z + b_h
             H = self.drop(self.tau(H0 + z), drop_on, generator)
             _sow(taps, "H", H)
-        M_v = sorted_segment_sum(H.contiguous(), bmg.dst, bmg.edge_ptr)
-        _sow(taps, "M_v", M_v)
-        return self._node_output(V, M_v, V_d, is_training, drop_on, generator)
+        return H, None

@@ -73,6 +73,7 @@ from chemprop_tpu_torch.data.dataloader import DataLoader
 from chemprop_tpu_torch.models import serialize
 from chemprop_tpu_torch.models.load import jax_path
 from chemprop_tpu_torch.models.model import MPNN
+from chemprop_tpu_torch.nn.batchnorm import BatchNorm
 from chemprop_tpu_torch.nn.init import init_parameters
 from chemprop_tpu_torch.nn.metrics import ChempropMetric
 from chemprop_tpu_torch.train.schedulers import noam_lr
@@ -179,15 +180,15 @@ class Trainer:
         parameters and statistics (a loaded checkpoint's) are the state's, as
         the JAX trainer takes ``variables``. ``batch`` is accepted for the JAX
         signature's sake: the port's parameter shapes do not depend on it."""
-        bn = self.model.bn
         if not keep_parameters:
             init_parameters(self.model, self.param_init, torch.Generator().manual_seed(self.seed))
-            if bn is not None:
-                with torch.no_grad():
-                    bn.weight.fill_(1.0)
-                    bn.bias.zero_()
-                    bn.running_mean.zero_()
-                    bn.running_var.fill_(1.0)
+            with torch.no_grad():
+                for bn in self.model.modules():
+                    if isinstance(bn, BatchNorm):
+                        bn.weight.fill_(1.0)
+                        bn.bias.zero_()
+                        bn.running_mean.zero_()
+                        bn.running_var.fill_(1.0)
         self.model.to(self.device)
         self._sched_args = (
             self.warmup_epochs * steps_per_epoch,
@@ -195,7 +196,9 @@ class Trainer:
             self.init_lr, self.max_lr, self.final_lr,
         )
         params = dict(self.model.named_parameters())
-        stats = dict(self.model.bn.named_buffers(prefix="bn")) if bn is not None else {}
+        # the batch norms' running statistics: buffers the JAX tree holds
+        stats = {k: v for k, v in self.model.named_buffers()
+                 if (jax_path(k) or ("",))[0] == "batch_stats"}
         self.best_variables, self.best_epoch = None, -1
         frozen = {n for n in params if self.freeze is not None and self.freeze(jax_key(n))}
         self._frozen = frozen

@@ -204,7 +204,21 @@ failure:
    the CPU's as phase 9(a) holds ``train`` (loss, each parameter tensor's
    share of elements apart). Predictions are held at phase 3's limits in
    the units of each model's unscaling. The phase's seconds are printed on
-   their own line with the card's name and power limit.
+   their own line with the card's name and power limit;
+13. mol-atom-bond models, in this process, each run first rehearsed on the
+   CPU as in phase 12, G, H and D never launched (the MAB path takes no
+   ``loop_readout``): (a) ``predict`` of the 14 reference checkpoints of
+   tests/data/mol_atom_bond/example_models in f32 and bf16 on the inputs the
+   JAX package's tests give them (the constraints of
+   ``regression_constrained.pt``, the five extra inputs of
+   ``regression_with_extras.pt``), against the CPU's at phase 3's limits in
+   each column's unscaled units, and the atom-mapped corpus's 500 molecules
+   in f32 against the reference's own predictions (rtol 1e-3, atol 3e-4)
+   with no call unserved; (b) one ``train`` epoch in f32 and bf16 of a
+   molecule, atom and bond head on regression.csv and of the atom head on
+   the corpus, without batch norm, each held to the CPU's as phase 9(a)
+   holds ``train``. The phase's seconds are printed on their own line with
+   the card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -547,6 +561,27 @@ PLAIN_VERSIONS = {
                 "bwd_message_premul_plain": "bwd_message_premul", "iter_bwd_plain": "iter_bwd"},
     "segment": {"sorted_segment_sum_plain": "sorted_segment_sum"},
     "gather": {"row_gather_plain": "row_gather"},
+}
+
+# phase 13: the mol-atom-bond (MAB) reference checkpoints, the reference's
+# predictions of its atom-mapped corpus (500 molecules, at most 122 directed
+# edges each: every batch has its tile table) and the JAX package's limits
+# against them; a MAB path never runs loop_readout, so G and H (and D) must
+# not launch
+MAB_DIR = REPO / "tests/data/mol_atom_bond"
+MAB_MODELS = MAB_DIR / "example_models"
+MAB_CORPUS = MAB_DIR / "atomic_regression_atom_mapped.csv"
+MAB_GOLDEN = MAB_DIR / "atomic_regression_atom_mapped_preds.csv"
+MAB_GOLDEN_RTOL, MAB_GOLDEN_ATOL = 1e-3, 3e-4
+MAB_ABSENT = ("bwd_message_nodes", "bwd_message_premul", "fused_iter2")
+_MAB_TARGETS = ["--mol-target-columns", "mol_y1", "mol_y2", "--atom-target-columns", "atom_y1",
+                "atom_y2", "--bond-target-columns", "bond_y1", "bond_y2"]
+# phase 13(b): one train epoch, two Adam steps as phase 9(a)'s (9 training rows
+# of regression.csv in batches of 5; the corpus's 400 in batches of 200), full
+# width, no batch norm
+MAB_TRAINS = {
+    "three_heads": ["-i", MAB_DIR / "regression.csv", "--keep-h", "-b", 5, *_MAB_TARGETS],
+    "atom_corpus": ["-i", MAB_CORPUS, "--atom-target-columns", "charges", "-b", 200],
 }
 
 
@@ -3100,6 +3135,154 @@ def multicomponent_phase(card: str) -> tuple[dict, dict]:
     return launches, res
 
 
+# ---------------------------------------------------------------- phase 13
+def mab_flags(name: str) -> list:
+    """The inputs the JAX package's tests predict a MAB checkpoint on."""
+    if name == "atomic_regression_atom_mapped.pt":
+        return ["-i", MAB_CORPUS, "--keep-h", "--reorder-atoms"]
+    if name == "QM_descriptors.pt":
+        return ["-i", MAB_DIR / "regression.csv", "--add-h"]
+    if name == "regression_with_extras.pt":
+        return ["-i", MAB_DIR / "regression.csv", "--keep-h", "--reorder-atoms",
+                "--descriptors-path", MAB_DIR / "descriptors.npz",
+                "--atom-features-path", MAB_DIR / "atom_features_descriptors.npz",
+                "--bond-features-path", MAB_DIR / "bond_features_descriptors.npz",
+                "--atom-descriptors-path", MAB_DIR / "atom_features_descriptors.npz",
+                "--bond-descriptors-path", MAB_DIR / "bond_features_descriptors.npz"]
+    if name == "regression_constrained.pt":
+        return ["-i", MAB_DIR / "constrained_regression.csv", "--keep-h", "--constraints-path",
+                MAB_DIR / "constrained_regression_constraints.csv", "--constraints-to-targets",
+                "atom_y1", "atom_y2", "bond_y2"]
+    return ["-i", MAB_DIR / "regression.csv", "--keep-h"]
+
+
+def mab_table(path: Path) -> dict:
+    """Each column of a MAB predictions CSV, its molecules' values (an atom
+    or bond column's lists) end to end."""
+    import ast
+
+    import numpy as np
+
+    header, rows = read_rows(path)
+    return {h: np.concatenate([np.atleast_1d(np.array(ast.literal_eval(r[i]) if r[i] else np.nan,
+                                                      dtype=float)) for r in rows])
+            for i, h in enumerate(header) if i}
+
+
+def mab_scales(model, cols) -> dict:
+    """Each output column's unscaling factor (1 for a head without one)."""
+    from chemprop_tpu_torch.cli.mab import output_columns_of
+
+    scales = {}
+    for head, names in zip(model.predictors, output_columns_of(model, cols)):
+        t = None if head is None else head.output_transform
+        for j, c in enumerate(names or []):
+            scales[c] = 1.0 if t is None else float(t.scale[0, j])
+    return scales
+
+
+def check_mab_launches(tag: str, launches: dict) -> None:
+    absent = {k: launches[k] for k in MAB_ABSENT if launches.get(k, 0)}
+    if absent:
+        fail(f"{tag} launched {absent}: a MAB path must never take loop_readout or iter2")
+
+
+def mab_predictions(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 13(a): ``predict`` of the 14 reference MAB checkpoints on the card
+    in f32 and bf16 against the CPU at phase 3's limits in each column's
+    scaled units (the constraints of ``regression_constrained.pt``, the extra
+    inputs of ``regression_with_extras.pt``), the atom-mapped corpus in f32
+    also against the reference's own predictions, with no call unserved."""
+    import numpy as np
+
+    from chemprop_tpu_torch.models import load_model
+
+    res = {}
+    for path in sorted(MAB_MODELS.glob("*.pt")):
+        model, cols = load_model(path, "cpu")
+        scales = mab_scales(model, cols)
+        for dt in ("float32", "bfloat16"):
+            tag = f"predict_mab_{path.stem}_{dt}"
+            got, cpu = rehearsed(tag, lambda dev: mab_table(run_cli(
+                "predict", ["--model-path", path, *mab_flags(path.name), "--dtype", dt],
+                out_dir / f"{tag}.{dev or 'cuda'}.csv", dev)), launches, unserved)
+            check_mab_launches(tag, launches[tag])
+            if sorted(got) != sorted(scales) or sorted(cpu) != sorted(scales):
+                fail(f"{tag}: columns {sorted(got)}, expected {sorted(scales)}")
+            flat = {k: np.concatenate([t[c] / scales[c] for c in sorted(scales)])
+                    for k, t in (("card", got), ("cpu", cpu))}
+            res[tag] = {"values": int(flat["card"].size),
+                        "vs_cpu": hold_scaled(tag, flat["card"], flat["cpu"], 1.0, dt)}
+            if path.name == "atomic_regression_atom_mapped.pt" and dt == "float32":
+                if tag in unserved:
+                    fail(f"{tag} left calls without a tile table: {unserved[tag]}")
+                _, rows = read_rows(MAB_GOLDEN)
+                want = mab_table(MAB_GOLDEN)["charges"]
+                gap = float(np.abs(got["charges"] - want).max())
+                res[tag]["vs_reference"] = gap
+                res[tag]["molecules"] = len(rows)
+                if len(rows) != 500 or not np.allclose(got["charges"], want,
+                                                       rtol=MAB_GOLDEN_RTOL,
+                                                       atol=MAB_GOLDEN_ATOL):
+                    fail(f"{tag}: the corpus's predictions leave the reference's by {gap}")
+    return res
+
+
+def mab_training(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 13(b): one ``train`` epoch of each of ``MAB_TRAINS`` in f32 and
+    bf16 on the card against the same command on the CPU as phase 9(a) holds
+    ``train``: the epoch's loss (rtol 1e-4 f32, 1e-3 bf16) and each parameter
+    tensor's share of elements apart (``first_epoch_params``); each step's
+    backward is F per iteration, never G or H."""
+    import numpy as np
+
+    res = {}
+    for name, flags in MAB_TRAINS.items():
+        for dt in ("float32", "bfloat16"):
+            tag = f"train_mab_{name}_{dt}"
+            dirs = {"cuda": out_dir / tag, "cpu": out_dir / f"{tag}_cpu"}
+            card, cpu = rehearsed(tag, lambda dev: mc_train(dirs[dev or "cuda"], dt, dev, flags),
+                                  launches, unserved)
+            check_mab_launches(tag, launches[tag])
+            if not launches[tag].get("bwd_message", 0):
+                fail(f"{tag} launched no transposed message (F): {launches[tag]}")
+            params = first_epoch_params(dirs["cuda"] / "best.ckpt", dirs["cpu"] / "best.ckpt")
+            r = {"train_loss": card[0]["train_loss"], "train_loss_cpu": cpu[0]["train_loss"],
+                 "val_loss": card[0]["val_loss"], "val_loss_cpu": cpu[0]["val_loss"],
+                 "edges_per_s": card[0]["edges_per_s"],
+                 "first_epoch_params": {k: v for k, v in params.items() if k != "shares"}}
+            rtol = 1e-4 if dt == "float32" else 1e-3
+            for key in ("train_loss", "val_loss"):
+                if not np.isclose(r[key], r[f"{key}_cpu"], rtol=rtol, atol=0):
+                    fail(f"{tag}: the epoch's {key} on cuda disagrees with the CPU's: {r}")
+            if not params["worst_share"] <= params["share_limit"]:
+                fail(f"{tag}: {params['worst']} on cuda parts from the CPU's in "
+                     f"{params['worst_share']} of its elements")
+            res[tag] = r
+    return res
+
+
+def mab_phase(card: str) -> tuple[dict, dict]:
+    """Phase 13: mol-atom-bond models, each run first rehearsed on the CPU:
+    launches and calls without a tile table exactly the rehearsal's, G, H and
+    D never."""
+    import tempfile
+
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mab_") as tmp:
+        out_dir = Path(tmp)
+        res["predictions"] = mab_predictions(out_dir, launches, unserved)
+        res["training"] = mab_training(out_dir, launches, unserved)
+    res["launches"] = launches
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"mab_phase": res}))
+    print(json.dumps({"mab_unserved": unserved}))
+    print(json.dumps({"phase": "mab", "seconds": res["seconds"], "card": card}))
+    return launches, res
+
+
 def time_ms(fn, reps: int, inner: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls between two
     CUDA events, per call, after a warm-up."""
@@ -3605,10 +3788,13 @@ def main() -> int:
     launches.update(hpopt_launches)
     # the timings take A's and F's forms without a table on purpose: the main
     # paths' unserved calls are read before them, the benchmark steps' after;
-    # phase 12's are held to its rehearsal's inside it (mol+mol's dyes)
+    # phases 12 and 13 hold theirs to their rehearsals' inside them (mol+mol's
+    # dyes)
     unserved = dict(UNSERVED)
     multi_launches, multi_res = multicomponent_phase(card)
     launches.update(multi_launches)
+    mab_launches, mab_res = mab_phase(card)
+    launches.update(mab_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -3702,7 +3888,7 @@ def main() -> int:
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
-              "multicomponent": multi_res,
+              "multicomponent": multi_res, "mab": mab_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

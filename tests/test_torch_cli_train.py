@@ -306,9 +306,9 @@ def test_the_model_is_the_jax_packages(tmp_path, data_dir):
     msgpack_codec.packb(variables)  # a tree the codec writes back
 
 
+# atom and bond targets train since mol-atom-bond models were ported
+# (tests/test_torch_mab_cli.py)
 REFUSALS = {
-    "atom_targets": (["--atom-target-columns", "a"], "item 8"),
-    "bond_targets": (["--bond-target-columns", "b"], "item 8"),
     "edge_partition": (["--edge-partition"], "item 12"),
     "devices": (["--devices", "2"], "item 12"),
     "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),

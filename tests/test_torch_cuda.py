@@ -2292,3 +2292,58 @@ def test_atom_message_passing_over_cgr_on_card_matches_cpu(cuda, dtype):
     got, want, launches = _card_and_cpu_grads(model, bmg, cuda, offset=0.5)
     assert launches.get("sorted_segment_sum", 0) == 7, launches
     _hold(got, want, dtype)
+
+
+# ------------------------------------------------------------ mol-atom-bond
+class _Heads(torch.nn.Module):
+    """A mol-atom-bond model whose output is its heads' criterion-space
+    predictions end to end, so that one cotangent reaches every head."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.m = model
+
+    def forward(self, bmg, is_training: bool = False, generator=None):
+        outs = self.m.train_step_preds(bmg, is_training=is_training, generator=generator)
+        return torch.cat([o.reshape(-1) for o in outs if o is not None])
+
+
+MAB = {"bond": dict(), "dropout": dict(dropout=0.2), "atom_messages": dict(atom_messages=True)}
+
+
+@pytest.mark.parametrize("case", MAB)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mab_step_on_card_matches_cpu(cuda, dtype, case):
+    """A molecule, atom and bond head (d_h = 64) on the bundled regression
+    CSV in training mode on the card against the CPU, forward and every
+    gradient: the last H takes two cotangents (M_v's and W_eo's), so bond
+    message passing runs the per-iteration ops, never loop_readout's G and
+    H, and each iteration's backward is F."""
+    from chemprop_tpu_torch.data import DataLoader, MolAtomBondDatapoint, MolAtomBondDataset
+    from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
+    from chemprop_tpu_torch.nn import NormAggregation, RegressionFFN
+    from chemprop_tpu_torch.nn.message_passing import (
+        MABAtomMessagePassing, MABBondMessagePassing,
+    )
+
+    kw = dict(MAB[case])
+    mp_cls = MABAtomMessagePassing if kw.pop("atom_messages", False) else MABBondMessagePassing
+    with open(DATA / "mol_atom_bond/regression.csv") as f:
+        smis = [line.split(",")[0] for line in f.read().splitlines()[1:]]
+    ds = MolAtomBondDataset([MolAtomBondDatapoint.from_smi(s, keep_h=True) for s in smis])
+    bmg = next(iter(DataLoader(ds, batch_size=len(ds)))).to(cuda).bmg
+    heads = [RegressionFFN(n_tasks=2, input_dim=w, hidden_dim=32, output_transform=False,
+                           dropout=kw.get("dropout", 0.0)) for w in (64, 64, 128)]
+    model = _Heads(MolAtomBondMPNN(mp_cls(d_h=64, compute_dtype=dtype, **kw), NormAggregation(),
+                                   *heads))
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-1] ** -0.5)
+    got, want, launches = _card_and_cpu_grads(model, bmg, cuda, offset=0.5)
+    for kernel in ("bwd_message_nodes", "bwd_message_premul", "fused_iter2", "iter_bwd"):
+        assert launches.get(kernel, 0) == 0, launches
+    if mp_cls is MABBondMessagePassing:
+        first = "message" if dtype == torch.float32 else "fused_iter"
+        assert launches[first] == 2 and launches["bwd_message"] == 2, launches
+    _hold(got, want, dtype)

@@ -352,10 +352,10 @@ def test_mc_dropout_is_reproducible(env):
 
 
 # ------------------------------------------------------------ refusals
+# constraints and bond descriptors are read since mol-atom-bond models were
+# ported (tests/test_torch_mab_cli.py)
 REFUSALS = {
     "edge_partition": (["--edge-partition"], "item 12"),
-    "constraints": (["--constraints-path", "c.csv"], "item 8"),
-    "bond_descriptors": (["--bond-descriptors-path", "b.npz"], "item 8"),
     "callback": (["--callback", "myerson"], "item 10"),
     "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),
     "devices": (["--devices", "2"], "item 12"),
@@ -373,12 +373,21 @@ def test_unported_options_are_refused(env, case):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("path,item", [("mol_atom_bond/example_models/regression_mve.pt",
-                                        "item 8")])
+# mol-atom-bond checkpoints are served since they were ported; a v1 file of
+# several molecules is still refused where predict loads it
+@pytest.mark.parametrize("path,item", [("example_model_v1_regression_mol.pt", "item 7")])
 def test_unported_models_are_refused(env, path, item):
+    import argparse
+
+    from chemprop_tpu_torch.models.load import load_checkpoint
+
+    d = load_checkpoint(env["data_dir"] / path)
+    d["args"] = argparse.Namespace(**{**vars(d["args"]), "number_of_molecules": 2})
+    d.pop("data_scaler", None)
+    torch.save(d, env["root"] / "two_molecules.pt")
     with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
         port_main(["predict", "-i", str(env["inputs"]["reg"]), "--model-paths",
-                   str(env["data_dir"] / path), "-o", str(env["root"] / "m.csv"),
+                   str(env["root"] / "two_molecules.pt"), "-o", str(env["root"] / "m.csv"),
                    "--device", "cpu"])
 
 

@@ -77,6 +77,23 @@ def test_a_request_of_invalid_smiles_alone_needs_no_dispatch(ckpts):
     assert (service.requests, service.dispatches) == (1, 0)
 
 
+@pytest.mark.parametrize("extra", ["atom_descriptors", "molecule_descriptors"])
+def test_a_model_with_extra_inputs_is_refused_at_load(tmp_path, extra):
+    """The JAX package's serve passes no extra inputs to its models, so the
+    port refuses a model that needs them where it loads, and says so."""
+    from chemprop_tpu_torch.models.model import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+
+    mp = BondMessagePassing(d_h=32, d_vd=3 if extra == "atom_descriptors" else None)
+    model = MPNN(mp, MeanAggregation(),
+                 RegressionFFN(input_dim=mp.output_dim + (4 if extra != "atom_descriptors" else 0),
+                               hidden_dim=16))
+    path = tmp_path / "extra.ckpt"
+    serialize.save_model(path, model)
+    with pytest.raises(ValueError, match="JAX package's serve passes none either"):
+        ModelService([path], device="cpu")
+
+
 def test_bucket_ladder():
     assert [_bucket(n) for n in (1, 8, 9, 16, 17, 100, 256)] == [8, 8, 16, 16, 32, 128, 256]
 
