@@ -36,7 +36,9 @@ probabilities as ``%.6f`` joined by commas; then each task's ``<task>_unc``
 are printed as one JSON line. With no ``--device`` it runs on the GPU, and
 raises where there is none. A mol-atom-bond model (``MolAtomBondMPNN``)
 goes to ``cli.mab.predict_MAB``, which also reads ``--bond-descriptors-path``,
-``--constraints-path`` and ``--constraints-to-targets``. What the port does
+``--constraints-path`` and ``--constraints-to-targets``. ``--callback
+myerson|mcts`` then explains every input molecule with each model
+(:func:`run_callback`). What the port does
 not have yet is refused (``REFUSED``), each with the ``ROADMAP.md`` item
 that will port it; so is a ``.pkl`` output, which the JAX package writes
 with pandas."""
@@ -52,6 +54,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from chemprop_tpu_torch.callbacks import MCTSRationaleCallback, MyersonExplainerCallback
 from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices, find_models
 from chemprop_tpu_torch.cli.mab import predict_MAB
 from chemprop_tpu_torch.cli.parsing import (
@@ -68,6 +71,7 @@ from chemprop_tpu_torch.data import DataLoader
 from chemprop_tpu_torch.data.datapoints import ReactionDatapoint
 from chemprop_tpu_torch.featurizers.molecule import MoleculeFeaturizerRegistry
 from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
+from chemprop_tpu_torch.interpret import check_explainable
 from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.model import MPNN
 from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
@@ -135,8 +139,13 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--calibration-method", choices=CALIBRATION_METHODS, default="none")
     g.add_argument("--evaluation-methods", "--evaluation-method", nargs="+")
     g.add_argument("--callback", choices=["myerson", "mcts"],
-                   help="interpretation callback (not ported yet: refused)")
-    g.add_argument("--callback-params", type=json.loads, default={})
+                   help="interpretation run after the predictions: 'myerson' per-atom "
+                   "attributions (<output stem>_myerson_explanation[_i].npz or .json), "
+                   "'mcts' substructure rationales (<output stem>_mcts_rationales[_i].json); "
+                   "regression and binary classification heads of single-molecule models")
+    g.add_argument("--callback-params", type=json.loads, default={},
+                   help='JSON keyword arguments of the callback\'s explainer, e.g. '
+                   '\'{"sampling_threshold": 12, "save_as_json": true}\'')
     return parser
 
 
@@ -151,8 +160,6 @@ INPUT_REFUSED = (
      "the native featurizer)"),
 )
 REFUSED = INPUT_REFUSED + (
-    (lambda a: a.callback is not None,
-     "--callback is not ported yet (ROADMAP.md section 1 item 10, interpretation)"),
     (lambda a: a.output is not None and a.output.suffix == ".pkl",
      "a .pkl output is not written: the JAX package writes it with pandas, which the port "
      "does not use; write a .csv"),
@@ -321,6 +328,9 @@ def main(args: argparse.Namespace) -> int:
         model, cols = load_model(path, device, dtype)
         models.append(model)
         output_columns = cols or output_columns
+    if args.callback is not None:  # before anything is written
+        for model in models:
+            check_explainable(model)
     if isinstance(models[0], MolAtomBondMPNN):  # the first model's columns, as in JAX
         return predict_MAB(args, models, load_model(model_paths[0], "cpu", dtype)[1], device)
     if args.uncertainty_method == "dropout":
@@ -375,7 +385,42 @@ def main(args: argparse.Namespace) -> int:
             w.writerow([name, *row])
     logger.info(f"wrote predictions for {len(rows)} rows to {out}")
     print(f"wrote {out}")
+    if args.callback is not None:
+        run_callback(args, models, dset, out, device)
     return 0
+
+
+def run_callback(args, models: list[MPNN], dset, out: Path, device: torch.device) -> None:
+    """``--callback`` over every input molecule, one file per model (``_i``
+    after the stem for an ensemble's ``i``-th), as the JAX CLI writes them:
+    ``myerson`` the attributions ``[n_atoms]`` (``[n_atoms, t]`` for several
+    tasks) of each molecule to ``<stem>_myerson_explanation[_i].npz`` (or
+    ``.json`` with ``save_as_json``); ``mcts`` each molecule's rationales to
+    ``<stem>_mcts_rationales[_i].json``. MCTS takes the dataset's own
+    featurizer, the one :func:`match_featurizer` settled on."""
+    params = dict(args.callback_params)
+    params.setdefault("device", device)
+    suffixes = [""] if len(models) == 1 else [f"_{i}" for i in range(len(models))]
+    if args.callback == "mcts":
+        for model, suffix in zip(models, suffixes):
+            rationales = MCTSRationaleCallback(**params).explain(model, dset)
+            dst = out.parent / f"{out.stem}_mcts_rationales{suffix}.json"
+            with open(dst, "w") as f:
+                json.dump(rationales, f, indent=2)
+            logger.info(f"MCTS rationales saved to {dst}")
+        return
+    save_as_json = params.pop("save_as_json", False)
+    logger.warning("the 'myerson' callback is computationally expensive on large inputs")
+    for model, suffix in zip(models, suffixes):
+        explanations = [phi[:, 0] if phi.shape[-1] == 1 else phi
+                        for phi in MyersonExplainerCallback(**params).explain(model, dset)]
+        base = out.parent / f"{out.stem}_myerson_explanation{suffix}"
+        if save_as_json:
+            with open(base.with_suffix(".json"), "w") as f:
+                json.dump([e.tolist() for e in explanations], f, indent=4)
+        else:
+            np.savez_compressed(base.with_suffix(".npz"), *explanations)
+        logger.info(f"Myerson explanations saved to {base}")
 
 
 def columns(

@@ -89,3 +89,24 @@ class DataLoader:
                 yield collate_mol_atom_bond_batch(data, pad)
                 continue
             yield collate_batch(data, pad)
+
+
+def build_dataloader(
+    dataset: MoleculeDataset,
+    batch_size: int = 64,
+    num_workers: int = 0,
+    class_balance: bool = False,
+    seed: int | None = None,
+    shuffle: bool = True,
+    **kwargs,
+) -> DataLoader:
+    """The reference's loader factory (cf. ``build_dataloader`` of
+    ``chemprop_tpu/data/dataloader.py``) over the port's ``DataLoader``.
+    ``num_workers`` featurises the dataset once, up front, in that many
+    processes (the JAX package's dataset-level parallel featurisation)."""
+    if num_workers and hasattr(dataset, "_featurize"):
+        from chemprop_tpu_torch.utils.utils import parallel_execute
+
+        dataset._cache = parallel_execute(dataset._featurize, range(len(dataset)), num_workers)
+    return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle, seed=seed,
+                      class_balance=class_balance, **kwargs)

@@ -42,6 +42,9 @@ class MoleculeDatapoint:
     def __post_init__(self):
         if self.mol is None:
             raise ValueError("mol is required")
+        self._normalise()
+
+    def _normalise(self) -> None:
         if self.y is not None:
             self.y = np.asarray(self.y, dtype=np.float64)
         for key in ("gt_mask", "lt_mask"):
@@ -64,6 +67,52 @@ class MoleculeDatapoint:
         mol = make_mol(smi, keep_h, add_h, ignore_stereo, reorder_atoms)
         kwargs.setdefault("name", smi)
         return cls(mol=mol, **kwargs)
+
+
+@dataclass
+class LazyMoleculeDatapoint(MoleculeDatapoint):
+    """A molecule parsed from ``smiles`` on first access of ``.mol`` and kept
+    (cf. ``LazyMoleculeDatapoint`` of the JAX package), so that a large
+    dataset holds strings until it is featurised."""
+
+    mol: Mol | None = None
+    smiles: str = ""
+    keep_h: bool = False
+    add_h: bool = False
+    ignore_stereo: bool = False
+    reorder_atoms: bool = False
+
+    def __post_init__(self):
+        if not self.smiles:
+            raise ValueError("smiles is required")
+        if self.name is None:
+            self.name = self.smiles
+        self._normalise()
+
+    @classmethod
+    def from_smi(cls, smi: str, **kwargs) -> "LazyMoleculeDatapoint":
+        kwargs.pop("name", None)
+        return cls(smiles=smi, **kwargs)
+
+
+def _lazy_mol_get(self) -> Mol:
+    m = self.__dict__.get("_mol")
+    if m is None:
+        m = make_mol(self.smiles, self.keep_h, self.add_h, self.ignore_stereo, self.reorder_atoms)
+        self.__dict__["_mol"] = m
+    return m
+
+
+def _lazy_mol_set(self, value) -> None:
+    # the dataclass __init__ assigns the field's default here; only a real
+    # Mol is kept
+    if value is not None and not isinstance(value, property):
+        self.__dict__["_mol"] = value
+
+
+# installed after the dataclass is made, so that the property is not read as
+# the inherited field's default
+LazyMoleculeDatapoint.mol = property(_lazy_mol_get, _lazy_mol_set)
 
 
 @dataclass

@@ -1,9 +1,72 @@
-from chemprop_tpu_torch.featurizers.atom import MultiHotAtomFeaturizer
-from chemprop_tpu_torch.featurizers.bond import MultiHotBondFeaturizer
-from chemprop_tpu_torch.featurizers.molgraph import SimpleMoleculeMolGraphFeaturizer
+from typing import TypeVar
+
+from chemprop_tpu_torch.featurizers.atom import (
+    AtomFeatureMode,
+    MultiHotAtomFeaturizer,
+    RIGRAtomFeaturizer,
+    get_multi_hot_atom_featurizer,
+)
+from chemprop_tpu_torch.featurizers.base import GraphFeaturizer, VectorFeaturizer
+from chemprop_tpu_torch.featurizers.bond import MultiHotBondFeaturizer, RIGRBondFeaturizer
+from chemprop_tpu_torch.featurizers.molecule import (
+    BinaryFeaturizerMixin,
+    ChargeFeaturizer,
+    CountFeaturizerMixin,
+    MoleculeFeaturizerRegistry,
+    MorganBinaryFeaturizer,
+    MorganCountFeaturizer,
+    MorganFeaturizerMixin,
+    RDKit2DFeaturizer,
+    V1RDKit2DFeaturizer,
+    V1RDKit2DNormalizedFeaturizer,
+)
+from chemprop_tpu_torch.featurizers.molgraph import (
+    CGRFeaturizer,
+    CondensedGraphOfReactionFeaturizer,
+    RxnMode,
+    SimpleMoleculeMolGraphFeaturizer,
+)
+from chemprop_tpu_torch.featurizers.molgraph.cache import (
+    MolGraphCache,
+    MolGraphCacheFacade,
+    MolGraphCacheOnTheFly,
+)
+
+# the JAX package's names of the protocols; its native featurizer's
+# (Cuikmolmaker*) wait for ROADMAP.md section 1 item 5
+Featurizer = VectorFeaturizer
+MoleculeFeaturizer = VectorFeaturizer
+S = TypeVar("S")
+T = TypeVar("T")
 
 __all__ = [
+    "AtomFeatureMode",
+    "BinaryFeaturizerMixin",
+    "CGRFeaturizer",
+    "ChargeFeaturizer",
+    "CondensedGraphOfReactionFeaturizer",
+    "CountFeaturizerMixin",
+    "Featurizer",
+    "GraphFeaturizer",
+    "MolGraphCache",
+    "MolGraphCacheFacade",
+    "MolGraphCacheOnTheFly",
+    "MoleculeFeaturizer",
+    "MoleculeFeaturizerRegistry",
+    "MorganBinaryFeaturizer",
+    "MorganCountFeaturizer",
+    "MorganFeaturizerMixin",
     "MultiHotAtomFeaturizer",
     "MultiHotBondFeaturizer",
+    "RDKit2DFeaturizer",
+    "RIGRAtomFeaturizer",
+    "RIGRBondFeaturizer",
+    "RxnMode",
+    "S",
     "SimpleMoleculeMolGraphFeaturizer",
+    "T",
+    "V1RDKit2DFeaturizer",
+    "V1RDKit2DNormalizedFeaturizer",
+    "VectorFeaturizer",
+    "get_multi_hot_atom_featurizer",
 ]

@@ -25,7 +25,16 @@ from chemprop_tpu_torch.ops.segment import (
 from chemprop_tpu_torch.utils.registry import ClassRegistry
 
 
-class SumAggregation(nn.Module):
+class Aggregation(nn.Module):
+    """The base of the readouts (the JAX package's ``Aggregation``):
+    ``forward(H, bmg)`` reduces the ``[N_pad, d]`` node table to
+    ``[n_graphs, d]``."""
+
+    def forward(self, H: torch.Tensor, bmg: BatchMolGraph) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class SumAggregation(Aggregation):
     def __init__(self):  # no options (``Factory.build`` reads the signature)
         super().__init__()
 
@@ -33,7 +42,7 @@ class SumAggregation(nn.Module):
         return sorted_segment_sum(H, bmg.batch, bmg.node_ptr, H.dtype)[: bmg.n_graphs]
 
 
-class MeanAggregation(nn.Module):
+class MeanAggregation(Aggregation):
     def __init__(self):
         super().__init__()
 
@@ -42,7 +51,7 @@ class MeanAggregation(nn.Module):
         return totals[: bmg.n_graphs] / counts[: bmg.n_graphs, None].clamp_min(1.0)
 
 
-class NormAggregation(nn.Module):
+class NormAggregation(Aggregation):
     def __init__(self, norm: float = 100.0):
         super().__init__()
         self.norm = norm
@@ -52,7 +61,7 @@ class NormAggregation(nn.Module):
         return sums[: bmg.n_graphs] / self.norm
 
 
-class AttentiveAggregation(nn.Module):
+class AttentiveAggregation(Aggregation):
     """``sum_v softmax_g(W(H))_v H_v`` over each graph's nodes; ``W`` is
     ``Linear(output_size, 1)``, the JAX package's ``W`` (a dense kernel of
     ``output_size`` x 1 and its bias)."""

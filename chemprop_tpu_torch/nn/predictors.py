@@ -185,8 +185,14 @@ class QuantileFFN(RegressionFFN):
         return torch.stack([(lower + upper) / 2, upper - lower], dim=2)
 
 
+class BinaryClassificationFFNBase(_FFNPredictorBase):
+    """The base of the binary classification heads (the JAX package's
+    ``BinaryClassificationFFNBase``, which it also exports as
+    ``ClassificationMixin``)."""
+
+
 @_register("classification")
-class BinaryClassificationFFN(_FFNPredictorBase):
+class BinaryClassificationFFN(BinaryClassificationFFNBase):
     _T_default_criterion = BCELoss
 
     def forward(self, Z, is_training: bool = False, generator=None):
@@ -194,7 +200,7 @@ class BinaryClassificationFFN(_FFNPredictorBase):
 
 
 @_register("classification-dirichlet")
-class BinaryDirichletFFN(_FFNPredictorBase):
+class BinaryDirichletFFN(BinaryClassificationFFNBase):
     """``[n, t, 2]``: the positive class's probability and the Dirichlet
     uncertainty ``u = 2 / S``."""
 

@@ -24,3 +24,19 @@ def noam_lr(
         gamma = (step - warmup_steps) / cooldown_steps
         return max_lr * (final_lr / max_lr) ** gamma
     return final_lr
+
+
+def build_noam_like_schedule(
+    warmup_steps: int,
+    cooldown_steps: int,
+    init_lr: float,
+    max_lr: float,
+    final_lr: float,
+):
+    """The schedule as a ``step -> rate`` function (the JAX package's is an
+    optax schedule of the same name)."""
+
+    def schedule(step) -> float:
+        return noam_lr(int(step), warmup_steps, cooldown_steps, init_lr, max_lr, final_lr)
+
+    return schedule

@@ -218,7 +218,24 @@ failure:
    molecule, atom and bond head on regression.csv and of the atom head on
    the corpus, without batch norm, each held to the CPU's as phase 9(a)
    holds ``train``. The phase's seconds are printed on their own line with
-   the card's name and power limit.
+   the card's name and power limit;
+14. interpretation, in this process, each run first rehearsed on the CPU as
+   in phase 12 (where a bf16 search takes another turn on the card, its
+   launches are held to a rehearsal of its own batches): the reference
+   regression and binary classification checkpoints in f32 and bf16, (a)
+   exact Myerson attributions of mol.csv's first molecule of 12-16 heavy
+   atoms and sampled ones (200 permutations) of its first of more than 20,
+   (b) MCTS rationales of both with default parameters, (c) ``predict
+   --callback myerson`` and ``--callback mcts`` of the regression
+   checkpoint on mol.csv's first three rows; each against the same run on
+   the CPU: every subgraph prediction at phase 3's limits, attributions
+   within 2 n times the largest subgraph difference (the CLI's: 2 n times
+   phase 3's limit), the attributions' sum within 1e-4 of the molecule's
+   prediction in f32 (bf16: phase 3's limit), the rationales' atom sets equal
+   in f32 and their scores at phase 3's limits (bf16: the sets only one side
+   found are listed with their margin to ``prop_delta``). The phase's
+   seconds, subgraphs and batches are printed on their own line with the
+   card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -583,6 +600,20 @@ MAB_TRAINS = {
     "three_heads": ["-i", MAB_DIR / "regression.csv", "--keep-h", "-b", 5, *_MAB_TARGETS],
     "atom_corpus": ["-i", MAB_CORPUS, "--atom-target-columns", "charges", "-b", 200],
 }
+
+# phase 14: interpretation at full width, the reference regression and binary
+# classification checkpoints (d_h 300 padded to 384, depth 3, batch norm, mean
+# readout): exact Myerson on the first molecule of mol.csv with EXACT_ATOMS
+# heavy atoms, sampled Myerson (INTERPRET_SAMPLES permutations) and MCTS with
+# default parameters on the first of more than SAMPLED_ABOVE; then the CLI's
+# callbacks on INTERPRET_CLI_ROWS rows. mol.csv's largest molecule has 51
+# bonds, so every subgraph batch has its tile table
+INTERPRET_MODELS = {"regression": CKPT,
+                    "classification": REPO / "tests/data/example_model_v2_classification_mol.pt"}
+EXACT_ATOMS = (12, 16)
+SAMPLED_ABOVE = 20
+INTERPRET_SAMPLES = 200
+INTERPRET_CLI_ROWS = 3
 
 
 def fail(msg: str) -> None:
@@ -3070,7 +3101,7 @@ def reference_predictions(out_dir: Path, launches: dict, unserved: dict) -> dict
             got, cpu = rehearsed(tag, lambda dev: predict_table(run_cli(
                 "predict", ["--model-path", REPO / "tests/data" / ckpt, "-i",
                             REPO / "tests/data/regression" / rel, "--dtype", dt, *flags],
-                out_dir / f"{tag}.{dev or 'cuda'}.csv", dev))[2], launches, unserved)
+                out_dir / f"{tag}_{dev or 'cuda'}.csv", dev))[2], launches, unserved)
             res[tag] = {"rows": len(got), "vs_cpu": hold_scaled(tag, got, cpu, scale, dt)}
     return res
 
@@ -3205,7 +3236,7 @@ def mab_predictions(out_dir: Path, launches: dict, unserved: dict) -> dict:
             tag = f"predict_mab_{path.stem}_{dt}"
             got, cpu = rehearsed(tag, lambda dev: mab_table(run_cli(
                 "predict", ["--model-path", path, *mab_flags(path.name), "--dtype", dt],
-                out_dir / f"{tag}.{dev or 'cuda'}.csv", dev)), launches, unserved)
+                out_dir / f"{tag}_{dev or 'cuda'}.csv", dev)), launches, unserved)
             check_mab_launches(tag, launches[tag])
             if sorted(got) != sorted(scales) or sorted(cpu) != sorted(scales):
                 fail(f"{tag}: columns {sorted(got)}, expected {sorted(scales)}")
@@ -3280,6 +3311,274 @@ def mab_phase(card: str) -> tuple[dict, dict]:
     print(json.dumps({"mab_phase": res}))
     print(json.dumps({"mab_unserved": unserved}))
     print(json.dumps({"phase": "mab", "seconds": res["seconds"], "card": card}))
+    return launches, res
+
+
+# ---------------------------------------------------------------- phase 14
+def interpret_molecules() -> dict:
+    """Phase 14's molecules of mol.csv: the first of 12-16 heavy atoms (exact
+    Myerson, 2^n subsets) and the first of more than 20 (sampled)."""
+    from chemprop_tpu_torch.chem import make_mol
+
+    _, rows = read_rows(MOL_CSV)
+    sizes = [(r[0], make_mol(r[0]).num_atoms) for r in rows]
+    return {"exact": next(s for s, n in sizes if EXACT_ATOMS[0] <= n <= EXACT_ATOMS[1]),
+            "sampled": next(s for s, n in sizes if n > SAMPLED_ABOVE)}
+
+
+class recorded_evals:
+    """``with recorded_evals() as calls:`` each ``MyersonExplainer._eval_masks``
+    call in the block (the explainers' and the MCTS scorer's, the command
+    line's too) appended to ``calls`` as ``(mg, masks, outputs, batches)``."""
+
+    def __enter__(self):
+        from chemprop_tpu_torch.interpret import MyersonExplainer, subgraph_pad
+
+        self.cls, self.fn, calls = MyersonExplainer, MyersonExplainer._eval_masks, []
+
+        def recorded(explainer, mg, masks, _fn=self.fn):
+            out = _fn(explainer, mg, masks)
+            B = subgraph_pad(mg, len(masks), explainer.graphs_per_batch).n_graphs
+            calls.append((mg, list(masks), out, -(-len(masks) // B)))
+            return out
+
+        self.cls._eval_masks = recorded
+        return calls
+
+    def __exit__(self, *exc):
+        self.cls._eval_masks = self.fn
+        return False
+
+
+def rehearsed_evals(tag: str, run, path: Path, dt: str, launches: dict, unserved: dict):
+    """``rehearsed`` for a run of the explainers, ``run(device, calls)``:
+    the card's launches and calls without a tile table exactly the CPU
+    rehearsal's. Where a bf16 search took another turn on the card than on
+    the CPU (scores within bf16's limit order two states apart), the card
+    evaluated other subgraphs; its launches are then held to a rehearsal of
+    its own batches on the CPU. ``(card, cpu, card calls, cpu calls,
+    replayed)``."""
+    import torch
+
+    from chemprop_tpu_torch.interpret import MyersonExplainer
+    from chemprop_tpu_torch.models import load_model
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    before = dict(UNSERVED)
+    with rehearsal() as want, recorded_evals() as cpu_calls:
+        cpu = run("cpu", cpu_calls)
+    cpu_unserved = unserved_since(before)
+    LAUNCHES.clear()
+    before = dict(UNSERVED)
+    with recorded_evals() as card_calls:
+        card = run(None, card_calls)
+    launches[tag] = dict(LAUNCHES)
+    card_unserved = unserved_since(before)
+    replayed = [c[1] for c in card_calls] != [c[1] for c in cpu_calls]
+    if replayed:
+        if dt == "float32":
+            fail(f"{tag}: the card evaluated other subgraphs than the CPU in float32")
+        explainer = MyersonExplainer(load_model(path, "cpu", getattr(torch, dt))[0], device="cpu")
+        before = dict(UNSERVED)
+        with rehearsal() as want:
+            for mg, masks, _, _ in card_calls:
+                explainer._eval_masks(mg, masks)
+        cpu_unserved = unserved_since(before)
+    check_path_launches(tag, launches[tag], exact=True, want=dict(want))
+    if card_unserved != cpu_unserved:
+        fail(f"{tag}: calls without a tile table on cuda {card_unserved}, in the CPU "
+             f"rehearsal {cpu_unserved}")
+    if card_unserved:
+        unserved[tag] = card_unserved
+    first = "message" if dt == "float32" else "fused_iter"
+    if not (launches[tag].get(first) and launches[tag].get("sorted_segment_sum")):
+        fail(f"{tag} did not launch {first} and sorted_segment_sum: {launches[tag]}")
+    return card, cpu, card_calls, cpu_calls, replayed
+
+
+def explain_run(path: Path, dt: str, molecules: dict, dev: str | None, calls: list) -> dict:
+    """Phase 14(a)(b) on one device: exact and sampled Myerson and MCTS with
+    default parameters on ``molecules``, and each molecule's prediction alone
+    (``predict``'s batch of one); the spans of ``calls`` each one made."""
+    import torch
+
+    from chemprop_tpu_torch.chem import make_mol
+    from chemprop_tpu_torch.data.collate import batch_mol_graphs
+    from chemprop_tpu_torch.featurizers import SimpleMoleculeMolGraphFeaturizer
+    from chemprop_tpu_torch.interpret import MCTSRationaleExplainer, MyersonExplainer
+    from chemprop_tpu_torch.models import load_model
+    from chemprop_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(dev)
+    model = load_model(path, device, getattr(torch, dt))[0]
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    res = {}
+    for kind, smi in molecules.items():
+        mg = feat(make_mol(smi))
+        i0 = len(calls)
+        phi = MyersonExplainer(model, n_samples=INTERPRET_SAMPLES, device=device).explain(mg)
+        i1 = len(calls)
+        rationales = MCTSRationaleExplainer(model, device=device).explain(smi)
+        with torch.no_grad():
+            alone = model(batch_mol_graphs([mg]).to(device))[:1].float().cpu().numpy()[0]
+        res[kind] = {"phi": phi, "alone": alone, "rationales": rationales,
+                     "myerson": (i0, i1), "mcts": (i1, len(calls))}
+    return res
+
+
+def hold_subgraphs(tag: str, card: list, cpu: list, dt: str) -> float:
+    """Fail unless both devices evaluated the same subgraphs, each within
+    phase 3's limits for ``dt``; the largest difference (``Δf``)."""
+    import numpy as np
+
+    if [c[1] for c in card] != [c[1] for c in cpu]:
+        fail(f"{tag}: the card and the CPU evaluated other subgraphs")
+    got = np.concatenate([c[2] for c in card])
+    want = np.concatenate([c[2] for c in cpu])
+    rtol, atol = (1e-5, 1e-4) if dt == "float32" else (0.0, 1e-3)
+    gap = float(np.abs(got - want).max())
+    if not (np.isfinite(got).all() and np.allclose(got, want, rtol=rtol, atol=atol)):
+        fail(f"{tag}: subgraph predictions on the card part from the CPU's by {gap}")
+    return gap
+
+
+def hold_rationales(tag: str, card: list, cpu: list, dt: str) -> dict:
+    """MCTS rationales: in f32 the same atom sets in the same order, scores
+    within phase 3's f32 limits; in bf16 the scores of the sets both found
+    within its bf16 limit, and every set only one device found listed with
+    its score and the margin to ``prop_delta``, the filter's decision."""
+    import numpy as np
+
+    from chemprop_tpu_torch.interpret import MCTSRationaleExplainer
+
+    prop_delta = MCTSRationaleExplainer(None).prop_delta
+    card_sets = {tuple(r["atoms"]): r["score"] for r in card}
+    cpu_sets = {tuple(r["atoms"]): r["score"] for r in cpu}
+    if dt == "float32" and [tuple(r["atoms"]) for r in card] != [tuple(r["atoms"]) for r in cpu]:
+        fail(f"{tag}: the card's rationales {list(card_sets)} are not the CPU's {list(cpu_sets)}")
+    common = sorted(set(card_sets) & set(cpu_sets))
+    gap = max((abs(card_sets[k] - cpu_sets[k]) for k in common), default=0.0)
+    rtol, atol = (1e-5, 1e-4) if dt == "float32" else (0.0, 1e-3)
+    if not all(np.isclose(card_sets[k], cpu_sets[k], rtol=rtol, atol=atol) for k in common):
+        fail(f"{tag}: rationale scores part by {gap}")
+    apart = [{"atoms": list(k), "on": "cuda" if k in card_sets else "cpu",
+              "score": card_sets.get(k, cpu_sets.get(k)),
+              "margin_to_prop_delta": card_sets.get(k, cpu_sets.get(k)) - prop_delta}
+             for k in sorted(set(card_sets) ^ set(cpu_sets))]
+    return {"rationales": len(card), "common": len(common), "score_gap": gap, "apart": apart}
+
+
+def interpret_explainers(launches: dict, unserved: dict) -> dict:
+    """Phase 14(a)(b): each reference model in f32 and bf16, the card's run
+    against the CPU's (rehearsed): per-subgraph predictions at phase 3's
+    limits, attributions within ``2 n Δf``, the efficiency axiom (the
+    attributions sum to the molecule's prediction alone: 1e-4 in f32, phase
+    3's bf16 limit in bf16, and to the explainer's own prediction of the
+    whole molecule to 1e-4 in both), and the rationales."""
+    import numpy as np
+
+    molecules = interpret_molecules()
+    res = {"molecules": molecules}
+    for name, path in INTERPRET_MODELS.items():
+        for dt in ("float32", "bfloat16"):
+            tag = f"interpret_{name}_{dt}"
+            card, cpu, card_calls, cpu_calls, replayed = rehearsed_evals(
+                tag, lambda dev, calls: explain_run(path, dt, molecules, dev, calls), path, dt,
+                launches, unserved)
+            r = {"replayed": replayed}
+            for kind in molecules:
+                c, p = card[kind], cpu[kind]
+                n = c["phi"].shape[0]
+                span = slice(*c["myerson"])
+                if c["myerson"] != p["myerson"]:
+                    fail(f"{tag}_{kind}: the card made other explainer calls than the CPU")
+                df = hold_subgraphs(f"{tag}_{kind}", card_calls[span], cpu_calls[span], dt)
+                att_gap = float(np.abs(c["phi"] - p["phi"]).max())
+                if att_gap > 2 * n * df + 1e-9:
+                    fail(f"{tag}_{kind}: attributions part by {att_gap} > 2 n Δf = {2 * n * df}")
+                (_, masks, out, n_batches), = card_calls[span]
+                whole = out[masks.index((1 << n) - 1)]
+                eff_own = float(np.abs(c["phi"].sum(0) - whole).max())
+                eff_alone = float(np.abs(c["phi"].sum(0) - c["alone"]).max())
+                if eff_own > 1e-4 or eff_alone > (1e-4 if dt == "float32" else 1e-3):
+                    fail(f"{tag}_{kind}: the attributions sum {c['phi'].sum(0)} apart from the "
+                         f"prediction {c['alone']} (own {whole})")
+                mcts = card_calls[slice(*c["mcts"])]
+                mcts_gap = (hold_subgraphs(f"{tag}_{kind}_mcts", mcts, cpu_calls[slice(*p["mcts"])],
+                                           dt) if not replayed else None)
+                r[kind] = {"atoms": n, "subgraphs": len(masks), "batches": n_batches,
+                           "delta_f": df, "attribution_gap": att_gap,
+                           "efficiency_own": eff_own, "efficiency_alone": eff_alone,
+                           "mcts_subgraphs": sum(len(m) for _, m, _, _ in mcts),
+                           "mcts_batches": sum(b for *_, b in mcts), "mcts_delta_f": mcts_gap,
+                           **hold_rationales(f"{tag}_{kind}", c["rationales"], p["rationales"],
+                                             dt)}
+            res[tag] = r
+    return res
+
+
+def interpret_cli(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 14(c): ``predict --callback myerson`` and ``--callback mcts`` of
+    the reference regression checkpoint on the first INTERPRET_CLI_ROWS rows
+    of mol.csv in f32 and bf16, on the card against the CPU (rehearsed):
+    the attributions within ``2 n`` times phase 3's limit, the rationales as
+    phase 14(b) holds them."""
+    import numpy as np
+
+    rows = write_rows(out_dir / "interpret_rows.csv", MOL_CSV, slice(0, INTERPRET_CLI_ROWS))
+    path = INTERPRET_MODELS["regression"]
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        for cb in ("myerson", "mcts"):
+            tag = f"interpret_cli_{cb}_{dt}"
+
+            def run(dev, calls):
+                out = run_cli("predict", ["--model-path", path, "-i", rows, "--dtype", dt,
+                                          "--callback", cb], out_dir / f"{tag}_{dev or 'cuda'}.csv",
+                              dev)
+                if cb == "mcts":
+                    return json.loads((out.parent / f"{out.stem}_mcts_rationales.json")
+                                      .read_text())
+                with np.load(out.parent / f"{out.stem}_myerson_explanation.npz") as z:
+                    return [z[k] for k in sorted(z.files, key=lambda k: int(k[4:]))]
+
+            card, cpu, *_, replayed = rehearsed_evals(tag, run, path, dt, launches, unserved)
+            if len(card) != len(cpu) or len(card) != INTERPRET_CLI_ROWS:
+                fail(f"{tag}: {len(card)} molecules explained on the card, {len(cpu)} on the CPU")
+            if cb == "mcts":
+                res[tag] = {"replayed": replayed, "molecules": [
+                    hold_rationales(f"{tag}_{i}", c, p, dt) for i, (c, p) in enumerate(zip(card, cpu))]}
+                continue
+            limit = 1e-4 if dt == "float32" else 1e-3
+            gaps = [float(np.abs(c - p).max()) for c, p in zip(card, cpu)]
+            for c, p, gap in zip(card, cpu, gaps):
+                if c.shape != p.shape or not gap <= 2 * c.shape[0] * limit:
+                    fail(f"{tag}: attributions part by {gap} (limit 2 n x {limit})")
+            res[tag] = {"atoms": [int(c.shape[0]) for c in card], "attribution_gaps": gaps}
+    return res
+
+
+def interpret_phase(card: str) -> tuple[dict, dict]:
+    """Phase 14: interpretation, each run first rehearsed on the CPU:
+    launches and calls without a tile table exactly the rehearsal's."""
+    import tempfile
+
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    res["explainers"] = interpret_explainers(launches, unserved)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_interpret_") as tmp:
+        res["cli"] = interpret_cli(Path(tmp), launches, unserved)
+    res["launches"] = launches
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    counts = {k: {kind: {key: v[key] for key in ("subgraphs", "batches", "mcts_subgraphs",
+                                                 "mcts_batches")}
+                  for kind, v in r.items() if kind != "replayed"}
+              for k, r in res["explainers"].items() if k != "molecules"}
+    print(json.dumps({"interpret_phase": res}, default=float))
+    print(json.dumps({"interpret_unserved": unserved}))
+    print(json.dumps({"phase": "interpret", "seconds": res["seconds"], "subgraphs_and_batches":
+                      counts, "card": card}))
     return launches, res
 
 
@@ -3795,6 +4094,8 @@ def main() -> int:
     launches.update(multi_launches)
     mab_launches, mab_res = mab_phase(card)
     launches.update(mab_launches)
+    interpret_launches, interpret_res = interpret_phase(card)
+    launches.update(interpret_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -3888,7 +4189,7 @@ def main() -> int:
               "repeated_bfloat16_fits": repeat_res, "dropout_path": dropout_res,
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
-              "multicomponent": multi_res, "mab": mab_res,
+              "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

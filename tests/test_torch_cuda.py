@@ -2347,3 +2347,78 @@ def test_mab_step_on_card_matches_cpu(cuda, dtype, case):
         first = "message" if dtype == torch.float32 else "fused_iter"
         assert launches[first] == 2 and launches["bwd_message"] == 2, launches
     _hold(got, want, dtype)
+
+
+# ------------------------------------------------------------ interpretation
+def _explainer_batches(model, mg, masks, per_batch, device):
+    from chemprop_tpu_torch.interpret import MyersonExplainer
+
+    return MyersonExplainer(model, graphs_per_batch=per_batch, device=device)._eval_masks(mg, masks)
+
+
+EXPLAINED = {
+    # single atoms only (no edge row), in a pad of 8 with a short last chunk
+    # of 7 graphs (one graph without nodes)
+    "single_atoms": ("CC(=O)Nc1ccc(O)cc1", lambda n: [1 << a for a in range(n)], 8),
+    # single atoms beside larger subgraphs and the whole molecule, the last
+    # chunk of 3 in a pad of 8 (five graphs without nodes)
+    "mixed": ("Oc1ncnc2scc(c3ccsc3)c12",
+              lambda n: [1 << a for a in range(n)] + [0b11, 0b111, (1 << n) - 1, 0b1100], 8),
+    # a 70-carbon chain: 138 directed edges, more than a tile holds, beside
+    # its halves and single atoms
+    "over_a_tile": ("C" * 70, lambda n: [(1 << n) - 1, (1 << 35) - 1, 1, 1 << 69], 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXPLAINED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_explainer_batches_on_card_match_cpu(cuda, dtype, case):
+    """The Myerson explainer's padded subgraph batches at full width (the
+    reference checkpoint) on the card against the CPU, at phase 3's limits
+    (f32 rtol 1e-5 / atol 1e-4; bf16 atol 1e-3); each batch launches the
+    forward's kernels, A (f32) or B (bf16) and C twice."""
+    smi, masks_of, per_batch = EXPLAINED[case]
+    mg = SimpleMoleculeMolGraphFeaturizer()(make_mol(smi))
+    masks = masks_of(mg.V.shape[0])
+    path = DATA / "example_model_v2_regression_mol.pt"
+    want = _explainer_batches(load_model(path, "cpu", dtype)[0], mg, masks, per_batch, "cpu")
+    model = load_model(path, cuda, dtype)[0]
+    LAUNCHES.clear()
+    before = dict(UNSERVED)
+    got = _explainer_batches(model, mg, masks, per_batch, cuda)
+    n_batches = -(-len(masks) // min(per_batch, len(masks)))
+    first = "message" if dtype == torch.float32 else "fused_iter"
+    assert LAUNCHES[first] == 2 * n_batches and LAUNCHES["sorted_segment_sum"] == 2 * n_batches
+    over = case == "over_a_tile" and dtype == torch.float32  # A without a tile table
+    assert UNSERVED.get("message", 0) - before.get("message", 0) == (2 * n_batches if over else 0)
+    assert got.shape == want.shape == (len(masks), 1) and np.isfinite(got).all()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_myerson_and_mcts_on_card_match_cpu(cuda, dtype):
+    """Exact Myerson attributions and MCTS rationales of an 11-atom molecule
+    at full width on the card against the CPU: attributions within 2 n times
+    the subgraphs' limit, the sum equal to the prediction of the whole
+    molecule, rationales' atom sets equal in f32."""
+    from chemprop_tpu_torch.interpret import MCTSRationaleExplainer, MyersonExplainer
+
+    smi = "CC(=O)Nc1ccc(O)cc1"
+    mg = SimpleMoleculeMolGraphFeaturizer()(make_mol(smi))
+    path = DATA / "example_model_v2_regression_mol.pt"
+    out = {}
+    for device in ("cpu", cuda):
+        model = load_model(path, device, dtype)[0]
+        out[str(device)] = (MyersonExplainer(model, device=device).explain(mg),
+                            MCTSRationaleExplainer(model, device=device, min_atoms=4).explain(smi))
+    (phi, rats), (phi_cpu, rats_cpu) = out["cuda"], out["cpu"]
+    n, limit = mg.V.shape[0], (1e-4 if dtype == torch.float32 else 1e-3)
+    np.testing.assert_allclose(phi, phi_cpu, rtol=0, atol=2 * n * limit)
+    whole = _explainer_batches(load_model(path, cuda, dtype)[0], mg, [(1 << n) - 1], 1, cuda)
+    np.testing.assert_allclose(phi.sum(0), whole[0], rtol=0, atol=1e-4)
+    if dtype == torch.float32:
+        assert [r["atoms"] for r in rats] == [r["atoms"] for r in rats_cpu]
+    assert rats and all(np.isfinite(r["score"]) for r in rats)

@@ -46,6 +46,8 @@ NEW_MODULES = (
     "chem/smarts.py", "chem/charges.py", "chem/estate.py", "chem/fragments.py",
     "chem/surface.py", "chem/descriptors.py", "featurizers/molecule.py",
     "featurizers/molgraph/reaction.py", "nn/message_passing/multi.py", "models/multi.py",
+    "interpret.py", "callbacks/__init__.py", "schedulers.py", "exceptions.py", "conf.py",
+    "featurizers/base.py", "featurizers/molgraph/cache.py", "data/molgraph.py", "utils/utils.py",
 )
 
 
