@@ -2,8 +2,8 @@
 ``chemprop_tpu/cli/common.py``): the JAX package's flags under its names, so
 that a run's ``config.json`` has its keys, and the port's own ``--device`` and
 ``--dtype``, and :func:`find_models`. ``--use-cuikmolmaker-featurization``
-is parsed and then refused (``ROADMAP.md`` §1 item 5); ``--accelerator`` and
-``--devices`` are
+takes the native C++ featurizer in ``train``, and is parsed and not read
+elsewhere, as in the JAX package; ``--accelerator`` and ``--devices`` are
 the JAX package's platform and mesh choice, where the port takes
 ``--device`` and one GPU."""
 
@@ -106,7 +106,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     group.add_argument(
         "--use-cuikmolmaker-featurization",
         action="store_true",
-        help="use the native C++ batch featurizer (csrc/featurizer.cpp) for "
+        help="use the native C++ batch featurizer (chemprop_tpu_torch/csrc/featurizer.cpp) for "
         "accelerated atom/bond featurization (cuik-molmaker equivalent)",
     )
     group.add_argument("-n", "--num-workers", type=int, default=0)

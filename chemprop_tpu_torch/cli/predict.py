@@ -155,9 +155,6 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 INPUT_REFUSED = (
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
-    (lambda a: a.use_cuikmolmaker_featurization,
-     "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
-     "the native featurizer)"),
 )
 REFUSED = INPUT_REFUSED + (
     (lambda a: a.output is not None and a.output.suffix == ".pkl",

@@ -34,11 +34,13 @@ vectors to the first SMILES column's ``X_d``; the extra atom and bond inputs
 take ``IDX PATH`` pairs, one per molecule component.
 
 Atom and bond targets (``--atom-target-columns``, ``--bond-target-columns``)
-train a mol-atom-bond model (``cli.mab.main_MAB``). Refused, each with the
+train a mol-atom-bond model (``cli.mab.main_MAB``). ``--split kmeans``
+clusters Morgan bits without scikit-learn (``data.kmeans``), and
+``--use-cuikmolmaker-featurization`` fills the datasets' caches through the
+native C++ featurizer (``featurizers.native``; where it does not serve the
+featurizer, the run warns and takes the Python one). Refused, with the
 ``ROADMAP.md`` item that will port it: ``--edge-partition`` and more than
-one device (item 12),
-``--use-cuikmolmaker-featurization`` (item 5), and the ``kmeans``
-split (item 4). ``--from-foundation PATH`` seeds each member's message
+one device (item 12). ``--from-foundation PATH`` seeds each member's message
 passing from a local v2 ``.pt``, v1 ``.pt`` or ``CPTPU001`` file (nothing is
 downloaded). A batch holding a molecule of
 more than 128 directed edges has no tile table: the kernels that take a
@@ -337,17 +339,10 @@ def process_train_args(args) -> None:
 REFUSED = (
     (lambda a: a.edge_partition is not None,
      "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
-    (lambda a: a.use_cuikmolmaker_featurization,
-     "--use-cuikmolmaker-featurization is not ported yet (ROADMAP.md section 1 item 5, "
-     "the native featurizer)"),
     (lambda a: a.from_foundation is not None and not Path(a.from_foundation).is_file(),
      "fetching a named foundation model is not ported yet: --from-foundation takes a local "
      "checkpoint file, as in the JAX package, which downloads nothing (ROADMAP.md section 1 "
      "item 2)"),
-    (lambda a: a.split == "kmeans" and a.splits_column is None and a.splits_file is None
-     and len(a.data_paths) < 3,
-     "the kmeans split is not ported yet (it needs scikit-learn's KMeans; ROADMAP.md "
-     "section 1 item 4)"),
 )
 
 
@@ -632,7 +627,14 @@ def main(args) -> int:
 
         if not args.no_cache:
             for d in (train_dset, val_dset):
-                if d is not None:
+                if d is None:
+                    continue
+                if args.use_cuikmolmaker_featurization and hasattr(d, "populate_cache_native"):
+                    if not d.populate_cache_native(keep_h=args.keep_h):
+                        logger.warning("the native featurizer does not serve this featurizer; "
+                                       "falling back to the Python featurization cache")
+                        d.cache = True
+                else:
                     d.cache = True
         train_loader = DataLoader(train_dset, batch_size=args.batch_size,
                                   shuffle=not args.class_balance,

@@ -18,6 +18,8 @@ from chemprop_tpu_torch.data.datapoints import (
     ReactionDatapoint,
 )
 from chemprop_tpu_torch.data.datasets import (
+    CuikmolmakerDataset,
+    CuikmolmakerReactionDataset,
     Datum,
     MABDatum,
     MolAtomBondDataset,
@@ -47,6 +49,8 @@ __all__ = [
     "BatchMolAtomBondGraph",
     "BatchMolGraph",
     "ClassBalanceSampler",
+    "CuikmolmakerDataset",
+    "CuikmolmakerReactionDataset",
     "DataLoader",
     "Datum",
     "LazyMoleculeDatapoint",

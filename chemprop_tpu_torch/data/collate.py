@@ -34,6 +34,7 @@ from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS, tiles_to
 from chemprop_tpu_torch.types import MolGraph
@@ -96,6 +97,35 @@ class BatchMolGraph:
             if getattr(self, name) is not None:
                 moved[name] = tiles_to(getattr(self, name), self.E.shape[0], device)
         return replace(self, **moved)
+
+
+# BatchMolGraph as a pytree node (cf. the JAX package's registration for
+# jax.export): the tensor fields are its children, None where a table is
+# absent, and the static ones (n_graphs and the two padding flags) its
+# context, which a traced program fixes
+_STATIC = ("n_graphs", "last_node_padding", "last_edge_padding")
+TENSOR_FIELDS = tuple(f.name for f in fields(BatchMolGraph) if f.name not in _STATIC)
+
+
+def _flatten_bmg(bmg: BatchMolGraph):
+    return [getattr(bmg, name) for name in TENSOR_FIELDS], tuple(getattr(bmg, n) for n in _STATIC)
+
+
+def _flatten_bmg_with_keys(bmg: BatchMolGraph):
+    children, context = _flatten_bmg(bmg)
+    return [(pytree.GetAttrKey(n), c) for n, c in zip(TENSOR_FIELDS, children)], context
+
+
+def _unflatten_bmg(children, context) -> BatchMolGraph:
+    return BatchMolGraph(**dict(zip(TENSOR_FIELDS, children)), **dict(zip(_STATIC, context)))
+
+
+pytree.register_pytree_node(
+    BatchMolGraph, _flatten_bmg, _unflatten_bmg,
+    serialized_type_name="chemprop_tpu_torch.data.collate.BatchMolGraph",
+    to_dumpable_context=list, from_dumpable_context=tuple,
+    flatten_with_keys_fn=_flatten_bmg_with_keys,
+)
 
 
 def pad_to_bucket(n: int, multiple: int = 128, ratio: float = 1.1) -> int:

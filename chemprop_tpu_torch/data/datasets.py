@@ -100,6 +100,27 @@ class MoleculeDataset:
     def cache(self, cache: bool) -> None:
         self._cache = [self._featurize(i) for i in range(len(self))] if cache else None
 
+    def populate_cache_native(self, smiles: list[str] | None = None, keep_h: bool = False) -> bool:
+        """Fill the cache of featurised graphs through the native C++ batch
+        featurizer (``featurizers.native``), the same graphs as the Python
+        featurizer's. It serves the default featurizer without extra atom or
+        bond inputs; otherwise (or without the datapoints' SMILES) it returns
+        False and leaves the cache unset. A failed build of the library
+        raises."""
+        from chemprop_tpu_torch.featurizers.native import (
+            featurize_batch_native, molgraphs_from_native,
+        )
+
+        f = self.featurizer
+        if f.extra_atom_fdim or f.extra_bond_fdim or f.shape != (72, 14):
+            return False
+        if smiles is None:
+            if any(d.name is None for d in self.data):
+                return False
+            smiles = [d.name for d in self.data]
+        self._cache = molgraphs_from_native(featurize_batch_native(smiles, keep_h=keep_h))
+        return True
+
     @property
     def _Y(self) -> np.ndarray:
         return np.array([d.y for d in self.data], dtype=float)
@@ -215,6 +236,27 @@ class ReactionDataset(MoleculeDataset):
     def normalize_inputs(self, key: str = "X_d", scaler: StandardScaler | None = None):
         """As ``MoleculeDataset.normalize_inputs``; a reaction has only ``X_d``."""
         return super().normalize_inputs(key, scaler) if key == "X_d" else scaler
+
+    def populate_cache_native(self, rxns: list[str] | None = None, keep_h: bool = False) -> bool:
+        """Fill the cache of condensed graphs of reaction through the native
+        C++ batch featurizer (the cuik ``batch_reaction_featurizer``
+        equivalent), in the featurizer's mode. It serves the default 72 atom
+        and 14 bond features; otherwise (or without the datapoints' reaction
+        SMILES) it returns False and leaves the cache unset."""
+        from chemprop_tpu_torch.featurizers.native import (
+            featurize_rxn_batch_native, molgraphs_from_native,
+        )
+
+        f = self.featurizer
+        if len(f.atom_featurizer) != 72 or len(f.bond_featurizer) != 14:
+            return False
+        if rxns is None:
+            if any(d.name is None or ">" not in d.name for d in self.data):
+                return False
+            rxns = [d.name for d in self.data]
+        nb = featurize_rxn_batch_native(rxns, keep_h=keep_h, mode=f.mode.name)
+        self._cache = molgraphs_from_native(nb)
+        return True
 
 
 class MABDatum(NamedTuple):
@@ -377,3 +419,32 @@ class MulticomponentDataset:
     def cache(self, cache: bool) -> None:
         for d in self.datasets:
             d.cache = cache
+
+
+@dataclass
+class CuikmolmakerDataset(MoleculeDataset):
+    """A ``MoleculeDataset`` whose graphs the native C++ batch featurizer
+    makes at construction (the reference's cuik-backed
+    ``CuikmolmakerDataset``, ``data/datasets.py:369-433``); where it does not
+    serve the featurizer, the Python featurizer fills the cache."""
+
+    keep_h: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not self.populate_cache_native(keep_h=self.keep_h):
+            self.cache = True
+
+
+@dataclass
+class CuikmolmakerReactionDataset(ReactionDataset):
+    """A ``ReactionDataset`` whose condensed graphs the native C++ batch
+    featurizer makes at construction (the reference's
+    ``CuikmolmakerReactionDataset``, ``data/datasets.py:722``)."""
+
+    keep_h: bool = False
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not self.populate_cache_native(keep_h=self.keep_h):
+            self.cache = True

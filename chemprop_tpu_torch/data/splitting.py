@@ -9,11 +9,12 @@ packages split a dataset into the same indices:
   than half the test set go to train, the rest fill the splits in seeded
   random order;
 * ``kennard_stone``: the max-min diversity order on the Jaccard distances of
-  Morgan fingerprints; its most diverse prefix becomes train.
+  Morgan fingerprints; its most diverse prefix becomes train;
+* ``kmeans``: clusters of Morgan bits, numbered as scikit-learn's
+  ``KMeans`` numbers them (``data/kmeans.py``, numpy, no scikit-learn),
+  filled into the splits in seeded random order.
 
-``kmeans`` needs scikit-learn's ``KMeans``, which the port does not use: it
-raises (``ROADMAP.md`` §1 item 4 lists it as still to port). Each replicate
-increments the seed.
+Each replicate increments the seed.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from chemprop_tpu_torch.chem.mol import Mol
 from chemprop_tpu_torch.chem.morgan import canonical_key
 from chemprop_tpu_torch.chem.morgan_rdkit import rdkit_morgan_binary
 from chemprop_tpu_torch.chem.scaffold import murcko_scaffold_key
+from chemprop_tpu_torch.data.kmeans import kmeans_fit_predict
 from chemprop_tpu_torch.utils.utils import EnumMapping
 
 
@@ -46,10 +48,6 @@ def make_split_indices(
     num_replicates: int = 1,
 ) -> tuple[list[list[int]], list[list[int]], list[list[int]]]:
     split = SplitType.get(split)  # an unknown name raises before anything is done
-    if split == SplitType.KMEANS:
-        raise ValueError(
-            "the kmeans split is not ported yet (it needs scikit-learn's KMeans; "
-            "ROADMAP.md section 1 item 4)")
     if len(sizes) != 3:
         raise ValueError(f"specify sizes for train/val/test (got {len(sizes)} values)")
     if any(s < 0 for s in sizes) or abs(sum(sizes) - 1.0) > 1e-8:
@@ -78,6 +76,9 @@ def make_split_indices(
             case SplitType.KENNARD_STONE:
                 fps = _fingerprints(mols)
                 tr, va, te = _kennard_stone_split(fps, sizes)
+            case SplitType.KMEANS:
+                fps = _fingerprints(mols)
+                tr, va, te = _kmeans_split(fps, sizes, rng)
             case _:
                 raise RuntimeError("unreachable")
         trains.append(sorted(tr))
@@ -154,7 +155,7 @@ def _fingerprints(mols: Sequence[Mol]) -> np.ndarray:
 def _kennard_stone_split(fps: np.ndarray, sizes):
     n = len(fps)
     if n > 20000:
-        raise ValueError("kennard_stone split is O(n^2); use random for n > 20000")
+        raise ValueError("kennard_stone split is O(n^2); use random/kmeans for n > 20000")
     # popcount-based pairwise Jaccard (memory-light blocks)
     counts = fps.sum(1)
     D = np.empty((n, n), dtype=np.float32)
@@ -182,6 +183,30 @@ def _kennard_stone_split(fps: np.ndarray, sizes):
         order[n_train : n_train + n_val],
         order[n_train + n_val :],
     )
+
+
+def _greedy_fill(groups, order, targets) -> tuple[list[int], list[int], list[int]]:
+    """Assign whole groups to (train, val, test), each to the split with the
+    largest remaining relative deficit."""
+    splits = ([], [], [])
+    for gi in order:
+        g = groups[gi]
+        deficits = [
+            (targets[k] - len(splits[k])) / max(targets[k], 1) if targets[k] else -1.0
+            for k in range(3)
+        ]
+        splits[int(np.argmax(deficits))].extend(g)
+    return splits
+
+
+def _kmeans_split(fps: np.ndarray, sizes, rng):
+    n = len(fps)
+    n_clusters = min(max(2, n // 10), 100, n)
+    labels = kmeans_fit_predict(fps, n_clusters, random_state=int(rng.integers(2**31)), n_init=3)
+    clusters = [np.where(labels == c)[0].tolist() for c in range(n_clusters)]
+    clusters = [c for c in clusters if c]
+    order = rng.permutation(len(clusters))
+    return _greedy_fill(clusters, order, _split_counts(n, sizes))
 
 
 def split_data_by_indices(

@@ -31,9 +31,13 @@ from chemprop_tpu_torch.featurizers.molgraph.cache import (
     MolGraphCacheFacade,
     MolGraphCacheOnTheFly,
 )
+from chemprop_tpu_torch.featurizers.native import (
+    BatchCuikMolGraph,
+    CuikmolmakerCGRFeaturizer,
+    CuikmolmakerMolGraphFeaturizer,
+)
 
-# the JAX package's names of the protocols; its native featurizer's
-# (Cuikmolmaker*) wait for ROADMAP.md section 1 item 5
+# the JAX package's names of the protocols
 Featurizer = VectorFeaturizer
 MoleculeFeaturizer = VectorFeaturizer
 S = TypeVar("S")
@@ -41,11 +45,14 @@ T = TypeVar("T")
 
 __all__ = [
     "AtomFeatureMode",
+    "BatchCuikMolGraph",
     "BinaryFeaturizerMixin",
     "CGRFeaturizer",
     "ChargeFeaturizer",
     "CondensedGraphOfReactionFeaturizer",
     "CountFeaturizerMixin",
+    "CuikmolmakerCGRFeaturizer",
+    "CuikmolmakerMolGraphFeaturizer",
     "Featurizer",
     "GraphFeaturizer",
     "MolGraphCache",

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``; the hash covers
 the source, the shared headers and the flags, so an edited source is rebuilt
 and an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per
 source at once. Nothing is built when a module is imported: the first launch
-on a CUDA tensor builds what it needs.
+on a CUDA tensor builds what it needs. A host library, ``csrc/<name>.cpp``
+(the native featurizer), is built by ``g++`` by the same rules
+(:func:`host_library`), at its first use.
 
 ``LAUNCHES`` counts kernel launches by wrapper name; each wrapper adds one
 where it launches its kernel, and nowhere else. ``UNSERVED`` counts the
@@ -130,6 +132,34 @@ def _finish(name: str, job) -> str:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent builder sees a whole file
     return log
+
+
+# the flags of the host libraries (csrc/<name>.cpp, no device code), which
+# g++ builds and build_all leaves out
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
+
+def host_library(name: str) -> Path:
+    """``csrc/<name>.cpp`` built by ``g++`` into ``_build/<name>-<hash>.so``
+    (the hash of the source and the flags; a per-process temporary file
+    moved into place), the path of the library; a failed build raises with
+    the compiler's output."""
+    source = CSRC / f"{name}.cpp"
+    key = hashlib.sha256(source.read_bytes() + b"\0" + " ".join(CXX_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"{name}-{key[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler to build csrc/{name}.cpp: set CXX or put g++ on PATH")
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(source), "-o", str(tmp)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on csrc/{name}.cpp:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def build_all() -> dict[str, tuple[str, float]]:

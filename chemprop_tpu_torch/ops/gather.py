@@ -5,7 +5,8 @@
 It expands the mean readout's graph cotangent to the node table: padding
 nodes belong to the sacrificial graph, the last row, whose cotangent is zero
 by construction. On a CUDA tensor the kernel in ``csrc/gather.cu`` runs; on a
-CPU tensor the plain version below.
+CPU tensor the plain version below; the launch is the ``torch.library`` op
+``chemprop_tpu_torch::row_gather``.
 
 :func:`gather_src` and :func:`gather_rev` are the edge gathers of atom
 message passing with the JAX package's scatter-free transposes
@@ -44,6 +45,13 @@ def row_gather(M: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         raise ValueError("M must be a contiguous [m, d] table with at least one row")
     if ids.dtype != torch.int32 or ids.dim() != 1 or ids.device != M.device:
         raise ValueError(f"ids must be a 1-d int32 tensor on {M.device}")
+    return torch.ops.chemprop_tpu_torch.row_gather(M, ids)
+
+
+@torch.library.custom_op("chemprop_tpu_torch::row_gather", mutates_args=())
+def _row_gather_op(M: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Kernel I as an op (checked by :func:`row_gather`); on a CPU tensor the
+    plain version."""
     if M.device.type == "cpu":
         return row_gather_plain(M, ids)
     if M.device.type != "cuda":
@@ -56,6 +64,11 @@ def row_gather(M: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
          row_bytes)
     LAUNCHES["row_gather"] += 1
     return out
+
+
+@_row_gather_op.register_fake
+def _(M, ids):
+    return M.new_empty((ids.shape[0], M.shape[1]))
 
 
 def gather_src(M: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor,

@@ -39,7 +39,15 @@ A batch with a molecule of more rows than that has none; G and H
 (``bwd_message_nodes``, ``bwd_message_premul``) then take its split table
 (``BatchMolGraph.split_ptr``, the molecule cut at its nodes' boundaries)
 with its ``cross_rows``: the tile kernel forms every other row of ``G``, and
-:func:`_cross_rows` forms those from the ``gz`` table it wrote."""
+:func:`_cross_rows` forms those from the ``gz`` table it wrote.
+
+A, B and D are ``torch.library`` ops (``chemprop_tpu_torch::message``,
+``::fused_iter``, ``::fused_iter2``): the wrappers check and call them, the
+ops launch. An op takes the tile table as an int32 tensor, empty where the
+batch has none (:func:`table_arg`), so that a traced program serves both
+forms; A and D count the calls without one in ``UNSERVED`` themselves, and
+D takes two launches of B there. The wrappers check the table on the host
+unless they are traced (:func:`traced`)."""
 
 from __future__ import annotations
 
@@ -213,10 +221,22 @@ def _message_fwd(H, src, dst, rev, ptr, tiles=None):
     _check_graph(H, src, dst, rev, ptr)
     if H.dtype not in DTYPES:
         raise TypeError(f"H must be float32 or bfloat16, got {H.dtype}")
+    if tiles is not None and not traced():
+        check_tiles(tiles, H.shape[0], H.device)
+    return torch.ops.chemprop_tpu_torch.message(H, src, dst, rev, ptr, table_arg(tiles, src))
+
+
+def _message_launch(
+    H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    tiles: torch.Tensor,
+) -> torch.Tensor:
+    """Kernel A as the op ``chemprop_tpu_torch::message``: over the tile table
+    where there is one (``tiles`` of two or more offsets, checked by the
+    caller) at a width the tiled kernel takes, else ``csrc/message.cu``, and
+    ``UNSERVED["message"]`` counts the call; on a CPU tensor the plain
+    version."""
     n, d = H.shape
-    if tiles is not None:
-        check_tiles(tiles, n, H.device)
-    tiled = tiles is not None and message_tile_width(d)
+    tiled = tiles.numel() >= 2 and message_tile_width(d)
     if not tiled:
         UNSERVED["message"] += 1
     if H.device.type == "cpu":
@@ -233,6 +253,15 @@ def _message_fwd(H, src, dst, rev, ptr, tiles=None):
              DTYPES[H.dtype])
     LAUNCHES["message"] += 1
     return out
+
+
+_message_op = torch.library.custom_op("chemprop_tpu_torch::message", _message_launch,
+                                      mutates_args=())
+
+
+@_message_op.register_fake
+def _(H, src, dst, rev, ptr, tiles):
+    return torch.empty_like(H)
 
 
 def message_info(d: int, dtype: torch.dtype, n_tiles: int) -> dict[str, int]:
@@ -263,8 +292,6 @@ def _check_iter(H, H0, W, b, src, dst, rev, ptr):
     tensors = [H0, W] + ([b] if b is not None else [])
     if any(t.device != H.device or not t.is_contiguous() for t in tensors):
         raise ValueError("H0, W and b must be contiguous and on H's device")
-    if H.device.type == "cuda" and any(t.data_ptr() % 16 != 0 for t in [H] + tensors):
-        raise ValueError("the fused iteration needs 16-byte aligned tables")
 
 
 def fused_iter(
@@ -283,9 +310,25 @@ def fused_iter(
     iteration passes ``H = H0``); the residual always adds raw ``H0``. ``W``
     is ``[d, d]`` in (in, out) layout, ``d`` a multiple of 128."""
     _check_iter(H, H0, W, b, src, dst, rev, ptr)
+    return torch.ops.chemprop_tpu_torch.fused_iter(H, H0, W, b, src, dst, rev, ptr, relu_stream)
+
+
+def _aligned(*tensors, name: str) -> None:
+    if any(t is not None and t.data_ptr() % 16 != 0 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned tables")
+
+
+def _fused_iter_launch(
+    H: torch.Tensor, H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None,
+    src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    relu_stream: bool,
+) -> torch.Tensor:
+    """Kernel B as the op ``chemprop_tpu_torch::fused_iter`` (checked by the
+    caller); on a CPU tensor the plain version."""
     n, d = H.shape
     if H.device.type == "cpu":
         return fused_iter_plain(H, H0, W, b, src, dst, rev, ptr, relu_stream)
+    _aligned(H, H0, W, b, name="the fused iteration")
     y = torch.empty_like(H)
     if n == 0:
         return y
@@ -295,6 +338,15 @@ def fused_iter(
     )
     LAUNCHES["fused_iter"] += 1
     return y
+
+
+_fused_iter_op = torch.library.custom_op("chemprop_tpu_torch::fused_iter", _fused_iter_launch,
+                                         mutates_args=())
+
+
+@_fused_iter_op.register_fake
+def _(H, H0, W, b, src, dst, rev, ptr, relu_stream):
+    return torch.empty_like(H)
 
 
 def fused_iter_info(d: int, n_edges: int) -> dict[str, int]:
@@ -310,6 +362,20 @@ def fused_iter_info(d: int, n_edges: int) -> dict[str, int]:
         raise RuntimeError(f"fused_iter_info: CUDA error {err}")
     keys = ("slice_width", "slices", "stages", "smem_bytes", "grid", "blocks_per_sm")
     return dict(zip(keys, info))
+
+
+def traced() -> bool:
+    """Whether the call is being traced (``torch.export``), where tensors hold
+    no values: the host checks of the tile table are then left to the
+    exported program's caller (``models.export``)."""
+    return torch.compiler.is_compiling()
+
+
+def table_arg(tiles: torch.Tensor | None, like: torch.Tensor) -> torch.Tensor:
+    """The tile table as the ops take it: an int32 tensor on ``like``'s
+    device, empty where the batch has none, so that one traced program
+    serves batches with a table and without one."""
+    return like.new_empty(0, dtype=torch.int32) if tiles is None else tiles
 
 
 def check_tiles(tiles: torch.Tensor, n_edges: int, device: torch.device) -> None:
@@ -354,9 +420,28 @@ def fused_iter2(
     n, d = H0.shape
     if d not in ITER2_WIDTHS:
         raise ValueError(f"fused_iter2 takes d in {ITER2_WIDTHS}, not {d}")
-    check_tiles(tiles, n, H0.device)
+    if not traced():
+        check_tiles(tiles, n, H0.device)
+    return torch.ops.chemprop_tpu_torch.fused_iter2(H0, W, b, src, dst, rev, ptr, tiles)
+
+
+def _fused_iter2_launch(
+    H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D as the op ``chemprop_tpu_torch::fused_iter2`` (checked by the
+    caller): over the tile table where there is one (``tiles`` of two or more
+    offsets) at a width in ``ITER2_WIDTHS``, else two launches of B, and
+    ``UNSERVED["fused_iter2"]`` counts the call; on a CPU tensor the plain
+    versions."""
+    n, d = H0.shape
+    if tiles.numel() < 2 or d not in ITER2_WIDTHS:
+        UNSERVED["fused_iter2"] += 1
+        y1 = _fused_iter_launch(H0, H0, W, b, src, dst, rev, ptr, True)
+        return y1, _fused_iter_launch(y1, H0, W, b, src, dst, rev, ptr, False)
     if H0.device.type == "cpu":
         return fused_iter2_plain(H0, W, b, src, dst, rev, ptr)
+    _aligned(H0, W, b, name="the fused iteration")
     y1, y2 = torch.empty_like(H0), torch.empty_like(H0)
     if n == 0:
         return y1, y2
@@ -364,6 +449,15 @@ def fused_iter2(
          ptr.contiguous(), tiles.contiguous(), y1, y2, n, tiles.numel() - 1, d, ptr.numel() - 2)
     LAUNCHES["fused_iter2"] += 1
     return y1, y2
+
+
+_fused_iter2_op = torch.library.custom_op("chemprop_tpu_torch::fused_iter2",
+                                          _fused_iter2_launch, mutates_args=())
+
+
+@_fused_iter2_op.register_fake
+def _(H0, W, b, src, dst, rev, ptr, tiles):
+    return torch.empty_like(H0), torch.empty_like(H0)
 
 
 def fused_iter2_info(d: int, n_tiles: int) -> dict[str, int]:
@@ -862,10 +956,13 @@ def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False) -> li
     first two as one :func:`fused_iter2` launch over the tile table."""
     ys = []
     if H0.dtype == torch.bfloat16 and iter2 and depth >= 3:
-        if tiles is not None and H0.shape[1] in ITER2_WIDTHS:
-            ys = list(fused_iter2(H0, W, b, *graph, tiles))
-        else:
-            UNSERVED["fused_iter2"] += 1
+        _check_iter(H0, H0, W, b, *graph)
+        if tiles is not None and not traced():
+            check_tiles(tiles, H0.shape[0], H0.device)
+        # without a table, or at a width D does not take, the op takes two
+        # launches of B and counts the call in UNSERVED
+        ys = list(torch.ops.chemprop_tpu_torch.fused_iter2(H0, W, b, *graph,
+                                                            table_arg(tiles, H0)))
     if not ys:
         first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
         ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first,

@@ -8,7 +8,8 @@ number of segments is ``len(ptr) - 1``. Sums accumulate in f32 and are cast
 once to ``out_dtype``. On a CUDA tensor the kernel in ``csrc/segment.cu``
 runs, for the dtype pairs of ``KERNEL_DTYPES`` (another pair raises), over
 ranges of rows whose size :func:`range_geometry` picks; on a CPU tensor the
-plain version below.
+plain version below. The launch is two ``torch.library`` ops,
+``chemprop_tpu_torch::seg_sum`` and ``::seg_sum_counts``.
 
 Both entry points are differentiable in ``data`` (cf. the custom VJPs of
 ``sorted_segments.py``): the cotangent of a sum is the gather ``g[ids]``, a
@@ -141,6 +142,13 @@ def _check(data, ids, ptr, out_dtype):
 
 def _segment_sum(data, ids, ptr, out_dtype, with_counts):
     _check(data, ids, ptr, out_dtype)
+    if with_counts:
+        return torch.ops.chemprop_tpu_torch.seg_sum_counts(data, ids, ptr, out_dtype)
+    return torch.ops.chemprop_tpu_torch.seg_sum(data, ids, ptr, out_dtype), None
+
+
+def _seg_sum_launch(data, ids, ptr, out_dtype, with_counts):
+    """Kernel C on checked tables; on a CPU tensor the plain version."""
     if data.device.type == "cpu":
         return sorted_segment_sum_plain(data, ids, ptr, out_dtype, with_counts)
     if data.device.type != "cuda":
@@ -165,6 +173,31 @@ def _segment_sum(data, ids, ptr, out_dtype, with_counts):
     )
     LAUNCHES["sorted_segment_sum"] += 1
     return out, counts
+
+
+# kernel C as two ops, ``chemprop_tpu_torch::seg_sum`` and ``::seg_sum_counts``
+@torch.library.custom_op("chemprop_tpu_torch::seg_sum", mutates_args=())
+def _seg_sum_op(data: torch.Tensor, ids: torch.Tensor, ptr: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    return _seg_sum_launch(data, ids, ptr, out_dtype, False)[0]
+
+
+@_seg_sum_op.register_fake
+def _(data, ids, ptr, out_dtype):
+    return data.new_empty((ptr.shape[0] - 1, data.shape[1]), dtype=out_dtype)
+
+
+@torch.library.custom_op("chemprop_tpu_torch::seg_sum_counts", mutates_args=())
+def _seg_sum_counts_op(data: torch.Tensor, ids: torch.Tensor, ptr: torch.Tensor,
+                       out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    return _seg_sum_launch(data, ids, ptr, out_dtype, True)
+
+
+@_seg_sum_counts_op.register_fake
+def _(data, ids, ptr, out_dtype):
+    n_seg = ptr.shape[0] - 1
+    return (data.new_empty((n_seg, data.shape[1]), dtype=out_dtype),
+            data.new_empty((n_seg,), dtype=torch.float32))
 
 
 def _counters(device: torch.device, size: int) -> torch.Tensor:

@@ -235,7 +235,26 @@ failure:
    in f32 and their scores at phase 3's limits (bf16: the sets only one side
    found are listed with their margin to ``prop_delta``). The phase's
    seconds, subgraphs and batches are printed on their own line with the
-   card's name and power limit.
+   card's name and power limit;
+15. export (``models.export``): the default model at full width, its weights
+   from ``--seed``, in f32 and bf16, exported on the card from the benchmark
+   batch, its program's launches first rehearsed on the CPU (exported there
+   from mol.csv's batch); one call on the benchmark batch and one on its
+   graphs rotated and padded wider (other node and edge counts), each
+   launching exactly the eager forward's kernels (A 2 + C 2 in f32, B 2 +
+   C 2 in bf16) and the rehearsal's, nothing unserved, within 1e-5 (f32) or
+   1e-3 (bf16) of the eager forward; the eager and exported calls timed;
+   each ``.pt2`` loaded and run in a new process that imports only
+   ``chemprop_tpu_torch.ops`` (its load seconds, launches and output held
+   the same way);
+16. the native featurizer and the kmeans split on the command line: one
+   f32 ``train`` epoch with ``--split kmeans
+   --use-cuikmolmaker-featurization`` on the card, rehearsed on the CPU
+   (launches and unserved calls exactly, the loss within phase 9(a)'s
+   limit), then the same epoch with Python featurization, whose splits and
+   losses must be the same bits; ``predict`` of its ``best.ckpt`` with the
+   flag and without, the same rows. Phases 15 and 16 print their seconds
+   and numbers on their own lines with the card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -3582,6 +3601,243 @@ def interpret_phase(card: str) -> tuple[dict, dict]:
     return launches, res
 
 
+# ---------------------------------------------------------------- phase 15
+# phase 15: the exported program against the eager forward on the card: f32
+# to 1e-5 (the same kernels and products, another graph of the same
+# operations), bf16 to 1e-3, phase 3's limit for bf16 predictions
+EXPORT_LIMITS = {"float32": 1e-5, "bfloat16": 1e-3}
+EXPORT_ROTATE = 37  # phase 15's second batch: the benchmark batch's graphs rotated
+# phase 15(c): a process that imports chemprop_tpu_torch.ops alone loads each
+# dtype's .pt2 and runs it on the leaves of the benchmark batch; it prints the
+# load seconds, the launches and the unserved calls, and which modules of the
+# package it imported
+EXPORT_LOADER = """
+import json, sys, time
+import torch
+import chemprop_tpu_torch.ops as ops
+root, out = sys.argv[1], {}
+leaves = torch.load(f"{root}/leaves.pt")
+for dt in sys.argv[2:]:
+    t0 = time.perf_counter()
+    program = torch.export.load(f"{root}/{dt}.pt2")
+    module = program.module()
+    load_s = time.perf_counter() - t0
+    ops.LAUNCHES.clear()
+    before = dict(ops.UNSERVED)
+    with torch.no_grad():
+        y = module(leaves, None, None)
+    torch.cuda.synchronize()
+    torch.save(y.cpu(), f"{root}/{dt}.out.pt")
+    out[dt] = {"load_s": load_s, "launches": dict(ops.LAUNCHES),
+               "unserved": {k: v - before.get(k, 0) for k, v in ops.UNSERVED.items()
+                            if v != before.get(k, 0)}}
+out["modules"] = sorted(m for m in sys.modules if m.startswith("chemprop_tpu_torch.")
+                        and not m.startswith("chemprop_tpu_torch.ops"))
+print(json.dumps(out))
+"""
+
+
+def export_one(dt_name: str, data: list, batches: dict, seed: int, reps: int,
+               root: Path) -> tuple[dict, dict]:
+    """Phase 15 in one dtype: the default model at full width, its weights
+    from ``seed``, exported on the card from the benchmark batch; the
+    program's launches on the dataset's batch first rehearsed on the CPU
+    (exported there from that batch), then one call of it on each of
+    ``batches`` on the card against the eager forward, its launches exactly
+    the eager forward's and the rehearsal's, nothing unserved; the eager and
+    exported calls timed; the program saved to ``root``."""
+    import torch
+
+    from chemprop_tpu_torch.data import collate_batch
+    from chemprop_tpu_torch.models.export import export_forward, save_exported
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    dt = getattr(torch, dt_name)
+    torch.manual_seed(seed)
+    model = default_model(dt).eval()
+    small = collate_batch(data)
+    program = export_forward(model, small)
+    before = dict(UNSERVED)
+    with rehearsal() as want:
+        program(small.bmg)
+    want, want_unserved = dict(want), unserved_since(before)
+    model.to("cuda")
+    t0 = time.perf_counter()
+    program = export_forward(model, batches["first"])
+    res = {"export_s": time.perf_counter() - t0, "rehearsal": want}
+    launches = {}
+    for tag, batch in batches.items():
+        LAUNCHES.clear()
+        with torch.inference_mode():
+            eager = model(batch.bmg)
+        eager_launches = dict(LAUNCHES)
+        LAUNCHES.clear()
+        before = dict(UNSERVED)
+        got = program(batch.bmg)
+        torch.cuda.synchronize()
+        launches[f"export_{dt_name}_{tag}"] = call = dict(LAUNCHES)
+        unserved = unserved_since(before)
+        check_path_launches(f"predict_{dt_name}", call, exact=True)
+        if call != eager_launches or call != want:
+            fail(f"the exported {dt_name} program launched {call} on the {tag} batch, the eager "
+                 f"forward {eager_launches}, the CPU rehearsal {want}")
+        if unserved or want_unserved:
+            fail(f"the exported {dt_name} program left calls unserved: {unserved} (rehearsal "
+                 f"{want_unserved})")
+        err = float((got.float() - eager.float()).abs().max())
+        if got.shape != eager.shape or not bool(torch.isfinite(got).all()):
+            fail(f"the exported {dt_name} program gave {tuple(got.shape)} or non-finite values")
+        if err > EXPORT_LIMITS[dt_name]:
+            fail(f"the exported {dt_name} program is {err} from the eager forward on the {tag} "
+                 f"batch (limit {EXPORT_LIMITS[dt_name]})")
+        res[tag] = {"max_abs_diff": err, "launches": call,
+                    "N_pad": batch.bmg.V.shape[0], "E_pad": batch.bmg.E.shape[0]}
+        if tag == "first":
+            res["eager"] = eager.cpu()
+    with torch.inference_mode():
+        res["eager_ms"] = time_ms(lambda: model(batches["first"].bmg), reps, inner=1)
+    res["exported_ms"] = time_ms(lambda: program(batches["first"].bmg), reps, inner=1)
+    save_exported(root / f"{dt_name}.pt2", program)
+    return launches, res
+
+
+def export_phase(ds, card: str, seed: int, reps: int) -> tuple[dict, dict]:
+    """Phase 15: ``models.export`` on the card in f32 and bf16
+    (:func:`export_one`), then each ``.pt2`` loaded and run in a process that
+    imports ``chemprop_tpu_torch.ops`` alone, its output within the same
+    limits of the eager forward's and its launches the same."""
+    import tempfile
+
+    import torch
+
+    from chemprop_tpu_torch.data import PadSpec, collate_batch
+    from chemprop_tpu_torch.models.export import program_inputs
+
+    t0 = time.time()
+    data = [ds[i] for i in range(len(ds))]
+    tiled = (data * -(-BATCH_SIZE // len(data)))[:BATCH_SIZE]
+    first = collate_batch(tiled).to("cuda")
+    # the same number of graphs in another order, padded wider: other node and
+    # edge counts through the program's dynamic dimensions
+    second = collate_batch(tiled[EXPORT_ROTATE:] + tiled[:EXPORT_ROTATE],
+                           PadSpec(first.bmg.V.shape[0] + 128, first.bmg.E.shape[0] + 256,
+                                   BATCH_SIZE)).to("cuda")
+    batches = {"first": first, "second": second}
+    launches, res = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        root = Path(tmp)
+        for dt_name in ("float32", "bfloat16"):
+            dt_launches, res[dt_name] = export_one(dt_name, data, batches, seed, reps, root)
+            launches.update(dt_launches)
+        torch.save(program_inputs(first.bmg)[0][0], root / "leaves.pt")
+        proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, tmp, "float32", "bfloat16"],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"loading the exported programs in a new process failed:\n{proc.stderr}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        if loaded["modules"]:
+            fail(f"loading the exported programs imported {loaded['modules']}")
+        for dt_name in ("float32", "bfloat16"):
+            got, r = torch.load(root / f"{dt_name}.out.pt"), loaded[dt_name]
+            err = float((got.float() - res[dt_name].pop("eager").float()).abs().max())
+            if err > EXPORT_LIMITS[dt_name]:
+                fail(f"the loaded {dt_name} program is {err} from the eager forward")
+            if r["launches"] != res[dt_name]["first"]["launches"] or r["unserved"]:
+                fail(f"the loaded {dt_name} program launched {r['launches']}, unserved "
+                     f"{r['unserved']}")
+            launches[f"export_{dt_name}_loaded"] = r["launches"]
+            res[dt_name]["loaded"] = {"max_abs_diff": err, "load_s": r["load_s"],
+                                      "launches": r["launches"]}
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"export_phase": res}))
+    print(json.dumps({"phase": "export", "seconds": res["seconds"], "card": card,
+                      "launches_per_call": {dt: res[dt]["first"]["launches"]
+                                            for dt in ("float32", "bfloat16")},
+                      "max_abs_diff": {dt: {k: res[dt][k]["max_abs_diff"]
+                                            for k in ("first", "second", "loaded")}
+                                       for dt in ("float32", "bfloat16")}}))
+    return launches, res
+
+
+# ---------------------------------------------------------------- phase 16
+# phase 16: `train --split kmeans --use-cuikmolmaker-featurization`, one
+# epoch at full width, and the same epoch with Python featurization
+NATIVE_TRAIN = ["-i", MOL_CSV, "--split", "kmeans", "--data-seed", "3", "--seed", "5",
+                "--aggregation", "mean"]
+NATIVE_FLAG = "--use-cuikmolmaker-featurization"
+
+
+def native_cli_phase(card: str) -> tuple[dict, dict]:
+    """Phase 16: one f32 ``train`` epoch with the kmeans split and the native
+    featurizer on the card, first rehearsed on the CPU (launches and calls
+    without a tile table exactly the rehearsal's; the loss within phase
+    9(a)'s limit of the CPU's); the same epoch with Python featurization on
+    the card, whose splits and losses must be the same bits; ``predict`` of
+    its ``best.ckpt`` with the flag and without, the same output."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    # the card's machine has no scikit-learn: the kmeans split runs without it
+    res["sklearn_installed"] = importlib.util.find_spec("sklearn") is not None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_native_") as tmp:
+        tmp = Path(tmp)
+
+        def native(dev):
+            return mc_train(tmp / f"native_{dev or 'cuda'}", "float32", dev,
+                            NATIVE_TRAIN + [NATIVE_FLAG])
+
+        card_hist, cpu_hist = rehearsed("train_kmeans_native", native, launches, unserved)
+        LAUNCHES.clear()
+        py_hist = mc_train(tmp / "python_cuda", "float32", None, NATIVE_TRAIN)
+        launches["train_kmeans_python"] = dict(LAUNCHES)
+        if launches["train_kmeans_python"] != launches["train_kmeans_native"]:
+            fail(f"the Python featurization's epoch launched {launches['train_kmeans_python']}, "
+                 f"the native one's {launches['train_kmeans_native']}")
+        splits = {run: json.loads((tmp / run / "splits.json").read_text())
+                  for run in ("native_cuda", "native_cpu", "python_cuda")}
+        if not splits["native_cuda"] == splits["native_cpu"] == splits["python_cuda"]:
+            fail("the kmeans splits differ between the runs")
+        for key in ("train_loss", "val_loss"):
+            if [r[key] for r in card_hist] != [r[key] for r in py_hist]:
+                fail(f"{key} with the native featurizer {[r[key] for r in card_hist]}, with "
+                     f"Python's {[r[key] for r in py_hist]}")
+        loss_diff = abs(card_hist[0]["train_loss"] - cpu_hist[0]["train_loss"])
+        if loss_diff > 1e-4 * abs(cpu_hist[0]["train_loss"]):  # phase 9(a)'s f32 limit
+            fail(f"the native epoch's loss on the card is {loss_diff} from the CPU's")
+        outputs = {}
+        for tag, flags in (("with", [NATIVE_FLAG]), ("without", [])):
+            LAUNCHES.clear()
+            outputs[tag] = read_rows(run_cli(
+                "predict", ["-i", MOL_CSV, "--model-paths", tmp / "native_cuda" / "best.ckpt",
+                            *flags], tmp / f"predict_{tag}.csv", None))
+            launches[f"predict_native_{tag}"] = dict(LAUNCHES)
+            check_path_launches("predict_float32", launches[f"predict_native_{tag}"], exact=True,
+                                want=path_launches("predict_float32", batches(100)))
+        if outputs["with"] != outputs["without"]:
+            fail("predict with --use-cuikmolmaker-featurization differs from predict without")
+        shutil.rmtree(tmp / "native_cpu", ignore_errors=True)
+        res.update(
+            train_loss={"native_cuda": card_hist[0]["train_loss"],
+                        "python_cuda": py_hist[0]["train_loss"],
+                        "native_cpu": cpu_hist[0]["train_loss"]},
+            val_loss={"native_cuda": card_hist[0]["val_loss"],
+                      "python_cuda": py_hist[0]["val_loss"]},
+            split_sizes={k: len(v) for k, v in splits["native_cuda"][0].items()},
+            train_loss_cuda_vs_cpu=loss_diff, predict_rows=len(outputs["with"][1]))
+    res["launches"], res["unserved"] = launches, unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"native_cli_phase": res}))
+    print(json.dumps({"phase": "native_cli", "seconds": res["seconds"], "card": card,
+                      "sklearn_installed": res["sklearn_installed"],
+                      "train_loss": res["train_loss"]}))
+    return launches, res
+
+
 def time_ms(fn, reps: int, inner: int = 5) -> float:
     """Median over ``reps`` runs of ``inner`` back-to-back calls between two
     CUDA events, per call, after a warm-up."""
@@ -4096,6 +4352,10 @@ def main() -> int:
     launches.update(mab_launches)
     interpret_launches, interpret_res = interpret_phase(card)
     launches.update(interpret_launches)
+    export_launches, export_res = export_phase(ds, card, args.seed, args.reps)
+    launches.update(export_launches)
+    native_launches, native_res = native_cli_phase(card)
+    launches.update(native_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -4190,6 +4450,7 @@ def main() -> int:
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
               "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
+              "export": export_res, "native_cli": native_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

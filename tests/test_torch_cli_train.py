@@ -307,13 +307,13 @@ def test_the_model_is_the_jax_packages(tmp_path, data_dir):
 
 
 # atom and bond targets train since mol-atom-bond models were ported
-# (tests/test_torch_mab_cli.py)
+# (tests/test_torch_mab_cli.py), --split kmeans and
+# --use-cuikmolmaker-featurization since k-means and the native featurizer
+# were (tests/test_torch_native.py, tests/test_torch_kmeans.py)
 REFUSALS = {
     "edge_partition": (["--edge-partition"], "item 12"),
     "devices": (["--devices", "2"], "item 12"),
-    "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),
     "foundation": (["--from-foundation", "chemeleon"], "item 2"),
-    "kmeans": (["--split", "kmeans"], "item 4"),
 }
 
 

@@ -2422,3 +2422,37 @@ def test_myerson_and_mcts_on_card_match_cpu(cuda, dtype):
     if dtype == torch.float32:
         assert [r["atoms"] for r in rats] == [r["atoms"] for r in rats_cpu]
     assert rats and all(np.isfinite(r["score"]) for r in rats)
+
+
+# ------------------------------------------------------------------ export
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_program_on_card_matches_eager(cuda, dtype, tmp_path):
+    """``models.export`` on the card: the program launches exactly the eager
+    forward's kernels (A or B twice, C twice), nothing unserved, within 1e-5
+    (f32) or 1e-3 (bf16) of the eager forward, on another padding too, and
+    after a ``.pt2`` round trip."""
+    from types import SimpleNamespace
+
+    from chemprop_tpu_torch.models.export import export_forward, load_exported, save_exported
+
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    mgs = [feat(make_mol(s)) for s in SMIS]
+    model = load_model(DATA / "example_model_v2_regression_mol.pt", cuda, dtype)[0]
+    limit = 1e-5 if dtype == torch.float32 else 1e-3
+    kernel = "fused_iter" if dtype == torch.bfloat16 else "message"
+    first = batch_mol_graphs(mgs, PadSpec(256, 768, len(SMIS))).to(cuda)
+    program = export_forward(model, SimpleNamespace(bmg=first, V_d=None, X_d=None))
+    path = tmp_path / "model.pt2"
+    save_exported(path, program)
+    loaded = load_exported(path)
+    for pad in ((256, 768), (384, 1024)):
+        b = batch_mol_graphs(mgs, PadSpec(*pad, len(SMIS))).to(cuda)
+        with torch.inference_mode():
+            want = model(b)
+        for run in (program, loaded):
+            LAUNCHES.clear()
+            before = dict(UNSERVED)
+            got = run(b)
+            assert dict(LAUNCHES) == {kernel: 2, "sorted_segment_sum": 2}
+            assert dict(UNSERVED) == before
+            torch.testing.assert_close(got, want, rtol=0, atol=limit)

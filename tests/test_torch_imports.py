@@ -33,6 +33,7 @@ PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "experiments" / "torch_split_tiles.py",
     REPO / "experiments" / "torch_tanh_bits.py",
     REPO / "experiments" / "torch_cli_train_check.py",
+    REPO / "experiments" / "torch_dispatch.py",
 ]
 # the JAX stack, and what the machine with the card does not have either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
@@ -48,6 +49,7 @@ NEW_MODULES = (
     "featurizers/molgraph/reaction.py", "nn/message_passing/multi.py", "models/multi.py",
     "interpret.py", "callbacks/__init__.py", "schedulers.py", "exceptions.py", "conf.py",
     "featurizers/base.py", "featurizers/molgraph/cache.py", "data/molgraph.py", "utils/utils.py",
+    "data/kmeans.py", "models/export.py", "featurizers/native.py",
 )
 
 

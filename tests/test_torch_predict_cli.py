@@ -354,10 +354,10 @@ def test_mc_dropout_is_reproducible(env):
 # ------------------------------------------------------------ refusals
 # constraints and bond descriptors are read since mol-atom-bond models were
 # ported (tests/test_torch_mab_cli.py), --callback since interpretation was
-# (tests/test_torch_interpret_cli.py)
+# (tests/test_torch_interpret_cli.py), --use-cuikmolmaker-featurization since
+# the native featurizer was (tests/test_torch_native.py)
 REFUSALS = {
     "edge_partition": (["--edge-partition"], "item 12"),
-    "cuik": (["--use-cuikmolmaker-featurization"], "item 5"),
     "devices": (["--devices", "2"], "item 12"),
 }
 

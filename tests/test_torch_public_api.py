@@ -1,9 +1,9 @@
 """The port's library API: every name of the JAX package's reference
 exports (``tests/unit/test_public_api.py``'s ``REFERENCE_EXPORTS``, the
 names the reference's package ``__init__``s import) resolves from
-``chemprop_tpu_torch``, but the native featurizer's, which wait for
-``ROADMAP.md`` section 1 item 5. The JAX package's own test of its
-``schedulers`` and ``exceptions`` modules, ported."""
+``chemprop_tpu_torch``, the native featurizer's (``ROADMAP.md`` section 1
+item 5) included. The JAX package's own test of its ``schedulers`` and
+``exceptions`` modules, ported."""
 
 from __future__ import annotations
 
@@ -14,43 +14,43 @@ import pytest
 
 from unit.test_public_api import REFERENCE_EXPORTS
 
-# item 5, the native featurizer
-NOT_PORTED = {
+# item 5, the native featurizer, was the last left out
+ITEM_5 = {
     "data": {"CuikmolmakerDataset", "CuikmolmakerReactionDataset"},
-    "featurizers": {"CuikmolmakerMolGraphFeaturizer"},
+    "featurizers": {"CuikmolmakerMolGraphFeaturizer", "CuikmolmakerCGRFeaturizer",
+                    "BatchCuikMolGraph"},
 }
 
 
 @pytest.mark.parametrize("subpackage", sorted(REFERENCE_EXPORTS))
 def test_reference_exports_resolve(subpackage):
     mod = importlib.import_module("chemprop_tpu_torch" + (f".{subpackage}" if subpackage else ""))
-    missing = [n for n in REFERENCE_EXPORTS[subpackage]
-               if n not in NOT_PORTED.get(subpackage, ()) and not hasattr(mod, n)]
+    missing = [n for n in REFERENCE_EXPORTS[subpackage] if not hasattr(mod, n)]
     assert not missing, f"chemprop_tpu_torch.{subpackage}: missing {missing}"
 
 
-# the JAX package's own exports (its __all__), beyond the reference's; the
-# native featurizer's wait for item 5
+# the JAX package's own exports (its __all__), beyond the reference's
 JAX_PACKAGES = ["callbacks", "chem", "cli", "data", "featurizers", "featurizers.molgraph",
                 "models", "nn", "nn.message_passing", "train", "uncertainty", "utils"]
-ITEM_5 = {"CuikmolmakerDataset", "CuikmolmakerReactionDataset", "BatchCuikMolGraph",
-          "CuikmolmakerCGRFeaturizer", "CuikmolmakerMolGraphFeaturizer"}
 
 
 @pytest.mark.parametrize("subpackage", JAX_PACKAGES)
 def test_jax_package_exports_resolve(subpackage):
     jax_mod = importlib.import_module(f"chemprop_tpu.{subpackage}")
     mod = importlib.import_module(f"chemprop_tpu_torch.{subpackage}")
-    missing = [n for n in jax_mod.__all__ if n not in ITEM_5 and not hasattr(mod, n)]
+    missing = [n for n in jax_mod.__all__ if not hasattr(mod, n)]
     assert not missing, f"chemprop_tpu_torch.{subpackage}: missing {missing}"
 
 
 def test_only_item_5_is_left_out():
-    for subpackage, names in NOT_PORTED.items():
+    """Item 5's five names, the last left out, resolve where the JAX
+    package exports them, and all 175 of the reference's do."""
+    for subpackage, names in ITEM_5.items():
+        jax_mod = importlib.import_module(f"chemprop_tpu.{subpackage}")
         mod = importlib.import_module(f"chemprop_tpu_torch.{subpackage}")
-        assert names <= set(REFERENCE_EXPORTS[subpackage])
-        assert not any(hasattr(mod, n) for n in names)
-    assert sum(map(len, REFERENCE_EXPORTS.values())) - sum(map(len, NOT_PORTED.values())) == 172
+        assert names <= set(jax_mod.__all__) and names <= set(mod.__all__)
+        assert all(hasattr(mod, n) for n in names)
+    assert sum(map(len, REFERENCE_EXPORTS.values())) == 175
 
 
 def test_schedulers_exports():

@@ -61,12 +61,6 @@ def test_split_indices_match_jax(mols, name, split):
         assert sorted(tr + va + te) == list(range(len(tmols)))
 
 
-def test_kmeans_split_is_refused(mols):
-    _, tmols = mols["regression/mol/mol.csv"]
-    with pytest.raises(ValueError, match="kmeans split is not ported yet.*item 4"):
-        make_split_indices(tmols, "kmeans")
-
-
 KEYS = {
     "murcko_scaffold_key": (jax_scaffold_key, murcko_scaffold_key),
     "canonical_key": (jax_canonical_key, canonical_key),
