@@ -3,18 +3,24 @@
 that a run's ``config.json`` has its keys, and the port's own ``--device`` and
 ``--dtype``, and :func:`find_models`. ``--use-cuikmolmaker-featurization``
 takes the native C++ featurizer in ``train``, and is parsed and not read
-elsewhere, as in the JAX package; ``--accelerator`` and ``--devices`` are
-the JAX package's platform and mesh choice, where the port takes
-``--device`` and one GPU."""
+elsewhere, as in the JAX package; ``--accelerator`` is the JAX package's
+platform choice, where the port takes ``--device``. ``--devices N`` trains
+data-parallel over a process group of N ranks, one per GPU, launched by
+``torchrun --nproc-per-node N -m chemprop_tpu_torch.cli train ...``
+(:func:`select_mesh`)."""
 
 from __future__ import annotations
 
 import argparse
+import logging
+import os
 from pathlib import Path
 
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+logger = logging.getLogger(__name__)
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -118,7 +124,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     group.add_argument(
         "--devices",
         default="auto",
-        help="devices for data-parallel training: the port runs on one ('auto' or 1)",
+        help="ranks of data-parallel training, one GPU each, launched by torchrun "
+        "--nproc-per-node N ('auto': the launch's world size)",
     )
     add_device_args(group)
     return parser
@@ -132,13 +139,37 @@ def add_device_args(group) -> None:
 
 
 def check_devices(args) -> None:
-    """Refuse the JAX package's platform and mesh options beyond one device."""
+    """Refuse the JAX package's platform option and a device count that is
+    neither ``auto`` nor a positive number."""
     if getattr(args, "accelerator", "auto") not in (None, "auto"):
         raise ValueError("--accelerator is the JAX package's platform choice; "
                          "the port takes --device")
-    if getattr(args, "devices", "auto") not in (None, "auto", 1, "1"):
-        raise ValueError("training on more than one device is not ported yet "
-                         "(ROADMAP.md section 1 item 12, multi-GPU)")
+    devices = getattr(args, "devices", "auto")
+    if devices not in (None, "auto") and (not str(devices).isdigit() or int(devices) < 1):
+        raise ValueError(f"--devices takes 'auto' or a number of devices of at least 1, "
+                         f"not {devices!r}")
+
+
+def select_mesh(args, device: torch.device):
+    """The process group of ``--devices N`` (``parallel.sharding.Mesh``), or
+    None for one device. ``auto`` is the launch's world size (torchrun's
+    ``WORLD_SIZE``, 1 without it). A launch of fewer processes than N runs
+    on those it has, with a warning, as the JAX package clamps to its
+    devices; a launch of more processes than N is refused."""
+    devices = getattr(args, "devices", "auto")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    n = world if devices in (None, "auto") else int(devices)
+    if n > world:
+        logger.warning(f"requested {n} devices, only {world} available")
+        n = world
+    if n < world:
+        raise ValueError(f"--devices {n} in a launch of {world} processes: launch "
+                         f"torchrun --nproc-per-node {n}")
+    if n <= 1:
+        return None
+    from chemprop_tpu_torch.parallel import make_mesh
+
+    return make_mesh(device=device)
 
 
 def find_models(model_paths: list[Path]) -> list[Path]:

@@ -13,8 +13,12 @@ order's fix to fit the first model. The output is a CSV of ``name`` and
 ``fp_0``, ``fp_1``, ..., or with an ``.npz`` suffix one array ``fps``; with
 several models, one file for each,
 ``<output>_model_<k>``. A mol-atom-bond model writes one ``.npz`` of its
-fingerprints by kind (``cli.mab.fingerprint_MAB``). The inputs ``predict``
-refuses are refused (``predict.INPUT_REFUSED``: ``--edge-partition``, ...)."""
+fingerprints by kind (``cli.mab.fingerprint_MAB``). ``--edge-partition
+[N]`` encodes each molecule a plan over N shards takes with its edge table
+cut across them, the others on the dense path, one plan for the ensemble
+(``parallel.partitioned_mp.PartitionedInference``); a mol-atom-bond model
+is refused there, as in the JAX CLI. The inputs ``predict`` refuses are
+refused (``predict.INPUT_REFUSED``)."""
 
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--ffn-block-index", type=int, default=-1,
                    help="use the predictor FFN's blocks [:i] on top of the fingerprint")
     g.add_argument("--edge-partition", type=int, nargs="?", const=0, default=None, metavar="N",
-                   help="edge-partitioned fingerprinting (not ported yet: refused)")
+                   help="edge-partitioned fingerprinting over N shards (N local shards, or "
+                   "one per rank under torchrun; 0/omitted: the world size)")
     return parser
 
 
@@ -66,12 +71,22 @@ def main(args: argparse.Namespace) -> int:
     model_paths = find_models(args.model_paths)
     models = [load_model(p, device, DTYPES[args.dtype])[0] for p in model_paths]
     if isinstance(models[0], MolAtomBondMPNN):
+        if args.edge_partition is not None:
+            raise ValueError("--edge-partition fingerprint does not support MAB models")
         return fingerprint_MAB(args, models, device)
     if not (args.atom_features_path or args.bond_features_path):
         match_featurizer(args, models[0])
     loader, dset, _ = build_loader(args, args.data_path, model=models[0])
+    session = None
+    if args.edge_partition is not None:
+        from chemprop_tpu_torch.parallel.partitioned_mp import PartitionedInference
+
+        session = PartitionedInference(models[0], [dset[i] for i in range(len(dset))],
+                                       n_shards=args.edge_partition or None,
+                                       encode_index=args.ffn_block_index, device=device)
     for k, model in enumerate(models):
-        fps = encodings(model, loader, device, args.ffn_block_index)
+        fps = (session.run(model) if session is not None
+               else encodings(model, loader, device, args.ffn_block_index))
         out = args.output or args.data_path.with_name(args.data_path.stem + "_fingerprint.csv")
         if len(models) > 1:
             out = out.with_name(f"{out.stem}_model_{k}{out.suffix}")

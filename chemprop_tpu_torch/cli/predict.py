@@ -24,7 +24,12 @@ and a multicomponent model's blocks get the input's components in their
 order (:func:`reorder_components`). A multicomponent row's name is the tuple
 of its inputs, as the JAX CLI writes it.
 ``--uncertainty-method dropout`` runs ``Trainer.predict_mc_dropout`` with
-every dropout rate set to ``--uncertainty-dropout-p``.
+every dropout rate set to ``--uncertainty-dropout-p``. ``--edge-partition
+[N]`` predicts each molecule that a plan over N shards takes with its edge
+table cut across them (``parallel.partitioned_mp.PartitionedInference``, one
+plan shared by the ensemble and by the calibration set's own session) and
+the others on the dense path; it refuses mol-atom-bond models and
+``--uncertainty-method dropout``, as the JAX CLI does.
 
 The output has the JAX CLI's columns: ``name`` (the SMILES), then for each
 task, named by the checkpoint's output columns or ``pred_<j>``, its point
@@ -106,7 +111,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="reference v1/v2 .pt/.ckpt, CPTPU001 files, or directories")
     g.add_argument("--drop-extra-columns", action="store_true")
     g.add_argument("--edge-partition", type=int, nargs="?", const=0, default=None, metavar="N",
-                   help="edge-partitioned inference (not ported yet: refused)")
+                   help="edge-partitioned inference over N shards (N local shards, or one "
+                   "per rank under torchrun; 0/omitted: the world size)")
     g.add_argument("--constraints-path", type=Path, default=None,
                    help="per-molecule sums of a mol-atom-bond model's atom and bond targets")
     g.add_argument("--constraints-to-targets", nargs="+", default=None)
@@ -152,10 +158,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 # what the port refuses, by the argument that asks for it; each message names
 # the ROADMAP.md item that will port it. INPUT_REFUSED is shared with
 # fingerprint
-INPUT_REFUSED = (
-    (lambda a: a.edge_partition is not None,
-     "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
-)
+INPUT_REFUSED = ()
 REFUSED = INPUT_REFUSED + (
     (lambda a: a.output is not None and a.output.suffix == ".pkl",
      "a .pkl output is not written: the JAX package writes it with pandas, which the port "
@@ -284,7 +287,15 @@ def trainer_for(model: MPNN, device: torch.device) -> Trainer:
 
 def run_models(models: list[MPNN], loader, args, device) -> tuple[np.ndarray, np.ndarray | None]:
     """Each member's predictions over ``loader``, stacked ``[m, n, ...]``,
-    and with ``dropout`` the members' mean Monte-Carlo variance."""
+    and with ``dropout`` the members' mean Monte-Carlo variance. With
+    ``--edge-partition`` one partitioned session serves every member."""
+    if args.edge_partition is not None:
+        from chemprop_tpu_torch.parallel.partitioned_mp import PartitionedInference
+
+        dset = loader.dataset
+        session = PartitionedInference(models[0], [dset[i] for i in range(len(dset))],
+                                       n_shards=args.edge_partition or None, device=device)
+        return np.stack([session.run(m) for m in models]), None
     preds, variances = [], []
     for model in models:
         trainer = trainer_for(model, device)
@@ -328,6 +339,12 @@ def main(args: argparse.Namespace) -> int:
     if args.callback is not None:  # before anything is written
         for model in models:
             check_explainable(model)
+    if args.edge_partition is not None:
+        if isinstance(models[0], MolAtomBondMPNN):
+            raise ValueError("--edge-partition predict does not support MAB models")
+        if args.uncertainty_method == "dropout":
+            raise ValueError(
+                "--edge-partition predict does not support --uncertainty-method dropout")
     if isinstance(models[0], MolAtomBondMPNN):  # the first model's columns, as in JAX
         return predict_MAB(args, models, load_model(model_paths[0], "cpu", dtype)[1], device)
     if args.uncertainty_method == "dropout":

@@ -38,9 +38,15 @@ train a mol-atom-bond model (``cli.mab.main_MAB``). ``--split kmeans``
 clusters Morgan bits without scikit-learn (``data.kmeans``), and
 ``--use-cuikmolmaker-featurization`` fills the datasets' caches through the
 native C++ featurizer (``featurizers.native``; where it does not serve the
-featurizer, the run warns and takes the Python one). Refused, with the
-``ROADMAP.md`` item that will port it: ``--edge-partition`` and more than
-one device (item 12). ``--from-foundation PATH`` seeds each member's message
+featurizer, the run warns and takes the Python one). ``--devices N``
+trains data-parallel over N ranks launched by ``torchrun --nproc-per-node N
+-m chemprop_tpu_torch.cli train ...`` (one GPU each; ``--device cpu``: gloo
+ranks on the CPU): each rank trains on its whole-graph shard of every batch
+(``parallel/shard_train.py``) and only rank 0 writes the run's files.
+``--edge-partition [N]`` trains one molecule per step, its edge table cut
+into N shards with their halo exchange (:func:`_train_edge_partitioned`,
+``parallel/partitioned_mp.py``): N local shards in one process, or one per
+rank under torchrun (``partitioned_mp.shard_layout``). ``--from-foundation PATH`` seeds each member's message
 passing from a local v2 ``.pt``, v1 ``.pt`` or ``CPTPU001`` file (nothing is
 downloaded). A batch holding a molecule of
 more than 128 directed edges has no tile table: the kernels that take a
@@ -59,7 +65,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices
+from chemprop_tpu_torch.cli.common import DTYPES, add_common_args, check_devices, select_mesh
 from chemprop_tpu_torch.cli.mab import is_mab, main_MAB
 from chemprop_tpu_torch.cli.parsing import (
     build_datasets,
@@ -219,7 +225,10 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         const=0,
         default=None,
         metavar="N",
-        help="edge-partitioned training over N devices (not ported yet: refused)",
+        help="edge-partitioned training: each molecule's edge table cut into N "
+        "contiguous shards with their halo exchange (N local shards, or one per rank "
+        "under torchrun; 0/omitted: the world size) — for molecules too large for one "
+        "device's batch slice; one molecule per step",
     )
 
     # transfer learning and resuming
@@ -337,8 +346,6 @@ def process_train_args(args) -> None:
 # what the port refuses, by the argument that asks for it; each message names
 # the ROADMAP.md item that will port it
 REFUSED = (
-    (lambda a: a.edge_partition is not None,
-     "--edge-partition is not ported yet (ROADMAP.md section 1 item 12, multi-GPU)"),
     (lambda a: a.from_foundation is not None and not Path(a.from_foundation).is_file(),
      "fetching a named foundation model is not ported yet: --from-foundation takes a local "
      "checkpoint file, as in the JAX package, which downloads nothing (ROADMAP.md section 1 "
@@ -548,6 +555,20 @@ def main(args) -> int:
     if is_mab(args):
         return main_MAB(args)
     device = resolve_device(args.device)  # raises where there is no GPU
+    mesh = select_mesh(args, device)
+    try:
+        return _main(args, device if mesh is None else mesh.device, mesh)
+    finally:
+        if mesh is not None:
+            from chemprop_tpu_torch.parallel import distributed
+
+            distributed.shutdown()
+
+
+def _main(args, device, mesh) -> int:
+    """``main`` on ``device``, over ``mesh`` (None: one process); only
+    rank 0 writes the run's files."""
+    writes = mesh is None or mesh.rank == 0
     unserved_before = dict(UNSERVED)
 
     out_dir = args.output_dir or Path(f"chemprop_tpu_training/{args.data_path.stem}")
@@ -572,8 +593,10 @@ def main(args) -> int:
         Y = np.concatenate([Y, parsed2[2]], axis=0)
         extra_ns.append(len(parsed2[2]))
 
-    with open(out_dir / "config.json", "w") as f:
-        json.dump({k: _jsonable(v) for k, v in vars(args).items() if k != "func"}, f, indent=2)
+    if writes:
+        with open(out_dir / "config.json", "w") as f:
+            json.dump({k: _jsonable(v) for k, v in vars(args).items() if k != "func"}, f,
+                      indent=2)
 
     if len(args.data_paths) == 3:
         n1, n2 = extra_ns
@@ -591,9 +614,10 @@ def main(args) -> int:
         split_idxs = (trains_, vals_, [list(range(n, n + extra_ns[0])) for _ in trains_])
     trains, vals, tests = split_idxs
 
-    with open(out_dir / "splits.json", "w") as f:
-        json.dump([{"train": list(map(int, t)), "val": list(map(int, v)),
-                    "test": list(map(int, s))} for t, v, s in zip(trains, vals, tests)], f)
+    if writes:
+        with open(out_dir / "splits.json", "w") as f:
+            json.dump([{"train": list(map(int, t)), "val": list(map(int, v)),
+                        "test": list(map(int, s))} for t, v, s in zip(trains, vals, tests)], f)
 
     multi = len(components) > 1
     all_scores = []
@@ -611,7 +635,7 @@ def main(args) -> int:
         _log_data_summary(rep, train_dset, val_dset, test_dset, target_cols)
 
         rep_dir = out_dir / (f"replicate_{rep}" if len(trains) > 1 else ".")
-        if args.save_smiles_splits or args.save_data_splits:
+        if (args.save_smiles_splits or args.save_data_splits) and writes:
             rep_dir.mkdir(parents=True, exist_ok=True)
             _save_split_csvs(rep_dir, args, (tr_i, va_i, te_i), {**smis, **rxns}, Y,
                              target_cols)
@@ -625,6 +649,14 @@ def main(args) -> int:
             output_transform = UnscaleTransform.from_standard_scaler(scaler)
             logger.info(f"train target μ={scaler.mean_} σ={scaler.scale_}")
 
+        if args.edge_partition is not None:
+            scores = _train_edge_partitioned(args, train_dset, val_dset, test_dset,
+                                             output_transform, X_d_t, V_d_t, graph_t, rep_dir,
+                                             target_cols, device, mesh)
+            if scores is not None:
+                all_scores.append(scores)
+            continue
+
         if not args.no_cache:
             for d in (train_dset, val_dset):
                 if d is None:
@@ -636,10 +668,13 @@ def main(args) -> int:
                         d.cache = True
                 else:
                     d.cache = True
+        # over a mesh every rank draws the same batches and collates its shard
+        shards = {} if mesh is None else {"n_shards": mesh.size, "shard_index": mesh.rank}
         train_loader = DataLoader(train_dset, batch_size=args.batch_size,
                                   shuffle=not args.class_balance,
-                                  class_balance=args.class_balance, seed=args.data_seed)
-        val_loader = (DataLoader(val_dset, batch_size=args.batch_size)
+                                  class_balance=args.class_balance, seed=args.data_seed,
+                                  **shards)
+        val_loader = (DataLoader(val_dset, batch_size=args.batch_size, **shards)
                       if val_dset is not None else None)
 
         for member in range(args.ensemble_size):
@@ -661,7 +696,7 @@ def main(args) -> int:
                 profile_dir=(model_dir / "profile") if args.profile else None,
                 tensorboard_dir=(model_dir / "tensorboard") if args.tensorboard else None,
                 checkpoint_dir=model_dir / "checkpoints", seed=args.seed + member,
-                log_every=1, freeze=_freeze_predicate(args), device=device,
+                log_every=1, freeze=_freeze_predicate(args), device=device, mesh=mesh,
             )
             if args.from_foundation is not None:
                 _draw_first_batch(train_loader)
@@ -679,31 +714,216 @@ def main(args) -> int:
                 trainer.start_epoch = trainer.resume_from(args.resume, None, len(train_loader))
             _draw_first_batch(train_loader)  # the JAX trainer's fit draws one too
             trainer.fit(train_loader, val_loader)
-            serialize.save_checkpoint(
-                model_dir / "best.ckpt", model, serialize.to_jax_params(trainer.best_variables),
-                {"output_columns": target_cols})
-            with open(model_dir / "history.json", "w") as f:
-                json.dump(trainer.history, f, indent=2)
-            if args.remove_checkpoints:
-                shutil.rmtree(model_dir / "checkpoints", ignore_errors=True)
+            if writes:
+                serialize.save_checkpoint(
+                    model_dir / "best.ckpt", model,
+                    serialize.to_jax_params(trainer.best_variables),
+                    {"output_columns": target_cols})
+                with open(model_dir / "history.json", "w") as f:
+                    json.dump(trainer.history, f, indent=2)
+                if args.remove_checkpoints:
+                    shutil.rmtree(model_dir / "checkpoints", ignore_errors=True)
 
             if test_dset is not None and len(test_dset):
+                # every rank's rows, gathered on every rank
                 preds = trainer.predict(DataLoader(test_dset, batch_size=args.batch_size))
                 scores = _score_test(preds, test_dset, args, target_cols)
                 all_scores.append(scores)
                 logger.info(f"replicate {rep} model {member} test scores: {scores}")
-                _save_preds(model_dir / "test_predictions.csv", test_dset, preds, target_cols)
+                if writes:
+                    _save_preds(model_dir / "test_predictions.csv", test_dset, preds,
+                                target_cols)
 
     unserved = {k: v - unserved_before.get(k, 0) for k, v in UNSERVED.items()
                 if v != unserved_before.get(k, 0)}
     if unserved:
         logger.warning(f"calls without a tile table (a molecule of more than 128 directed "
                        f"edges in the batch), by kernel: {unserved}")
-    if all_scores:
+    if all_scores and writes:
         with open(out_dir / "test_scores.json", "w") as f:
             json.dump(all_scores, f, indent=2)
         print(json.dumps(all_scores[-1]))
     return 0
+
+
+def _train_edge_partitioned(args, train_dset, val_dset, test_dset, output_transform, X_d_t,
+                            V_d_t, graph_t, out_dir: Path, target_cols, device, mesh):
+    """Edge-partitioned training (cf. the JAX CLI's ``_train_edge_partitioned``):
+    one molecule per step, its edge table cut across the shards with the halo
+    exchange (``parallel/partitioned_mp.py``); the JAX package's loop. The
+    molecules fall into power-of-two buckets of padded dims; those that no
+    plan over the shards takes (a halo wider than a shard's owned range) take
+    a dense batched step of the model's own forward, with the same
+    parameters and Adam state, so mixed datasets train in one run. With a
+    validation split, each epoch's validation loss picks the best parameters
+    and drives ``--patience``. Writes a standard ``best.ckpt`` (the model
+    predicts on the single-device path too), ``history.json``, the test
+    predictions and returns the test scores."""
+    from chemprop_tpu_torch.data.collate import PadSpec, collate_batch
+    from chemprop_tpu_torch.nn.init import init_parameters
+    from chemprop_tpu_torch.parallel import partitioned_mp as pm
+    from chemprop_tpu_torch.parallel.shard_train import rank_generator
+    from chemprop_tpu_torch.parallel.sharding import replicate
+    from chemprop_tpu_torch.train.schedulers import noam_lr
+    from chemprop_tpu_torch.train.trainer import TrainState, _targets, adam_update
+
+    writes = mesh is None or mesh.rank == 0
+    n_shards, where = pm.shard_layout(args.edge_partition or None, mesh)
+    exchange = pm.exchange_for(where)
+    model = build_model(args, train_dset, output_transform, X_d_t, V_d_t, graph_t)
+    pm.check_partitionable(model)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def data(dset):
+        return [dset[i] for i in range(len(dset))] if dset is not None else []
+
+    train, vals, tests = data(train_dset), data(val_dset), data(test_dset)
+    if not train:
+        raise ValueError("--edge-partition training needs a non-empty train split")
+    all_data = train + vals + tests
+    keys, graphs, bucket_dims = pm.plan_buckets(all_data, n_shards)
+    n_tr, n_va = len(train), len(vals)
+    dense_sel = [k is None for k in keys]
+    placed = [None if g is None else pm.place(g, bucket_dims[k], exchange, device)
+              for g, k in zip(graphs[: n_tr + n_va], keys[: n_tr + n_va])]
+    logger.info(
+        f"edge-partitioned training over {n_shards} shards: {len(bucket_dims)} dim bucket(s) "
+        + ", ".join(f"[P≤{k}: {sum(1 for x in keys if x == k)} mols"
+                    f"{' 1-phase halo' if bucket_dims[k].single_phase else ''}]"
+                    for k in sorted(bucket_dims))
+        + (f" + {sum(dense_sel)} dense-path molecules" if any(dense_sel) else "")
+        + f", {n_tr} molecules/epoch")
+
+    init_parameters(model, "lecun", torch.Generator().manual_seed(args.seed))
+    model.to(device)
+    if mesh is not None:
+        replicate(list(model.state_dict().values()), mesh)
+    x_ds = [None if d.x_d is None else
+            torch.as_tensor(np.asarray(d.x_d, np.float32).reshape(1, -1), device=device)
+            for d in all_data]
+    dense_train = [i for i in range(n_tr) if dense_sel[i]]
+    part_train = [i for i in range(n_tr) if not dense_sel[i]]
+    dense_bs = max(1, min(args.batch_size, max(1, len(dense_train))))
+    dense_pad = (PadSpec.for_graphs([d.mg for d, s in zip(all_data, dense_sel) if s],
+                                    n_graphs=dense_bs) if any(dense_sel) else None)
+    n_dense_batches = -(-len(dense_train) // dense_bs) if dense_train else 0
+    steps = max(1, len(part_train) + n_dense_batches)
+    sched = (args.warmup_epochs * steps, max(1, (args.epochs - args.warmup_epochs) * steps),
+             args.init_lr, args.max_lr, args.final_lr)
+
+    def lr(step: int) -> float:
+        return noam_lr(step, *sched)
+
+    params = dict(model.named_parameters())
+    rank = 0 if mesh is None else mesh.rank
+    state = TrainState(params, {}, [torch.zeros_like(p) for p in params.values()],
+                       [torch.zeros_like(p) for p in params.values()], 0,
+                       rng=torch.Generator(device=device).manual_seed(args.seed),
+                       shard_rng=rank_generator(args.seed + 1, rank, device))
+    step_fns = {k: pm.make_partitioned_train_step(model, exchange, dims, lr=lr)
+                for k, dims in bucket_dims.items()}
+    val_fns = {k: pm.make_partitioned_apply(model, exchange, dims, train_space=True)
+               for k, dims in bucket_dims.items()}
+    criterion = model.criterion
+
+    def update(st, preds, Y, w):
+        mask = torch.isfinite(Y)
+        no = torch.zeros_like(mask)
+        return criterion.update_state(st, preds, torch.nan_to_num(Y), mask, w, no, no)
+
+    def dense_step(batch):
+        b = batch.to(device)
+        names, ps = list(state.params), list(state.params.values())
+        with torch.enable_grad():
+            preds = model.train_step_preds(b.bmg, b.V_d, b.X_d, is_training=True,
+                                           generator=state.rng)
+            mask, targets, _, _ = _targets(b)
+            no = torch.zeros_like(mask)
+            loss = criterion.compute(criterion.update_state(
+                criterion.init_state(), preds, targets, mask, b.w[:, 0], no, no))
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(ps, grads)]
+        adam_update(ps, grads, state.mu, state.nu, state.step, lr(state.step))
+        state.step += 1
+        return loss.detach()
+
+    def target(d):
+        return (torch.as_tensor(np.asarray(d.y, np.float32), device=device)[None],
+                torch.tensor([float(d.weight)], device=device))
+
+    val_dense = []
+    dense_val = [d for d, k in zip(vals, keys[n_tr : n_tr + n_va]) if k is None]
+    for j in range(0, len(dense_val), dense_bs):
+        chunk = dense_val[j : j + dense_bs]
+        val_dense.append((collate_batch(chunk, dense_pad).to(device), len(chunk)))
+
+    @torch.inference_mode()
+    def val_loss() -> float:
+        st = criterion.init_state()
+        for i in range(n_tr, n_tr + n_va):
+            if keys[i] is not None:
+                y, w = target(all_data[i])
+                st = update(st, val_fns[keys[i]](placed[i], x_ds[i]), y, w)
+        for b, n in val_dense:
+            preds = model.train_step_preds(b.bmg, b.V_d, b.X_d, is_training=False)[:n]
+            st = update(st, preds, b.Y[:n], b.w[:n, 0])
+        return float(criterion.compute(st))
+
+    rng = np.random.default_rng(args.data_seed)
+    history, best_val, best = [], float("inf"), None
+    patience = args.patience if (vals and args.patience) else None
+    bad_epochs = 0
+    for epoch in range(args.epochs):
+        # partitioned molecules and dense batches in one shuffled work list
+        d_order = rng.permutation(len(dense_train)) if dense_train else np.array([], int)
+        work: list = [("p", i) for i in part_train]
+        for j in range(0, len(d_order), dense_bs):
+            work.append(("d", [dense_train[t] for t in d_order[j : j + dense_bs]]))
+        work = [work[t] for t in rng.permutation(len(work))]
+        losses = []
+        for kind, payload in work:
+            if kind == "p":
+                i = int(payload)
+                y, w = target(train[i])
+                losses.append(step_fns[keys[i]](state, placed[i], y, w, x_ds[i]))
+            else:
+                losses.append(dense_step(collate_batch([train[i] for i in payload], dense_pad)))
+        rec = {"epoch": epoch, "train_loss": float(torch.stack(losses).float().mean())}
+        if vals:
+            rec["val_loss"] = val_loss()
+            if rec["val_loss"] < best_val:
+                best_val, bad_epochs = rec["val_loss"], 0
+                best = {k: v.detach().clone() for k, v in params.items()}
+            else:
+                bad_epochs += 1
+        history.append(rec)
+        logger.info(f"epoch={epoch} train_loss={rec['train_loss']:.5g}"
+                    + (f" val_loss={rec['val_loss']:.5g}" if vals else ""))
+        if patience is not None and bad_epochs >= patience:
+            logger.info(f"early stopping at epoch {epoch} (patience={patience})")
+            break
+
+    if best is not None:
+        with torch.no_grad():
+            for k, v in params.items():
+                v.copy_(best[k])
+    if writes:
+        serialize.save_checkpoint(out_dir / "best.ckpt", model,
+                                  serialize.to_jax_params(dict(params)),
+                                  {"output_columns": target_cols})
+        with open(out_dir / "history.json", "w") as f:
+            json.dump(history, f, indent=2)
+    if not tests:
+        return None
+    session = pm.PartitionedInference(
+        model, tests, plan=(keys[n_tr + n_va :], graphs[n_tr + n_va :], bucket_dims),
+        mesh=where, dense_batch_size=dense_bs, device=device)
+    preds = session.run(model)
+    scores = _score_test(preds, test_dset, args, target_cols)
+    logger.info(f"edge-partitioned test scores: {scores}")
+    if writes:
+        _save_preds(out_dir / "test_predictions.csv", test_dset, preds, target_cols)
+    return scores
 
 
 def _log_data_summary(rep, train_dset, val_dset, test_dset, target_cols) -> None:

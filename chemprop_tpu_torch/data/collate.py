@@ -530,3 +530,156 @@ def collate_mol_atom_bond_batch(data: Iterable, pad: PadSpec | None = None) -> M
                             tensors(gt_masks),
                             None if constraints is None else tensors(constraints),
                             np.asarray(perm))
+
+
+# --------------------------------------------------------------------------
+# sharded batches: a rank's self-contained padded shard of a global batch
+# --------------------------------------------------------------------------
+
+
+def partition_shards(sizes: Sequence[int], n_shards: int) -> list[list[int]]:
+    """Deterministic LPT partition of items into ``n_shards`` load-balanced
+    groups of at most ``ceil(n / n_shards)`` items (the JAX package's, bit
+    for bit): each item, largest first, joins the open group of least load.
+    Each graph's loss and gradient are independent and summed over the
+    shards, so the assignment never changes the result."""
+    sizes = np.asarray(list(sizes), dtype=np.int64)
+    cap = -(-len(sizes) // max(n_shards, 1))
+    order = np.argsort(-sizes, kind="stable")
+    loads = np.zeros(n_shards, dtype=np.int64)
+    groups: list[list[int]] = [[] for _ in range(n_shards)]
+    for i in order:
+        open_shards = [k for k in range(n_shards) if len(groups[k]) < cap]
+        k = min(open_shards, key=lambda k: (loads[k], k))
+        groups[k].append(int(i))
+        loads[k] += sizes[i]
+    return [sorted(g) for g in groups]
+
+
+def _empty_like_bmg(bmg: BatchMolGraph) -> BatchMolGraph:
+    """An all-padding graph of ``bmg``'s shape: every edge runs from the last
+    node to itself, every node is in the sacrificial graph."""
+    n_nodes, n_edges = bmg.V.shape[0], bmg.E.shape[0]
+    dst = np.full(n_edges, n_nodes - 1, dtype=np.int32)
+    batch = np.full(n_nodes, bmg.n_graphs, dtype=np.int32)
+    edge_ptr = np.searchsorted(dst, np.arange(n_nodes + 1)).astype(np.int32)
+    node_ptr = np.searchsorted(batch, np.arange(bmg.n_graphs + 2)).astype(np.int32)
+    tiles = iter2_tiles(edge_ptr[node_ptr[: bmg.n_graphs + 1]], n_edges)
+    t = torch.from_numpy
+    return BatchMolGraph(
+        V=torch.zeros_like(bmg.V), E=torch.zeros_like(bmg.E), src=t(dst.copy()), dst=t(dst),
+        rev=t(np.arange(n_edges, dtype=np.int32)), batch=t(batch), edge_ptr=t(edge_ptr),
+        node_ptr=t(node_ptr), node_mask=torch.zeros(n_nodes, dtype=torch.bool),
+        edge_mask=torch.zeros(n_edges, dtype=torch.bool), n_graphs=bmg.n_graphs,
+        tile_ptr=None if tiles is None else t(tiles), last_node_padding=True,
+        last_edge_padding=True,
+    )
+
+
+def _empty_like_batch(tb: TrainingBatch) -> TrainingBatch:
+    """An all-padding batch shaped like ``tb``: zero weights and NaN
+    targets, so it adds nothing to any summed loss or metric."""
+    tup = isinstance(tb.bmg, tuple)
+    bmg = tuple(_empty_like_bmg(b) for b in tb.bmg) if tup else _empty_like_bmg(tb.bmg)
+    zeros = lambda x: None if x is None else torch.zeros_like(x)
+    V_d = tuple(zeros(v) for v in tb.V_d) if tup and tb.V_d is not None else zeros(tb.V_d)
+    return TrainingBatch(
+        bmg=bmg, V_d=V_d, X_d=zeros(tb.X_d),
+        Y=None if tb.Y is None else torch.full_like(tb.Y, float("nan")), w=torch.zeros_like(tb.w),
+        lt_mask=zeros(tb.lt_mask), gt_mask=zeros(tb.gt_mask),
+    )
+
+
+class Shard(NamedTuple):
+    """Shard ``index`` of a global batch cut into ``len(groups)`` shards:
+    ``batch`` holds the rows ``groups[index]`` of the global batch (in that
+    order, then padding), under the padding every shard shares."""
+
+    batch: TrainingBatch
+    groups: list[list[int]]
+    index: int
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.groups)
+
+
+def _shard_pads(rows: list, groups: list[list[int]], multi: bool, pad):
+    """The one padding (a PadSpec, or one per component) every shard shares,
+    as the JAX package's ``collate_sharded`` picks it."""
+    cap = max(len(g) for g in groups)
+    if multi:
+        pads = []
+        for c in range(len(rows[0])):
+            per = [PadSpec.for_graphs([rows[i][c].mg for i in g], n_graphs=cap)
+                   for g in groups if g]
+            pads.append(PadSpec(max(p.n_nodes for p in per), max(p.n_edges for p in per), cap))
+        return pads
+    if pad is not None:
+        return pad
+    per = [PadSpec.for_graphs([rows[i][0] for i in g], n_graphs=cap) for g in groups if g]
+    return PadSpec(max(p.n_nodes for p in per), max(p.n_edges for p in per), cap)
+
+
+def collate_sharded(data: Iterable, n_shards: int, pad: PadSpec | None = None,
+                    shard_index: int = 0) -> Shard:
+    """Shard ``shard_index`` of the rows ``data`` cut into ``n_shards``
+    self-contained padded shards (cf. ``collate_sharded`` of
+    ``chemprop_tpu/data/collate.py``, whose stacked shard ``k`` it equals):
+    graphs LPT-balanced by edge count (:func:`partition_shards`), every
+    shard under one padding (``pad`` per shard, or the largest of the
+    shards' buckets); a shard left without graphs is all padding. Only this
+    shard is collated; multicomponent rows give one graph per component."""
+    rows = list(data)
+    if not rows:
+        raise ValueError("collate_sharded needs at least one datum")
+    if not 0 <= shard_index < n_shards:
+        raise ValueError(f"shard_index {shard_index} is not in [0, {n_shards})")
+    multi = isinstance(rows[0], list)
+    sizes = ([sum(c.mg.E.shape[0] for c in row) for row in rows] if multi
+             else [row[0].E.shape[0] for row in rows])
+    groups = partition_shards(sizes, n_shards)
+    pads = _shard_pads(rows, groups, multi, pad)
+
+    def collate(g):
+        if multi:
+            return collate_multicomponent([rows[i] for i in g], pads)
+        return collate_batch([rows[i] for i in g], pads)
+
+    mine = groups[shard_index]
+    tb = collate(mine) if mine else _empty_like_batch(collate(groups[0]))
+    return Shard(tb, groups, shard_index)
+
+
+def unbatch(tb: TrainingBatch) -> list:
+    """The real rows of a collated batch as ``Datum`` (lists of them for a
+    multicomponent batch), each graph's edges in the batch's sorted order:
+    collating them again gives the same tables."""
+    from chemprop_tpu_torch.data.datasets import Datum
+
+    n = int(tb.pad_mask.sum())
+    graphs = tb.graphs
+    V_ds = tb.V_d if isinstance(tb.V_d, tuple) else (tb.V_d,) * len(graphs)
+    cols = []
+    for bmg, V_d in zip(graphs, V_ds):
+        node_ptr, edge_ptr = bmg.node_ptr.numpy(), bmg.edge_ptr.numpy()
+        col = []
+        for g in range(n):
+            v0, v1 = int(node_ptr[g]), int(node_ptr[g + 1])
+            e0, e1 = int(edge_ptr[v0]), int(edge_ptr[v1])
+            mg = MolGraph(
+                V=bmg.V[v0:v1].numpy(), E=bmg.E[e0:e1].numpy(),
+                edge_index=np.stack([bmg.src[e0:e1].numpy() - v0, bmg.dst[e0:e1].numpy() - v0]),
+                rev_edge_index=bmg.rev[e0:e1].numpy() - e0,
+            )
+            pick = lambda x: None if x is None else x[g].numpy()
+            col.append(Datum(mg, None if V_d is None else V_d[v0:v1].numpy(), pick(tb.X_d),
+                             pick(tb.Y), float(tb.w[g, 0]), pick(tb.lt_mask), pick(tb.gt_mask)))
+        cols.append(col)
+    return cols[0] if len(cols) == 1 else [list(r) for r in zip(*cols)]
+
+
+def shard_of_batch(tb: TrainingBatch, n_shards: int, shard_index: int) -> Shard:
+    """The host cut of a collated batch into whole-graph shards: shard
+    ``shard_index`` of :func:`collate_sharded` over its real rows."""
+    return collate_sharded(unbatch(tb), n_shards, shard_index=shard_index)

@@ -6,8 +6,12 @@ on the CPU; the trainer moves them. ``class_balance`` takes the
 ``shuffle`` is), as the JAX loader does. A ``MulticomponentDataset``'s rows
 collate into one padded graph per component (``collate_multicomponent``),
 each padded to its own bucket; a ``MolAtomBondDataset``'s rows collate into
-a ``MABTrainingBatch`` (``collate_mol_atom_bond_batch``). Not ported: shards
-(the JAX loader refuses them for mol-atom-bond rows too), and the JAX
+a ``MABTrainingBatch`` (``collate_mol_atom_bond_batch``). With ``n_shards``
+each batch is cut into that many whole-graph shards and the loader yields
+shard ``shard_index`` of each (``collate_sharded``, a ``Shard``): every rank
+of a process group iterates the same batches and collates only its own
+shard (the JAX loader stacks all of them); mol-atom-bond rows with shards
+are refused, as the JAX loader refuses them. Not ported: the JAX
 loader's isolation of molecules wider than its kernel's window (more than 192
 bonds) into batches of their own; the port's kernels take such a molecule's
 split tile table instead. So ``emitted_order`` is the dataset's order
@@ -23,6 +27,7 @@ import numpy as np
 
 from chemprop_tpu_torch.data.collate import (
     PadSpec, TrainingBatch, collate_batch, collate_mol_atom_bond_batch, collate_multicomponent,
+    collate_sharded,
 )
 from chemprop_tpu_torch.data.datasets import MABDatum, MoleculeDataset
 from chemprop_tpu_torch.data.samplers import ClassBalanceSampler, SeededSampler
@@ -38,11 +43,16 @@ class DataLoader:
         class_balance: bool = False,
         drop_last: bool = False,
         pad_spec: PadSpec | None = None,
+        n_shards: int = 0,
+        shard_index: int = 0,
     ):
+        """``n_shards > 0`` yields shard ``shard_index`` of each batch, a
+        ``Shard``; ``pad_spec`` is then each shard's."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.pad_spec = pad_spec
+        self.n_shards, self.shard_index = n_shards, shard_index
         self._reshuffles = bool(shuffle or class_balance)
         if class_balance:
             self.sampler = ClassBalanceSampler(dataset.Y, seed, shuffle)
@@ -76,6 +86,11 @@ class DataLoader:
     def __iter__(self) -> Iterator[TrainingBatch]:
         for idxs in self._index_batches():
             data = [self.dataset[i] for i in idxs]
+            if self.n_shards:
+                if isinstance(data[0], MABDatum):
+                    raise NotImplementedError("sharded MAB batches are not supported yet")
+                yield collate_sharded(data, self.n_shards, self.pad_spec, self.shard_index)
+                continue
             if isinstance(data[0], list):  # multicomponent rows: a pad per component
                 pads = self.pad_spec or [
                     PadSpec.for_graphs([row[c].mg for row in data], n_graphs=self.batch_size)

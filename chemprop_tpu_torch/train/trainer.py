@@ -53,8 +53,23 @@ receives each epoch's record as scalar events (``utils.tbevents``, the JAX
 package's bytes), after its validation; ``profile_dir`` receives a Chrome
 trace of ``torch.profiler`` over ``profile_steps`` steps of the first epoch
 of a fit, from its second step on (the first builds the kernels), as the JAX
-trainer traces with ``jax.profiler`` after its compile step. Not ported yet:
-chained steps and meshes."""
+trainer traces with ``jax.profiler`` after its compile step.
+
+``mesh`` (a ``parallel.sharding.Mesh``, one process per GPU; ``sharded`` is
+accepted for the JAX signature's sake) makes every step the explicit per-rank
+step of ``parallel/shard_train.py``: each rank trains on its whole-graph shard
+of each batch (a loader with ``n_shards`` yields it; a plain batch is cut on
+the host with ``partition_shards``), with the criterion's state, the
+gradients and the batch-norm moments summed over the group. The JAX
+package's ``mesh`` without ``sharded`` is GSPMD, which has no PyTorch
+counterpart; both modes take this step, which the JAX package documents as
+numerically identical to single-device training. The parameters are rank
+0's (broadcast at ``init_state``); the dropout generator is the rank's
+(``shard_train.rank_generator``). Validation sums the criterion's state and
+gathers the predictions in shard order; ``predict`` gathers every rank's
+rows into the loader's order on every rank. Only rank 0 writes checkpoints,
+TensorBoard events and logs; the others wait at a barrier. Not ported yet:
+chained steps."""
 
 from __future__ import annotations
 
@@ -63,12 +78,12 @@ import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from chemprop_tpu_torch.data.collate import TrainingBatch
+from chemprop_tpu_torch.data.collate import Shard, TrainingBatch
 from chemprop_tpu_torch.data.dataloader import DataLoader
 from chemprop_tpu_torch.models import serialize
 from chemprop_tpu_torch.models.load import jax_path
@@ -93,6 +108,24 @@ def jax_key(name: str) -> str:
     return "/".join(jax_path(name)[1])
 
 
+def adam_update(params: list[torch.Tensor], grads: list[torch.Tensor], mu: list[torch.Tensor],
+                nu: list[torch.Tensor], step: int, lr: float) -> None:
+    """One Adam update in place (``optax.adam``'s numbers): ``step`` is the
+    number of updates made before this one."""
+    t = step + 1
+    with torch.no_grad():
+        torch._foreach_mul_(mu, ADAM_B1)
+        torch._foreach_add_(mu, grads, alpha=1 - ADAM_B1)
+        torch._foreach_mul_(nu, ADAM_B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - ADAM_B2)
+        denom = torch._foreach_div(nu, 1 - ADAM_B2**t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPS)
+        update = torch._foreach_div(mu, 1 - ADAM_B1**t)
+        torch._foreach_div_(update, denom)
+        torch._foreach_add_(params, update, alpha=-lr)
+
+
 @dataclass
 class TrainState:
     """The trained model's parameters and batch-norm statistics are the
@@ -105,6 +138,8 @@ class TrainState:
     nu: list[torch.Tensor]
     step: int = 0
     rng: torch.Generator | None = None  # the dropout masks of the training steps
+    # the message passing's masks of an edge-partitioned step, one per rank
+    shard_rng: torch.Generator | None = None
 
 
 def _targets(batch: TrainingBatch) -> tuple[torch.Tensor, ...]:
@@ -152,6 +187,9 @@ class Trainer:
     # a Chrome trace of steps 1 .. profile_steps of the first epoch of a fit
     profile_dir: str | Path | None = None
     profile_steps: int = 5
+    # a parallel.sharding.Mesh: every step is the per-rank sharded step
+    mesh: Any = None
+    sharded: bool = False
 
     # the first epoch of every fit, as in the JAX trainer: a second fit trains
     # max_epochs - start_epoch more epochs from the state the first one left
@@ -166,6 +204,10 @@ class Trainer:
     def __post_init__(self):
         if self.mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {self.mode!r}")
+        if self.sharded and self.mesh is None:
+            raise ValueError("sharded=True requires a mesh")
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)  # raises where there is no GPU
         self.compute_dtype = self.model.message_passing.compute_dtype
         if self.compute_dtype == torch.float32:
@@ -190,6 +232,14 @@ class Trainer:
                         bn.running_mean.zero_()
                         bn.running_var.fill_(1.0)
         self.model.to(self.device)
+        if self.mesh is not None:
+            from chemprop_tpu_torch.parallel.sharding import replicate
+
+            # sync batch-norm moments across the group, and rank 0's state
+            for bn in self.model.modules():
+                if isinstance(bn, BatchNorm):
+                    bn.mesh = self.mesh
+            replicate(list(self.model.state_dict().values()), self.mesh)
         self._sched_args = (
             self.warmup_epochs * steps_per_epoch,
             max(1, (self.max_epochs - self.warmup_epochs) * steps_per_epoch),
@@ -213,7 +263,21 @@ class Trainer:
         return self.state
 
     def _generator(self, seed: int) -> torch.Generator:
+        if self.mesh is not None:
+            from chemprop_tpu_torch.parallel.shard_train import rank_generator
+
+            return rank_generator(seed, self.mesh.rank, self.device)
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _writes(self) -> bool:
+        """Whether this process writes the fit's files: rank 0 of a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group)
 
     # ------------------------------------------------------------------ steps
     def loss(self, batch: TrainingBatch) -> torch.Tensor:
@@ -230,26 +294,20 @@ class Trainer:
         every = list(st.params.values())
         params = [every[i] for i in self._trained]
         mu, nu = [st.mu[i] for i in self._trained], [st.nu[i] for i in self._trained]
-        loss = self.loss(batch.to(self.device))
-        grads = list(torch.autograd.grad(loss, params))
+        if self.mesh is not None:
+            from chemprop_tpu_torch.parallel.shard_train import local_shard, sharded_grads
+
+            local = local_shard(batch, self.mesh).to(self.device)
+            loss, grads = sharded_grads(self.model, local, params, self.mesh, st.rng)
+        else:
+            loss = self.loss(batch.to(self.device))
+            grads = list(torch.autograd.grad(loss, params))
         if self.grad_clip:
             norm = torch.sqrt(sum(g.square().sum() for g in grads))
             scale = torch.where(norm > self.grad_clip, self.grad_clip / norm, torch.ones_like(norm))
             torch._foreach_mul_(grads, scale)
-        lr = noam_lr(st.step, *self._sched_args)
-        t = st.step + 1
-        with torch.no_grad():
-            torch._foreach_mul_(mu, ADAM_B1)
-            torch._foreach_add_(mu, grads, alpha=1 - ADAM_B1)
-            torch._foreach_mul_(nu, ADAM_B2)
-            torch._foreach_addcmul_(nu, grads, grads, value=1 - ADAM_B2)
-            denom = torch._foreach_div(nu, 1 - ADAM_B2**t)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, ADAM_EPS)
-            update = torch._foreach_div(mu, 1 - ADAM_B1**t)
-            torch._foreach_div_(update, denom)
-            torch._foreach_add_(params, update, alpha=-lr)
-        st.step = t
+        adam_update(params, grads, mu, nu, st.step, noam_lr(st.step, *self._sched_args))
+        st.step += 1
         return loss.detach()
 
     # ------------------------------------------------------------------- fit
@@ -263,7 +321,7 @@ class Trainer:
             self.init_state(None, steps_per_epoch)
         self.best_variables, self.best_epoch = None, -1
         tb = None
-        if self.tensorboard_dir is not None:
+        if self.tensorboard_dir is not None and self._writes():
             tb = ScalarEventWriter(self.tensorboard_dir)
         try:
             self._fit_epochs(train_loader, val_loader, tb)
@@ -300,8 +358,9 @@ class Trainer:
                 if self.profile_dir is not None and epoch == self.start_epoch and step_i == 1:
                     prof = self._profiler()
                     prof.start()
-                # the host batch's real edges, of every component
-                n_edges += sum(int(g.edge_mask.sum()) for g in batch.graphs)
+                # the host batch's real edges, of every component (a shard's own)
+                host = batch.batch if isinstance(batch, Shard) else batch
+                n_edges += sum(int(g.edge_mask.sum()) for g in host.graphs)
                 losses.append(self.train_step(batch))
                 if prof is not None and step_i >= self.profile_steps:
                     self._stop_profiler(prof)
@@ -324,7 +383,7 @@ class Trainer:
             if tb is not None:
                 tb.add_scalars(record, step=epoch)
                 tb.flush()
-            if self.log_every and epoch % self.log_every == 0:
+            if self.log_every and epoch % self.log_every == 0 and self._writes():
                 logger.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                                      for k, v in record.items()))
             score = record.get(self.monitor, train_loss)
@@ -377,7 +436,11 @@ class Trainer:
         model, criterion = self.model, self.model.criterion
         state = criterion.init_state()
         chunks = []
+        if self.mesh is not None:
+            from chemprop_tpu_torch.parallel.shard_train import local_shard, sum_state
         for host in loader:
+            if self.mesh is not None:
+                host = local_shard(host, self.mesh)
             batch = host.to(self.device)
             # one fingerprint serves the criterion's and the metrics' heads
             Z = model.fingerprint(batch.bmg, batch.V_d, batch.X_d, False)
@@ -388,6 +451,11 @@ class Trainer:
                 real = host.pad_mask
                 val_preds = model.predictor.val_step(Z).float().cpu()
                 chunks.append((val_preds[real], host.Y[real]))
+        if self.mesh is not None:
+            # the global batch's state; every rank's rows, in shard order
+            state = sum_state(state, self.mesh)
+            if metrics:
+                chunks = self._gather(chunks)
         record = {"val_loss": float(criterion.compute(state))}
         if chunks:
             preds, Y = (torch.cat(parts) for parts in zip(*chunks))
@@ -410,8 +478,23 @@ class Trainer:
                 record[f"val_{name}"] = value
         return record
 
+    def _gather(self, chunks: list) -> list:
+        """Every rank's list of chunks, rank by rank."""
+        if self.mesh.size == 1:
+            return chunks
+        import torch.distributed as dist
+
+        parts = [None] * self.mesh.size
+        dist.all_gather_object(parts, chunks, group=self.mesh.group)
+        return [c for part in parts for c in part]
+
     # ----------------------------------------------------------- checkpoints
     def _save_checkpoint(self, tag: str, next_epoch: int | None = None) -> None:
+        if self._writes():
+            self._write_checkpoint(tag, next_epoch)
+        self._barrier()
+
+    def _write_checkpoint(self, tag: str, next_epoch: int | None = None) -> None:
         """``best.ckpt`` (the best epoch's parameters and statistics) or
         ``last.ckpt`` (the whole training state; ``next_epoch`` is the epoch a
         resumed fit starts at)."""
@@ -477,6 +560,15 @@ class Trainer:
                 b.bmg, b.V_d, b.X_d, is_training=use_batch_statistics, generator=gen))
 
     def _collect(self, loader: DataLoader, apply) -> np.ndarray:
+        if self.mesh is not None:
+            from chemprop_tpu_torch.parallel.shard_train import as_shard, gather_rows
+
+            parts = []
+            for host in loader:
+                shard = as_shard(host, self.mesh)
+                n = len(shard.groups[shard.index])
+                parts.append(gather_rows(apply(shard.batch.to(self.device))[:n], shard, self.mesh))
+            return _restore_order(np.concatenate(parts, axis=0), loader)
         chunks = [(apply(host.to(self.device)), host.pad_mask) for host in loader]
         preds = np.concatenate([p.float().cpu().numpy()[m] for p, m in chunks], axis=0)
         return _restore_order(preds, loader)

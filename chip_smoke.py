@@ -254,7 +254,21 @@ failure:
    limit), then the same epoch with Python featurization, whose splits and
    losses must be the same bits; ``predict`` of its ``best.ckpt`` with the
    flag and without, the same rows. Phases 15 and 16 print their seconds
-   and numbers on their own lines with the card's name and power limit.
+   and numbers on their own lines with the card's name and power limit;
+17. multi-GPU, each part fatal: (a) the giant polymer ``"C1(CCCCC1)" *
+   3000`` (18,000 atoms) cut into 4 local shards, the partitioned forward
+   and one Adam step of the default model (no batch norm) in f32, rehearsed
+   on the CPU (kernels C and I exactly the rehearsal's launches, no other),
+   held against the rehearsal, against the same run on the card with the
+   plain versions of C and I, and against the card's dense single-device
+   forward and step (forward rtol 1e-4 / atol 1e-5, loss rtol 1e-4, the
+   parameters as phase 4(b) holds one step); (b) ``Trainer(mesh=...)`` over
+   a process group of one on NCCL, three steps on the benchmark batch with
+   batch norm in f32 and bf16: the plain trainer's losses and parameters
+   bit for bit, its launches, nothing more unserved; (c) ``train``,
+   ``predict`` and ``fingerprint --edge-partition 4`` on mol.csv's first 30
+   rows and the giant polymer on the card against the CPU. Its seconds are
+   printed with the card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -4204,6 +4218,370 @@ def train_rate(batch, reps: int) -> dict:
     return rates
 
 
+# phase 17: multi-GPU. (a) the giant polymer cut into PARTITION_SHARDS local
+# shards; (b) the sharded step at world size 1 over NCCL; (c) the command
+# line's --edge-partition on mol.csv's first PARALLEL_CLI_ROWS rows and the
+# giant polymer
+GIANT_RINGS = 3000  # "C1(CCCCC1)" * 3000: 18,000 atoms, 42,000 directed edges
+PARTITION_SHARDS = 4
+PARTITION_LR = 1e-3  # the partitioned and the dense step's Adam rate
+# f32 against f32: the same function summed in other orders (rtol, atol)
+PARTITION_FWD_LIMITS = (1e-4, 1e-5)
+SHARDED_STEPS = 3
+PARALLEL_CLI_ROWS = 30
+PARALLEL_CLI_FLAGS = ["--epochs", "1", "--edge-partition", str(PARTITION_SHARDS),
+                      "--aggregation", "mean", "--split-sizes", "0.8", "0.1", "0.1",
+                      "--data-seed", "1", "--seed", "3"]
+
+
+def giant_datum(rings: int = GIANT_RINGS, y: float = 1.5):
+    """The giant polymer as a ``Datum``, featurised by the default featurizer."""
+    import numpy as np
+
+    from chemprop_tpu_torch.chem import make_mol
+    from chemprop_tpu_torch.data.datasets import Datum
+    from chemprop_tpu_torch.featurizers import SimpleMoleculeMolGraphFeaturizer
+
+    mg = SimpleMoleculeMolGraphFeaturizer()(make_mol("C1(CCCCC1)" * rings))
+    return Datum(mg, None, None, np.array([y], np.float32), 1.0)
+
+
+def partitionable_model(seed: int):
+    """The default model at full width without batch norm (the partitioned
+    path takes none), its weights from ``seed``, on the CPU."""
+    import torch
+
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.nn.init import init_parameters
+
+    model = MPNN(BondMessagePassing(), MeanAggregation(), RegressionFFN(output_transform=False))
+    init_parameters(model, "lecun", torch.Generator().manual_seed(seed))
+    return model
+
+
+class plain_halo_ops:
+    """``with plain_halo_ops():`` the partitioned path's sums and gathers take
+    the plain versions of kernels C and I on whatever device."""
+
+    def __enter__(self):
+        from chemprop_tpu_torch.ops import edge_partition, gather, segment
+        from chemprop_tpu_torch.parallel import partitioned_mp
+
+        def seg(data, ids, ptr, out_dtype=None):
+            return segment.sorted_segment_sum_plain(data, ids, ptr, out_dtype or data.dtype)[0]
+
+        self.saved = [(edge_partition, "sorted_segment_sum", edge_partition.sorted_segment_sum),
+                      (edge_partition, "row_gather", edge_partition.row_gather),
+                      (partitioned_mp, "row_gather", partitioned_mp.row_gather)]
+        edge_partition.sorted_segment_sum = seg
+        edge_partition.row_gather = partitioned_mp.row_gather = gather.row_gather_plain
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+        return False
+
+
+def partitioned_step(model, datum, S: int, device):
+    """The partitioned forward and one Adam step of ``model`` (a copy on
+    ``device``) on ``datum`` cut into ``S`` local shards: the prediction, the
+    loss and the stepped parameters, on the CPU, and the forward's seconds."""
+    import copy
+
+    import torch
+
+    from chemprop_tpu_torch.parallel import partitioned_mp as pm
+    from chemprop_tpu_torch.train.trainer import TrainState
+
+    model = copy.deepcopy(model).to(device or "cuda")
+    dev = next(model.parameters()).device
+    g, dims = pm.build_partitioned_graph(datum.mg, S)
+    dg = pm.place(g, dims, pm.LocalExchange(S), dev)
+    t0 = time.time()
+    preds = pm.make_partitioned_apply(model, S, dims)(dg)
+    preds = preds.cpu()
+    fwd_s = time.time() - t0
+    params = dict(model.named_parameters())
+    state = TrainState(params, {}, [torch.zeros_like(p) for p in params.values()],
+                       [torch.zeros_like(p) for p in params.values()], 0,
+                       torch.Generator(device=dev).manual_seed(0))
+    y = torch.as_tensor(datum.y, device=dev)[None]
+    loss = pm.make_partitioned_train_step(model, S, dims, lr=PARTITION_LR)(
+        state, dg, y, torch.ones(1, device=dev))
+    return (preds, float(loss), {k: v.detach().cpu() for k, v in params.items()}, fwd_s,
+            dims)
+
+
+def dense_step(model, datum):
+    """The same forward and Adam step on the card's single-device path."""
+    import copy
+
+    import torch
+
+    from chemprop_tpu_torch.data import collate_batch
+    from chemprop_tpu_torch.train.trainer import adam_update
+
+    model = copy.deepcopy(model).to("cuda")
+    b = collate_batch([datum]).to("cuda")
+    with torch.inference_mode():
+        preds = model(b.bmg)[:1].cpu()
+    params = list(model.parameters())
+    pred = model.train_step_preds(b.bmg, is_training=True)[:1]
+    y = torch.as_tensor(datum.y, device="cuda")[None]
+    loss = model.criterion(pred, y, torch.isfinite(y), torch.ones(1, device="cuda"))
+    grads = torch.autograd.grad(loss, params)
+    adam_update(params, list(grads), [torch.zeros_like(p) for p in params],
+                [torch.zeros_like(p) for p in params], 0, PARTITION_LR)
+    return (preds, float(loss.detach()),
+            {k: v.detach().cpu() for k, v in model.named_parameters()})
+
+
+def partition_timings(model, datum, reps: int = 5) -> dict:
+    """Host-clock ms per call, between synchronisations, after one call
+    each: the partitioned forward and Adam step in ``PARTITION_SHARDS`` local
+    shards, and the dense single-device forward of the same molecule."""
+    import copy
+
+    import torch
+
+    from chemprop_tpu_torch.data import collate_batch
+    from chemprop_tpu_torch.parallel import partitioned_mp as pm
+    from chemprop_tpu_torch.train.trainer import TrainState
+
+    model = copy.deepcopy(model).to("cuda")
+    g, dims = pm.build_partitioned_graph(datum.mg, PARTITION_SHARDS)
+    dg = pm.place(g, dims, pm.LocalExchange(PARTITION_SHARDS), "cuda")
+    apply = pm.make_partitioned_apply(model, PARTITION_SHARDS, dims)
+    params = dict(model.named_parameters())
+    state = TrainState(params, {}, [torch.zeros_like(p) for p in params.values()],
+                       [torch.zeros_like(p) for p in params.values()], 0,
+                       torch.Generator(device="cuda").manual_seed(0))
+    step = pm.make_partitioned_train_step(model, PARTITION_SHARDS, dims, lr=PARTITION_LR)
+    y, w = torch.as_tensor(datum.y, device="cuda")[None], torch.ones(1, device="cuda")
+    b = collate_batch([datum]).to("cuda")
+
+    def dense():
+        with torch.inference_mode():
+            model(b.bmg)
+
+    def ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    return {"partitioned_forward_ms": ms(lambda: apply(dg)),
+            "partitioned_step_ms": ms(lambda: step(state, dg, y, w)),
+            "dense_forward_ms": ms(dense), "reps": reps}
+
+
+def hold_step(tag: str, got, want) -> dict:
+    """Fail unless two forwards, losses and stepped parameters agree: the
+    forward within ``PARTITION_FWD_LIMITS``, the loss within rtol 1e-4, the
+    parameters as phase 4(b) holds one f32 step (every element within twice
+    the rate, all but a thousandth within rtol 1e-4 / atol 1e-6)."""
+    rtol, atol = PARTITION_FWD_LIMITS
+    fwd_gap = float((got[0] - want[0]).abs().max())
+    n_off = n_all = 0
+    worst = 0.0
+    for name, w in want[2].items():
+        err = (got[2][name] - w).abs()
+        worst = max(worst, float(err.max()))
+        n_off += int((err > 1e-6 + 1e-4 * w.abs()).sum())
+        n_all += err.numel()
+    res = {"forward_max_abs_diff": fwd_gap, "forward_limits_rtol_atol": [rtol, atol],
+           "loss": got[1], "loss_other": want[1], "loss_rtol": 1e-4,
+           "max_abs_param_diff": worst, "limit_abs_param_diff": 2 * PARTITION_LR,
+           "params_outside_rtol_1e-4": n_off, "params": n_all, "limit_share_outside": 1e-3}
+    if not torch_allclose(got[0], want[0], rtol, atol):
+        fail(f"{tag}: the forward parts by {fwd_gap}")
+    if abs(got[1] - want[1]) > 1e-4 * abs(want[1]):
+        fail(f"{tag}: loss {got[1]} against {want[1]}")
+    if worst > 2 * PARTITION_LR * (1 + 1e-3) or n_off > 1e-3 * n_all:
+        fail(f"{tag}: the stepped parameters part ({worst}, {n_off} of {n_all})")
+    return res
+
+
+def torch_allclose(a, b, rtol: float, atol: float) -> bool:
+    import torch
+
+    return bool(torch.isfinite(a).all()) and bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+
+
+def edge_partition_run(launches: dict, unserved: dict, seed: int) -> dict:
+    """Phase 17(a): the giant polymer in ``PARTITION_SHARDS`` local shards,
+    the partitioned forward and one Adam step of the default model in f32 on
+    the card, rehearsed on the CPU (C and I exactly the rehearsal's
+    launches, nothing else), against the rehearsal, against the same run on
+    the card with the plain versions of C and I, and against the card's dense
+    single-device forward and step."""
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    datum = giant_datum()
+    model = partitionable_model(seed)
+    runs = {}
+
+    def run(dev):
+        runs[dev or "cuda"] = partitioned_step(model, datum, PARTITION_SHARDS, dev)
+        return runs[dev or "cuda"]
+
+    rehearsed("edge_partition_float32", run, launches, unserved)
+    got = launches["edge_partition_float32"]
+    if set(got) != {"sorted_segment_sum", "row_gather"}:
+        fail(f"the partitioned path launched {got}: C and I alone")
+    with plain_halo_ops():
+        LAUNCHES.clear()
+        plain = partitioned_step(model, datum, PARTITION_SHARDS, None)
+        if LAUNCHES:
+            fail(f"the plain run launched {dict(LAUNCHES)}")
+    dense = dense_step(model, datum)
+    card, dims = runs["cuda"], runs["cuda"][4]
+    res = {"atoms": int(datum.mg.V.shape[0]), "directed_edges": int(datum.mg.E.shape[0]),
+           "shards": PARTITION_SHARDS, "dims": dims._asdict(), "launches": got,
+           "partitioned_forward_s": card[3],
+           "vs_cpu_rehearsal": hold_step("edge partition: card against the CPU", card,
+                                         runs["cpu"]),
+           "vs_plain_on_card": hold_step("edge partition: kernels against plain versions",
+                                         card, plain),
+           "vs_dense_on_card": hold_step("edge partition: partitioned against dense", card,
+                                         dense),
+           "timings": partition_timings(model, datum)}
+    return res
+
+
+def sharded_world_1(batch, launches: dict) -> dict:
+    """Phase 17(b): ``Trainer(mesh=...)`` over a process group of one on
+    NCCL, ``SHARDED_STEPS`` steps of the default model with batch norm on
+    the benchmark batch in f32 and bf16, against the plain ``Trainer``: the
+    same loss and parameter bits, the same launches, and nothing unserved
+    that the plain steps leave served."""
+    import torch
+    import torch.distributed as dist
+
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+    from chemprop_tpu_torch.parallel import distributed, make_mesh
+    from chemprop_tpu_torch.train import Trainer
+
+    res = {}
+    mesh = make_mesh()
+    try:
+        if dist.get_backend() != "nccl" or mesh.size != 1:
+            fail(f"the group is {dist.get_backend()} of {mesh.size}")
+        for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            out = {}
+            for tag, m in (("plain", None), ("sharded", mesh)):
+                torch.manual_seed(0)
+                trainer = Trainer(default_model(dt), max_epochs=50, warmup_epochs=2, seed=12,
+                                  mesh=m)
+                trainer.init_state(batch, 4)
+                before = dict(UNSERVED)
+                LAUNCHES.clear()
+                losses = [trainer.train_step(batch) for _ in range(SHARDED_STEPS)]
+                torch.cuda.synchronize()
+                out[tag] = (torch.stack(losses).cpu(), dict(LAUNCHES), unserved_since(before),
+                            {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()})
+            (lp, kp, up, sp), (ls, ks, us, ss) = out["plain"], out["sharded"]
+            launches[f"sharded_world1_{name}"] = ks
+            same_bits = torch.equal(lp, ls) and all(torch.equal(sp[k], ss[k]) for k in sp)
+            res[name] = {"losses": ls.tolist(), "bit_equal_to_plain": same_bits,
+                         "launches": ks, "plain_launches": kp, "unserved": us,
+                         "plain_unserved": up}
+            if not same_bits:
+                fail(f"sharded {name} steps at world size 1 differ from the plain trainer's")
+            if ks != kp:
+                fail(f"sharded {name} steps launched {ks}, the plain steps {kp}")
+            if any(n > up.get(k, 0) for k, n in us.items()):
+                fail(f"sharded {name} steps left {us} unserved, the plain steps {up}")
+    finally:
+        distributed.shutdown()
+    return res
+
+
+def parallel_cli(out_dir: Path, launches: dict) -> dict:
+    """Phase 17(c): ``train``, ``predict`` and ``fingerprint`` with
+    ``--edge-partition`` on mol.csv's first rows and the giant polymer, on the
+    card and on the CPU: the train loss within rtol 1e-4 and the test
+    predictions within 1e-3 (a few Adam steps apart in summation order);
+    ``predict`` and ``fingerprint`` of the card's ``best.ckpt`` at phase 3's
+    limits. Each card run must launch C and I."""
+    import numpy as np
+
+    rows = list(csv.reader(open(MOL_CSV)))
+    data = out_dir / "giant.csv"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(data, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerows(rows[: 1 + PARALLEL_CLI_ROWS])
+        w.writerow(["C1(CCCCC1)" * GIANT_RINGS, "1.5"])
+    res = {}
+    hist = {}
+    for dev in (None, "cpu"):
+        from chemprop_tpu_torch.ops import LAUNCHES
+
+        LAUNCHES.clear()
+        hist[dev] = mc_train(out_dir / f"train_{dev or 'cuda'}", "float32", dev,
+                             ["-i", data, *PARALLEL_CLI_FLAGS])
+        if dev is None:
+            launches["cli_train_edge_partition"] = dict(LAUNCHES)
+    lc, lp = hist[None][0]["train_loss"], hist["cpu"][0]["train_loss"]
+    res["train_loss"] = {"cuda": lc, "cpu": lp, "rtol": 1e-4}
+    if abs(lc - lp) > 1e-4 * abs(lp):
+        fail(f"train --edge-partition: loss {lc} on the card, {lp} on the CPU")
+    tables = {d: predict_table(out_dir / f"train_{d}" / "test_predictions.csv")
+              for d in ("cuda", "cpu")}
+    gap = float(np.abs(tables["cuda"][2] - tables["cpu"][2]).max())
+    res["test_predictions_max_abs_diff"] = gap
+    if not np.allclose(tables["cuda"][2], tables["cpu"][2], rtol=1e-3, atol=1e-3):
+        fail(f"train --edge-partition: test predictions part by {gap}")
+    ckpt = out_dir / "train_cuda" / "best.ckpt"
+    for sub, extra in (("predict", []), ("fingerprint", ["--ffn-block-index", "0"])):
+        outs = {}
+        for dev in (None, "cpu"):
+            from chemprop_tpu_torch.ops import LAUNCHES
+
+            LAUNCHES.clear()
+            outs[dev] = run_cli(sub, ["-i", data, "--model-paths", ckpt, "--edge-partition",
+                                      PARTITION_SHARDS, *extra],
+                                out_dir / f"{sub}_{dev or 'cuda'}.csv", dev)
+            if dev is None:
+                launches[f"cli_{sub}_edge_partition"] = dict(LAUNCHES)
+        res[sub] = {"max_abs_diff": hold_to_cpu(f"{sub} --edge-partition", outs[None],
+                                                outs["cpu"], 1e-5, 1e-4)}
+    for tag in ("cli_train_edge_partition", "cli_predict_edge_partition",
+                "cli_fingerprint_edge_partition"):
+        if not (launches[tag].get("sorted_segment_sum") and launches[tag].get("row_gather")):
+            fail(f"{tag} launched {launches[tag]}: C and I must run")
+        res[tag] = launches[tag]
+    return res
+
+
+def parallel_phase(batch, card: str, seed: int) -> tuple[dict, dict]:
+    """Phase 17: (a) the edge partition in one process, (b) the sharded step
+    at world size 1 over NCCL, (c) the command line; each part fatal. Its
+    seconds and numbers on their own lines with the card's name and power
+    limit."""
+    import tempfile
+
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    res["edge_partition"] = edge_partition_run(launches, unserved, seed)
+    print(json.dumps({"edge_partition": res["edge_partition"], "card": card}))
+    res["sharded_world_1"] = sharded_world_1(batch, launches)
+    print(json.dumps({"sharded_world_1": res["sharded_world_1"], "card": card}))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        res["cli"] = parallel_cli(Path(tmp), launches)
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"phase": "parallel", "seconds": res["seconds"], "cli": res["cli"],
+                      "card": card}))
+    return launches, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4356,6 +4734,8 @@ def main() -> int:
     launches.update(export_launches)
     native_launches, native_res = native_cli_phase(card)
     launches.update(native_launches)
+    parallel_launches, parallel_res = parallel_phase(batch, card, args.seed)
+    launches.update(parallel_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -4450,7 +4830,7 @@ def main() -> int:
               "train_dropout_step_cuda_vs_cpu": dropout_step_res, "extras": extras_res,
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
               "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
-              "export": export_res, "native_cli": native_res,
+              "export": export_res, "native_cli": native_res, "parallel": parallel_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

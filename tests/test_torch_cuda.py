@@ -2456,3 +2456,82 @@ def test_exported_program_on_card_matches_eager(cuda, dtype, tmp_path):
             assert dict(LAUNCHES) == {kernel: 2, "sorted_segment_sum": 2}
             assert dict(UNSERVED) == before
             torch.testing.assert_close(got, want, rtol=0, atol=limit)
+
+
+# ---------------------------------------------------- edge partition (C, I)
+def _giant_plan(S: int):
+    """The giant polymer of the partitioned path, cut into S shards: its
+    plan's tables on the card and on the CPU."""
+    from chemprop_tpu_torch.ops.edge_partition import HaloTables
+    from chemprop_tpu_torch.parallel.partitioned_mp import build_partitioned_graph
+
+    mg = SimpleMoleculeMolGraphFeaturizer()(make_mol("C1(CCCCC1)" * 180))
+    g, dims = build_partitioned_graph(mg, S)
+    args = (g.src_ext, g.dst_ext, g.rev_ext, g.edge_mask, g.n_owned, g.n_edges,
+            dims.N, dims.HN, dims.HE)
+    return dims, HaloTables(*args, device="cuda"), HaloTables(*args, device="cpu")
+
+
+@pytest.mark.parametrize("single_phase", [False, True], ids=["two_phase", "one_phase"])
+@pytest.mark.parametrize("op,d", [("message", 384), ("accumulators", 384),
+                                  ("accumulators", 400)])
+def test_halo_ops_on_card_match_plain(cuda, op, d, single_phase):
+    """halo_message (d 384) and the halo accumulators (d 384, and the atom
+    path's padded [H ; E ; 0] width 400) at S = 4 local shards: through
+    kernels C and I on the card, forward and backward, against the same ops'
+    plain versions on the CPU."""
+    from chemprop_tpu_torch.ops import edge_partition as ep
+
+    S = 4
+    dims, tb_card, tb_cpu = _giant_plan(S)
+    H = _randn((S, dims.P, d), 3, "cpu")
+    g = _randn((S, dims.P if op == "message" else dims.N + 2 * dims.HN, d), 4, "cpu")
+
+    def run(tables, device):
+        x = H.to(device).requires_grad_()
+        ex = ep.LocalExchange(S)
+        if op == "message":
+            out = ep.halo_message(x, tables, ex, single_phase=single_phase)
+        else:
+            out = ep.halo_node_accumulators(x, tables, ex, with_halo=True,
+                                            single_phase=single_phase)
+        (dx,) = torch.autograd.grad(out, x, g.to(device))
+        return out.detach().cpu(), dx.cpu()
+
+    LAUNCHES.clear()
+    got, got_dx = run(tb_card, cuda)
+    # the message: its sum, src and rev gathers, then their transposes (the
+    # rev gather's I, the src gather's I and C, the sum's I); the
+    # accumulators: the sum, then its transpose
+    want = {"sorted_segment_sum": 2, "row_gather": 5} if op == "message" else {
+        "sorted_segment_sum": 1, "row_gather": 1}
+    assert dict(LAUNCHES) == want
+    want, want_dx = run(tb_cpu, "cpu")
+    # f32 sums of a few rows in another order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_dx, want_dx, rtol=1e-5, atol=1e-5)
+
+
+def test_group_exchange_world_1_over_nccl(cuda):
+    """A process group of one over NCCL: the exchange's shifts are zeros, its
+    sum is the table's, and halo_message over it equals the local exchange's
+    of one shard, bit for bit."""
+    from chemprop_tpu_torch.ops import edge_partition as ep
+    from chemprop_tpu_torch.parallel import distributed, make_mesh
+
+    mesh = make_mesh()
+    try:
+        import torch.distributed as dist
+
+        assert dist.get_backend() == "nccl" and mesh.size == 1 and mesh.device.type == "cuda"
+        ex = ep.GroupExchange()
+        x = _randn((1, 8, 384), 5, cuda)
+        assert torch.equal(ex.move(x, +1), torch.zeros_like(x))
+        assert torch.equal(ex.sum(x), x[0])
+        dims, tb_card, _ = _giant_plan(1)
+        H = _randn((1, dims.P, 384), 6, cuda)
+        torch.testing.assert_close(ep.halo_message(H, tb_card, ex),
+                                   ep.halo_message(H, tb_card, ep.LocalExchange(1)),
+                                   rtol=0, atol=0)
+    finally:
+        distributed.shutdown()

@@ -50,6 +50,8 @@ NEW_MODULES = (
     "interpret.py", "callbacks/__init__.py", "schedulers.py", "exceptions.py", "conf.py",
     "featurizers/base.py", "featurizers/molgraph/cache.py", "data/molgraph.py", "utils/utils.py",
     "data/kmeans.py", "models/export.py", "featurizers/native.py",
+    "ops/edge_partition.py", "parallel/__init__.py", "parallel/sharding.py",
+    "parallel/distributed.py", "parallel/shard_train.py", "parallel/partitioned_mp.py",
 )
 
 

@@ -355,18 +355,23 @@ def test_mc_dropout_is_reproducible(env):
 # constraints and bond descriptors are read since mol-atom-bond models were
 # ported (tests/test_torch_mab_cli.py), --callback since interpretation was
 # (tests/test_torch_interpret_cli.py), --use-cuikmolmaker-featurization since
-# the native featurizer was (tests/test_torch_native.py)
+# the native featurizer was (tests/test_torch_native.py), --edge-partition
+# and --devices since multi-GPU inference was (tests/test_torch_parallel_cli.py):
+# their cases now hold what stays refused, edge partition with Monte-Carlo
+# dropout (as in the JAX CLI) and a device count below one. Each case:
+# (flags, the message's pattern)
 REFUSALS = {
-    "edge_partition": (["--edge-partition"], "item 12"),
-    "devices": (["--devices", "2"], "item 12"),
+    "edge_partition": (["--edge-partition", "--uncertainty-method", "dropout"],
+                       "--edge-partition predict does not support --uncertainty-method dropout"),
+    "devices": (["--devices", "0"], "--devices takes 'auto' or a number"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_unported_options_are_refused(env, case):
-    flags, item = REFUSALS[case]
+    flags, pattern = REFUSALS[case]
     out = env["root"] / f"refused_{case}.csv"
-    with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
+    with pytest.raises(ValueError, match=pattern):
         port_main(["predict", "-i", str(env["inputs"]["reg"]), "--model-paths",
                    str(env["data_dir"] / CKPTS["reg"]), "-o", str(out), "--device", "cpu",
                    *flags])

@@ -31,7 +31,8 @@ def test_reference_exports_resolve(subpackage):
 
 # the JAX package's own exports (its __all__), beyond the reference's
 JAX_PACKAGES = ["callbacks", "chem", "cli", "data", "featurizers", "featurizers.molgraph",
-                "models", "nn", "nn.message_passing", "train", "uncertainty", "utils"]
+                "models", "nn", "nn.message_passing", "parallel", "train", "uncertainty",
+                "utils"]
 
 
 @pytest.mark.parametrize("subpackage", JAX_PACKAGES)
@@ -173,3 +174,15 @@ def test_build_dataloader_featurises_in_workers():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["batch_shardings", "shard_batch", "host_local_array_to_global",
+                                  "host_local_batch_to_global"])
+def test_gspmd_names_state_their_divergence(name):
+    """The JAX package's GSPMD names resolve in the port and raise, saying
+    that each rank collates its own shard and runs the per-rank step."""
+    from chemprop_tpu_torch.parallel import distributed, sharding
+
+    fn = getattr(sharding, name, None) or getattr(distributed, name)
+    with pytest.raises(NotImplementedError, match="each rank collates its own shard"):
+        fn(None, None)
