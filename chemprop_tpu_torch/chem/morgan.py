@@ -1,14 +1,18 @@
-"""Canonical graph hashing (cf. ``chemprop_tpu/chem/morgan.py``): a
-Weisfeiler-Lehman style key of a :class:`Mol`, which the
-``random_with_repeated_smiles`` split groups molecules by. The JAX module's
-hashed circular fingerprints are not ported: no part of the port uses them
-(``chem/morgan_rdkit.py`` gives the RDKit-compatible bits the
-``kennard_stone`` split needs)."""
+"""Hashed circular fingerprints and canonical graph hashing of a :class:`Mol`
+(cf. ``chemprop_tpu/chem/morgan.py``): ECFP-style environment identifiers
+and their binary and count fingerprints, the JAX package's own vocabulary
+(a blake2b hash, so the bits are not RDKit's; ``chem/morgan_rdkit.py``
+gives the RDKit-compatible bits that ``MorganBinaryFeaturizer`` and the
+``kennard_stone`` split use), bit for bit the JAX module's; and a
+Weisfeiler-Lehman style key, which the ``random_with_repeated_smiles`` split
+groups molecules by."""
 
 from __future__ import annotations
 
 import hashlib
 import struct
+
+import numpy as np
 
 from chemprop_tpu_torch.chem.mol import BondType, Mol
 
@@ -42,6 +46,44 @@ _BOND_CODE = {
     BondType.TRIPLE: 3,
     BondType.AROMATIC: 4,
 }
+
+
+def morgan_identifiers(mol: Mol, radius: int = 2) -> list[int]:
+    """All (atom, radius<=r) environment identifiers."""
+    inv = _initial_invariants(mol)
+    ids = list(inv)
+    for _ in range(radius):
+        new_inv = []
+        for a in mol.atoms:
+            nbrs = sorted(
+                (_BOND_CODE.get(b.bond_type, 5), inv[b.other_atom_idx(a.idx)])
+                for b in mol.atom_bonds(a.idx)
+            )
+            flat = [inv[a.idx]]
+            for code, ninv in nbrs:
+                flat += [code, ninv]
+            new_inv.append(_hash_ints(*flat))
+        inv = new_inv
+        ids.extend(inv)
+    return ids
+
+
+def morgan_binary_fingerprint(mol: Mol, radius: int = 2, length: int = 2048) -> np.ndarray:
+    """Hashed binary circular fingerprint: bit ``id % length`` set for each
+    environment identifier."""
+    fp = np.zeros(length, dtype=np.int32)
+    for ident in morgan_identifiers(mol, radius):
+        fp[ident % length] = 1
+    return fp
+
+
+def morgan_count_fingerprint(mol: Mol, radius: int = 2, length: int = 2048) -> np.ndarray:
+    """Hashed count circular fingerprint: each environment identifier adds
+    one at ``id % length``."""
+    fp = np.zeros(length, dtype=np.int32)
+    for ident in morgan_identifiers(mol, radius):
+        fp[ident % length] += 1
+    return fp
 
 
 def canonical_key(mol: Mol, iterations: int = 8) -> str:

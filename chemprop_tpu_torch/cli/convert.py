@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from chemprop_tpu_torch.cli.utils.command import Subcommand
 from chemprop_tpu_torch.models import serialize
 from chemprop_tpu_torch.models.load import load_model
 
@@ -35,3 +36,15 @@ def main(args: argparse.Namespace) -> int:
     serialize.save_model(out, model, output_columns)
     print(f"converted {args.input_path} -> {out}")
     return 0
+
+
+add_convert_args = add_args  # the JAX package's name
+
+
+class ConvertSubcommand(Subcommand):
+    """``convert`` on the command line: :func:`add_args` and :func:`main`."""
+
+    COMMAND = "convert"
+    HELP = "convert a reference checkpoint to a CPTPU001 file"
+    add_args = staticmethod(add_args)
+    func = staticmethod(main)

@@ -34,6 +34,7 @@ from chemprop_tpu_torch.cli.predict import (
     INPUT_REFUSED, build_loader, match_featurizer, refuse_unported,
 )
 from chemprop_tpu_torch.cli.mab import fingerprint_MAB
+from chemprop_tpu_torch.cli.utils.command import Subcommand
 from chemprop_tpu_torch.models.load import load_model
 from chemprop_tpu_torch.models.mol_atom_bond import MolAtomBondMPNN
 from chemprop_tpu_torch.train.trainer import _restore_order
@@ -101,3 +102,15 @@ def main(args: argparse.Namespace) -> int:
                     w.writerow([name, *(repr(float(x)) for x in row)])
         print(f"wrote {out} {fps.shape}")
     return 0
+
+
+add_fingerprint_args = add_args  # the JAX package's name
+
+
+class FingerprintSubcommand(Subcommand):
+    """``fingerprint`` on the command line: :func:`add_args` and :func:`main`."""
+
+    COMMAND = "fingerprint"
+    HELP = "compute the learned representations of trained models"
+    add_args = staticmethod(add_args)
+    func = staticmethod(main)

@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 
 from chemprop_tpu_torch.cli.train import add_train_args, refuse_unported
+from chemprop_tpu_torch.cli.utils.command import Subcommand
 from chemprop_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -297,3 +298,15 @@ def main(args) -> int:
         json.dump(best_cfg, f, indent=2)
     print(json.dumps({"best_trial": best[2], "best_score": best[0], "best_config": best_cfg}))
     return 0
+
+
+add_hpopt_args = add_args  # the JAX package's name
+
+
+class HpoptSubcommand(Subcommand):
+    """``hpopt`` on the command line: :func:`add_args` and :func:`main`."""
+
+    COMMAND = "hpopt"
+    HELP = "search the hyperparameters of train"
+    add_args = staticmethod(add_args)
+    func = staticmethod(main)

@@ -1,7 +1,8 @@
 """Entry point of the port's command line (cf. ``chemprop_tpu/cli/main.py``):
 the ``train``, ``predict``, ``fingerprint``, ``convert``, ``serve`` and
-``hpopt`` subcommands, logging (``-v`` /
-``-q`` / ``--logfile``), and argument defaults from a JSON or TOML file
+``hpopt`` subcommands, each a ``cli.utils.Subcommand`` of its module
+(``TrainSubcommand`` ...), ``--version``, logging (``-v`` / ``-q`` /
+``--logfile``), and argument defaults from a JSON or TOML file
 (``--config-path``, before or after the subcommand; a flag given on the
 command line wins).
 
@@ -15,30 +16,31 @@ import logging
 import sys
 from pathlib import Path
 
-from chemprop_tpu_torch.cli import convert, fingerprint, hpopt, predict, serve, train
+from chemprop_tpu_torch import __version__
+from chemprop_tpu_torch.cli.convert import ConvertSubcommand
+from chemprop_tpu_torch.cli.fingerprint import FingerprintSubcommand
+from chemprop_tpu_torch.cli.hpopt import HpoptSubcommand
+from chemprop_tpu_torch.cli.predict import PredictSubcommand
+from chemprop_tpu_torch.cli.serve import ServeSubcommand
+from chemprop_tpu_torch.cli.train import TrainSubcommand
 
 logger = logging.getLogger(__name__)
 
 LOG_LEVELS = {0: logging.INFO, 1: logging.DEBUG, -1: logging.WARNING, -2: logging.ERROR}
-SUBCOMMANDS = {
-    "train": (train, "train a model from a CSV"),
-    "predict": (predict, "predict with trained models"),
-    "fingerprint": (fingerprint, "compute the learned representations of trained models"),
-    "convert": (convert, "convert a reference checkpoint to a CPTPU001 file"),
-    "serve": (serve, "serve trained models over HTTP"),
-    "hpopt": (hpopt, "search the hyperparameters of train"),
-}
+SUBCOMMANDS = (TrainSubcommand, PredictSubcommand, FingerprintSubcommand, ConvertSubcommand,
+               ServeSubcommand, HpoptSubcommand)
 
 
 def construct_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m chemprop_tpu_torch.cli")
+    parser.add_argument("--version", action="version", version=__version__)
     parser.add_argument("--logfile", "--log", nargs="?", const="default")
     parser.add_argument("-v", action="count", default=0, dest="verbose")
     parser.add_argument("-q", action="count", default=0, dest="quiet")
     parser.add_argument("--config-path", type=Path, help="JSON/TOML file of argument defaults")
     subparsers = parser.add_subparsers(title="mode", dest="mode", required=True)
-    for name, (module, help_) in SUBCOMMANDS.items():
-        module.add_args(subparsers.add_parser(name, help=help_)).set_defaults(func=module.main)
+    for cmd in SUBCOMMANDS:
+        cmd.add(subparsers)
     return parser
 
 

@@ -72,6 +72,7 @@ from chemprop_tpu_torch.cli.parsing import (
     read_columns,
     reaction_featurizer_for,
 )
+from chemprop_tpu_torch.cli.utils.command import Subcommand
 from chemprop_tpu_torch.data import DataLoader
 from chemprop_tpu_torch.data.datapoints import ReactionDatapoint
 from chemprop_tpu_torch.featurizers.molecule import MoleculeFeaturizerRegistry
@@ -177,19 +178,25 @@ def refuse_unported(args, refused=REFUSED) -> None:
 def match_featurizer(args, model: MPNN) -> None:
     """Switch ``--multi-hot-atom-featurizer-mode`` to the first mode whose
     atom and bond widths make the width ``model``'s ``W_i`` takes (the v1
-    mode for a v1 file), as the JAX CLI does."""
-    if args.reaction_columns or isinstance(model.message_passing, MulticomponentMessagePassing):
-        return  # a reaction's widths depend on its mode; several blocks, on their components
-    d_in = model.message_passing.W_i.in_features
+    mode for a v1 file), as the JAX CLI does. A multicomponent model of
+    molecules needs a mode that fits every block's ``W_i`` (the v1 mode for
+    a v1 file of several molecules), where the JAX CLI leaves its mode as
+    given."""
+    if args.reaction_columns:
+        return  # a reaction's widths depend on its mode
+    mp = model.message_passing
+    blocks = mp.blocks if isinstance(mp, MulticomponentMessagePassing) else [mp]
+    d_ins = sorted({b.W_i.in_features for b in blocks})
+    d_in = ", ".join(map(str, d_ins))
 
-    def widths(mode):
+    def fits(mode):
         atom, bond = featurizer_for(mode).shape
-        return atom + bond, atom
+        return all(d in (atom + bond, atom) for d in d_ins)
 
-    if d_in in widths(args.multi_hot_atom_featurizer_mode):
+    if fits(args.multi_hot_atom_featurizer_mode):
         return
     for mode in ("v2", "v1", "organic", "rigr"):
-        if d_in in widths(mode):
+        if fits(mode):
             logger.warning(f"model expects {d_in}-dim W_i input; switching atom featurizer mode "
                            f"{args.multi_hot_atom_featurizer_mode!r} -> {mode!r}")
             args.multi_hot_atom_featurizer_mode = mode
@@ -504,3 +511,15 @@ def check_plain_inputs(model: MPNN, featurizer: SimpleMoleculeMolGraphFeaturizer
         raise ValueError("the model takes extra inputs (descriptors or extra atom or bond "
                          "features), which serve does not read: the JAX package's serve "
                          "passes none either; use predict")
+
+
+add_predict_args = add_args  # the JAX package's name
+
+
+class PredictSubcommand(Subcommand):
+    """``predict`` on the command line: :func:`add_args` and :func:`main`."""
+
+    COMMAND = "predict"
+    HELP = "predict with trained models"
+    add_args = staticmethod(add_args)
+    func = staticmethod(main)

@@ -45,6 +45,7 @@ import torch
 from chemprop_tpu_torch.cli.common import DTYPES
 from chemprop_tpu_torch.cli.parsing import featurizer_for
 from chemprop_tpu_torch.cli.predict import check_plain_inputs
+from chemprop_tpu_torch.cli.utils.command import Subcommand
 from chemprop_tpu_torch.data.collate import PadSpec, batch_mol_graphs
 from chemprop_tpu_torch.data.datapoints import MoleculeDatapoint
 from chemprop_tpu_torch.models.load import load_model
@@ -282,3 +283,12 @@ def main(args) -> int:
 
 
 add_args = add_serve_args
+
+
+class ServeSubcommand(Subcommand):
+    """``serve`` on the command line: :func:`add_args` and :func:`main`."""
+
+    COMMAND = "serve"
+    HELP = "serve trained models over HTTP"
+    add_args = staticmethod(add_args)
+    func = staticmethod(main)

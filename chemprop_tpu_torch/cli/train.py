@@ -75,6 +75,7 @@ from chemprop_tpu_torch.cli.parsing import (
     parse_csv,
     read_columns,
 )
+from chemprop_tpu_torch.cli.utils.command import Subcommand
 from chemprop_tpu_torch.data import DataLoader
 from chemprop_tpu_torch.data.datapoints import ReactionDatapoint
 from chemprop_tpu_torch.data.datasets import MulticomponentDataset
@@ -247,7 +248,7 @@ def add_train_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--frzn-ffn-layers", type=int, default=0)
     g.add_argument("--resume", type=Path, help="resume a run from a last.ckpt")
 
-    # mol+atom+bond multi-head targets (not ported yet: refused)
+    # mol+atom+bond multi-head targets (a mol-atom-bond model, cli/mab.py)
     g.add_argument(
         "--mol-target-columns",
         nargs="+",
@@ -1039,3 +1040,12 @@ def _save_preds(path, test_dset, preds: np.ndarray, target_cols) -> None:
 
 
 add_args = add_train_args
+
+
+class TrainSubcommand(Subcommand):
+    """``train`` on the command line: :func:`add_args` and :func:`main`."""
+
+    COMMAND = "train"
+    HELP = "train a model from a CSV"
+    add_args = staticmethod(add_args)
+    func = staticmethod(main)

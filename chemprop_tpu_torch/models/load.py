@@ -303,15 +303,10 @@ def build_mab_model(
                            X_d_transform=_transform(sd, "X_d_transform"))
 
 
-# v1 files the port does not serve: several molecules, with the ROADMAP.md
-# item that will port them; atom descriptors and molecule features, which the
-# JAX package's converter loads as a model that ignores them, so that it
-# serves them wrongly (ROADMAP.md section 3, divergences by design)
+# v1 files the port does not serve: atom descriptors and molecule features,
+# which the JAX package's converter loads as a model that ignores them, so
+# that it serves them wrongly (ROADMAP.md section 3, divergences by design)
 V1_REFUSED = (
-    (lambda a, sd: int(getattr(a, "number_of_molecules", 1) or 1) > 1
-     or len({k.split(".")[2] for k in sd if k.startswith("encoder.encoder.")}) > 1,
-     "a v1 model of several molecules is not ported yet (ROADMAP.md section 1 item 7, "
-     "v1 files of several molecules)"),
     (lambda a, sd: getattr(a, "atom_descriptors", None) is not None
      or any("atom_descriptors_layer" in k for k in sd),
      "a v1 model with atom descriptors is refused: the JAX package's converter would "
@@ -326,6 +321,7 @@ V1_REFUSED = (
 )
 V1_HEADS = {"regression": "RegressionFFN", "classification": "BinaryClassificationFFN",
             "multiclass": "MulticlassClassificationFFN"}
+V1_W = ("W_i", "W_h", "W_o")
 
 
 def is_v1(d: Mapping) -> bool:
@@ -333,22 +329,57 @@ def is_v1(d: Mapping) -> bool:
     return "hyper_parameters" not in d and "args" in d
 
 
+def v1_encoders(raw: Mapping[str, torch.Tensor], n_components: int, shared: bool
+                ) -> list[int]:
+    """The indices of the distinct ``encoder.encoder.<i>`` of a v1 state
+    dict, one per block. v1 builds a shared encoder as one module repeated
+    in a ``ModuleList``, whose state dict repeats its tensors at every index:
+    with ``mpn_shared`` such repeats are one block (the JAX package's
+    converter counts them as several and raises; ROADMAP.md section 3, v1
+    shared encoders). Several blocks where the file's ``number_of_molecules``
+    does not take them raise, as that converter raises."""
+    found = sorted({int(k.split(".")[2]) for k in raw if k.startswith("encoder.encoder.")})
+    if shared and len(found) > 1:
+        first = {k.split(".", 3)[3]: v for k, v in raw.items()
+                 if k.startswith("encoder.encoder.0.")}
+        for i in found[1:]:
+            pre = f"encoder.encoder.{i}."
+            mine = {k[len(pre):]: v for k, v in raw.items() if k.startswith(pre)}
+            if mine.keys() != first.keys() or not all(torch.equal(mine[k], first[k])
+                                                      for k in first):
+                raise ValueError(f"a v1 model with mpn_shared holds encoder {i} apart from "
+                                 "encoder 0: a shared encoder repeats one module's tensors")
+        return found[:1]
+    if not shared and n_components > 1 and len(found) != n_components:
+        raise ValueError(f"a v1 model of {n_components} molecules without mpn_shared needs "
+                         f"one encoder per molecule; the file holds {len(found)}")
+    if n_components == 1 and len(found) > 1:
+        raise ValueError(f"a v1 model of one molecule holds {len(found)} encoders")
+    return found
+
+
 def build_v1_model(
     d: Mapping, compute_dtype: torch.dtype = torch.float32,
     kernel_options: KernelOptions | None = None,
 ) -> tuple[MPNN, dict[str, torch.Tensor], list[str] | None]:
     """A loaded chemprop v1 file -> (the port's MPNN, its state dict in the
-    port's names, the task names or None). v1's single-molecule bond message
-    passing is the port's ``BondMessagePassing``: ``encoder.encoder.0.W_{i,h,o}``
-    become ``message_passing.W_{i,h,o}`` (W_i takes the 133-wide v1 atom
-    features and the 14 bond features, W_o the atom features and the
-    hidden width); the sorted Linear indices of the ``readout`` Sequential
-    become the FFN's blocks; ``data_scaler``'s means and stds the output
-    unscaling. There is no batch norm, and ``cached_zero_vector`` is
-    dropped. With ``atom_messages`` the encoder is the port's
-    ``AtomMessagePassing``, as the JAX package's converter builds it (``W_i``
-    takes the atom features, ``W_h`` the hidden width and the 14 bond
-    features). Anything else raises and names its ``ROADMAP.md`` item."""
+    port's names, the task names or None), as ``convert_v1_model`` of the
+    JAX package builds it. v1's bond message passing is the port's
+    ``BondMessagePassing`` (``AtomMessagePassing`` with ``atom_messages``:
+    ``W_i`` takes the atom features, ``W_h`` the hidden width and the 14
+    bond features); ``encoder.encoder.<i>.W_{i,h,o}`` become
+    ``message_passing.W_{i,h,o}`` for one molecule (W_i takes the 133-wide
+    v1 atom features and the 14 bond features, W_o the atom features and
+    the hidden width). A file of ``number_of_molecules`` > 1 gives a
+    ``MulticomponentMPNN``: each distinct encoder is one block
+    (``message_passing.blocks.<i>``) with its own feature widths, or one
+    ``shared`` block with ``mpn_shared`` (:func:`v1_encoders`), and the FFN
+    takes the blocks' concatenated fingerprints. The sorted Linear indices
+    of the ``readout`` Sequential become the FFN's blocks; ``data_scaler``'s
+    means and stds the output unscaling. There is no batch norm, and
+    ``cached_zero_vector`` is dropped. An FFN wider than the fingerprints
+    (v1 molecule features), atom descriptors, and encoders that the file's
+    molecule count does not take raise."""
     args, raw = d["args"], d["state_dict"]
 
     def arg(name, default=None):
@@ -358,27 +389,35 @@ def build_v1_model(
     for asks, message in V1_REFUSED:
         if asks(args, raw):
             raise ValueError(message)
-    enc = "encoder.encoder.0."
-    sd = {f"message_passing.{k[len(enc):]}": v.float() for k, v in raw.items()
-          if k.startswith(enc) and k.split(".")[3] in ("W_i", "W_h", "W_o")}
+    n_components = int(arg("number_of_molecules", 1))
+    shared = bool(arg("mpn_shared", False))
+    encoders = v1_encoders(raw, n_components, shared)
+    multi = n_components > 1 or len(encoders) > 1
     d_h = int(arg("hidden_size", 300))
     mp_cls = AtomMessagePassing if bool(arg("atom_messages", False)) else BondMessagePassing
-    d_v, d_e = feature_widths(mp_cls, d_h, *(sd[f"message_passing.{w}.weight"].shape[1]
-                                             for w in ("W_i", "W_h", "W_o")))
     activation = _activation(arg("activation", "ReLU"))
     dropout = float(arg("dropout", 0.0))
-    mp = mp_cls(
-        d_v=d_v, d_e=d_e, d_h=d_h, bias=bool(arg("bias", False)),
-        depth=int(arg("depth", 3)), activation=activation, compute_dtype=compute_dtype,
-        dropout=dropout, undirected=bool(arg("undirected", False)),
-        kernel_options=kernel_options,
-    )
+    sd: dict[str, torch.Tensor] = {}
+    blocks = []
+    for b, i in enumerate(encoders):
+        enc, pre = f"encoder.encoder.{i}.", (f"message_passing.blocks.{b}" if multi
+                                             else "message_passing")
+        sd.update({f"{pre}.{k[len(enc):]}": v.float() for k, v in raw.items()
+                   if k.startswith(enc) and k.split(".")[3] in V1_W})
+        d_v, d_e = feature_widths(mp_cls, d_h, *(sd[f"{pre}.{w}.weight"].shape[1] for w in V1_W))
+        blocks.append(mp_cls(
+            d_v=d_v, d_e=d_e, d_h=d_h, bias=bool(arg("bias", False)),
+            depth=int(arg("depth", 3)), activation=activation, compute_dtype=compute_dtype,
+            dropout=dropout, undirected=bool(arg("undirected", False)),
+            kernel_options=kernel_options,
+        ))
+    mp = (MulticomponentMessagePassing(blocks, n_components, shared) if multi else blocks[0])
     linears = sorted({int(k.split(".")[1]) for k in raw
                       if k.startswith("readout.") and k.endswith(".weight")})
     for b, j in enumerate(linears):
         for leaf in ("weight", "bias"):
             sd[f"predictor.ffn.{b}.{0 if b == 0 else 2}.{leaf}"] = raw[f"readout.{j}.{leaf}"].float()
-    if raw[f"readout.{linears[0]}.weight"].shape[1] != d_h:
+    if raw[f"readout.{linears[0]}.weight"].shape[1] != mp.output_dim:
         raise ValueError("a v1 model whose FFN takes more than the fingerprint is refused: the "
                          "JAX package's converter would mis-serve it, as a model that ignores "
                          "its molecule features (ROADMAP.md section 3, v1 molecule features)")
@@ -390,9 +429,9 @@ def build_v1_model(
              if issubclass(head, MulticlassClassificationFFN) else {})
     scaler = d.get("data_scaler")
     unscale = scaler is not None and scaler.get("means") is not None
-    predictor = head(n_tasks=n_tasks, input_dim=d_h, hidden_dim=int(arg("ffn_hidden_size", 300)),
-                     n_layers=len(linears) - 1, output_transform=unscale, dropout=dropout,
-                     activation=activation, **extra)
+    predictor = head(n_tasks=n_tasks, input_dim=mp.output_dim,
+                     hidden_dim=int(arg("ffn_hidden_size", 300)), n_layers=len(linears) - 1,
+                     output_transform=unscale, dropout=dropout, activation=activation, **extra)
     if unscale:
         for key, name in (("mean", "means"), ("scale", "stds")):
             sd[f"predictor.output_transform.{key}"] = torch.from_numpy(
@@ -401,7 +440,7 @@ def build_v1_model(
                         "norm": "NormAggregation"}[str(arg("aggregation", "mean")).lower()]]()
     if hasattr(agg, "norm"):
         agg.norm = float(arg("aggregation_norm", 100))
-    return MPNN(mp, agg, predictor), sd, task_names or None
+    return (MulticomponentMPNN if multi else MPNN)(mp, agg, predictor), sd, task_names or None
 
 
 def load_model(

@@ -55,6 +55,14 @@ trace of ``torch.profiler`` over ``profile_steps`` steps of the first epoch
 of a fit, from its second step on (the first builds the kernels), as the JAX
 trainer traces with ``jax.profiler`` after its compile step.
 
+``steps_per_dispatch`` is the JAX trainer's field, read as its ``fit`` reads
+it (``max(1, int(...))``, so a value it refuses raises). There it chains that
+many steps into one ``lax.scan`` dispatch; the port issues every step
+eagerly whatever the value, so a fit with it trains the same steps in the
+same order, to the same bits, as one without it. Chaining the steps into
+one launch (a CUDA graph of the step) is a speed change of its own
+(``ROADMAP.md`` section 1 item 1.4).
+
 ``mesh`` (a ``parallel.sharding.Mesh``, one process per GPU; ``sharded`` is
 accepted for the JAX signature's sake) makes every step the explicit per-rank
 step of ``parallel/shard_train.py``: each rank trains on its whole-graph shard
@@ -190,6 +198,11 @@ class Trainer:
     # a parallel.sharding.Mesh: every step is the per-rank sharded step
     mesh: Any = None
     sharded: bool = False
+    # the JAX trainer's training steps chained per device dispatch, read as
+    # it reads them; the port issues every step eagerly whatever the value,
+    # so a fit trains the same steps in the same order as without it
+    # (ROADMAP.md section 3, steps_per_dispatch)
+    steps_per_dispatch: int | None = None
 
     # the first epoch of every fit, as in the JAX trainer: a second fit trains
     # max_epochs - start_epoch more epochs from the state the first one left
@@ -317,6 +330,9 @@ class Trainer:
 
     def fit(self, train_loader: DataLoader, val_loader: DataLoader | None = None) -> TrainState:
         steps_per_epoch = len(train_loader)
+        if not (self.sharded or self.mesh is not None or self.profile_dir is not None
+                or self.steps_per_dispatch is None):
+            max(1, int(self.steps_per_dispatch))  # a value the JAX trainer's fit refuses raises
         if self.state is None:
             self.init_state(None, steps_per_epoch)
         self.best_variables, self.best_epoch = None, -1

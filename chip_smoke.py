@@ -268,7 +268,24 @@ failure:
    bit for bit, its launches, nothing more unserved; (c) ``train``,
    ``predict`` and ``fingerprint --edge-partition 4`` on mol.csv's first 30
    rows and the giant polymer on the card against the CPU. Its seconds are
-   printed with the card's name and power limit.
+   printed with the card's name and power limit;
+18. v1 files of several molecules, the command line's ``Subcommand``
+   surface and ``steps_per_dispatch``, each part fatal: (a) a v1 file of two
+   molecules built by ``two_molecule_v1`` (the tests' recipe: a second,
+   noised encoder and a 600-input readout) into
+   ``chiprun_out/chip_smoke_v1_multi/``, then ``predict`` and
+   ``fingerprint`` of it on the 100 rows of mol+mol.csv in f32 and bf16,
+   rehearsed on the CPU (A, or B in bf16, and C for each component; the
+   calls without a tile table exactly the rehearsal's), held to the CPU in
+   units of the unscaling (predictions) or of the fingerprints' RMS: f32 at
+   phase 3's limits, bf16 within 1e-3 or twice what bf16 rounding moves the
+   CPU's output from its f32 output, and within phase 3's bf16 envelope; (b) ``python -m chemprop_tpu_torch.cli --version`` and
+   one f32 ``train`` epoch through the parser built from the
+   ``*Subcommand`` classes, rehearsed, its loss within phase 9(a)'s f32
+   limit; (c) two bf16 fits of the default model, 3 epochs from one seed,
+   one with ``steps_per_dispatch=4``: the same loss history and parameters
+   bit for bit. Its seconds are printed with the card's name and power
+   limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -4582,6 +4599,209 @@ def parallel_phase(batch, card: str, seed: int) -> tuple[dict, dict]:
     return launches, res
 
 
+# ---------------------------------------------------------------- phase 18
+V1_MULTI_NOISE = 0.05  # the second encoder: the first one's tensors plus this noise
+V1_MULTI_SEED = 25
+
+
+def two_molecule_v1(out: Path, dataset_type: str = "regression", shared: bool = False,
+                    seed: int = V1_MULTI_SEED) -> Path:
+    """A chemprop v1 file of two molecules, built from the reference v1 file
+    (no golden one exists; the tests and phase 18 build it by this recipe):
+    ``number_of_molecules=2``; a second encoder ``encoder.encoder.1``, the
+    first one's tensors plus seeded normal noise of scale ``V1_MULTI_NOISE``
+    (with ``shared``: ``mpn_shared`` and the first one's tensors repeated,
+    as v1 saves a shared encoder); the readout's first layer widened to 600
+    inputs by seeded columns of its own weights' spread. ``"classification"``
+    makes it a binary head without the output unscaling."""
+    import argparse as _argparse
+
+    import numpy as np
+    import torch
+
+    from chemprop_tpu_torch.models.load import load_checkpoint
+
+    d = load_checkpoint(V1_CKPT)
+    rng = np.random.default_rng(seed)
+    sd = dict(d["state_dict"])
+    for k, v in list(sd.items()):
+        if k.startswith("encoder.encoder.0."):
+            noise = 0 if shared or k.endswith("cached_zero_vector") else torch.from_numpy(
+                rng.normal(0.0, V1_MULTI_NOISE, tuple(v.shape)).astype(np.float32))
+            sd[k.replace(".0.", ".1.", 1)] = v + noise
+    W = sd["readout.1.weight"]
+    more = rng.normal(0.0, float(W.std()), tuple(W.shape)).astype(np.float32)
+    sd["readout.1.weight"] = torch.cat([W, torch.from_numpy(more)], dim=1)
+    d["state_dict"] = sd
+    d["args"] = _argparse.Namespace(**{
+        **vars(d["args"]), "number_of_molecules": 2, "mpn_shared": shared,
+        "smiles_columns": ["smiles", "solvent"], "dataset_type": dataset_type})
+    if dataset_type != "regression":
+        d["data_scaler"] = None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(d, out)
+    return out
+
+
+V1_MULTI_FLAGS = ["-i", _MM, "-s", "smiles", "solvent"]
+V1_MULTI_PATHS = {"float32": {"message", "sorted_segment_sum"},
+                  "bfloat16": {"fused_iter", "sorted_segment_sum"}}
+SPD_EPOCHS, SPD_K = 3, 4  # phase 18(c): epochs of each fit, steps_per_dispatch
+# phase 18(a): bf16 on the card and on the CPU are two roundings of one f32
+# computation (the card's products accumulate in another order), so they may
+# part by twice what bf16 rounding moves either from the f32 output. The
+# synthetic file's noised encoder and random readout columns make its bf16
+# output move more than the reference checkpoints' do: on the H100 (700 W)
+# its bf16 predictions on the card parted from the CPU's by 0.0030 in units
+# of the unscaling, against phase 3's 1e-3, while the CPU's own bf16 lay
+# 0.0038 from its f32 (and the card's f32 5.7e-07 from the CPU's)
+V1_MULTI_BF16 = 2.0
+
+
+def v1_multi_runs(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 18(a): the two-molecule v1 file (``two_molecule_v1``) through
+    ``predict`` and ``fingerprint`` on every row of mol+mol.csv in f32 and
+    bf16, its featurizer mode found by the command line; on the card after a
+    CPU rehearsal (launches and calls without a tile table exactly the
+    rehearsal's: A (B in bf16) and C for each component, mol+mol's dyes of
+    more than 128 directed edges leaving some f32 A calls without a table).
+    The card's output is held to the CPU's in units of the unscaling's
+    standard deviation (predictions) or of the CPU's RMS (fingerprints): f32
+    at phase 3's limits; bf16 within phase 3's 1e-3, or twice as far as
+    bf16 rounding moves the CPU's own output from its f32 output where that
+    is further (``V1_MULTI_BF16``), and within phase 3's bf16 envelope of
+    the f32 output."""
+    import numpy as np
+
+    from chemprop_tpu_torch.models import load_model
+
+    src = two_molecule_v1(out_dir / "two_molecules_v1.pt")
+    model, _ = load_model(src, "cpu")
+    if type(model).__name__ != "MulticomponentMPNN" or model.predictor.input_dim != 600:
+        fail(f"the two-molecule v1 file loaded as {type(model).__name__}")
+    scale = model.predictor.output_transform.scale.numpy().reshape(1, -1)
+    n_rows = len(read_rows(_MM)[1])
+    res = {}
+    for sub, width in (("predict", 1), ("fingerprint", 300)):
+        f32_cpu = None
+        for dt in ("float32", "bfloat16"):
+            tag = f"{sub}_v1_two_molecules_{dt}"
+            got, cpu = rehearsed(tag, lambda dev: predict_table(run_cli(
+                sub, ["--model-path", src, *V1_MULTI_FLAGS, "--dtype", dt],
+                out_dir / f"{tag}_{dev or 'cuda'}.csv", dev))[2], launches, unserved)
+            if got.shape != (n_rows, width) or not np.isfinite(got).all():
+                fail(f"{tag} wrote {got.shape}, expected {(n_rows, width)} finite values")
+            if set(launches[tag]) != V1_MULTI_PATHS[dt]:
+                fail(f"{tag} launched {launches[tag]}, expected {sorted(V1_MULTI_PATHS[dt])}")
+            unit = scale if sub == "predict" else float(np.sqrt((cpu ** 2).mean()))
+            r = res[tag] = {"shape": list(got.shape), "launches": launches[tag],
+                            "vs_cpu_scaled": float(np.abs(got - cpu).max() / np.min(unit))}
+            if dt == "float32":
+                f32_cpu = cpu
+                hold_scaled(tag, got, cpu, unit, dt)
+                continue
+            rounding = float(np.abs(cpu - f32_cpu).max() / np.min(unit))
+            r["cpu_bf16_vs_f32_scaled"], r["limit"] = rounding, max(1e-3, V1_MULTI_BF16 * rounding)
+            if not r["vs_cpu_scaled"] <= r["limit"]:
+                fail(f"{tag}: the card's output parts from the CPU's beyond its limit: {r}")
+            if not np.allclose(got / unit, f32_cpu / unit, rtol=0.05, atol=0.1):
+                fail(f"{tag}: the card's bf16 output leaves the f32 envelope: {r}")
+    return res
+
+
+def subcommand_cli(out_dir: Path, launches: dict, unserved: dict) -> dict:
+    """Phase 18(b): ``python -m chemprop_tpu_torch.cli --version`` in a new
+    process, and one f32 ``train`` epoch on mol.csv through the parser that
+    ``construct_parser`` builds from the ``*Subcommand`` classes, rehearsed,
+    its loss within phase 9(a)'s f32 limit of the CPU's."""
+    import numpy as np
+
+    from chemprop_tpu_torch import __version__
+    from chemprop_tpu_torch.cli.main import construct_parser
+    from chemprop_tpu_torch.cli.train import TrainSubcommand
+
+    proc = subprocess.run([sys.executable, "-m", "chemprop_tpu_torch.cli", "--version"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or proc.stdout.strip() != __version__:
+        fail(f"--version gave {proc.returncode}: {proc.stdout!r} {proc.stderr[-2000:]!r}")
+    args = construct_parser().parse_args(["train", "-i", str(MOL_CSV)])
+    if args.func != TrainSubcommand.func:
+        fail("the parser's train does not run TrainSubcommand.func")
+    tag = "train_subcommand_float32"
+    card, cpu = rehearsed(tag, lambda dev: mc_train(
+        out_dir / f"{tag}_{dev or 'cuda'}", "float32", dev, ["-i", MOL_CSV]), launches, unserved)
+    r = {"version": proc.stdout.strip(), "train_loss": card[0]["train_loss"],
+         "train_loss_cpu": cpu[0]["train_loss"], "launches": launches[tag]}
+    if not np.isclose(r["train_loss"], r["train_loss_cpu"], rtol=1e-4, atol=0):
+        fail(f"{tag}: the epoch's loss on cuda disagrees with the CPU's: {r}")
+    return r
+
+
+def steps_per_dispatch_fits(ds, launches: dict) -> dict:
+    """Phase 18(c): two bf16 fits of the default model, ``SPD_EPOCHS`` epochs
+    of shuffled batches of 32 from one seed, one with
+    ``steps_per_dispatch=SPD_K``: the same loss history and parameters bit
+    for bit, each fit launching exactly its steps' kernels and leaving
+    nothing unserved."""
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+    from chemprop_tpu_torch.train import Trainer
+
+    runs = []
+    for K in (None, SPD_K):
+        trainer = Trainer(default_model(torch.bfloat16), max_epochs=SPD_EPOCHS, warmup_epochs=1,
+                          seed=25, steps_per_dispatch=K)
+        loader = DataLoader(ds, batch_size=32, shuffle=True, seed=3)
+        before, tag = dict(UNSERVED), f"train_bfloat16_steps_per_dispatch_{K}"
+        LAUNCHES.clear()
+        trainer.fit(loader)
+        torch.cuda.synchronize()
+        launches[tag] = dict(LAUNCHES)
+        check_path_launches("train_bfloat16", launches[tag], exact=True, want=path_launches(
+            "predict_bfloat16", 0, "train_bfloat16", SPD_EPOCHS * len(loader)))
+        if unserved_since(before):
+            fail(f"{tag} left calls unserved: {unserved_since(before)}")
+        runs.append(trainer)
+    (a, b), res = runs, {}
+    res["losses"] = [[h["train_loss"] for h in t.history] for t in runs]
+    res["equal_history"] = all(
+        {k: v for k, v in x.items() if k not in ("time_s", "edges_per_s")}
+        == {k: v for k, v in y.items() if k not in ("time_s", "edges_per_s")}
+        for x, y in zip(a.history, b.history, strict=True))
+    res["equal_parameters"] = all(torch.equal(v, b.state.params[k])
+                                  for k, v in a.state.params.items())
+    if not (res["equal_history"] and res["equal_parameters"]):
+        fail(f"a bf16 fit with steps_per_dispatch={SPD_K} differs from one without it: {res}")
+    return res
+
+
+def v1_multi_phase(ds, card: str) -> tuple[dict, dict]:
+    """Phase 18: (a) v1 files of two molecules, (b) the command line's
+    ``Subcommand``-built parser, (c) ``Trainer.steps_per_dispatch``; each
+    part fatal. Its seconds on their own line with the card's name and power
+    limit."""
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    out_dir = REPO / "chiprun_out" / "chip_smoke_v1_multi"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    parts = (("v1_two_molecules", lambda: v1_multi_runs(out_dir, launches, unserved)),
+             ("cli", lambda: subcommand_cli(out_dir, launches, unserved)),
+             ("steps_per_dispatch", lambda: steps_per_dispatch_fits(ds, launches)))
+    res["part_seconds"] = {}
+    for name, run in parts:
+        t = time.time()
+        res[name] = run()
+        res["part_seconds"][name] = time.time() - t
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"v1_multi_phase": res}))
+    print(json.dumps({"v1_multi_unserved": unserved}))
+    print(json.dumps({"phase": "v1_multi", "seconds": res["seconds"], "card": card}))
+    return launches, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4736,6 +4956,8 @@ def main() -> int:
     launches.update(native_launches)
     parallel_launches, parallel_res = parallel_phase(batch, card, args.seed)
     launches.update(parallel_launches)
+    v1_multi_launches, v1_multi_res = v1_multi_phase(ds, card)
+    launches.update(v1_multi_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -4831,6 +5053,7 @@ def main() -> int:
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
               "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
               "export": export_res, "native_cli": native_res, "parallel": parallel_res,
+              "v1_multi": v1_multi_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

@@ -1997,6 +1997,38 @@ def test_v1_checkpoint_on_card_matches_cpu(cuda, tmp_path, dtype):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v1_two_molecules_on_card_matches_cpu(cuda, tmp_path, dtype):
+    """A v1 file of two molecules (``chip_smoke.two_molecule_v1``) through
+    ``cli predict`` on 20 rows of mol+mol.csv (its v1 featurizer mode found
+    by itself) on the card and on the CPU, at the serving path's limits in
+    units of the file's unscaling: one batch, so A (B in bf16) and C twice
+    for each component."""
+    import csv
+
+    from chip_smoke import two_molecule_v1
+
+    src = two_molecule_v1(tmp_path / "two_molecules.pt")
+    with open(DATA / "regression/mol+mol/mol+mol.csv", newline="") as f:
+        rows = list(csv.reader(f))[:21]
+    in_csv = tmp_path / "mol_mol.csv"
+    with open(in_csv, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    argv = ["--model-paths", str(src), "-i", str(in_csv), "-s", "smiles", "solvent",
+            "--dtype", dtype]
+    LAUNCHES.clear()
+    header, names, got = _predict_cli(tmp_path, "v1_two", "cuda", *argv)
+    kernel = "message" if dtype == "float32" else "fused_iter"
+    assert {k: v for k, v in LAUNCHES.items() if v} == {kernel: 4, "sorted_segment_sum": 4}
+    _, _, want = _predict_cli(tmp_path, "v1_two", "cpu", *argv)
+    assert header == ["name", "logSolubility"] and len(names) == 20
+    scale = float(load_model(src, "cpu")[0].predictor.output_transform.scale)
+    if dtype == "float32":
+        np.testing.assert_allclose(got / scale, want / scale, rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-3)
+
+
 def test_ensemble_uncertainty_on_card_matches_cpu(cuda, tmp_path):
     """A two-member ensemble (the reference checkpoint, and a copy with noise
     on its parameters and its unscaling shifted by 0.3) with

@@ -52,6 +52,8 @@ NEW_MODULES = (
     "data/kmeans.py", "models/export.py", "featurizers/native.py",
     "ops/edge_partition.py", "parallel/__init__.py", "parallel/sharding.py",
     "parallel/distributed.py", "parallel/shard_train.py", "parallel/partitioned_mp.py",
+    "cli/utils/__init__.py", "cli/utils/actions.py", "cli/utils/args.py",
+    "cli/utils/command.py", "cli/utils/parsing.py", "cli/utils/utils.py",
 )
 
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from chemprop_tpu.cli.main import main as jax_main
+from chemprop_tpu_torch.cli import parsing
 from chemprop_tpu_torch.cli.common import find_models
 from chemprop_tpu_torch.cli.main import main as port_main
 from chemprop_tpu_torch.models import load_model, serialize
@@ -378,22 +379,38 @@ def test_unported_options_are_refused(env, case):
     assert not out.exists()
 
 
-# mol-atom-bond checkpoints are served since they were ported; a v1 file of
-# several molecules is still refused where predict loads it
+# mol-atom-bond checkpoints are served since they were ported, and a v1 file
+# of several molecules since item 7's last part was: the case builds the
+# two-molecule file from the v1 file named (chip_smoke.two_molecule_v1) and
+# predicts on mol+mol.csv with it, its featurizer mode found by predict, as
+# the library predicts (tests/test_torch_v1_multi.py holds both against JAX)
 @pytest.mark.parametrize("path,item", [("example_model_v1_regression_mol.pt", "item 7")])
-def test_unported_models_are_refused(env, path, item):
-    import argparse
+def test_unported_models_are_refused(env, path, item, capsys):
+    from chip_smoke import two_molecule_v1
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.train import Trainer
 
-    from chemprop_tpu_torch.models.load import load_checkpoint
-
-    d = load_checkpoint(env["data_dir"] / path)
-    d["args"] = argparse.Namespace(**{**vars(d["args"]), "number_of_molecules": 2})
-    d.pop("data_scaler", None)
-    torch.save(d, env["root"] / "two_molecules.pt")
-    with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
-        port_main(["predict", "-i", str(env["inputs"]["reg"]), "--model-paths",
-                   str(env["root"] / "two_molecules.pt"), "-o", str(env["root"] / "m.csv"),
-                   "--device", "cpu"])
+    assert path == "example_model_v1_regression_mol.pt" and item == "item 7"
+    src = two_molecule_v1(env["root"] / "two_molecules.pt")
+    with open(env["data_dir"] / "regression/mol+mol/mol+mol.csv", newline="") as f:
+        header, *rows = list(csv.reader(f))
+    in_csv = _write_rows(env["root"] / "mol_mol.csv", header, rows[:N_ROWS])
+    out = env["root"] / "m.csv"
+    assert port_main(["predict", "-i", str(in_csv), "-s", "smiles", "solvent",
+                      "--model-paths", str(src), "-o", str(out), "--device", "cpu"]) == 0
+    assert "switching atom featurizer mode 'v2' -> 'v1'" in capsys.readouterr().err
+    got = list(csv.reader(open(out, newline="")))
+    assert got[0] == ["name", "logSolubility"]
+    assert [r[0] for r in got[1:]] == [str((r[0], r[1])) for r in rows[:N_ROWS]]
+    model, _ = load_model(src, "cpu")
+    smis, rxns, Y, w, lt, gt = parsing.parse_csv(in_csv, ["smiles", "solvent"], None, [])[:6]
+    ds = parsing.build_datasets(parsing.make_datapoints(smis, rxns, np.full((N_ROWS, 1), np.nan),
+                                                        w, lt, gt),
+                                multi_hot_atom_featurizer_mode="v1")
+    trainer = Trainer(model, device="cpu")
+    trainer.init_state(keep_parameters=True)
+    want = trainer.predict(DataLoader(ds, batch_size=64))
+    np.testing.assert_allclose([[float(r[1])] for r in got[1:]], want, rtol=0, atol=1e-6)
 
 
 # the inputs and model the port refused before it took reactions, several

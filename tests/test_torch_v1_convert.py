@@ -5,7 +5,8 @@ the port, against the JAX package on the CPU (float32):
   example_model_v1_regression_mol_prediction.csv (the JAX package's own bar,
   tests/unit/models/test_v1_convert.py) and of ``convert_v1_model``'s on the
   same batch; ``cli predict`` finds the v1 featurizer mode by itself; what
-  the port does not serve raises and names its ``ROADMAP.md`` item;
+  the port does not serve raises, as the JAX converter raises or naming the
+  ``ROADMAP.md`` section that says why;
 * ``convert`` of the v1 file and of the v2 ``.pt``: JAX's ``load_model``
   reads the output, whose predictions equal the port's from the source file
   and lie within 1e-5 of JAX ``convert`` + ``predict``'s; the rows of
@@ -117,26 +118,31 @@ def test_v1_state_dict_in_the_ports_names(data_dir):
 
 
 # a v1 file with atom_messages loads since AtomMessagePassing was ported
-# (tests/test_torch_atom_messages.py)
-# several molecules wait for their item; the JAX converter loads atom
-# descriptors and molecule features as a model that ignores them, so the port
-# refuses to serve them wrongly
+# (tests/test_torch_atom_messages.py), and one of several molecules since
+# item 7's last part was (tests/test_torch_v1_multi.py). What stays refused:
+# two molecules over one unshared encoder, which the JAX converter refuses
+# too; atom descriptors and molecule features, which it loads as a model
+# that ignores them, so the port refuses to serve them wrongly. Each case:
+# (changed args, the port's message, whether the JAX converter raises)
 V1_REFUSALS = {
-    "two_molecules": (dict(number_of_molecules=2), "not ported yet.*item 7"),
+    "two_molecules": (dict(number_of_molecules=2), "one encoder per molecule.*holds 1", True),
     "atom_descriptors": (dict(atom_descriptors="descriptor"),
-                         "JAX package's converter would mis-serve.*v1 atom descriptors"),
+                         "JAX package's converter would mis-serve.*v1 atom descriptors", False),
     "features": (dict(features_generator=["morgan"]),
-                 "JAX package's converter would mis-serve.*v1 molecule features"),
+                 "JAX package's converter would mis-serve.*v1 molecule features", False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(V1_REFUSALS))
 def test_v1_files_the_port_does_not_serve_are_refused(data_dir, case):
     d = load_checkpoint(data_dir / V1)
-    changes, message = V1_REFUSALS[case]
+    changes, message, jax_raises = V1_REFUSALS[case]
     d["args"] = argparse.Namespace(**{**vars(d["args"]), **changes})
     with pytest.raises(ValueError, match=message):
         build_v1_model(d)
+    if jax_raises:
+        with pytest.raises(ValueError, match="expected 2 blocks, got 1"):
+            convert_v1_model(None, _loaded=d)
 
 
 # mol-atom-bond models load since they were ported (tests/test_torch_mab.py);
