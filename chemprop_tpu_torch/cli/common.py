@@ -18,6 +18,8 @@ from pathlib import Path
 
 import torch
 
+from chemprop_tpu_torch.featurizers.molecule import MoleculeFeaturizerRegistry
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 logger = logging.getLogger(__name__)
@@ -75,9 +77,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         "--molecule-featurizers",
         "--features-generators",
         nargs="+",
-        help="molecule featurizers whose vectors join the first SMILES column's X_d "
-        "(morgan_binary, morgan_count, charge, rdkit_2d, v1_rdkit_2d, "
-        "v1_rdkit_2d_normalized)",
+        choices=sorted(MoleculeFeaturizerRegistry.keys()),
+        help="molecule featurizers whose vectors join the first SMILES column's X_d",
     )
     group.add_argument("--descriptors-path", type=Path, help=".npz of extra descriptors X_d")
     group.add_argument(

@@ -58,7 +58,8 @@ SEARCH_SPACE = {
     "aggregation": ("choice", ["mean", "sum", "norm"]),
     "activation": ("choice", ["relu", "leakyrelu", "prelu", "tanh", "elu"]),
 }
-BASIC = {"depth", "ffn_num_layers", "dropout", "message_hidden_dim", "ffn_hidden_dim"}
+# in the JAX package's order, the default of --search-parameter-keywords
+BASIC = ["depth", "ffn_num_layers", "dropout", "message_hidden_dim", "ffn_hidden_dim"]
 LEARNING_RATE = {"max_lr", "final_lr_ratio", "warmup_epochs"}
 
 
@@ -76,7 +77,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--hyperopt-random-state-seed", type=int, default=None)
     g.add_argument("--startup-trials", "--hyperopt-n-initial-points", type=int, default=5,
                    help="the estimator's random trials before it proposes")
-    g.add_argument("--search-parameter-keywords", nargs="+", default=sorted(BASIC),
+    g.add_argument("--search-parameter-keywords", nargs="+", default=list(BASIC),
                    help=f"subset of: {sorted(SEARCH_SPACE)} or 'all', 'basic', 'learning_rate'")
     g.add_argument("--hpopt-save-dir", type=Path, default=None)
     g.add_argument(
@@ -107,7 +108,7 @@ def _expand_keywords(keywords: list[str]) -> list[str]:
         if kw == "all":
             out |= set(SEARCH_SPACE)
         elif kw == "basic":
-            out |= BASIC
+            out |= set(BASIC)
         elif kw == "learning_rate":
             out |= LEARNING_RATE
         elif kw in SEARCH_SPACE:

@@ -349,11 +349,14 @@ class TrainingBatch(NamedTuple):
         return self.bmg if isinstance(self.bmg, tuple) else (self.bmg,)
 
 
-def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
+def collate_batch(data: Iterable, pad: PadSpec | None = None, n_targets: int | None = None
+                  ) -> TrainingBatch:
     """Collate ``Datum`` tuples ``(mg, V_d, x_d, y, weight, lt_mask,
     gt_mask)`` into a padded :class:`TrainingBatch`. Padding samples get NaN
     targets, zero weight and false bounds, so that the masked loss ignores
-    them; padding rows of the descriptors are zero."""
+    them; padding rows of the descriptors are zero. ``n_targets``, where it
+    is given, is the number of target columns of ``Y`` (else the first
+    datum's)."""
     mgs, V_ds, x_ds, ys, weights, lt_masks, gt_masks = zip(*data)
     pad = pad or PadSpec.for_graphs(mgs)
     bmg = batch_mol_graphs(mgs, pad)
@@ -373,7 +376,8 @@ def collate_batch(data: Iterable, pad: PadSpec | None = None) -> TrainingBatch:
         X_d[:b_real] = np.array(x_ds, dtype=np.float32)
     Y = None
     if ys[0] is not None:
-        Y = np.full((b_pad, len(ys[0])), np.nan, dtype=np.float32)
+        Y = np.full((b_pad, len(ys[0]) if n_targets is None else n_targets), np.nan,
+                    dtype=np.float32)
         Y[:b_real] = np.array(ys, dtype=np.float32)
     w = np.zeros((b_pad, 1), dtype=np.float32)
     w[:b_real, 0] = weights
@@ -603,6 +607,9 @@ class Shard(NamedTuple):
     def n_shards(self) -> int:
         return len(self.groups)
 
+    def to(self, device: str | torch.device) -> "Shard":
+        return Shard(self.batch.to(device), self.groups, self.index)
+
 
 def _shard_pads(rows: list, groups: list[list[int]], multi: bool, pad):
     """The one padding (a PadSpec, or one per component) every shard shares,
@@ -622,14 +629,15 @@ def _shard_pads(rows: list, groups: list[list[int]], multi: bool, pad):
 
 
 def collate_sharded(data: Iterable, n_shards: int, pad: PadSpec | None = None,
-                    shard_index: int = 0) -> Shard:
+                    n_targets: int | None = None, shard_index: int = 0) -> Shard:
     """Shard ``shard_index`` of the rows ``data`` cut into ``n_shards``
     self-contained padded shards (cf. ``collate_sharded`` of
     ``chemprop_tpu/data/collate.py``, whose stacked shard ``k`` it equals):
     graphs LPT-balanced by edge count (:func:`partition_shards`), every
     shard under one padding (``pad`` per shard, or the largest of the
     shards' buckets); a shard left without graphs is all padding. Only this
-    shard is collated; multicomponent rows give one graph per component."""
+    shard is collated; multicomponent rows give one graph per component.
+    ``n_targets`` is :func:`collate_batch`'s, for single-component rows."""
     rows = list(data)
     if not rows:
         raise ValueError("collate_sharded needs at least one datum")
@@ -644,7 +652,7 @@ def collate_sharded(data: Iterable, n_shards: int, pad: PadSpec | None = None,
     def collate(g):
         if multi:
             return collate_multicomponent([rows[i] for i in g], pads)
-        return collate_batch([rows[i] for i in g], pads)
+        return collate_batch([rows[i] for i in g], pads, n_targets)
 
     mine = groups[shard_index]
     tb = collate(mine) if mine else _empty_like_batch(collate(groups[0]))

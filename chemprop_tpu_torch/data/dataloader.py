@@ -17,10 +17,22 @@ bonds) into batches of their own; the port's kernels take such a molecule's
 split tile table instead. So ``emitted_order`` is the dataset's order
 wherever it is not None: ``Trainer.predict`` leaves its rows as they are, and
 the mol-atom-bond trainer and ``fingerprint`` need no counterpart of the JAX
-package's ``restore_mab_order``."""
+package's ``restore_mab_order``.
+
+With ``prefetch > 0`` (the default, 2, as in the JAX package) one daemon
+thread collates the batches ahead into a queue of that many, so that the
+host's collate overlaps the caller's work on each batch; the batches and
+their order are those of ``prefetch=0``, which collates each one when it is
+asked for. A producer's exception is raised in the caller. Where the JAX
+loader's thread stays blocked when its caller stops early, closing the
+port's iterator (``next(iter(loader))``, a ``break``, an exception in the
+loop) stops and joins its producer. The producer only collates on the host:
+it touches no CUDA state and no launch counter."""
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -43,15 +55,18 @@ class DataLoader:
         class_balance: bool = False,
         drop_last: bool = False,
         pad_spec: PadSpec | None = None,
+        prefetch: int = 2,
         n_shards: int = 0,
         shard_index: int = 0,
     ):
-        """``n_shards > 0`` yields shard ``shard_index`` of each batch, a
+        """``prefetch`` batches are collated ahead in a background thread (0:
+        none). ``n_shards > 0`` yields shard ``shard_index`` of each batch, a
         ``Shard``; ``pad_spec`` is then each shard's."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.pad_spec = pad_spec
+        self.prefetch = prefetch
         self.n_shards, self.shard_index = n_shards, shard_index
         self._reshuffles = bool(shuffle or class_balance)
         if class_balance:
@@ -83,27 +98,59 @@ class DataLoader:
         if batch and not self.drop_last:
             yield batch
 
-    def __iter__(self) -> Iterator[TrainingBatch]:
-        for idxs in self._index_batches():
-            data = [self.dataset[i] for i in idxs]
-            if self.n_shards:
-                if isinstance(data[0], MABDatum):
-                    raise NotImplementedError("sharded MAB batches are not supported yet")
-                yield collate_sharded(data, self.n_shards, self.pad_spec, self.shard_index)
-                continue
-            if isinstance(data[0], list):  # multicomponent rows: a pad per component
-                pads = self.pad_spec or [
-                    PadSpec.for_graphs([row[c].mg for row in data], n_graphs=self.batch_size)
-                    for c in range(len(data[0]))]
-                yield collate_multicomponent(data, pads)
-                continue
-            pad = self.pad_spec or PadSpec.for_graphs(
-                [d.mg for d in data], n_graphs=self.batch_size
-            )
+    def _make_batch(self, idxs: list[int]):
+        data = [self.dataset[i] for i in idxs]
+        if self.n_shards:
             if isinstance(data[0], MABDatum):
-                yield collate_mol_atom_bond_batch(data, pad)
-                continue
-            yield collate_batch(data, pad)
+                raise NotImplementedError("sharded MAB batches are not supported yet")
+            return collate_sharded(data, self.n_shards, self.pad_spec, shard_index=self.shard_index)
+        if isinstance(data[0], list):  # multicomponent rows: a pad per component
+            pads = self.pad_spec or [
+                PadSpec.for_graphs([row[c].mg for row in data], n_graphs=self.batch_size)
+                for c in range(len(data[0]))]
+            return collate_multicomponent(data, pads)
+        pad = self.pad_spec or PadSpec.for_graphs([d.mg for d in data], n_graphs=self.batch_size)
+        if isinstance(data[0], MABDatum):
+            return collate_mol_atom_bond_batch(data, pad)
+        return collate_batch(data, pad)
+
+    def __iter__(self) -> Iterator[TrainingBatch]:
+        if self.prefetch <= 0:
+            for idxs in self._index_batches():
+                yield self._make_batch(idxs)
+            return
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def produce():
+            try:
+                for idxs in self._index_batches():
+                    if stop.is_set():
+                        return
+                    q.put(self._make_batch(idxs))
+            except BaseException as e:  # raised in the consumer
+                q.put(e)
+                return
+            q.put(done)
+
+        producer = threading.Thread(target=produce, name="DataLoader-prefetch", daemon=True)
+        producer.start()
+        try:
+            while (item := q.get()) is not done:
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # a consumer that stops early: free the queue until the producer,
+            # blocked on a put or collating, sees the stop and ends
+            stop.set()
+            while producer.is_alive():
+                try:
+                    q.get(timeout=0.01)
+                except queue.Empty:
+                    pass
+            producer.join()
 
 
 def build_dataloader(
@@ -116,12 +163,11 @@ def build_dataloader(
     **kwargs,
 ) -> DataLoader:
     """The reference's loader factory (cf. ``build_dataloader`` of
-    ``chemprop_tpu/data/dataloader.py``) over the port's ``DataLoader``.
-    ``num_workers`` featurises the dataset once, up front, in that many
-    processes (the JAX package's dataset-level parallel featurisation)."""
-    if num_workers and hasattr(dataset, "_featurize"):
-        from chemprop_tpu_torch.utils.utils import parallel_execute
-
-        dataset._cache = parallel_execute(dataset._featurize, range(len(dataset)), num_workers)
+    ``chemprop_tpu/data/dataloader.py``) over the port's ``DataLoader``;
+    ``kwargs`` (``prefetch``, ...) go to the loader. ``num_workers`` sets the
+    dataset's ``n_workers``, the processes that featurise its cache when the
+    cache is filled, as in the JAX package; the cache is left as it is."""
+    if num_workers:
+        dataset.n_workers = num_workers
     return DataLoader(dataset, batch_size=batch_size, shuffle=shuffle, seed=seed,
                       class_balance=class_balance, **kwargs)

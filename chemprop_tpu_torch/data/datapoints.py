@@ -35,6 +35,8 @@ class MoleculeDatapoint:
     lt_mask: np.ndarray | None = None
     name: str | None = None
     x_d: np.ndarray | None = None
+    # the JAX package's field of phase features, which no model reads
+    x_phase: list[float] | None = None
     V_f: np.ndarray | None = None
     E_f: np.ndarray | None = None
     V_d: np.ndarray | None = None
@@ -157,6 +159,7 @@ class ReactionDatapoint:
     lt_mask: np.ndarray | None = None
     name: str | None = None
     x_d: np.ndarray | None = None
+    x_phase: list[float] | None = None
 
     def __post_init__(self):
         if self.rct is None or self.pdt is None:

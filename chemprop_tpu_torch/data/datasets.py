@@ -21,6 +21,7 @@ from chemprop_tpu_torch.data.datapoints import (
 from chemprop_tpu_torch.featurizers.molgraph.molecule import SimpleMoleculeMolGraphFeaturizer
 from chemprop_tpu_torch.featurizers.molgraph.reaction import CondensedGraphOfReactionFeaturizer
 from chemprop_tpu_torch.types import MolGraph
+from chemprop_tpu_torch.utils.utils import parallel_execute
 
 
 class Datum(NamedTuple):
@@ -65,6 +66,9 @@ class MoleculeDataset:
     featurizer: SimpleMoleculeMolGraphFeaturizer = field(
         default_factory=SimpleMoleculeMolGraphFeaturizer
     )
+    # the processes that featurise the cache when it is filled (0 or 1: this
+    # one; utils.parallel_execute forks them, and they touch no CUDA state)
+    n_workers: int = 0
 
     def __post_init__(self):
         if self.data is None:
@@ -98,7 +102,8 @@ class MoleculeDataset:
 
     @cache.setter
     def cache(self, cache: bool) -> None:
-        self._cache = [self._featurize(i) for i in range(len(self))] if cache else None
+        self._cache = (parallel_execute(self._featurize, range(len(self)), self.n_workers)
+                       if cache else None)
 
     def populate_cache_native(self, smiles: list[str] | None = None, keep_h: bool = False) -> bool:
         """Fill the cache of featurised graphs through the native C++ batch

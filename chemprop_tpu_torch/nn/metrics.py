@@ -41,7 +41,10 @@ def _register(registry: ClassRegistry, *aliases: str):
 
 
 def _task_weights(task_weights, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(task_weights, dtype=torch.float32, device=like.device).reshape(1, -1)
+    # made on the host and copied without a wait for the device: a blocking
+    # copy would synchronise every training step
+    return torch.as_tensor(task_weights, dtype=torch.float32).to(
+        like.device, non_blocking=True).reshape(1, -1)
 
 
 def _max(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -60,8 +63,9 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def _acc(total: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A state entry plus one batch's part, on the part's device."""
-    return total.to(x.device) + x
+    """A state entry plus one batch's part, on the part's device (a host
+    entry copied without a wait for the device, as in ``_task_weights``)."""
+    return total.to(x.device, non_blocking=True) + x
 
 
 @dataclass

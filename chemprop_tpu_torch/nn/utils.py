@@ -33,16 +33,21 @@ _WITH_ARGUMENT: dict[str, Callable[[float], Callable[[torch.Tensor], torch.Tenso
 }
 
 
-def get_activation_function(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The activation a name gives. A name may carry arguments after a colon,
-    as in the JAX package (``"leakyrelu:0.1"``, ``"prelu:0.2"``, ``"elu:0.5"``):
-    the first sets the slope or alpha of these three, and the other
-    activations ignore theirs. The string stays the module's configuration,
-    so that a checkpoint carries it."""
-    base, _, argstr = name.lower().partition(":")
+def get_activation_function(
+    activation: str | Callable[[torch.Tensor], torch.Tensor],
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The activation a name gives; a callable is returned as it is, as in
+    the JAX package. A name may carry arguments after a colon
+    (``"leakyrelu:0.1"``, ``"prelu:0.2"``, ``"elu:0.5"``): the first sets the
+    slope or alpha of these three, and the other activations ignore theirs.
+    The string stays the module's configuration, so that a checkpoint
+    carries it."""
+    if callable(activation):
+        return activation
+    base, _, argstr = activation.lower().partition(":")
     args = [float(a) for a in argstr.split(",") if a]
     if base not in _ACTIVATIONS:
-        raise ValueError(f"unknown activation {name!r}; supported: {sorted(_ACTIVATIONS)}")
+        raise ValueError(f"unknown activation {activation!r}; supported: {sorted(_ACTIVATIONS)}")
     if args and base in _WITH_ARGUMENT:
         return _WITH_ARGUMENT[base](args[0])
     return _ACTIVATIONS[base]

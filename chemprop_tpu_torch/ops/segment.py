@@ -249,7 +249,7 @@ class _SegmentSum(torch.autograd.Function):
         return g[ids.long()].to(ctx.data_dtype), None, None, None, None
 
 
-def segment_softmax_weights(logits: torch.Tensor, ids: torch.Tensor, num_segments: int
+def segment_softmax_weights(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
                             ) -> torch.Tensor:
     """Per-segment softmax weights of ``[n, k]`` logits (cf.
     ``chemprop_tpu/ops/segment.py:segment_softmax_weights``): each segment's
@@ -257,7 +257,7 @@ def segment_softmax_weights(logits: torch.Tensor, ids: torch.Tensor, num_segment
     counts as 0, and the denominator is floored at ``1e-12``. The maximum
     is a constant of the softmax, so no gradient flows through it, where the
     JAX package's flows through one and sums to zero."""
-    idx = ids.long()
+    idx = segment_ids.long()
     seg_max = logits.new_full((num_segments, logits.shape[1]), float("-inf")).scatter_reduce(
         0, idx[:, None].expand_as(logits), logits.detach(), "amax")
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))

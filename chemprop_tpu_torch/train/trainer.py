@@ -63,6 +63,15 @@ same order, to the same bits, as one without it. Chaining the steps into
 one launch (a CUDA graph of the step) is a speed change of its own
 (``ROADMAP.md`` section 1 item 1.4).
 
+``fit`` moves each training batch to the device ahead of its step, as the
+JAX trainer's ``_device_prefetch`` does (depth 2: batches k+1 and k+2 are
+copied before batch k's step is issued; :class:`DevicePrefetch`). On CUDA a
+host batch is pinned and copied on a stream of its own; the step's stream
+waits for the copy on the device, not the host, so that the loader's collate
+(its own thread), the pinning and the copies overlap the steps before. On
+the CPU the batch is used as it is. Validation and ``predict`` move each
+batch when they reach it, as in the JAX package.
+
 ``mesh`` (a ``parallel.sharding.Mesh``, one process per GPU; ``sharded`` is
 accepted for the JAX signature's sake) makes every step the explicit per-rank
 step of ``parallel/shard_train.py``: each rank trains on its whole-graph shard
@@ -84,12 +93,14 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from chemprop_tpu_torch.data.collate import Shard, TrainingBatch
 from chemprop_tpu_torch.data.dataloader import DataLoader
@@ -158,6 +169,70 @@ def _targets(batch: TrainingBatch) -> tuple[torch.Tensor, ...]:
     lt = torch.zeros_like(mask) if batch.lt_mask is None else batch.lt_mask
     gt = torch.zeros_like(mask) if batch.gt_mask is None else batch.gt_mask
     return mask, torch.nan_to_num(batch.Y), lt, gt
+
+
+class DevicePrefetch:
+    """``feed(pairs)`` iterates ``(tag, host batch)`` pairs as ``(tag, device
+    batch)``, each batch's copy to ``device`` issued ``depth`` batches before
+    it is yielded (cf. ``_device_prefetch`` of
+    ``chemprop_tpu/train/trainer.py``). On CUDA each host batch's tensors are
+    pinned and copied on a copy stream, and an event is recorded after the
+    copies; a yielded batch's tensors are ready on the current stream, which
+    waits for that event on the device, and are recorded as used by it, so
+    that the allocator does not hand their memory to a later copy while a
+    step still reads it. A pinned source is held until its copy's event has
+    completed (:meth:`release`). The tile tables are checked on the host and
+    marked as they move (``BatchMolGraph.to``), so no kernel reads one back.
+    On the CPU a batch is moved with ``to`` and nothing is pinned."""
+
+    def __init__(self, device: torch.device, depth: int = 2):
+        self.device, self.depth = device, depth
+        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self._held: deque = deque()  # (event, pinned batch) of the copies issued
+
+    def _put(self, host):
+        if self._stream is None:
+            return host.to(self.device), None
+        self.release()
+        pinned = pytree.tree_map_only(torch.Tensor, torch.Tensor.pin_memory, host)
+        with torch.cuda.stream(self._stream):
+            batch = pinned.to(self.device)
+        copied = torch.cuda.Event()
+        copied.record(self._stream)
+        self._held.append((copied, pinned))
+        return batch, copied
+
+    def _ready(self, batch, copied):
+        if copied is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(copied)
+            for t in pytree.tree_leaves(batch):
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(stream)
+        return batch
+
+    def feed(self, pairs):
+        issued: deque = deque()
+        for tag, host in pairs:
+            issued.append((tag, *self._put(host)))
+            if len(issued) > self.depth:
+                tag, batch, copied = issued.popleft()
+                yield tag, self._ready(batch, copied)
+        while issued:
+            tag, batch, copied = issued.popleft()
+            yield tag, self._ready(batch, copied)
+
+    def release(self) -> None:
+        """Drop the pinned sources whose copies have completed (an event's
+        query does not wait)."""
+        while self._held and self._held[0][0].query():
+            self._held.popleft()
+
+
+def _real_edges(batch) -> int:
+    """The real edges of a host batch, of every component (a shard's own)."""
+    host = batch.batch if isinstance(batch, Shard) else batch
+    return sum(int(g.edge_mask.sum()) for g in host.graphs)
 
 
 def _restore_order(preds: np.ndarray, loader) -> np.ndarray:
@@ -302,7 +377,11 @@ class Trainer:
 
     def train_step(self, batch: TrainingBatch) -> torch.Tensor:
         """One update on ``batch``; returns the loss, still on the device. The
-        frozen parameters take no part: no gradient, no moment, no update."""
+        frozen parameters take no part: no gradient, no moment, no update.
+        ``batch`` lies on the host, or on the device where ``fit``'s
+        :class:`DevicePrefetch` moved it: ``to`` then returns its tensors as
+        they are, and its tile tables keep their host check's mark, so it is
+        neither copied nor checked again."""
         st = self.state
         every = list(st.params.values())
         params = [every[i] for i in self._trained]
@@ -324,6 +403,15 @@ class Trainer:
         return loss.detach()
 
     # ------------------------------------------------------------------- fit
+    def _shard(self, batch):
+        """The host batch ``fit`` moves to the device: on a mesh the rank's
+        ``Shard`` (cut on the host), else ``batch``."""
+        if self.mesh is None:
+            return batch
+        from chemprop_tpu_torch.parallel.shard_train import as_shard
+
+        return as_shard(batch, self.mesh)
+
     def _variables(self) -> dict[str, torch.Tensor]:
         """The state's parameters and batch-norm statistics by name."""
         return {**self.state.params, **self.state.batch_stats}
@@ -366,25 +454,26 @@ class Trainer:
     def _fit_epochs(self, train_loader, val_loader, tb: ScalarEventWriter | None) -> None:
         best_score = np.inf if self.mode == "min" else -np.inf
         since_best = 0
+        prefetch = DevicePrefetch(self.device)
         for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.time()
             losses, n_edges = [], 0
             prof = None
-            for step_i, batch in enumerate(train_loader):
+            batches = prefetch.feed((_real_edges(host), self._shard(host)) for host in train_loader)
+            for step_i, (edges, batch) in enumerate(batches):
                 if self.profile_dir is not None and epoch == self.start_epoch and step_i == 1:
                     prof = self._profiler()
                     prof.start()
-                # the host batch's real edges, of every component (a shard's own)
-                host = batch.batch if isinstance(batch, Shard) else batch
-                n_edges += sum(int(g.edge_mask.sum()) for g in host.graphs)
+                n_edges += edges
                 losses.append(self.train_step(batch))
                 if prof is not None and step_i >= self.profile_steps:
                     self._stop_profiler(prof)
                     prof = None
             if prof is not None:
                 self._stop_profiler(prof)
-            # one device -> host fetch per epoch
+            # one device -> host fetch per epoch; every copy has completed then
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
+            prefetch.release()
             dt = time.time() - t0
             record = {
                 "epoch": epoch,

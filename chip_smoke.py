@@ -285,7 +285,30 @@ failure:
    limit; (c) two bf16 fits of the default model, 3 epochs from one seed,
    one with ``steps_per_dispatch=4``: the same loss history and parameters
    bit for bit. Its seconds are printed with the card's name and power
-   limit.
+   limit;
+19. the training input pipeline: a bf16 ``Trainer.fit`` of the default model
+   at full width (phase 4's: d_h 300 padded to 384, depth 3, batch norm,
+   mean readout, no dropout), ``PIPELINE_EPOCHS`` epochs of mol.csv's 100
+   rows in shuffled batches of 32, through the loader's thread
+   (``prefetch=2``), a dataset whose cache two worker processes featurised
+   (``n_workers=2``, forked after CUDA is up; the cache equal to the serial
+   one) and the trainer's device prefetch (pinned batches copied on a copy
+   stream two batches ahead). Rehearsed on the CPU first (B 2, C 2, G 1,
+   H 1, I 1 per step; the calls without a tile table exactly the
+   rehearsal's), then held bit for bit (losses and every parameter and
+   batch-norm tensor) to a loop of ``train_step`` over the same host batches
+   collated inline (``prefetch=0``, ``n_workers=0``), which launches the
+   same kernels; to the same fit with ``mesh`` at world size 1 over NCCL
+   (each rank's shard moved ahead); and to a fit with the device prefetch
+   alone (the loader at ``prefetch=0``). The fit and the plain loop run
+   under ``torch.cuda.set_sync_debug_mode("warn")``: their synchronisations
+   per epoch must be equal and at most one, the epoch's loss fetch (each is
+   counted by the line that made it), and no tile table may be read back
+   (``check_tiles``). It prints each epoch's ``edges_per_s`` of the fit, the
+   fit without the loader's thread and the plain loop, and, after every
+   untraced timing, the device's idle share over one more epoch of the fit
+   traced by ``torch.profiler`` (the union of its device intervals against
+   the untraced epochs' wall time).
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -686,15 +709,17 @@ def peaks(name: str) -> tuple[float, float, float]:
     fail(f"no published peaks for {name!r}")
 
 
-def lipo_dataset():
-    """The 100 rows of mol.csv with normalised targets, featurised once."""
+def lipo_dataset(n_workers: int = 0):
+    """The 100 rows of mol.csv with normalised targets, featurised once (by
+    ``n_workers`` forked processes where it is above 1)."""
     import numpy as np
 
     from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
 
     with open(MOL_CSV, newline="") as f:
         rows = list(csv.reader(f))[1:]
-    ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([float(y)])) for s, y in rows])
+    ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([float(y)])) for s, y in rows],
+                         n_workers=n_workers)
     ds.normalize_targets()
     ds.cache = True
     return ds
@@ -4802,6 +4827,262 @@ def v1_multi_phase(ds, card: str) -> tuple[dict, dict]:
     return launches, res
 
 
+# phase 19: the fit's epochs and batch size, and the loader's shuffle seed
+PIPELINE_EPOCHS = 3
+PIPELINE_BATCH = 32
+PIPELINE_SEED = 19
+
+
+class counted_syncs:
+    """``with counted_syncs() as counts:`` the block's synchronising CUDA calls
+    (``torch.cuda.set_sync_debug_mode("warn")``'s warnings) in
+    ``counts["syncs"]``, by the Python line that made each in
+    ``counts["where"]``, and in ``counts["readbacks"]`` the tile tables that
+    ``check_tiles`` found on the card without their host check (each would be
+    read back)."""
+
+    def __enter__(self):
+        import importlib
+        import warnings
+
+        import torch
+
+        # the module, which the package's ``message`` function shadows
+        message = importlib.import_module("chemprop_tpu_torch.ops.message")
+        self.counts = {"syncs": 0, "readbacks": 0}
+        self._warnings = warnings.catch_warnings(record=True)
+        self._records = self._warnings.__enter__()
+        warnings.simplefilter("always")
+        self._check = check = message.check_tiles
+
+        def counted(tiles, n_edges, device):
+            if tiles.device.type == "cuda" and getattr(tiles, "checked_for_rows", None) != n_edges:
+                self.counts["readbacks"] += 1
+            return check(tiles, n_edges, device)
+
+        message.check_tiles = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        return self.counts
+
+    def __exit__(self, *exc):
+        import importlib
+
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        importlib.import_module("chemprop_tpu_torch.ops.message").check_tiles = self._check
+        syncs = [w for w in self._records if "synchronizing CUDA operation" in str(w.message)]
+        self.counts["syncs"] = len(syncs)
+        where: dict = {}
+        for w in syncs:
+            path = Path(w.filename)
+            line = f"{path.relative_to(REPO) if path.is_relative_to(REPO) else path}:{w.lineno}"
+            where[line] = where.get(line, 0) + 1
+        self.counts["where"] = where
+        self._warnings.__exit__(*exc)
+        return False
+
+
+def pipeline_trainer(device, mesh=None):
+    import torch
+
+    from chemprop_tpu_torch.train import Trainer
+
+    return Trainer(default_model(torch.bfloat16), max_epochs=PIPELINE_EPOCHS, warmup_epochs=1,
+                   seed=26, device=device, mesh=mesh)
+
+
+def pipeline_loader(ds, prefetch: int):
+    from chemprop_tpu_torch.data import DataLoader
+
+    return DataLoader(ds, batch_size=PIPELINE_BATCH, shuffle=True, seed=PIPELINE_SEED,
+                      prefetch=prefetch)
+
+
+def plain_epochs(trainer, loader, epochs: int) -> list[dict]:
+    """``fit``'s epochs as a loop of ``train_step`` over the host batches: each
+    epoch's mean loss (one fetch per epoch), seconds and real edges per
+    second."""
+    import torch
+
+    out = []
+    for epoch in range(epochs):
+        t0, losses, edges = time.time(), [], 0
+        for host in loader:
+            edges += sum(int(g.edge_mask.sum()) for g in host.graphs)
+            losses.append(trainer.train_step(host))
+        loss = float(torch.stack(losses).mean())
+        dt = time.time() - t0
+        out.append({"epoch": epoch, "train_loss": loss, "time_s": dt, "edges_per_s": edges / dt})
+    return out
+
+
+def device_busy_ms(prof) -> float | None:
+    """The union of a trace's device intervals (kernels and copies, which the
+    copy stream overlaps), in ms; None where the trace holds none."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
+def pipeline_sharded_fit(fit, ds, launches: dict, tag: str) -> dict:
+    """Phase 19(e): the same fit with ``mesh`` at world size 1 over NCCL (each
+    rank's ``Shard`` moved ahead by the device prefetch): the same losses and
+    parameters bit for bit, and the same launches."""
+    import torch
+
+    from chemprop_tpu_torch.ops import LAUNCHES
+    from chemprop_tpu_torch.parallel import distributed, make_mesh
+
+    mesh = make_mesh()
+    try:
+        trainer = pipeline_trainer(None, mesh)
+        loader = pipeline_loader(ds, 2)
+        trainer.init_state(None, len(loader))
+        LAUNCHES.clear()
+        trainer.fit(loader)
+        torch.cuda.synchronize()
+        launches[f"{tag}_sharded_world1"] = dict(LAUNCHES)
+    finally:
+        distributed.shutdown()
+    res = {"losses": [h["train_loss"] for h in trainer.history],
+           "equal_to_the_fit": [h["train_loss"] for h in trainer.history]
+           == [h["train_loss"] for h in fit.history] and all(
+               torch.equal(v, fit.state.params[k]) for k, v in trainer.state.params.items()),
+           "launches": launches[f"{tag}_sharded_world1"]}
+    if not res["equal_to_the_fit"]:
+        fail(f"the sharded fit at world size 1 differs from the plain fit: {res}")
+    if res["launches"] != launches[tag]:
+        fail(f"the sharded fit launched {res['launches']}, the plain fit {launches[tag]}")
+    return res
+
+
+def input_pipeline_phase(card: str):
+    """Phase 19: the fit through the loader's thread, the forked cache and the
+    device prefetch, rehearsed, against a plain loop of ``train_step`` bit
+    for bit, with their synchronisations counted; each part fatal. Returns
+    the launches, the results and a function that traces one more epoch of
+    the fit (run after every untraced timing) for the idle share."""
+    import numpy as np
+    import torch
+
+    from chemprop_tpu_torch.ops import LAUNCHES
+
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {}
+    if not torch.cuda.is_initialized():
+        fail("phase 19 forks its featurisation workers after CUDA is up, and CUDA is not")
+    serial, forked = lipo_dataset(0), lipo_dataset(2)
+    res["forked_cache_equal"] = all(
+        all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(g, h, strict=True))
+        for g, h in zip(serial._cache, forked._cache, strict=True))
+    if not res["forked_cache_equal"]:
+        fail("the cache of two forked workers differs from the serial one")
+
+    fits, syncs, tag = {}, {}, "train_bfloat16_input_pipeline"
+
+    def run(dev):
+        trainer = pipeline_trainer(dev)
+        loader = pipeline_loader(forked, 2)
+        trainer.init_state(None, len(loader))
+        if dev is None:
+            torch.cuda.synchronize()
+            with counted_syncs() as counts:
+                trainer.fit(loader)
+            syncs["prefetch"] = counts
+        else:
+            trainer.fit(loader)
+        fits[dev or "cuda"] = trainer
+        return trainer
+
+    rehearsed(tag, run, launches, unserved)
+    steps = PIPELINE_EPOCHS * len(pipeline_loader(serial, 0))
+    check_path_launches("train_bfloat16", launches[tag], exact=True,
+                        want=path_launches("predict_bfloat16", 0, "train_bfloat16", steps))
+    fit = fits["cuda"]
+
+    plain = pipeline_trainer(None)
+    loader = pipeline_loader(serial, 0)
+    plain.init_state(None, len(loader))
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with counted_syncs() as counts:
+        epochs = plain_epochs(plain, loader, PIPELINE_EPOCHS)
+    syncs["plain_loop"] = counts
+    launches["train_bfloat16_plain_loop"] = dict(LAUNCHES)
+    if launches["train_bfloat16_plain_loop"] != launches[tag]:
+        fail(f"the plain loop launched {launches['train_bfloat16_plain_loop']}, the pipeline's "
+             f"fit {launches[tag]}")
+
+    res["losses"] = [h["train_loss"] for h in fit.history]
+    res["equal_losses"] = res["losses"] == [e["train_loss"] for e in epochs]
+    res["equal_parameters"] = all(torch.equal(v, plain.state.params[k])
+                                  for k, v in fit.state.params.items())
+    res["equal_batch_stats"] = all(torch.equal(v, plain.state.batch_stats[k])
+                                   for k, v in fit.state.batch_stats.items())
+    res["sharded_world_1"] = pipeline_sharded_fit(fit, forked, launches, tag)
+    # the fit without the loader's thread: the device prefetch alone
+    inline = pipeline_trainer(None)
+    inline.init_state(None, len(loader))
+    inline.fit(pipeline_loader(forked, 0))
+    res["equal_without_the_loader_thread"] = [h["train_loss"] for h in inline.history] == \
+        res["losses"] and all(torch.equal(v, inline.state.params[k])
+                              for k, v in fit.state.params.items())
+    for how in syncs.values():
+        how["per_epoch"] = how["syncs"] / PIPELINE_EPOCHS
+    res["syncs"] = syncs
+    keys = ("epoch", "train_loss", "time_s", "edges_per_s")
+    res["epochs"] = {"prefetch": [{k: h[k] for k in keys} for h in fit.history],
+                     "device_prefetch_alone": [{k: h[k] for k in keys} for h in inline.history],
+                     "plain_loop": epochs}
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"input_pipeline_epochs": res["epochs"]}))
+    print(json.dumps({"input_pipeline_syncs": syncs}))
+    print(json.dumps({"input_pipeline": {k: v for k, v in res.items() if k != "epochs"}}))
+    if not (res["equal_losses"] and res["equal_parameters"] and res["equal_batch_stats"]
+            and res["equal_without_the_loader_thread"]):
+        fail("the pipeline's fit differs from the plain loop of train_step")
+    # the only wait for the device an epoch needs is its loss fetch
+    if syncs["prefetch"]["per_epoch"] != syncs["plain_loop"]["per_epoch"] or \
+            syncs["prefetch"]["per_epoch"] > 1:
+        fail(f"synchronisations per epoch: {syncs}")
+    if syncs["prefetch"]["readbacks"] or syncs["plain_loop"]["readbacks"]:
+        fail(f"check_tiles read tile tables back from the card: {syncs}")
+    print(json.dumps({"phase": "input_pipeline", "seconds": res["seconds"], "card": card}))
+
+    def traced_epoch() -> dict:
+        """One more epoch of the fit under ``torch.profiler``: the union of
+        its device intervals against its own wall time and against the
+        untraced epochs' (all but the first)."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        untraced = statistics.median(h["time_s"] for h in fit.history[1:])
+        fit.start_epoch, fit.max_epochs = PIPELINE_EPOCHS, PIPELINE_EPOCHS + 1
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fit.fit(pipeline_loader(forked, 2))
+            torch.cuda.synchronize()
+        busy = device_busy_ms(prof)
+        traced = fit.history[-1]["time_s"]
+        if busy is None:
+            return {"device_busy_ms": "not measured: the trace holds no device events",
+                    "traced_epoch_s": traced, "untraced_epoch_s": untraced}
+        return {"device_busy_ms": busy, "traced_epoch_s": traced, "untraced_epoch_s": untraced,
+                "idle_share_traced": 1 - busy / 1e3 / traced,
+                "idle_share": 1 - busy / 1e3 / untraced}
+
+    return launches, res, traced_epoch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4958,6 +5239,8 @@ def main() -> int:
     launches.update(parallel_launches)
     v1_multi_launches, v1_multi_res = v1_multi_phase(ds, card)
     launches.update(v1_multi_launches)
+    pipeline_launches, pipeline_res, pipeline_traced_epoch = input_pipeline_phase(card)
+    launches.update(pipeline_launches)
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -5008,6 +5291,9 @@ def main() -> int:
         if not isinstance(entry["library_ms"], str):
             SR = tensors["SR"].to(x.dtype)
             entry["library_device_ms"] = device_ms(lambda: torch.sparse.mm(SR, x))
+    # phase 19's idle share: the last trace, after every untraced timing
+    pipeline_res["idle"] = pipeline_traced_epoch()
+    print(json.dumps({"input_pipeline_idle": pipeline_res["idle"]}))
     print(json.dumps({"unserved": unserved}))
     for name in ("message", "fused_iter2", "bwd_message", "bwd_message_premul",
                  "bwd_message_nodes", "iter_bwd", "row_gather"):
@@ -5053,7 +5339,7 @@ def main() -> int:
               "heads": heads_res, "cli": cli_res, "predict": predict_res, "hpopt": hpopt_res,
               "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
               "export": export_res, "native_cli": native_res, "parallel": parallel_res,
-              "v1_multi": v1_multi_res,
+              "v1_multi": v1_multi_res, "input_pipeline": pipeline_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

@@ -2567,3 +2567,69 @@ def test_group_exchange_world_1_over_nccl(cuda):
                                    rtol=0, atol=0)
     finally:
         distributed.shutdown()
+
+
+def _lipo(n_rows: int):
+    import csv
+
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
+
+    with open(DATA / "regression" / "mol" / "mol.csv") as f:
+        rows = list(csv.reader(f))[1 : n_rows + 1]
+    ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([float(y)])) for s, y in rows])
+    ds.normalize_targets()
+    ds.cache = True
+    return ds
+
+
+def test_device_prefetch_moves_batches_as_to_does(cuda):
+    """The pinned copies on the copy stream give the tensors ``to`` gives,
+    bit for bit, the tile tables marked as checked; plain and multicomponent
+    batches, in order."""
+    from chemprop_tpu_torch.data import DataLoader, MulticomponentDataset
+    from chemprop_tpu_torch.train.trainer import DevicePrefetch
+    import torch.utils._pytree as pytree
+
+    ds = _lipo(40)
+    for data in (ds, MulticomponentDataset([ds, ds])):
+        hosts = list(DataLoader(data, batch_size=8, prefetch=0))
+        fed = list(DevicePrefetch(cuda).feed(enumerate(hosts)))
+        assert [k for k, _ in fed] == list(range(len(hosts)))
+        for (_, got), host in zip(fed, hosts):
+            want = host.to(cuda)
+            for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want), strict=True):
+                if w is None:  # a table the batch does not have
+                    assert g is None
+                    continue
+                assert g.device == w.device and torch.equal(g, w)
+            for bmg in got.graphs:
+                assert bmg.tile_ptr.checked_for_rows == bmg.E.shape[0]
+
+
+@pytest.mark.parametrize("dtype,dropout", [(torch.float32, 0.0), (torch.bfloat16, 0.0),
+                                           (torch.bfloat16, 0.1)])
+def test_fit_with_device_prefetch_on_card_equals_a_plain_loop(cuda, dtype, dropout):
+    """``Trainer.fit`` (the loader's thread, the device prefetch) against a
+    loop of ``train_step`` over the same host batches collated inline: the
+    same losses and parameters bit for bit, full width."""
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.train import Trainer
+
+    ds = _lipo(64)
+
+    def trainer():
+        model = MPNN(BondMessagePassing(compute_dtype=dtype, dropout=dropout), MeanAggregation(),
+                     RegressionFFN(output_transform=False, dropout=dropout), batch_norm=True)
+        return Trainer(model, max_epochs=2, warmup_epochs=1, seed=7, device=cuda)
+
+    fit = trainer()
+    fit.fit(DataLoader(ds, batch_size=16, shuffle=True, seed=2, prefetch=2))
+    plain = trainer()
+    loader = DataLoader(ds, batch_size=16, shuffle=True, seed=2, prefetch=0)
+    plain.init_state(None, len(loader))
+    losses = [float(torch.stack([plain.train_step(b) for b in loader]).mean()) for _ in range(2)]
+    assert [h["train_loss"] for h in fit.history] == losses
+    for k, v in fit.state.params.items():
+        assert torch.equal(v, plain.state.params[k]), k

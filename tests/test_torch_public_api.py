@@ -149,7 +149,8 @@ def test_molgraph_caches_and_build_dataloader():
 
 
 def test_build_dataloader_featurises_in_workers():
-    """``num_workers`` featurises the dataset up front in that many forked
+    """``num_workers`` sets the dataset's ``n_workers``, as in the JAX
+    package, and filling the cache then featurises in that many forked
     processes; run in a process of its own, without JAX's threads, which a
     fork would copy mid-flight."""
     import subprocess
@@ -164,6 +165,8 @@ def test_build_dataloader_featurises_in_workers():
         "ds = lambda: MoleculeDataset([MoleculeDatapoint.from_smi(s) for s in smis])\n"
         "pooled = build_dataloader(ds(), batch_size=2, num_workers=2, shuffle=False)\n"
         "plain = ds()\n"
+        "assert pooled.dataset.n_workers == 2 and not pooled.dataset.cache\n"
+        "pooled.dataset.cache = True\n"
         "assert pooled.dataset.cache and len(pooled.dataset._cache) == 3\n"
         "for i in range(3):\n"
         "    for a, b in zip(pooled.dataset[i].mg, plain[i].mg):\n"
