@@ -45,7 +45,7 @@ from chemprop_tpu_torch.nn.metrics import LossFunctionRegistry, MetricRegistry
 from chemprop_tpu_torch.nn.predictors import PredictorRegistry, _FFNPredictorBase
 from chemprop_tpu_torch.nn.transforms import GraphTransform, ScaleTransform, UnscaleTransform
 from chemprop_tpu_torch.nn.utils import Dropout
-from chemprop_tpu_torch.train.mab_trainer import MABTrainer, collect_mab_rows
+from chemprop_tpu_torch.train.mab_trainer import MABTrainer, collect_mab_rows, restore_mab_order
 from chemprop_tpu_torch.uncertainty import UncertaintyEstimatorRegistry
 from chemprop_tpu_torch.utils.device import resolve_device
 from chemprop_tpu_torch.utils.registry import Factory
@@ -527,7 +527,9 @@ def fingerprint_MAB(args, models: list[MolAtomBondMPNN], device) -> int:
                 fps = model.fingerprint(b.bmg, b.V_d, b.E_d, b.X_d, is_training=False)
                 collect_mab_rows(host, *(None if x is None else x.float().cpu().numpy()
                                          for x in fps), *chunks)
-        arrays = {kind: np.concatenate(c, 0) for kind, c in zip(KINDS, chunks) if c}
+        # rows in dataset order where the loader set oversized molecules apart
+        tables = restore_mab_order(loader, *(np.concatenate(c, 0) if c else None for c in chunks))
+        arrays = {kind: t for kind, t in zip(KINDS, tables) if t is not None}
         base = args.output or args.data_path.with_name(args.data_path.stem + "_fingerprint.npz")
         if len(models) > 1:
             base = base.with_name(f"{base.stem}_model_{k}{base.suffix}")

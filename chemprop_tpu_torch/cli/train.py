@@ -344,21 +344,16 @@ def process_train_args(args) -> None:
                 setattr(args, f"{stem}_num_layers", len(dims))
 
 
-# what the port refuses, by the argument that asks for it; each message names
-# the ROADMAP.md item that will port it
-REFUSED = (
-    (lambda a: a.from_foundation is not None and not Path(a.from_foundation).is_file(),
-     "fetching a named foundation model is not ported yet: --from-foundation takes a local "
-     "checkpoint file, as in the JAX package, which downloads nothing (ROADMAP.md section 1 "
-     "item 2)"),
-)
-
-
 def refuse_unported(args) -> None:
-    """Raise for the first option that asks for what the port does not have."""
-    for asks, message in REFUSED:
-        if asks(args):
-            raise ValueError(message)
+    """Raise, before any data is read, for what neither package can do: a
+    ``--from-foundation`` that is not a local path (a named foundation model
+    is never fetched, as in the JAX package: ``FileNotFoundError``), or a
+    device count ``check_devices`` refuses."""
+    path = getattr(args, "from_foundation", None)
+    if path is not None and not Path(path).exists():
+        raise FileNotFoundError(
+            f"--from-foundation expects a local checkpoint path in this build "
+            f"(no network access to fetch named foundation models); got {path}")
     check_devices(args)
 
 

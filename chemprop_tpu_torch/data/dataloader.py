@@ -11,13 +11,23 @@ each batch is cut into that many whole-graph shards and the loader yields
 shard ``shard_index`` of each (``collate_sharded``, a ``Shard``): every rank
 of a process group iterates the same batches and collates only its own
 shard (the JAX loader stacks all of them); mol-atom-bond rows with shards
-are refused, as the JAX loader refuses them. Not ported: the JAX
-loader's isolation of molecules wider than its kernel's window (more than 192
-bonds) into batches of their own; the port's kernels take such a molecule's
-split tile table instead. So ``emitted_order`` is the dataset's order
-wherever it is not None: ``Trainer.predict`` leaves its rows as they are, and
-the mol-atom-bond trainer and ``fingerprint`` need no counterpart of the JAX
-package's ``restore_mab_order``.
+are refused, as the JAX loader refuses them.
+
+A molecule of more than ``SPAN_LIMIT`` (385) directed edges goes into a
+batch of its own kind, as in the JAX loader: every loader, shuffled,
+class-balanced or fixed-order, keeps such molecules (``_oversized``: twice
+``dataset.data[i].mol.num_bonds``, so a datum without ``.mol``, such as a
+reaction's, never is one) in a second list, yields that list whenever it
+holds ``batch_size`` of them and what is left of it after the last ordinary
+batch (not with ``drop_last``), so that such a molecule no longer takes the
+small molecules of its batch off the kernels' tile tables. The shards of
+such a batch and the ``prefetch`` thread take it as it is. ``len`` keeps the
+JAX formula, which counts one batch fewer where both lists end in a short
+batch that would fit in one. For a fixed-order loader ``emitted_order`` is
+then a permutation of the dataset's rows (a subset of them with
+``drop_last``), which ``Trainer.predict``, ``MABTrainer.predict``
+(``restore_mab_order``) and ``fingerprint`` invert to give their rows in
+dataset order.
 
 With ``prefetch > 0`` (the default, 2, as in the JAX package) one daemon
 thread collates the batches ahead into a queue of that many, so that the
@@ -44,6 +54,10 @@ from chemprop_tpu_torch.data.collate import (
 from chemprop_tpu_torch.data.datasets import MABDatum, MoleculeDataset
 from chemprop_tpu_torch.data.samplers import ClassBalanceSampler, SeededSampler
 
+# the JAX message kernel's widest window of one molecule, 3 * 128 + 1
+# directed edges (chemprop_tpu/ops/fused_message.py:57,76: SPAN_LIMIT[3])
+SPAN_LIMIT = 3 * 128 + 1
+
 
 class DataLoader:
     def __init__(
@@ -69,6 +83,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.n_shards, self.shard_index = n_shards, shard_index
         self._reshuffles = bool(shuffle or class_balance)
+        self._isolate_oversized = True
         if class_balance:
             self.sampler = ClassBalanceSampler(dataset.Y, seed, shuffle)
         elif shuffle:
@@ -82,21 +97,40 @@ class DataLoader:
 
     def emitted_order(self) -> np.ndarray | None:
         """Dataset indices in emission order, or None for a loader whose
-        order changes between iterations (shuffle, class balance)."""
+        order changes between iterations (shuffle, class balance): a
+        permutation of the rows where oversized molecules were set apart."""
         if self._reshuffles:
             return None
         idxs = [i for batch in self._index_batches() for i in batch]
         return np.asarray(idxs, dtype=np.int64)
 
+    def _oversized(self, i: int) -> bool:
+        """Whether datum ``i``'s molecule has more than ``SPAN_LIMIT`` directed
+        edges, read from its ``.mol`` without featurising it."""
+        data = getattr(self.dataset, "data", None)
+        if not data:
+            return False
+        mol = getattr(data[i], "mol", None)
+        return mol is not None and 2 * mol.num_bonds > SPAN_LIMIT
+
     def _index_batches(self) -> Iterator[list[int]]:
         batch: list[int] = []
+        big: list[int] = []  # oversized molecules, in batches of their own
         for i in self.sampler:
+            if self._isolate_oversized and self._oversized(i):
+                big.append(i)
+                if len(big) == self.batch_size:
+                    yield big
+                    big = []
+                continue
             batch.append(i)
             if len(batch) == self.batch_size:
                 yield batch
                 batch = []
         if batch and not self.drop_last:
             yield batch
+        if big and not self.drop_last:
+            yield big
 
     def _make_batch(self, idxs: list[int]):
         data = [self.dataset[i] for i in idxs]

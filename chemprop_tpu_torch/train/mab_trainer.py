@@ -13,9 +13,9 @@ several outputs per task) and targets, every row of the table with a finite
 target, weight 1 and no bounds. ``predict`` and ``predict_mc_dropout`` return
 ``(mol, atom, bond)``: padding rows cut, one row per bond in the molecule's
 bond order (:func:`collect_mab_rows`), None for an absent head, in dataset
-order: the port's loader emits every fixed-order batch in that order (it has
-no isolation of large molecules), so the JAX package's
-``restore_mab_order`` has nothing to restore and is not ported."""
+order: where the loader set oversized molecules apart, each table's rows are
+put back by :func:`restore_mab_order` (a molecule's group of atom or bond
+rows moved whole)."""
 
 from __future__ import annotations
 
@@ -134,7 +134,7 @@ class MABTrainer(Trainer):
             preds = apply(host.to(self.device))
             collect_mab_rows(host, *(None if p is None else p.float().cpu().numpy()
                                      for p in preds), *chunks)
-        return tuple(np.concatenate(c, 0) if c else None for c in chunks)
+        return restore_mab_order(loader, *(np.concatenate(c, 0) if c else None for c in chunks))
 
 
 def collect_mab_rows(batch, mol_p, atom_p, bond_p, mol_chunks, atom_chunks, bond_chunks):
@@ -155,3 +155,38 @@ def collect_mab_rows(batch, mol_p, atom_p, bond_p, mol_chunks, atom_chunks, bond
         if batch.edge_origin is not None:
             rows = rows[np.argsort(np.asarray(batch.edge_origin)[primary] // 2, kind="stable")]
         bond_chunks.append(rows)
+
+
+def restore_mab_order(loader, mol_cat, atom_cat, bond_cat):
+    """The three tables concatenated over ``loader``'s batches, put back in
+    dataset order where the loader's isolation of oversized molecules
+    reordered them (``DataLoader.emitted_order``): the molecule rows one by
+    one, the atom and bond rows in each molecule's group. An identity order,
+    or none, leaves them as they are; under ``drop_last`` the emitted subset
+    comes back in ascending dataset order."""
+    order_fn = getattr(loader, "emitted_order", None)
+    order = order_fn() if order_fn is not None else None
+    if order is None or np.array_equal(order, np.arange(len(order))):
+        return mol_cat, atom_cat, bond_cat
+    data = loader.dataset.data
+    if mol_cat is not None and len(mol_cat) == len(order):
+        mol_cat = mol_cat[np.argsort(order, kind="stable")]
+    if atom_cat is not None:  # a molecule without atoms has one zero node row
+        atom_cat = _regroup_rows(atom_cat, order, [max(1, d.mol.num_atoms) for d in data])
+    if bond_cat is not None:
+        bond_cat = _regroup_rows(bond_cat, order, [d.mol.num_bonds for d in data])
+    return mol_cat, atom_cat, bond_cat
+
+
+def _regroup_rows(arr: np.ndarray, order: np.ndarray, counts: list[int]) -> np.ndarray:
+    """``arr``'s groups of rows, emitted in ``order`` (dataset indices, a
+    subset under ``drop_last``), in ascending dataset order; ``counts[i]`` is
+    molecule ``i``'s group size. Where the emitted counts do not tile ``arr``
+    it comes back as it is."""
+    counts = np.asarray(counts, np.int64)
+    emitted = counts[order]
+    if arr.shape[0] != int(emitted.sum()):
+        return arr
+    starts = np.concatenate([[0], np.cumsum(emitted)])
+    take = [np.arange(starts[p], starts[p] + emitted[p]) for p in np.argsort(order, kind="stable")]
+    return arr[np.concatenate(take)] if take else arr

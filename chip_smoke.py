@@ -308,7 +308,32 @@ failure:
    fit without the loader's thread and the plain loop, and, after every
    untraced timing, the device's idle share over one more epoch of the fit
    traced by ``torch.profiler`` (the union of its device intervals against
-   the untraced epochs' wall time).
+   the untraced epochs' wall time);
+20. the loader's isolation of oversized molecules and the examples, each
+   part fatal: (a) mol.csv's 100 rows with ``ISOLATION_GIANT`` (480
+   directed edges) at rows ``ISOLATION_ROWS``, the default model at full
+   width: a bf16 ``Trainer.fit`` of ``ISOLATION_EPOCHS`` epochs in shuffled
+   batches of ``ISOLATION_BATCH`` (five a epoch, where ``len`` counts four),
+   then fixed-order ``predict`` of its weights in f32 and bf16, each
+   rehearsed on the CPU (launches and calls without a tile table exactly
+   the rehearsal's); each batch's calls without a tile table read around
+   its step or forward (``per_batch``): none in a batch of small molecules,
+   and their count beside the count with ``_isolate_oversized = False``;
+   the predictions in dataset order against the same rows at batch size 1
+   at phase 3's f32 and bf16 limits; a second fit from the seed, its
+   losses equal bit for bit; (b) ``MABTrainer.predict`` of
+   ``ISOLATION_MAB`` in f32 over regression.csv's molecules with the giant
+   in the middle, in batches of ``ISOLATION_MAB_BATCH``, rehearsed, its
+   giant emitted last and each table in dataset order against batch size
+   1 at phase 3's f32 limits in units of the table's largest value; (c)
+   every script of examples_torch/ in this process on ``cuda`` at its full
+   size (``EXAMPLES_QUICK`` with ``--quick``), each one's seconds,
+   launches and calls without a tile table printed, fatal where it raises
+   or launches no hand-written kernel; what a script changes of the
+   process's state (logging, torch's dtype, threads, TF32 and random
+   state, numpy's, the working directory, ``sys.argv``) is put back after
+   it and named (``kept_state``). Its seconds, those of (c) and the whole
+   run's so far are printed with the card's name and power limit.
 
 The last lines of standard output are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details go to
@@ -5083,6 +5108,379 @@ def input_pipeline_phase(card: str):
     return launches, res, traced_epoch
 
 
+# phase 20: the mixed dataset (mol.csv's rows with giants at these rows), its
+# fit's epochs, batch size and shuffle seed, and the mol-atom-bond checkpoint
+# and batch size of part (b)
+ISOLATION_GIANT = "C1(CCCCC1)" * 40  # 480 directed edges: over one molecule's 385
+ISOLATION_ROWS = (10, 40, 70, 95)
+ISOLATION_EPOCHS = 3
+ISOLATION_BATCH = 32
+ISOLATION_SEED = 23
+ISOLATION_MAB = MAB_MODELS / "regression.pt"
+ISOLATION_MAB_BATCH = 4
+# the examples run with --quick on the card; empty while (c) stays within
+# ISOLATION_EXAMPLES_S
+EXAMPLES_QUICK: tuple = ()
+ISOLATION_EXAMPLES_S = 300
+
+
+def mixed_dataset():
+    """mol.csv's 100 rows with ``ISOLATION_GIANT`` at ``ISOLATION_ROWS`` (104
+    rows), targets normalised, featurised once; and the giants' rows."""
+    import numpy as np
+
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
+
+    with open(MOL_CSV, newline="") as f:
+        rows = [(s, float(y)) for s, y in list(csv.reader(f))[1:]]
+    for i in ISOLATION_ROWS:
+        rows.insert(i, (ISOLATION_GIANT, 0.0))
+    ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([y])) for s, y in rows])
+    ds.normalize_targets()
+    ds.cache = True
+    if [i for i, (s, _) in enumerate(rows) if s == ISOLATION_GIANT] != list(ISOLATION_ROWS):
+        fail("the mixed dataset's giants are not at ISOLATION_ROWS")
+    return ds
+
+
+class per_batch:
+    """``with per_batch(loader, fn) as rec:`` each index batch ``loader``
+    collates, and the ``ops.UNSERVED`` calls of each call of ``fn`` (a
+    trainer's ``train_step`` or a model's ``forward``, patched on the
+    instance), in order, in ``rec["batches"]`` and ``rec["unserved"]``."""
+
+    def __init__(self, loader, owner, attr: str):
+        self.loader, self.owner, self.attr = loader, owner, attr
+
+    def __enter__(self):
+        from chemprop_tpu_torch.ops import UNSERVED
+
+        rec = self.rec = {"batches": [], "unserved": []}
+        make, fn = self.loader._make_batch, getattr(self.owner, self.attr)
+
+        def made(idxs):
+            rec["batches"].append(list(idxs))
+            return make(idxs)
+
+        def counted(*a, **k):
+            before = dict(UNSERVED)
+            out = fn(*a, **k)
+            rec["unserved"].append(unserved_since(before))
+            return out
+
+        self.loader._make_batch = made
+        setattr(self.owner, self.attr, counted)
+        return rec
+
+    def __exit__(self, *exc):
+        del self.loader._make_batch
+        delattr(self.owner, self.attr)
+        return False
+
+
+def isolated_share(tag: str, rec: dict, giants: set) -> dict:
+    """The calls without a tile table in the batches of giants and in the
+    others; fatal where a batch of small molecules has any, or where a batch
+    mixes both kinds (the loader isolated nothing)."""
+    if len(rec["batches"]) != len(rec["unserved"]):
+        fail(f"{tag}: {len(rec['batches'])} batches collated, {len(rec['unserved'])} calls")
+    out = {"isolated_batches": 0, "isolated": {}, "other": {}}
+    for idxs, calls in zip(rec["batches"], rec["unserved"]):
+        kinds = {i in giants for i in idxs}
+        if kinds == {True, False}:
+            fail(f"{tag}: batch {idxs} mixes giants and small molecules")
+        key = "isolated" if kinds == {True} else "other"
+        out["isolated_batches"] += key == "isolated"
+        for k, v in calls.items():
+            out[key][k] = out[key].get(k, 0) + v
+    if out["other"]:
+        fail(f"{tag}: batches of small molecules left calls without a tile table: {out}")
+    return out
+
+
+def summed_calls(calls: list) -> dict:
+    """The ``ops.UNSERVED`` calls of a record's batches, added up."""
+    out: dict = {}
+    for c in calls:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def isolation_trainer(device, dtype=None, state: dict | None = None):
+    """The default model's trainer (phase 4's model, batch norm, mean readout)
+    at ``ISOLATION_EPOCHS``; with ``state`` its parameters and statistics
+    loaded (another dtype's trained ones) and kept."""
+    import torch
+
+    from chemprop_tpu_torch.train import Trainer
+
+    trainer = Trainer(default_model(dtype or torch.bfloat16), max_epochs=ISOLATION_EPOCHS,
+                      warmup_epochs=1, seed=27, device=device)
+    if state is not None:
+        trainer.model.load_state_dict(state)
+        trainer.init_state(None, 1, keep_parameters=True)
+    return trainer
+
+
+def isolation_fit(ds, device, isolate: bool = True) -> tuple:
+    """The bf16 fit in shuffled batches, each step's calls without a tile
+    table recorded: the trainer and the record."""
+    from chemprop_tpu_torch.data import DataLoader
+
+    trainer = isolation_trainer(device)
+    loader = DataLoader(ds, batch_size=ISOLATION_BATCH, shuffle=True, seed=ISOLATION_SEED)
+    loader._isolate_oversized = isolate
+    trainer.init_state(None, len(loader))
+    with per_batch(loader, trainer, "train_step") as rec:
+        trainer.fit(loader)
+    return trainer, rec
+
+
+def isolation_predict(ds, state: dict, dtype, device, batch_size: int,
+                      isolate: bool = True) -> tuple:
+    """A fixed-order ``predict`` of the fit's weights in ``dtype``: the
+    predictions and the record of each forward."""
+    from chemprop_tpu_torch.data import DataLoader
+
+    trainer = isolation_trainer(device, dtype, state)
+    loader = DataLoader(ds, batch_size=batch_size)
+    loader._isolate_oversized = isolate
+    with per_batch(loader, trainer.model, "forward") as rec:
+        preds = trainer.predict(loader)
+    return preds, rec
+
+
+def isolation_mixed(ds, launches: dict, unserved: dict) -> dict:
+    """Phase 20(a): the fit and the fixed-order predictions of the mixed
+    dataset, rehearsed, against a batch size of 1 and without isolation."""
+    import numpy as np
+    import torch
+
+    giants = set(ISOLATION_ROWS)
+    res, fits = {}, {}
+
+    def fit(dev):
+        fits[dev or "cuda"] = isolation_fit(ds, dev)
+        return [h["train_loss"] for h in fits[dev or "cuda"][0].history]
+
+    tag = "train_bfloat16_isolation"
+    losses, _ = rehearsed(tag, fit, launches, unserved)
+    trainer, rec = fits["cuda"]
+    res["fit"] = {"losses": losses, "steps": len(rec["batches"]),
+                  "steps_per_epoch_by_len": -(-len(ds) // ISOLATION_BATCH),
+                  "unserved": isolated_share(tag, rec, giants)}
+    again, _ = isolation_fit(ds, None)
+    res["fit"]["repeat_equal"] = [h["train_loss"] for h in again.history] == losses
+    if not res["fit"]["repeat_equal"]:
+        fail(f"two bf16 fits of the mixed dataset from one seed differ: {losses}, "
+             f"{[h['train_loss'] for h in again.history]}")
+    _, off = isolation_fit(ds, None, isolate=False)
+    res["fit"]["unserved_without_isolation"] = summed_calls(off["unserved"])
+    state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    limits = {"float32": (1e-5, 1e-4), "bfloat16": (0.0, 1e-3)}  # phase 3's
+    for dt_name, (rtol, atol) in limits.items():
+        dt = getattr(torch, dt_name)
+        tag = f"predict_{dt_name}_isolation"
+        got, _ = rehearsed(tag, lambda dev: isolation_predict(ds, state, dt, dev, ISOLATION_BATCH),
+                           launches, unserved)
+        preds, rec = got
+        one, _ = isolation_predict(ds, state, dt, None, 1)
+        _, flat = isolation_predict(ds, state, dt, None, ISOLATION_BATCH, isolate=False)
+        gap = float(np.abs(preds - one).max())
+        res[tag] = {"vs_batch_size_1": gap, "limit": [rtol, atol],
+                    "unserved": isolated_share(tag, rec, giants),
+                    "unserved_without_isolation": summed_calls(flat["unserved"]),
+                    "batches": len(rec["batches"]),
+                    "batches_without_isolation": len(flat["batches"])}
+        if preds.shape != (len(ds), 1) or not np.isfinite(preds).all():
+            fail(f"{tag}: predictions of shape {preds.shape}, or not finite")
+        if not np.allclose(preds, one, rtol=rtol, atol=atol):
+            fail(f"{tag}: the predictions in dataset order leave the batch-size-1 ones by {gap}")
+    return res
+
+
+def isolation_mab(launches: dict, unserved: dict) -> dict:
+    """Phase 20(b): ``MABTrainer.predict`` of ``ISOLATION_MAB`` in f32 over
+    regression.csv's molecules with the giant in the middle, in batches of
+    ``ISOLATION_MAB_BATCH`` (rehearsed), against batch size 1: each table,
+    molecule, atom and bond rows, in dataset order within phase 3's f32
+    limits in units of the table's largest value."""
+    import numpy as np
+
+    from chemprop_tpu_torch.data import DataLoader, MolAtomBondDatapoint, MolAtomBondDataset
+    from chemprop_tpu_torch.models import load_model
+    from chemprop_tpu_torch.train import MABTrainer
+
+    _, rows = read_rows(MAB_DIR / "regression.csv")
+    smis = [r[0] for r in rows]
+    smis.insert(len(smis) // 2, ISOLATION_GIANT)
+    ds = MolAtomBondDataset([MolAtomBondDatapoint.from_smi(s, keep_h=True) for s in smis])
+    ds.cache = True
+
+    def predict(dev, batch_size):
+        model, _ = load_model(ISOLATION_MAB, dev)
+        trainer = MABTrainer(model, device=dev)
+        trainer.init_state(None, 1, keep_parameters=True)
+        loader = DataLoader(ds, batch_size=batch_size)
+        return trainer.predict(loader), loader.emitted_order().tolist()
+
+    tag = "predict_mab_isolation"
+    (got, order), _ = rehearsed(tag, lambda dev: predict(dev, ISOLATION_MAB_BATCH), launches,
+                                unserved)
+    check_mab_launches(tag, launches[tag])
+    one, _ = predict(None, 1)
+    giant = smis.index(ISOLATION_GIANT)
+    if order[-1] != giant or sorted(order) != list(range(len(smis))):
+        fail(f"{tag}: the loader emitted {order}, the giant (row {giant}) not last")
+    res = {"molecules": len(smis), "emitted_order": order}
+    for kind, a, b in zip(("mol", "atom", "bond"), got, one):
+        if a is None or b is None or a.shape != b.shape:
+            fail(f"{tag}: the {kind} tables differ in shape")
+        scale = max(1.0, float(np.abs(b).max()))
+        gap = float(np.abs(a - b).max())
+        res[kind] = {"rows": int(a.shape[0]), "vs_batch_size_1": gap, "scale": scale}
+        if not np.allclose(a, b, rtol=1e-5, atol=1e-4 * scale):
+            fail(f"{tag}: the {kind} table in dataset order leaves batch size 1's by {gap}")
+    return res
+
+
+class kept_state:
+    """``with kept_state() as changed:`` what an in-process example changes of
+    the process's state, put back on exit and named in ``changed``: the root
+    logger's handlers and level, torch's default dtype, threads, TF32 flags
+    and random state, numpy's random state, the working directory and
+    ``sys.argv``."""
+
+    def _read(self):
+        import logging
+        import os
+
+        import numpy as np
+        import torch
+
+        root = logging.getLogger()
+        return {"log_handlers": list(root.handlers), "log_level": root.level,
+                "default_dtype": torch.get_default_dtype(), "threads": torch.get_num_threads(),
+                "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+                "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+                "torch_rng": torch.random.get_rng_state(),
+                "cuda_rng": torch.cuda.get_rng_state_all() if torch.cuda.is_available() else [],
+                "numpy_rng": np.random.get_state(), "cwd": os.getcwd(), "argv": list(sys.argv)}
+
+    def __enter__(self):
+        self.saved, self.changed = self._read(), []
+        return self.changed
+
+    def __exit__(self, *exc):
+        import logging
+        import os
+
+        import numpy as np
+        import torch
+
+        now = self._read()
+        for k, v in self.saved.items():
+            same = (all(torch.equal(a, b) for a, b in zip(v, now[k])) if k == "cuda_rng"
+                    else torch.equal(v, now[k]) if k == "torch_rng"
+                    else all(np.array_equal(a, b) for a, b in zip(v, now[k])) if k == "numpy_rng"
+                    else v == now[k])
+            if not same:
+                self.changed.append(k)
+        root = logging.getLogger()
+        root.handlers[:] = self.saved["log_handlers"]
+        root.setLevel(self.saved["log_level"])
+        torch.set_default_dtype(self.saved["default_dtype"])
+        torch.set_num_threads(self.saved["threads"])
+        torch.backends.cuda.matmul.allow_tf32 = self.saved["tf32_matmul"]
+        torch.backends.cudnn.allow_tf32 = self.saved["tf32_cudnn"]
+        torch.random.set_rng_state(self.saved["torch_rng"])
+        if self.saved["cuda_rng"]:
+            torch.cuda.set_rng_state_all(self.saved["cuda_rng"])
+        np.random.set_state(self.saved["numpy_rng"])
+        os.chdir(self.saved["cwd"])
+        sys.argv[:] = self.saved["argv"]
+        return False
+
+
+def run_examples(device: str = "cuda", quick: tuple = EXAMPLES_QUICK) -> dict:
+    """Phase 20(c): every script of examples_torch/ in this process on the
+    card, in name order, at its full size (those in ``quick`` with
+    ``--quick``): its seconds, ``ops.LAUNCHES`` and the calls ``ops.UNSERVED``
+    counted around it, and the process state it changed and that was put
+    back (``kept_state``). Fatal where a script raises or, on the card,
+    launches no hand-written kernel. ``device="cpu"`` runs them on the CPU,
+    where nothing is launched (a dry run of the phase)."""
+    import importlib.util
+    import traceback
+
+    import torch
+
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    folder = REPO / "examples_torch"
+    if str(folder) not in sys.path:
+        sys.path.insert(0, str(folder))
+    res = {}
+    for path in sorted(folder.glob("*.py")):
+        if path.name.startswith("_"):
+            continue
+        spec = importlib.util.spec_from_file_location(f"examples_torch_{path.stem}", path)
+        module = importlib.util.module_from_spec(spec)
+        argv = ["--device", device, *(["--quick"] if path.name in quick else [])]
+        sync = torch.cuda.synchronize if device == "cuda" else lambda: None
+        before = dict(UNSERVED)
+        sync()
+        LAUNCHES.clear()
+        t0 = time.time()
+        with kept_state() as changed:
+            try:
+                spec.loader.exec_module(module)
+                module.main(argv)
+                sync()
+            except BaseException as e:  # noqa: BLE001 (a SystemExit of the CLI too)
+                traceback.print_exc()
+                fail(f"examples_torch/{path.name} {argv} raised {type(e).__name__}: {e}")
+        res[path.name] = {"seconds": time.time() - t0, "argv": argv,
+                          "launches": dict(LAUNCHES), "unserved": unserved_since(before),
+                          "state_put_back": changed}
+        print(json.dumps({"example": path.name, **res[path.name]}))
+        if device == "cuda" and not any(LAUNCHES.values()):
+            fail(f"examples_torch/{path.name} launched no hand-written kernel on the card")
+    return res
+
+
+def isolation_phase(card: str) -> tuple[dict, dict]:
+    """Phase 20: the loader's isolation of oversized molecules and the
+    examples, each part fatal; its seconds on their own line with the card's
+    name and power limit."""
+    t0 = time.time()
+    launches, unserved, res = {}, {}, {"part_seconds": {}}
+    ds = mixed_dataset()
+    parts = (("mixed", lambda: isolation_mixed(ds, launches, unserved)),
+             ("mab", lambda: isolation_mab(launches, unserved)),
+             ("examples", run_examples))
+    for name, run in parts:
+        t = time.time()
+        res[name] = run()
+        res["part_seconds"][name] = time.time() - t
+    for name, ex in res["examples"].items():
+        launches[f"example_{name}"] = ex["launches"]
+    res["unserved"] = unserved
+    res["seconds"] = time.time() - t0
+    print(json.dumps({"isolation_phase": {k: v for k, v in res.items() if k != "examples"}}))
+    print(json.dumps({"isolation_unserved": unserved}))
+    print(json.dumps({"isolation_launches": {k: v for k, v in launches.items()
+                                             if not k.startswith("example_")}}))
+    print(json.dumps({"phase": "isolation", "seconds": res["seconds"],
+                      "examples_seconds": res["part_seconds"]["examples"], "card": card}))
+    if res["part_seconds"]["examples"] > ISOLATION_EXAMPLES_S and not EXAMPLES_QUICK:
+        print(json.dumps({"examples_over_budget": {
+            "seconds": res["part_seconds"]["examples"], "limit": ISOLATION_EXAMPLES_S,
+            "slowest": sorted(res["examples"], key=lambda k: -res["examples"][k]["seconds"])[:4]}}))
+    return launches, res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5112,7 +5510,7 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card)
-    t0 = time.time()
+    t_run = t0 = time.time()
     logs = build_all()
     build_s = time.time() - t0
     print(json.dumps({"phase": "build", "seconds": build_s}))
@@ -5241,6 +5639,9 @@ def main() -> int:
     launches.update(v1_multi_launches)
     pipeline_launches, pipeline_res, pipeline_traced_epoch = input_pipeline_phase(card)
     launches.update(pipeline_launches)
+    isolation_launches, isolation_res = isolation_phase(card)
+    launches.update(isolation_launches)
+    print(json.dumps({"run_seconds_after_phase_20": time.time() - t_run}))
 
     times = timings(bmg, tensors, d, args.reps, kind)
     UNSERVED.clear()
@@ -5340,9 +5741,12 @@ def main() -> int:
               "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
               "export": export_res, "native_cli": native_res, "parallel": parallel_res,
               "v1_multi": v1_multi_res, "input_pipeline": pipeline_res,
+              "isolation": isolation_res,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}
+    record["run_seconds"] = time.time() - t_run
+    print(json.dumps({"run_seconds": record["run_seconds"], "card": card}))
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -313,12 +313,15 @@ def test_the_model_is_the_jax_packages(tmp_path, data_dir):
 # --edge-partition and --devices since multi-GPU training was
 # (tests/test_torch_parallel_cli.py): their cases now hold what stays
 # refused, edge partition with batch norm (as in the JAX package) and a
-# device count below one. Each case: (flags, the message's pattern)
+# device count below one; a named foundation model raises the JAX CLI's
+# FileNotFoundError (only a local path is taken). Each case: (flags, the
+# exception, the message's pattern)
 REFUSALS = {
-    "edge_partition": (["--edge-partition", "--batch-norm"],
+    "edge_partition": (["--edge-partition", "--batch-norm"], ValueError,
                        "--edge-partition does not support --batch-norm"),
-    "devices": (["--devices", "0"], "--devices takes 'auto' or a number"),
-    "foundation": (["--from-foundation", "chemeleon"], "not ported yet.*item 2"),
+    "devices": (["--devices", "0"], ValueError, "--devices takes 'auto' or a number"),
+    "foundation": (["--from-foundation", "chemeleon"], FileNotFoundError,
+                   "expects a local checkpoint path.*got chemeleon"),
 }
 
 
@@ -350,9 +353,9 @@ def test_formerly_refused_options_match_jax(tmp_path, data_dir, case):
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_unported_options_are_refused(tmp_path, data_dir, case):
-    flags, pattern = REFUSALS[case]
+    flags, exc, pattern = REFUSALS[case]
     out = tmp_path / "out"
-    with pytest.raises(ValueError, match=pattern):
+    with pytest.raises(exc, match=pattern):
         main(["train", "-i", str(data_dir / "regression/mol/mol.csv"), "-o", str(out), *SMALL,
               *flags])
     if case != "edge_partition":  # the model's scope is checked once the data is read

@@ -70,9 +70,6 @@ NOT_PORTED = {
     "native_available": ("a probe that lets the JAX package fall back to Python featurisation; "
                          "the port builds its featurizer at first use and raises where it "
                          "cannot, as no fallback hides a failed build (ops/build.py)"),
-    "restore_mab_order": ("the port's loader emits every fixed-order batch in dataset order "
-                          "(no isolation of large molecules), so there is no order to restore "
-                          "(train/mab_trainer.py)"),
 }
 
 

@@ -2633,3 +2633,82 @@ def test_fit_with_device_prefetch_on_card_equals_a_plain_loop(cuda, dtype, dropo
     assert [h["train_loss"] for h in fit.history] == losses
     for k, v in fit.state.params.items():
         assert torch.equal(v, plain.state.params[k]), k
+
+
+GIANT = "C1(CCCCC1)" * 40  # 480 directed edges: the loader sets it apart
+
+
+def _mixed(n_rows: int, rows: tuple):
+    """``_lipo(n_rows)``'s molecules with ``GIANT`` at ``rows``."""
+    import csv
+
+    from chemprop_tpu_torch.data import MoleculeDatapoint, MoleculeDataset
+
+    with open(DATA / "regression" / "mol" / "mol.csv") as f:
+        data = [(s, float(y)) for s, y in list(csv.reader(f))[1 : n_rows + 1]]
+    for i in rows:
+        data.insert(i, (GIANT, 0.0))
+    ds = MoleculeDataset([MoleculeDatapoint.from_smi(s, y=np.array([y])) for s, y in data])
+    ds.normalize_targets()
+    ds.cache = True
+    return ds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_isolated_giants_on_card_predict_in_dataset_order(cuda, dtype):
+    """A shuffled fit of 40 molecules and three giants, then a fixed-order
+    ``predict`` in batches of 16 at full width on the card: the giants' batch
+    alone without a tile table (the others keep theirs: ``UNSERVED`` grows by
+    that batch's A calls in f32, by none in bf16), the predictions in dataset
+    order equal to the batch-size-1 ones within phase 3's limits, two fits
+    equal bit for bit."""
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.models import MPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.train import Trainer
+
+    ds = _mixed(40, (5, 20, 30))
+
+    def fitted():
+        model = MPNN(BondMessagePassing(compute_dtype=dtype), MeanAggregation(),
+                     RegressionFFN(output_transform=False), batch_norm=True)
+        trainer = Trainer(model, max_epochs=2, warmup_epochs=1, seed=7, device=cuda)
+        trainer.fit(DataLoader(ds, batch_size=16, shuffle=True, seed=3))
+        return trainer
+
+    trainer = fitted()
+    assert [h["train_loss"] for h in fitted().history] == [h["train_loss"] for h in
+                                                          trainer.history]
+    loader = DataLoader(ds, batch_size=16)
+    assert loader.emitted_order().tolist()[-3:] == [5, 20, 30]
+    before = dict(UNSERVED)
+    got = trainer.predict(loader)
+    calls = {k: v - before.get(k, 0) for k, v in UNSERVED.items() if v != before.get(k, 0)}
+    assert calls == ({"message": 2} if dtype == torch.float32 else {})
+    one = trainer.predict(DataLoader(ds, batch_size=1))
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (0.0, 1e-3)
+    np.testing.assert_allclose(got, one, rtol=rtol, atol=atol)
+
+
+def test_isolated_giant_mab_tables_on_card_in_dataset_order(cuda):
+    """``MABTrainer.predict`` of the reference MAB regression checkpoint over
+    regression.csv's molecules with the giant in the middle, batches of 4 on
+    the card: each table in dataset order equal to batch size 1's within
+    phase 3's f32 limits in units of its largest value."""
+    import csv
+
+    from chemprop_tpu_torch.data import DataLoader, MolAtomBondDatapoint, MolAtomBondDataset
+    from chemprop_tpu_torch.train import MABTrainer
+
+    with open(DATA / "mol_atom_bond" / "regression.csv") as f:
+        smis = [r[0] for r in list(csv.reader(f))[1:]]
+    smis.insert(len(smis) // 2, GIANT)
+    ds = MolAtomBondDataset([MolAtomBondDatapoint.from_smi(s, keep_h=True) for s in smis])
+    model, _ = load_model(DATA / "mol_atom_bond" / "example_models" / "regression.pt", cuda)
+    trainer = MABTrainer(model, device=cuda)
+    trainer.init_state(None, 1, keep_parameters=True)
+    got = trainer.predict(DataLoader(ds, batch_size=4))
+    one = trainer.predict(DataLoader(ds, batch_size=1))
+    for a, b in zip(got, one, strict=True):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4 * max(1.0, float(np.abs(b).max())))

@@ -170,7 +170,7 @@ def test_hpopt_refuses_before_any_trial(data_dir, tmp_path, monkeypatch):
     """What ``train`` refuses raises before a trial runs, and so does a
     missing GPU: no search of trials that all score inf."""
     argv = ["hpopt", "-i", str(data_dir / "regression/mol/mol.csv"), "-o", str(tmp_path / "o")]
-    with pytest.raises(ValueError, match="not ported yet.*item 2"):
+    with pytest.raises(FileNotFoundError, match="expects a local checkpoint path"):
         port_main(argv + ["--from-foundation", "chemeleon", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

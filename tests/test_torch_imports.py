@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``chemprop_tpu_torch``, nor the root
-``chip_smoke.py`` or the port's profile and kernel scripts, imports JAX, flax, optax or
-the JAX package."""
+``chip_smoke.py``, the port's profile and kernel scripts or its examples
+(``examples_torch/``), imports JAX, flax, optax or the JAX package."""
 
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ PORT_FILES = sorted((REPO / "chemprop_tpu_torch").rglob("*.py")) + [
     REPO / "experiments" / "torch_tanh_bits.py",
     REPO / "experiments" / "torch_cli_train_check.py",
     REPO / "experiments" / "torch_dispatch.py",
-]
+    REPO / "experiments" / "torch_row_gather.py",
+] + sorted((REPO / "examples_torch").glob("*.py"))
 # the JAX stack, and what the machine with the card does not have either
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chemprop_tpu", "sklearn", "pandas", "msgpack")
 NEW_MODULES = (
