@@ -69,8 +69,8 @@
 // With a split table, whose tiles cut a molecule of more than 128 rows at its
 // nodes' boundaries, the rows whose sum reads a row of another tile get NaN
 // as above, and the caller forms them again from the gz written out
-// (cross_rows of message_bwd.cu). Without any tile table the caller takes the
-// node-warp form of message_bwd.cu.
+// (bwd_message_rows of message_bwd.cu). Without any tile table the caller
+// takes the node-warp form of message_bwd.cu.
 #include "sm90.cuh"
 #include "tiles.cuh"
 

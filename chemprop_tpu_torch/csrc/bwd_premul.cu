@@ -511,7 +511,8 @@ static int pm_tiles(int n_edges, int n_table) {
 //   then z is gz); the caller forms G from gz with bwd_message;
 // * with a split table (a molecule cut at its nodes' boundaries) and gz_out
 //   (or z, without H0): G at every row that reads only its tile, z, and gz;
-//   the caller forms G at the other rows with cross_rows (message_bwd.cu).
+//   the caller forms G at the other rows with bwd_message_rows
+//   (message_bwd.cu).
 extern "C" int bwd_premul(const void* G_in, const void* y, const void* H0, const void* W,
                           const int* dst, const int* rev, const int* ptr, const int* tiles,
                           void* G, void* z, void* gz_out, int n_edges, int d, int pad_node,

@@ -19,6 +19,14 @@
 // plain_message is bound by bytes: it reads H and writes M once (the rows of
 // an edge's neighbours come from L2, since a molecule's edges are adjacent).
 // One warp forms one edge's row with f32 accumulation.
+//
+// message_rows is the same kernel over a list of rows: it forms M again at
+// those rows only and leaves every other row of M as it is. It is the
+// second pass of message_tiles.cu over a split tile table (a molecule of
+// more than 128 rows cut at its nodes' boundaries): the rows whose reverse
+// lies in another tile, which the tile kernel flags and writes as NaN, are
+// formed here with message_row, so that they get plain_message's sums in its
+// order, rounded once: the bits every other row gets.
 #include "vec.cuh"
 
 constexpr int MSG_THREADS = 256;  // 8 warps, one edge each
@@ -46,33 +54,51 @@ __device__ __forceinline__ void message_row(float4 (&acc)[MAXV], const T* H,
   }
 }
 
+// warp w forms row rows[w] (row w where rows is null) of the n listed rows
 template <typename T>
 __global__ void __launch_bounds__(MSG_THREADS)
-    plain_message_kernel(const T* __restrict__ H, const int* __restrict__ src,
-                         const int* __restrict__ rev, const int* __restrict__ ptr,
-                         T* __restrict__ out, int n_edges, int d, int pad_node) {
-  int e = (blockIdx.x * MSG_THREADS + threadIdx.x) >> 5;
+    message_kernel(const T* __restrict__ H, const int* __restrict__ src,
+                   const int* __restrict__ rev, const int* __restrict__ ptr,
+                   const int* __restrict__ rows, T* __restrict__ out, int n, int d,
+                   int pad_node) {
+  int w = (blockIdx.x * MSG_THREADS + threadIdx.x) >> 5;
   int lane = threadIdx.x & 31;
-  if (e >= n_edges) return;
+  if (w >= n) return;
+  int e = rows == nullptr ? w : rows[w];
   float4 acc[MAXV];
   message_row(acc, H, src, rev, ptr, e, d, pad_node, lane);
   store_row(out + (size_t)e * d, acc, lane, d >> 2);  // bfloat16: the one rounding
+}
+
+static int launch_message(const void* H, const int* src, const int* rev, const int* ptr,
+                          const int* rows, void* out, int n, int d, int pad_node, int dtype,
+                          cudaStream_t stream) {
+  if (d % 4 != 0 || d > MAX_WIDTH || n < 0) return (int)cudaErrorInvalidValue;
+  int grid = (n + MSG_THREADS / 32 - 1) / (MSG_THREADS / 32);
+  if (grid == 0) return 0;
+  if (dtype == DT_F32)
+    message_kernel<float><<<grid, MSG_THREADS, 0, stream>>>(
+        (const float*)H, src, rev, ptr, rows, (float*)out, n, d, pad_node);
+  else if (dtype == DT_BF16)
+    message_kernel<bf16><<<grid, MSG_THREADS, 0, stream>>>(
+        (const bf16*)H, src, rev, ptr, rows, (bf16*)out, n, d, pad_node);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // float32 or bfloat16 tables (f32 sums in both)
 extern "C" int plain_message(const void* H, const int* src, const int* rev, const int* ptr,
                              void* out, int n_edges, int d, int pad_node, int dtype,
                              cudaStream_t stream) {
-  if (d % 4 != 0 || d > MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  int grid = (n_edges + MSG_THREADS / 32 - 1) / (MSG_THREADS / 32);
-  if (grid == 0) return 0;
-  if (dtype == DT_F32)
-    plain_message_kernel<float><<<grid, MSG_THREADS, 0, stream>>>(
-        (const float*)H, src, rev, ptr, (float*)out, n_edges, d, pad_node);
-  else if (dtype == DT_BF16)
-    plain_message_kernel<bf16><<<grid, MSG_THREADS, 0, stream>>>(
-        (const bf16*)H, src, rev, ptr, (bf16*)out, n_edges, d, pad_node);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return launch_message(H, src, rev, ptr, nullptr, out, n_edges, d, pad_node, dtype, stream);
+}
+
+// out [n_edges x d] at the n_rows rows listed in rows (int32, each in
+// [0, n_edges)), from H of the same shape and dtype; every other row of out
+// is left as it is
+extern "C" int message_rows(const void* H, const int* src, const int* rev, const int* ptr,
+                            const int* rows, void* out, int n_rows, int d, int pad_node,
+                            int dtype, cudaStream_t stream) {
+  return launch_message(H, src, rev, ptr, rows, out, n_rows, d, pad_node, dtype, stream);
 }

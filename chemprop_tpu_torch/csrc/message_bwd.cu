@@ -12,7 +12,9 @@
 // _bwd_msg_nodes_kernel (launched by _bwd_msg_nodes_impl), where
 // g[k] = g_nodes[dst[k]] is formed on chip. transposed_message is the same
 // sum with no mask: the backward of the message kernel itself, and the node
-// pass of bwd_premul.cu's form without a tile table.
+// pass of bwd_premul.cu's form without a tile table. bwd_message_rows forms
+// G at a list of rows only: the second pass of the tile kernels over a split
+// tile table (below).
 //
 // The TPU kernels form (S - R)^T as a one-hot product over a sliding window of
 // 128-edge chunks. Here no scatter and no one-hot work is needed: the edges
@@ -168,44 +170,71 @@ extern "C" int bwd_message(const void* g, const void* y, const void* acc, const 
 }
 
 // ------------------------------------------------------------ cross rows
-// G at the listed rows only, from a bf16 gz table already in device memory:
-// the rows of a split tile table (a molecule of more than 128 rows cut at
-// its nodes' boundaries) whose sum reads a row of another tile, which the
-// tile kernels of bwd_nodes.cu and bwd_premul.cu cannot form inside their
-// tile. One warp per listed row sums gz[rev[j]] over the in-edges j of the
-// row's node in f32 in row order, less gz[rev[e]], rounded once: the node
-// pass's sums in its order, so the bits every other row gets.
+// G at the listed rows only, from g and y (no mask where y is null), float32
+// or bfloat16: the second pass over a split tile table (a molecule of more
+// than 128 rows cut at its nodes' boundaries). Its listed rows are those
+// whose sum reads a row of another tile, which the tile kernels cannot form
+// inside their tile and write as NaN (or leave wrong): F's (message_bwd_tiles.cu)
+// from the cotangent and the saved output, and G's (bwd_nodes.cu) and H's
+// (bwd_premul.cu) from the gz table they write out, passed here as g with no
+// y. One warp per listed row sums gz[rev[j]] = g[rev[j]] [y[rev[j]] > 0] over
+// the in-edges j of the row's node in f32 in row order, less the one at
+// rev[e], rounded once: the node-warp kernel's sums in its order, so the bits
+// every other row gets. It reads g and y, never gz_out, so that F's pass is
+// right with gz_acc too (gz_out = gz + gz_acc). A row of the padding node
+// gets zeros, as in the node-warp kernel.
+template <typename T>
 __global__ void __launch_bounds__(NODE_THREADS)
-    cross_rows_kernel(const bf16* __restrict__ gz, const int* __restrict__ dst,
-                      const int* __restrict__ rev, const int* __restrict__ ptr,
-                      const int* __restrict__ rows, bf16* __restrict__ G, int n_rows, int d) {
+    bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ y,
+                    const int* __restrict__ dst, const int* __restrict__ rev,
+                    const int* __restrict__ ptr, const int* __restrict__ rows,
+                    T* __restrict__ G, int n_rows, int d, int pad_node) {
   const int w = (blockIdx.x * NODE_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (w >= n_rows) return;
   const int nv = d >> 2, e = rows[w], v = dst[e];
+  if (v == pad_node) {
+    zero_row(G + (size_t)e * d, lane, nv);
+    return;
+  }
   float4 t[MAXV];
   zero(t);
-  for (int j = ptr[v]; j < ptr[v + 1]; ++j) add_row(t, gz + (size_t)rev[j] * d, lane, nv, false);
-  const bf16* x = gz + (size_t)rev[e] * d;
+  for (int j = ptr[v]; j < ptr[v + 1]; ++j) {
+    const int r = rev[j];
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) add4(t[i], gz_at(g, y, dst, false, r, d, c));
+    }
+  }
+  const int r = rev[e];
 #pragma unroll
   for (int i = 0; i < MAXV; ++i) {
     const int c = lane + 32 * i;
     if (c >= nv) continue;
-    const float4 r = load4(x + 4 * c);
+    const float4 x = gz_at(g, y, dst, false, r, d, c);
     store4(G + (size_t)e * d + 4 * c,
-           make_float4(t[i].x - r.x, t[i].y - r.y, t[i].z - r.z, t[i].w - r.w));
+           make_float4(t[i].x - x.x, t[i].y - x.y, t[i].z - x.z, t[i].w - x.w));
   }
 }
 
-// G [n_edges x d] at the n_rows rows listed in rows, from gz of the same
-// shape, both bf16; every other row of G is left as it is
-extern "C" int cross_rows(const void* gz, const int* dst, const int* rev, const int* ptr,
-                          const int* rows, void* G, int n_rows, int d, cudaStream_t stream) {
+// G [n_edges x d] at the n_rows rows listed in rows (int32, each in
+// [0, n_edges)), from g and y (or null) of the same shape and dtype; every
+// other row of G is left as it is
+extern "C" int bwd_message_rows(const void* g, const void* y, const int* dst, const int* rev,
+                                const int* ptr, const int* rows, void* G, int n_rows, int d,
+                                int pad_node, int dtype, cudaStream_t stream) {
   if (d % 4 != 0 || d > MAX_WIDTH || n_rows < 0) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   const int grid = (n_rows + NODE_THREADS / 32 - 1) / (NODE_THREADS / 32);
-  cross_rows_kernel<<<grid, NODE_THREADS, 0, stream>>>((const bf16*)gz, dst, rev, ptr, rows,
-                                                       (bf16*)G, n_rows, d);
+  if (dtype == DT_F32)
+    bwd_rows_kernel<float><<<grid, NODE_THREADS, 0, stream>>>(
+        (const float*)g, (const float*)y, dst, rev, ptr, rows, (float*)G, n_rows, d, pad_node);
+  else if (dtype == DT_BF16)
+    bwd_rows_kernel<bf16><<<grid, NODE_THREADS, 0, stream>>>(
+        (const bf16*)g, (const bf16*)y, dst, rev, ptr, rows, (bf16*)G, n_rows, d, pad_node);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -76,8 +76,24 @@
 // tile gets NaN in G, whole; gz_out is formed from the row alone and stays
 // whole.
 //
-// Without a tile table (a batch holding a molecule of more than 128 rows), or
-// at a width that is not a multiple of 128, the caller takes message_bwd.cu.
+// A split tile table (the collate's split_ptr: a molecule of more than 128
+// rows cut at its nodes' boundaries, so one molecule spans several tiles)
+// runs through the same launch, and three things keep its result right:
+// * its tiles keep the rules tile_rows reads: ascending offsets, at most 128
+//   rows a tile, and the rows of a node in one tile (no cut inside a node's
+//   run, so bad_first and bad_last never fire). A row of G is flagged
+//   (TILE_BAD) and written as NaN exactly when one of its node's in-edges has
+//   its reverse in another tile: the collate's cross_rows, row for row;
+// * a flagged row of G is written once, by this launch, and read by nothing:
+//   the stage holds gz, never G. The caller then forms every such row again
+//   with bwd_message_rows (message_bwd.cu) from g and y, in stream order
+//   after this launch;
+// * gz_out is formed from the row's own g, y and acc alone, so it is right on
+//   every row, flagged or not, and the pass leaves it as it is; the pass
+//   reads g and y, not gz_out, so that G takes the unaccumulated gz with
+//   acc too.
+// Without any tile table, or at a width that is not a multiple of 128, the
+// caller takes message_bwd.cu.
 #include "sm90.cuh"
 #include "tiles.cuh"
 

@@ -61,8 +61,24 @@
 // collate's rule, every row whose in-edges or reverse are not all inside its
 // tile is NaN: no row it cannot form comes out finite.
 //
-// Without a tile table (a batch holding a molecule of more than 128 rows), or
-// at a width that is not a multiple of 128, the caller takes message.cu.
+// A split tile table (the collate's split_ptr: a molecule of more than 128
+// rows cut at its nodes' boundaries, so one molecule spans several tiles)
+// runs through the same launch, and three things keep its result right:
+// * its tiles keep the rules the kernel reads: ascending offsets, at most 128
+//   rows a tile, and the rows of a node in one tile. The in-edges of src[e]
+//   are one node's rows and hold rev[e], so a row's sum lies in its tile
+//   exactly when its reverse does; a row whose reverse lies in another tile
+//   is flagged (MT_BAD) and written as NaN, and every other row gets its
+//   bits;
+// * a flagged row is written once, by this launch, and read by nothing: the
+//   kernel reads H alone, never M. The caller then forms every such row again
+//   with message_rows (message.cu) over the collate's cross_rows, which hold
+//   each of them (a row whose reverse lies in another tile is one of its own
+//   node's in-edges with that property), in stream order after this launch;
+// * the rows the caller re-forms that the launch got right get the same bits
+//   again.
+// Without any tile table, or at a width that is not a multiple of 128, the
+// caller takes message.cu.
 #include "sm90.cuh"
 #include "tiles.cuh"
 

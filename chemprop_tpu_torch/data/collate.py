@@ -21,11 +21,15 @@ rows for the chained two-iteration kernel (:func:`iter2_tiles`). A batch
 holding a molecule of more rows than that has no ``tile_ptr``; it carries
 ``split_ptr`` instead, where such a molecule spans several tiles cut at its
 nodes' boundaries (:func:`split_tiles`), and ``cross_rows``, the rows whose
-transposed message reads a row of another tile (:func:`cross_rows`): the
-last iterations' backward kernels G and H take that table and form those
-rows in a second pass. A mol-atom-bond batch (:func:`collate_mol_atom_bond_batch`)
-is such a graph with the per-atom tables on its node rows and the per-bond
-tables on both of a bond's directed edges, in the sorted order."""
+transposed message reads a row of another tile (:func:`cross_rows`). The
+message A, its transpose F and the last iterations' backward kernels G and
+H take that table and form those rows in a second pass; one list serves all
+four, since every row whose message reads another tile (its reverse lies
+there) is one whose transposed message does. The chained iterations D and
+the fused backward E take no split table. A mol-atom-bond batch
+(:func:`collate_mol_atom_bond_batch`) is such a graph with the per-atom
+tables on its node rows and the per-bond tables on both of a bond's
+directed edges, in the sorted order."""
 
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS, tiles_to
+from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS, cross_to, tiles_to
 from chemprop_tpu_torch.types import MolGraph
 
 
@@ -84,18 +88,18 @@ class BatchMolGraph:
         return self.last_edge_padding
 
     def to(self, device: str | torch.device) -> "BatchMolGraph":
-        """The batch on ``device``; the tile tables are checked before they
-        move, so that the tile kernels need not read them back
-        (``ops.message.tiles_to``)."""
-        tables = ("tile_ptr", "split_ptr")
+        """The batch on ``device``; the tile tables and the cross rows are
+        checked before they move, so that the kernels need not read them back
+        (``ops.message.tiles_to``, ``ops.message.cross_to``)."""
+        tables = {"tile_ptr": tiles_to, "split_ptr": tiles_to, "cross_rows": cross_to}
         moved = {
             f.name: getattr(self, f.name).to(device, non_blocking=True)
             for f in fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor) and f.name not in tables
         }
-        for name in tables:
+        for name, move in tables.items():
             if getattr(self, name) is not None:
-                moved[name] = tiles_to(getattr(self, name), self.E.shape[0], device)
+                moved[name] = move(getattr(self, name), self.E.shape[0], device)
         return replace(self, **moved)
 
 

@@ -30,13 +30,14 @@ kernels (``ops/message.py``); in float32 the products are ``torch.matmul``,
 as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
 either dtype. Every message kernel takes the batch's tile table
-(``bmg.tile_ptr``); where a molecule is larger than a tile, ``loop_readout``'s
-backward kernels G and H take its split table (``bmg.split_ptr``,
-``bmg.cross_rows``). With ``kernel_options.grad_w`` in bfloat16 W_i's weight
-gradient, and W_h's where ``iter_bwd`` does not form it (the composed path's
-included), are ``grad_weight`` kernel launches, as in the JAX package. The parameters stay float32 masters: the padded copies in the
-compute dtype are made in every forward, so gradients flow through the pad
-and the cast.
+(``bmg.tile_ptr``); where a molecule is larger than a tile, every route hands
+A, F, G and H its split table and cross rows (``bmg.split_ptr``,
+``bmg.cross_rows``) instead, and D and E take their forms without a table.
+With ``kernel_options.grad_w`` in bfloat16 W_i's weight gradient, and W_h's
+where ``iter_bwd`` does not form it (the composed path's included), are
+``grad_weight`` kernel launches, as in the JAX package. The parameters stay
+float32 masters: the padded copies in the compute dtype are made in every
+forward, so gradients flow through the pad and the cast.
 
 With ``kernel_options.window_gather`` in bfloat16, W_i's input gather ``V[src]``
 is the ``row_gather`` kernel (``ops.gather``), whose zero rule (the last row
@@ -265,29 +266,31 @@ class BondMessagePassing(_MessagePassingBase):
         _sow(taps, "H_0", H0)
 
         graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
+        # the tile table, or where the batch has none its split table and cross rows
+        tiles, split = bmg.tile_ptr, None
+        if tiles is None and bmg.split_ptr is not None:
+            split = (bmg.split_ptr, bmg.cross_rows)
         fuse_iter = self.depth > 1 and self.activation == "relu" and not self.undirected
         if self.depth > 1:
             W_h, b_h = self._padded(self.W_h, dp, dp)
         if fuse_iter and opts.depth_loop and not drop_on:
-            H = depth_loop(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr)
+            H = depth_loop(H0, W_h, b_h, *graph, self.depth, opts, tiles, split)
             _sow(taps, "H", H)
             return H, None
         if (readout and fuse_iter and self.depth >= 3 and not drop_on and opts.fused_readout
                 and taps is None):
-            split = None if bmg.split_ptr is None else (bmg.split_ptr, bmg.cross_rows)
-            return None, loop_readout(H0, W_h, b_h, *graph, self.depth, opts, bmg.tile_ptr,
-                                      split)
+            return None, loop_readout(H0, W_h, b_h, *graph, self.depth, opts, tiles, split)
         H = self.tau(H0)
         for it in range(1, self.depth):
             if self.undirected:
                 H = (H + H[bmg.rev.long()]) / 2
             if fuse_iter:
                 if it == 1:  # relu(H0) streams through the kernel, never written
-                    H = first_iter(H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
+                    H = first_iter(H0, W_h, b_h, *graph, opts, tiles, split)
                 else:
-                    H = message_iter(H, H0, W_h, b_h, *graph, opts, bmg.tile_ptr)
+                    H = message_iter(H, H0, W_h, b_h, *graph, opts, tiles, split)
             else:
-                M = message(H, *graph, bmg.tile_ptr)
+                M = message(H, *graph, *(split or (tiles, None)))
                 z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h
                 if b_h is not None:
                     z = z + b_h

@@ -43,7 +43,10 @@ SOURCES = (
 # None for null, or the stream), I an int; every function returns a C int
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "message": {"plain_message": [P, P, P, P, P, I, I, I, I, P]},
+    "message": {
+        "plain_message": [P, P, P, P, P, I, I, I, I, P],
+        "message_rows": [P, P, P, P, P, P, I, I, I, I, P],
+    },
     "message_tiles": {
         "message_tiles": [P, P, P, P, P, P, I, I, I, I, I, P],
         "message_tiles_info": [I, I, I, P],
@@ -60,7 +63,7 @@ SIGNATURES = {
         "bwd_message": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
         "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd_splits": [I],
-        "cross_rows": [P, P, P, P, P, P, I, I, P],
+        "bwd_message_rows": [P, P, P, P, P, P, P, I, I, I, I, P],
     },
     "message_bwd_tiles": {
         "bwd_message_tiles": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],

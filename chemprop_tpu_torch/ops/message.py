@@ -35,19 +35,30 @@ The tile kernels (``message``, ``fused_iter2``, ``bwd_message``,
 (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
 the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
 rows in two runs, so that every row a tile's row gathers lies in the tile.
-A batch with a molecule of more rows than that has none; G and H
-(``bwd_message_nodes``, ``bwd_message_premul``) then take its split table
-(``BatchMolGraph.split_ptr``, the molecule cut at its nodes' boundaries)
-with its ``cross_rows``: the tile kernel forms every other row of ``G``, and
-:func:`_cross_rows` forms those from the ``gz`` table it wrote.
+A batch with a molecule of more rows than that has none; A, F, G and H
+(``message``, ``bwd_message``, ``bwd_message_nodes``, ``bwd_message_premul``)
+then take its split table (``BatchMolGraph.split_ptr``, the molecule cut at
+its nodes' boundaries) with its ``cross_rows``: the tile kernel forms every
+row whose sum lies in its tile, and a second pass forms the listed rows
+again (``csrc/message.cu``'s ``message_rows`` for A, :func:`_cross_rows` for
+the others), with the bits of the forms without a table. Every route hands
+A and F the table a batch has (:func:`message_table`); D and E take only the
+tile table.
 
 A, B and D are ``torch.library`` ops (``chemprop_tpu_torch::message``,
 ``::fused_iter``, ``::fused_iter2``): the wrappers check and call them, the
-ops launch. An op takes the tile table as an int32 tensor, empty where the
-batch has none (:func:`table_arg`), so that a traced program serves both
-forms; A and D count the calls without one in ``UNSERVED`` themselves, and
-D takes two launches of B there. The wrappers check the table on the host
-unless they are traced (:func:`traced`)."""
+ops launch. An op takes the tile table (and A its cross rows) as an int32
+tensor, empty where the batch has none (:func:`table_arg`), so that a traced
+program serves both forms; A and D count the calls without one in
+``UNSERVED`` themselves, and D takes two launches of B there. The wrappers
+check the table on the host unless they are traced (:func:`traced`).
+
+A second pass over cross rows counts as a launch of its own
+(``LAUNCHES["message_rows"]``, ``["bwd_message_rows"]``). On a CPU tensor the
+wrappers take the full plain version and then the pass's plain version
+(:func:`message_rows_plain`, :func:`bwd_message_rows_plain`) over the same
+rows, which gives the same values again, so that a run on the CPU calls a
+plain version wherever the card launches a kernel."""
 
 from __future__ import annotations
 
@@ -91,6 +102,28 @@ def message_plain(
     M = M_node[src.long()] - Hf[rev.long()]
     M.masked_fill_((src == n_nodes - 1)[:, None], 0.0)
     return M.to(H.dtype)
+
+
+def message_rows_plain(
+    H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    rows: torch.Tensor, out: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of A's second pass (``message_rows``):
+    ``out`` with the rows ``rows`` formed again as :func:`message_plain` forms
+    them (the in-edges of each row's source summed in f32 in row order, less
+    its reverse, one cast), every other row as it is; ``out`` is returned."""
+    n_nodes = ptr.numel() - 1
+    rows, dst = rows.long(), dst.long()
+    s = src.long()[rows]
+    need = torch.zeros(n_nodes, dtype=torch.bool, device=H.device)
+    need[s] = True
+    need[-1] = False  # the padding node's rows are zeros
+    k = torch.nonzero(need[dst]).squeeze(1)  # the in-edges of those sources, in row order
+    M_node = torch.zeros((n_nodes, H.shape[1]), dtype=torch.float32, device=H.device)
+    M_node.index_add_(0, dst[k], H[k].float())
+    M = M_node[s] - H[rev.long()[rows]].float()
+    out[rows] = M.masked_fill_((s == n_nodes - 1)[:, None], 0.0).to(out.dtype)
+    return out
 
 
 def fused_iter_plain(
@@ -147,6 +180,29 @@ def bwd_message_plain(
     return G, gz.masked_fill(pad, 0.0).to(g.dtype)
 
 
+def bwd_message_rows_plain(
+    g: torch.Tensor, y: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
+    rev: torch.Tensor, ptr: torch.Tensor, rows: torch.Tensor, G: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of the transposed message's second pass
+    (``bwd_message_rows``): ``G`` with the rows ``rows`` formed again as
+    :func:`bwd_message_plain` forms them from ``g`` and ``y`` (``y=None``: no
+    mask), every other row as it is; ``G`` is returned."""
+    n_nodes = ptr.numel() - 1
+    rows, dst, rev = rows.long(), dst.long(), rev.long()
+    v = dst[rows]
+    gz = g.float() if y is None else g.float() * (y > 0)
+    need = torch.zeros(n_nodes, dtype=torch.bool, device=g.device)
+    need[v] = True
+    need[-1] = False  # the padding node's rows are zeros
+    j = torch.nonzero(need[dst]).squeeze(1)  # the in-edges of those nodes, in row order
+    T = torch.zeros((n_nodes, g.shape[1]), dtype=torch.float32, device=g.device)
+    T.index_add_(0, dst[j], gz[rev[j]])
+    Gr = T[v] - gz[rev[rows]]
+    G[rows] = Gr.masked_fill_((v == n_nodes - 1)[:, None], 0.0).to(G.dtype)
+    return G
+
+
 def bwd_message_nodes_plain(
     g_nodes: torch.Tensor, y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     rev: torch.Tensor, ptr: torch.Tensor,
@@ -158,19 +214,21 @@ def bwd_message_nodes_plain(
 def bwd_message_premul_plain(
     G_in: torch.Tensor, y: torch.Tensor, H0: torch.Tensor | None, W: torch.Tensor,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    fold_h0: bool = False, tiles: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    fold_h0: bool = False, tiles: torch.Tensor | None = None, with_gz: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """The plain PyTorch version of the premultiplied form, with the kernel's
     roundings: ``dh`` stays f32, ``gz`` is rounded before it is summed into
     ``G``, ``z`` is formed from the f32 ``gz`` and ``dh`` and rounded once.
-    The function does not depend on the tile table, so ``tiles`` is unused."""
+    The function does not depend on the tile table, so ``tiles`` is unused.
+    ``with_gz`` adds the rounded ``gz`` table, which the split table's pass
+    reads on the card."""
     pad = (dst == ptr.numel() - 2)[:, None]
     dh = G_in.float() @ W.float().t()
     gz = dh * (y > 0)
     gz_r = gz.to(y.dtype)
     G = _transposed_plain(gz_r.float(), dst, rev, ptr).to(y.dtype)
     z = (gz + dh * (H0 > 0)).to(y.dtype) if fold_h0 else gz_r
-    return G, z.masked_fill(pad, 0.0)
+    return (G, z.masked_fill(pad, 0.0)) + ((gz_r.masked_fill(pad, 0.0),) if with_gz else ())
 
 
 def iter_bwd_plain(
@@ -202,7 +260,7 @@ def _check_graph(H, src, dst, rev, ptr):
 
 def message(
     H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    tiles: torch.Tensor | None = None,
+    tiles: torch.Tensor | None = None, cross: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``M = message(H)`` for a float32 or bfloat16 edge table, differentiable
     in ``H``: the backward is the transposed message without a mask. Sums
@@ -210,49 +268,70 @@ def message(
 
     With the batch's tile table ``tiles`` (:func:`check_tiles`) at a width
     :func:`message_tile_width` takes, it is one launch of
-    ``csrc/message_tiles.cu`` over the molecule tiles; without one (a
-    molecule of more than ``ITER2_TILE_ROWS`` rows), or at another width, the
+    ``csrc/message_tiles.cu`` over the molecule tiles. With a split table
+    (``BatchMolGraph.split_ptr``) as ``tiles`` and its ``cross`` rows
+    (:func:`check_cross`) it is that launch, then ``csrc/message.cu``'s
+    ``message_rows`` over those rows. Without a table (a node of more than
+    ``ITER2_TILE_ROWS`` in-edges), or at another width, it is the
     warp-per-edge kernel of ``csrc/message.cu``, and ``UNSERVED["message"]``
-    counts the call. Both give the same bits."""
-    return _Message.apply(H, src, dst, rev, ptr, tiles)
+    counts the call. All give the same bits."""
+    return _Message.apply(H, src, dst, rev, ptr, tiles, cross)
 
 
-def _message_fwd(H, src, dst, rev, ptr, tiles=None):
+def _message_fwd(H, src, dst, rev, ptr, tiles=None, cross=None):
     _check_graph(H, src, dst, rev, ptr)
     if H.dtype not in DTYPES:
         raise TypeError(f"H must be float32 or bfloat16, got {H.dtype}")
-    if tiles is not None and not traced():
-        check_tiles(tiles, H.shape[0], H.device)
-    return torch.ops.chemprop_tpu_torch.message(H, src, dst, rev, ptr, table_arg(tiles, src))
+    if not traced():
+        _check_cross(cross, tiles, H)
+        if tiles is not None:
+            check_tiles(tiles, H.shape[0], H.device)
+    return torch.ops.chemprop_tpu_torch.message(H, src, dst, rev, ptr, table_arg(tiles, src),
+                                                table_arg(cross, src))
 
 
 def _message_launch(
     H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    tiles: torch.Tensor,
+    tiles: torch.Tensor, cross: torch.Tensor,
 ) -> torch.Tensor:
     """Kernel A as the op ``chemprop_tpu_torch::message``: over the tile table
     where there is one (``tiles`` of two or more offsets, checked by the
-    caller) at a width the tiled kernel takes, else ``csrc/message.cu``, and
-    ``UNSERVED["message"]`` counts the call; on a CPU tensor the plain
-    version."""
+    caller) at a width the tiled kernel takes, then the second pass over the
+    ``cross`` rows of a split table (none where ``cross`` is empty), else
+    ``csrc/message.cu``, and ``UNSERVED["message"]`` counts the call; on a
+    CPU tensor the plain versions."""
     n, d = H.shape
     tiled = tiles.numel() >= 2 and message_tile_width(d)
     if not tiled:
         UNSERVED["message"] += 1
+    again = tiled and cross.numel() > 0  # the split table's rows to form again
     if H.device.type == "cpu":
-        return message_plain(H, src, dst, rev, ptr)
+        out = message_plain(H, src, dst, rev, ptr)
+        return message_rows_plain(H, src, dst, rev, ptr, cross, out) if again else out
     if d % 4 != 0 or H.data_ptr() % 16 != 0:
         raise ValueError(f"width {d} must be a multiple of 4, rows 16-byte aligned")
     out = torch.empty_like(H)
     graph = (src.contiguous(), rev.contiguous(), ptr.contiguous())
+    pad_node, dtype = ptr.numel() - 2, DTYPES[H.dtype]
     if tiled:
         call(library("message_tiles"), "message_tiles", H, *graph, tiles.contiguous(), out, n,
-             d, ptr.numel() - 2, tiles.numel() - 1, DTYPES[H.dtype])
+             d, pad_node, tiles.numel() - 1, dtype)
+        if again:
+            _message_rows(H, *graph, cross, out)
     else:
-        call(library("message"), "plain_message", H, *graph, out, n, d, ptr.numel() - 2,
-             DTYPES[H.dtype])
+        call(library("message"), "plain_message", H, *graph, out, n, d, pad_node, dtype)
     LAUNCHES["message"] += 1
     return out
+
+
+def _message_rows(H, src, rev, ptr, cross, out) -> None:
+    """``out`` at the rows ``cross`` formed again from ``H`` in device memory
+    (``csrc/message.cu``'s ``message_rows``, one warp a row, ``plain_message``'s
+    sums in its order: the bits the tile kernel gives its other rows)."""
+    if cross.numel():
+        call(library("message"), "message_rows", H, src, rev, ptr, cross.contiguous(), out,
+             cross.numel(), H.shape[1], ptr.numel() - 2, DTYPES[H.dtype])
+        LAUNCHES["message_rows"] += 1
 
 
 _message_op = torch.library.custom_op("chemprop_tpu_torch::message", _message_launch,
@@ -260,7 +339,7 @@ _message_op = torch.library.custom_op("chemprop_tpu_torch::message", _message_la
 
 
 @_message_op.register_fake
-def _(H, src, dst, rev, ptr, tiles):
+def _(H, src, dst, rev, ptr, tiles, cross):
     return torch.empty_like(H)
 
 
@@ -408,6 +487,49 @@ def tiles_to(tiles: torch.Tensor, n_edges: int, device: str | torch.device) -> t
     return moved
 
 
+def check_cross(cross: torch.Tensor, n_edges: int, device: torch.device) -> None:
+    """Raise unless ``cross`` is a list of cross rows the second passes take:
+    a 1-d int32 tensor on ``device`` of rows ascending within ``[0, n_edges)``.
+    A list on the card is read back for this, unless :func:`cross_to` checked
+    it on the host before it moved it there. That it holds every row the tile
+    kernels cannot form is the collate's to keep
+    (:func:`chemprop_tpu_torch.data.collate.cross_rows`)."""
+    if cross.dtype != torch.int32 or cross.dim() != 1 or cross.device != device:
+        raise ValueError(f"cross must be a 1-d int32 tensor on {device}")
+    if getattr(cross, "checked_for_rows", None) == n_edges or not cross.numel():
+        return
+    c = cross.cpu()
+    if int(c[0]) < 0 or int(c[-1]) >= n_edges or bool((c[1:] <= c[:-1]).any()):
+        raise ValueError(f"cross must hold rows ascending within the {n_edges} edge rows")
+
+
+def cross_to(cross: torch.Tensor, n_edges: int, device: str | torch.device) -> torch.Tensor:
+    """``cross`` checked (:func:`check_cross`, on its own device) and moved to
+    ``device``, marked so that the second passes do not read it back."""
+    check_cross(cross, n_edges, cross.device)
+    moved = cross.to(device, non_blocking=True)
+    moved.checked_for_rows = n_edges
+    return moved
+
+
+def message_table(tiles: torch.Tensor | None, split: tuple | None):
+    """The table A and F take on a batch: its tile table ``tiles`` where it
+    has one, else its split table and cross rows ``split``
+    (``(BatchMolGraph.split_ptr, BatchMolGraph.cross_rows)``) as a pair, else
+    None. A split table without its cross rows raises."""
+    if tiles is not None or split is None:
+        return tiles
+    split_ptr, cross = split
+    if cross is None:
+        raise ValueError("a split tile table comes with its cross rows")
+    return split_ptr, cross
+
+
+def _unpack(table) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """``(tiles, cross)`` of a table of :func:`message_table`."""
+    return (table, None) if table is None or isinstance(table, torch.Tensor) else table
+
+
 def fused_iter2(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor,
@@ -506,24 +628,25 @@ def _check_cross(cross: torch.Tensor | None, tiles: torch.Tensor | None, y: torc
         return
     if tiles is None:
         raise ValueError("cross rows come with the split tile table")
-    if cross.dtype != torch.int32 or cross.dim() != 1 or cross.device != y.device:
-        raise ValueError(f"cross must be a 1-d int32 tensor on {y.device}")
+    check_cross(cross, y.shape[0], y.device)
 
 
-def _cross_rows(gz, dst, rev, ptr, cross, G) -> None:
-    """``G`` at the rows ``cross`` formed again from the bfloat16 ``gz`` table
-    in device memory (``csrc/message_bwd.cu``, one warp a row, the node
-    pass's sums in its order: the bits the tile kernels give their other
-    rows)."""
+def _cross_rows(g, y, dst, rev, ptr, cross, G) -> None:
+    """``G`` at the rows ``cross`` formed again from ``g`` and ``y`` (no mask
+    where ``y`` is None) in device memory (``csrc/message_bwd.cu``'s
+    ``bwd_message_rows``, one warp a row, the node pass's sums in its order:
+    the bits the tile kernels give their other rows); G and H pass the ``gz``
+    table they wrote as ``g``."""
     if cross.numel():
-        call(library("message_bwd"), "cross_rows", gz, dst, rev, ptr, cross.contiguous(), G,
-             cross.numel(), gz.shape[1])
+        call(library("message_bwd"), "bwd_message_rows", g, y, dst, rev, ptr, cross.contiguous(),
+             G, cross.numel(), g.shape[1], ptr.numel() - 2, DTYPES[g.dtype])
+        LAUNCHES["bwd_message_rows"] += 1
 
 
 def bwd_message(
     g: torch.Tensor, y: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
     rev: torch.Tensor, ptr: torch.Tensor, gz_acc: torch.Tensor | None = None,
-    tiles: torch.Tensor | None = None,
+    tiles: torch.Tensor | None = None, cross: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(G, gz)`` of one depth iteration's backward from the edge cotangent
     ``g`` and the saved output ``y``: ``gz = g * [y > 0] (+ gz_acc)`` and
@@ -531,29 +654,39 @@ def bwd_message(
 
     With the batch's tile table ``tiles`` (:func:`check_tiles`) at a width
     :func:`message_tile_width` takes, it is one launch of
-    ``csrc/message_bwd_tiles.cu`` over the molecule tiles; without one (a
-    molecule of more than ``ITER2_TILE_ROWS`` rows), or at another width, the
-    node-warp kernel of ``csrc/message_bwd.cu``, and ``UNSERVED["bwd_message"]``
-    counts the call. Both give the same bits."""
+    ``csrc/message_bwd_tiles.cu`` over the molecule tiles. With a split table
+    (``BatchMolGraph.split_ptr``) as ``tiles`` and its ``cross`` rows
+    (:func:`check_cross`) it is that launch, then :func:`_cross_rows` over
+    those rows from ``g`` and ``y``. Without a table (a node of more than
+    ``ITER2_TILE_ROWS`` in-edges), or at another width, it is the node-warp
+    kernel of ``csrc/message_bwd.cu``, and ``UNSERVED["bwd_message"]`` counts
+    the call. All give the same bits."""
     _check_graph(g, src, dst, rev, ptr)
     if g.dtype not in DTYPES:
         raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
     _check_tables(g, {"y": y, "gz_acc": gz_acc})
-    return _transposed(g, y, gz_acc, (src, dst, rev, ptr), tiles, with_gz=True)
+    table = tiles if cross is None else (tiles, cross)
+    return _transposed(g, y, gz_acc, (src, dst, rev, ptr), table, with_gz=True)
 
 
-def _transposed(g, y, acc, graph, tiles, with_gz: bool):
-    """F on checked tables: over the tile table where it serves, else the
-    node-warp form; ``gz`` is None unless ``with_gz``."""
+def _transposed(g, y, acc, graph, table, with_gz: bool):
+    """F on checked tables: over the table of :func:`message_table` where it
+    serves (a split table's cross rows then formed again), else the node-warp
+    form; ``gz`` is None unless ``with_gz``."""
     src, dst, rev, ptr = graph
+    tiles, cross = _unpack(table)
     n, d = g.shape
+    _check_cross(cross, tiles, g)
     if tiles is not None:
         check_tiles(tiles, n, g.device)
     tiled = tiles is not None and message_tile_width(d)
     if not tiled:
         UNSERVED["bwd_message"] += 1
+    again = tiled and cross is not None and cross.numel() > 0
     if g.device.type == "cpu":
         G, gz = bwd_message_plain(g, y, *graph, gz_acc=acc)
+        if again:
+            bwd_message_rows_plain(g, y, *graph, cross, G)
         return G, gz if with_gz else None
     if not tiled:
         out = _launch_bwd(g, y, acc, dst, rev, ptr, nodes=False, with_gz=with_gz)
@@ -563,9 +696,12 @@ def _transposed(g, y, acc, graph, tiles, with_gz: bool):
         out = torch.empty_like(g), torch.empty_like(g) if with_gz else None
         if n == 0:
             return out
-        call(library("message_bwd_tiles"), "bwd_message_tiles", g, y, acc, dst.contiguous(),
-             rev.contiguous(), ptr.contiguous(), tiles.contiguous(), *out, n, d,
-             ptr.numel() - 2, tiles.numel() - 1, DTYPES[g.dtype])
+        ids = (dst.contiguous(), rev.contiguous(), ptr.contiguous())
+        call(library("message_bwd_tiles"), "bwd_message_tiles", g, y, acc, *ids,
+             tiles.contiguous(), *out, n, d, ptr.numel() - 2, tiles.numel() - 1,
+             DTYPES[g.dtype])
+        if again:  # from g and y: gz_out holds gz_acc too
+            _cross_rows(g, y, *ids, cross, out[0])
     LAUNCHES["bwd_message"] += 1
     return out
 
@@ -620,7 +756,10 @@ def bwd_message_nodes(
             raise ValueError(f"the tiled bwd_message_nodes takes d % 128 == 0, not {d}")
         check_tiles(tiles, n, y.device)
     if y.device.type == "cpu":
-        return bwd_message_nodes_plain(g_nodes, y, src, dst, rev, ptr)
+        out = bwd_message_nodes_plain(g_nodes, y, src, dst, rev, ptr)
+        if tiles is not None and cross is not None and cross.numel():
+            bwd_message_rows_plain(out[1], None, src, dst, rev, ptr, cross, out[0])
+        return out
     if tiles is None:
         out = _launch_bwd(g_nodes, y, None, dst, rev, ptr, nodes=True, with_gz=True)
     else:
@@ -633,8 +772,8 @@ def bwd_message_nodes(
              ptr.contiguous(), tiles.contiguous(), *out, n, d, ptr.numel() - 2,
              tiles.numel() - 1)
         if cross is not None:
-            _cross_rows(out[1], dst.contiguous(), rev.contiguous(), ptr.contiguous(), cross,
-                        out[0])
+            _cross_rows(out[1], None, dst.contiguous(), rev.contiguous(), ptr.contiguous(),
+                        cross, out[0])
     LAUNCHES["bwd_message_nodes"] += 1
     return out
 
@@ -688,7 +827,11 @@ def bwd_message_premul(
     if tiles is not None:
         check_tiles(tiles, n, y.device)
     if y.device.type == "cpu":
-        return bwd_message_premul_plain(G_in, y, H0, W, src, dst, rev, ptr, fold_h0)
+        if tiles is None or cross is None or not cross.numel():
+            return bwd_message_premul_plain(G_in, y, H0, W, src, dst, rev, ptr, fold_h0)
+        G, z, gz = bwd_message_premul_plain(G_in, y, H0, W, src, dst, rev, ptr, fold_h0,
+                                            with_gz=True)
+        return bwd_message_rows_plain(gz, None, src, dst, rev, ptr, cross, G), z
     if any(t.data_ptr() % 16 != 0 for t in (G_in, y, W) + ((H0,) if fold_h0 else ())):
         raise ValueError("bwd_message_premul needs 16-byte aligned tables")
     G, z = torch.empty_like(y), torch.empty_like(y)
@@ -702,7 +845,7 @@ def bwd_message_premul(
         call(lib, "bwd_premul", G_in, y, H0, W, *graph, tiles.contiguous(), G, z,
              gz if fold_h0 else None, n, d, pad_node, tiles.numel() - 1)
         if cross is not None:
-            _cross_rows(gz, *graph, cross, G)
+            _cross_rows(gz, None, *graph, cross, G)
     else:  # gz written out (into z itself without fold_h0), then F's node pass
         gz = torch.empty_like(y) if fold_h0 else z
         call(lib, "bwd_premul", G_in, y, H0, W, *graph, None, None, z,
@@ -798,27 +941,27 @@ def iter_bwd_info(d: int, n_tiles: int) -> dict[str, int]:
 
 class _Message(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H, src, dst, rev, ptr, tiles):
+    def forward(ctx, H, src, dst, rev, ptr, tiles, cross):
         ctx.save_for_backward(src, dst, rev, ptr)
-        ctx.tiles = tiles
-        return _message_fwd(H, src, dst, rev, ptr, tiles)
+        ctx.table = tiles if cross is None else (tiles, cross)
+        return _message_fwd(H, src, dst, rev, ptr, tiles, cross)
 
     @staticmethod
     def backward(ctx, g):
         # the message with the roles of src and dst swapped: F without its
-        # mask and without gz, over the same tile table
-        G, _ = _transposed(g.contiguous(), None, None, ctx.saved_tensors, ctx.tiles,
+        # mask and without gz, over the same table
+        G, _ = _transposed(g.contiguous(), None, None, ctx.saved_tensors, ctx.table,
                            with_gz=False)
-        return G, *(None,) * 5
+        return G, *(None,) * 6
 
 
 def _iteration(H, H0, W, b, graph, relu_stream=False, tiles=None):
     """One iteration's forward in either dtype: the fused kernel in bfloat16,
-    the message kernel (over the tile table ``tiles``) and a ``torch.matmul``
-    in float32."""
+    the message kernel (over the table ``tiles`` of :func:`message_table`) and
+    a ``torch.matmul`` in float32."""
     if H0.dtype == torch.bfloat16:
         return fused_iter(H, H0, W, b, *graph, relu_stream=relu_stream)
-    z = _message_fwd(torch.relu(H) if relu_stream else H, *graph, tiles) @ W
+    z = _message_fwd(torch.relu(H) if relu_stream else H, *graph, *_unpack(tiles)) @ W
     if b is not None:
         z = z + b
     return torch.relu(H0 + z)
@@ -826,9 +969,11 @@ def _iteration(H, H0, W, b, graph, relu_stream=False, tiles=None):
 
 def _iteration_bwd(g, y, x, W, graph, grad_w: bool, gz_acc=None, tiles=None):
     """``(dH, gz, dW)`` of one iteration with input ``x`` and output ``y``:
-    the masked transposed message over the tile table ``tiles``, then
-    ``G @ W^T`` (a library product) and ``x^T G`` through :func:`grad_weight`."""
-    G, gz = bwd_message(g, y, *graph, gz_acc=gz_acc, tiles=tiles)
+    the masked transposed message over the table ``tiles`` of
+    :func:`message_table`, then ``G @ W^T`` (a library product) and ``x^T G``
+    through :func:`grad_weight`."""
+    table, cross = _unpack(tiles)
+    G, gz = bwd_message(g, y, *graph, gz_acc=gz_acc, tiles=table, cross=cross)
     dW = grad_weight(x, G, grad_w and x.dtype == torch.bfloat16)
     return (G @ W.t()).to(g.dtype), gz, dW
 
@@ -841,40 +986,48 @@ def first_iter(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
+    split: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The first depth iteration ``relu(H0 + message(relu(H0)) @ W [+ b])`` as a
     differentiable op (cf. ``fused_first_iter``), float32 or bfloat16; in
     bfloat16 ``relu(H0)`` is never written (``relu_stream``), in float32 the
-    message goes over the batch's tile table ``tiles``. The backward is
-    written by hand: :func:`bwd_message`, then the two products, and the chain
-    through the streamed ReLU, ``dH0 = gz + dH * [H0 > 0]``."""
-    return _FirstIter.apply(H0, W, b, src, dst, rev, ptr, options or KernelOptions(), tiles)
+    message goes over the batch's tile table ``tiles``, or where it has none
+    its split table and cross rows ``split`` (:func:`message_table`). The
+    backward is written by hand: :func:`bwd_message` over the same table,
+    then the two products, and the chain through the streamed ReLU,
+    ``dH0 = gz + dH * [H0 > 0]``."""
+    return _FirstIter.apply(H0, W, b, src, dst, rev, ptr, options or KernelOptions(),
+                            message_table(tiles, split))
 
 
 def message_iter(
     H: torch.Tensor, H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
+    split: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """One depth iteration ``relu(H0 + message(H) @ W [+ b])`` as a
     differentiable op (cf. ``fused_message_iter``), float32 or bfloat16; in
-    float32 the message goes over the batch's tile table ``tiles``. The
-    backward is written by hand: :func:`bwd_message`, then ``G @ W^T`` and
-    ``H^T G``; in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd` over
-    the batch's tile table ``tiles``. A batch without one (a molecule larger
-    than a tile), or a width the tiled kernel does not take, takes
+    float32 the message goes over the batch's tile table ``tiles``, or where
+    it has none its split table and cross rows ``split``
+    (:func:`message_table`). The backward is written by hand:
+    :func:`bwd_message` over the same table, then ``G @ W^T`` and ``H^T G``;
+    in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd` over the
+    batch's tile table ``tiles``. A batch without one (a molecule larger than
+    a tile), or a width the tiled kernel does not take, takes
     :func:`iter_bwd`'s form without a table, and ``UNSERVED["iter_bwd"]``
     counts each such backward."""
-    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions(), tiles)
+    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions(), tiles,
+                              message_table(tiles, split))
 
 
 class _FirstIter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H0, W, b, src, dst, rev, ptr, options, tiles):
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, options, table):
         H0 = H0.contiguous()
-        y = _iteration(H0, H0, W, b, (src, dst, rev, ptr), relu_stream=True, tiles=tiles)
+        y = _iteration(H0, H0, W, b, (src, dst, rev, ptr), relu_stream=True, tiles=table)
         ctx.save_for_backward(y, H0, W, b, src, dst, rev, ptr)
-        ctx.options, ctx.tiles = options, tiles
+        ctx.options, ctx.table = options, table
         return y
 
     @staticmethod
@@ -882,18 +1035,18 @@ class _FirstIter(torch.autograd.Function):
         y, H0, W, b, *graph = ctx.saved_tensors
         g = g.to(y.dtype).contiguous()
         dH, gz, dW = _iteration_bwd(g, y, torch.relu(H0), W, graph, ctx.options.grad_w,
-                                    tiles=ctx.tiles)
+                                    tiles=ctx.table)
         dH0 = gz + dH * (H0 > 0)
         return dH0, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
 
 
 class _MessageIter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options, tiles):
+    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options, tiles, table):
         H, H0 = H.contiguous(), H0.contiguous()
-        y = _iteration(H, H0, W, b, (src, dst, rev, ptr), tiles=tiles)
+        y = _iteration(H, H0, W, b, (src, dst, rev, ptr), tiles=table)
         ctx.save_for_backward(y, H, W, b, src, dst, rev, ptr)
-        ctx.options, ctx.tiles = options, tiles
+        ctx.options, ctx.tiles, ctx.table = options, tiles, table
         return y
 
     @staticmethod
@@ -907,8 +1060,8 @@ class _MessageIter(torch.autograd.Function):
             dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles)
         else:
             dH, gz, dW = _iteration_bwd(g, y, H, W, graph, ctx.options.grad_w,
-                                        tiles=ctx.tiles)
-        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
+                                        tiles=ctx.table)
+        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 7
 
 
 def loop_readout(
@@ -924,7 +1077,9 @@ def loop_readout(
         M_v = segment_sum(H, dst)                               [N, d], H0's dtype
 
     In bfloat16 every iteration is one :func:`fused_iter` kernel; in float32
-    the message kernel over the tile table and a ``torch.matmul``. With ``options.iter2``, in
+    the message kernel over the tile table, or over the split table and cross
+    rows ``split`` where the batch has none (:func:`message_table`), and a
+    ``torch.matmul``. With ``options.iter2``, in
     bfloat16 at ``depth >= 3``, the first two iterations are one
     :func:`fused_iter2` launch over the batch's tile table ``tiles``; a batch
     without one (a molecule larger than a tile), or a width outside
@@ -939,8 +1094,9 @@ def loop_readout(
     without a table, and ``UNSERVED["bwd_message_nodes"]`` and
     ``UNSERVED["bwd_message_premul"]`` count each such call. Otherwise
     (float32, a bias, depth 2) it is the per-iteration
-    chain through :func:`bwd_message` with the running ``dH0`` accumulated in
-    the kernel, and ``G @ W^T`` a ``torch.matmul``. The weight gradient
+    chain through :func:`bwd_message` over the message's table with the
+    running ``dH0`` accumulated in the kernel, and ``G @ W^T`` a
+    ``torch.matmul``. The weight gradient
     ``x_t^T G`` goes through :func:`grad_weight` in both: a library product,
     or with ``options.grad_w`` in bfloat16 its kernel."""
     if depth < 2:
@@ -949,11 +1105,12 @@ def loop_readout(
                               tiles, split)
 
 
-def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False) -> list:
+def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False, table=None) -> list:
     """The outputs of iterations 1 .. depth - 1 of the ReLU depth loop: the
     first with ``relu(H0)`` streamed (bfloat16) or formed (float32), each
-    later one from the one before; with ``iter2`` (bfloat16, depth >= 3) the
-    first two as one :func:`fused_iter2` launch over the tile table."""
+    later one from the one before, float32's messages over ``table``
+    (:func:`message_table`); with ``iter2`` (bfloat16, depth >= 3) the first
+    two as one :func:`fused_iter2` launch over the tile table ``tiles``."""
     ys = []
     if H0.dtype == torch.bfloat16 and iter2 and depth >= 3:
         _check_iter(H0, H0, W, b, *graph)
@@ -966,16 +1123,17 @@ def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False) -> li
     if not ys:
         first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
         ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first,
-                         tiles=tiles)]
+                         tiles=table)]
     for _ in range(len(ys) + 1, depth):
-        ys.append(_iteration(ys[-1], H0, W, b, graph, tiles=tiles))
+        ys.append(_iteration(ys[-1], H0, W, b, graph, tiles=table))
     return ys
 
 
 def _loop_chain_bwd(g, ys, H0, W, b, graph, grad_w: bool, tiles):
     """``(dH0, dW, db)`` of the depth loop whose iterations gave ``ys``, from
     the cotangent ``g`` of the last one's output: the per-iteration chain, each
-    step one :func:`bwd_message` over the tile table ``tiles`` with the
+    step one :func:`bwd_message` over the table ``tiles`` of
+    :func:`message_table` with the
     running ``dH0`` accumulated in the kernel (``gz_acc``), ``G @ W^T`` a
     ``torch.matmul`` and ``x_t^T G`` through :func:`grad_weight`; ``db`` is the
     accumulator's column sum."""
@@ -994,6 +1152,7 @@ def depth_loop(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, depth: int,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
+    split: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The whole ReLU depth loop as one differentiable op (cf.
     ``fused_depth_loop``), for ``depth >= 2``; it returns the last ``H``:
@@ -1002,31 +1161,34 @@ def depth_loop(
 
     In bfloat16 every iteration is one :func:`fused_iter` kernel (the first
     with ``relu_stream``); in float32 the message kernel over the tile table
-    ``tiles`` and a ``torch.matmul``. The backward is written by hand: the
-    per-iteration chain from the cotangent of ``H``, each iteration one
-    :func:`bwd_message` that adds the running ``dH0`` in the kernel, the
+    ``tiles``, or where the batch has none its split table and cross rows
+    ``split`` (:func:`message_table`), and a ``torch.matmul``. The backward is
+    written by hand: the per-iteration chain from the cotangent of ``H``, each
+    iteration one :func:`bwd_message` over the same table that adds the
+    running ``dH0`` in the kernel, the
     weight gradients through :func:`grad_weight` (its kernel with
     ``options.grad_w`` in bfloat16), ``db`` the sum of the accumulator."""
     if depth < 2:
         raise ValueError("depth_loop needs depth >= 2")
-    return _DepthLoop.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(), tiles)
+    return _DepthLoop.apply(H0, W, b, src, dst, rev, ptr, depth, options or KernelOptions(),
+                            message_table(tiles, split))
 
 
 class _DepthLoop(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles):
+    def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, table):
         H0 = H0.contiguous()
-        ys = _loop_forward(H0, W, b, (src, dst, rev, ptr), depth, tiles)
+        ys = _loop_forward(H0, W, b, (src, dst, rev, ptr), depth, None, table=table)
         ctx.save_for_backward(H0, W, b, src, dst, rev, ptr, *ys)
         ctx.grad_w = options.grad_w and H0.dtype == torch.bfloat16
-        ctx.tiles = tiles
+        ctx.table = table
         return ys[-1]
 
     @staticmethod
     def backward(ctx, g):
         H0, W, b, src, dst, rev, ptr, *ys = ctx.saved_tensors
         g = g.to(H0.dtype).contiguous()
-        grads = _loop_chain_bwd(g, ys, H0, W, b, (src, dst, rev, ptr), ctx.grad_w, ctx.tiles)
+        grads = _loop_chain_bwd(g, ys, H0, W, b, (src, dst, rev, ptr), ctx.grad_w, ctx.table)
         return *grads, *(None,) * 7
 
 
@@ -1035,10 +1197,11 @@ class _LoopReadout(torch.autograd.Function):
     def forward(ctx, H0, W, b, src, dst, rev, ptr, depth, options, tiles, split):
         graph = (src, dst, rev, ptr)
         H0 = H0.contiguous()
-        ys = _loop_forward(H0, W, b, graph, depth, tiles, options.iter2)
+        table = message_table(tiles, split)
+        ys = _loop_forward(H0, W, b, graph, depth, tiles, options.iter2, table)
         ctx.save_for_backward(H0, W, b, *graph, *ys)
         ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
-        ctx.tiles, ctx.split = tiles, split
+        ctx.tiles, ctx.split, ctx.table = tiles, split, table
         return _segment_sum(ys[-1], dst, ptr, H0.dtype, False)[0]
 
     @staticmethod
@@ -1070,4 +1233,4 @@ class _LoopReadout(torch.autograd.Function):
                 dH0 = dH0 + z
             return dH0, dW.to(W.dtype), None, *none
         # the per-iteration chain, from the cotangent of the last H
-        return *_loop_chain_bwd(g_Mv[dst.long()], ys, H0, W, b, graph, grad_w, ctx.tiles), *none
+        return *_loop_chain_bwd(g_Mv[dst.long()], ys, H0, W, b, graph, grad_w, ctx.table), *none

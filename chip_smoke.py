@@ -29,13 +29,17 @@ failure:
    and two calls equal, and both again on Tox21's 500 molecules in one batch
    (no tile table: its split table, molecules of more than 128 rows cut at
    their nodes' boundaries, and the cross rows formed again), bit for bit
-   equal to their forms without a table; the segment sum at both readouts (edges to nodes,
-   nodes to graphs) in all three dtype pairs, with and without counts, two
-   calls equal; the whole-iteration backward with the batch's tile table and
-   without one, gz equal bit for bit to the plain version in both forms, two
-   calls equal; the two chained iterations over the tile table equal to two
-   fused iterations bit for bit, with and without a bias, in two calls, its
-   padding rows zero where H0's are, and its launch shape (clusters of one
+   equal to their forms without a table, with the message and the masked
+   transposed message (unmasked, masked, with gz_acc) in float32 and
+   bfloat16 over the same split table, and the two second passes alone
+   (``SPLIT_PASSES``) against their plain versions and timed; the segment
+   sum at both readouts (edges to nodes, nodes to graphs) in all three dtype
+   pairs, with and without counts, two calls equal; the whole-iteration
+   backward with the batch's tile table and without one, gz equal bit for
+   bit to the plain version in both forms, two calls equal; the two chained
+   iterations over the tile table equal to two fused iterations bit for
+   bit, with and without a bias, in two calls, its padding rows zero where
+   H0's are, and its launch shape (clusters of one
    block per W slice); the machine code of the five Hopper kernels read for
    ``wgmma`` and TMA (the two chained iterations and the whole-iteration
    backward also for bulk copies), of the message over the tiles, the
@@ -188,10 +192,11 @@ failure:
    message table, [H ; E ; 0] at 400 columns, in both dtypes, and phase 7
    times it;
 12. molecule featurizers, multicomponent and reaction models, in this
-   process, each run first rehearsed on the CPU: its launches and its calls
-   without a tile table (``ops.UNSERVED``: mol+mol.csv's dyes of more than
-   128 directed edges leave A and F without one in f32) exactly the
-   rehearsal's, printed as ``{"multicomponent_unserved": ...}``: (a) one
+   process, each run first rehearsed on the CPU: its launches (the second
+   passes over split tables included: mol+mol.csv's dyes of more than 128
+   directed edges give their component one) exactly the rehearsal's, and
+   no call without a table (``ops.UNSERVED``), printed as
+   ``{"multicomponent_unserved": ...}``: (a) one
    bf16 ``train`` epoch on mol.csv with ``--molecule-featurizers
    morgan_binary v1_rdkit_2d``, its loss within phase 9(a)'s limit of the
    CPU's, then ``predict`` of its ``best.ckpt`` with them against the CPU's
@@ -275,8 +280,9 @@ failure:
    noised encoder and a 600-input readout) into
    ``chiprun_out/chip_smoke_v1_multi/``, then ``predict`` and
    ``fingerprint`` of it on the 100 rows of mol+mol.csv in f32 and bf16,
-   rehearsed on the CPU (A, or B in bf16, and C for each component; the
-   calls without a tile table exactly the rehearsal's), held to the CPU in
+   rehearsed on the CPU (A, or B in bf16, and C for each component, A's
+   second pass over the dyes' split table; the calls without a tile table
+   exactly the rehearsal's), held to the CPU in
    units of the unscaling (predictions) or of the fingerprints' RMS: f32 at
    phase 3's limits, bf16 within 1e-3 or twice what bf16 rounding moves the
    CPU's output from its f32 output, and within phase 3's bf16 envelope; (b) ``python -m chemprop_tpu_torch.cli --version`` and
@@ -317,8 +323,8 @@ failure:
    then fixed-order ``predict`` of its weights in f32 and bf16, each
    rehearsed on the CPU (launches and calls without a tile table exactly
    the rehearsal's); each batch's calls without a tile table read around
-   its step or forward (``per_batch``): none in a batch of small molecules,
-   and their count beside the count with ``_isolate_oversized = False``;
+   its step or forward (``per_batch``): none in any batch, with the giant's
+   split table too, and none with ``_isolate_oversized = False``;
    the predictions in dataset order against the same rows at batch size 1
    at phase 3's f32 and bf16 limits; a second fit from the seed, its
    losses equal bit for bit; (b) ``MABTrainer.predict`` of
@@ -428,6 +434,27 @@ KERNELS = {
         replaces="chemprop_tpu/ops/grad_weight.py:34",
         tpu_kernel="_kernel via grad_weight",
         timed="grad_weight",
+    ),
+}
+# the second passes over a split table's cross rows (a batch holding a
+# molecule of more than 128 directed edges): each re-forms the rows that the
+# tile kernels of the TPU kernel it serves cannot form in their tile.
+# Phase 2 checks and times them alone on Tox21; a path launches them where
+# its batches hold split tables, so their counts are held to a rehearsal's,
+# never to ``PATH_KERNELS``
+SPLIT_PASSES = {
+    "message_rows": dict(
+        source="chemprop_tpu_torch/csrc/message.cu",
+        replaces="chemprop_tpu/ops/fused_message.py:244",
+        tpu_kernel="_kernel via _fused_message_impl (kw=2, 3), the rows across tiles",
+        timed="message_rows[float32]",
+    ),
+    "bwd_message_rows": dict(
+        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        replaces="chemprop_tpu/ops/fused_message.py:729",
+        tpu_kernel="_bwd_msg_kernel via _bwd_msg_impl (kw=2, 3), the rows across tiles; "
+                   "also G's and H's",
+        timed="bwd_message_rows[float32]",
     ),
 }
 # the launches of one forward and of one training step in each dtype; a
@@ -673,7 +700,9 @@ PLAIN_VERSIONS = {
     "message": {"message_plain": "message", "fused_iter_plain": "fused_iter",
                 "fused_iter2_plain": "fused_iter2", "bwd_message_plain": "bwd_message",
                 "bwd_message_nodes_plain": "bwd_message_nodes",
-                "bwd_message_premul_plain": "bwd_message_premul", "iter_bwd_plain": "iter_bwd"},
+                "bwd_message_premul_plain": "bwd_message_premul", "iter_bwd_plain": "iter_bwd",
+                "message_rows_plain": "message_rows",
+                "bwd_message_rows_plain": "bwd_message_rows"},
     "segment": {"sorted_segment_sum_plain": "sorted_segment_sum"},
     "gather": {"row_gather_plain": "row_gather"},
 }
@@ -1188,9 +1217,10 @@ def cli_predict(dtype: str, device: str | None, out: Path):
 def check_path_launches(path: str, launches: dict, exact: bool, want: dict | None = None) -> None:
     """Fail unless the path launched its kernels (with ``exact``, each the
     number of times one forward or one training step does, or ``want``'s
-    count for a run of several) and no other."""
+    count for a run of several) and no other; the second passes over split
+    tables (``SPLIT_PASSES``) are held to ``want`` alone."""
     counts = PATH_KERNELS[path] if want is None else want
-    for name in KERNELS:
+    for name in [*KERNELS, *(SPLIT_PASSES if want is not None else ())]:
         n, got = counts.get(name, 0), launches.get(name, 0)
         ok = got == n if exact or n == 0 else got > 0
         if not ok:
@@ -1848,23 +1878,27 @@ def extras_phase(ds, bmg, out_dir: Path) -> tuple[dict, dict]:
     return launches, res
 
 
-def check_split_tables(d: int, seed: int, errs: dict) -> dict:
-    """Phase 2, G and H on a split tile table: Tox21's 500 molecules
+def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> dict:
+    """Phase 2, A, F, G and H on a split tile table: Tox21's 500 molecules
     (classification/mol.csv, 8 of them of more than 128 directed edges) in one
     batch, which has no tile table; its split table cuts those molecules at
     their nodes' boundaries, and ``cross_rows`` lists the rows that read
-    another tile. G and H (``fold_h0`` on and off) with the split table must
+    another tile. A (f32 and bf16), F (f32 and bf16, unmasked, masked and
+    with gz_acc), G and H (``fold_h0`` on and off) with the split table must
     give the bits of their forms without a table on every row, in two calls,
-    and hold against their plain versions at the limits of the tiled
-    check."""
+    and hold against their plain versions at the limits of the tiled check.
+    Then the second passes alone (``message_rows``, ``bwd_message_rows``)
+    over the cross rows against their plain versions, and timed beside them
+    with the least time the card could take (``SPLIT_PASSES``)."""
     import torch
 
     from chemprop_tpu_torch.chem import make_mol
     from chemprop_tpu_torch.data.collate import batch_mol_graphs
     from chemprop_tpu_torch.featurizers import SimpleMoleculeMolGraphFeaturizer
-    from chemprop_tpu_torch.ops import bwd_message_nodes, bwd_message_premul
+    from chemprop_tpu_torch.ops import bwd_message, bwd_message_nodes, bwd_message_premul, message
     from chemprop_tpu_torch.ops.message import (
-        bwd_message_nodes_plain, bwd_message_premul_plain,
+        _cross_rows, _message_rows, _transposed, bwd_message_nodes_plain, bwd_message_plain,
+        bwd_message_premul_plain, bwd_message_rows_plain, message_plain, message_rows_plain,
     )
 
     feat = SimpleMoleculeMolGraphFeaturizer()
@@ -1882,13 +1916,46 @@ def check_split_tables(d: int, seed: int, errs: dict) -> dict:
     W = (torch.randn((d, d), generator=g, device="cuda") * d**-0.5).to(torch.bfloat16)
     g_nodes = torch.randn((n_v, d), generator=g, device="cuda").to(torch.bfloat16)
     g_nodes[-1] = 0
+    H32 = torch.randn((n_e, d), generator=g, device="cuda")
+    g32 = torch.randn((n_e, d), generator=g, device="cuda")
+    y32 = torch.randn((n_e, d), generator=g, device="cuda").clamp_min(0)  # a ReLU output
+    acc32 = torch.randn((n_e, d), generator=g, device="cuda")
     split = {"tiles": b.split_ptr, "cross": b.cross_rows}
+    table = (b.split_ptr, b.cross_rows)
 
     def same(tag, got, want):
+        got, want = [t for t in got if t is not None], [t for t in want if t is not None]
         if not all(torch.equal(x, w) for x, w in zip(got, want)):
             fail(f"{tag}: the split table's bits differ from the form without a table")
         if any(t[pad_rows].any() for t in got):
             fail(f"{tag}: a padding row is not zero")
+
+    # A, then F in its three forms: the tile kernel, then the pass over the
+    # cross rows (F's from g and y, never from gz_out), in f32 (only the
+    # summation order differs from the plain version's) and bf16 (f32 sums
+    # rounded once: a sum in another order may round to the neighbouring
+    # bf16 value)
+    for dt, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, BF16_ULP, 1e-6)):
+        name = str(dt).removeprefix("torch.")
+        x = H32.to(dt)
+        out = message(x, *graph, **split)
+        same(f"message[split,{name}]", (out,), (message(x, *graph),))
+        same(f"message[split,{name},again]", (message(x, *graph, **split),), (out,))
+        check(f"message[split,{name}]", out, message_plain(x, *graph), rtol, atol, errs)
+        gg, yy, acc = g32.to(dt), y32.to(dt), acc32.to(dt)
+        for form, y_, a_ in (("masked", yy, None), ("gz_acc", yy, acc)):
+            tag = f"bwd_message[split,{name},{form}"
+            out = bwd_message(gg, y_, *graph, gz_acc=a_, **split)
+            same(f"{tag}]", out, bwd_message(gg, y_, *graph, gz_acc=a_))
+            same(f"{tag},again]", bwd_message(gg, y_, *graph, gz_acc=a_, **split), out)
+            want_G, want_gz = bwd_message_plain(gg, y_, *graph, gz_acc=a_)
+            check(f"{tag},G]", out[0], want_G, rtol, atol, errs)
+            check(f"{tag},gz]", out[1], want_gz, rtol, atol, errs)
+        tag = f"bwd_message[split,{name},unmasked"
+        out = _transposed(gg, None, None, graph, table, with_gz=False)
+        same(f"{tag}]", out, _transposed(gg, None, None, graph, None, with_gz=False))
+        same(f"{tag},again]", _transposed(gg, None, None, graph, table, with_gz=False), out)
+        check(f"{tag},G]", out[0], bwd_message_plain(gg, None, *graph)[0], rtol, atol, errs)
 
     out = bwd_message_nodes(g_nodes, yb, *graph, **split)
     same("bwd_message_nodes[split]", out, bwd_message_nodes(g_nodes, yb, *graph))
@@ -1908,10 +1975,89 @@ def check_split_tables(d: int, seed: int, errs: dict) -> dict:
                                                                  gz_abs[b.rev.long()])
         check(f"{tag},G]", out[0], want_G, 2 * BF16_ULP, 1e-4, errs, terms[b.dst.long()])
         check(f"{tag},z]", out[1], want_z, 2 * BF16_ULP, 1e-4, errs)
+
+    # the two passes alone over the cross rows, the other rows NaN: those
+    # rows against the plain versions, the others untouched; then timed
+    cross, ids = b.cross_rows, (b.src.contiguous(), b.rev.contiguous(), b.edge_ptr.contiguous())
+    bw, _, f32_peak = peaks(card)
+    times = {}
+    for dt, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, BF16_ULP, 1e-6)):
+        name = str(dt).removeprefix("torch.")
+        x, gg, yy = H32.to(dt), g32.to(dt), y32.to(dt)
+        runs = {
+            "message_rows": (lambda o: _message_rows(x, *ids, cross, o),
+                             lambda o: message_rows_plain(x, *graph, cross, o),
+                             message_rows_bytes(b, d, x.element_size()), x),
+            "bwd_message_rows": (
+                lambda o: _cross_rows(gg, yy, b.dst, b.rev, b.edge_ptr, cross, o),
+                lambda o: bwd_message_rows_plain(gg, yy, *graph, cross, o),
+                bwd_message_rows_bytes(b, d, gg.element_size()), gg),
+        }
+        for kernel, (run, plain, nbytes, like) in runs.items():
+            out = torch.full_like(like, float("nan"))
+            run(out)
+            want = plain(torch.full_like(like, float("nan")))
+            others = torch.ones(n_e, dtype=torch.bool, device="cuda")
+            others[cross.long()] = False
+            if not torch.isnan(out[others]).all():
+                fail(f"{kernel}[{name}]: a row outside the cross rows was written")
+            check(f"{kernel}[{name}]", out[cross.long()], want[cross.long()], rtol, atol, errs)
+            adds = pass_adds(b, kernel) * d
+            tb, to = nbytes / bw * 1e3, adds / f32_peak * 1e3
+            ms = time_ms(lambda: run(out), reps)
+            entry = dict(ms=ms, plain_ms=time_ms(lambda: plain(out), reps), library_ms=None,
+                         bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                         share_of_bound=max(tb, to) / ms, shape=[cross.numel(), d], dtype=name,
+                         device_ms=device_ms(lambda: run(out)))
+            if dt == torch.float32:
+                times[kernel] = entry
+            else:
+                times[kernel][name] = entry
     res = {"rows": n_e, "real_rows": int(b.edge_mask.sum()), "tiles": b.split_ptr.numel() - 1,
-           "cross_rows": b.cross_rows.numel(), "d": d}
+           "cross_rows": cross.numel(), "d": d, "times": times}
     print(json.dumps({"split_tables": res}))
     return res
+
+
+def pass_rows(bmg, kernel: str):
+    """The rows a second pass reads for the batch's cross rows: the in-edges
+    of each listed row's source (A: they hold its reverse), or of its node
+    (F: their reverses are read), distinct."""
+    import torch
+
+    node = (bmg.src if kernel == "message_rows" else bmg.dst).long()[bmg.cross_rows.long()]
+    need = torch.zeros(bmg.V.shape[0], dtype=torch.bool, device=node.device)
+    need[node] = True
+    return torch.nonzero(need[bmg.dst.long()]).squeeze(1)
+
+
+def pass_adds(bmg, kernel: str) -> int:
+    """The adds of a second pass per column: each listed row sums its in-edge
+    range and subtracts one row."""
+    ptr = bmg.edge_ptr.long()
+    node = (bmg.src if kernel == "message_rows" else bmg.dst).long()[bmg.cross_rows.long()]
+    return int((ptr[node + 1] - ptr[node] + 1).sum())
+
+
+def message_rows_bytes(bmg, d: int, itemsize: int) -> int:
+    """The bytes A's second pass (``message_rows``) must move over the batch's
+    cross rows at width ``d``: the ``H`` rows it sums (the in-edges of the
+    listed rows' sources, which hold their reverses) read once, each listed
+    row written, and per listed row its entry of the list, its ``src`` and
+    ``rev`` and the two ``ptr`` entries of its source."""
+    n = bmg.cross_rows.numel()
+    return (pass_rows(bmg, "message_rows").numel() + n) * d * itemsize + 4 * 5 * n
+
+
+def bwd_message_rows_bytes(bmg, d: int, itemsize: int, masked: bool = True) -> int:
+    """The bytes F's second pass (``bwd_message_rows``) must move over the
+    batch's cross rows at width ``d``: ``g`` (and ``y`` with the mask) at the
+    reverses of the in-edges of the listed rows' nodes read once, each
+    listed row of ``G`` written, per listed row its entry of the list, its
+    ``dst`` and the two ``ptr`` entries of its node, and the ``rev`` of each
+    in-edge read."""
+    n, k = bmg.cross_rows.numel(), pass_rows(bmg, "bwd_message_rows").numel()
+    return (k * (1 + int(masked)) + n) * d * itemsize + 4 * 4 * n + 4 * k
 
 
 def read_targets(path: Path, bounded: bool = False) -> list[tuple]:
@@ -3245,9 +3391,10 @@ def multicomponent_training(out_dir: Path, launches: dict, unserved: dict) -> di
 def multicomponent_phase(card: str) -> tuple[dict, dict]:
     """Phase 12: molecule featurizers, the reference multicomponent and
     reaction checkpoints, and multicomponent and reaction training, each run
-    first rehearsed on the CPU: launches and calls without a tile table
-    exactly the rehearsal's (mol+mol's dyes of more than 128 directed edges
-    leave A and F without a table in f32)."""
+    first rehearsed on the CPU: launches exactly the rehearsal's (mol+mol's
+    dyes of more than 128 directed edges give their component a split table,
+    over which A, F, G and H run with their second passes), and no call
+    without a table."""
     import tempfile
 
     t0 = time.time()
@@ -3262,6 +3409,8 @@ def multicomponent_phase(card: str) -> tuple[dict, dict]:
     res["seconds"] = time.time() - t0
     print(json.dumps({"multicomponent_phase": res}))
     print(json.dumps({"multicomponent_unserved": unserved}))
+    if unserved:
+        fail(f"phase 12 left calls without a table: {unserved}")
     print(json.dumps({"phase": "multicomponent", "seconds": res["seconds"], "card": card}))
     return launches, res
 
@@ -4694,7 +4843,9 @@ def two_molecule_v1(out: Path, dataset_type: str = "regression", shared: bool = 
 
 
 V1_MULTI_FLAGS = ["-i", _MM, "-s", "smiles", "solvent"]
-V1_MULTI_PATHS = {"float32": {"message", "sorted_segment_sum"},
+# phase 18(a): the kernels each dtype's runs launch; mol+mol's dyes give
+# their component a split table, over which A takes its second pass
+V1_MULTI_PATHS = {"float32": {"message", "message_rows", "sorted_segment_sum"},
                   "bfloat16": {"fused_iter", "sorted_segment_sum"}}
 SPD_EPOCHS, SPD_K = 3, 4  # phase 18(c): epochs of each fit, steps_per_dispatch
 # phase 18(a): bf16 on the card and on the CPU are two roundings of one f32
@@ -5180,8 +5331,9 @@ class per_batch:
 
 def isolated_share(tag: str, rec: dict, giants: set) -> dict:
     """The calls without a tile table in the batches of giants and in the
-    others; fatal where a batch of small molecules has any, or where a batch
-    mixes both kinds (the loader isolated nothing)."""
+    others; fatal where a batch has any (the giants' batches take their
+    split tables), or where a batch mixes both kinds (the loader isolated
+    nothing)."""
     if len(rec["batches"]) != len(rec["unserved"]):
         fail(f"{tag}: {len(rec['batches'])} batches collated, {len(rec['unserved'])} calls")
     out = {"isolated_batches": 0, "isolated": {}, "other": {}}
@@ -5193,8 +5345,8 @@ def isolated_share(tag: str, rec: dict, giants: set) -> dict:
         out["isolated_batches"] += key == "isolated"
         for k, v in calls.items():
             out[key][k] = out[key].get(k, 0) + v
-    if out["other"]:
-        fail(f"{tag}: batches of small molecules left calls without a tile table: {out}")
+    if out["other"] or out["isolated"]:
+        fail(f"{tag}: batches left calls without a tile table: {out}")
     return out
 
 
@@ -5277,6 +5429,8 @@ def isolation_mixed(ds, launches: dict, unserved: dict) -> dict:
              f"{[h['train_loss'] for h in again.history]}")
     _, off = isolation_fit(ds, None, isolate=False)
     res["fit"]["unserved_without_isolation"] = summed_calls(off["unserved"])
+    if res["fit"]["unserved_without_isolation"]:
+        fail(f"the fit without isolation left calls without a table: {res['fit']}")
     state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
     limits = {"float32": (1e-5, 1e-4), "bfloat16": (0.0, 1e-3)}  # phase 3's
     for dt_name, (rtol, atol) in limits.items():
@@ -5293,6 +5447,8 @@ def isolation_mixed(ds, launches: dict, unserved: dict) -> dict:
                     "unserved_without_isolation": summed_calls(flat["unserved"]),
                     "batches": len(rec["batches"]),
                     "batches_without_isolation": len(flat["batches"])}
+        if res[tag]["unserved_without_isolation"]:
+            fail(f"{tag} without isolation left calls without a table: {res[tag]}")
         if preds.shape != (len(ds), 1) or not np.isfinite(preds).all():
             fail(f"{tag}: predictions of shape {preds.shape}, or not finite")
         if not np.allclose(preds, one, rtol=rtol, atol=atol):
@@ -5470,6 +5626,8 @@ def isolation_phase(card: str) -> tuple[dict, dict]:
     res["seconds"] = time.time() - t0
     print(json.dumps({"isolation_phase": {k: v for k, v in res.items() if k != "examples"}}))
     print(json.dumps({"isolation_unserved": unserved}))
+    if unserved:
+        fail(f"phase 20 left calls without a table: {unserved}")
     print(json.dumps({"isolation_launches": {k: v for k, v in launches.items()
                                              if not k.startswith("example_")}}))
     print(json.dumps({"phase": "isolation", "seconds": res["seconds"],
@@ -5594,7 +5752,7 @@ def main() -> int:
     }
     print(json.dumps({"sorted_segment_sum_launch": seg_launch}))
     tensors, errs = check_kernels(bmg, d, args.seed)
-    split_res = check_split_tables(d, args.seed, errs)
+    split_res = check_split_tables(d, args.seed, errs, args.reps, kind)
 
     out_dir = REPO / "chiprun_out"
     (out_dir / "chip_smoke_preds").mkdir(parents=True, exist_ok=True)
@@ -5620,8 +5778,7 @@ def main() -> int:
     launches.update(hpopt_launches)
     # the timings take A's and F's forms without a table on purpose: the main
     # paths' unserved calls are read before them, the benchmark steps' after;
-    # phases 12 and 13 hold theirs to their rehearsals' inside them (mol+mol's
-    # dyes)
+    # phases 12 to 20 hold theirs to their rehearsals' inside them
     unserved = dict(UNSERVED)
     multi_launches, multi_res = multicomponent_phase(card)
     launches.update(multi_launches)
@@ -5725,6 +5882,17 @@ def main() -> int:
             "share_of_bound", "device_ms")}))
     for key in ("float32", "max_abs_err_by_check"):
         kernels[-1].pop(key, None)
+    # the second passes over split tables, launched where a path's batches
+    # hold one (phases 8, 12, 17 and 20), timed on Tox21 in phase 2
+    for name, meta in SPLIT_PASSES.items():
+        by_path = {p: launches[p][name] for p in launches if launches[p].get(name)}
+        if not by_path:
+            fail(f"no path launched {name}: the split tables' batches did not reach it")
+        checks = {tag: err for tag, err in errs.items() if tag.split("[")[0] == name}
+        kernels.append(dict(
+            name=name, route="cuda", **meta, launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=errs[meta["timed"]],
+            max_abs_err_by_check=checks, **split_res["times"][name]))
     record = {"card": card, "kind": kind, "build_s": build_s,
               "build_s_by_source": {name: sec for name, (_, sec) in logs.items()},
               "sass": sass, "fused_iter_launch": launch, "fused_iter2_launch": iter2_launch,

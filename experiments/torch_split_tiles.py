@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""Kernels G and H of the PyTorch/CUDA port over a split tile table on one
-GPU, beside their forms without a table, and one bf16 training step with
-each.
+"""Kernels A, F, G and H of the PyTorch/CUDA port over a split tile table on
+one GPU, beside their forms without a table, the second passes alone, and
+three training steps with the split table and without it.
 
     python3 experiments/torch_split_tiles.py [--reps 21] [--copies 1,4]
+                                             [--tree DIR] [--steps-only]
 
 The batch is Tox21 (tests/data/classification/mol.csv: 500 molecules, 8 of
 them of more than 128 directed edges) collated once (``--copies 1``) or
 several times over (``4``: 2000 molecules). It has no tile table: its split
 table (``BatchMolGraph.split_ptr``) cuts those molecules at their nodes'
 boundaries, and ``cross_rows`` lists the rows whose sum reads another tile.
-At d = 384 (the default model's hidden width 300, padded) in bf16, G
-(``bwd_message_nodes``) and H (``bwd_message_premul``, with and without
-``fold_h0``) over the split table are checked bit-equal to their forms
-without a table (the node-warp pass of message_bwd.cu; H's product over
-fixed tiles then that pass) and timed beside them: medians of ``--reps``
-runs of 5 calls between CUDA events, and device microseconds per call of
-every kernel each launches, from a ``torch.profiler`` trace of 10 calls. The
-cross-rows pass (``ops.message._cross_rows``) is timed alone. Then one bf16
-training step of the BCE model at full width (``chip_smoke.head_model``:
-hidden width 300, depth 3, batch norm, 4 tasks) on the batch, with the split
-table and with it taken away: wall milliseconds (events) and device
-milliseconds (trace). Every line carries the card's name and power limit;
-the record goes to chiprun_out/torch_split_tiles.json."""
+At d = 384 (the default model's hidden width 300, padded):
+
+* A (``message``) in f32 and bf16, F (``bwd_message``) in f32 and bf16 with
+  the mask, with and without ``gz_acc``, G (``bwd_message_nodes``) and H
+  (``bwd_message_premul``, with and without ``fold_h0``) in bf16 over the
+  split table, each checked bit-equal to its form without a table
+  (``message.cu``, the node-warp pass of ``message_bwd.cu``; H's product
+  over fixed tiles then that pass) and timed beside it;
+* the second passes alone over the cross rows: A's (``message_rows``) in
+  f32 and bf16, F's (``bwd_message_rows`` from g and y) in f32 and bf16,
+  and G's and H's (the same kernel from the gz table, no mask) in bf16;
+* one f32 training step and one bf16 step with dropout 0.1 of the default
+  model at full width with a BCE head (``chip_smoke.head_model``: depth 3,
+  batch norm, 4 tasks), and one bf16 step without dropout, each with the
+  split table and with it taken away.
+
+Times are medians of ``--reps`` runs of 5 calls (2 for a step) between CUDA
+events, and device microseconds per call of every kernel each call
+launches, from a ``torch.profiler`` trace of 10 calls (5 for a step).
+``--tree DIR`` imports the package (and ``chip_smoke``) from another
+checkout, e.g. the parent commit unpacked under ``_chip_checkout/``, so that
+both are timed in one call; ``--steps-only`` times the steps alone (the
+parent's A and F take no split table). Every line carries the card's name
+and power limit; the record goes to
+chiprun_out/torch_split_tiles[_steps][_<tree>].json."""
 
 from __future__ import annotations
 
@@ -37,91 +50,158 @@ REPO = Path(__file__).resolve().parent.parent
 D = 384
 
 
+def kernel_times(b, copies: int, reps: int) -> dict:
+    """A, F, G and H over the split table and without a table, checked
+    bit-equal, and the second passes alone: event and device times."""
+    import torch
+    from chip_smoke import time_ms
+    from experiments.torch_fused_iter import profile
+
+    from chemprop_tpu_torch.ops import bwd_message, bwd_message_nodes, bwd_message_premul, message
+    from chemprop_tpu_torch.ops.message import _cross_rows, _message_rows
+
+    graph = (b.src, b.dst, b.rev, b.edge_ptr)
+    n_e, n_v = b.E.shape[0], b.V.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(copies)
+
+    def randn(shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+    t = {dt: {"H": randn((n_e, D), dt), "g": randn((n_e, D), dt),
+              "y": randn((n_e, D), dt).clamp_min(0), "acc": randn((n_e, D), dt)}
+         for dt in (torch.float32, torch.bfloat16)}
+    yb, H0, g_nodes = t[torch.bfloat16]["y"], randn((n_e, D)), randn((n_v, D))
+    W = randn((D, D), scale=D**-0.5)
+    g_nodes[-1] = 0
+    split = {"tiles": b.split_ptr, "cross": b.cross_rows}
+    fns = {}
+    for dt, x in t.items():
+        name = str(dt).removeprefix("torch.")
+        fns[f"A {name} split"] = lambda x=x: message(x["H"], *graph, **split)
+        fns[f"A {name} without a table"] = lambda x=x: message(x["H"], *graph)
+        for form, acc in (("", None), (" gz_acc", "acc")):
+            kw = lambda x=x, acc=acc: dict(gz_acc=x[acc] if acc else None)  # noqa: E731
+            fns[f"F {name}{form} split"] = lambda x=x, kw=kw: bwd_message(
+                x["g"], x["y"], *graph, **kw(), **split)
+            fns[f"F {name}{form} without a table"] = lambda x=x, kw=kw: bwd_message(
+                x["g"], x["y"], *graph, **kw())
+    fns.update({
+        "G split": lambda: bwd_message_nodes(g_nodes, yb, *graph, **split),
+        "G without a table": lambda: bwd_message_nodes(g_nodes, yb, *graph),
+        "H fold_h0 split": lambda: bwd_message_premul(t[torch.bfloat16]["g"], yb, H0, W, *graph,
+                                                      fold_h0=True, **split),
+        "H fold_h0 without a table": lambda: bwd_message_premul(t[torch.bfloat16]["g"], yb, H0, W,
+                                                                *graph, fold_h0=True),
+        "H split": lambda: bwd_message_premul(t[torch.bfloat16]["g"], yb, None, W, *graph,
+                                              **split),
+        "H without a table": lambda: bwd_message_premul(t[torch.bfloat16]["g"], yb, None, W,
+                                                        *graph),
+    })
+    kernels = sorted({k.removesuffix(" split") for k in fns if k.endswith(" split")})
+    for k in kernels:
+        got, want = fns[f"{k} split"](), fns[f"{k} without a table"]()
+        got, want = (got,) if isinstance(got, torch.Tensor) else got, \
+            (want,) if isinstance(want, torch.Tensor) else want
+        if not all(torch.equal(x, w) for x, w in zip(got, want)):
+            raise SystemExit(f"torch_split_tiles: {k} over the split table differs")
+    # the passes alone, into a scratch output (each overwrites the same rows)
+    ids, cross = (b.src, b.rev, b.edge_ptr), b.cross_rows
+    for dt, x in t.items():
+        name = str(dt).removeprefix("torch.")
+        out = torch.empty_like(x["H"])
+        fns[f"A pass {name}"] = lambda x=x, out=out: _message_rows(x["H"], *ids, cross, out)
+        fns[f"F pass {name}"] = lambda x=x, out=out: _cross_rows(x["g"], x["y"], b.dst, b.rev,
+                                                                 b.edge_ptr, cross, out)
+    gz, G = fns["G split"]()[1], torch.empty_like(yb)
+    fns["G and H pass bfloat16"] = lambda: _cross_rows(gz, None, b.dst, b.rev, b.edge_ptr, cross,
+                                                       G)
+    return {"ms": {k: time_ms(f, reps) for k, f in fns.items()}, "device_us": profile(fns)}
+
+
+def step_times(batch, reps: int) -> dict:
+    """Three training steps of the full-width BCE model, with the split table
+    and with it taken away: event and device milliseconds, and the launches
+    and unserved calls of one step with it."""
+    import torch
+    from chip_smoke import head_model, time_ms
+    from experiments.torch_fused_iter import profile
+
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+    from chemprop_tpu_torch.train import Trainer
+
+    b = batch.bmg
+    unsplit = batch._replace(bmg=dataclasses.replace(b, split_ptr=None, cross_rows=None))
+    res = {}
+    for name, dtype, rate in (("float32", torch.float32, 0.0),
+                              ("bfloat16 dropout", torch.bfloat16, 0.1),
+                              ("bfloat16", torch.bfloat16, 0.0)):
+        model = head_model(dtype, "BinaryClassificationFFN", n_tasks=4)
+        model.message_passing.drop.rate = rate  # dropout between the iterations
+        trainer = Trainer(model, max_epochs=20, warmup_epochs=2, seed=12)
+        trainer.init_state(batch, 8)
+        steps = {f"{name} split": lambda: trainer.train_step(batch),
+                 f"{name} without a table": lambda: trainer.train_step(unsplit)}
+        UNSERVED.clear()
+        LAUNCHES.clear()
+        steps[f"{name} split"]()
+        res[f"{name} split launches"] = dict(LAUNCHES)
+        res[f"{name} split unserved"] = {k: v for k, v in UNSERVED.items() if v}
+        res.setdefault("ms", {}).update({k: time_ms(f, reps, inner=2) for k, f in steps.items()})
+        traces = profile(steps, calls=5)
+        res.setdefault("device_ms", {}).update(
+            {k: sum(v.values()) / 1e3 for k, v in traces.items()})
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=21)
     ap.add_argument("--copies", default="1,4")
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="import chemprop_tpu_torch and chip_smoke from this checkout instead")
+    ap.add_argument("--steps-only", action="store_true", help="time the training steps alone")
     args = ap.parse_args()
+    tree = (args.tree or REPO).resolve()
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(tree))
     import torch
 
     if not torch.cuda.is_available():
         print("torch_split_tiles: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import head_dataset, head_model, read_targets, time_ms
-    from experiments.torch_fused_iter import profile
+    import chemprop_tpu_torch
+    from chip_smoke import head_dataset, read_targets
 
     from chemprop_tpu_torch.data import collate_batch
-    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED, bwd_message_nodes, bwd_message_premul
-    from chemprop_tpu_torch.ops.message import _cross_rows
-    from chemprop_tpu_torch.train import Trainer
 
+    if Path(chemprop_tpu_torch.__file__).resolve().parent.parent != tree:
+        print(f"imported {chemprop_tpu_torch.__file__}, not {tree}", file=sys.stderr)
+        return 1
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    ds = head_dataset(read_targets(REPO / "tests/data/classification/mol.csv"))[0]
+    ds = head_dataset(read_targets(tree / "tests/data/classification/mol.csv"))[0]
     data = [ds[i] for i in range(len(ds))]
-    record = {"card": card, "d": D, "batches": []}
+    record = {"card": card, "d": D, "tree": str(tree), "batches": []}
     for copies in map(int, args.copies.split(",")):
-        host = collate_batch(data * copies)
-        batch = host.to("cuda")
+        batch = collate_batch(data * copies).to("cuda")
         b = batch.bmg
         if b.tile_ptr is not None or b.split_ptr is None:
             print("torch_split_tiles: the batch should have a split table only", file=sys.stderr)
             return 1
-        graph = (b.src, b.dst, b.rev, b.edge_ptr)
-        n_e, n_v = b.E.shape[0], b.V.shape[0]
-        g = torch.Generator(device="cuda").manual_seed(copies)
-        y = torch.randn((n_e, D), generator=g, device="cuda").clamp_min(0).to(torch.bfloat16)
-        g_in = torch.randn((n_e, D), generator=g, device="cuda").to(torch.bfloat16)
-        H0 = torch.randn((n_e, D), generator=g, device="cuda").to(torch.bfloat16)
-        W = (torch.randn((D, D), generator=g, device="cuda") * D**-0.5).to(torch.bfloat16)
-        g_nodes = torch.randn((n_v, D), generator=g, device="cuda").to(torch.bfloat16)
-        g_nodes[-1] = 0
-        split = {"tiles": b.split_ptr, "cross": b.cross_rows}
-        fns = {
-            "G split": lambda: bwd_message_nodes(g_nodes, y, *graph, **split),
-            "G without a table": lambda: bwd_message_nodes(g_nodes, y, *graph),
-            "H fold_h0 split": lambda: bwd_message_premul(g_in, y, H0, W, *graph, fold_h0=True,
-                                                          **split),
-            "H fold_h0 without a table": lambda: bwd_message_premul(g_in, y, H0, W, *graph,
-                                                                    fold_h0=True),
-            "H split": lambda: bwd_message_premul(g_in, y, None, W, *graph, **split),
-            "H without a table": lambda: bwd_message_premul(g_in, y, None, W, *graph),
-        }
-        for a in ("G", "H fold_h0", "H"):
-            got, want = fns[f"{a} split"](), fns[f"{a} without a table"]()
-            if not all(torch.equal(x, w) for x, w in zip(got, want)):
-                print(f"torch_split_tiles: {a} over the split table differs", file=sys.stderr)
-                return 1
-        gz, G = fns["G split"]()[1], torch.empty_like(y)
-        fns["cross rows alone"] = lambda: _cross_rows(gz, b.dst, b.rev, b.edge_ptr, b.cross_rows, G)
-        res = {"card": card, "copies": copies, "molecules": len(data) * copies, "rows": n_e,
+        res = {"card": card, "tree": str(tree), "copies": copies,
+               "molecules": len(data) * copies, "rows": b.E.shape[0],
                "real_rows": int(b.edge_mask.sum()), "tiles": b.split_ptr.numel() - 1,
-               "cross_rows": b.cross_rows.numel(),
-               "ms": {k: time_ms(f, args.reps) for k, f in fns.items()},
-               "device_us": profile(fns)}
-
-        # one bf16 training step of the BCE model, with the split table and without
-        unsplit = batch._replace(bmg=dataclasses.replace(b, split_ptr=None, cross_rows=None))
-        trainer = Trainer(head_model(torch.bfloat16, "BinaryClassificationFFN", n_tasks=4),
-                          max_epochs=20, warmup_epochs=2, seed=12)
-        trainer.init_state(batch, 8)
-        steps = {"step split": lambda: trainer.train_step(batch),
-                 "step without a table": lambda: trainer.train_step(unsplit)}
-        UNSERVED.clear()
-        LAUNCHES.clear()
-        steps["step split"]()
-        res["step_split_unserved"] = dict(UNSERVED)
-        res["step_split_launches"] = dict(LAUNCHES)
-        res["step_ms"] = {k: time_ms(f, args.reps, inner=2) for k, f in steps.items()}
-        traces = profile(steps, calls=5)
-        res["step_device_ms"] = {k: sum(v.values()) / 1e3 for k, v in traces.items()}
+               "cross_rows": b.cross_rows.numel()}
+        if not args.steps_only:
+            res["kernels"] = kernel_times(b, copies, args.reps)
+        res["steps"] = step_times(batch, args.reps)
         record["batches"].append(res)
         print(json.dumps(res), flush=True)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "torch_split_tiles.json").write_text(json.dumps(record, indent=1))
+    tag = ("_steps" if args.steps_only else "") + ("" if args.tree is None else f"_{tree.name}")
+    (out / f"torch_split_tiles{tag}.json").write_text(json.dumps(record, indent=1))
     print(card)
     return 0
 

@@ -1868,6 +1868,113 @@ def test_loop_readout_over_the_split_table_serves_g_and_h(cuda, depth):
     assert LAUNCHES["bwd_message_nodes"] == 1 and LAUNCHES["bwd_message_premul"] == depth - 2
 
 
+# --------------------------------------------- A and F over a split table
+def _split_forms(b, run):
+    """``run(tiles, cross)`` with the batch's split table and cross rows,
+    again, and without a table: the three results, every launch of the first
+    call counted."""
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    got = run(b.split_ptr, b.cross_rows)
+    launched, unserved = dict(LAUNCHES), dict(UNSERVED)
+    return got, run(b.split_ptr, b.cross_rows), run(None, None), launched, unserved
+
+
+def _same(*outs):
+    first = [t for t in outs[0] if t is not None]
+    return all(all(torch.equal(x, w) for x, w in zip(first, [t for t in o if t is not None]))
+               for o in outs[1:])
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_message_over_the_split_table_matches_its_form_without_one(cuda, dtype, d):
+    """A's tile kernel over Tox21's split table, then message_rows over the
+    cross rows: every row, padding included, bit-equal to message.cu's form,
+    two calls equal, one launch of each counted, nothing unserved."""
+    b = _tox21_bmg(cuda)
+    H = _randn((b.E.shape[0], d), 90, cuda, dtype)
+    got, again, want, launched, unserved = _split_forms(
+        b, lambda t, c: (message(H, *_graph(b), t, c),))
+    assert _same(got, want) and _same(got, again)
+    assert launched == {"message": 1, "message_rows": 1} and not unserved.get("message")
+    assert not got[0][_pad_rows(b)].any()
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("form", ["message_backward", "masked", "gz_acc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_message_over_the_split_table_matches_its_form_without_one(cuda, dtype, form, d):
+    """F's tile kernel over Tox21's split table, then bwd_message_rows over
+    the cross rows from g and y: G and gz bit-equal to the node-warp form on
+    every row, unmasked (the message's own backward, y=None, no gz), masked,
+    and masked with gz_acc (G from the unaccumulated gz); two calls equal."""
+    b = _tox21_bmg(cuda)
+    n = b.E.shape[0]
+    g = _randn((n, d), 91, cuda, dtype)
+    y = _randn((n, d), 92, cuda, dtype).clamp_min(0) if form != "message_backward" else None
+    acc = _randn((n, d), 93, cuda, dtype) if form == "gz_acc" else None
+    if form == "message_backward":
+        def run(t, c):
+            x = torch.zeros_like(g).requires_grad_()
+            return torch.autograd.grad(message(x, *_graph(b), t, c), x, g)
+    else:
+        def run(t, c):
+            return bwd_message(g, y, *_graph(b), gz_acc=acc, tiles=t, cross=c)
+    got, again, want, launched, unserved = _split_forms(b, run)
+    assert _same(got, want) and _same(got, again)
+    assert launched.get("bwd_message") == launched.get("bwd_message_rows") == 1, launched
+    assert not unserved.get("bwd_message")
+    assert all(not t[_pad_rows(b)].any() for t in got if t is not None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multicomponent_graphs_take_their_own_tables(cuda, dtype):
+    """mol+mol rows 20-27: the dyes' graph has a split table, the solvents' a
+    tile table; A and F over each graph's own table give the bits of their
+    forms without a table, the passes launched for the split one alone; and
+    a two-block f32 or bf16 model's forward and gradients on the card with
+    the tables equal those with both tables taken away, nothing unserved."""
+    import dataclasses
+
+    from chemprop_tpu_torch.models import MulticomponentMPNN
+    from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
+    from chemprop_tpu_torch.nn.message_passing import MulticomponentMessagePassing
+
+    rel, cols, rows, _ = MULTI["two_blocks"]
+    bmgs = _batch_of(_rows_of(rel, cols, list(rows)), cuda)
+    assert bmgs[0].split_ptr is not None and bmgs[1].tile_ptr is not None
+    for k, gr in enumerate(bmgs):
+        H = _randn((gr.E.shape[0], 128), 94 + k, cuda, dtype)
+        y = H.clamp_min(0)
+        tables = ((gr.split_ptr, gr.cross_rows) if gr.tile_ptr is None else (gr.tile_ptr, None))
+        LAUNCHES.clear()
+        got = (message(H, *_graph(gr), *tables),
+               *bwd_message(H, y, *_graph(gr), tiles=tables[0], cross=tables[1]))
+        assert LAUNCHES.get("message_rows", 0) == LAUNCHES.get("bwd_message_rows", 0) == (k == 0)
+        want = (message(H, *_graph(gr)), *bwd_message(H, y, *_graph(gr)))
+        assert _same(got, want), k
+    widths = [(gr.V.shape[1], gr.E.shape[1]) for gr in bmgs]
+    torch.manual_seed(6)
+    blocks = [BondMessagePassing(d_v=v, d_e=e, d_h=64, compute_dtype=dtype) for v, e in widths]
+    model = MulticomponentMPNN(MulticomponentMessagePassing(blocks, 2, False), MeanAggregation(),
+                               RegressionFFN(input_dim=128, hidden_dim=64,
+                                             output_transform=False)).to(cuda)
+
+    def run(graphs):
+        out = model(graphs, None, None)
+        return (out, *torch.autograd.grad(out.float().sum(), list(model.parameters())))
+
+    bare = tuple(dataclasses.replace(gr, tile_ptr=None, split_ptr=None, cross_rows=None)
+                 for gr in bmgs)
+    UNSERVED.clear()
+    LAUNCHES.clear()
+    got = run(bmgs)
+    assert not UNSERVED.get("message") and not UNSERVED.get("bwd_message")
+    assert LAUNCHES.get("bwd_message_rows", 0) > 0
+    assert _same(got, run(bmgs)) and _same(got, run(bare))
+
+
 # ------------------------------------------------------- train and serve (CLI)
 def _train_run(out, device: str):
     import json
@@ -2408,7 +2515,8 @@ def test_explainer_batches_on_card_match_cpu(cuda, dtype, case):
     """The Myerson explainer's padded subgraph batches at full width (the
     reference checkpoint) on the card against the CPU, at phase 3's limits
     (f32 rtol 1e-5 / atol 1e-4; bf16 atol 1e-3); each batch launches the
-    forward's kernels, A (f32) or B (bf16) and C twice."""
+    forward's kernels, A (f32) or B (bf16) and C twice, and a molecule over
+    a tile gives A its split table (A's second pass, nothing unserved)."""
     smi, masks_of, per_batch = EXPLAINED[case]
     mg = SimpleMoleculeMolGraphFeaturizer()(make_mol(smi))
     masks = masks_of(mg.V.shape[0])
@@ -2421,8 +2529,9 @@ def test_explainer_batches_on_card_match_cpu(cuda, dtype, case):
     n_batches = -(-len(masks) // min(per_batch, len(masks)))
     first = "message" if dtype == torch.float32 else "fused_iter"
     assert LAUNCHES[first] == 2 * n_batches and LAUNCHES["sorted_segment_sum"] == 2 * n_batches
-    over = case == "over_a_tile" and dtype == torch.float32  # A without a tile table
-    assert UNSERVED.get("message", 0) - before.get("message", 0) == (2 * n_batches if over else 0)
+    over = case == "over_a_tile" and dtype == torch.float32  # A over the split table
+    assert LAUNCHES.get("message_rows", 0) == (2 * n_batches if over else 0)
+    assert UNSERVED.get("message", 0) - before.get("message", 0) == 0
     assert got.shape == want.shape == (len(masks), 1) and np.isfinite(got).all()
     if dtype == torch.float32:
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
@@ -2658,10 +2767,10 @@ def _mixed(n_rows: int, rows: tuple):
 def test_isolated_giants_on_card_predict_in_dataset_order(cuda, dtype):
     """A shuffled fit of 40 molecules and three giants, then a fixed-order
     ``predict`` in batches of 16 at full width on the card: the giants' batch
-    alone without a tile table (the others keep theirs: ``UNSERVED`` grows by
-    that batch's A calls in f32, by none in bf16), the predictions in dataset
-    order equal to the batch-size-1 ones within phase 3's limits, two fits
-    equal bit for bit."""
+    alone without a tile table, with a split table instead (its two A calls
+    take their second passes in f32; nothing is unserved), the predictions
+    in dataset order equal to the batch-size-1 ones within phase 3's
+    limits, two fits equal bit for bit."""
     from chemprop_tpu_torch.data import DataLoader
     from chemprop_tpu_torch.models import MPNN
     from chemprop_tpu_torch.nn import BondMessagePassing, MeanAggregation, RegressionFFN
@@ -2681,10 +2790,11 @@ def test_isolated_giants_on_card_predict_in_dataset_order(cuda, dtype):
                                                           trainer.history]
     loader = DataLoader(ds, batch_size=16)
     assert loader.emitted_order().tolist()[-3:] == [5, 20, 30]
-    before = dict(UNSERVED)
+    before, passes = dict(UNSERVED), LAUNCHES["message_rows"]
     got = trainer.predict(loader)
     calls = {k: v - before.get(k, 0) for k, v in UNSERVED.items() if v != before.get(k, 0)}
-    assert calls == ({"message": 2} if dtype == torch.float32 else {})
+    assert calls == {}
+    assert LAUNCHES["message_rows"] - passes == (2 if dtype == torch.float32 else 0)
     one = trainer.predict(DataLoader(ds, batch_size=1))
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (0.0, 1e-3)
     np.testing.assert_allclose(got, one, rtol=rtol, atol=atol)
