@@ -54,6 +54,13 @@
 //
 // Every output row is written by one block, in one fixed order of k, with
 // no atomics: the result is the same bit for bit in every run.
+//
+// fused_iter_rows is the same kernel over a list of rows (LISTED): its tiles
+// are 64 listed rows each, gathered as B gathers, multiplied in B's order of
+// K, finished by B's epilogue, and written back to their own rows of y; H0's
+// rows come in by plain loads, laid out as TMA lays them. So every listed row
+// gets the bits B gives it. It is kernel D's row pass over a split tile table
+// (iter2.cu): the rows of y1, then of y2, that D cannot form in their tile.
 #include "fused_iter.cuh"
 
 constexpr int FI_GATHER_WARPS = 8;
@@ -108,8 +115,9 @@ __device__ __forceinline__ void product_stage(float (&acc)[N / 2], uint32_t (&a)
 // with the resident W slice, then y = relu(H0 + z [+ b]) from registers,
 // with H0's slice of the tile brought into shared memory by TMA meanwhile
 // (the epilogue and the copy-out are fused_iter.cuh's)
-template <int N>
-__device__ __forceinline__ void consume(const CUtensorMap* th0, const bf16* __restrict__ b,
+template <int N, bool LISTED>
+__device__ __forceinline__ void consume(const CUtensorMap* th0, const bf16* __restrict__ H0,
+                                        const int* __restrict__ list, const bf16* __restrict__ b,
                                         bf16* __restrict__ y, const Smem& sm, uint8_t* h0,
                                         int n_edges, int d, int n0, int first, int step,
                                         int n_stages) {
@@ -121,10 +129,23 @@ __device__ __forceinline__ void consume(const CUtensorMap* th0, const bf16* __re
     for (int j = 0; j < NB; ++j)
       tma_load_2d(sm.h0 + j * FI_BOX, th0, sm.h0bar, n0 + 64 * j, tile * FI_ROWS);
   };
-  if (t == 0 && first < tiles) load_h0(first);
+  if (!LISTED && t == 0 && first < tiles) load_h0(first);
   int c = 0;  // the block's stage count: stage c % n_stages, round c / n_stages
   int iter = 0;
   for (int tile = first; tile < tiles; tile += step, ++iter) {
+    if constexpr (LISTED) {  // the listed rows' H0 slice, swizzled as TMA lays it
+#pragma unroll
+      for (int i = t; i < NB * FI_ROWS * 8; i += 128) {
+        const int box = i / (FI_ROWS * 8), r = i / 8 % FI_ROWS, ch = i % 8;
+        const int e = tile * FI_ROWS + r;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (e < n_edges)
+          v = __ldg(reinterpret_cast<const uint4*>(H0 + (size_t)__ldg(list + e) * d + n0 +
+                                                   64 * box + 8 * ch));
+        *reinterpret_cast<uint4*>(h0 + box * FI_BOX + r * 128 + ((ch ^ (r % 8)) << 4)) = v;
+      }
+      consumer_sync();
+    }
     float acc[N / 2];
     uint32_t a0[4][4], a1[4][4];  // two stages' fragments: one in flight, one loading
     for (int kb = 0; kb < nk; kb += 2, c += 2) {
@@ -133,12 +154,12 @@ __device__ __forceinline__ void consume(const CUtensorMap* th0, const bf16* __re
     }
     wgmma_wait<0>();
 
-    mbar_wait(sm.h0bar, iter & 1);
+    if (!LISTED) mbar_wait(sm.h0bar, iter & 1);
     epilogue<N>(acc, b, h0, n0, t);
     consumer_sync();
-    store_tile<N>(y, h0, tile * FI_ROWS, n_edges, d, n0, t);
+    store_tile<N, LISTED>(y, h0, tile * FI_ROWS, n_edges, d, n0, t, list);
     consumer_sync();  // every thread is done with the buffer: the next H0 may land
-    if (t == 0 && tile + step < tiles) load_h0(tile + step);
+    if (!LISTED && t == 0 && tile + step < tiles) load_h0(tile + step);
   }
 }
 
@@ -148,25 +169,37 @@ struct RowIds {
   int p0, p1, rv;
 };
 
-__device__ __forceinline__ int row_src(const int* __restrict__ src, int e, int n_edges,
-                                       int pad_node) {
-  return e < n_edges ? src[e] : pad_node;
+// the edge row of a tile's row e: e itself, or the listed row
+template <bool LISTED>
+__device__ __forceinline__ int row_of(const int* __restrict__ list, int e) {
+  return LISTED ? __ldg(list + e) : e;
 }
 
+template <bool LISTED>
+__device__ __forceinline__ int row_src(const int* __restrict__ src, const int* __restrict__ list,
+                                       int e, int n_edges, int pad_node) {
+  return e < n_edges ? src[row_of<LISTED>(list, e)] : pad_node;
+}
+
+template <bool LISTED>
 __device__ __forceinline__ RowIds row_ids(const int* __restrict__ rev,
-                                          const int* __restrict__ ptr, int e, int s,
+                                          const int* __restrict__ ptr,
+                                          const int* __restrict__ list, int e, int s,
                                           int pad_node) {
   if (s == pad_node) return {0, 0, -1};
-  return {ptr[s], ptr[s + 1], rev[e]};
+  return {ptr[s], ptr[s + 1], rev[row_of<LISTED>(list, e)]};
 }
 
 // a gather warp: rows 4 (g + 8 i) + lane / 8 (i < G) of every tile, 16
 // bytes (8 columns) of a stage per lane; a round forms its G row groups in
-// two stages (d is a multiple of 128: the stages of a tile come in pairs)
+// two stages (d is a multiple of 128: the stages of a tile come in pairs);
+// LISTED: row e of the walk is edge row list[e]
+template <bool LISTED>
 __device__ __forceinline__ void gather(const bf16* __restrict__ H, const int* __restrict__ src,
                                        const int* __restrict__ rev, const int* __restrict__ ptr,
-                                       const Smem& sm, int n_edges, int d, int pad_node,
-                                       bool relu, int first, int step, int n_stages, int g) {
+                                       const int* __restrict__ list, const Smem& sm, int n_edges,
+                                       int d, int pad_node, bool relu, int first, int step,
+                                       int n_stages, int g) {
   constexpr int G = FI_ROWS / 4 / FI_GATHER_WARPS;
   const int lane = threadIdx.x % 32, q = lane / 8, l8 = lane % 8;
   const int nk = d / 64, tiles = (n_edges + FI_ROWS - 1) / FI_ROWS;
@@ -180,8 +213,9 @@ __device__ __forceinline__ void gather(const bf16* __restrict__ H, const int* __
 #pragma unroll
   for (int i = 0; i < G; ++i) {
     const int e = first * FI_ROWS + rows[i];
-    ids[i] = row_ids(rev, ptr, e, row_src(src, e, n_edges, pad_node), pad_node);
-    s_next[i] = row_src(src, e + step * FI_ROWS, n_edges, pad_node);
+    ids[i] = row_ids<LISTED>(rev, ptr, list, e, row_src<LISTED>(src, list, e, n_edges, pad_node),
+                             pad_node);
+    s_next[i] = row_src<LISTED>(src, list, e + step * FI_ROWS, n_edges, pad_node);
   }
   int c = 0;  // the block's stage count, as the consumer's
   for (int tile = first; tile < tiles; tile += step) {
@@ -189,8 +223,8 @@ __device__ __forceinline__ void gather(const bf16* __restrict__ H, const int* __
 #pragma unroll
     for (int i = 0; i < G; ++i) {
       const int e = (tile + step) * FI_ROWS + rows[i];
-      ids_next[i] = row_ids(rev, ptr, e, s_next[i], pad_node);
-      s_next[i] = row_src(src, e + step * FI_ROWS, n_edges, pad_node);
+      ids_next[i] = row_ids<LISTED>(rev, ptr, list, e, s_next[i], pad_node);
+      s_next[i] = row_src<LISTED>(src, list, e + step * FI_ROWS, n_edges, pad_node);
     }
     int most = 0;
 #pragma unroll
@@ -254,11 +288,13 @@ __device__ __forceinline__ void gather(const bf16* __restrict__ H, const int* __
 }
 
 // block b holds slice b % (d / N) and walks tiles b / (d / N), + gridDim.x /
-// (d / N), ...
-template <int N>
+// (d / N), ...; n_edges rows (LISTED: the n_edges rows of list, H0 read
+// through H0 and not th0)
+template <int N, bool LISTED>
 __global__ void __launch_bounds__(FI_THREADS, 1)
     fused_iter_kernel(const __grid_constant__ CUtensorMap tw,
                       const __grid_constant__ CUtensorMap th0, const bf16* __restrict__ H,
+                      const bf16* __restrict__ H0, const int* __restrict__ list,
                       const bf16* __restrict__ b, bf16* __restrict__ y, const int* __restrict__ src,
                       const int* __restrict__ rev, const int* __restrict__ ptr, int n_edges,
                       int d, int pad_node, int relu_stream, int n_stages) {
@@ -299,11 +335,11 @@ __global__ void __launch_bounds__(FI_THREADS, 1)
           tma_load_2d(sm.w + (k * NB + j) * FI_BOX, &tw, sm.wbar, n0 + 64 * j, 64 * k);
     }
     mbar_wait(sm.wbar, 0);
-    consume<N>(&th0, b, y, sm, smem_raw + (sm.h0 - smem_addr(smem_raw)), n_edges, d, n0, first,
-               step, n_stages);
+    consume<N, LISTED>(&th0, H0, list, b, y, sm, smem_raw + (sm.h0 - smem_addr(smem_raw)),
+                       n_edges, d, n0, first, step, n_stages);
   } else {
-    gather(H, src, rev, ptr, sm, n_edges, d, pad_node, relu_stream != 0, first, step, n_stages,
-           warp - 4);
+    gather<LISTED>(H, src, rev, ptr, list, sm, n_edges, d, pad_node, relu_stream != 0, first,
+                   step, n_stages, warp - 4);
   }
 }
 
@@ -336,36 +372,51 @@ static int fi_grid(int d, int n, int n_edges) {
   return (tiles < groups ? tiles : groups) * slices;
 }
 
-template <int N>
-static cudaError_t fi_launch(const CUtensorMap* maps, const void* H, const void* b, void* y,
-                             const int* src, const int* rev, const int* ptr, int n_edges, int d,
-                             int pad_node, int relu_stream, cudaStream_t stream,
-                             int* blocks_per_sm = nullptr) {
+// the rows walked, n_rows, are the edge rows, or the rows of list where it
+// is given (H0 then read through its pointer)
+template <int N, bool LISTED>
+static cudaError_t fi_launch(const CUtensorMap* maps, const void* H, const void* H0,
+                             const int* list, const void* b, void* y, const int* src,
+                             const int* rev, const int* ptr, int n_rows, int d, int pad_node,
+                             int relu_stream, cudaStream_t stream, int* blocks_per_sm) {
   const int stages = fi_stages(d, N);
   const size_t smem = fi_smem(d, N, stages);
   // the opt-in above 48 KB is per device and per size, so it is made at every launch (cheap)
-  cudaError_t err = cudaFuncSetAttribute(fused_iter_kernel<N>,
+  cudaError_t err = cudaFuncSetAttribute(fused_iter_kernel<N, LISTED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (blocks_per_sm != nullptr)  // how many blocks of it one SM runs at once
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fused_iter_kernel<N>,
-                                                         FI_THREADS, smem);
-  fused_iter_kernel<N><<<fi_grid(d, N, n_edges), FI_THREADS, smem, stream>>>(
-      maps[0], maps[1], (const bf16*)H, (const bf16*)b, (bf16*)y, src, rev, ptr, n_edges, d,
-      pad_node, relu_stream, stages);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, fused_iter_kernel<N, LISTED>, FI_THREADS, smem);
+  fused_iter_kernel<N, LISTED><<<fi_grid(d, N, n_rows), FI_THREADS, smem, stream>>>(
+      maps[0], maps[1], (const bf16*)H, (const bf16*)H0, list, (const bf16*)b, (bf16*)y, src,
+      rev, ptr, n_rows, d, pad_node, relu_stream, stages);
   return cudaGetLastError();
 }
 
-// fi_launch<N> for the run's slice width
-static cudaError_t fi_dispatch(int n, const CUtensorMap* maps, const void* H, const void* b,
-                               void* y, const int* src, const int* rev, const int* ptr,
-                               int n_edges, int d, int pad_node, int relu_stream,
-                               cudaStream_t stream, int* blocks_per_sm = nullptr) {
+template <int N>
+static cudaError_t fi_listed(const CUtensorMap* maps, const void* H, const void* H0,
+                             const int* list, const void* b, void* y, const int* src,
+                             const int* rev, const int* ptr, int n_rows, int d, int pad_node,
+                             int relu_stream, cudaStream_t stream, int* blocks_per_sm) {
+  if (list != nullptr)
+    return fi_launch<N, true>(maps, H, H0, list, b, y, src, rev, ptr, n_rows, d, pad_node,
+                              relu_stream, stream, blocks_per_sm);
+  return fi_launch<N, false>(maps, H, H0, list, b, y, src, rev, ptr, n_rows, d, pad_node,
+                             relu_stream, stream, blocks_per_sm);
+}
+
+// fi_launch for the run's slice width, over the listed rows where list is given
+static cudaError_t fi_dispatch(int n, const CUtensorMap* maps, const void* H, const void* H0,
+                               const int* list, const void* b, void* y, const int* src,
+                               const int* rev, const int* ptr, int n_rows, int d, int pad_node,
+                               int relu_stream, cudaStream_t stream,
+                               int* blocks_per_sm = nullptr) {
   switch (n) {
-    case 256: return fi_launch<256>(maps, H, b, y, src, rev, ptr, n_edges, d, pad_node, relu_stream, stream, blocks_per_sm);
-    case 192: return fi_launch<192>(maps, H, b, y, src, rev, ptr, n_edges, d, pad_node, relu_stream, stream, blocks_per_sm);
-    case 128: return fi_launch<128>(maps, H, b, y, src, rev, ptr, n_edges, d, pad_node, relu_stream, stream, blocks_per_sm);
-    case 64: return fi_launch<64>(maps, H, b, y, src, rev, ptr, n_edges, d, pad_node, relu_stream, stream, blocks_per_sm);
+    case 256: return fi_listed<256>(maps, H, H0, list, b, y, src, rev, ptr, n_rows, d, pad_node, relu_stream, stream, blocks_per_sm);
+    case 192: return fi_listed<192>(maps, H, H0, list, b, y, src, rev, ptr, n_rows, d, pad_node, relu_stream, stream, blocks_per_sm);
+    case 128: return fi_listed<128>(maps, H, H0, list, b, y, src, rev, ptr, n_rows, d, pad_node, relu_stream, stream, blocks_per_sm);
+    case 64: return fi_listed<64>(maps, H, H0, list, b, y, src, rev, ptr, n_rows, d, pad_node, relu_stream, stream, blocks_per_sm);
   }
   return cudaErrorInvalidValue;
 }
@@ -382,8 +433,27 @@ extern "C" int fused_iter(const void* H, const void* H0, const void* W, const vo
   CUtensorMap maps[2];  // W, H0
   if (!bf16_table_map(&maps[0], W, d, d, 64) || !bf16_table_map(&maps[1], H0, n_edges, d, 64))
     return (int)cudaErrorInvalidValue;
-  return (int)fi_dispatch(n, maps, H, b, y, src, rev, ptr, n_edges, d, pad_node, relu_stream,
-                          stream);
+  return (int)fi_dispatch(n, maps, H, H0, nullptr, b, y, src, rev, ptr, n_edges, d, pad_node,
+                          relu_stream, stream);
+}
+
+// y at the n_rows rows listed in rows (int32, each in [0, n_edges)) formed as
+// fused_iter forms them, every other row of y left as it is: H, H0 and y bf16
+// [n_edges x d], W [d x d] (in, out); y must not alias H or H0
+extern "C" int fused_iter_rows(const void* H, const void* H0, const void* W, const void* b,
+                               const int* src, const int* rev, const int* ptr, const int* rows,
+                               void* y, int n_rows, int d, int pad_node, int relu_stream,
+                               cudaStream_t stream) {
+  if (d % 128 != 0 || d > MAX_WIDTH || n_rows < 0 || rows == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  const int n = fi_width(d);
+  if (n == 0 || fi_stages(d, n) < 2) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[2];  // W, and W again in H0's place: the listed rows' H0 is loaded plainly
+  if (!bf16_table_map(&maps[0], W, d, d, 64)) return (int)cudaErrorInvalidValue;
+  maps[1] = maps[0];
+  return (int)fi_dispatch(n, maps, H, H0, rows, b, y, src, rev, ptr, n_rows, d, pad_node,
+                          relu_stream, stream);
 }
 
 // the launch's shape at width d and n_edges rows, into info[0..5]: slice
@@ -398,5 +468,5 @@ extern "C" int fused_iter_info(int d, int n_edges, int* info) {
   info[3] = (int)fi_smem(d, n, info[2]);
   info[4] = fi_grid(d, n, n_edges);
   return (int)fi_dispatch(n, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                          n_edges, d, 0, 0, nullptr, &info[5]);
+                          nullptr, nullptr, n_edges, d, 0, 0, nullptr, &info[5]);
 }

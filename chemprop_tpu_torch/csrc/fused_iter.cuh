@@ -59,17 +59,20 @@ __device__ __forceinline__ void epilogue(const float (&acc)[N / 2], const bf16* 
 }
 
 // the tile's y out of the H0 buffer in 16-byte chunks, eight lanes to a
-// 128-byte row: rows e0 + r for e0 + r < end
-template <int N>
+// 128-byte row: rows e0 + r for e0 + r < end; LISTED (the row pass of
+// fused_iter.cu): rows list[e0 + r] of y
+template <int N, bool LISTED = false>
 __device__ __forceinline__ void store_tile(bf16* __restrict__ y, const uint8_t* h0, int e0,
-                                           int end, int d, int n0, int t) {
+                                           int end, int d, int n0, int t,
+                                           const int* __restrict__ list = nullptr) {
   constexpr int NB = N / 64;
 #pragma unroll
   for (int i = t; i < NB * FI_ROWS * 8; i += 128) {
     const int box = i / (FI_ROWS * 8), r = i / 8 % FI_ROWS, ch = i % 8;
     const int e = e0 + r;
     if (e < end)
-      *reinterpret_cast<uint4*>(y + (size_t)e * d + n0 + 64 * box + 8 * ch) =
+      *reinterpret_cast<uint4*>(y + (size_t)(LISTED ? __ldg(list + e) : e) * d + n0 +
+                                64 * box + 8 * ch) =
           *reinterpret_cast<const uint4*>(h0 + box * FI_BOX + r * 128 + ((ch ^ (r % 8)) << 4));
   }
 }

@@ -38,7 +38,11 @@
 //   halves, swizzled as B's) of a ring that every CTA of the cluster holds in
 //   the same order. One bulk copy per other CTA sends both stages there,
 //   counted on that CTA's full barrier of the pair. A row whose in-edges or
-//   reverse edge leave its tile (a table that cuts a molecule) gets NaN.
+//   reverse edge leave its tile (a table that cuts a molecule) gets NaN. Over
+//   a split table (BatchMolGraph.split_ptr) those are the collate's y1_rows,
+//   and the y2_rows read them; the row pass of fused_iter.cu
+//   (fused_iter_rows, B's own code) forms both lists again after the launch,
+//   y1's first (ops.message.fused_iter2).
 // * Two consumer warpgroups, one per half, multiply every stage of their
 //   half, in the order of K, with the resident W slice on wgmma (A in
 //   registers), add H0 (brought in by TMA while the product runs), the bias
@@ -171,6 +175,21 @@ __device__ __forceinline__ void wg_sync(int wg) {
 
 __device__ __forceinline__ void gather_sync() {
   asm volatile("bar.sync 3, %0;" ::"n"(I2_GATHER) : "memory");
+}
+
+// whether any gather thread holds p, in every gather thread (a barrier of
+// the gather warps that reduces their predicates)
+__device__ __forceinline__ bool gather_any(bool p) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred q, a;\n"
+      "setp.ne.u32 q, %1, 0;\n"
+      "bar.red.or.pred a, 3, %2, q;\n"
+      "selp.u32 %0, 1, 0, a;\n}\n"
+      : "=r"(r)
+      : "r"((uint32_t)p), "n"(I2_GATHER)
+      : "memory");
+  return r != 0;
 }
 
 struct I2Smem {
@@ -475,7 +494,10 @@ __device__ __forceinline__ void i2_gather(const bf16* __restrict__ H0, const bf1
       // loaded once this tile's last stages are formed
       if (j == 0) {
         load_block(x, rx, kb + slices, sb ^ 1);
-      } else if (next.it == 2 && !i2_y1_ready(s.prog, 2 * slices, next.ord + 1)) {
+      } else if (next.it == 2 && gather_any(!i2_y1_ready(s.prog, 2 * slices, next.ord + 1))) {
+        // one decision for every gather thread: each reads the progress
+        // words on its own, and a thread that took the other branch would
+        // skip the deferred load's gather_sync below
         after = true;
       } else if (next.it != 0) {
         load_block(next, rn, rank, sb ^ 1);

@@ -81,6 +81,16 @@
 // memory before they could reach dW. With a table that breaks the collate's
 // rule, every row of a node that cannot be formed inside its tile gets NaN
 // in G, so its row of dH is NaN: no row it cannot form comes out finite.
+//
+// Over a split tile table (split != 0: BatchMolGraph.split_ptr, a molecule of
+// more than 128 rows cut at its nodes' boundaries) those rows are the
+// batch's cross rows, and they get zeros in G instead: nothing of theirs
+// reaches the clusters' partial dW, and their rows of dH are zeros until the
+// pass over the cross rows (message_bwd.cu's iter_bwd_rows) writes them from
+// their G, formed from g and y, and adds their H^T G as one more partial.
+// The launch then leaves dW to the caller, who sums the clusters' partials
+// and the pass's in that order (iter_bwd_sum), so two calls give the same
+// bits.
 // Widths d = 128, 256 and 384 (clusters of 2, 4 and 6); the buffers of
 // d = 512 would not fit a block's shared memory.
 #include "sm90.cuh"
@@ -454,7 +464,8 @@ template <int NB>
 __device__ void ib_form_g(const int* __restrict__ tiles,
                           bf16* __restrict__ dH, bf16* __restrict__ gz_out, const IbSmem& sm,
                           uint8_t* smem, uint32_t smem_base, const uint8_t* ids, int rank, int d,
-                          int n_edges, int first_pad, int n_tiles, int first, int step) {
+                          int n_edges, int first_pad, int n_tiles, int first, int step,
+                          int split) {
   const int t = threadIdx.x - IB_G0, lane = t % 32, c0 = 64 * rank;
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
   IbTile x, nx;
@@ -505,10 +516,10 @@ __device__ void ib_form_g(const int* __restrict__ tiles,
         const int k = k0 + (task >> 3), ch = task & 7;
         const int st = starts[k], en = starts[k + 1];
         const int lo = max(st, a), hi = min(en, real_end);
-        if (rvb[st] & IB_BAD) {
+        if (rvb[st] & IB_BAD) {  // NaN; zeros over a split table (the pass forms them)
+          const uint32_t fill = split ? 0u : 0x7FC07FC0u;
           for (int j = lo; j < hi; ++j)
-            *reinterpret_cast<uint4*>(ob + sw(j - a, ch)) =
-                make_uint4(0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u);  // NaN
+            *reinterpret_cast<uint4*>(ob + sw(j - a, ch)) = make_uint4(fill, fill, fill, fill);
           continue;
         }
         // most atoms have at most four neighbours: their chunks loaded at once
@@ -694,7 +705,7 @@ __global__ void __launch_bounds__(IB_THREADS, 1)
                     const int* __restrict__ dst, const int* __restrict__ rev,
                     const int* __restrict__ ptr, const int* __restrict__ tiles,
                     bf16* __restrict__ dH, bf16* __restrict__ gz, float* __restrict__ partial,
-                    int n_edges, int d, int pad_node, int n_tiles) {
+                    int n_edges, int d, int pad_node, int n_tiles, int split) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023) & ~1023u;
   const IbSmem sm = ib_layout(base, NB);
@@ -729,7 +740,7 @@ __global__ void __launch_bounds__(IB_THREADS, 1)
     setmaxnreg_dec<IB_REGS_OTHER>();
     if (warp < IB_PRODUCER0 / 32)
       ib_form_g<NB>(tiles, dH, gz, sm, smem_raw, raw, ids, rank, d, n_edges, first_pad, n_tiles,
-                    first, step);
+                    first, step, split);
     else
       ib_produce<NB>(&tg, &ty, &th, &tw, dst, rev, tiles, sm, ids, rank, n_edges, first_pad,
                      n_tiles, first, step);
@@ -800,14 +811,23 @@ template <int NB>
 static cudaError_t ib_launch(const CUtensorMap* maps, const int* dst, const int* rev,
                              const int* ptr, const int* tiles, void* dH, void* gz, float* partial,
                              int n_edges, int d, int pad_node, int n_tiles, int clusters,
-                             cudaStream_t stream) {
+                             int split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = ib_config<NB>(&cfg, &attr, clusters, stream);
   if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&cfg, iter_bwd_kernel<NB>, maps[0], maps[1], maps[2], maps[3],
                             dst, rev, ptr, tiles, (bf16*)dH, (bf16*)gz, partial, n_edges, d,
-                            pad_node, n_tiles);
+                            pad_node, n_tiles, split);
+}
+
+// dW = the first n_partials [d x d] partials added in their order
+extern "C" int iter_bwd_sum(const float* partial, float* dW, int n_partials, int d,
+                            cudaStream_t stream) {
+  if (n_partials < 1 || d % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int size = d * d;
+  iter_bwd_reduce<<<(size / 4 + 255) / 256, 256, 0, stream>>>(partial, dW, n_partials, size);
+  return (int)cudaGetLastError();
 }
 
 // the clusters a launch at width d over n_tiles tiles takes (the partials the
@@ -824,11 +844,14 @@ extern "C" int iter_bwd_clusters(int d, int n_tiles) {
 // layout; rows 16-byte aligned), d one of 128, 256, 384, over a tile table of
 // n_tiles tiles (ascending row offsets from 0 to n_edges, at most 128 rows
 // each, no molecule in two tiles); partial holds clusters * d * d floats,
-// clusters from iter_bwd_clusters
+// clusters from iter_bwd_clusters. split != 0: a split tile table, whose
+// cross rows get zeros in G, and dW is left to the caller (iter_bwd_sum,
+// after the pass has written its partial)
 extern "C" int iter_bwd_tiles(const void* g, const void* y, const void* H, const void* W,
                               const int* dst, const int* rev, const int* ptr, const int* tiles,
                               void* dH, void* gz, float* partial, float* dW, int n_edges, int d,
-                              int pad_node, int n_tiles, int clusters, cudaStream_t stream) {
+                              int pad_node, int n_tiles, int clusters, int split,
+                              cudaStream_t stream) {
   const int nb = ib_boxes(d);
   if (nb == 0 || n_edges < 0 || tiles == nullptr || n_tiles < 1 || clusters < 1)
     return (int)cudaErrorInvalidValue;
@@ -840,14 +863,12 @@ extern "C" int iter_bwd_tiles(const void* g, const void* y, const void* H, const
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
   switch (nb) {
-    case 2: err = ib_launch<2>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, stream); break;
-    case 4: err = ib_launch<4>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, stream); break;
-    case 6: err = ib_launch<6>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, stream); break;
+    case 2: err = ib_launch<2>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, split, stream); break;
+    case 4: err = ib_launch<4>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, split, stream); break;
+    case 6: err = ib_launch<6>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, split, stream); break;
   }
   if (err != cudaSuccess) return (int)err;
-  const int size = d * d;
-  iter_bwd_reduce<<<(size / 4 + 255) / 256, 256, 0, stream>>>(partial, dW, clusters, size);
-  return (int)cudaGetLastError();
+  return split ? 0 : iter_bwd_sum(partial, dW, clusters, d, stream);
 }
 
 // the launch's shape at width d over n_tiles tiles, into info[0..3]: CTAs

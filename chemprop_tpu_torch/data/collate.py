@@ -22,11 +22,13 @@ holding a molecule of more rows than that has no ``tile_ptr``; it carries
 ``split_ptr`` instead, where such a molecule spans several tiles cut at its
 nodes' boundaries (:func:`split_tiles`), and ``cross_rows``, the rows whose
 transposed message reads a row of another tile (:func:`cross_rows`). The
-message A, its transpose F and the last iterations' backward kernels G and
-H take that table and form those rows in a second pass; one list serves all
-four, since every row whose message reads another tile (its reverse lies
-there) is one whose transposed message does. The chained iterations D and
-the fused backward E take no split table. A mol-atom-bond batch
+message A, its transpose F, the last iterations' backward kernels G and H
+and the fused backward E take that table and form those rows in a second
+pass; one list serves all five, since every row whose message reads another
+tile (its reverse lies there) is one whose transposed message does. The
+chained iterations D take it with two lists of their own (:func:`iter2_rows`):
+``y1_rows``, the rows the first iteration cannot form in its tile, and
+``y2_rows``, those the second cannot form given those. A mol-atom-bond batch
 (:func:`collate_mol_atom_bond_batch`) is such a graph with the per-atom
 tables on its node rows and the per-bond tables on both of a bond's
 directed edges, in the sorted order."""
@@ -34,13 +36,14 @@ directed edges, in the sorted order."""
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
+from functools import partial
 from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS, cross_to, tiles_to
+from chemprop_tpu_torch.ops.message import ITER2_TILE_ROWS, cross_to, mark_table, tiles_to
 from chemprop_tpu_torch.types import MolGraph
 
 
@@ -73,6 +76,11 @@ class BatchMolGraph:
     # its reverse (the zero rule of the row gather by rev); None: read from
     # edge_mask
     last_edge_padding: bool | None = None
+    # beside split_ptr: the ascending int32 rows that the chained iterations
+    # (kernel D) cannot form in their tile, in the first iteration and, given
+    # those, in the second (iter2_rows)
+    y1_rows: torch.Tensor | None = None
+    y2_rows: torch.Tensor | None = None
 
     def __len__(self) -> int:
         return self.n_graphs
@@ -88,10 +96,12 @@ class BatchMolGraph:
         return self.last_edge_padding
 
     def to(self, device: str | torch.device) -> "BatchMolGraph":
-        """The batch on ``device``; the tile tables and the cross rows are
-        checked before they move, so that the kernels need not read them back
-        (``ops.message.tiles_to``, ``ops.message.cross_to``)."""
-        tables = {"tile_ptr": tiles_to, "split_ptr": tiles_to, "cross_rows": cross_to}
+        """The batch on ``device``; the tile tables and the row lists are
+        checked before they move, so that the kernels need not read them back,
+        and each table is marked whole or split (``ops.message.tiles_to``,
+        ``ops.message.cross_to``)."""
+        tables = {"tile_ptr": tiles_to, "split_ptr": partial(tiles_to, split=True),
+                  **{name: cross_to for name in ROW_LISTS}}
         moved = {
             f.name: getattr(self, f.name).to(device, non_blocking=True)
             for f in fields(self)
@@ -101,6 +111,10 @@ class BatchMolGraph:
             if getattr(self, name) is not None:
                 moved[name] = move(getattr(self, name), self.E.shape[0], device)
         return replace(self, **moved)
+
+
+# the row lists that come with a split table: the passes' rows
+ROW_LISTS = ("cross_rows", "y1_rows", "y2_rows")
 
 
 # BatchMolGraph as a pytree node (cf. the JAX package's registration for
@@ -189,6 +203,30 @@ def cross_rows(tiles: np.ndarray, dst: np.ndarray, rev: np.ndarray, n_real: int)
     node_crosses = np.zeros(int(dst[:n_real].max(initial=-1)) + 1, dtype=bool)
     node_crosses[dst[:n_real][crossing]] = True
     return np.flatnonzero(node_crosses[dst[:n_real]]).astype(np.int32)
+
+
+def iter2_rows(tiles: np.ndarray, src: np.ndarray, rev: np.ndarray, edge_ptr: np.ndarray,
+               n_real: int) -> tuple[np.ndarray, np.ndarray]:
+    """The rows of the chained two iterations (kernel D, ``csrc/iter2.cu``)
+    that D cannot form inside their tile: first the real rows ``e`` whose
+    message ``sum_{k in in(src[e])} H[k] - H[rev[e]]`` reads a row of another
+    tile (D's own rule: the in-edge range of ``src[e]`` or ``rev[e]`` leaves
+    ``e``'s tile); then, given those, the rows whose second message reads one
+    of them, or itself leaves the tile. Each ascending int32, empty where no
+    molecule spans two tiles. The first list is within :func:`cross_rows`,
+    the second is not: a row of a node whose in-edges are all whole may read
+    a row of the first list."""
+    e = np.arange(n_real)
+    tile_of = np.searchsorted(tiles, e, side="right") - 1
+    t0, t1 = tiles[tile_of], tiles[tile_of + 1]
+    s = src[:n_real]
+    lo, hi, rv = edge_ptr[s], edge_ptr[s + 1], rev[:n_real]
+    leaves = (lo < t0) | (hi > t1) | (rv < t0) | (rv >= t1)
+    first = np.zeros(len(rev), dtype=bool)
+    first[:n_real] = leaves
+    seen = np.concatenate([[0], np.cumsum(first)])  # listed rows before each row
+    second = leaves | (seen[hi] > seen[lo])  # rev[e] is one of src[e]'s in-edges
+    return np.flatnonzero(leaves).astype(np.int32), np.flatnonzero(second).astype(np.int32)
 
 
 def _pack_tiles(bounds: np.ndarray, n_edges: int) -> np.ndarray:
@@ -286,11 +324,12 @@ def batch_mol_graphs(
     # last offset is the first padding row
     graph_rows = edge_ptr[node_ptr[: pad.n_graphs + 1]]
     tiles = iter2_tiles(graph_rows, pad.n_edges)
-    split = crossing = None
+    split = crossing = rows1 = rows2 = None
     if tiles is None:
         split = split_tiles(graph_rows, edge_ptr[: n_real_nodes + 1], pad.n_edges)
         if split is not None:
             crossing = cross_rows(split, dst, rev, n_real_edges)
+            rows1, rows2 = iter2_rows(split, src, rev, edge_ptr, n_real_edges)
 
     t = torch.from_numpy
     bmg = BatchMolGraph(
@@ -307,10 +346,14 @@ def batch_mol_graphs(
         n_graphs=pad.n_graphs,
         tile_ptr=None if tiles is None else t(tiles),
         last_node_padding=True,  # n_real_nodes < pad.n_nodes, checked above
-        split_ptr=None if split is None else t(split),
+        split_ptr=None if split is None else mark_table(t(split), split=True),
         cross_rows=None if crossing is None else t(crossing),
         last_edge_padding=n_real_edges < pad.n_edges,
+        y1_rows=None if rows1 is None else t(rows1),
+        y2_rows=None if rows2 is None else t(rows2),
     )
+    if tiles is not None:
+        mark_table(bmg.tile_ptr, split=False)
     return (bmg, perm) if return_perm else bmg
 
 

@@ -19,13 +19,17 @@ versions. A saved program loads in a process that has imported
 
 The program takes the batch's pytree leaves (``data.collate.TENSOR_FIELDS``),
 then ``V_d`` and ``X_d``. Its graph count is static, as in the JAX package:
-the segment reductions size their outputs with it. The node and edge counts
-(and the tile table's length) are ``torch.export.Dim``s with ``dynamic``.
-The tile table is always a tensor, empty for a batch without one (a molecule
-of more than a tile's rows), so that one program serves both; the split
-table and the cross rows, which only the backward reads, are left out. The
-table is checked on the host once per call, at the entry, as
-``BatchMolGraph.to`` checks it: a table that ``to`` moved is not read back."""
+the segment reductions size their outputs with it. The node and edge counts,
+the table's length and each row list's length are ``torch.export.Dim``s
+with ``dynamic``. The program takes the batch's table, a tile table or a
+split table (a molecule of more than a tile's rows), in the ``split_ptr``
+leaf with its row lists (``cross_rows`` for A, ``y1_rows`` and ``y2_rows``
+for D), each always a tensor: empty for a tile table's lists, which no pass
+needs, and for a batch with no table at all, so that one program serves
+every form and launches the passes wherever the eager forward does. The
+table and its lists are checked on the host once per call, at the entry, as
+``BatchMolGraph.to`` checks them (a table that ``to`` moved is not read
+back), and a split table without its lists raises there."""
 
 from __future__ import annotations
 
@@ -37,25 +41,37 @@ import torch
 import torch.utils._pytree as pytree
 from torch import nn
 
-from chemprop_tpu_torch.data.collate import TENSOR_FIELDS, BatchMolGraph
-from chemprop_tpu_torch.ops.message import check_tiles, table_arg
+from chemprop_tpu_torch.data.collate import ROW_LISTS, TENSOR_FIELDS, BatchMolGraph
+from chemprop_tpu_torch.ops.message import check_cross, check_tiles, table_arg
 
 META_FILE = "chemprop_tpu_torch.json"
 # the leaves' first dimension: the node count, the edge count, the node
-# count plus one (the CSR of dst), the tile table's length; node_ptr is
-# static (n_graphs + 2)
+# count plus one (the CSR of dst), the table's length, each row list's
+# length; node_ptr is static (n_graphs + 2)
 _ROWS = {"V": "n", "batch": "n", "node_mask": "n", "E": "e", "src": "e", "dst": "e", "rev": "e",
-         "edge_mask": "e", "edge_ptr": "n+1", "tile_ptr": "t"}
+         "edge_mask": "e", "edge_ptr": "n+1", "split_ptr": "t", "cross_rows": "cross_rows",
+         "y1_rows": "y1_rows", "y2_rows": "y2_rows"}
 
 
 def _normalized(bmg: BatchMolGraph) -> BatchMolGraph:
-    """``bmg`` as the program takes it: its tile table checked (once, on the
-    table's own device, unless ``BatchMolGraph.to`` checked it) or an empty
-    one, no split table, and the padding flags read."""
-    tiles = bmg.tile_ptr
-    if tiles is not None and getattr(tiles, "checked_for_rows", None) != bmg.E.shape[0]:
-        check_tiles(tiles, bmg.E.shape[0], tiles.device)
-    return replace(bmg, tile_ptr=table_arg(tiles, bmg.src), split_ptr=None, cross_rows=None,
+    """``bmg`` as the program takes it: its table (the tile table, else the
+    split table, else an empty one) as ``split_ptr`` with its row lists,
+    each checked (once, on its own device, unless ``BatchMolGraph.to``
+    checked it; a split table without all its lists raises) or empty, and
+    the padding flags read."""
+    n = bmg.E.shape[0]
+    table, lists = bmg.tile_ptr, {name: None for name in ROW_LISTS}
+    if table is None and bmg.split_ptr is not None:
+        table, lists = bmg.split_ptr, {name: getattr(bmg, name) for name in ROW_LISTS}
+        if any(rows is None for rows in lists.values()):
+            raise ValueError(f"a split tile table comes with its row lists {ROW_LISTS}")
+    if table is not None:  # neither check reads back what BatchMolGraph.to checked
+        check_tiles(table, n, table.device)
+    for rows in lists.values():
+        if rows is not None:
+            check_cross(rows, n, rows.device)
+    return replace(bmg, tile_ptr=None, split_ptr=table_arg(table, bmg.src),
+                   **{name: table_arg(rows, bmg.src) for name, rows in lists.items()},
                    last_node_padding=bmg.last_node_is_padding(),
                    last_edge_padding=bmg.last_edge_is_padding())
 
@@ -106,20 +122,32 @@ def export_forward(model: nn.Module, example_batch, dynamic: bool = True) -> Exp
     """Export ``model``'s inference forward (``model(bmg, V_d, X_d)``) on
     ``example_batch`` (a ``TrainingBatch``: its ``bmg``, ``V_d``, ``X_d``), on
     the device where the model and the batch are. With ``dynamic`` the node
-    and edge counts are symbolic: any padding of the same graph count, feature
-    widths and extra inputs can be fed, with a tile table or without one."""
-    if example_batch.bmg.tile_ptr is None:
-        raise ValueError("export from a batch with a tile table: the traced program serves "
-                         "batches without one, but it is traced with one")
-    args, spec = program_inputs(example_batch.bmg, example_batch.V_d, example_batch.X_d)
+    and edge counts, the table's length and its lists' are symbolic: any
+    padding of the same graph count, feature widths and extra inputs can be
+    fed, with a tile table, a split table or neither."""
+    bmg = example_batch.bmg
+    if bmg.tile_ptr is None and bmg.split_ptr is None:
+        raise ValueError("export from a batch with a tile table (or a split table): the traced "
+                         "program serves batches without one, but it is traced with one")
+    args, spec = program_inputs(bmg, example_batch.V_d, example_batch.X_d)
     V_d = example_batch.V_d
     shapes = None
     if dynamic:
         n, e = torch.export.Dim("n", min=2), torch.export.Dim("e", min=2)
-        dims = {"n": n, "e": e, "n+1": n + 1, "t": torch.export.Dim("t", min=0)}
+        dims = {"n": n, "e": e, "n+1": n + 1, "t": torch.export.Dim("t", min=0),
+                **{name: torch.export.Dim(name, min=0) for name in ROW_LISTS}}
         shapes = (tuple({0: dims[_ROWS[name]]} if name in _ROWS else None
                         for name in TENSOR_FIELDS),
                   None if V_d is None else {0: n}, None)
+        # a list of fewer than two rows would fix its length in the trace:
+        # the trace takes two placeholder rows there (the ops are opaque to
+        # it, and the values are never read), and the program any length
+        leaves = list(args[0])
+        for name in ROW_LISTS:
+            i = TENSOR_FIELDS.index(name)
+            if leaves[i].numel() < 2:
+                leaves[i] = leaves[i].new_zeros(2)
+        args = (tuple(leaves), *args[1:])
     with torch.no_grad():
         program = torch.export.export(_Forward(model, spec), args, dynamic_shapes=shapes)
     return ExportedForward(program, spec)

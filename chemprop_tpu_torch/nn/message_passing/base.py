@@ -31,8 +31,9 @@ as JAX leaves them to XLA. Another activation, or ``undirected``, composes
 ``ops.message``, the products and ``sorted_segment_sum`` through autograd in
 either dtype. Every message kernel takes the batch's tile table
 (``bmg.tile_ptr``); where a molecule is larger than a tile, every route hands
-A, F, G and H its split table and cross rows (``bmg.split_ptr``,
-``bmg.cross_rows``) instead, and D and E take their forms without a table.
+every tile kernel its split table and row lists instead (``bmg.split_ptr``
+with ``bmg.cross_rows`` for A, F, G, H and E, with ``bmg.y1_rows`` and
+``bmg.y2_rows`` for D).
 With ``kernel_options.grad_w`` in bfloat16 W_i's weight gradient, and W_h's
 where ``iter_bwd`` does not form it (the composed path's included), are
 ``grad_weight`` kernel launches, as in the JAX package. The parameters stay
@@ -266,10 +267,10 @@ class BondMessagePassing(_MessagePassingBase):
         _sow(taps, "H_0", H0)
 
         graph = (bmg.src, bmg.dst, bmg.rev, bmg.edge_ptr)
-        # the tile table, or where the batch has none its split table and cross rows
+        # the tile table, or where the batch has none its split table and row lists
         tiles, split = bmg.tile_ptr, None
         if tiles is None and bmg.split_ptr is not None:
-            split = (bmg.split_ptr, bmg.cross_rows)
+            split = (bmg.split_ptr, bmg.cross_rows, bmg.y1_rows, bmg.y2_rows)
         fuse_iter = self.depth > 1 and self.activation == "relu" and not self.undirected
         if self.depth > 1:
             W_h, b_h = self._padded(self.W_h, dp, dp)
@@ -290,7 +291,7 @@ class BondMessagePassing(_MessagePassingBase):
                 else:
                     H = message_iter(H, H0, W_h, b_h, *graph, opts, tiles, split)
             else:
-                M = message(H, *graph, *(split or (tiles, None)))
+                M = message(H, *graph, *(split[:2] if split else (tiles, None)))
                 z = matmul(M, W_h, use_kernel=True) if gw_i else M @ W_h
                 if b_h is not None:
                     z = z + b_h

@@ -2,8 +2,9 @@
 ``chemprop_tpu/nn/message_passing/multi.py``): one block per input component,
 or one ``shared`` block that runs over every component. Each block is a
 ``BondMessagePassing`` or an ``AtomMessagePassing`` and runs over its own
-component's graph, tile table included, so the kernels see one component at
-a time. A shared block's weights take one gradient contribution from each
+component's graph, its tile table (or its split table with the row lists
+of every tile kernel) included, so the kernels see one component at a
+time. A shared block's weights take one gradient contribution from each
 component in a step. Parameter names are the reference's,
 ``blocks.<i>.W_i.weight`` and so on, so a reference state dict loads as it
 is."""

@@ -35,28 +35,33 @@ The tile kernels (``message``, ``fused_iter2``, ``bwd_message``,
 (``BatchMolGraph.tile_ptr``): ascending row offsets from 0 to ``E`` that cut
 the edge rows into runs of at most ``ITER2_TILE_ROWS``, no real molecule's
 rows in two runs, so that every row a tile's row gathers lies in the tile.
-A batch with a molecule of more rows than that has none; A, F, G and H
-(``message``, ``bwd_message``, ``bwd_message_nodes``, ``bwd_message_premul``)
-then take its split table (``BatchMolGraph.split_ptr``, the molecule cut at
-its nodes' boundaries) with its ``cross_rows``: the tile kernel forms every
-row whose sum lies in its tile, and a second pass forms the listed rows
-again (``csrc/message.cu``'s ``message_rows`` for A, :func:`_cross_rows` for
-the others), with the bits of the forms without a table. Every route hands
-A and F the table a batch has (:func:`message_table`); D and E take only the
-tile table.
+A batch with a molecule of more rows than that has none; every tile kernel
+then takes its split table (``BatchMolGraph.split_ptr``, the molecule cut at
+its nodes' boundaries) with the row lists that come with it: the tile kernel
+forms every row whose sums lie in its tile, and passes form the listed rows
+again, with the bits of the forms without a table. A, F, G, H and E take
+``cross_rows`` (``csrc/message.cu``'s ``message_rows`` for A,
+:func:`_cross_rows` for F, G and H, ``csrc/message_bwd.cu``'s
+``iter_bwd_rows`` for E, whose tile kernel leaves those rows to it); D takes
+``y1_rows`` and ``y2_rows`` (``csrc/fused_iter.cu``'s ``fused_iter_rows``, B's
+own code over a list: y1's rows, then y2's). Every route hands each kernel
+the table a batch has (:func:`message_table`, :func:`iter2_table`). A split
+table never reaches a tile kernel without its lists: the collate marks it
+(:func:`mark_table`), and every wrapper refuses it (:func:`check_whole`).
 
 A, B and D are ``torch.library`` ops (``chemprop_tpu_torch::message``,
 ``::fused_iter``, ``::fused_iter2``): the wrappers check and call them, the
-ops launch. An op takes the tile table (and A its cross rows) as an int32
-tensor, empty where the batch has none (:func:`table_arg`), so that a traced
-program serves both forms; A and D count the calls without one in
-``UNSERVED`` themselves, and D takes two launches of B there. The wrappers
-check the table on the host unless they are traced (:func:`traced`).
+ops launch. An op takes the table and its lists as int32 tensors, empty
+where the batch has none (:func:`table_arg`), so that a traced program serves
+every form; A and D count the calls without a table in ``UNSERVED``
+themselves, and D takes two launches of B there. The wrappers check the
+table on the host unless they are traced (:func:`traced`).
 
-A second pass over cross rows counts as a launch of its own
-(``LAUNCHES["message_rows"]``, ``["bwd_message_rows"]``). On a CPU tensor the
-wrappers take the full plain version and then the pass's plain version
-(:func:`message_rows_plain`, :func:`bwd_message_rows_plain`) over the same
+A pass counts as a launch of its own (``LAUNCHES["message_rows"]``,
+``["bwd_message_rows"]``, ``["fused_iter_rows"]``, ``["iter_bwd_rows"]``). On
+a CPU tensor the wrappers take the full plain version and then the pass's
+plain version (:func:`message_rows_plain`, :func:`bwd_message_rows_plain`,
+:func:`fused_iter_rows_plain`, :func:`iter_bwd_rows_plain`) over the same
 rows, which gives the same values again, so that a run on the CPU calls a
 plain version wherever the card launches a kernel."""
 
@@ -104,14 +109,10 @@ def message_plain(
     return M.to(H.dtype)
 
 
-def message_rows_plain(
-    H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
-    rows: torch.Tensor, out: torch.Tensor,
-) -> torch.Tensor:
-    """The plain PyTorch version of A's second pass (``message_rows``):
-    ``out`` with the rows ``rows`` formed again as :func:`message_plain` forms
-    them (the in-edges of each row's source summed in f32 in row order, less
-    its reverse, one cast), every other row as it is; ``out`` is returned."""
+def _message_at(H, src, dst, rev, ptr, rows) -> torch.Tensor:
+    """The f32 message at the rows ``rows``, ``[len(rows), d]``, as
+    :func:`message_plain` sums it: the in-edges of each row's source in row
+    order, less its reverse; zeros for the padding node's rows."""
     n_nodes = ptr.numel() - 1
     rows, dst = rows.long(), dst.long()
     s = src.long()[rows]
@@ -122,7 +123,18 @@ def message_rows_plain(
     M_node = torch.zeros((n_nodes, H.shape[1]), dtype=torch.float32, device=H.device)
     M_node.index_add_(0, dst[k], H[k].float())
     M = M_node[s] - H[rev.long()[rows]].float()
-    out[rows] = M.masked_fill_((s == n_nodes - 1)[:, None], 0.0).to(out.dtype)
+    return M.masked_fill_((s == n_nodes - 1)[:, None], 0.0)
+
+
+def message_rows_plain(
+    H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    rows: torch.Tensor, out: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of A's second pass (``message_rows``):
+    ``out`` with the rows ``rows`` formed again as :func:`message_plain` forms
+    them (the in-edges of each row's source summed in f32 in row order, less
+    its reverse, one cast), every other row as it is; ``out`` is returned."""
+    out[rows.long()] = _message_at(H, src, dst, rev, ptr, rows).to(out.dtype)
     return out
 
 
@@ -144,6 +156,23 @@ def fused_iter_plain(
     if b is not None:
         z = z + b.float()
     return torch.relu(H0.float() + z).to(H.dtype)
+
+
+def fused_iter_rows_plain(
+    H: torch.Tensor, H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None,
+    src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
+    rows: torch.Tensor, y: torch.Tensor, relu_stream: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of D's row pass (``fused_iter_rows``): ``y``
+    with the rows ``rows`` formed again as :func:`fused_iter_plain` forms
+    them, every other row as it is; ``y`` is returned."""
+    M = _message_at(H.clamp_min(0) if relu_stream else H, src, dst, rev, ptr, rows).to(H.dtype)
+    z = M.float() @ W.float()
+    if b is not None:
+        z = z + b.float()
+    r = rows.long()
+    y[r] = torch.relu(H0[r].float() + z).to(y.dtype)
+    return y
 
 
 def fused_iter2_plain(
@@ -180,14 +209,10 @@ def bwd_message_plain(
     return G, gz.masked_fill(pad, 0.0).to(g.dtype)
 
 
-def bwd_message_rows_plain(
-    g: torch.Tensor, y: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
-    rev: torch.Tensor, ptr: torch.Tensor, rows: torch.Tensor, G: torch.Tensor,
-) -> torch.Tensor:
-    """The plain PyTorch version of the transposed message's second pass
-    (``bwd_message_rows``): ``G`` with the rows ``rows`` formed again as
-    :func:`bwd_message_plain` forms them from ``g`` and ``y`` (``y=None``: no
-    mask), every other row as it is; ``G`` is returned."""
+def _transposed_at(g, y, dst, rev, ptr, rows) -> torch.Tensor:
+    """The f32 masked transposed message at the rows ``rows``,
+    ``[len(rows), d]``, as :func:`bwd_message_plain` sums it from ``g`` and
+    ``y`` (``y=None``: no mask); zeros for the padding node's rows."""
     n_nodes = ptr.numel() - 1
     rows, dst, rev = rows.long(), dst.long(), rev.long()
     v = dst[rows]
@@ -199,7 +224,18 @@ def bwd_message_rows_plain(
     T = torch.zeros((n_nodes, g.shape[1]), dtype=torch.float32, device=g.device)
     T.index_add_(0, dst[j], gz[rev[j]])
     Gr = T[v] - gz[rev[rows]]
-    G[rows] = Gr.masked_fill_((v == n_nodes - 1)[:, None], 0.0).to(G.dtype)
+    return Gr.masked_fill_((v == n_nodes - 1)[:, None], 0.0)
+
+
+def bwd_message_rows_plain(
+    g: torch.Tensor, y: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
+    rev: torch.Tensor, ptr: torch.Tensor, rows: torch.Tensor, G: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of the transposed message's second pass
+    (``bwd_message_rows``): ``G`` with the rows ``rows`` formed again as
+    :func:`bwd_message_plain` forms them from ``g`` and ``y`` (``y=None``: no
+    mask), every other row as it is; ``G`` is returned."""
+    G[rows.long()] = _transposed_at(g, y, dst, rev, ptr, rows).to(G.dtype)
     return G
 
 
@@ -245,6 +281,23 @@ def iter_bwd_plain(
     return dH, gz, dW
 
 
+def iter_bwd_rows_plain(
+    g: torch.Tensor, y: torch.Tensor, H: torch.Tensor, W: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, rows: torch.Tensor,
+    dH: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of E's pass over a split table's cross rows
+    (``iter_bwd_rows``): ``dH`` with the rows ``rows`` formed again as
+    :func:`iter_bwd_plain` forms them (``G`` at those rows summed in f32 and
+    rounded once, times ``W^T``), every other row as it is; and those rows'
+    share of ``dW``, ``H[rows]^T G[rows]`` in f32."""
+    Gc = _transposed_at(g, y, dst, rev, ptr, rows).to(g.dtype).float()
+    r = rows.long()
+    dH[r] = (Gc @ W.float().t()).to(dH.dtype)
+    Hr = H[r].float().masked_fill((dst.long()[r] == ptr.numel() - 2)[:, None], 0.0)
+    return dH, Hr.t() @ Gc
+
+
 def _check_graph(H, src, dst, rev, ptr):
     if H.dim() != 2 or not H.is_contiguous():
         raise ValueError("H must be a contiguous [E, d] table")
@@ -283,9 +336,7 @@ def _message_fwd(H, src, dst, rev, ptr, tiles=None, cross=None):
     if H.dtype not in DTYPES:
         raise TypeError(f"H must be float32 or bfloat16, got {H.dtype}")
     if not traced():
-        _check_cross(cross, tiles, H)
-        if tiles is not None:
-            check_tiles(tiles, H.shape[0], H.device)
+        _check_table(tiles, None if cross is None else (cross,), H)
     return torch.ops.chemprop_tpu_torch.message(H, src, dst, rev, ptr, table_arg(tiles, src),
                                                 table_arg(cross, src))
 
@@ -478,13 +529,33 @@ def check_tiles(tiles: torch.Tensor, n_edges: int, device: torch.device) -> None
         raise ValueError(f"tiles must ascend in runs of at most {ITER2_TILE_ROWS} rows")
 
 
-def tiles_to(tiles: torch.Tensor, n_edges: int, device: str | torch.device) -> torch.Tensor:
+def tiles_to(tiles: torch.Tensor, n_edges: int, device: str | torch.device,
+             split: bool = False) -> torch.Tensor:
     """``tiles`` checked (:func:`check_tiles`, on its own device) and moved to
-    ``device``, marked so that the tile kernels do not read it back."""
+    ``device``, marked so that the tile kernels do not read it back, and
+    marked a split table or a whole one (:func:`mark_table`)."""
     check_tiles(tiles, n_edges, tiles.device)
     moved = tiles.to(device, non_blocking=True)
     moved.checked_for_rows = n_edges
-    return moved
+    return mark_table(moved, split)
+
+
+def mark_table(tiles: torch.Tensor, split: bool) -> torch.Tensor:
+    """``tiles`` marked as a split table (``BatchMolGraph.split_ptr``, which
+    cuts a molecule) or a whole one; returned. The collate and
+    ``BatchMolGraph.to`` mark every table they make or move."""
+    tiles.split_table = split
+    return tiles
+
+
+def check_whole(tiles: torch.Tensor) -> None:
+    """Raise if ``tiles`` is marked a split table (:func:`mark_table`): a tile
+    kernel takes one only with its row lists, since it cannot form the rows
+    whose sums leave their tile. An unmarked table is taken as whole; where it
+    cuts a molecule, the rows a tile kernel cannot form come out NaN."""
+    if getattr(tiles, "split_table", False):
+        raise ValueError("a split tile table comes with its row lists "
+                         "(BatchMolGraph.cross_rows, y1_rows, y2_rows)")
 
 
 def check_cross(cross: torch.Tensor, n_edges: int, device: torch.device) -> None:
@@ -513,16 +584,29 @@ def cross_to(cross: torch.Tensor, n_edges: int, device: str | torch.device) -> t
 
 
 def message_table(tiles: torch.Tensor | None, split: tuple | None):
-    """The table A and F take on a batch: its tile table ``tiles`` where it
-    has one, else its split table and cross rows ``split``
-    (``(BatchMolGraph.split_ptr, BatchMolGraph.cross_rows)``) as a pair, else
-    None. A split table without its cross rows raises."""
+    """The table A, F, G, H and E take on a batch: its tile table ``tiles``
+    where it has one, else its split table and cross rows ``split``
+    (``(BatchMolGraph.split_ptr, BatchMolGraph.cross_rows[, y1_rows,
+    y2_rows])``) as a pair, else None. A split table without its cross rows
+    raises."""
     if tiles is not None or split is None:
         return tiles
-    split_ptr, cross = split
+    split_ptr, cross = split[:2]
     if cross is None:
         raise ValueError("a split tile table comes with its cross rows")
     return split_ptr, cross
+
+
+def iter2_table(tiles: torch.Tensor | None, split: tuple | None):
+    """The table D takes on a batch: its tile table ``tiles`` where it has
+    one, else its split table and D's row lists, ``(split_ptr, (y1_rows,
+    y2_rows))`` from ``split`` (``(split_ptr, cross_rows, y1_rows,
+    y2_rows)``), else None. A split table without D's lists raises."""
+    if tiles is not None or split is None:
+        return tiles
+    if len(split) < 4 or split[2] is None or split[3] is None:
+        raise ValueError("a split tile table comes with D's row lists (y1_rows, y2_rows)")
+    return split[0], (split[2], split[3])
 
 
 def _unpack(table) -> tuple[torch.Tensor | None, torch.Tensor | None]:
@@ -533,36 +617,58 @@ def _unpack(table) -> tuple[torch.Tensor | None, torch.Tensor | None]:
 def fused_iter2(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor,
+    rows: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The first two bfloat16 depth iterations in one launch:
     ``y1 = fused_iter(H0, H0, relu_stream=True)`` and ``y2 = fused_iter(y1, H0)``,
     both equal to those two launches bit for bit. ``tiles`` is the batch's tile
-    table (:func:`check_tiles`); ``d`` one of ``ITER2_WIDTHS``."""
+    table (:func:`check_tiles`); ``d`` one of ``ITER2_WIDTHS``.
+
+    With a split table (``BatchMolGraph.split_ptr``) as ``tiles`` and D's row
+    lists ``rows = (y1_rows, y2_rows)`` it is that launch, then
+    :func:`_fused_iter_rows` over ``y1_rows`` from ``H0`` and over ``y2_rows``
+    from the mended ``y1``: the same bits again. A split table without its
+    lists raises (:func:`check_whole`)."""
     _check_iter(H0, H0, W, b, src, dst, rev, ptr)
     n, d = H0.shape
     if d not in ITER2_WIDTHS:
         raise ValueError(f"fused_iter2 takes d in {ITER2_WIDTHS}, not {d}")
     if not traced():
-        check_tiles(tiles, n, H0.device)
-    return torch.ops.chemprop_tpu_torch.fused_iter2(H0, W, b, src, dst, rev, ptr, tiles)
+        _check_table(tiles, rows, H0)
+    return torch.ops.chemprop_tpu_torch.fused_iter2(H0, W, b, src, dst, rev, ptr, tiles,
+                                                    *_rows_args(rows, src))
+
+
+def _rows_args(rows, like):
+    """D's row lists as the op takes them: two int32 tensors, empty where the
+    table has none (a tile table)."""
+    return tuple(table_arg(r, like) for r in (rows or (None, None)))
 
 
 def _fused_iter2_launch(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor,
+    rows1: torch.Tensor, rows2: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel D as the op ``chemprop_tpu_torch::fused_iter2`` (checked by the
     caller): over the tile table where there is one (``tiles`` of two or more
-    offsets) at a width in ``ITER2_WIDTHS``, else two launches of B, and
-    ``UNSERVED["fused_iter2"]`` counts the call; on a CPU tensor the plain
-    versions."""
+    offsets) at a width in ``ITER2_WIDTHS``, then B's row pass over a split
+    table's ``rows1`` (y1) and ``rows2`` (y2), none where they are empty;
+    else two launches of B, and ``UNSERVED["fused_iter2"]`` counts the call;
+    on a CPU tensor the plain versions."""
     n, d = H0.shape
     if tiles.numel() < 2 or d not in ITER2_WIDTHS:
         UNSERVED["fused_iter2"] += 1
         y1 = _fused_iter_launch(H0, H0, W, b, src, dst, rev, ptr, True)
         return y1, _fused_iter_launch(y1, H0, W, b, src, dst, rev, ptr, False)
+    graph = (src, dst, rev, ptr)
     if H0.device.type == "cpu":
-        return fused_iter2_plain(H0, W, b, src, dst, rev, ptr)
+        y1, y2 = fused_iter2_plain(H0, W, b, *graph)
+        if rows1.numel():
+            fused_iter_rows_plain(H0, H0, W, b, *graph, rows1, y1, relu_stream=True)
+        if rows2.numel():
+            fused_iter_rows_plain(y1, H0, W, b, *graph, rows2, y2)
+        return y1, y2
     _aligned(H0, W, b, name="the fused iteration")
     y1, y2 = torch.empty_like(H0), torch.empty_like(H0)
     if n == 0:
@@ -570,7 +676,22 @@ def _fused_iter2_launch(
     call(library("iter2"), "iter2", H0, W, b, src.contiguous(), rev.contiguous(),
          ptr.contiguous(), tiles.contiguous(), y1, y2, n, tiles.numel() - 1, d, ptr.numel() - 2)
     LAUNCHES["fused_iter2"] += 1
+    # y2's rows read y1's: y1 is mended first
+    _fused_iter_rows(H0, H0, W, b, src, rev, ptr, rows1, y1, relu_stream=True)
+    _fused_iter_rows(y1, H0, W, b, src, rev, ptr, rows2, y2)
     return y1, y2
+
+
+def _fused_iter_rows(H, H0, W, b, src, rev, ptr, rows, y, relu_stream: bool = False) -> None:
+    """``y`` at the rows ``rows`` formed again as :func:`fused_iter` forms
+    them, in device memory (``csrc/fused_iter.cu``'s ``fused_iter_rows``: B's
+    gather, product and epilogue over 64 listed rows a tile: the bits B gives
+    them); nothing where ``rows`` is empty."""
+    if rows.numel():
+        call(library("fused_iter"), "fused_iter_rows", H, H0, W, b, src.contiguous(),
+             rev.contiguous(), ptr.contiguous(), rows.contiguous(), y, rows.numel(), H.shape[1],
+             ptr.numel() - 2, int(relu_stream))
+        LAUNCHES["fused_iter_rows"] += 1
 
 
 _fused_iter2_op = torch.library.custom_op("chemprop_tpu_torch::fused_iter2",
@@ -578,7 +699,7 @@ _fused_iter2_op = torch.library.custom_op("chemprop_tpu_torch::fused_iter2",
 
 
 @_fused_iter2_op.register_fake
-def _(H0, W, b, src, dst, rev, ptr, tiles):
+def _(H0, W, b, src, dst, rev, ptr, tiles, rows1, rows2):
     return torch.empty_like(H0), torch.empty_like(H0)
 
 
@@ -623,12 +744,24 @@ def _launch_bwd(g, y, acc, dst, rev, ptr, nodes: bool, with_gz: bool):
     return G, gz
 
 
-def _check_cross(cross: torch.Tensor | None, tiles: torch.Tensor | None, y: torch.Tensor) -> None:
-    if cross is None:
-        return
+def _check_table(tiles: torch.Tensor | None, lists: tuple | None, like: torch.Tensor) -> None:
+    """The host checks of a table and the row lists that come with it:
+    ``lists`` None (a tile table: one marked split raises) or the tuple of a
+    split table's lists, each checked (:func:`check_cross`). Lists without a
+    table raise."""
+    n = like.shape[0]
     if tiles is None:
-        raise ValueError("cross rows come with the split tile table")
-    check_cross(cross, y.shape[0], y.device)
+        if lists is not None:
+            raise ValueError("cross rows come with the split tile table")
+        return
+    check_tiles(tiles, n, like.device)
+    if lists is None:
+        check_whole(tiles)
+        return
+    for rows in lists:
+        if rows is None:
+            raise ValueError("a split tile table comes with all its row lists")
+        check_cross(rows, n, like.device)
 
 
 def _cross_rows(g, y, dst, rev, ptr, cross, G) -> None:
@@ -676,9 +809,7 @@ def _transposed(g, y, acc, graph, table, with_gz: bool):
     src, dst, rev, ptr = graph
     tiles, cross = _unpack(table)
     n, d = g.shape
-    _check_cross(cross, tiles, g)
-    if tiles is not None:
-        check_tiles(tiles, n, g.device)
+    _check_table(tiles, None if cross is None else (cross,), g)
     tiled = tiles is not None and message_tile_width(d)
     if not tiled:
         UNSERVED["bwd_message"] += 1
@@ -744,17 +875,15 @@ def bwd_message_nodes(
     bits."""
     _check_graph(y, src, dst, rev, ptr)
     n, d = y.shape
-    _check_cross(cross, tiles, y)
     if y.dtype != torch.bfloat16 or g_nodes.dtype != torch.bfloat16:
         raise TypeError("bwd_message_nodes takes bfloat16 g_nodes and y")
     if g_nodes.shape != (ptr.numel() - 1, d) or g_nodes.device != y.device:
         raise ValueError(f"g_nodes {tuple(g_nodes.shape)} does not fit y and ptr")
     if not g_nodes.is_contiguous():
         raise ValueError("g_nodes must be contiguous")
-    if tiles is not None:
-        if d % 128 != 0:
-            raise ValueError(f"the tiled bwd_message_nodes takes d % 128 == 0, not {d}")
-        check_tiles(tiles, n, y.device)
+    if tiles is not None and d % 128 != 0:
+        raise ValueError(f"the tiled bwd_message_nodes takes d % 128 == 0, not {d}")
+    _check_table(tiles, None if cross is None else (cross,), y)
     if y.device.type == "cpu":
         out = bwd_message_nodes_plain(g_nodes, y, src, dst, rev, ptr)
         if tiles is not None and cross is not None and cross.numel():
@@ -815,7 +944,6 @@ def bwd_message_premul(
     from it: the same bits again."""
     _check_graph(y, src, dst, rev, ptr)
     n, d = y.shape
-    _check_cross(cross, tiles, y)
     if y.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
         raise TypeError("bwd_message_premul takes bfloat16 tables and W")
     if fold_h0 and H0 is None:
@@ -824,8 +952,7 @@ def bwd_message_premul(
     _check_tables(y, {"G_in": G_in, "H0": H0})
     if W.shape != (d, d) or d % 128 != 0 or W.device != y.device or not W.is_contiguous():
         raise ValueError(f"W {tuple(W.shape)} must be a contiguous [d, d] with d % 128 == 0")
-    if tiles is not None:
-        check_tiles(tiles, n, y.device)
+    _check_table(tiles, None if cross is None else (cross,), y)
     if y.device.type == "cpu":
         if tiles is None or cross is None or not cross.numel():
             return bwd_message_premul_plain(G_in, y, H0, W, src, dst, rev, ptr, fold_h0)
@@ -874,6 +1001,7 @@ def bwd_message_premul_info(d: int, n_tiles: int) -> dict[str, int]:
 def iter_bwd(
     g: torch.Tensor, y: torch.Tensor, H: torch.Tensor, W: torch.Tensor, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, tiles: torch.Tensor | None = None,
+    cross: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dH, gz, dW)``, the whole backward of one bfloat16 iteration
     ``y = relu(H0 + message(H) @ W)`` from the cotangent ``g``: with
@@ -887,7 +1015,15 @@ def iter_bwd(
     molecule tiles, and one ordered reduction of its clusters' partial ``dW``;
     without one (a molecule of more than ``ITER2_TILE_ROWS`` rows) the three
     launches of ``csrc/message_bwd.cu``. Both give the same ``gz`` and the
-    same ``G``; ``dH`` and ``dW`` sum the same products in another order."""
+    same ``G``; ``dH`` and ``dW`` sum the same products in another order.
+
+    With a split table (``BatchMolGraph.split_ptr``) as ``tiles`` and its
+    ``cross`` rows (:func:`check_cross`) the tile launch leaves the cross rows
+    out (zeros in ``G``), and ``csrc/message_bwd.cu``'s ``iter_bwd_rows``
+    forms their ``G`` from ``g`` and ``y``, their ``dH`` and their share of
+    ``dW``, which the ordered reduction adds after the clusters' partials:
+    ``gz`` and ``G`` as before, the same bits in every run. A split table
+    without its cross rows raises (:func:`check_whole`)."""
     _check_graph(g, src, dst, rev, ptr)
     n, d = g.shape
     if g.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
@@ -895,12 +1031,15 @@ def iter_bwd(
     _check_tables(g, {"y": y, "H": H})
     if W.shape != (d, d) or d % 128 != 0 or W.device != g.device or not W.is_contiguous():
         raise ValueError(f"W {tuple(W.shape)} must be a contiguous [d, d] with d % 128 == 0")
-    if tiles is not None:
-        if d not in ITER_BWD_TILE_WIDTHS:
-            raise ValueError(f"the tiled iter_bwd takes d in {ITER_BWD_TILE_WIDTHS}, not {d}")
-        check_tiles(tiles, n, g.device)
+    if tiles is not None and d not in ITER_BWD_TILE_WIDTHS:
+        raise ValueError(f"the tiled iter_bwd takes d in {ITER_BWD_TILE_WIDTHS}, not {d}")
+    _check_table(tiles, None if cross is None else (cross,), g)
+    again = tiles is not None and cross is not None and cross.numel() > 0
     if g.device.type == "cpu":
-        return iter_bwd_plain(g, y, H, W, src, dst, rev, ptr)
+        dH, gz, dW = iter_bwd_plain(g, y, H, W, src, dst, rev, ptr)
+        if again:
+            iter_bwd_rows_plain(g, y, H, W, src, dst, rev, ptr, cross, dH)
+        return dH, gz, dW
     if any(t.data_ptr() % 16 != 0 for t in (g, y, H, W)):
         raise ValueError("iter_bwd needs 16-byte aligned tables")
     dH, gz = torch.empty_like(g), torch.empty_like(g)
@@ -917,11 +1056,27 @@ def iter_bwd(
         clusters = lib.iter_bwd_clusters(d, n_tiles)
         if clusters < 1:
             raise RuntimeError(f"iter_bwd: no cluster of {d // 64} blocks fits this card")
-        partial = torch.empty((clusters, d, d), dtype=torch.float32, device=g.device)
+        # over a split table one more partial: the cross rows' H^T G
+        partial = torch.empty((clusters + again, d, d), dtype=torch.float32, device=g.device)
         call(lib, "iter_bwd_tiles", g, y, H, W, *graph, tiles.contiguous(), dH, gz, partial, dW,
-             n, d, ptr.numel() - 2, n_tiles, clusters)
+             n, d, ptr.numel() - 2, n_tiles, clusters, int(again))
+        if again:
+            _iter_bwd_rows(g, y, H, W, *graph, cross, dH, partial[clusters])
+            call(lib, "iter_bwd_sum", partial, dW, clusters + 1, d)
     LAUNCHES["iter_bwd"] += 1
     return dH, gz, dW
+
+
+def _iter_bwd_rows(g, y, H, W, dst, rev, ptr, cross, dH, partial) -> None:
+    """E's pass over a split table's cross rows in device memory
+    (``csrc/message_bwd.cu``'s ``iter_bwd_rows``): their ``G`` from ``g`` and
+    ``y`` into a compact table, their rows of ``dH``, and their ``H^T G`` into
+    ``partial`` (a ``[d, d]`` f32 table)."""
+    n, d = cross.numel(), g.shape[1]
+    Gc = torch.empty((n, d), dtype=g.dtype, device=g.device)
+    call(library("message_bwd"), "iter_bwd_rows", g, y, H, W, dst, rev, ptr, cross.contiguous(),
+         Gc, dH, partial, n, d, ptr.numel() - 2)
+    LAUNCHES["iter_bwd_rows"] += 1
 
 
 def iter_bwd_info(d: int, n_tiles: int) -> dict[str, int]:
@@ -986,7 +1141,7 @@ def first_iter(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
-    split: tuple[torch.Tensor, torch.Tensor] | None = None,
+    split: tuple | None = None,
 ) -> torch.Tensor:
     """The first depth iteration ``relu(H0 + message(relu(H0)) @ W [+ b])`` as a
     differentiable op (cf. ``fused_first_iter``), float32 or bfloat16; in
@@ -1004,7 +1159,7 @@ def message_iter(
     H: torch.Tensor, H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None,
     src: torch.Tensor, dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
-    split: tuple[torch.Tensor, torch.Tensor] | None = None,
+    split: tuple | None = None,
 ) -> torch.Tensor:
     """One depth iteration ``relu(H0 + message(H) @ W [+ b])`` as a
     differentiable op (cf. ``fused_message_iter``), float32 or bfloat16; in
@@ -1012,12 +1167,12 @@ def message_iter(
     it has none its split table and cross rows ``split``
     (:func:`message_table`). The backward is written by hand:
     :func:`bwd_message` over the same table, then ``G @ W^T`` and ``H^T G``;
-    in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd` over the
-    batch's tile table ``tiles``. A batch without one (a molecule larger than
-    a tile), or a width the tiled kernel does not take, takes
-    :func:`iter_bwd`'s form without a table, and ``UNSERVED["iter_bwd"]``
-    counts each such backward."""
-    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions(), tiles,
+    in bfloat16 with ``options.fused_bwd`` one :func:`iter_bwd` over the same
+    table (the split table with its cross rows where the batch has no tile
+    table). A batch without either, or a width the tiled kernel does not
+    take, takes :func:`iter_bwd`'s form without a table, and
+    ``UNSERVED["iter_bwd"]`` counts each such backward."""
+    return _MessageIter.apply(H, H0, W, b, src, dst, rev, ptr, options or KernelOptions(),
                               message_table(tiles, split))
 
 
@@ -1042,11 +1197,11 @@ class _FirstIter(torch.autograd.Function):
 
 class _MessageIter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options, tiles, table):
+    def forward(ctx, H, H0, W, b, src, dst, rev, ptr, options, table):
         H, H0 = H.contiguous(), H0.contiguous()
         y = _iteration(H, H0, W, b, (src, dst, rev, ptr), tiles=table)
         ctx.save_for_backward(y, H, W, b, src, dst, rev, ptr)
-        ctx.options, ctx.tiles, ctx.table = options, tiles, table
+        ctx.options, ctx.table = options, table
         return y
 
     @staticmethod
@@ -1054,21 +1209,21 @@ class _MessageIter(torch.autograd.Function):
         y, H, W, b, *graph = ctx.saved_tensors
         g = g.to(y.dtype).contiguous()
         if ctx.options.fused_bwd and y.dtype == torch.bfloat16:
-            tiles = ctx.tiles if y.shape[1] in ITER_BWD_TILE_WIDTHS else None
+            tiles, cross = _unpack(ctx.table if y.shape[1] in ITER_BWD_TILE_WIDTHS else None)
             if tiles is None:
                 UNSERVED["iter_bwd"] += 1
-            dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles)
+            dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles, cross=cross)
         else:
             dH, gz, dW = _iteration_bwd(g, y, H, W, graph, ctx.options.grad_w,
                                         tiles=ctx.table)
-        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 7
+        return dH, gz, dW.to(W.dtype), _bias_grad(gz, b), *(None,) * 6
 
 
 def loop_readout(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, depth: int,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
-    split: tuple[torch.Tensor, torch.Tensor] | None = None,
+    split: tuple | None = None,
 ) -> torch.Tensor:
     """The whole ReLU depth loop and the M_v readout as one differentiable op
     (cf. ``fused_loop_readout``), for ``depth >= 2``:
@@ -1081,10 +1236,11 @@ def loop_readout(
     rows ``split`` where the batch has none (:func:`message_table`), and a
     ``torch.matmul``. With ``options.iter2``, in
     bfloat16 at ``depth >= 3``, the first two iterations are one
-    :func:`fused_iter2` launch over the batch's tile table ``tiles``; a batch
-    without one (a molecule larger than a tile), or a width outside
-    ``ITER2_WIDTHS``, takes the two launches, and ``UNSERVED["fused_iter2"]``
-    counts it. The backward is written by hand. In
+    :func:`fused_iter2` launch over the batch's tile table ``tiles``, or its
+    split table with D's row lists from ``split`` (:func:`iter2_table`); a
+    batch without either, or a width outside ``ITER2_WIDTHS``, takes the two
+    launches, and ``UNSERVED["fused_iter2"]`` counts it. The backward is
+    written by hand. In
     bfloat16 with no bias and ``depth >= 3`` no cotangent edge table is formed
     outside a kernel: :func:`bwd_message_nodes` for the last iteration and
     :func:`bwd_message_premul` for the earlier ones, the first with
@@ -1105,21 +1261,24 @@ def loop_readout(
                               tiles, split)
 
 
-def _loop_forward(H0, W, b, graph, depth: int, tiles, iter2: bool = False, table=None) -> list:
+def _loop_forward(H0, W, b, graph, depth: int, d_table=None, iter2: bool = False,
+                  table=None) -> list:
     """The outputs of iterations 1 .. depth - 1 of the ReLU depth loop: the
     first with ``relu(H0)`` streamed (bfloat16) or formed (float32), each
     later one from the one before, float32's messages over ``table``
     (:func:`message_table`); with ``iter2`` (bfloat16, depth >= 3) the first
-    two as one :func:`fused_iter2` launch over the tile table ``tiles``."""
+    two as one :func:`fused_iter2` launch over ``d_table``
+    (:func:`iter2_table`: the tile table, or the split table and D's lists)."""
     ys = []
     if H0.dtype == torch.bfloat16 and iter2 and depth >= 3:
         _check_iter(H0, H0, W, b, *graph)
-        if tiles is not None and not traced():
-            check_tiles(tiles, H0.shape[0], H0.device)
+        tiles, rows = (d_table, None) if not isinstance(d_table, tuple) else d_table
+        if not traced():
+            _check_table(tiles, rows, H0)
         # without a table, or at a width D does not take, the op takes two
         # launches of B and counts the call in UNSERVED
-        ys = list(torch.ops.chemprop_tpu_torch.fused_iter2(H0, W, b, *graph,
-                                                            table_arg(tiles, H0)))
+        ys = list(torch.ops.chemprop_tpu_torch.fused_iter2(
+            H0, W, b, *graph, table_arg(tiles, H0), *_rows_args(rows, H0)))
     if not ys:
         first = H0.dtype == torch.bfloat16  # float32 has no streamed ReLU to save
         ys = [_iteration(H0 if first else torch.relu(H0), H0, W, b, graph, relu_stream=first,
@@ -1152,7 +1311,7 @@ def depth_loop(
     H0: torch.Tensor, W: torch.Tensor, b: torch.Tensor | None, src: torch.Tensor,
     dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, depth: int,
     options: KernelOptions | None = None, tiles: torch.Tensor | None = None,
-    split: tuple[torch.Tensor, torch.Tensor] | None = None,
+    split: tuple | None = None,
 ) -> torch.Tensor:
     """The whole ReLU depth loop as one differentiable op (cf.
     ``fused_depth_loop``), for ``depth >= 2``; it returns the last ``H``:
@@ -1198,10 +1357,11 @@ class _LoopReadout(torch.autograd.Function):
         graph = (src, dst, rev, ptr)
         H0 = H0.contiguous()
         table = message_table(tiles, split)
-        ys = _loop_forward(H0, W, b, graph, depth, tiles, options.iter2, table)
+        d_table = iter2_table(tiles, split) if options.iter2 else None
+        ys = _loop_forward(H0, W, b, graph, depth, d_table, options.iter2, table)
         ctx.save_for_backward(H0, W, b, *graph, *ys)
         ctx.depth, ctx.grad_w = depth, options.grad_w and H0.dtype == torch.bfloat16
-        ctx.tiles, ctx.split, ctx.table = tiles, split, table
+        ctx.table = table
         return _segment_sum(ys[-1], dst, ptr, H0.dtype, False)[0]
 
     @staticmethod
@@ -1217,9 +1377,7 @@ class _LoopReadout(torch.autograd.Function):
             def x_of(t):  # the input of iteration t
                 return ys[t - 2] if t >= 2 else relu_H0
 
-            tiles, cross = ctx.tiles, None
-            if tiles is None and ctx.split is not None:
-                tiles, cross = ctx.split
+            tiles, cross = _unpack(ctx.table)
             if tiles is None:
                 UNSERVED["bwd_message_nodes"] += 1
             G, dH0 = bwd_message_nodes(g_Mv, ys[-1], *graph, tiles=tiles, cross=cross)

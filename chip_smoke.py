@@ -31,8 +31,12 @@ failure:
    their nodes' boundaries, and the cross rows formed again), bit for bit
    equal to their forms without a table, with the message and the masked
    transposed message (unmasked, masked, with gz_acc) in float32 and
-   bfloat16 over the same split table, and the two second passes alone
-   (``SPLIT_PASSES``) against their plain versions and timed; the segment
+   bfloat16 over the same split table, the two chained iterations over it
+   with their two row passes (bit for bit two fused iterations, two calls
+   equal), the whole-iteration backward over it with its pass (gz bit for
+   bit its form without a table, dH and dW within its limits, two calls
+   equal), and the four passes alone (``SPLIT_PASSES``) against their plain
+   versions and timed; the segment
    sum at both readouts (edges to nodes, nodes to graphs) in all three dtype
    pairs, with and without counts, two calls equal; the whole-iteration
    backward with the batch's tile table and without one, gz equal bit for
@@ -251,7 +255,14 @@ failure:
    1e-3 (bf16) of the eager forward; the eager and exported calls timed;
    each ``.pt2`` loaded and run in a new process that imports only
    ``chemprop_tpu_torch.ops`` (its load seconds, launches and output held
-   the same way);
+   the same way); (d) the same model exported from Tox21's split batch in
+   f32 and in bf16 with ``iter2``, rehearsed on the CPU: A's tile kernel
+   and its pass, or D and its two passes, launched as the rehearsal and the
+   eager forward launch them, nothing unserved, within the same limits;
+   (e) a bf16 fit with dropout 0.1, ``iter2`` and ``fused_bwd`` over 150 of
+   Tox21's molecules (E and its pass in the steps, D and its passes in the
+   prediction), launching exactly as rehearsed on the CPU, nothing
+   unserved;
 16. the native featurizer and the kmeans split on the command line: one
    f32 ``train`` epoch with ``--split kmeans
    --use-cuikmolmaker-featurization`` on the card, rehearsed on the CPU
@@ -455,6 +466,19 @@ SPLIT_PASSES = {
         tpu_kernel="_bwd_msg_kernel via _bwd_msg_impl (kw=2, 3), the rows across tiles; "
                    "also G's and H's",
         timed="bwd_message_rows[float32]",
+    ),
+    "fused_iter_rows": dict(
+        source="chemprop_tpu_torch/csrc/fused_iter.cu",
+        replaces="chemprop_tpu/ops/fused_message.py:394",
+        tpu_kernel="_iter2_kernel via _iter2_impl (kw=2, 3), the rows of y1, then y2, across "
+                   "tiles",
+        timed="fused_iter_rows[y2]",
+    ),
+    "iter_bwd_rows": dict(
+        source="chemprop_tpu_torch/csrc/message_bwd.cu",
+        replaces="chemprop_tpu/ops/fused_message.py:603",
+        tpu_kernel="_iter_bwd_kernel via _iter_bwd_impl (kw=2, 3), the rows across tiles",
+        timed="iter_bwd_rows[dH]",
     ),
 }
 # the launches of one forward and of one training step in each dtype; a
@@ -702,7 +726,9 @@ PLAIN_VERSIONS = {
                 "bwd_message_nodes_plain": "bwd_message_nodes",
                 "bwd_message_premul_plain": "bwd_message_premul", "iter_bwd_plain": "iter_bwd",
                 "message_rows_plain": "message_rows",
-                "bwd_message_rows_plain": "bwd_message_rows"},
+                "bwd_message_rows_plain": "bwd_message_rows",
+                "fused_iter_rows_plain": "fused_iter_rows",
+                "iter_bwd_rows_plain": "iter_bwd_rows"},
     "segment": {"sorted_segment_sum_plain": "sorted_segment_sum"},
     "gather": {"row_gather_plain": "row_gather"},
 }
@@ -1878,32 +1904,49 @@ def extras_phase(ds, bmg, out_dir: Path) -> tuple[dict, dict]:
     return launches, res
 
 
-def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> dict:
-    """Phase 2, A, F, G and H on a split tile table: Tox21's 500 molecules
-    (classification/mol.csv, 8 of them of more than 128 directed edges) in one
-    batch, which has no tile table; its split table cuts those molecules at
-    their nodes' boundaries, and ``cross_rows`` lists the rows that read
-    another tile. A (f32 and bf16), F (f32 and bf16, unmasked, masked and
-    with gz_acc), G and H (``fold_h0`` on and off) with the split table must
-    give the bits of their forms without a table on every row, in two calls,
-    and hold against their plain versions at the limits of the tiled check.
-    Then the second passes alone (``message_rows``, ``bwd_message_rows``)
-    over the cross rows against their plain versions, and timed beside them
-    with the least time the card could take (``SPLIT_PASSES``)."""
-    import torch
-
+def tox21_bmg(device: str = "cuda"):
+    """Tox21's 500 molecules (classification/mol.csv, 8 of them of more than
+    128 directed edges) in one batch on ``device``: no tile table; its split
+    table cuts those molecules at their nodes' boundaries, ``cross_rows``
+    lists the rows that read another tile, ``y1_rows`` / ``y2_rows`` the rows
+    D cannot form in its tile."""
     from chemprop_tpu_torch.chem import make_mol
     from chemprop_tpu_torch.data.collate import batch_mol_graphs
     from chemprop_tpu_torch.featurizers import SimpleMoleculeMolGraphFeaturizer
-    from chemprop_tpu_torch.ops import bwd_message, bwd_message_nodes, bwd_message_premul, message
-    from chemprop_tpu_torch.ops.message import (
-        _cross_rows, _message_rows, _transposed, bwd_message_nodes_plain, bwd_message_plain,
-        bwd_message_premul_plain, bwd_message_rows_plain, message_plain, message_rows_plain,
-    )
 
     feat = SimpleMoleculeMolGraphFeaturizer()
     rows = read_targets(REPO / "tests/data/classification/mol.csv")
-    b = batch_mol_graphs([feat(make_mol(smi)) for smi, *_ in rows]).to("cuda")
+    return batch_mol_graphs([feat(make_mol(smi)) for smi, *_ in rows]).to(device)
+
+
+def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> dict:
+    """Phase 2, the tile kernels on a split tile table: Tox21's 500 molecules
+    in one batch (:func:`tox21_bmg`). A (f32 and bf16), F (f32 and bf16,
+    unmasked, masked and with gz_acc), G and H (``fold_h0`` on and off) with
+    the split table must give the bits of their forms without a table on
+    every row, in two calls, and hold against their plain versions at the
+    limits of the tiled check; D with D's lists the bits of two B launches
+    (its form without a table), E with the cross rows ``gz`` bit-equal to
+    its form without a table and ``dH``, ``dW`` within E's limits of the
+    plain version, both in two calls. Then the passes alone
+    (``message_rows``, ``bwd_message_rows``, ``fused_iter_rows`` over
+    ``y2_rows``, ``iter_bwd_rows`` over the cross rows) against their plain
+    versions, and timed beside them with the least time the card could take
+    (``SPLIT_PASSES``)."""
+    import torch
+
+    from chemprop_tpu_torch.ops import (
+        bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, fused_iter2, iter_bwd,
+        message,
+    )
+    from chemprop_tpu_torch.ops.message import (
+        _cross_rows, _fused_iter_rows, _iter_bwd_rows, _message_rows, _transposed, bwd_message_nodes_plain,
+        bwd_message_plain, bwd_message_premul_plain, bwd_message_rows_plain, fused_iter2_plain,
+        fused_iter_rows_plain, iter_bwd_plain, iter_bwd_rows_plain, message_plain,
+        message_rows_plain,
+    )
+
+    b = tox21_bmg()
     if b.tile_ptr is not None or b.split_ptr is None or not b.cross_rows.numel():
         fail("the Tox21 batch should have a split table with cross rows and no tile table")
     graph = (b.src, b.dst, b.rev, b.edge_ptr)
@@ -1976,10 +2019,42 @@ def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> d
         check(f"{tag},G]", out[0], want_G, 2 * BF16_ULP, 1e-4, errs, terms[b.dst.long()])
         check(f"{tag},z]", out[1], want_z, 2 * BF16_ULP, 1e-4, errs)
 
-    # the two passes alone over the cross rows, the other rows NaN: those
-    # rows against the plain versions, the others untouched; then timed
+    # D with its lists: the launch over the split table, then B's row pass
+    # over y1_rows and over y2_rows, the bits of two B launches on every row;
+    # against the plain version held as the tiled check holds D
+    rows = (b.y1_rows, b.y2_rows)
+    H0z = H0.masked_fill(pad_rows[:, None], 0)  # as W_i leaves them without a bias
+    y1, y2 = fused_iter2(H0z, W, None, *graph, b.split_ptr, rows)
+    w1 = fused_iter(H0z, H0z, W, None, *graph, relu_stream=True)
+    same("fused_iter2[split]", (y1, y2), (w1, fused_iter(w1, H0z, W, None, *graph)))
+    same("fused_iter2[split,again]", fused_iter2(H0z, W, None, *graph, b.split_ptr, rows),
+         (y1, y2))
+    p1, p2 = fused_iter2_plain(H0z, W, None, *graph)
+    check("fused_iter2[split,y1]", y1, p1, 2 * BF16_ULP, 0.02, errs)
+    check("fused_iter2[split,y2]", y2, p2, 2 * BF16_ULP, 0.05, errs)
+    # E with the cross rows: gz a masked copy, exact, and the bits of the
+    # form without a table; G's sums as there, dH and dW in another order
+    Hx = H0.clamp_min(0)  # an iteration's input: a ReLU output, padding rows not zero
+    out = iter_bwd(gb, yb, Hx, W, *graph, tiles=b.split_ptr, cross=b.cross_rows)
+    if not torch.equal(out[1], iter_bwd(gb, yb, Hx, W, *graph)[1]):
+        fail("iter_bwd[split]: gz differs from the form without a table")
+    if not all(torch.equal(x, w) for x, w in zip(
+            iter_bwd(gb, yb, Hx, W, *graph, tiles=b.split_ptr, cross=b.cross_rows), out)):
+        fail("iter_bwd[split]: two calls differ")
+    want_dH, want_gz, want_dW = iter_bwd_plain(gb, yb, Hx, W, *graph)
+    G_abs = bwd_message_plain(gb, yb, *graph)[0].float().abs()
+    Hx_abs = Hx.float().masked_fill(pad_rows[:, None], 0)
+    check("iter_bwd[split,gz]", out[1], want_gz, 0.0, 0.0, errs)
+    check("iter_bwd[split,dH]", out[0], want_dH, 2 * BF16_ULP, 1e-4, errs,
+          G_abs @ W.float().abs().t())
+    check("iter_bwd[split,dW]", out[2], want_dW, 1e-4, 1e-3, errs, Hx_abs.t() @ G_abs)
+    if out[0][pad_rows].any() or out[1][pad_rows].any():
+        fail("iter_bwd[split]: a padding row is not zero")
+
+    # the passes alone over their rows, the other rows NaN: those rows
+    # against the plain versions, the others untouched; then timed
     cross, ids = b.cross_rows, (b.src.contiguous(), b.rev.contiguous(), b.edge_ptr.contiguous())
-    bw, _, f32_peak = peaks(card)
+    bw, bf16_peak, f32_peak = peaks(card)
     times = {}
     for dt, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, BF16_ULP, 1e-6)):
         name = str(dt).removeprefix("torch.")
@@ -2013,19 +2088,62 @@ def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> d
                 times[kernel] = entry
             else:
                 times[kernel][name] = entry
+    # D's pass over y2_rows from y1 (its second pass, the longer list) and
+    # E's over the cross rows, bf16 only: the listed rows against the plain
+    # versions (D's pass bit-equal to B), the others untouched
+    part = torch.empty((d, d), device="cuda")
+    y2_rows = b.y2_rows
+    runs = {
+        "fused_iter_rows": (
+            lambda o: _fused_iter_rows(w1, H0z, W, None, *ids, y2_rows, o),
+            lambda o: fused_iter_rows_plain(w1, H0z, W, None, *graph, y2_rows, o),
+            y2_rows, fused_iter_rows_bytes(b, d), fused_iter_rows_ops(b, d)),
+        "iter_bwd_rows": (
+            lambda o: _iter_bwd_rows(gb, yb, Hx, W, b.dst, b.rev, b.edge_ptr, cross, o, part),
+            lambda o: iter_bwd_rows_plain(gb, yb, Hx, W, *graph, cross, o),
+            cross, iter_bwd_rows_bytes(b, d), iter_bwd_rows_ops(b, d)),
+    }
+    for kernel, (run, plain, listed, nbytes, n_ops) in runs.items():
+        out = torch.full_like(yb, float("nan"))
+        run(out)
+        want = plain(torch.full_like(yb, float("nan")))
+        want, share = (want, None) if kernel == "fused_iter_rows" else want
+        others = torch.ones(n_e, dtype=torch.bool, device="cuda")
+        others[listed.long()] = False
+        if not torch.isnan(out[others]).all():
+            fail(f"{kernel}: a row outside its list was written")
+        r = listed.long()
+        if kernel == "fused_iter_rows":
+            if not torch.equal(out[r], fused_iter(w1, H0z, W, None, *graph)[r]):
+                fail("fused_iter_rows: its rows differ from B's")
+            check("fused_iter_rows[y2]", out[r], want[r], 2 * BF16_ULP, 0.02, errs)
+        else:
+            check("iter_bwd_rows[dH]", out[r], want[r], 2 * BF16_ULP, 1e-4, errs,
+                  G_abs[r] @ W.float().abs().t())
+            check("iter_bwd_rows[dW]", part, share, 1e-4, 1e-3, errs, Hx_abs[r].t() @ G_abs[r])
+        tb, to = nbytes / bw * 1e3, n_ops / bf16_peak * 1e3
+        ms = time_ms(lambda: run(out), reps)
+        times[kernel] = dict(ms=ms, plain_ms=time_ms(lambda: plain(out), reps), library_ms=None,
+                             bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                             share_of_bound=max(tb, to) / ms, shape=[listed.numel(), d],
+                             dtype="bfloat16", device_ms=device_ms(lambda: run(out)))
     res = {"rows": n_e, "real_rows": int(b.edge_mask.sum()), "tiles": b.split_ptr.numel() - 1,
-           "cross_rows": cross.numel(), "d": d, "times": times}
+           "cross_rows": cross.numel(), "y1_rows": b.y1_rows.numel(),
+           "y2_rows": b.y2_rows.numel(), "d": d, "times": times}
     print(json.dumps({"split_tables": res}))
     return res
 
 
-def pass_rows(bmg, kernel: str):
-    """The rows a second pass reads for the batch's cross rows: the in-edges
-    of each listed row's source (A: they hold its reverse), or of its node
-    (F: their reverses are read), distinct."""
+def pass_rows(bmg, kernel: str, rows=None):
+    """The rows a second pass reads for the batch's cross rows (or
+    ``rows``): the in-edges of each listed row's source (A and D: they hold
+    its reverse), or of its node (F and E: their reverses are read),
+    distinct."""
     import torch
 
-    node = (bmg.src if kernel == "message_rows" else bmg.dst).long()[bmg.cross_rows.long()]
+    rows = bmg.cross_rows if rows is None else rows
+    by_src = kernel in ("message_rows", "fused_iter_rows")
+    node = (bmg.src if by_src else bmg.dst).long()[rows.long()]
     need = torch.zeros(bmg.V.shape[0], dtype=torch.bool, device=node.device)
     need[node] = True
     return torch.nonzero(need[bmg.dst.long()]).squeeze(1)
@@ -2047,6 +2165,41 @@ def message_rows_bytes(bmg, d: int, itemsize: int) -> int:
     ``rev`` and the two ``ptr`` entries of its source."""
     n = bmg.cross_rows.numel()
     return (pass_rows(bmg, "message_rows").numel() + n) * d * itemsize + 4 * 5 * n
+
+
+def fused_iter_rows_bytes(bmg, d: int) -> int:
+    """The bytes D's row pass (``fused_iter_rows``) must move over the
+    batch's ``y2_rows`` at width ``d`` in bf16: the ``H`` rows it sums (the
+    in-edges of the listed rows' sources) read once, each listed row's
+    ``H0`` read and ``y`` written, ``W`` once, and per listed row its entry of
+    the list, its ``src`` and ``rev`` and the two ``ptr`` entries of its
+    source."""
+    n = bmg.y2_rows.numel()
+    k = pass_rows(bmg, "fused_iter_rows", bmg.y2_rows).numel()
+    return (k + 2 * n) * d * 2 + d * d * 2 + 4 * 5 * n
+
+
+def fused_iter_rows_ops(bmg, d: int) -> int:
+    """The operations of D's row pass over ``y2_rows``: the product of each
+    listed row's message with W, 2 d^2 a row (the sums are far fewer)."""
+    return 2 * bmg.y2_rows.numel() * d * d
+
+
+def iter_bwd_rows_bytes(bmg, d: int) -> int:
+    """The bytes E's pass (``iter_bwd_rows``) must move over the batch's
+    cross rows at width ``d`` in bf16: ``g`` and ``y`` at the reverses of the
+    in-edges of the listed rows' nodes read once, each listed row's ``H``
+    read and ``dH`` written, ``W`` once, the f32 ``[d x d]`` partial of
+    ``dW`` written, per listed row its entry of the list, its ``dst`` and
+    the two ``ptr`` entries of its node, and the ``rev`` of each in-edge."""
+    n, k = bmg.cross_rows.numel(), pass_rows(bmg, "iter_bwd_rows").numel()
+    return (2 * k + 2 * n) * d * 2 + d * d * 2 + d * d * 4 + 4 * 4 * n + 4 * k
+
+
+def iter_bwd_rows_ops(bmg, d: int) -> int:
+    """The operations of E's pass: ``G W^T`` and ``H^T G`` over the cross
+    rows, 2 d^2 a row each."""
+    return 4 * bmg.cross_rows.numel() * d * d
 
 
 def bwd_message_rows_bytes(bmg, d: int, itemsize: int, masked: bool = True) -> int:
@@ -3978,6 +4131,11 @@ def export_phase(ds, card: str, seed: int, reps: int) -> tuple[dict, dict]:
             launches[f"export_{dt_name}_loaded"] = r["launches"]
             res[dt_name]["loaded"] = {"max_abs_diff": err, "load_s": r["load_s"],
                                       "launches": r["launches"]}
+    res["split"] = export_split(seed, launches)
+    split_unserved = {}
+    res["split_fit"] = split_fit(launches, split_unserved)
+    if split_unserved:
+        fail(f"phase 15(e) left calls unserved: {split_unserved}")
     res["seconds"] = time.time() - t0
     print(json.dumps({"export_phase": res}))
     print(json.dumps({"phase": "export", "seconds": res["seconds"], "card": card,
@@ -3987,6 +4145,114 @@ def export_phase(ds, card: str, seed: int, reps: int) -> tuple[dict, dict]:
                                             for k in ("first", "second", "loaded")}
                                        for dt in ("float32", "bfloat16")}}))
     return launches, res
+
+
+# phase 15(d): the programs exported from Tox21's split batch, and (e) a
+# bf16 fit on Tox21's rows 250-399 (three molecules of more than 128 directed
+# edges among them) with every opt-in kernel of the split table's paths
+SPLIT_EXPORTS = {"float32": {}, "bfloat16_iter2": dict(iter2=True)}
+SPLIT_FIT_ROWS = slice(250, 400)
+SPLIT_FIT_OPTIONS = dict(iter2=True, fused_bwd=True)
+
+
+def export_split(seed: int, launches: dict) -> dict:
+    """Phase 15(d): the default model at full width exported from Tox21's
+    split batch (:func:`tox21_bmg`) in f32 and in bf16 with ``iter2``: on the
+    CPU under a rehearsal, then on the card, where the program launches A's
+    tile kernel and its pass (f32) or D and its two passes (bf16), exactly as
+    the rehearsal counts them and as the eager forward launches them,
+    nothing unserved, and its predictions within ``EXPORT_LIMITS`` of the
+    eager forward's."""
+    import torch
+
+    from chemprop_tpu_torch.data.collate import TrainingBatch
+    from chemprop_tpu_torch.models.export import export_forward
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+
+    res = {}
+    for name, options in SPLIT_EXPORTS.items():
+        dt_name = name.split("_")[0]
+        torch.manual_seed(seed)
+        model = default_model(getattr(torch, dt_name), **options).eval()
+        outs, calls = {}, {}
+        for dev in ("cpu", "cuda"):
+            b = tox21_bmg(dev)
+            batch = TrainingBatch(b, None, None, None, torch.ones(b.n_graphs, device=b.E.device),
+                                  None, None)
+            program = export_forward(model.to(b.E.device), batch)
+            before = dict(UNSERVED)
+            if dev == "cpu":
+                with rehearsal() as want:
+                    outs[dev] = program(b)
+                calls[dev] = dict(want)
+            else:
+                LAUNCHES.clear()
+                with torch.inference_mode():
+                    eager = model(b)
+                eager_calls = dict(LAUNCHES)
+                LAUNCHES.clear()
+                outs[dev] = program(b)
+                torch.cuda.synchronize()
+                calls[dev] = dict(LAUNCHES)
+            unserved = unserved_since(before)
+            if unserved:
+                fail(f"the {name} program exported from Tox21's split batch left {unserved} "
+                     f"unserved on {dev}")
+        tag = f"export_split_{name}"
+        launches[tag] = calls["cuda"]
+        passes = "fused_iter_rows" if options.get("iter2") else "message_rows"
+        if calls["cuda"] != calls["cpu"] or calls["cuda"] != eager_calls:
+            fail(f"{tag} launched {calls['cuda']}, the CPU rehearsal {calls['cpu']}, the eager "
+                 f"forward {eager_calls}")
+        if not calls["cuda"].get(passes):
+            fail(f"{tag} launched no {passes}: {calls['cuda']}")
+        got = outs["cuda"]
+        err = float((got.float() - eager.float()).abs().max())
+        if not bool(torch.isfinite(got).all()) or err > EXPORT_LIMITS[dt_name]:
+            fail(f"{tag}: {err} from the eager forward (limit {EXPORT_LIMITS[dt_name]})")
+        res[name] = {"launches": calls["cuda"], "max_abs_diff": err,
+                     "cpu_vs_card_max_abs_diff": float(
+                         (got.float().cpu() - outs["cpu"].float()).abs().max())}
+    print(json.dumps({"export_split": res}))
+    return res
+
+
+def split_fit(launches: dict, unserved: dict) -> dict:
+    """Phase 15(e): a bf16 fit of the default model at full width with
+    dropout 0.1 and ``SPLIT_FIT_OPTIONS`` (``iter2``, ``fused_bwd``) over
+    Tox21's rows ``SPLIT_FIT_ROWS`` in batches of 50, its targets drawn from
+    a seed, two epochs and a prediction (where D runs: no dropout); on the
+    CPU under a rehearsal, then on the card, whose launches (E and its pass
+    in the steps, D and its passes in the prediction) must be the
+    rehearsal's, nothing unserved, its losses and predictions finite."""
+    import numpy as np
+    import torch
+
+    from chemprop_tpu_torch.data import DataLoader
+    from chemprop_tpu_torch.train import Trainer
+
+    rows = read_targets(REPO / "tests/data/classification/mol.csv")[SPLIT_FIT_ROWS]
+    rng = np.random.default_rng(29)
+    ds = head_dataset([(smi, rng.standard_normal(1), None, None) for smi, *_ in rows])[0]
+
+    def run(dev):
+        torch.manual_seed(7)
+        trainer = Trainer(default_model(torch.bfloat16, 0.1, **SPLIT_FIT_OPTIONS), max_epochs=2,
+                          warmup_epochs=1, seed=12, device=dev)
+        trainer.fit(DataLoader(ds, batch_size=50, shuffle=False))
+        preds = trainer.predict(DataLoader(ds, batch_size=50))
+        return [h["train_loss"] for h in trainer.history], preds
+
+    tag = "train_split_bfloat16_dropout_iter2_fused_bwd"
+    (losses, preds), (cpu_losses, _) = rehearsed(tag, run, launches, unserved)
+    for kernel in ("fused_iter2", "fused_iter_rows", "iter_bwd", "iter_bwd_rows"):
+        if not launches[tag].get(kernel):
+            fail(f"{tag} launched no {kernel}: {launches[tag]}")
+    if not (np.isfinite(losses).all() and np.isfinite(preds).all()):
+        fail(f"{tag}: non-finite losses {losses} or predictions")
+    res = {"losses": losses, "cpu_losses": cpu_losses, "launches": launches[tag]}
+    print(json.dumps({"split_fit": res}))
+    return res
 
 
 # ---------------------------------------------------------------- phase 16

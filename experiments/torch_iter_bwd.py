@@ -91,7 +91,7 @@ def trace_steps(bmg, d: int, tensors) -> dict:
     stamps = np.zeros((8, 64, 9), np.int64)
     for _ in range(3):  # the last call's stamps
         err = lib.iter_bwd_tiles(*args, n, d, bmg.edge_ptr.numel() - 2, tiles.numel() - 1,
-                                 clusters, stream)
+                                 clusters, 0, stream)
         torch.cuda.synchronize()
         if err:
             raise RuntimeError(f"traced iter_bwd_tiles: CUDA error {err}")

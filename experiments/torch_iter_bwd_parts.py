@@ -150,7 +150,7 @@ def main() -> int:
 
             def run():
                 err = lib.iter_bwd_tiles(*ptrs, n, d, bmg.edge_ptr.numel() - 2,
-                                         tiles.numel() - 1, clusters,
+                                         tiles.numel() - 1, clusters, 0,
                                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels A, F, G and H of the PyTorch/CUDA port over a split tile table on
-one GPU, beside their forms without a table, the second passes alone, and
-three training steps with the split table and without it.
+"""Kernels A, F, G, H, D and E of the PyTorch/CUDA port over a split tile
+table on one GPU, beside their forms without a table, the passes alone, and
+five training steps with the split table and without it.
 
     python3 experiments/torch_split_tiles.py [--reps 21] [--copies 1,4]
                                              [--tree DIR] [--steps-only]
@@ -10,8 +10,9 @@ The batch is Tox21 (tests/data/classification/mol.csv: 500 molecules, 8 of
 them of more than 128 directed edges) collated once (``--copies 1``) or
 several times over (``4``: 2000 molecules). It has no tile table: its split
 table (``BatchMolGraph.split_ptr``) cuts those molecules at their nodes'
-boundaries, and ``cross_rows`` lists the rows whose sum reads another tile.
-At d = 384 (the default model's hidden width 300, padded):
+boundaries, ``cross_rows`` lists the rows whose sum reads another tile, and
+``y1_rows`` / ``y2_rows`` the rows the chained iterations cannot form in
+their tile. At d = 384 (the default model's hidden width 300, padded):
 
 * A (``message``) in f32 and bf16, F (``bwd_message``) in f32 and bf16 with
   the mask, with and without ``gz_acc``, G (``bwd_message_nodes``) and H
@@ -19,21 +20,29 @@ At d = 384 (the default model's hidden width 300, padded):
   split table, each checked bit-equal to its form without a table
   (``message.cu``, the node-warp pass of ``message_bwd.cu``; H's product
   over fixed tiles then that pass) and timed beside it;
-* the second passes alone over the cross rows: A's (``message_rows``) in
-  f32 and bf16, F's (``bwd_message_rows`` from g and y) in f32 and bf16,
-  and G's and H's (the same kernel from the gz table, no mask) in bf16;
+* D (``fused_iter2``) over the split table with its row passes, checked
+  bit-equal to two B launches (its form without a table) and timed beside
+  them; E (``iter_bwd``) over the split table with its pass, its gz checked
+  bit-equal to its form without a table (``message_bwd.cu``'s three
+  launches) and timed beside it;
+* the passes alone: A's (``message_rows``) in f32 and bf16, F's
+  (``bwd_message_rows`` from g and y) in f32 and bf16, G's and H's (the
+  same kernel from the gz table, no mask) in bf16, D's (``fused_iter_rows``
+  over y1_rows, then y2_rows) and E's (``iter_bwd_rows`` over the cross
+  rows) in bf16;
 * one f32 training step and one bf16 step with dropout 0.1 of the default
   model at full width with a BCE head (``chip_smoke.head_model``: depth 3,
-  batch norm, 4 tasks), and one bf16 step without dropout, each with the
-  split table and with it taken away.
+  batch norm, 4 tasks), one bf16 step without dropout, one with ``iter2``
+  (D in the forward) and one with dropout 0.1 and ``fused_bwd`` (E in the
+  backward), each with the split table and with it taken away.
 
 Times are medians of ``--reps`` runs of 5 calls (2 for a step) between CUDA
 events, and device microseconds per call of every kernel each call
 launches, from a ``torch.profiler`` trace of 10 calls (5 for a step).
 ``--tree DIR`` imports the package (and ``chip_smoke``) from another
 checkout, e.g. the parent commit unpacked under ``_chip_checkout/``, so that
-both are timed in one call; ``--steps-only`` times the steps alone (the
-parent's A and F take no split table). Every line carries the card's name
+both are timed in one call; ``--steps-only`` times the steps alone (a tree
+whose kernels take no split table). Every line carries the card's name
 and power limit; the record goes to
 chiprun_out/torch_split_tiles[_steps][_<tree>].json."""
 
@@ -57,8 +66,13 @@ def kernel_times(b, copies: int, reps: int) -> dict:
     from chip_smoke import time_ms
     from experiments.torch_fused_iter import profile
 
-    from chemprop_tpu_torch.ops import bwd_message, bwd_message_nodes, bwd_message_premul, message
-    from chemprop_tpu_torch.ops.message import _cross_rows, _message_rows
+    from chemprop_tpu_torch.ops import (
+        bwd_message, bwd_message_nodes, bwd_message_premul, fused_iter, fused_iter2, iter_bwd,
+        message,
+    )
+    from chemprop_tpu_torch.ops.message import (
+        _cross_rows, _fused_iter_rows, _iter_bwd_rows, _message_rows,
+    )
 
     graph = (b.src, b.dst, b.rev, b.edge_ptr)
     n_e, n_v = b.E.shape[0], b.V.shape[0]
@@ -96,7 +110,20 @@ def kernel_times(b, copies: int, reps: int) -> dict:
                                               **split),
         "H without a table": lambda: bwd_message_premul(t[torch.bfloat16]["g"], yb, None, W,
                                                         *graph),
+        "D split": lambda: fused_iter2(H0, W, None, *graph, b.split_ptr, (b.y1_rows, b.y2_rows)),
+        "D without a table": lambda: two_b(H0),
     })
+
+    def two_b(x):
+        y1 = fused_iter(x, x, W, None, *graph, relu_stream=True)
+        return y1, fused_iter(y1, x, W, None, *graph)
+
+    gb, Hx = t[torch.bfloat16]["g"], t[torch.bfloat16]["H"].clamp_min(0)
+    e_split = lambda: iter_bwd(gb, yb, Hx, W, *graph, tiles=b.split_ptr,  # noqa: E731
+                               cross=b.cross_rows)
+    e_free = lambda: iter_bwd(gb, yb, Hx, W, *graph)  # noqa: E731
+    if not torch.equal(e_split()[1], e_free()[1]):
+        raise SystemExit("torch_split_tiles: E's gz over the split table differs")
     kernels = sorted({k.removesuffix(" split") for k in fns if k.endswith(" split")})
     for k in kernels:
         got, want = fns[f"{k} split"](), fns[f"{k} without a table"]()
@@ -115,6 +142,15 @@ def kernel_times(b, copies: int, reps: int) -> dict:
     gz, G = fns["G split"]()[1], torch.empty_like(yb)
     fns["G and H pass bfloat16"] = lambda: _cross_rows(gz, None, b.dst, b.rev, b.edge_ptr, cross,
                                                        G)
+    fns["E split"], fns["E without a table"] = e_split, e_free
+    y1, y2 = fns["D split"]()
+    out = torch.empty_like(H0)
+    fns["D pass y1"] = lambda: _fused_iter_rows(H0, H0, W, None, *ids, b.y1_rows, out,
+                                                relu_stream=True)
+    fns["D pass y2"] = lambda: _fused_iter_rows(y1, H0, W, None, *ids, b.y2_rows, out)
+    part = torch.empty((D, D), device="cuda")
+    fns["E pass"] = lambda: _iter_bwd_rows(gb, yb, Hx, W, b.dst, b.rev, b.edge_ptr, cross, out,
+                                           part)
     return {"ms": {k: time_ms(f, reps) for k, f in fns.items()}, "device_us": profile(fns)}
 
 
@@ -126,17 +162,21 @@ def step_times(batch, reps: int) -> dict:
     from chip_smoke import head_model, time_ms
     from experiments.torch_fused_iter import profile
 
-    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED
+    from chemprop_tpu_torch.ops import LAUNCHES, UNSERVED, KernelOptions
     from chemprop_tpu_torch.train import Trainer
 
     b = batch.bmg
     unsplit = batch._replace(bmg=dataclasses.replace(b, split_ptr=None, cross_rows=None))
     res = {}
-    for name, dtype, rate in (("float32", torch.float32, 0.0),
-                              ("bfloat16 dropout", torch.bfloat16, 0.1),
-                              ("bfloat16", torch.bfloat16, 0.0)):
+    for name, dtype, rate, options in (
+            ("float32", torch.float32, 0.0, {}),
+            ("bfloat16 dropout", torch.bfloat16, 0.1, {}),
+            ("bfloat16", torch.bfloat16, 0.0, {}),
+            ("bfloat16 iter2", torch.bfloat16, 0.0, dict(iter2=True)),
+            ("bfloat16 dropout fused_bwd", torch.bfloat16, 0.1, dict(fused_bwd=True))):
         model = head_model(dtype, "BinaryClassificationFFN", n_tasks=4)
         model.message_passing.drop.rate = rate  # dropout between the iterations
+        model.message_passing.kernel_options = KernelOptions(**options)
         trainer = Trainer(model, max_epochs=20, warmup_epochs=2, seed=12)
         trainer.init_state(batch, 8)
         steps = {f"{name} split": lambda: trainer.train_step(batch),

@@ -46,11 +46,15 @@ from chemprop_tpu_torch.ops.message import (
     bwd_message_nodes_plain,
     bwd_message_plain,
     bwd_message_premul_plain,
+    _fused_iter_rows,
+    _iter_bwd_rows,
     fused_iter2_info,
     fused_iter2_plain,
     fused_iter_plain,
+    fused_iter_rows_plain,
     iter_bwd_info,
     iter_bwd_plain,
+    iter_bwd_rows_plain,
     message_plain,
 )
 from chemprop_tpu_torch.ops.segment import KERNEL_DTYPES, sorted_segment_sum_plain
@@ -1029,13 +1033,14 @@ def _iter_bwd_inputs(n, d, device, seed=80):
     return g, y, H, W
 
 
-def _check_tiled_iter_bwd(g, y, H, W, graph, tiles):
-    """E with the tile table against the plain version under chip_smoke.py's
-    limits (dH two bf16 ulps + 1e-4 of |G| |W|^T, dW rtol 1e-4 / atol 1e-3
-    of |H|^T |G|), gz equal bit for bit to the plain version and to the form
-    without a table, a second call equal bit for bit, padding rows zero."""
+def _check_tiled_iter_bwd(g, y, H, W, graph, tiles, cross=None):
+    """E with the tile table (or a split table and its cross rows) against
+    the plain version under chip_smoke.py's limits (dH two bf16 ulps + 1e-4
+    of |G| |W|^T, dW rtol 1e-4 / atol 1e-3 of |H|^T |G|), gz equal bit for
+    bit to the plain version and to the form without a table, a second call
+    equal bit for bit, padding rows zero."""
     before = LAUNCHES["iter_bwd"]
-    dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles)
+    dH, gz, dW = iter_bwd(g, y, H, W, *graph, tiles=tiles, cross=cross)
     assert LAUNCHES["iter_bwd"] == before + 1 and dW.dtype == torch.float32
     want_dH, want_gz, want_dW = iter_bwd_plain(g, y, H, W, *graph)
     pad = graph[1] == graph[3].numel() - 2
@@ -1048,7 +1053,7 @@ def _check_tiled_iter_bwd(g, y, H, W, graph, tiles):
     assert not dH[pad].any() and not gz[pad].any()
     other = iter_bwd(g, y, H, W, *graph)  # the three launches without a table
     assert torch.equal(gz, other[1])
-    again = iter_bwd(g, y, H, W, *graph, tiles=tiles)
+    again = iter_bwd(g, y, H, W, *graph, tiles=tiles, cross=cross)
     assert all(torch.equal(a, w) for a, w in zip(again, (dH, gz, dW)))
 
 
@@ -1973,6 +1978,163 @@ def test_multicomponent_graphs_take_their_own_tables(cuda, dtype):
     assert not UNSERVED.get("message") and not UNSERVED.get("bwd_message")
     assert LAUNCHES.get("bwd_message_rows", 0) > 0
     assert _same(got, run(bmgs)) and _same(got, run(bare))
+
+
+# --------------------------------------------- D and E over a split table
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+def test_fused_iter2_over_the_split_table_equals_two_launches(cuda, d):
+    """D over Tox21's split table, then B's row pass over y1_rows and over
+    y2_rows: y1 and y2 bit-equal to two B launches (D's form without a
+    table) on every row, two calls equal, one launch of D and two passes
+    counted, nothing unserved; within the plain version's limits."""
+    b = _tox21_bmg(cuda)
+    graph, n = _graph(b), b.E.shape[0]
+    H0 = _randn((n, d), 140, cuda, torch.bfloat16)
+    W = _randn((d, d), 141, cuda, torch.bfloat16, scale=d**-0.5)
+    rows = (b.y1_rows, b.y2_rows)
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    y1, y2 = fused_iter2(H0, W, None, *graph, b.split_ptr, rows)
+    assert dict(LAUNCHES) == {"fused_iter2": 1, "fused_iter_rows": 2}
+    assert not UNSERVED.get("fused_iter2")
+    w1 = fused_iter(H0, H0, W, None, *graph, relu_stream=True)
+    w2 = fused_iter(w1, H0, W, None, *graph)
+    assert torch.equal(y1, w1) and torch.equal(y2, w2)
+    again = fused_iter2(H0, W, None, *graph, b.split_ptr, rows)
+    assert torch.equal(again[0], y1) and torch.equal(again[1], y2)
+    p1, p2 = fused_iter2_plain(H0, W, None, *graph)
+    torch.testing.assert_close(y1.float(), p1.float(), rtol=2 * BF16_ULP, atol=0.02)
+    torch.testing.assert_close(y2.float(), p2.float(), rtol=2 * BF16_ULP, atol=0.1)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_fused_iter2_with_few_tiles_a_cluster(cuda, d):
+    """300 of mol.csv's molecules (187 whole tiles): one or two tiles a
+    cluster at d = 128, two or three at 256, where iteration 2 of a cluster's
+    tiles follows their iteration 1 at once and the consumers publish y1
+    while the gather warps decide whether to defer its load (a decision each
+    gather thread took alone until the gather warps reduced it: they could
+    part at a barrier and hang). Bit-equal to two B launches, two calls
+    equal."""
+    import csv
+
+    with open(DATA / "regression" / "mol" / "mol.csv", newline="") as f:
+        smis = [row[0] for row in list(csv.reader(f))[1:]]
+    feat = SimpleMoleculeMolGraphFeaturizer()
+    b = batch_mol_graphs([feat(make_mol(s)) for s in (smis * 3)[:300]]).to(cuda)
+    assert b.tile_ptr.numel() - 1 == 187
+    graph, n = _graph(b), b.E.shape[0]
+    H0 = _randn((n, d), 153, cuda, torch.bfloat16)
+    W = _randn((d, d), 154, cuda, torch.bfloat16, scale=d**-0.5)
+    w1 = fused_iter(H0, H0, W, None, *graph, relu_stream=True)
+    w2 = fused_iter(w1, H0, W, None, *graph)
+    for _ in range(3):
+        y1, y2 = fused_iter2(H0, W, None, *graph, b.tile_ptr)
+        assert torch.equal(y1, w1) and torch.equal(y2, w2)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("bias", [False, True])
+def test_fused_iter_rows_alone_matches_its_plain_version(cuda, d, bias):
+    """The row pass alone over Tox21's y2_rows, every other row NaN: the
+    listed rows bit-equal to B's, within the plain version's limits, the
+    other rows untouched."""
+    b = _tox21_bmg(cuda)
+    graph, n = _graph(b), b.E.shape[0]
+    H = _randn((n, d), 142, cuda, torch.bfloat16)
+    H0 = _randn((n, d), 143, cuda, torch.bfloat16)
+    W = _randn((d, d), 144, cuda, torch.bfloat16, scale=d**-0.5)
+    bb = _randn((d,), 145, cuda, torch.bfloat16) if bias else None
+    rows = b.y2_rows.long()
+    out = torch.full_like(H, float("nan"))
+    _fused_iter_rows(H, H0, W, bb, b.src, b.rev, b.edge_ptr, b.y2_rows, out)
+    others = torch.ones(n, dtype=torch.bool, device=cuda)
+    others[rows] = False
+    assert torch.isnan(out[others]).all()
+    assert torch.equal(out[rows], fused_iter(H, H0, W, bb, *graph)[rows])
+    want = fused_iter_rows_plain(H, H0, W, bb, *graph, b.y2_rows,
+                                 torch.full_like(H, float("nan")))
+    torch.testing.assert_close(out[rows].float(), want[rows].float(), rtol=2 * BF16_ULP,
+                               atol=0.02)
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_iter_bwd_over_the_split_table_matches_its_form_without_one(cuda, d):
+    """E over Tox21's split table: the cross rows left out of the tile launch
+    and formed by iter_bwd_rows, their H^T G one more partial of the ordered
+    sum: gz bit-equal to the form without a table, dH and dW within E's
+    limits of the plain version, two calls equal; one launch of E and one
+    pass counted."""
+    b = _tox21_bmg(cuda)
+    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=146)
+    LAUNCHES.clear()
+    _check_tiled_iter_bwd(g, y, H, W, _graph(b), b.split_ptr, b.cross_rows)
+    assert LAUNCHES["iter_bwd_rows"] == 2 and LAUNCHES["iter_bwd"] == 3
+
+
+def test_iter_bwd_rows_alone_matches_its_plain_version(cuda):
+    """E's pass alone: dH at the cross rows and their share of dW against
+    iter_bwd_rows_plain, every other row of dH untouched."""
+    b, d = _tox21_bmg(cuda), 384
+    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=147)
+    cross, n = b.cross_rows, b.E.shape[0]
+    dH = torch.full_like(g, float("nan"))
+    part = torch.empty((d, d), device=cuda)
+    _iter_bwd_rows(g, y, H, W, b.dst, b.rev, b.edge_ptr, cross, dH, part)
+    want_dH, want_part = iter_bwd_rows_plain(g, y, H, W, *_graph(b), cross,
+                                             torch.full_like(g, float("nan")))
+    rows = cross.long()
+    others = torch.ones(n, dtype=torch.bool, device=cuda)
+    others[rows] = False
+    assert torch.isnan(dH[others]).all()
+    G_abs = bwd_message_plain(g, y, *_graph(b))[0].float().abs()[rows]
+    limit = 1e-4 + 2 * BF16_ULP * (G_abs @ W.float().abs().t())
+    assert bool(((dH[rows].float() - want_dH[rows].float()).abs() <= limit).all())
+    limit = 1e-3 + 1e-4 * (H.float()[rows].t() @ G_abs)
+    assert bool(((part - want_part).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("depth", [3, 4])
+def test_loop_readout_with_iter2_over_the_split_table(cuda, depth):
+    """The 70-carbon chain: loop_readout with iter2 over the split table and
+    D's lists gives the bits of the forms without a table (two B launches,
+    G and H without a table), forward and gradients; nothing unserved."""
+    b, d = _big_bmg(cuda), 128
+    H0 = _randn((b.E.shape[0], d), 148, cuda, torch.bfloat16)
+    H0[_pad_rows(b)] = 0
+    W = _randn((d, d), 149, cuda, torch.bfloat16, scale=d**-0.5)
+    c = _randn((b.V.shape[0], d), 150, cuda, torch.bfloat16)
+    c[-1] = 0
+    opts = KernelOptions(iter2=True)
+
+    def run(split):
+        x, w = H0.clone().requires_grad_(), W.clone().requires_grad_()
+        out = loop_readout(x, w, None, *_graph(b), depth, opts, None, split)
+        return (out, *torch.autograd.grad(out, [x, w], c))
+
+    want = run(None)
+    LAUNCHES.clear()
+    UNSERVED.clear()
+    got = run((b.split_ptr, b.cross_rows, b.y1_rows, b.y2_rows))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not any(UNSERVED.values())
+    assert LAUNCHES["fused_iter2"] == 1 and LAUNCHES["fused_iter_rows"] == 2
+
+
+def test_a_split_table_without_its_lists_is_refused_on_the_card(cuda):
+    """A, D and E raise before any launch where a split table comes without
+    its row lists."""
+    b, d = _tox21_bmg(cuda), 128
+    graph, n = _graph(b), b.E.shape[0]
+    x = _randn((n, d), 151, cuda, torch.bfloat16)
+    W = _randn((d, d), 152, cuda, torch.bfloat16, scale=d**-0.5)
+    LAUNCHES.clear()
+    for call in (lambda: message(x, *graph, b.split_ptr),
+                 lambda: fused_iter2(x, W, None, *graph, b.split_ptr),
+                 lambda: iter_bwd(x, x, x, W, *graph, tiles=b.split_ptr)):
+        with pytest.raises(ValueError, match="split tile table"):
+            call()
+    assert not LAUNCHES
 
 
 # ------------------------------------------------------- train and serve (CLI)
