@@ -82,17 +82,46 @@
 // rule, every row of a node that cannot be formed inside its tile gets NaN
 // in G, so its row of dH is NaN: no row it cannot form comes out finite.
 //
-// Over a split tile table (split != 0: BatchMolGraph.split_ptr, a molecule of
-// more than 128 rows cut at its nodes' boundaries) those rows are the
-// batch's cross rows, and they get zeros in G instead: nothing of theirs
-// reaches the clusters' partial dW, and their rows of dH are zeros until the
-// pass over the cross rows (message_bwd.cu's iter_bwd_rows) writes them from
-// their G, formed from g and y, and adds their H^T G as one more partial.
-// The launch then leaves dW to the caller, who sums the clusters' partials
-// and the pass's in that order (iter_bwd_sum), so two calls give the same
-// bits.
+// Over a split tile table (BatchMolGraph.split_ptr: a molecule of more than
+// 128 rows cut at its nodes' boundaries) those rows are the batch's cross
+// rows (BatchMolGraph.cross_rows), and this launch forms them too:
+// * What it replaced, and what bound that: the launch wrote zeros into
+//   their G, and a second pass of three launches formed their G into a
+//   compact table G_c, then dH[rows] = G_c W^T and H[rows]^T G_c as one more
+//   f32 partial of dW, both on WMMA. At Tox21's 260 to 1,040 cross rows that
+//   pass took 53-92 us of device time on an H100 SXM at 700 W (PERF.md)
+//   against a bound under 1 us: three launches, and two small products at
+//   about 1.3 TFLOP/s, repeating what the wgmma warpgroups here do for every
+//   other row.
+// * A cross row's G depends on g and y alone, never on this launch's
+//   outputs. So one launch before this one (message_bwd.cu's iter_bwd_rows)
+//   forms G_c, [n_cross x d] bf16 in the list's order, with the f32 sums in
+//   the order and the one rounding every other row gets here, and writes the
+//   map slot[cross[w]] = w. The G warps load a flagged row's chunk of their
+//   column box from G_c into the own box, where they would have formed it;
+//   from there the row goes the way of every row: pushed across the cluster,
+//   through dH's wgmma and into the clusters' dW. What is left of the pass is
+//   the G_c launch (one warp a listed row, a launch's latency), and the
+//   G_c loads in the halves that hold cross rows.
+// * The lookup stays off the G warps' serial chain (each half is a chain of
+//   G's box, the pushes, the products and the barriers, above): the
+//   producer warp, while it forms the ids of a tile that holds flagged rows,
+//   reads the map at the tile's rows, keeps an entry only where cross[]
+//   holds that row at that slot (so entries the G_c launch did not write are
+//   harmless), and stores with the ids per row its slot less the tile's
+//   first one, a byte (the tile's listed rows are at most 128 neighbours in
+//   the ascending list), and that first slot. A map and not a search of the
+//   list per tile: a list that is a superset of the flagged rows costs
+//   nothing, and one that misses a row costs that row alone.
+// * A flagged row that the list does not hold gets NaN in G, as without a
+//   split table: no row the launch cannot form comes out finite. The branch
+//   has no barrier. dH at every other row is the same bits as when the cross
+//   rows were zeros (a row of dH depends on its own row of G alone); dH at
+//   the cross rows and dW sum their products in the wgmma's order.
 // Widths d = 128, 256 and 384 (clusters of 2, 4 and 6); the buffers of
 // d = 512 would not fit a block's shared memory.
+#include <climits>
+
 #include "sm90.cuh"
 #include "vec.cuh"
 
@@ -110,7 +139,11 @@ constexpr int IB_REGS_CONSUMER = 160;      // registers a thread: the two consum
 constexpr int IB_REGS_OTHER = 96;          // the other two (in all 65,536: the SM's registers)
 constexpr int IB_MT = (IB_ROWS * 8 + IB_G_THREADS - 1) / IB_G_THREADS;  // a G thread's chunks of a tile
 constexpr int IB_SMEM_MAX = 232448;        // a block's shared memory on sm_90
-constexpr int IB_IDS = 272;                // a stage's ids: per row its reverse, the node starts, a header
+constexpr int IB_IDS = 400;                // a stage's ids: per row its reverse, the node starts, a header,
+                                           // per row its slot in G_c (split tables)
+constexpr int IB_BASE = 264;               // a stage's int: the tile's first slot in G_c
+constexpr int IB_SLOTS = 272;              // a stage's bytes per row: the slot less that one
+constexpr uint8_t IB_UNLISTED = 0xFF;      // slot byte: the cross list does not hold the row
 constexpr uint8_t IB_BAD = 0x80;           // reverse flag: the row's node is not whole in the tile
 constexpr long long IB_HANG = 1ll << 35;   // clock cycles (~17 s) after which a wait traps
 
@@ -143,6 +176,9 @@ __host__ __device__ constexpr int ib_smem_bytes(int nb) {
   return 1024 + 3 * nb * IB_HBOX + (IB_OWN + IB_HSTAGES) * IB_HBOX + 3 * IB_BOX +
          2 * IB_IDS + 8 * B_COUNT;
 }
+// d = 384 leaves 1,128 bytes of a block's shared memory: a larger stage of
+// ids or one more box must give up a stage elsewhere, or that width goes
+static_assert(ib_smem_bytes(6) <= IB_SMEM_MAX, "iter_bwd: d = 384 no longer fits a block");
 
 __device__ __forceinline__ IbSmem ib_layout(uint32_t base, int nb) {
   IbSmem sm;
@@ -264,7 +300,9 @@ __device__ __forceinline__ void add_chunk(float (&t)[8], uint4 v) {
 // of a node whose in-edges or their reverses are not all in the tile (the
 // rule of bwd_nodes.cu); at 128 the first row of each node of the tile, in
 // order, and `real` after the last; at 260 the header: the nodes, the nodes
-// that start before row 64, and those that start before row 65.
+// that start before row 64, and those that start before row 65. Over a split
+// table, in a tile with flagged rows, at IB_BASE the tile's first slot in G_c
+// and from IB_SLOTS per row its slot less that one (tile_slots).
 //
 // The producer warp finds them with ballots over dst (a lane holds rows
 // lane + 32 q): the rows of a node are contiguous, since dst is sorted.
@@ -364,16 +402,54 @@ __device__ __forceinline__ void write_ids(uint8_t* st, const IbIds& o, int real)
   }
 }
 
-// W's rows of this CTA's box once; then per tile with real rows its ids
-// (computed before the wait for a free stage), its g box into a stage and its
-// y box, and per half its box of H into the ring, each as soon as its buffer
-// is free
+// A tile's slots in G_c, over a split table (the map slot[] that the G_c
+// launch wrote, slot[cross[w]] = w): per real row its slot less the tile's
+// first, or IB_UNLISTED where cross[] does not hold the row at the map's
+// entry (an entry the launch did not write, or a row the list does not hold)
+struct IbSlots {
+  uint8_t sl[IB_ROWS / 32];
+  int base;
+};
+
+__device__ __forceinline__ IbSlots tile_slots(const int* __restrict__ slot,
+                                              const int* __restrict__ cross, int n_cross,
+                                              const IbTile& x) {
+  constexpr int Q = IB_ROWS / 32;
+  const int lane = threadIdx.x % 32;
+  int k[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = lane + 32 * q;
+    k[q] = i < x.real ? __ldg(slot + x.r0 + i) : -1;
+  }
+  int lo = INT_MAX;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int i = lane + 32 * q;
+    const bool held = k[q] >= 0 && k[q] < n_cross && __ldg(cross + k[q]) == x.r0 + i;
+    k[q] = held ? k[q] : -1;
+    if (held) lo = min(lo, k[q]);
+  }
+  IbSlots o;
+  o.base = __reduce_min_sync(~0u, lo);
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    o.sl[q] = k[q] >= 0 && k[q] - o.base < IB_UNLISTED ? (uint8_t)(k[q] - o.base) : IB_UNLISTED;
+  return o;
+}
+
+// W's rows of this CTA's box once; then per tile with real rows its ids (and
+// over a split table, where it holds flagged rows, its slots; both computed
+// before the wait for a free stage), its g box into a stage and its y box,
+// and per half its box of H into the ring, each as soon as its buffer is free
 template <int NB>
 __device__ void ib_produce(const CUtensorMap* tg, const CUtensorMap* ty, const CUtensorMap* th,
                            const CUtensorMap* tw,
                            const int* __restrict__ dst, const int* __restrict__ rev,
-                           const int* __restrict__ tiles, const IbSmem& sm, uint8_t* ids,
-                           int rank, int n_edges, int first_pad, int n_tiles, int first, int step) {
+                           const int* __restrict__ tiles, const int* __restrict__ slot,
+                           const int* __restrict__ cross, const IbSmem& sm, uint8_t* ids,
+                           int rank, int n_edges, int first_pad, int n_tiles, int first, int step,
+                           int n_cross) {
   const int lane = threadIdx.x % 32, c0 = 64 * rank;
   if (lane == 0) {
     tma_prefetch_map(tg);
@@ -390,8 +466,21 @@ __device__ void ib_produce(const CUtensorMap* tg, const CUtensorMap* ty, const C
        tile = ib_next(tiles, tile + step, step, n_tiles, n_edges, first_pad, x), ++c) {
     const int s = c & 1;
     const IbIds o = tile_ids(dst, rev, x, n_edges);
+    bool flagged = false;
+#pragma unroll
+    for (int q = 0; q < IB_ROWS / 32; ++q) flagged |= (o.rv[q] & IB_BAD) != 0;
+    flagged = n_cross > 0 && __any_sync(~0u, flagged);  // the same in every lane
+    IbSlots sl;
+    if (flagged) sl = tile_slots(slot, cross, n_cross, x);
     if (c >= 2) ib_wait(bar(sm, B_ZFREE + s), ((c >> 1) - 1) & 1);
     write_ids(ids + s * IB_IDS, o, x.real);
+    if (flagged) {
+      uint8_t* st = ids + s * IB_IDS;
+#pragma unroll
+      for (int q = 0; q < IB_ROWS / 32; ++q)
+        if (lane + 32 * q < x.real) st[IB_SLOTS + lane + 32 * q] = sl.sl[q];
+      if (lane == 0) *reinterpret_cast<int*>(st + IB_BASE) = sl.base;
+    }
     if (lane == 0) {
       mbar_arrive_expect_tx(bar(sm, B_ZFULL + s), IB_BOX);
       tma_load_2d(sm.z[s], tg, bar(sm, B_ZFULL + s), c0, x.r0);
@@ -456,16 +545,16 @@ __device__ __forceinline__ void put_g(uint8_t* ob, int r, int ch, const float (&
 }
 
 // per tile: gz in place over g, masked with y, and out; then per half its box
-// of G from shared memory into an own box, and, once every CTA of the
-// cluster is done with the half buffer it goes to, copied into this CTA's
-// and pushed from there into the others'. Tiles of padding rows: zeros out,
-// no loads.
+// of G from shared memory into an own box (a flagged row's from G_c over a
+// split table), and, once every CTA of the cluster is done with the half
+// buffer it goes to, copied into this CTA's and pushed from there into the
+// others'. Tiles of padding rows: zeros out, no loads.
 template <int NB>
-__device__ void ib_form_g(const int* __restrict__ tiles,
+__device__ void ib_form_g(const int* __restrict__ tiles, const bf16* __restrict__ Gc,
                           bf16* __restrict__ dH, bf16* __restrict__ gz_out, const IbSmem& sm,
                           uint8_t* smem, uint32_t smem_base, const uint8_t* ids, int rank, int d,
                           int n_edges, int first_pad, int n_tiles, int first, int step,
-                          int split) {
+                          int n_cross) {
   const int t = threadIdx.x - IB_G0, lane = t % 32, c0 = 64 * rank;
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
   IbTile x, nx;
@@ -516,10 +605,17 @@ __device__ void ib_form_g(const int* __restrict__ tiles,
         const int k = k0 + (task >> 3), ch = task & 7;
         const int st = starts[k], en = starts[k + 1];
         const int lo = max(st, a), hi = min(en, real_end);
-        if (rvb[st] & IB_BAD) {  // NaN; zeros over a split table (the pass forms them)
-          const uint32_t fill = split ? 0u : 0x7FC07FC0u;
-          for (int j = lo; j < hi; ++j)
-            *reinterpret_cast<uint4*>(ob + sw(j - a, ch)) = make_uint4(fill, fill, fill, fill);
+        if (rvb[st] & IB_BAD) {  // G_c's row where the cross list holds it, else NaN
+          const uint4 nan4 = make_uint4(0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u, 0x7FC07FC0u);
+          const int base = n_cross > 0 ? *reinterpret_cast<const int*>(rvb + IB_BASE) : 0;
+#pragma unroll 4
+          for (int j = lo; j < hi; ++j) {
+            const int slot = n_cross > 0 ? rvb[IB_SLOTS + j] : IB_UNLISTED;
+            *reinterpret_cast<uint4*>(ob + sw(j - a, ch)) =
+                slot == IB_UNLISTED
+                    ? nan4
+                    : __ldg(reinterpret_cast<const uint4*>(Gc + (size_t)(base + slot) * d + c0) + ch);
+          }
           continue;
         }
         // most atoms have at most four neighbours: their chunks loaded at once
@@ -704,8 +800,10 @@ __global__ void __launch_bounds__(IB_THREADS, 1)
                     const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tw,
                     const int* __restrict__ dst, const int* __restrict__ rev,
                     const int* __restrict__ ptr, const int* __restrict__ tiles,
-                    bf16* __restrict__ dH, bf16* __restrict__ gz, float* __restrict__ partial,
-                    int n_edges, int d, int pad_node, int n_tiles, int split) {
+                    const bf16* __restrict__ Gc, const int* __restrict__ slot,
+                    const int* __restrict__ cross, bf16* __restrict__ dH, bf16* __restrict__ gz,
+                    float* __restrict__ partial, int n_edges, int d, int pad_node, int n_tiles,
+                    int n_cross) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023) & ~1023u;
   const IbSmem sm = ib_layout(base, NB);
@@ -739,11 +837,11 @@ __global__ void __launch_bounds__(IB_THREADS, 1)
   } else {
     setmaxnreg_dec<IB_REGS_OTHER>();
     if (warp < IB_PRODUCER0 / 32)
-      ib_form_g<NB>(tiles, dH, gz, sm, smem_raw, raw, ids, rank, d, n_edges, first_pad, n_tiles,
-                    first, step, split);
+      ib_form_g<NB>(tiles, Gc, dH, gz, sm, smem_raw, raw, ids, rank, d, n_edges, first_pad,
+                    n_tiles, first, step, n_cross);
     else
-      ib_produce<NB>(&tg, &ty, &th, &tw, dst, rev, tiles, sm, ids, rank, n_edges, first_pad,
-                     n_tiles, first, step);
+      ib_produce<NB>(&tg, &ty, &th, &tw, dst, rev, tiles, slot, cross, sm, ids, rank, n_edges,
+                     first_pad, n_tiles, first, step, n_cross);
   }
   cluster_sync();  // no CTA leaves while another may still reach its shared memory
 }
@@ -809,25 +907,17 @@ static int ib_clusters_for(int nb) {
 
 template <int NB>
 static cudaError_t ib_launch(const CUtensorMap* maps, const int* dst, const int* rev,
-                             const int* ptr, const int* tiles, void* dH, void* gz, float* partial,
-                             int n_edges, int d, int pad_node, int n_tiles, int clusters,
-                             int split, cudaStream_t stream) {
+                             const int* ptr, const int* tiles, const void* Gc, const int* slot,
+                             const int* cross, void* dH, void* gz, float* partial, int n_edges,
+                             int d, int pad_node, int n_tiles, int clusters, int n_cross,
+                             cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = ib_config<NB>(&cfg, &attr, clusters, stream);
   if (err != cudaSuccess) return err;
   return cudaLaunchKernelEx(&cfg, iter_bwd_kernel<NB>, maps[0], maps[1], maps[2], maps[3],
-                            dst, rev, ptr, tiles, (bf16*)dH, (bf16*)gz, partial, n_edges, d,
-                            pad_node, n_tiles, split);
-}
-
-// dW = the first n_partials [d x d] partials added in their order
-extern "C" int iter_bwd_sum(const float* partial, float* dW, int n_partials, int d,
-                            cudaStream_t stream) {
-  if (n_partials < 1 || d % 4 != 0) return (int)cudaErrorInvalidValue;
-  const int size = d * d;
-  iter_bwd_reduce<<<(size / 4 + 255) / 256, 256, 0, stream>>>(partial, dW, n_partials, size);
-  return (int)cudaGetLastError();
+                            dst, rev, ptr, tiles, (const bf16*)Gc, slot, cross, (bf16*)dH,
+                            (bf16*)gz, partial, n_edges, d, pad_node, n_tiles, n_cross);
 }
 
 // the clusters a launch at width d over n_tiles tiles takes (the partials the
@@ -844,16 +934,19 @@ extern "C" int iter_bwd_clusters(int d, int n_tiles) {
 // layout; rows 16-byte aligned), d one of 128, 256, 384, over a tile table of
 // n_tiles tiles (ascending row offsets from 0 to n_edges, at most 128 rows
 // each, no molecule in two tiles); partial holds clusters * d * d floats,
-// clusters from iter_bwd_clusters. split != 0: a split tile table, whose
-// cross rows get zeros in G, and dW is left to the caller (iter_bwd_sum,
-// after the pass has written its partial)
+// clusters from iter_bwd_clusters. Over a split tile table n_cross > 0: the
+// cross list (n_cross rows, ascending), G_c ([n_cross x d] bf16, their G in
+// the list's order) and the map slot ([n_edges] int32), as iter_bwd_rows of
+// message_bwd.cu writes them on the same stream before this launch
 extern "C" int iter_bwd_tiles(const void* g, const void* y, const void* H, const void* W,
                               const int* dst, const int* rev, const int* ptr, const int* tiles,
-                              void* dH, void* gz, float* partial, float* dW, int n_edges, int d,
-                              int pad_node, int n_tiles, int clusters, int split,
+                              const void* Gc, const int* slot, const int* cross, void* dH,
+                              void* gz, float* partial, float* dW, int n_edges, int d,
+                              int pad_node, int n_tiles, int clusters, int n_cross,
                               cudaStream_t stream) {
   const int nb = ib_boxes(d);
-  if (nb == 0 || n_edges < 0 || tiles == nullptr || n_tiles < 1 || clusters < 1)
+  if (nb == 0 || n_edges < 0 || tiles == nullptr || n_tiles < 1 || clusters < 1 ||
+      n_cross < 0 || (n_cross > 0 && (Gc == nullptr || slot == nullptr || cross == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n_edges == 0) return (int)cudaMemsetAsync(dW, 0, (size_t)d * d * sizeof(float), stream);
   CUtensorMap maps[4];  // g and y in [128 x 64] boxes; H and W in [64 x 64] boxes
@@ -863,12 +956,15 @@ extern "C" int iter_bwd_tiles(const void* g, const void* y, const void* H, const
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaErrorInvalidValue;
   switch (nb) {
-    case 2: err = ib_launch<2>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, split, stream); break;
-    case 4: err = ib_launch<4>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, split, stream); break;
-    case 6: err = ib_launch<6>(maps, dst, rev, ptr, tiles, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, split, stream); break;
+    case 2: err = ib_launch<2>(maps, dst, rev, ptr, tiles, Gc, slot, cross, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, n_cross, stream); break;
+    case 4: err = ib_launch<4>(maps, dst, rev, ptr, tiles, Gc, slot, cross, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, n_cross, stream); break;
+    case 6: err = ib_launch<6>(maps, dst, rev, ptr, tiles, Gc, slot, cross, dH, gz, partial, n_edges, d, pad_node, n_tiles, clusters, n_cross, stream); break;
   }
   if (err != cudaSuccess) return (int)err;
-  return split ? 0 : iter_bwd_sum(partial, dW, clusters, d, stream);
+  // dW = the clusters' partials added in the order of the clusters
+  const int size = d * d;
+  iter_bwd_reduce<<<(size / 4 + 255) / 256, 256, 0, stream>>>(partial, dW, clusters, size);
+  return (int)cudaGetLastError();
 }
 
 // the launch's shape at width d over n_tiles tiles, into info[0..3]: CTAs

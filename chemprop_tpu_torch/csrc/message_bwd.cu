@@ -182,19 +182,21 @@ extern "C" int bwd_message(const void* g, const void* y, const void* acc, const 
 // rev[e], rounded once: the node-warp kernel's sums in its order, so the bits
 // every other row gets. It reads g and y, never gz_out, so that F's pass is
 // right with gz_acc too (gz_out = gz + gz_acc). A row of the padding node
-// gets zeros, as in the node-warp kernel. With `compact` the w-th listed row
-// goes to row w of G, an [n_rows x d] table (E's pass, iter_bwd_rows below).
+// gets zeros, as in the node-warp kernel. With `slot` (E's G_c launch,
+// iter_bwd_rows below) the w-th listed row goes to row w of G, an
+// [n_rows x d] table, and slot[rows[w]] = w.
 template <typename T>
 __global__ void __launch_bounds__(NODE_THREADS)
     bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ y,
                     const int* __restrict__ dst, const int* __restrict__ rev,
                     const int* __restrict__ ptr, const int* __restrict__ rows,
-                    T* __restrict__ G, int n_rows, int d, int pad_node, int compact) {
+                    T* __restrict__ G, int* __restrict__ slot, int n_rows, int d, int pad_node) {
   const int w = (blockIdx.x * NODE_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (w >= n_rows) return;
   const int nv = d >> 2, e = rows[w], v = dst[e];
-  const size_t out = compact ? (size_t)w : (size_t)e;
+  const size_t out = slot != nullptr ? (size_t)w : (size_t)e;
+  if (slot != nullptr && lane == 0) slot[e] = w;
   if (v == pad_node) {
     zero_row(G + out * d, lane, nv);
     return;
@@ -231,11 +233,12 @@ extern "C" int bwd_message_rows(const void* g, const void* y, const int* dst, co
   const int grid = (n_rows + NODE_THREADS / 32 - 1) / (NODE_THREADS / 32);
   if (dtype == DT_F32)
     bwd_rows_kernel<float><<<grid, NODE_THREADS, 0, stream>>>(
-        (const float*)g, (const float*)y, dst, rev, ptr, rows, (float*)G, n_rows, d, pad_node,
-        0);
+        (const float*)g, (const float*)y, dst, rev, ptr, rows, (float*)G, nullptr, n_rows, d,
+        pad_node);
   else if (dtype == DT_BF16)
     bwd_rows_kernel<bf16><<<grid, NODE_THREADS, 0, stream>>>(
-        (const bf16*)g, (const bf16*)y, dst, rev, ptr, rows, (bf16*)G, n_rows, d, pad_node, 0);
+        (const bf16*)g, (const bf16*)y, dst, rev, ptr, rows, (bf16*)G, nullptr, n_rows, d,
+        pad_node);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -428,98 +431,29 @@ extern "C" int iter_bwd(const void* g, const void* y, const void* H, const void*
   return (int)xtg_reduce(partial, dW, splits, d * d, stream);
 }
 
-// ------------------------------------------------------- E's pass (split)
-// Kernel E (iter_bwd.cu) over a split tile table leaves its cross rows out:
-// zeros in G, so nothing of theirs in the clusters' partial dW, and their dH
-// rows for this pass. iter_bwd_rows forms them, three launches behind one
-// entry point, with no atomics, so two calls give the same bits:
-//   1. G_c, their rows of G in list order, [n_rows x d] bf16, by
-//      bwd_rows_kernel (the node-warp sums from g and y, rounded once: the
-//      bits E's tile kernel gives its other rows);
-//   2. dH[rows] = G_c W^T, 64 listed rows a block, rows_times_wt's WMMA
-//      product with f32 sums, rounded once;
-//   3. H[rows]^T G_c into one [d x d] f32 partial, xtg.cuh's tiles with H's
-//      listed rows gathered, all rows in one split: the caller adds it after
-//      the clusters' partials (iter_bwd.cu's iter_bwd_sum).
-// It is bound by launches at the sizes it meets (260 rows at Tox21's batch
-// of 500 molecules, 1,040 at four of them; 2 n_rows d^2 operations per
-// product).
-__global__ void __launch_bounds__(PRE_THREADS)
-    rows_dh_kernel(const bf16* __restrict__ Gc, const bf16* __restrict__ W,
-                   const int* __restrict__ rows, bf16* __restrict__ dH, int n_rows, int d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = d + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [BM][lda] rows of G_c
-  bf16* Ws = As + BM * lda;                  // [BN][LDT] panel of W^T
-  float* Cs = reinterpret_cast<float*>(Ws + BN * LDT);  // [BM][LDC] f32 product
-  const int m0 = blockIdx.x * BM;
-  for (int t = threadIdx.x; t < BM * d / 8; t += PRE_THREADS) {
-    const int i = t / (d / 8), c8 = t % (d / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + i < n_rows) v = *reinterpret_cast<const uint4*>(Gc + (size_t)(m0 + i) * d + 8 * c8);
-    *reinterpret_cast<uint4*>(As + i * lda + 8 * c8) = v;
-  }
-  __syncthreads();
-  for (int n0 = 0; n0 < d; n0 += BN) {
-    rows_times_wt(As, lda, Ws, Cs, W, d, n0);
-    for (int t = threadIdx.x; t < BM * BN / 4; t += PRE_THREADS) {
-      const int r = t / (BN / 4), c4 = (t % (BN / 4)) * 4;
-      if (m0 + r < n_rows)
-        store4(dH + (size_t)rows[m0 + r] * d + n0 + c4,
-               *reinterpret_cast<const float4*>(Cs + r * LDC + c4));
-    }
-    __syncthreads();  // Cs is overwritten by the next strip
-  }
-}
-
-__global__ void __launch_bounds__(XT_THREADS, 2)
-    rows_dw_kernel(const bf16* __restrict__ H, const bf16* __restrict__ Gc,
-                   const int* __restrict__ rows, float* __restrict__ partial, int n_rows, int d) {
-  __shared__ __align__(128) bf16 Xs[XT_K * XT_LD];
-  __shared__ __align__(128) bf16 Gs[XT_K * XT_LD];
-  const int m0 = blockIdx.x * XT_TILE, n0 = blockIdx.y * XT_TILE;
-  XtAcc c[4][2];
-  xtg_zero(c);
-  for (int k0 = 0; k0 < n_rows; k0 += XT_K) {
-    for (int t = threadIdx.x; t < XT_K * XT_TILE / 8; t += XT_THREADS) {
-      const int k = t / (XT_TILE / 8), c8 = t % (XT_TILE / 8);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + k < n_rows)
-        v = *reinterpret_cast<const uint4*>(H + (size_t)rows[k0 + k] * d + m0 + c8 * 8);
-      *reinterpret_cast<uint4*>(Xs + k * XT_LD + c8 * 8) = v;
-    }
-    xtg_load(Gs, Gc, k0, n_rows, d, n0);
-    __syncthreads();
-    xtg_accumulate(c, Xs, Gs);
-    __syncthreads();  // the tiles are overwritten next
-  }
-  xtg_store(c, partial, d, m0, n0);
-}
-
-// E's pass over the n_rows listed rows (int32, real rows of [0, n_edges)):
-// dH at those rows, and their H^T G into partial ([d x d] f32), from g, y, H
-// bf16 [n_edges x d] and W [d x d] ((in, out) layout), d a multiple of 128;
-// Gc holds n_rows x d bf16 (G_c, written)
-extern "C" int iter_bwd_rows(const void* g, const void* y, const void* H, const void* W,
-                             const int* dst, const int* rev, const int* ptr, const int* rows,
-                             void* Gc, void* dH, float* partial, int n_rows, int d, int pad_node,
-                             cudaStream_t stream) {
-  if (d % BN != 0 || d % XT_TILE != 0 || d > MAX_WIDTH || n_rows < 1)
+// ----------------------------------------------------- E's G_c (split)
+// Kernel E (iter_bwd.cu) over a split tile table cannot form its cross rows'
+// G inside their tiles. Their G depends on g and y alone, so this launch forms
+// it first, on E's stream: G_c, [n_rows x d] bf16, the w-th listed row in row
+// w, by bwd_rows_kernel (one warp a listed row, the node-warp sums from g and
+// y rounded once: the bits E's tile kernel gives its other rows), and the map
+// slot[rows[w]] = w ([n_edges] int32, its other entries left as they are),
+// by which E's producer warp finds each flagged row's slot in G_c. E's tile
+// launch then takes those rows through its own products.
+// This entry point once ran three launches: G_c, then dH[rows] = G_c W^T and
+// H[rows]^T G_c as one more f32 partial of dW, both on WMMA (rows_times_wt's
+// product and xtg.cuh's), 53-92 us of device time at Tox21's 260-1,040 rows
+// on an H100 SXM at 700 W (PERF.md) against a bound under 1 us: three
+// launches, and two small products at about 1.3 TFLOP/s.
+// What is left is bound by a launch's latency: g and y at the reverses of
+// the listed rows' in-edges read, G_c and the map written.
+extern "C" int iter_bwd_rows(const void* g, const void* y, const int* dst, const int* rev,
+                             const int* ptr, const int* rows, void* Gc, int* slot, int n_rows,
+                             int d, int pad_node, cudaStream_t stream) {
+  if (d % 4 != 0 || d > MAX_WIDTH || n_rows < 1 || slot == nullptr)
     return (int)cudaErrorInvalidValue;
   bwd_rows_kernel<bf16><<<(n_rows + NODE_THREADS / 32 - 1) / (NODE_THREADS / 32), NODE_THREADS,
                           0, stream>>>((const bf16*)g, (const bf16*)y, dst, rev, ptr, rows,
-                                       (bf16*)Gc, n_rows, d, pad_node, 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = dh_smem_bytes(d);
-  err = cudaFuncSetAttribute(rows_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rows_dh_kernel<<<(n_rows + BM - 1) / BM, PRE_THREADS, smem, stream>>>(
-      (const bf16*)Gc, (const bf16*)W, rows, (bf16*)dH, n_rows, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rows_dw_kernel<<<dim3(d / XT_TILE, d / XT_TILE), XT_THREADS, 0, stream>>>(
-      (const bf16*)H, (const bf16*)Gc, rows, partial, n_rows, d);
+                                       (bf16*)Gc, slot, n_rows, d, pad_node);
   return (int)cudaGetLastError();
 }

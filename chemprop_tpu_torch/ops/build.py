@@ -65,7 +65,7 @@ SIGNATURES = {
         "iter_bwd": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
         "iter_bwd_splits": [I],
         "bwd_message_rows": [P, P, P, P, P, P, P, I, I, I, I, P],
-        "iter_bwd_rows": [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P],
+        "iter_bwd_rows": [P, P, P, P, P, P, P, P, I, I, I, P],
     },
     "message_bwd_tiles": {
         "bwd_message_tiles": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
@@ -80,8 +80,7 @@ SIGNATURES = {
         "bwd_nodes_info": [I, I, P],
     },
     "iter_bwd": {
-        "iter_bwd_tiles": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "iter_bwd_sum": [P, P, I, I, P],
+        "iter_bwd_tiles": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "iter_bwd_clusters": [I, I],
         "iter_bwd_info": [I, I, P],
     },

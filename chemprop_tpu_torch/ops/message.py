@@ -41,8 +41,9 @@ its nodes' boundaries) with the row lists that come with it: the tile kernel
 forms every row whose sums lie in its tile, and passes form the listed rows
 again, with the bits of the forms without a table. A, F, G, H and E take
 ``cross_rows`` (``csrc/message.cu``'s ``message_rows`` for A,
-:func:`_cross_rows` for F, G and H, ``csrc/message_bwd.cu``'s
-``iter_bwd_rows`` for E, whose tile kernel leaves those rows to it); D takes
+:func:`_cross_rows` for F, G and H; E's rows of ``G`` are formed first by
+``csrc/message_bwd.cu``'s ``iter_bwd_rows``, and its tile kernel takes them
+in through its own products); D takes
 ``y1_rows`` and ``y2_rows`` (``csrc/fused_iter.cu``'s ``fused_iter_rows``, B's
 own code over a list: y1's rows, then y2's). Every route hands each kernel
 the table a batch has (:func:`message_table`, :func:`iter2_table`). A split
@@ -62,8 +63,9 @@ A pass counts as a launch of its own (``LAUNCHES["message_rows"]``,
 a CPU tensor the wrappers take the full plain version and then the pass's
 plain version (:func:`message_rows_plain`, :func:`bwd_message_rows_plain`,
 :func:`fused_iter_rows_plain`, :func:`iter_bwd_rows_plain`) over the same
-rows, which gives the same values again, so that a run on the CPU calls a
-plain version wherever the card launches a kernel."""
+rows, which gives the same values again (E's: the rows of ``G`` the full
+one holds), so that a run on the CPU calls a plain version wherever the card
+launches a kernel."""
 
 from __future__ import annotations
 
@@ -282,20 +284,14 @@ def iter_bwd_plain(
 
 
 def iter_bwd_rows_plain(
-    g: torch.Tensor, y: torch.Tensor, H: torch.Tensor, W: torch.Tensor, src: torch.Tensor,
-    dst: torch.Tensor, rev: torch.Tensor, ptr: torch.Tensor, rows: torch.Tensor,
-    dH: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of E's pass over a split table's cross rows
-    (``iter_bwd_rows``): ``dH`` with the rows ``rows`` formed again as
-    :func:`iter_bwd_plain` forms them (``G`` at those rows summed in f32 and
-    rounded once, times ``W^T``), every other row as it is; and those rows'
-    share of ``dW``, ``H[rows]^T G[rows]`` in f32."""
-    Gc = _transposed_at(g, y, dst, rev, ptr, rows).to(g.dtype).float()
-    r = rows.long()
-    dH[r] = (Gc @ W.float().t()).to(dH.dtype)
-    Hr = H[r].float().masked_fill((dst.long()[r] == ptr.numel() - 2)[:, None], 0.0)
-    return dH, Hr.t() @ Gc
+    g: torch.Tensor, y: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+    rev: torch.Tensor, ptr: torch.Tensor, rows: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of E's launch before its tile launch over a
+    split table (``iter_bwd_rows``): ``G_c``, the masked transposed message
+    at the rows ``rows`` in their order, ``[len(rows), d]``, summed in f32 as
+    :func:`iter_bwd_plain` sums it and rounded once to ``g``'s dtype."""
+    return _transposed_at(g, y, dst, rev, ptr, rows).to(g.dtype)
 
 
 def _check_graph(H, src, dst, rev, ptr):
@@ -1018,12 +1014,13 @@ def iter_bwd(
     same ``G``; ``dH`` and ``dW`` sum the same products in another order.
 
     With a split table (``BatchMolGraph.split_ptr``) as ``tiles`` and its
-    ``cross`` rows (:func:`check_cross`) the tile launch leaves the cross rows
-    out (zeros in ``G``), and ``csrc/message_bwd.cu``'s ``iter_bwd_rows``
-    forms their ``G`` from ``g`` and ``y``, their ``dH`` and their share of
-    ``dW``, which the ordered reduction adds after the clusters' partials:
-    ``gz`` and ``G`` as before, the same bits in every run. A split table
-    without its cross rows raises (:func:`check_whole`)."""
+    ``cross`` rows (:func:`check_cross`), ``csrc/message_bwd.cu``'s
+    ``iter_bwd_rows`` first forms those rows' ``G`` from ``g`` and ``y`` into
+    a compact table, and the tile launch takes it into its products where it
+    cannot form a row inside its tile; a row it cannot form that the list
+    does not hold comes out NaN in ``dH``. ``gz`` and ``G`` as before, the
+    same bits in every run. A split table without its cross rows raises
+    (:func:`check_whole`)."""
     _check_graph(g, src, dst, rev, ptr)
     n, d = g.shape
     if g.dtype != torch.bfloat16 or W.dtype != torch.bfloat16:
@@ -1038,7 +1035,7 @@ def iter_bwd(
     if g.device.type == "cpu":
         dH, gz, dW = iter_bwd_plain(g, y, H, W, src, dst, rev, ptr)
         if again:
-            iter_bwd_rows_plain(g, y, H, W, src, dst, rev, ptr, cross, dH)
+            iter_bwd_rows_plain(g, y, src, dst, rev, ptr, cross)
         return dH, gz, dW
     if any(t.data_ptr() % 16 != 0 for t in (g, y, H, W)):
         raise ValueError("iter_bwd needs 16-byte aligned tables")
@@ -1056,27 +1053,32 @@ def iter_bwd(
         clusters = lib.iter_bwd_clusters(d, n_tiles)
         if clusters < 1:
             raise RuntimeError(f"iter_bwd: no cluster of {d // 64} blocks fits this card")
-        # over a split table one more partial: the cross rows' H^T G
-        partial = torch.empty((clusters + again, d, d), dtype=torch.float32, device=g.device)
-        call(lib, "iter_bwd_tiles", g, y, H, W, *graph, tiles.contiguous(), dH, gz, partial, dW,
-             n, d, ptr.numel() - 2, n_tiles, clusters, int(again))
-        if again:
-            _iter_bwd_rows(g, y, H, W, *graph, cross, dH, partial[clusters])
-            call(lib, "iter_bwd_sum", partial, dW, clusters + 1, d)
+        # over a split table its cross rows' G first, and the map to them
+        rows = (*_iter_bwd_rows(g, y, *graph, cross), cross.contiguous()) if again else \
+            (None, None, None)
+        partial = torch.empty((clusters, d, d), dtype=torch.float32, device=g.device)
+        call(lib, "iter_bwd_tiles", g, y, H, W, *graph, tiles.contiguous(), *rows, dH, gz,
+             partial, dW, n, d, ptr.numel() - 2, n_tiles, clusters, cross.numel() if again else 0)
     LAUNCHES["iter_bwd"] += 1
     return dH, gz, dW
 
 
-def _iter_bwd_rows(g, y, H, W, dst, rev, ptr, cross, dH, partial) -> None:
-    """E's pass over a split table's cross rows in device memory
-    (``csrc/message_bwd.cu``'s ``iter_bwd_rows``): their ``G`` from ``g`` and
-    ``y`` into a compact table, their rows of ``dH``, and their ``H^T G`` into
-    ``partial`` (a ``[d, d]`` f32 table)."""
+def _iter_bwd_rows(g, y, dst, rev, ptr, cross) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(G_c, slot)``: the ``G`` of a split table's cross rows in device
+    memory, formed from ``g`` and ``y`` into a compact table in the list's
+    order, and the map ``slot[cross[w]] = w`` (one int32 entry per edge row,
+    the others left unwritten) by which E's tile launch finds them
+    (``csrc/message_bwd.cu``'s ``iter_bwd_rows``)."""
     n, d = cross.numel(), g.shape[1]
     Gc = torch.empty((n, d), dtype=g.dtype, device=g.device)
-    call(library("message_bwd"), "iter_bwd_rows", g, y, H, W, dst, rev, ptr, cross.contiguous(),
-         Gc, dH, partial, n, d, ptr.numel() - 2)
+    # left uninitialised on purpose: the tile launch reads an entry only for
+    # a flagged row and trusts it only where cross[slot] is that row, so a
+    # stale entry makes a row unlisted (NaN), never another row's G
+    slot = torch.empty(g.shape[0], dtype=torch.int32, device=g.device)
+    call(library("message_bwd"), "iter_bwd_rows", g, y, dst, rev, ptr, cross.contiguous(), Gc,
+         slot, n, d, ptr.numel() - 2)
     LAUNCHES["iter_bwd_rows"] += 1
+    return Gc, slot
 
 
 def iter_bwd_info(d: int, n_tiles: int) -> dict[str, int]:

@@ -33,10 +33,12 @@ failure:
    transposed message (unmasked, masked, with gz_acc) in float32 and
    bfloat16 over the same split table, the two chained iterations over it
    with their two row passes (bit for bit two fused iterations, two calls
-   equal), the whole-iteration backward over it with its pass (gz bit for
-   bit its form without a table, dH and dW within its limits, two calls
-   equal), and the four passes alone (``SPLIT_PASSES``) against their plain
-   versions and timed; the segment
+   equal), the whole-iteration backward over it with the cross rows' G
+   formed first and taken into its tile launch (gz bit for bit its form
+   without a table, dH and dW within its limits, two calls equal, dH outside
+   the cross rows the bits of a launch that takes none of them, a row the
+   list leaves out NaN), and the four passes alone (``SPLIT_PASSES``) against
+   their plain versions and timed; the segment
    sum at both readouts (edges to nodes, nodes to graphs) in all three dtype
    pairs, with and without counts, two calls equal; the whole-iteration
    backward with the batch's tile table and without one, gz equal bit for
@@ -108,7 +110,9 @@ failure:
    segment sum, of the node-cotangent backward, of the two chained
    iterations, of the whole-iteration backward and of F in float32 and
    bfloat16, each with and without the running dH0 and without a table,
-   with its sparse product, from a trace; the
+   with its sparse product, from a trace (``kernel_trace``: a trace that
+   holds a record of every launch, else null; ``device_traces`` counts
+   them); the
    forward's and the training step's molecules per second, and the step with
    each option on and off, and of a tanh model at depth 2 with ``grad_w``
    (its W_h product composed through autograd);
@@ -448,8 +452,9 @@ KERNELS = {
     ),
 }
 # the second passes over a split table's cross rows (a batch holding a
-# molecule of more than 128 directed edges): each re-forms the rows that the
-# tile kernels of the TPU kernel it serves cannot form in their tile.
+# molecule of more than 128 directed edges): each forms the rows that the
+# tile kernels of the TPU kernel it serves cannot form in their tile (E's
+# before its tile launch, which takes them in).
 # Phase 2 checks and times them alone on Tox21; a path launches them where
 # its batches hold split tables, so their counts are held to a rehearsal's,
 # never to ``PATH_KERNELS``
@@ -477,8 +482,9 @@ SPLIT_PASSES = {
     "iter_bwd_rows": dict(
         source="chemprop_tpu_torch/csrc/message_bwd.cu",
         replaces="chemprop_tpu/ops/fused_message.py:603",
-        tpu_kernel="_iter_bwd_kernel via _iter_bwd_impl (kw=2, 3), the rows across tiles",
-        timed="iter_bwd_rows[dH]",
+        tpu_kernel="_iter_bwd_kernel via _iter_bwd_impl (kw=2, 3), G of the rows across tiles, "
+                   "which E's tile launch then takes in",
+        timed="iter_bwd_rows[G_c]",
     ),
 }
 # the launches of one forward and of one training step in each dtype; a
@@ -1928,11 +1934,16 @@ def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> d
     limits of the tiled check; D with D's lists the bits of two B launches
     (its form without a table), E with the cross rows ``gz`` bit-equal to
     its form without a table and ``dH``, ``dW`` within E's limits of the
-    plain version, both in two calls. Then the passes alone
+    plain version, both in two calls; its ``dH`` outside the cross rows the
+    bits of a launch that takes none of them (whose rows there are NaN), and
+    a cross row the list leaves out NaN. Then the passes alone
     (``message_rows``, ``bwd_message_rows``, ``fused_iter_rows`` over
-    ``y2_rows``, ``iter_bwd_rows`` over the cross rows) against their plain
-    versions, and timed beside them with the least time the card could take
-    (``SPLIT_PASSES``)."""
+    ``y2_rows``, and ``iter_bwd_rows``, E's launch that forms the cross rows'
+    ``G`` before its tile launch) against their plain versions, and timed
+    beside them with the least time the card could take (``SPLIT_PASSES``);
+    beside ``iter_bwd_rows`` the two library products that E's tile launch
+    now does for those rows (``torch.mm`` of ``G_c W^T`` and of
+    ``H[rows]^T G_c``), as yardsticks."""
     import torch
 
     from chemprop_tpu_torch.ops import (
@@ -2050,6 +2061,22 @@ def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> d
     check("iter_bwd[split,dW]", out[2], want_dW, 1e-4, 1e-3, errs, Hx_abs.t() @ G_abs)
     if out[0][pad_rows].any() or out[1][pad_rows].any():
         fail("iter_bwd[split]: a padding row is not zero")
+    # a row's dH depends on its own row of G alone: a launch that takes no
+    # cross row (an empty list: those rows NaN) gives every other row's bits,
+    # and one whose list leaves a row out gives that row NaN, the others' bits
+    listed = torch.zeros(n_e, dtype=torch.bool, device="cuda")
+    listed[b.cross_rows.long()] = True
+    for tag, rows, nan_rows in (("none", b.cross_rows[:0], listed),
+                                ("one_left_out", b.cross_rows[1:], None)):
+        if nan_rows is None:
+            nan_rows = torch.zeros_like(listed)
+            nan_rows[b.cross_rows[0].long()] = True
+        dH = iter_bwd(gb, yb, Hx, W, *graph, tiles=b.split_ptr, cross=rows)[0]
+        if not (torch.equal(dH.isnan().all(1), nan_rows) and torch.equal(dH.isnan().any(1),
+                                                                             nan_rows)):
+            fail(f"iter_bwd[split,{tag}]: the rows the launch cannot form are not NaN, whole")
+        if not torch.equal(dH[~nan_rows], out[0][~nan_rows]):
+            fail(f"iter_bwd[split,{tag}]: dH outside those rows differs")
 
     # the passes alone over their rows, the other rows NaN: those rows
     # against the plain versions, the others untouched; then timed
@@ -2088,45 +2115,55 @@ def check_split_tables(d: int, seed: int, errs: dict, reps: int, card: str) -> d
                 times[kernel] = entry
             else:
                 times[kernel][name] = entry
-    # D's pass over y2_rows from y1 (its second pass, the longer list) and
-    # E's over the cross rows, bf16 only: the listed rows against the plain
-    # versions (D's pass bit-equal to B), the others untouched
-    part = torch.empty((d, d), device="cuda")
-    y2_rows = b.y2_rows
-    runs = {
-        "fused_iter_rows": (
-            lambda o: _fused_iter_rows(w1, H0z, W, None, *ids, y2_rows, o),
-            lambda o: fused_iter_rows_plain(w1, H0z, W, None, *graph, y2_rows, o),
-            y2_rows, fused_iter_rows_bytes(b, d), fused_iter_rows_ops(b, d)),
-        "iter_bwd_rows": (
-            lambda o: _iter_bwd_rows(gb, yb, Hx, W, b.dst, b.rev, b.edge_ptr, cross, o, part),
-            lambda o: iter_bwd_rows_plain(gb, yb, Hx, W, *graph, cross, o),
-            cross, iter_bwd_rows_bytes(b, d), iter_bwd_rows_ops(b, d)),
-    }
-    for kernel, (run, plain, listed, nbytes, n_ops) in runs.items():
-        out = torch.full_like(yb, float("nan"))
-        run(out)
-        want = plain(torch.full_like(yb, float("nan")))
-        want, share = (want, None) if kernel == "fused_iter_rows" else want
-        others = torch.ones(n_e, dtype=torch.bool, device="cuda")
-        others[listed.long()] = False
-        if not torch.isnan(out[others]).all():
-            fail(f"{kernel}: a row outside its list was written")
-        r = listed.long()
-        if kernel == "fused_iter_rows":
-            if not torch.equal(out[r], fused_iter(w1, H0z, W, None, *graph)[r]):
-                fail("fused_iter_rows: its rows differ from B's")
-            check("fused_iter_rows[y2]", out[r], want[r], 2 * BF16_ULP, 0.02, errs)
-        else:
-            check("iter_bwd_rows[dH]", out[r], want[r], 2 * BF16_ULP, 1e-4, errs,
-                  G_abs[r] @ W.float().abs().t())
-            check("iter_bwd_rows[dW]", part, share, 1e-4, 1e-3, errs, Hx_abs[r].t() @ G_abs[r])
-        tb, to = nbytes / bw * 1e3, n_ops / bf16_peak * 1e3
-        ms = time_ms(lambda: run(out), reps)
-        times[kernel] = dict(ms=ms, plain_ms=time_ms(lambda: plain(out), reps), library_ms=None,
-                             bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
-                             share_of_bound=max(tb, to) / ms, shape=[listed.numel(), d],
-                             dtype="bfloat16", device_ms=device_ms(lambda: run(out)))
+    # D's pass over y2_rows from y1 (its second pass, the longer list), bf16
+    # only: the listed rows bit-equal to B and against the plain version, the
+    # others untouched
+    y2_rows, r = b.y2_rows, b.y2_rows.long()
+    run = lambda o: _fused_iter_rows(w1, H0z, W, None, *ids, y2_rows, o)  # noqa: E731
+    plain = lambda o: fused_iter_rows_plain(w1, H0z, W, None, *graph, y2_rows, o)  # noqa: E731
+    out = torch.full_like(yb, float("nan"))
+    run(out)
+    want = plain(torch.full_like(yb, float("nan")))
+    others = torch.ones(n_e, dtype=torch.bool, device="cuda")
+    others[r] = False
+    if not torch.isnan(out[others]).all():
+        fail("fused_iter_rows: a row outside its list was written")
+    if not torch.equal(out[r], fused_iter(w1, H0z, W, None, *graph)[r]):
+        fail("fused_iter_rows: its rows differ from B's")
+    check("fused_iter_rows[y2]", out[r], want[r], 2 * BF16_ULP, 0.02, errs)
+    tb, to = fused_iter_rows_bytes(b, d) / bw * 1e3, fused_iter_rows_ops(b, d) / bf16_peak * 1e3
+    ms = time_ms(lambda: run(out), reps)
+    times["fused_iter_rows"] = dict(
+        ms=ms, plain_ms=time_ms(lambda: plain(out), reps), library_ms=None, bound_ms=max(tb, to),
+        bound_by="bytes" if tb >= to else "operations", share_of_bound=max(tb, to) / ms,
+        shape=[y2_rows.numel(), d], dtype="bfloat16", device_ms=device_ms(lambda: run(out)))
+    # E's launch before its tile launch, bf16: G_c bit-equal to F's pass at
+    # the cross rows (the same sums, rounded once) and within one bf16 ulp of
+    # the plain version, the map right at every cross row; timed beside the
+    # two library products that E's tile launch now does for those rows
+    r = cross.long()
+    Gc, slot = _iter_bwd_rows(gb, yb, b.dst, b.rev, b.edge_ptr, cross)
+    G_f = torch.full_like(yb, float("nan"))
+    _cross_rows(gb, yb, b.dst, b.rev, b.edge_ptr, cross, G_f)
+    if not torch.equal(Gc, G_f[r]):
+        fail("iter_bwd_rows: G_c differs from bwd_message_rows at the cross rows")
+    if not torch.equal(slot[r], torch.arange(cross.numel(), dtype=torch.int32, device="cuda")):
+        fail("iter_bwd_rows: the map does not give each cross row its slot in G_c")
+    plain = lambda: iter_bwd_rows_plain(gb, yb, *graph, cross)  # noqa: E731
+    check("iter_bwd_rows[G_c]", Gc, plain(), BF16_ULP, 1e-6, errs)
+    run = lambda: _iter_bwd_rows(gb, yb, b.dst, b.rev, b.edge_ptr, cross)  # noqa: E731
+    tb = iter_bwd_rows_bytes(b, d) / bw * 1e3
+    to = pass_adds(b, "iter_bwd_rows") * d / f32_peak * 1e3
+    Hr, Wt = Hx[r].contiguous(), W.t().contiguous()
+    products = {"G_c W^T": lambda: torch.mm(Gc, Wt),
+                "H[rows]^T G_c": lambda: torch.mm(Hr.t(), Gc, out_dtype=torch.float32)}
+    ms = time_ms(run, reps)
+    times["iter_bwd_rows"] = dict(
+        ms=ms, plain_ms=time_ms(plain, reps), library_ms=None, bound_ms=max(tb, to),
+        bound_by="bytes" if tb >= to else "operations", share_of_bound=max(tb, to) / ms,
+        shape=[cross.numel(), d], dtype="bfloat16", device_ms=device_ms(run),
+        library_products_ms={k: time_ms(f, reps) for k, f in products.items()},
+        library_products_device_ms={k: device_ms(f) for k, f in products.items()})
     res = {"rows": n_e, "real_rows": int(b.edge_mask.sum()), "tiles": b.split_ptr.numel() - 1,
            "cross_rows": cross.numel(), "y1_rows": b.y1_rows.numel(),
            "y2_rows": b.y2_rows.numel(), "d": d, "times": times}
@@ -2186,20 +2223,14 @@ def fused_iter_rows_ops(bmg, d: int) -> int:
 
 
 def iter_bwd_rows_bytes(bmg, d: int) -> int:
-    """The bytes E's pass (``iter_bwd_rows``) must move over the batch's
-    cross rows at width ``d`` in bf16: ``g`` and ``y`` at the reverses of the
-    in-edges of the listed rows' nodes read once, each listed row's ``H``
-    read and ``dH`` written, ``W`` once, the f32 ``[d x d]`` partial of
-    ``dW`` written, per listed row its entry of the list, its ``dst`` and
-    the two ``ptr`` entries of its node, and the ``rev`` of each in-edge."""
+    """The bytes E's launch before its tile launch (``iter_bwd_rows``) must
+    move over the batch's cross rows at width ``d`` in bf16: ``g`` and ``y``
+    at the reverses of the in-edges of the listed rows' nodes read once,
+    ``G_c`` written (a row per listed row) and the map's entry of each listed
+    row, per listed row its entry of the list, its ``dst`` and the two
+    ``ptr`` entries of its node, and the ``rev`` of each in-edge."""
     n, k = bmg.cross_rows.numel(), pass_rows(bmg, "iter_bwd_rows").numel()
-    return (2 * k + 2 * n) * d * 2 + d * d * 2 + d * d * 4 + 4 * 4 * n + 4 * k
-
-
-def iter_bwd_rows_ops(bmg, d: int) -> int:
-    """The operations of E's pass: ``G W^T`` and ``H^T G`` over the cross
-    rows, 2 d^2 a row each."""
-    return 4 * bmg.cross_rows.numel() * d * d
+    return (2 * k + n) * d * 2 + 4 * n + 4 * 4 * n + 4 * k
 
 
 def bwd_message_rows_bytes(bmg, d: int, itemsize: int, masked: bool = True) -> int:
@@ -4354,20 +4385,62 @@ def time_ms(fn, reps: int, inner: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device milliseconds per call of the kernels ``fn`` launches, summed
-    from a ``torch.profiler`` trace: the host's work between the launches,
-    which CUDA events count where it is longer than the kernel, is not."""
+TRACES = {"readings": 0, "traces": 0, "lost": 0, "misses": []}
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+SPINS = 64  # short kernels launched first in a trace, left out of its reading
+
+
+def kernel_trace(fn, calls: int = 10, tries: int = 8) -> dict | None:
+    """Device microseconds per call of each kernel, copy and memset that
+    ``fn`` launches, from a ``torch.profiler`` trace of ``calls`` calls; the
+    host's work between the launches, which CUDA events count where it is
+    longer than the kernel, is not in it. A trace can lose records (on an
+    H100 under torch 2.11, traces of 10 calls held none of a call's
+    kernels, or only some of the calls; late in this script's run about
+    every other one did). So each trace opens with ``SPINS`` spin kernels
+    that its reading leaves out (with them no trace of a whole run of this
+    script on an H100 lost a record), and counts only where its device
+    records match its launch calls (``LAUNCH_CALLS``) one for one and each
+    came a whole number of times per call; else it is taken again, and
+    after ``tries`` the reading is None. ``TRACES`` counts the readings
+    asked for, the traces and the readings lost, and keeps the last
+    misses."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / calls / 1e3
+    TRACES["readings"] += 1
+    for _ in range(tries):
+        TRACES["traces"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = {e.key: e for e in events
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
+        held = sum(e.count for e in device.values())
+        launched = sum(e.count for e in events if e.device_type != DeviceType.CUDA
+                       and e.key.startswith(LAUNCH_CALLS)) - SPINS
+        if held and held == launched and all(e.count % calls == 0 for e in device.values()):
+            return {key: e.device_time_total / calls for key, e in device.items()}
+        TRACES["misses"] = TRACES["misses"][-9:] + [
+            {"calls": calls, "launched": launched, "held": held,
+             "odd": {k[:48]: e.count for k, e in device.items() if e.count % calls}}]
+    TRACES["lost"] += 1
+    return None
+
+
+def device_ms(fn, calls: int = 10) -> float | None:
+    """Device milliseconds per call of the kernels ``fn`` launches
+    (``kernel_trace``), or None where every trace missed calls."""
+    trace = kernel_trace(fn, calls)
+    return None if trace is None else sum(trace.values()) / 1e3
 
 
 def timings(bmg, t: dict, d: int, reps: int, card: str) -> dict:
@@ -6119,6 +6192,7 @@ def main() -> int:
     pipeline_res["idle"] = pipeline_traced_epoch()
     print(json.dumps({"input_pipeline_idle": pipeline_res["idle"]}))
     print(json.dumps({"unserved": unserved}))
+    print(json.dumps({"device_traces": TRACES}))
     for name in ("message", "fused_iter2", "bwd_message", "bwd_message_premul",
                  "bwd_message_nodes", "iter_bwd", "row_gather"):
         if unserved.get(name, 0):
@@ -6175,7 +6249,7 @@ def main() -> int:
               "multicomponent": multi_res, "mab": mab_res, "interpret": interpret_res,
               "export": export_res, "native_cli": native_res, "parallel": parallel_res,
               "v1_multi": v1_multi_res, "input_pipeline": pipeline_res,
-              "isolation": isolation_res,
+              "isolation": isolation_res, "device_traces": TRACES,
               "forward": rates,
               "train_step": step_rates,
               "kernels": kernels}

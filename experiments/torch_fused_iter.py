@@ -64,20 +64,20 @@ def host_us(fn, calls: int = 20) -> float:
 
 
 def profile(fns: dict, calls: int = 10) -> dict:
-    """Device microseconds per call of each kernel each function launches."""
-    import torch
-    from torch.profiler import ProfilerActivity
+    """Device microseconds per call of each kernel each function launches
+    (``chip_smoke.kernel_trace``: a trace that misses calls is taken
+    again); exits where every trace of a function missed calls."""
+    from chip_smoke import TRACES, kernel_trace
 
     out = {}
     for name, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        out[name] = {e.key[:60]: e.device_time_total / calls
-                     for e in prof.key_averages() if e.device_time_total > 0}
+        trace = kernel_trace(fn, calls)
+        if trace is None:
+            raise SystemExit(f"profile: every trace of {name} missed calls: "
+                             f"{TRACES['misses'][-3:]}")
+        out[name] = {}
+        for key, us in trace.items():  # kernels whose names share 60 characters add up
+            out[name][key[:60]] = out[name].get(key[:60], 0.0) + us
     return out
 
 

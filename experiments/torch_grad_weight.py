@@ -85,26 +85,16 @@ def check(n: int, dx: int, dg: int, seed: int):
     return res, X, G
 
 
-def profile(X, G, calls: int = 10) -> dict:
+def profile(X, G) -> dict:
     """Device microseconds per call of each kernel that J and ``torch.mm``
-    launch, from ``torch.profiler``."""
+    launch, from ``torch.profiler`` (``torch_fused_iter.profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity
+    from experiments.torch_fused_iter import profile as traced
 
     from chemprop_tpu_torch.ops.grad_weight import grad_weight
 
-    out = {}
-    for name, fn in (("grad_weight", lambda: grad_weight(X, G, use_kernel=True)),
-                     ("torch.mm", lambda: torch.mm(X.t(), G, out_dtype=torch.float32))):
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        out[name] = {e.key[:60]: e.device_time_total / calls
-                     for e in prof.key_averages() if e.device_time_total > 0}
-    return out
+    return traced({"grad_weight": lambda: grad_weight(X, G, use_kernel=True),
+                   "torch.mm": lambda: torch.mm(X.t(), G, out_dtype=torch.float32)})
 
 
 def main() -> int:

@@ -85,8 +85,9 @@ def trace_steps(bmg, d: int, tensors) -> dict:
     dH, gz = torch.empty_like(g), torch.empty_like(g)
     dW = torch.empty((d, d), dtype=torch.float32, device="cuda")
     partial = torch.empty((clusters, d, d), dtype=torch.float32, device="cuda")
-    args = [t.data_ptr() for t in (g, y, H, W, bmg.dst, bmg.rev, bmg.edge_ptr, tiles, dH, gz,
-                                   partial, dW)]
+    args = [t.data_ptr() for t in (g, y, H, W, bmg.dst, bmg.rev, bmg.edge_ptr, tiles)]
+    args += [None, None, None]  # a tile table: no cross rows
+    args += [t.data_ptr() for t in (dH, gz, partial, dW)]
     stream = torch.cuda.current_stream().cuda_stream
     stamps = np.zeros((8, 64, 9), np.int64)
     for _ in range(3):  # the last call's stamps

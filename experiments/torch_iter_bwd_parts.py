@@ -145,8 +145,9 @@ def main() -> int:
             dH, gz = torch.empty_like(g), torch.empty_like(g)
             dW = torch.empty((d, d), dtype=torch.float32, device="cuda")
             partial = torch.empty((clusters, d, d), dtype=torch.float32, device="cuda")
-            ptrs = [t.data_ptr() for t in (g, y, H, W, bmg.dst, bmg.rev, bmg.edge_ptr, tiles, dH,
-                                           gz, partial, dW)]
+            ptrs = [t.data_ptr() for t in (g, y, H, W, bmg.dst, bmg.rev, bmg.edge_ptr, tiles)]
+            ptrs += [None, None, None]  # a tile table: no cross rows
+            ptrs += [t.data_ptr() for t in (dH, gz, partial, dW)]
 
             def run():
                 err = lib.iter_bwd_tiles(*ptrs, n, d, bmg.edge_ptr.numel() - 2,

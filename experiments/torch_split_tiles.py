@@ -5,6 +5,7 @@ five training steps with the split table and without it.
 
     python3 experiments/torch_split_tiles.py [--reps 21] [--copies 1,4]
                                              [--tree DIR] [--steps-only]
+                                             [--e-only [--tag T]]
 
 The batch is Tox21 (tests/data/classification/mol.csv: 500 molecules, 8 of
 them of more than 128 directed edges) collated once (``--copies 1``) or
@@ -22,14 +23,15 @@ their tile. At d = 384 (the default model's hidden width 300, padded):
   over fixed tiles then that pass) and timed beside it;
 * D (``fused_iter2``) over the split table with its row passes, checked
   bit-equal to two B launches (its form without a table) and timed beside
-  them; E (``iter_bwd``) over the split table with its pass, its gz checked
+  them; E (``iter_bwd``) over the split table with the launch that forms
+  its cross rows' G first, its gz checked
   bit-equal to its form without a table (``message_bwd.cu``'s three
   launches) and timed beside it;
 * the passes alone: A's (``message_rows``) in f32 and bf16, F's
   (``bwd_message_rows`` from g and y) in f32 and bf16, G's and H's (the
   same kernel from the gz table, no mask) in bf16, D's (``fused_iter_rows``
-  over y1_rows, then y2_rows) and E's (``iter_bwd_rows`` over the cross
-  rows) in bf16;
+  over y1_rows, then y2_rows) and E's launch before its tile launch
+  (``iter_bwd_rows``: the cross rows' G) in bf16;
 * one f32 training step and one bf16 step with dropout 0.1 of the default
   model at full width with a BCE head (``chip_smoke.head_model``: depth 3,
   batch norm, 4 tasks), one bf16 step without dropout, one with ``iter2``
@@ -38,12 +40,19 @@ their tile. At d = 384 (the default model's hidden width 300, padded):
 
 Times are medians of ``--reps`` runs of 5 calls (2 for a step) between CUDA
 events, and device microseconds per call of every kernel each call
-launches, from a ``torch.profiler`` trace of 10 calls (5 for a step).
-``--tree DIR`` imports the package (and ``chip_smoke``) from another
-checkout, e.g. the parent commit unpacked under ``_chip_checkout/``, so that
-both are timed in one call; ``--steps-only`` times the steps alone (a tree
-whose kernels take no split table). Every line carries the card's name
-and power limit; the record goes to
+launches, from ``torch.profiler`` traces of 10 calls (5 for a step) that
+held every call (``chip_smoke.kernel_trace``). ``--tree DIR`` imports the
+package from another checkout, e.g. the parent commit unpacked under
+``_chip_checkout/``, so that both are timed in one call (``chip_smoke``'s
+helpers and the profiler stay this checkout's); ``--steps-only`` times the steps alone (a tree
+whose kernels take no split table). ``--e-only`` times kernel E alone, in
+any tree that has E over the split table: E over the split table (each of
+its launches in the trace) and without a table, ``torch.mm`` of ``G_c W^T``
+and of ``H[rows]^T G_c`` at the cross rows (yardsticks), the bf16 steps with ``iter2`` and with dropout and
+``fused_bwd``, and E over the split table and without a table on each
+batch of 50 molecules of Tox21 that has a split table (its record's name
+has ``_e`` in place of ``_steps``, and ``--tag T`` adds ``_T``). Every line
+carries the card's name and power limit; the record goes to
 chiprun_out/torch_split_tiles[_steps][_<tree>].json."""
 
 from __future__ import annotations
@@ -148,16 +157,88 @@ def kernel_times(b, copies: int, reps: int) -> dict:
     fns["D pass y1"] = lambda: _fused_iter_rows(H0, H0, W, None, *ids, b.y1_rows, out,
                                                 relu_stream=True)
     fns["D pass y2"] = lambda: _fused_iter_rows(y1, H0, W, None, *ids, b.y2_rows, out)
-    part = torch.empty((D, D), device="cuda")
-    fns["E pass"] = lambda: _iter_bwd_rows(gb, yb, Hx, W, b.dst, b.rev, b.edge_ptr, cross, out,
-                                           part)
+    fns["E pass"] = lambda: _iter_bwd_rows(gb, yb, b.dst, b.rev, b.edge_ptr, cross)
     return {"ms": {k: time_ms(f, reps) for k, f in fns.items()}, "device_us": profile(fns)}
 
 
-def step_times(batch, reps: int) -> dict:
-    """Three training steps of the full-width BCE model, with the split table
-    and with it taken away: event and device milliseconds, and the launches
-    and unserved calls of one step with it."""
+def e_inputs(b, seed: int):
+    """E's bf16 inputs at d = 384 for the batch ``b``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    n_e = b.E.shape[0]
+    return (randn((n_e, D)), randn((n_e, D)).clamp_min(0), randn((n_e, D)).clamp_min(0),
+            randn((D, D), D**-0.5))
+
+
+def e_times(b, copies: int, reps: int) -> dict:
+    """E over the split table and without a table (gz checked bit-equal)
+    and, as yardsticks, the two library products at the cross rows: event
+    and device times."""
+    import torch
+    from chip_smoke import time_ms
+    from experiments.torch_fused_iter import profile
+
+    from chemprop_tpu_torch.ops import iter_bwd
+
+    graph, cross = (b.src, b.dst, b.rev, b.edge_ptr), b.cross_rows
+    g, y, H, W = e_inputs(b, copies)
+    fns = {"E split": lambda: iter_bwd(g, y, H, W, *graph, tiles=b.split_ptr, cross=cross),
+           "E without a table": lambda: iter_bwd(g, y, H, W, *graph)}
+    if not torch.equal(fns["E split"]()[1], fns["E without a table"]()[1]):
+        raise SystemExit("torch_split_tiles: E's gz over the split table differs")
+    Gc = g[cross.long()].contiguous()  # the cross rows' G's shape and dtype
+    Hr, Wt = H[cross.long()].contiguous(), W.t().contiguous()
+    fns["torch.mm G_c W^T"] = lambda: torch.mm(Gc, Wt)
+    fns["torch.mm H[rows]^T G_c"] = lambda: torch.mm(Hr.t(), Gc, out_dtype=torch.float32)
+    return {"ms": {k: time_ms(f, reps) for k, f in fns.items()}, "device_us": profile(fns)}
+
+
+def e_batches_of_50(data, reps: int) -> list[dict]:
+    """E over the split table and without a table on each batch of 50
+    molecules (in the file's order) that has a split table."""
+    import torch
+    from chip_smoke import time_ms
+    from experiments.torch_fused_iter import profile
+
+    from chemprop_tpu_torch.data import collate_batch
+    from chemprop_tpu_torch.ops import iter_bwd
+
+    out = []
+    for i in range(0, len(data), 50):
+        b = collate_batch(data[i:i + 50]).to("cuda").bmg
+        if b.split_ptr is None:
+            continue
+        graph = (b.src, b.dst, b.rev, b.edge_ptr)
+        g, y, H, W = e_inputs(b, i)
+        fns = {"E split": lambda: iter_bwd(g, y, H, W, *graph, tiles=b.split_ptr,
+                                           cross=b.cross_rows),
+               "E without a table": lambda: iter_bwd(g, y, H, W, *graph)}
+        if not torch.equal(fns["E split"]()[1], fns["E without a table"]()[1]):
+            raise SystemExit("torch_split_tiles: E's gz over the split table differs")
+        out.append({"first_molecule": i, "rows": b.E.shape[0], "tiles": b.split_ptr.numel() - 1,
+                    "cross_rows": b.cross_rows.numel(),
+                    "ms": {k: time_ms(f, reps) for k, f in fns.items()},
+                    "device_ms": {k: sum(v.values()) / 1e3 for k, v in profile(fns).items()}})
+    return out
+
+
+STEPS = (("float32", "float32", 0.0, {}),
+         ("bfloat16 dropout", "bfloat16", 0.1, {}),
+         ("bfloat16", "bfloat16", 0.0, {}),
+         ("bfloat16 iter2", "bfloat16", 0.0, dict(iter2=True)),
+         ("bfloat16 dropout fused_bwd", "bfloat16", 0.1, dict(fused_bwd=True)))
+E_STEPS = ("bfloat16 iter2", "bfloat16 dropout fused_bwd")
+
+
+def step_times(batch, reps: int, names=None) -> dict:
+    """Training steps of the full-width BCE model (``STEPS``, or those
+    named), with the split table and with it taken away: event and device
+    milliseconds, and the launches and unserved calls of one step with it."""
     import torch
     from chip_smoke import head_model, time_ms
     from experiments.torch_fused_iter import profile
@@ -168,13 +249,10 @@ def step_times(batch, reps: int) -> dict:
     b = batch.bmg
     unsplit = batch._replace(bmg=dataclasses.replace(b, split_ptr=None, cross_rows=None))
     res = {}
-    for name, dtype, rate, options in (
-            ("float32", torch.float32, 0.0, {}),
-            ("bfloat16 dropout", torch.bfloat16, 0.1, {}),
-            ("bfloat16", torch.bfloat16, 0.0, {}),
-            ("bfloat16 iter2", torch.bfloat16, 0.0, dict(iter2=True)),
-            ("bfloat16 dropout fused_bwd", torch.bfloat16, 0.1, dict(fused_bwd=True))):
-        model = head_model(dtype, "BinaryClassificationFFN", n_tasks=4)
+    for name, dtype, rate, options in STEPS:
+        if names is not None and name not in names:
+            continue
+        model = head_model(getattr(torch, dtype), "BinaryClassificationFFN", n_tasks=4)
         model.message_passing.drop.rate = rate  # dropout between the iterations
         model.message_passing.kernel_options = KernelOptions(**options)
         trainer = Trainer(model, max_epochs=20, warmup_epochs=2, seed=12)
@@ -200,9 +278,17 @@ def main() -> int:
     ap.add_argument("--tree", type=Path, default=None,
                     help="import chemprop_tpu_torch and chip_smoke from this checkout instead")
     ap.add_argument("--steps-only", action="store_true", help="time the training steps alone")
+    ap.add_argument("--e-only", action="store_true",
+                    help="time kernel E, its two steps and E on batches of 50 molecules alone")
+    ap.add_argument("--tag", default="", help="a suffix of the record's file name")
     args = ap.parse_args()
     tree = (args.tree or REPO).resolve()
     sys.path.insert(0, str(REPO))
+    # the smoke run's helpers and the profiler, from this checkout whatever
+    # --tree says
+    import chip_smoke  # noqa: F401
+    import experiments.torch_fused_iter  # noqa: F401
+
     sys.path.insert(0, str(tree))
     import torch
 
@@ -233,14 +319,24 @@ def main() -> int:
                "molecules": len(data) * copies, "rows": b.E.shape[0],
                "real_rows": int(b.edge_mask.sum()), "tiles": b.split_ptr.numel() - 1,
                "cross_rows": b.cross_rows.numel()}
-        if not args.steps_only:
+        if args.e_only:
+            res["e"] = e_times(b, copies, args.reps)
+        elif not args.steps_only:
             res["kernels"] = kernel_times(b, copies, args.reps)
-        res["steps"] = step_times(batch, args.reps)
+        res["steps"] = step_times(batch, args.reps, E_STEPS if args.e_only else None)
         record["batches"].append(res)
         print(json.dumps(res), flush=True)
+    if args.e_only:
+        record["batches_of_50"] = e_batches_of_50(data, args.reps)
+        print(json.dumps({"card": card, "batches_of_50": record["batches_of_50"]}), flush=True)
+    from chip_smoke import TRACES
+
+    record["device_traces"] = TRACES
+    print(json.dumps({"device_traces": TRACES}))
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    tag = ("_steps" if args.steps_only else "") + ("" if args.tree is None else f"_{tree.name}")
+    tag = ("_steps" if args.steps_only else "_e" if args.e_only else "") + \
+        ("" if args.tree is None else f"_{tree.name}") + (f"_{args.tag}" if args.tag else "")
     (out / f"torch_split_tiles{tag}.json").write_text(json.dumps(record, indent=1))
     print(card)
     return 0

@@ -46,6 +46,7 @@ from chemprop_tpu_torch.ops.message import (
     bwd_message_nodes_plain,
     bwd_message_plain,
     bwd_message_premul_plain,
+    _cross_rows,
     _fused_iter_rows,
     _iter_bwd_rows,
     fused_iter2_info,
@@ -2060,11 +2061,11 @@ def test_fused_iter_rows_alone_matches_its_plain_version(cuda, d, bias):
 
 @pytest.mark.parametrize("d", [128, 256, 384])
 def test_iter_bwd_over_the_split_table_matches_its_form_without_one(cuda, d):
-    """E over Tox21's split table: the cross rows left out of the tile launch
-    and formed by iter_bwd_rows, their H^T G one more partial of the ordered
-    sum: gz bit-equal to the form without a table, dH and dW within E's
-    limits of the plain version, two calls equal; one launch of E and one
-    pass counted."""
+    """E over Tox21's split table: the cross rows' G formed first by
+    iter_bwd_rows and taken into the tile launch's products: gz bit-equal to
+    the form without a table, dH and dW within E's limits of the plain
+    version, two calls equal; each split call counts one launch of E and one
+    of iter_bwd_rows."""
     b = _tox21_bmg(cuda)
     g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=146)
     LAUNCHES.clear()
@@ -2073,25 +2074,65 @@ def test_iter_bwd_over_the_split_table_matches_its_form_without_one(cuda, d):
 
 
 def test_iter_bwd_rows_alone_matches_its_plain_version(cuda):
-    """E's pass alone: dH at the cross rows and their share of dW against
-    iter_bwd_rows_plain, every other row of dH untouched."""
+    """E's launch before its tile launch, alone: G_c bit-equal to
+    bwd_message_rows at the cross rows (the same sums, rounded once) and
+    within one bf16 ulp of iter_bwd_rows_plain; the map gives each cross row
+    its slot; two calls equal."""
     b, d = _tox21_bmg(cuda), 384
-    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=147)
-    cross, n = b.cross_rows, b.E.shape[0]
-    dH = torch.full_like(g, float("nan"))
-    part = torch.empty((d, d), device=cuda)
-    _iter_bwd_rows(g, y, H, W, b.dst, b.rev, b.edge_ptr, cross, dH, part)
-    want_dH, want_part = iter_bwd_rows_plain(g, y, H, W, *_graph(b), cross,
-                                             torch.full_like(g, float("nan")))
+    g, y, _, _ = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=147)
+    cross = b.cross_rows
     rows = cross.long()
-    others = torch.ones(n, dtype=torch.bool, device=cuda)
-    others[rows] = False
-    assert torch.isnan(dH[others]).all()
-    G_abs = bwd_message_plain(g, y, *_graph(b))[0].float().abs()[rows]
-    limit = 1e-4 + 2 * BF16_ULP * (G_abs @ W.float().abs().t())
-    assert bool(((dH[rows].float() - want_dH[rows].float()).abs() <= limit).all())
-    limit = 1e-3 + 1e-4 * (H.float()[rows].t() @ G_abs)
-    assert bool(((part - want_part).abs() <= limit).all())
+    before = LAUNCHES["iter_bwd_rows"]
+    Gc, slot = _iter_bwd_rows(g, y, b.dst, b.rev, b.edge_ptr, cross)
+    assert LAUNCHES["iter_bwd_rows"] == before + 1 and Gc.shape == (cross.numel(), d)
+    G = torch.full_like(g, float("nan"))
+    _cross_rows(g, y, b.dst, b.rev, b.edge_ptr, cross, G)  # bwd_message_rows
+    assert torch.equal(Gc, G[rows])
+    assert torch.equal(slot[rows], torch.arange(cross.numel(), dtype=torch.int32, device=cuda))
+    want = iter_bwd_rows_plain(g, y, *_graph(b), cross)
+    torch.testing.assert_close(Gc.float(), want.float(), rtol=BF16_ULP, atol=0)
+    assert torch.equal(_iter_bwd_rows(g, y, b.dst, b.rev, b.edge_ptr, cross)[0], Gc)
+
+
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_iter_bwd_over_the_split_table_keeps_the_other_rows_bits(cuda, d):
+    """A row's dH depends on its own row of G alone: over Tox21's split
+    table, dH outside the cross rows is bit-equal to a launch that takes
+    none of them (an empty cross list: those rows NaN, whole), and gz to the
+    form without a table in both."""
+    b = _tox21_bmg(cuda)
+    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=153)
+    graph = _graph(b)
+    dH, gz, _ = iter_bwd(g, y, H, W, *graph, tiles=b.split_ptr, cross=b.cross_rows)
+    none_dH, none_gz, _ = iter_bwd(g, y, H, W, *graph, tiles=b.split_ptr,
+                                   cross=b.cross_rows[:0])
+    listed = torch.zeros(b.E.shape[0], dtype=torch.bool, device=cuda)
+    listed[b.cross_rows.long()] = True
+    assert torch.equal(none_dH.isnan().all(1), listed)
+    assert torch.equal(none_dH.isnan().any(1), listed)
+    assert torch.equal(dH[~listed], none_dH[~listed]) and not dH.isnan().any()
+    want_gz = iter_bwd(g, y, H, W, *graph)[1]
+    assert torch.equal(gz, want_gz) and torch.equal(none_gz, want_gz)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("left_out", [0, "middle", -1])
+def test_iter_bwd_over_the_split_table_gives_nan_where_the_list_misses_a_row(cuda, d, left_out):
+    """A cross list with one row left out: that row of dH is NaN, whole (no
+    row the tile launch cannot form comes out finite), every other row the
+    bits of the whole list's, and the launch ends (no hang)."""
+    b = _tox21_bmg(cuda)
+    g, y, H, W = _iter_bwd_inputs(b.E.shape[0], d, cuda, seed=154)
+    cross = b.cross_rows
+    k = cross.numel() // 2 if left_out == "middle" else left_out % cross.numel()
+    fewer = torch.cat([cross[:k], cross[k + 1:]])
+    dH = iter_bwd(g, y, H, W, *_graph(b), tiles=b.split_ptr, cross=cross)[0]
+    got = iter_bwd(g, y, H, W, *_graph(b), tiles=b.split_ptr, cross=fewer)[0]
+    torch.cuda.synchronize()
+    missing = torch.zeros(b.E.shape[0], dtype=torch.bool, device=cuda)
+    missing[cross[k].long()] = True
+    assert torch.equal(got.isnan().all(1), missing) and torch.equal(got.isnan().any(1), missing)
+    assert torch.equal(got[~missing], dH[~missing])
 
 
 @pytest.mark.parametrize("depth", [3, 4])

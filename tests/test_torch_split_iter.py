@@ -8,10 +8,10 @@ and ``y1_rows`` and ``y2_rows`` the rows the chained iterations cannot form
 in their tile, in the first iteration and, given those, in the second
 (Tox21, ``classification/mol.csv``, has 8 such molecules, the largest of 264
 edges). On a CUDA tensor D launches over that table and then B's row pass
-over each list (``fused_iter_rows`` of ``csrc/fused_iter.cu``), and E leaves
-the cross rows out of its tile launch and forms them in a pass
-(``iter_bwd_rows`` of ``csrc/message_bwd.cu``); on a CPU tensor the wrappers
-take the full plain version and then the passes' plain versions. These
+over each list (``fused_iter_rows`` of ``csrc/fused_iter.cu``), and E forms
+the cross rows' G first (``iter_bwd_rows`` of ``csrc/message_bwd.cu``) and
+takes it into its tile launch; on a CPU tensor the wrappers take the full
+plain version and then the passes' plain versions. These
 tests hold the lists to their definitions by brute force, D and E over the
 split table to their plain versions, every route to a rehearsal's launches
 with nothing unserved, D and E to the JAX package's Pallas kernels at window
@@ -196,8 +196,11 @@ def test_d_over_the_split_table_equals_two_plain_iterations(tox21, bias):
 
 
 def test_e_over_the_split_table_matches_the_plain_version(tox21):
-    """E over the split table with its cross rows: the plain version's bits;
-    the pass's share of dW and the other rows' add up to the whole dW."""
+    """E over the split table with its cross rows: the plain version's bits,
+    with the launch that forms the cross rows' G first counted. That
+    launch's plain version gives G_c: the plain G at the cross rows, in the
+    list's order, bit for bit; a G whose cross rows come from G_c, as the
+    tile launch takes them in, gives the whole dW."""
     b = tox21[1]
     graph, n = _graph(b), b.E.shape[0]
     g, y, H = _rand((n, D), 4), _rand((n, D), 5, relu=True), _rand((n, D), 6, relu=True)
@@ -208,17 +211,17 @@ def test_e_over_the_split_table_matches_the_plain_version(tox21):
     assert counts == {"iter_bwd": 1, "iter_bwd_rows": 1} and not unserved
     want = iter_bwd_plain(g, y, H, W, *graph)
     assert all(torch.equal(x, w) for x, w in zip(got, want))
-    dH = torch.full_like(g, float("nan"))
-    dH, share = iter_bwd_rows_plain(g, y, H, W, *graph, b.cross_rows, dH)
+    Gc = iter_bwd_rows_plain(g, y, *graph, b.cross_rows)
     rows = b.cross_rows.long()
-    assert torch.equal(dH[rows], want[0][rows])
+    G = bwd_message_plain(g, y, *graph)[0]  # rounded once, as E rounds it
+    assert Gc.shape == (rows.numel(), D) and Gc.dtype == torch.bfloat16
+    assert torch.equal(Gc, G[rows])
+    taken = torch.full_like(G, float("nan"))
     others = torch.ones(n, dtype=torch.bool)
     others[rows] = False
-    assert dH[others].isnan().all()
-    G = bwd_message_plain(g, y, *graph)[0].float()  # rounded once, as E rounds it
-    H_other = H.float().masked_fill(~others[:, None], 0.0).masked_fill(
-        (b.dst == b.V.shape[0] - 1)[:, None], 0.0)
-    torch.testing.assert_close(H_other.t() @ G + share, want[2], rtol=1e-5, atol=1e-4)
+    taken[others], taken[rows] = G[others], Gc
+    H_real = H.float().masked_fill((b.dst == b.V.shape[0] - 1)[:, None], 0.0)
+    torch.testing.assert_close(H_real.t() @ taken.float(), want[2], rtol=1e-5, atol=1e-4)
 
 
 # ------------------------------------------------------------ every route
@@ -393,6 +396,24 @@ def test_e_matches_the_jax_kernel_at_window_3(five, interpret):
                                rtol=2 * BF16_ULP, atol=0.05)
     want_dW = np.asarray(want_dW, np.float32)
     np.testing.assert_allclose(dW.numpy(), want_dW, rtol=1e-2, atol=2e-3 * np.abs(want_dW).max())
+
+
+def test_e_cross_rows_g_matches_the_jax_kernel_at_window_3(five, interpret):
+    """G at the cross rows, as the launch before E's tile launch forms it
+    (``iter_bwd_rows_plain``'s G_c), against G from JAX's ``_bwd_msg_impl``
+    at ``kw = 3`` in interpret mode at those rows, with bf16-representable
+    inputs, real rows only: within one bf16 ulp of JAX's value (rtol 2^-7,
+    no atol: both sum in f32 and round once)."""
+    jb, tb = five
+    n = tb.E.shape[0]
+    g = _rand((n, D), 18).masked_fill(~tb.edge_mask[:, None], 0)
+    (gj, gt), (yj, yt) = _both(g), _both(_rand((n, D), 19, relu=True))
+    want_G, _ = fm._bwd_msg_impl(gj, yj, jb.src, jb.dst, jb.rev, 3)
+    Gc = iter_bwd_rows_plain(gt, yt, *_graph(tb), tb.cross_rows)
+    rows = tb.cross_rows.numpy()
+    assert rows.size and tb.edge_mask.numpy()[rows].all() and Gc.shape == (rows.size, D)
+    np.testing.assert_allclose(Gc.float().numpy(), np.asarray(want_G, np.float32)[rows],
+                               rtol=BF16_ULP, atol=0)
 
 
 # ------------------------------------------------------------------- export
